@@ -3,22 +3,28 @@
     python3 chip_smoke.py
 
 1. builds the port's CUDA kernels from ggml_hexagon_tpu_torch/csrc;
-2. holds each kernel (K1 qp8 decode GEMV, K2 dual QKV GEMV, K3 qp8 prefill
-   GEMM, K4 fused decode attention) against its plain PyTorch version at
-   the Llama-3-8B Q4_K_M shapes of the main path, and times kernel, plain
-   version and a one-call PyTorch yardstick with CUDA events;
-3. builds a random Llama-3-8B Q4_K_M model at full width and depth on the
-   card and serves greedy requests through Engine (bf16 and q8_0 KV),
-   with the launch counters zeroed just before and read just after, so
-   the counts show the path went through the kernels;
-4. runs one prefill + 4 decode steps through the kernels and through the
-   plain versions and compares the logits.
+2. Llama-3-8B Q4_K_M (the first slice's path): holds K1 (qp8 decode GEMV),
+   K2 (dual QKV GEMV), K3 (qp8 prefill GEMM) and K4 (fused decode
+   attention) against their plain PyTorch versions at the main path's
+   shapes, timing kernel, plain version and a one-call PyTorch yardstick
+   with CUDA events; builds the random model at full width and depth on
+   the card and serves greedy requests through Engine (bf16 and q8_0 KV),
+   the launch counters zeroed just before and read just after; profiles a
+   prefill and decode steps; compares kernels and plain versions end to
+   end;
+3. Mixtral-8x7B Q5_K_M (this slice's path), after the 8B model is freed:
+   the same phases at full width and depth, with K5 (gathered-expert
+   GEMV), K6 (interleaved Q8_0 matmul) and K1/K3 on Q5_K held against
+   their plain versions, exact launch counts per decode step and prefill
+   chunk, and the end-to-end comparison checking the expert routing of
+   both runs layer by layer.
 
 Any failure raises: the script exits non-zero and prints no result.  The
 last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their times and bounds.  Card rates for the bounds: the H100
 SXM data sheet (3.35 TB/s HBM3, 989 TFLOP/s bf16, 1979 TOP/s int8 dense).
 """
+import gc
 import json
 import os
 import subprocess
@@ -31,13 +37,37 @@ import torch
 HBM_BPS = 3.35e12
 BF16_OPS = 989e12
 INT8_OPS = 1979e12
+F32_OPS = 67e12      # float32 outside the tensor cores (K6's decode route)
 NMSE_LOGITS = 5e-4   # logits, kernels vs plain versions, end to end
-NMSE_KERNEL = 1e-6   # K1-K3 vs plain: same integer/bf16 products, f32 order
+NMSE_KERNEL = 1e-6   # K1-K3, K5, K6 vs plain: same integer/f32/bf16
+                     # products, f32 sums in another order
 ATTN_MAX_ABS = 1e-4  # K4 vs plain: f32 throughout, another order and expf
+FLIP_MARGIN = 1e-3   # a routing flip between kernel and plain runs must be
+                     # a near-tie: top-k-th minus next probability below this
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def phase(name, dev):
+    """Start a phase: reset the peak-memory counter."""
+    log(f"== {name}")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    return time.perf_counter()
+
+
+def phase_end(name, dev, t0):
+    peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
+            if dev.type == "cuda" else "not measured (CPU)")
+    log(f"   {name}: {time.perf_counter() - t0:.1f} s, peak device memory "
+        f"{peak}")
 
 
 def bound_ms(nbytes, ops, peak):
@@ -329,33 +359,66 @@ def check_kernels(dev, weights, cfg):
     return [K1, K2, K3, K4]
 
 
-def serve(dev, cfg, weights):
-    """The main path: greedy requests through Engine; returns the launch
-    counts of the whole run."""
+#: (KV type, prompt tokens, tokens generated), each on a fresh Engine
+REQUESTS = [("bf16", 512, 32), ("bf16", 128, 32), ("bf16", 7, 16),
+            ("q8_0", 512, 32)]
+
+
+def want_launches(cfg, weights, rows, step):
+    """Exact launches of one forward over `rows` tokens (a decode step when
+    `step`), counted from the dispatch of models/llama.py."""
     from ggml_hexagon_tpu_torch import kernels
-    from ggml_hexagon_tpu_torch.runtime.engine import Engine
+
+    L = cfg.n_layer
+    c = dict.fromkeys(kernels.LAUNCHES, 0)
+    proj = "qp8_gemv" if rows <= 8 else "qp8_gemm"
+    if "ffn_gate_inp" in weights["layers"][0]:
+        # wq, wo and the head on Q5_K/Q6_K t-planes; wk, wv on Q8_0
+        # interleaved planes (K6); the experts gathered at <= 8 rows (K5:
+        # gate, up, down), else every expert's gate, up and down through K3
+        c[proj] = 2 * L + 1 + (0 if rows <= 8 else 3 * cfg.n_expert * L)
+        c["fast_byte"] = 2 * L
+        if rows <= 8:
+            c["qp8_indirect"] = 3 * L
+    else:
+        n_mixed = sum("wqk" in lw for lw in weights["layers"])
+        if step:  # wqkv (or K2 for wqk + wv), wo+res, gate_up, act+down, head
+            c["qp8_gemv"] = 4 * L - n_mixed + 1
+            c["qp8_dual"] = n_mixed
+        else:     # wqkv (or wqk and wv), wo, gate_up, down, head
+            c[proj] = 4 * L + n_mixed + 1
+    if step:
+        c["decode_attn"] = L
+    return c
+
+
+def serve(dev, cfg, weights, path_kernels):
+    """The main path: greedy requests through Engine, each prefill chunk
+    and decode step held to its exact launch counts; returns the launch
+    counts of the whole run, zeroed just before it."""
+    from ggml_hexagon_tpu_torch import kernels
+    from ggml_hexagon_tpu_torch.runtime.engine import PREFILL_BUCKETS, Engine
 
     rng = np.random.default_rng(0)
-    requests = [("bf16", 512, 32), ("bf16", 128, 32), ("bf16", 7, 16),
-                ("q8_0", 512, 32)]
-    n_layer = cfg.n_layer
-    n_mixed = sum("wqk" in lw for lw in weights["layers"])
     kernels.reset_launches()
-    total = dict(kernels.LAUNCHES)
-    for kv, n_prompt, n_gen in requests:
+    for kv, n_prompt, n_gen in REQUESTS:
         eng = Engine(cfg, weights, max_seq=1024, kv_dtype=kv, device=dev)
         prompt = rng.integers(0, cfg.n_vocab, n_prompt)
         before = dict(kernels.LAUNCHES)
-        torch.cuda.synchronize()
+        sync(dev)
         t0 = time.perf_counter()
         logits = eng.prefill(prompt[None])
         ttft = time.perf_counter() - t0
         pre = {k: kernels.LAUNCHES[k] - before[k] for k in before}
         if logits.shape != (1, cfg.n_vocab) or not np.isfinite(logits).all():
             raise AssertionError(f"prefill logits {logits.shape} not finite")
+        bucket = next(b for b in PREFILL_BUCKETS if b >= n_prompt)
+        want_pre = want_launches(cfg, weights, bucket, step=False)
+        if pre != want_pre:
+            raise AssertionError(f"prefill launches {pre} != {want_pre}")
         toks = [int(np.argmax(logits[0]))]
         mid = dict(kernels.LAUNCHES)
-        torch.cuda.synchronize()
+        sync(dev)
         t0 = time.perf_counter()
         for _ in range(n_gen - 1):
             lg = eng.decode_one(np.array([toks[-1]]))
@@ -365,25 +428,19 @@ def serve(dev, cfg, weights):
         dt = time.perf_counter() - t0
         dec = {k: kernels.LAUNCHES[k] - mid[k] for k in mid}
         steps = n_gen - 1
-        # K1 per step: wqkv of the all-Q4_K layers, wo, gate_up, down, head
-        want_dec = {"qp8_gemv": (4 * n_layer - n_mixed + 1) * steps,
-                    "qp8_dual": n_mixed * steps, "decode_attn": n_layer * steps,
-                    "qp8_gemm": 0}
+        want_dec = {k: v * steps for k, v in
+                    want_launches(cfg, weights, 1, step=True).items()}
         if dec != want_dec:
             raise AssertionError(f"decode launches {dec} != {want_dec}")
-        n_proj = 4 * n_layer + n_mixed + 1  # per prefill chunk
-        k_pre = "qp8_gemv" if n_prompt <= 8 else "qp8_gemm"
-        if pre[k_pre] != n_proj or pre["decode_attn"] or pre["qp8_dual"]:
-            raise AssertionError(f"prefill launches {pre}")
+        per = {k: v // steps for k, v in dec.items() if v}
         log(f"  request kv={kv} prompt={n_prompt} gen={n_gen}: "
             f"TTFT {ttft * 1e3:.1f} ms, decode {steps / dt:.2f} tok/s "
-            f"({dt / steps * 1e3:.2f} ms/step), prefill launches {pre}, "
-            f"decode launches {dec} ({dec['qp8_gemv'] // steps}/"
-            f"{dec['qp8_dual'] // steps}/{dec['decode_attn'] // steps} "
-            f"K1/K2/K4 per step), tokens {toks[:8]}...")
+            f"({dt / steps * 1e3:.2f} ms/step), prefill launches "
+            f"{ {k: v for k, v in pre.items() if v} }, launches per decode "
+            f"step {per}, tokens {toks[:8]}...")
         del eng
-    counts = {k: kernels.LAUNCHES[k] - total[k] for k in total}
-    missing = [k for k, v in counts.items() if v == 0]
+    counts = dict(kernels.LAUNCHES)
+    missing = [k for k in path_kernels if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     return counts
@@ -448,36 +505,296 @@ def profile_path(dev, cfg, weights):
         del eng
 
 
-def compare_plain(dev, cfg, weights):
-    """One 128-token prefill + 4 decode steps through the kernels and
-    through the plain versions, on the card."""
+def _routing_flips(ra, rb, k):
+    """(layer, (b, t), experts a, experts b, margin a, margin b) for every
+    token whose top-k experts differ between two runs; the margin is the
+    k-th minus the (k+1)-th router probability of that run."""
+    flips = []
+    for il, ((pa, ia), (pb, ib)) in enumerate(zip(ra, rb)):
+        diff = (ia.sort(-1).values != ib.sort(-1).values).any(-1)
+        for idx in diff.nonzero().tolist():
+            sa = pa[tuple(idx)].sort(descending=True).values
+            sb = pb[tuple(idx)].sort(descending=True).values
+            flips.append((il, tuple(idx), ia[tuple(idx)].tolist(),
+                          ib[tuple(idx)].tolist(), float(sa[k - 1] - sa[k]),
+                          float(sb[k - 1] - sb[k])))
+    return flips
+
+
+def compare_plain(dev, cfg, weights, n_prompt=128, n_steps=4):
+    """Kernels against plain versions end to end on the card: a prefill of
+    n_prompt tokens and n_steps decode steps through two engines in
+    lockstep.  Before each decode step the plain engine takes a copy of the
+    kernel engine's cache, and inside each step every layer of the plain
+    run starts from the kernel run's input to that layer
+    (llama.LAYER_HOOK).  So each layer runs on the same input in both
+    routes, and what the layers add to the residual stream (all layers'
+    outputs of the step, one NMSE) agrees to NMSE_LOGITS, as do the logits
+    of the head on the same final state; the worst single layer is
+    reported.  Free-running, the two routes part by the
+    int8 and bf16 rounding of the activations, which many layers amplify
+    (PERF.md); that NMSE is reported for the prefill, not held, beside the
+    plain route against itself with one bf16 ulp moved.  MoE models
+    record the routing of both runs: a token routed differently must be a
+    near-tie, its margin (the k-th minus the (k+1)-th router probability)
+    below FLIP_MARGIN in both runs; its layer is then held on the other
+    tokens."""
+    from ggml_hexagon_tpu_torch.models import llama as L
     from ggml_hexagon_tpu_torch.runtime.engine import Engine
 
-    prompt = np.random.default_rng(1).integers(0, cfg.n_vocab, 128)
+    moe = "ffn_gate_inp" in weights["layers"][0]
+    prompt = np.random.default_rng(1).integers(0, cfg.n_vocab, n_prompt)
+
+    def run(eng, feed, force=None, bump=False):
+        """-> (logits, routing per layer, (h_in, h_out) per layer); with
+        `force`, each layer's output is replaced by force's; with `bump`,
+        one element of the first token's residual after layer 0 moves by
+        one bf16 ulp."""
+        routes = [] if moe else None
+        layers = []
+
+        def hook(il, h_in, h_out):
+            layers.append((h_in, h_out))
+            if bump and il == 0:
+                h_out = h_out.clone()
+                bits = h_out[0, 0, 7:8].view(torch.int16)
+                h_out[0, 0, 7:8] = (bits + 1).view(torch.bfloat16)
+            return h_out if force is None else force[il][1]
+
+        L.MOE_ROUTING, L.LAYER_HOOK = routes, hook
+        try:
+            out = feed(eng)
+        finally:
+            L.MOE_ROUTING = L.LAYER_HOOK = None
+        return out, [(p.float().cpu(), t.cpu()) for p, t in routes or []], layers
+
+    def engine(kv, plain):
+        return Engine(cfg, weights, max_seq=1024, kv_dtype=kv, device=dev,
+                      plain=plain)
+
     for kv in ("bf16", "q8_0"):
-        outs = []
-        toks = None
-        for plain in (False, True):
-            eng = Engine(cfg, weights, max_seq=1024, kv_dtype=kv, device=dev,
-                         plain=plain)
-            lg = [eng.prefill(prompt[None])]
-            if toks is None:
-                toks = []
-                for _ in range(4):
-                    toks.append(int(np.argmax(lg[-1][0])))
-                    lg.append(eng.decode_one(np.array([toks[-1]])))
+        ek, ep = engine(kv, False), engine(kv, True)
+        tok = None
+        for i in range(n_steps + 1):
+            if i == 0:
+                def feed(eng):
+                    return eng.prefill(prompt[None])
             else:
-                for t in toks:
-                    lg.append(eng.decode_one(np.array([t])))
-            outs.append(lg)
-            del eng
-        for i, (a, b) in enumerate(zip(*outs)):
+                ep.kv = {k: v.clone() for k, v in ek.kv.items()}
+
+                def feed(eng, t=tok):
+                    return eng.decode_one(np.array([t]))
+            a, ra, lk = run(ek, feed)
+            b, rb, lp = run(ep, feed, force=lk)
+            tok = int(np.argmax(a[0]))
+            flips = _routing_flips(ra, rb, cfg.n_expert_used) if moe else []
+            for il, where, ea, eb, ma, mb in flips:
+                log(f"  kv={kv} step {i}: routing flip layer {il} token "
+                    f"{where}: kernel {ea} plain {eb}, margin kernel {ma:.3e} "
+                    f"plain {mb:.3e}")
+                if not max(ma, mb) < FLIP_MARGIN:
+                    raise AssertionError(
+                        f"routing flip at layer {il} token {where} with margin "
+                        f"{max(ma, mb):.3e} >= {FLIP_MARGIN}")
+            errs, num, den = [], 0.0, 0.0
+            for il, ((ki, ko), (_, po)) in enumerate(zip(lk, lp)):
+                keep = torch.ones(ko.shape[:-1], dtype=torch.bool,
+                                  device=ko.device)
+                for _, where, *_ in (f for f in flips if f[0] == il):
+                    keep[where] = False
+                dk = (ko.double() - ki.double())[keep]
+                dp = (po.double() - ki.double())[keep]
+                num += float(((dp - dk) ** 2).sum())
+                den += float((dk ** 2).sum())
+                errs.append(nmse(dp, dk))
+            e_layers = num / den
+            worst = int(np.argmax(errs))
             e = nmse(torch.from_numpy(a), torch.from_numpy(b))
-            d = float(np.abs(a - b).max())
-            log(f"  kv={kv} step {i}: logits nmse kernel vs plain {e:.3e}, "
-                f"max|d| {d:.3e} (|logits| max {np.abs(b).max():.3e})")
-            if not e <= NMSE_LOGITS:
-                raise AssertionError(f"kernel vs plain logits nmse {e}")
+            noise = (f", router noise max |dp| "
+                     f"{max(float((pa - pb).abs().max()) for (pa, _), (pb, _) in zip(ra, rb)):.1e}"
+                     if moe else "")
+            log(f"  kv={kv} step {i}: layer outputs nmse kernel vs plain "
+                f"{e_layers:.3e} (per layer: worst {errs[worst]:.3e} at layer "
+                f"{worst}, median {float(np.median(errs)):.3e}){noise}; "
+                f"logits nmse {e:.3e}, max|d| {float(np.abs(a - b).max()):.3e}"
+                f" (|logits| max {np.abs(b).max():.3e})")
+            if not (e_layers <= NMSE_LOGITS and e <= NMSE_LOGITS):
+                raise AssertionError(f"kernel vs plain nmse: layer outputs "
+                                     f"{e_layers}, logits {e}")
+            if i == 0:
+                free, _, _ = run(engine(kv, True), feed)
+                ctl, _, _ = run(engine(kv, True), feed, bump=True)
+                log(f"  kv={kv} step 0 free-running (each route on its own "
+                    f"layers' outputs): logits nmse kernel vs plain "
+                    f"{nmse(torch.from_numpy(a), torch.from_numpy(free)):.3e}; "
+                    f"plain vs plain with one bf16 ulp moved after layer 0 "
+                    f"{nmse(torch.from_numpy(free), torch.from_numpy(ctl)):.3e} "
+                    "(reported, not held)")
+        del ek, ep
+
+
+def check_kernels_moe(dev, weights, cfg):
+    """K5, K6 and Q5_K K1/K3 against their plain versions at the Mixtral
+    shapes of the main path; returns the K5 and K6 reports and logs the
+    Mixtral sums of K1 per decode step and K3 per 512-token chunk."""
+    from ggml_hexagon_tpu_torch.models.llama import qtensor_rows
+    from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
+    from ggml_hexagon_tpu_torch.ops import qmm_qp8 as P
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    layers = weights["layers"]
+    n_l, E = len(layers), cfg.n_expert
+    nff, d = cfg.n_ff, cfg.n_embd
+
+    def dn(lw):
+        return lw["ffn_down_exps"].cfg.qtype.name
+
+    lw6 = next(lw for lw in layers if dn(lw) == "Q6_K")
+    lw5 = next((lw for lw in layers if dn(lw) == "Q5_K"), lw6)
+    n_q6 = sum(dn(lw) == "Q6_K" for lw in layers)
+    K5 = KernelReport("qp8_indirect", "cuda",
+                      "ggml_hexagon_tpu_torch/csrc/qp8_gemv.cu",
+                      "ggml_hexagon_tpu/ops/qmm_qp8.py:1022",
+                      f"one Mixtral decode step (B=1, P=2): {3 * n_l} launches")
+    K6 = KernelReport("fast_byte", "cuda",
+                      "ggml_hexagon_tpu_torch/csrc/fast_byte.cu",
+                      "ggml_hexagon_tpu/ops/qmm_fast.py:510",
+                      f"one Mixtral decode step (B=1): {2 * n_l} launches")
+    M1 = KernelReport("qp8_gemv", "cuda", "", "", "Mixtral decode step")
+    M3 = KernelReport("qp8_gemm", "cuda", "", "", "Mixtral 512-token chunk")
+
+    def deq_t(qt):  # bf16 [K, n2] in natural order
+        return PF.dequantize_fast(qt, torch.bfloat16).t().contiguous()
+
+    def held(what, got, want):
+        sync(dev)
+        err, e2 = float((got - want).abs().max()), nmse(got, want)
+        if not (e2 <= NMSE_KERNEL and torch.isfinite(got).all()):
+            raise AssertionError(f"{what}: nmse {e2}")
+        return err, e2
+
+    rng = np.random.default_rng(7)
+    id_sets = [("P2", [5, 2]), ("P2_dup", [3, 3]),
+               ("P16", [int(e) for _ in range(8)
+                        for e in rng.permutation(E)[:2]])]
+    log(f"K5 qp8_indirect (kernel vs plain, NMSE <= {NMSE_KERNEL})")
+    k5_cases = [("gate_up_q5k", lw5["ffn_gate_exps"], nff, 2 * n_l),
+                ("down_q5k", lw5["ffn_down_exps"], d, n_l - n_q6),
+                ("down_q6k", lw6["ffn_down_exps"], d, n_q6)]
+    for name, qt, npe, per_step in k5_cases:
+        for label, id_list in id_sets:
+            ids = torch.tensor(id_list, dtype=torch.int32, device=dev)
+            x = randn(len(id_list), qt.k)
+            got = P.qp8_indirect(x, qt, ids, npe)
+            err, e2 = held(f"K5 {name} {label}", got,
+                           P.qp8_indirect_plain(x, qt, ids, npe))
+            ms = time_ms(lambda: P.qp8_indirect(x, qt, ids, npe))
+            pms = time_plain_ms(lambda: P.qp8_indirect_plain(x, qt, ids, npe))
+            uniq = sorted(set(id_list))
+            w_e = {e: deq_t(qtensor_rows(qt, e * npe, npe)) for e in uniq}
+            wsel = torch.stack([w_e[e] for e in id_list])   # [P, K, npe]
+            xb = x.to(torch.bfloat16)[:, None, :]
+            lib = time_ms(lambda: torch.bmm(xb, wsel))
+            del w_e, wsel
+            byts = (len(uniq) * plane_bytes(qtensor_rows(qt, 0, npe))
+                    + nbytes(x, ids, got))
+            ops = 2 * len(id_list) * qt.k * npe
+            bms, by = bound_ms(byts, ops, INT8_OPS)
+            log(f"  {name:11s} {qt.cfg.qtype.name} {E}x{npe}x{qt.k} {label:6s} "
+                f"max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms "
+                f"plain={pms:.3f}ms bf16-bmm={lib:.4f}ms bound={bms:.4f}ms "
+                f"({by}) {bms / ms:.0%} of bound")
+            if label == "P2":
+                K5.add(per_step, err, ms, pms, byts, ops, INT8_OPS, lib)
+
+    log(f"K6 fast_byte (NMSE <= {NMSE_KERNEL})")
+    for name, qt in (("wk", layers[0]["wk"]), ("wv", layers[0]["wv"])):
+        deq = deq_t(qt)
+        for B in (1, 8, 128, 512):
+            x = randn(B, qt.k).to(torch.bfloat16)
+            got = PF.fast_byte(x, qt)
+            err, e2 = held(f"K6 {name} B={B}", got, PF.fast_byte_plain(x, qt))
+            ms = time_ms(lambda: PF.fast_byte(x, qt))
+            pms = time_plain_ms(lambda: PF.fast_byte_plain(x, qt))
+            lib = time_ms(lambda: torch.matmul(x, deq))
+            peak = F32_OPS if B <= 8 else BF16_OPS
+            byts = nbytes(qt.fq, qt.fs, x, got)
+            ops = 2 * B * qt.k * qt.fq.shape[0]
+            bms, by = bound_ms(byts, ops, peak)
+            log(f"  {name} {qt.cfg.qtype.name} {qt.n}x{qt.k} B={B:3d} "
+                f"max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms "
+                f"plain={pms:.3f}ms bf16-matmul={lib:.4f}ms bound={bms:.4f}ms "
+                f"({by}) {bms / ms:.0%} of bound")
+            if B == 1:
+                K6.add(n_l, err, ms, pms, byts, ops, peak, lib)
+        del deq
+
+    log(f"K1 / K3 on the Mixtral shapes (NMSE <= {NMSE_KERNEL})")
+    lw0 = layers[0]
+    k1_cases = [("wq", lw0["wq"], "raw", n_l), ("wo", lw0["wo"], "res", n_l),
+                ("head_q6k", weights["output"], "raw", 1)]
+    for name, qt, mode, per_step in k1_cases:
+        deq = deq_t(qt)
+        for B in (1, 8):
+            x = randn(B, qt.k)
+            kw = dict(res=randn(B, qt.n)) if mode == "res" else {}
+            got = P.qp8_gemv(x, qt, **kw)
+            err, e2 = held(f"K1 {name} B={B}", got, P.qp8_gemv_plain(x, qt, **kw))
+            ms = time_ms(lambda: P.qp8_gemv(x, qt, **kw))
+            pms = time_plain_ms(lambda: P.qp8_gemv_plain(x, qt, **kw))
+            xl = x.to(torch.bfloat16)
+            lib = time_ms(lambda: torch.matmul(xl, deq))
+            byts = plane_bytes(qt) + nbytes(x, got, *kw.values())
+            ops = 2 * B * qt.k * qt.fq.shape[1]
+            bms, by = bound_ms(byts, ops, INT8_OPS)
+            log(f"  K1 {name:8s} {qt.cfg.qtype.name} {qt.n}x{qt.k} B={B} {mode:3s} "
+                f"max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms "
+                f"plain={pms:.3f}ms bf16-matmul={lib:.4f}ms bound={bms:.4f}ms "
+                f"({by}) {bms / ms:.0%} of bound")
+            if B == 1:
+                M1.add(per_step, err, ms, pms, byts, ops, INT8_OPS, lib)
+        del deq
+    M = 512
+    k3_cases = [("wq", lw0["wq"], n_l), ("wo", lw0["wo"], n_l),
+                ("gate_up_e", qtensor_rows(lw5["ffn_gate_exps"], 0, nff), 2 * E * n_l),
+                ("down_q5k_e", qtensor_rows(lw5["ffn_down_exps"], 0, d), E * (n_l - n_q6)),
+                ("down_q6k_e", qtensor_rows(lw6["ffn_down_exps"], 0, d), E * n_q6),
+                ("head_q6k", weights["output"], 1)]
+    for name, qt, count in k3_cases:
+        x = randn(M, qt.k).to(torch.bfloat16)
+        got = P.qp8_gemm(x, qt)
+        err, e2 = held(f"K3 {name}", got, P.qp8_gemm_plain(x, qt))
+        ms = time_ms(lambda: P.qp8_gemm(x, qt), iters=5)
+        pms = time_plain_ms(lambda: P.qp8_gemm_plain(x, qt))
+        deq = deq_t(qt)
+        lib = time_ms(lambda: torch.matmul(x, deq), iters=5)
+        del deq
+        byts = plane_bytes(qt) + nbytes(x, got)
+        ops = 2 * M * qt.k * qt.fq.shape[1]
+        bms, by = bound_ms(byts, ops, BF16_OPS)
+        log(f"  K3 {name:10s} {qt.cfg.qtype.name} {qt.n}x{qt.k} M={M} "
+            f"max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms "
+            f"plain={pms:.3f}ms bf16-matmul={lib:.4f}ms bound={bms:.4f}ms "
+            f"({by}) {bms / ms:.0%} of bound {ops / ms / 1e9:.1f} TFLOP/s")
+        M3.add(count, err, ms, pms, byts, ops, BF16_OPS, lib)
+    for r, unit in ((M1, f"decode step ({2 * n_l + 1} launches)"),
+                    (M3, f"512-token chunk ({2 * n_l + 3 * E * n_l + 1} launches)")):
+        d_ = r.d
+        log(f"  Mixtral {d_['name']} per {unit}: kernel {d_['ms']:.4f} ms, "
+            f"bound {d_['bound_ms']:.4f} ms ({d_['bound_by']}), plain "
+            f"{d_['plain_ms']:.3f} ms, bf16 yardstick {d_['library_ms']:.4f} ms, "
+            f"max|d| {d_['max_abs_err']:.3e}")
+    return [K5, K6]
+
+
+def plane_gb(weights):
+    qts = [v for lw in weights["layers"] for v in lw.values() if hasattr(v, "fq")]
+    return sum(plane_bytes(v) for v in qts + [weights["output"]]) / 1e9
 
 
 def main():
@@ -486,7 +803,7 @@ def main():
         sys.exit(2)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ggml_hexagon_tpu_torch import kernels
-    from ggml_hexagon_tpu_torch.models.synth import build_8b
+    from ggml_hexagon_tpu_torch.models.synth import build_8b, build_mixtral
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -496,30 +813,67 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip()
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t_all = time.perf_counter()
     t0 = time.perf_counter()
     compiling = kernels.build_all()
     log(f"kernel build: {compiling:.1f} s compiling, "
         f"{time.perf_counter() - t0:.1f} s to loaded")
+
+    t_ph = phase("Llama-3-8B Q4_K_M (first slice)", dev)
     t0 = time.perf_counter()
     cfg, weights = build_8b(seed=0, device=dev)
     torch.cuda.synchronize()
-    wbytes = sum(plane_bytes(v) for lw in weights["layers"] for v in lw.values()
-                 if hasattr(v, "fq")) + plane_bytes(weights["output"])
     log(f"Llama-3-8B Q4_K_M (random planes, seed 0): built on the card in "
-        f"{time.perf_counter() - t0:.1f} s; matmul planes {wbytes / 1e9:.3f} GB; "
-        f"layers with wqkv {sum('wqkv' in lw for lw in weights['layers'])}, "
-        f"wqk+wv {sum('wqk' in lw for lw in weights['layers'])}")
+        f"{time.perf_counter() - t0:.1f} s; matmul planes "
+        f"{plane_gb(weights):.3f} GB; layers with wqkv "
+        f"{sum('wqkv' in lw for lw in weights['layers'])}, wqk+wv "
+        f"{sum('wqk' in lw for lw in weights['layers'])}")
     reports = check_kernels(dev, weights, cfg)
     log("serving (launch counters zeroed before, read after)")
-    counts = serve(dev, cfg, weights)
-    log(f"main-path launches: {counts}")
-    for r in reports:
-        r.d["launches"] = counts[r.d["name"]]
+    counts = serve(dev, cfg, weights,
+                   ["qp8_gemv", "qp8_dual", "qp8_gemm", "decode_attn"])
+    log(f"main-path launches (8B): {counts}")
     log("where the time goes (profiler; after the counts were read)")
     profile_path(dev, cfg, weights)
     log(f"kernel vs plain versions, end to end (logits NMSE <= {NMSE_LOGITS})")
     compare_plain(dev, cfg, weights)
-    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    phase_end("Llama-3-8B phases", dev, t_ph)
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t_ph = phase("Mixtral-8x7B Q5_K_M (this slice)", dev)
+    t0 = time.perf_counter()
+    cfg, weights = build_mixtral(seed=0, device=dev)
+    torch.cuda.synchronize()
+    types = {}
+    for lw in weights["layers"]:
+        for key, v in lw.items():
+            if hasattr(v, "fq"):
+                types.setdefault(key, set()).add(f"{v.cfg.qtype.name}/{v.fl}")
+    log(f"Mixtral-8x7B Q5_K_M (random planes, seed 0): built on the card in "
+        f"{time.perf_counter() - t0:.1f} s; matmul planes "
+        f"{plane_gb(weights):.3f} GB; {cfg.n_layer} layers, "
+        f"{cfg.n_expert} experts, top-{cfg.n_expert_used}; per-tensor types "
+        f"{ {k: sorted(v) for k, v in types.items()} }, head "
+        f"{weights['output'].cfg.qtype.name}, embedding "
+        f"{weights['tok_embd'].cfg.qtype.name} (wire); resident "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    reports += check_kernels_moe(dev, weights, cfg)
+    log("serving (launch counters zeroed before, read after)")
+    counts_moe = serve(dev, cfg, weights, ["qp8_gemv", "qp8_gemm", "decode_attn",
+                                           "qp8_indirect", "fast_byte"])
+    log(f"main-path launches (Mixtral): {counts_moe}")
+    log("where the time goes (profiler; after the counts were read)")
+    profile_path(dev, cfg, weights)
+    log(f"kernel vs plain versions, end to end (logits NMSE <= {NMSE_LOGITS} "
+        f"while the routing agrees; flips must have margin < {FLIP_MARGIN})")
+    compare_plain(dev, cfg, weights)
+    phase_end("Mixtral phases", dev, t_ph)
+
+    for r in reports:
+        r.d["launches"] = counts[r.d["name"]] + counts_moe[r.d["name"]]
+    log(f"whole run {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": [r.d for r in reports]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

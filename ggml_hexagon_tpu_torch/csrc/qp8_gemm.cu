@@ -19,6 +19,9 @@
 //    [M,G]x[G,N] product in the TPU kernel; here the group sums come from a
 //    small pre-pass and each thread adds its columns' bias in f32 in the
 //    epilogue, from shared-memory tiles of the sums.
+//  * The planes' rows are addressed with a pitch `ld` apart from the lane
+//    count n2, so the MoE prefill runs one expert's lane slice of the
+//    stacked planes in place (no copy of ~35 GB of experts per chunk).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -57,7 +60,7 @@ __global__ void group_sums_kernel(const uint16_t* __restrict__ x, int M, int K,
 __global__ void __launch_bounds__(NT) qp8_gemm_kernel(
     const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ fq,
     const uint16_t* __restrict__ fs, const uint16_t* __restrict__ fb, int n2,
-    int bl, int bh, int gs, float off, int M, int K,
+    int ld, int bl, int bh, int gs, float off, int M, int K,
     const float* __restrict__ xg, float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -110,14 +113,14 @@ __global__ void __launch_bounds__(NT) qp8_gemm_kernel(
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = rq * 4 + i;
-        const uint32_t w = __ldg(reinterpret_cast<const unsigned int*>(fq + (size_t)(lo_base + r) * n2 + nB));
+        const uint32_t w = __ldg(reinterpret_cast<const unsigned int*>(fq + (size_t)(lo_base + r) * ld + nB));
         uint32_t v = (w >> lo_shift) & mlo;
         if (bh) {
-          const uint32_t h = __ldg(reinterpret_cast<const unsigned int*>(fq + (size_t)(hi_base + r) * n2 + nB));
+          const uint32_t h = __ldg(reinterpret_cast<const unsigned int*>(fq + (size_t)(hi_base + r) * ld + nB));
           v |= ((h >> hi_shift) & mhi) << bl;
         }
         const int g = (k0 + r) / gs;
-        const uint2 sraw = __ldg(reinterpret_cast<const uint2*>(fs + (size_t)g * n2 + nB));
+        const uint2 sraw = __ldg(reinterpret_cast<const uint2*>(fs + (size_t)g * ld + nB));
         const float sc[4] = {bf2f(sraw.x & 0xffff), bf2f(sraw.x >> 16),
                              bf2f(sraw.y & 0xffff), bf2f(sraw.y >> 16)};
         uint32_t wb[4];
@@ -175,7 +178,7 @@ __global__ void __launch_bounds__(NT) qp8_gemm_kernel(
       for (int gg = 0; gg < GCH; ++gg) {
         float f = 0.f;
         if (g0 + gg < G) {
-          const size_t idx = (size_t)(g0 + gg) * n2 + n0 + col;
+          const size_t idx = (size_t)(g0 + gg) * ld + n0 + col;
           f = fb != nullptr ? bf2f(fb[idx]) : off * bf2f(fs[idx]);
         }
         fbv[gg] = f;
@@ -207,11 +210,12 @@ extern "C" {
 
 const char* ght_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
-// x bf16 [M, K]; fq/fs/fb t-planes of width n2; xg scratch f32 [M, K/gs]
-// (written here when a bias applies); out f32 [M, n2].
+// x bf16 [M, K]; fq/fs/fb t-planes of n2 lanes and row pitch ld; xg
+// scratch f32 [M, K/gs] (written here when a bias applies); out f32
+// [M, n2].
 int qp8_gemm_run(const void* x, const void* fq, const void* fs, const void* fb,
-                 int n2, int bl, int bh, int gs, float off, int M, int K,
-                 float* xg, float* out, void* stream) {
+                 int n2, int ld, int bl, int bh, int gs, float off, int M,
+                 int K, float* xg, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (K % BK || n2 % BN || (K * bl / 8) % BK || (bh && (K * bh / 8) % BK))
     return (int)cudaErrorInvalidValue;
@@ -233,7 +237,7 @@ int qp8_gemm_run(const void* x, const void* fq, const void* fs, const void* fb,
   dim3 grid(n2 / BN, (M + BM - 1) / BM);
   qp8_gemm_kernel<<<grid, NT, SMEM_BYTES, s>>>(
       (const __nv_bfloat16*)x, (const uint8_t*)fq, (const uint16_t*)fs,
-      (const uint16_t*)fb, n2, bl, bh, gs, off, M, K, xg, out);
+      (const uint16_t*)fb, n2, ld, bl, bh, gs, off, M, K, xg, out);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,11 @@
-// K1 / K2: qp8 decode GEMV (B <= 8) over transposed qp8 planes, for sm_90a.
+// K1 / K2 / K5: qp8 decode GEMV (B <= 8) over transposed qp8 planes, for
+// sm_90a.
 //
 // Replaces ggml_hexagon_tpu/ops/qmm_qp8.py `_qp8_decode_kernel` (K1, with
-// the helpers `_qp8_prologue`, `_qp8_expand`, `_qp8_body`) and
-// `_qp8_dual_kernel` (K2), both launched through `pallas_call` in
-// `_qp8_call` / `_qp8_dual_call`.
+// the helpers `_qp8_prologue`, `_qp8_expand`, `_qp8_body`),
+// `_qp8_dual_kernel` (K2) and `_qp8_indirect_kernel` (K5, the MoE
+// MUL_MAT_ID GEMV), launched through `pallas_call` in `_qp8_call`,
+// `_qp8_dual_call` and `_qp8_indirect_call`.
 //
 // What bounds it: bytes.  A decode GEMV reads every weight byte once
 // (4.5 bits/weight for Q4_K, 6.5 for Q6_K with the bf16 scale planes) and
@@ -27,6 +29,14 @@
 //    pass that also adds the residual.
 //  * Group scales are applied to the exact integer group partials, in the
 //    order of the plain version: acc += P * (fs * xs) + fb * (s8 * xs).
+//  * K5 is the same GEMV body, one input row per grid.z index, whose
+//    lanes start at ids[p] * npe: the block reads the expert id from
+//    device memory, so the routing never reaches the host and only the
+//    selected experts' lanes stream from memory.  (The TPU kernel read the
+//    ids by scalar prefetch and broadcast x to an 8-row tile; neither is
+//    carried over.)  Planes are addressed with a row pitch `ld` apart from
+//    the lane count, so an expert's lane slice of stacked planes needs no
+//    copy.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -113,7 +123,7 @@ struct Plane {
   const uint8_t* fq;
   const uint16_t* fs;  // bf16 bits
   const uint16_t* fb;  // bf16 bits or null
-  int n2, bl, bh, gs;
+  int n2, ld, bl, bh, gs;  // lanes, row pitch of fq/fs/fb, packing
   float off;
 };
 
@@ -129,21 +139,35 @@ __device__ __forceinline__ void transpose4(const uint32_t q[4], uint32_t col[4])
   col[3] = __byte_perm(t2, t3, 0x7632);
 }
 
-// grid.x: column blocks of plane A then plane B; grid.y: K splits.
-// ksb == gridDim.y == 1: dst is the output [NB, dst_stride] (+ residual);
-// else dst holds partials [ksb, NB, dst_stride].
+// grid.x: column blocks of plane A then plane B; grid.y: K splits;
+// grid.z: row groups of NB rows (K5: one row each, ids non-null).
+// rows = gridDim.z * NB output rows.  ksb == gridDim.y == 1: dst is the
+// output [rows, dst_stride] (+ residual); else dst holds partials
+// [ksb, rows, dst_stride].
 template <int NB>
 __global__ void __launch_bounds__(WARPS * 32) qp8_gemv_kernel(
     Plane A, Plane Bp, int nblk_a, int K, const int8_t* __restrict__ x8,
     const float* __restrict__ xs, float* __restrict__ dst, int dst_stride,
-    const float* __restrict__ res, int n_res) {
+    const float* __restrict__ res, int n_res, const int* __restrict__ ids,
+    int npe, int n_exp) {
   __shared__ float red[WARPS][NB][COLS];
   const bool second = (int)blockIdx.x >= nblk_a;
   const Plane P = second ? Bp : A;
   const int cb = second ? (int)blockIdx.x - nblk_a : (int)blockIdx.x;
   const int out_col0 = (second ? A.n2 : 0) + cb * COLS;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n0 = cb * COLS + lane * 4;
+  const int row0 = blockIdx.z * NB;
+  const int rows = gridDim.z * NB;
+  int lane0 = 0;
+  bool valid = true;
+  if (ids != nullptr) {
+    const int e = __ldg(ids + blockIdx.z);
+    valid = e >= 0 && e < n_exp;
+    lane0 = valid ? e * npe : 0;
+  }
+  x8 += (size_t)row0 * K;
+  xs += (size_t)row0 * (K / SEG);
+  const int n0 = lane0 + cb * COLS + lane * 4;
   const int rows_lo = K * P.bl / 8;
   const int U = P.bh ? K * P.bh / 8 : rows_lo;  // unit rows per shift slice
   const int E = K / U;                          // groups sharing a unit chunk
@@ -158,7 +182,7 @@ __global__ void __launch_bounds__(WARPS * 32) qp8_gemv_kernel(
   const int nseg = K / SEG;
   const bool bias = P.fb != nullptr || P.off != 0.f;
   const int* x8w = reinterpret_cast<const int*>(x8);
-  const size_t n2 = (size_t)P.n2;
+  const size_t ld = (size_t)P.ld;
 
   float acc[4][NB];
 #pragma unroll
@@ -187,11 +211,11 @@ __global__ void __launch_bounds__(WARPS * 32) qp8_gemv_kernel(
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const uint32_t w = __ldg(reinterpret_cast<const unsigned int*>(
-              P.fq + (size_t)(lo_row0 + kk + i) * n2 + n0));
+              P.fq + (size_t)(lo_row0 + kk + i) * ld + n0));
           uint32_t v = (w >> lo_shift) & mlo;
           if (P.bh) {
             const uint32_t h = __ldg(reinterpret_cast<const unsigned int*>(
-                P.fq + (size_t)(rows_lo + u0 + kk + i) * n2 + n0));
+                P.fq + (size_t)(rows_lo + u0 + kk + i) * ld + n0));
             v |= ((h >> hi_shift) & mhi) << P.bl;
           }
           q[i] = v;
@@ -206,12 +230,12 @@ __global__ void __launch_bounds__(WARPS * 32) qp8_gemv_kernel(
           if (bias) sacc[b] = __dp4a(xw, 0x01010101, sacc[b]);
         }
       }
-      const uint2 sraw = __ldg(reinterpret_cast<const uint2*>(P.fs + (size_t)g * n2 + n0));
+      const uint2 sraw = __ldg(reinterpret_cast<const uint2*>(P.fs + (size_t)g * ld + n0));
       float m[4] = {bf2f(sraw.x & 0xffff), bf2f(sraw.x >> 16),
                     bf2f(sraw.y & 0xffff), bf2f(sraw.y >> 16)};
       float fbv[4] = {0.f, 0.f, 0.f, 0.f};
       if (P.fb) {
-        const uint2 braw = __ldg(reinterpret_cast<const uint2*>(P.fb + (size_t)g * n2 + n0));
+        const uint2 braw = __ldg(reinterpret_cast<const uint2*>(P.fb + (size_t)g * ld + n0));
         fbv[0] = bf2f(braw.x & 0xffff);
         fbv[1] = bf2f(braw.x >> 16);
         fbv[2] = bf2f(braw.y & 0xffff);
@@ -240,15 +264,17 @@ __global__ void __launch_bounds__(WARPS * 32) qp8_gemv_kernel(
   __syncthreads();
   for (int e = threadIdx.x; e < NB * COLS; e += WARPS * 32) {
     const int b = e / COLS, cl = e % COLS;
+    const int r = row0 + b;
     float v = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) v += red[w][b][cl];
+    if (!valid) v = __int_as_float(0x7fc00000);  // NaN: expert id out of range
     if (gridDim.y == 1) {
       const int pc = cb * COLS + cl;  // column within plane A (res only for single launches)
-      if (res != nullptr && pc < n_res) v += res[(size_t)b * n_res + pc];
-      dst[(size_t)b * dst_stride + out_col0 + cl] = v;
+      if (res != nullptr && pc < n_res) v += res[(size_t)r * n_res + pc];
+      dst[(size_t)r * dst_stride + out_col0 + cl] = v;
     } else {
-      dst[((size_t)blockIdx.y * NB + b) * dst_stride + out_col0 + cl] = v;
+      dst[((size_t)blockIdx.y * rows + r) * dst_stride + out_col0 + cl] = v;
     }
   }
 }
@@ -271,7 +297,8 @@ void launch_gemv(const Plane& A, const Plane& B, int nblk_a, int nblk, int K,
                  const float* res, int n_res, int ksb, cudaStream_t s) {
   dim3 grid(nblk, ksb);
   qp8_gemv_kernel<NB><<<grid, WARPS * 32, 0, s>>>(A, B, nblk_a, K, x8, xs, dst,
-                                                  dst_stride, res, n_res);
+                                                  dst_stride, res, n_res,
+                                                  nullptr, 0, 0);
 }
 
 }  // namespace
@@ -284,9 +311,9 @@ const char* ght_error_string(int e) { return cudaGetErrorString((cudaError_t)e);
 // when n2_b > 0 (K2, the dual projection); its columns follow A's.
 int qp8_gemv_run(const float* x, const float* wn, int mode, float eps, int NB,
                  int K, const void* fq_a, const void* fs_a, const void* fb_a,
-                 int n2_a, int bl_a, int bh_a, int gs_a, float off_a,
+                 int n2_a, int ld_a, int bl_a, int bh_a, int gs_a, float off_a,
                  const void* fq_b, const void* fs_b, const void* fb_b, int n2_b,
-                 int bl_b, int bh_b, int gs_b, float off_b, int8_t* x8,
+                 int ld_b, int bl_b, int bh_b, int gs_b, float off_b, int8_t* x8,
                  float* xs, float* ws, int ksb, float* out, const float* res,
                  int n_res, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -294,11 +321,11 @@ int qp8_gemv_run(const float* x, const float* wn, int mode, float eps, int NB,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   Plane A{(const uint8_t*)fq_a, (const uint16_t*)fs_a, (const uint16_t*)fb_a,
-          n2_a, bl_a, bh_a, gs_a, off_a};
+          n2_a, ld_a, bl_a, bh_a, gs_a, off_a};
   Plane B{(const uint8_t*)(n2_b ? fq_b : fq_a), (const uint16_t*)(n2_b ? fs_b : fs_a),
           (const uint16_t*)(n2_b ? fb_b : fb_a), n2_b ? n2_b : n2_a,
-          n2_b ? bl_b : bl_a, n2_b ? bh_b : bh_a, n2_b ? gs_b : gs_a,
-          n2_b ? off_b : off_a};
+          n2_b ? ld_b : ld_a, n2_b ? bl_b : bl_a, n2_b ? bh_b : bh_a,
+          n2_b ? gs_b : gs_a, n2_b ? off_b : off_a};
   const int ncols = n2_a + n2_b;
   const int nblk_a = n2_a / COLS;
   const int nblk = ncols / COLS;
@@ -320,6 +347,36 @@ int qp8_gemv_run(const float* x, const float* wn, int mode, float eps, int NB,
     const int total = NB * ncols;
     qp8_finalize_kernel<<<(total + 255) / 256, 256, 0, s>>>(ws, ksb, NB, ncols, res,
                                                             n_res, out);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+// K5: one call = the raw-activation prologue for the P rows + the GEMV of
+// row p against lanes [ids[p]*npe, (ids[p]+1)*npe) of the stacked planes
+// (+ finalize when ksb > 1).  out [P, npe]; ws [ksb, P, npe].
+int qp8_indirect_run(const float* x, int P, int K, const int* ids, int npe,
+                     int n_exp, const void* fq, const void* fs, const void* fb,
+                     int ld, int bl, int bh, int gs, float off, int8_t* x8,
+                     float* xs, float* ws, int ksb, float* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (npe % COLS || P < 1 || P > 65535) return (int)cudaErrorInvalidValue;
+  qp8_quant_kernel<<<P, SEG, 0, s>>>(x, nullptr, K, 0, 0.f, x8, xs);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const Plane A{(const uint8_t*)fq, (const uint16_t*)fs, (const uint16_t*)fb,
+                npe, ld, bl, bh, gs, off};
+  dim3 grid(npe / COLS, ksb, P);
+  qp8_gemv_kernel<1><<<grid, WARPS * 32, 0, s>>>(
+      A, A, npe / COLS, K, x8, xs, ksb > 1 ? ws : out, npe, nullptr, 0, ids,
+      npe, n_exp);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if (ksb > 1) {
+    const int total = P * npe;
+    qp8_finalize_kernel<<<(total + 255) / 256, 256, 0, s>>>(ws, ksb, P, npe, nullptr,
+                                                            0, out);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }

@@ -30,16 +30,19 @@ BUILD_DIR = _HERE / "_build"
 
 #: library name -> source file
 SOURCES = {
-    "qp8_gemv": "qp8_gemv.cu",      # K1 and K2
+    "qp8_gemv": "qp8_gemv.cu",      # K1, K2 and K5
     "qp8_gemm": "qp8_gemm.cu",      # K3
     "decode_attn": "decode_attn.cu",  # K4
+    "fast_byte": "fast_byte.cu",    # K6 (byte planes)
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-#: launches per kernel (K1 qp8_gemv, K2 qp8_dual, K3 qp8_gemm, K4 decode_attn)
-LAUNCHES = {"qp8_gemv": 0, "qp8_dual": 0, "qp8_gemm": 0, "decode_attn": 0}
+#: launches per kernel (K1 qp8_gemv, K2 qp8_dual, K3 qp8_gemm, K4
+#: decode_attn, K5 qp8_indirect, K6 fast_byte)
+LAUNCHES = {"qp8_gemv": 0, "qp8_dual": 0, "qp8_gemm": 0, "decode_attn": 0,
+            "qp8_indirect": 0, "fast_byte": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -49,10 +52,15 @@ _F = ctypes.c_float
 
 _ARGTYPES = {
     "qp8_gemv_run": [_P, _P, _I, _F, _I, _I,
-                     _P, _P, _P, _I, _I, _I, _I, _F,
-                     _P, _P, _P, _I, _I, _I, _I, _F,
+                     _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                     _P, _P, _P, _I, _I, _I, _I, _I, _F,
                      _P, _P, _P, _I, _P, _P, _I, _P],
-    "qp8_gemm_run": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P],
+    "qp8_indirect_run": [_P, _I, _I, _P, _I, _I,
+                         _P, _P, _P, _I, _I, _I, _I, _F,
+                         _P, _P, _P, _I, _P, _P],
+    "qp8_gemm_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P,
+                     _P, _P],
+    "fast_byte_run": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
     "decode_attn_run": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                         _I, _F, _I, _P, _P, _P, _P],
 }
@@ -139,14 +147,15 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _need(t, dtype, what: str, ndim: int | None = None):
+def _need(t, dtype, what: str, ndim: int | None = None,
+          contiguous: bool = True):
     if t is None:
         return
     if not t.is_cuda:
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{what}: expected {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
     if ndim is not None and t.dim() != ndim:
         raise ValueError(f"{what}: expected {ndim} dims, got {t.dim()}")
@@ -155,17 +164,30 @@ def _need(t, dtype, what: str, ndim: int | None = None):
 
 
 def _plane_args(qt):
+    """Pointer and geometry arguments of a t-plane set.  The planes may be
+    a lane slice of wider planes (an expert of a stacked MoE tensor,
+    models.llama.qtensor_rows): rows then keep the full planes' pitch,
+    passed as ld, and no copy is made."""
     from .ops.qmm_qp8 import _offset_bias_t, _pack_bits
 
-    _need(qt.fq, torch.uint8, "fq", 2)
-    _need(qt.fs, torch.bfloat16, "fs", 2)
-    _need(qt.fb, torch.bfloat16, "fb", 2)
+    if qt.fl != "t":
+        raise ValueError(f"planes of layout {qt.fl!r}: K1-K3 and K5 take t")
+    planes = [("fq", qt.fq, torch.uint8), ("fs", qt.fs, torch.bfloat16),
+              ("fb", qt.fb, torch.bfloat16)]
+    ld = qt.fq.stride(0)
+    for what, t, dtype in planes:
+        if t is None:
+            continue
+        _need(t, dtype, what, 2, contiguous=False)
+        if t.stride(1) != 1 or t.stride(0) != ld:
+            raise ValueError(f"{what}: expected unit lane stride and the "
+                             f"row pitch {ld} of fq, got {t.stride()}")
     bl, bh = _pack_bits(qt.cfg)
     n2 = qt.fq.shape[1]
     if n2 % 128 or qt.fs.shape != (qt.k // qt.cfg.gs, n2):
         raise ValueError(f"t-planes of shape {tuple(qt.fq.shape)} / "
                          f"{tuple(qt.fs.shape)} do not fit K={qt.k}")
-    return [_ptr(qt.fq), _ptr(qt.fs), _ptr(qt.fb), n2, bl, bh, qt.cfg.gs,
+    return [_ptr(qt.fq), _ptr(qt.fs), _ptr(qt.fb), n2, ld, bl, bh, qt.cfg.gs,
             _offset_bias_t(qt.cfg, qt.fb)]
 
 
@@ -197,7 +219,7 @@ def _gemv_launch(kind: str, x, qts, wn, eps, act, res):
     _need(res, torch.float32, "res", 2)
     mode = 2 if act else (1 if eps is not None else 0)
     a = _plane_args(qts[0])
-    b = _plane_args(qts[1]) if len(qts) > 1 else [None, None, None, 0, 0, 0, 0, 0.0]
+    b = _plane_args(qts[1]) if len(qts) > 1 else [None, None, None, 0, 0, 0, 0, 0, 0.0]
     ncols = a[3] + b[3]
     ksb = _pick_ksb(ncols, qts)
     dev = x.device
@@ -233,16 +255,68 @@ def qp8_gemm(x, qt):
     M, K = x.shape
     if K != qt.k:
         raise ValueError(f"x K={K} vs weight K={qt.k}")
-    a = _plane_args(qt)
-    fq, fs, fb, n2, bl, bh, gs, off = a
+    fq, fs, fb, n2, ld, bl, bh, gs, off = _plane_args(qt)
     dev = x.device
     xg = torch.empty((M, K // gs), dtype=torch.float32, device=dev)
     out = torch.empty((M, n2), dtype=torch.float32, device=dev)
     lib = _lib("qp8_gemm")
-    rc = lib.qp8_gemm_run(_ptr(x), fq, fs, fb, n2, bl, bh, gs, off, M, K,
+    rc = lib.qp8_gemm_run(_ptr(x), fq, fs, fb, n2, ld, bl, bh, gs, off, M, K,
                           _ptr(xg), _ptr(out), _stream(dev))
     _check(lib, rc, "qp8_gemm")
     LAUNCHES["qp8_gemm"] += 1
+    return out
+
+
+def qp8_indirect(x, qt, ids, npe: int):
+    """K5 on the card: x f32 [P, K], ids int32 [P] (read on the card) ->
+    y [P, npe] f32, row p against lanes [ids[p]*npe, (ids[p]+1)*npe) of
+    the stacked planes; an id outside [0, E) gives a NaN row."""
+    _need(x, torch.float32, "x", 2)
+    _need(ids, torch.int32, "ids", 1)
+    P, K = x.shape
+    if K != qt.k or ids.shape[0] != P:
+        raise ValueError(f"x {tuple(x.shape)} / ids {tuple(ids.shape)} vs "
+                         f"weight K={qt.k}")
+    fq, fs, fb, n2, ld, bl, bh, gs, off = _plane_args(qt)
+    if npe % 128 or n2 % npe:
+        raise ValueError(f"{npe} lanes an expert do not tile {n2} lanes")
+    ksb = _pick_ksb(P * npe, [qt])
+    dev = x.device
+    x8 = torch.empty((P, K), dtype=torch.int8, device=dev)
+    xs = torch.empty((P, K // 256), dtype=torch.float32, device=dev)
+    out = torch.empty((P, npe), dtype=torch.float32, device=dev)
+    ws = (torch.empty((ksb, P, npe), dtype=torch.float32, device=dev)
+          if ksb > 1 else None)
+    lib = _lib("qp8_gemv")
+    rc = lib.qp8_indirect_run(
+        _ptr(x), P, K, _ptr(ids), npe, n2 // npe, fq, fs, fb, ld, bl, bh, gs,
+        off, _ptr(x8), _ptr(xs), _ptr(ws), ksb, _ptr(out), _stream(dev))
+    _check(lib, rc, "qp8_indirect")
+    LAUNCHES["qp8_indirect"] += 1
+    return out
+
+
+def fast_byte(x, qt):
+    """K6 on the card: x bf16 [B, K] in natural column order, interleaved
+    byte planes (fq int8 [n2, K], fs bf16 [n2, G], no bias) -> [B, n2]."""
+    _need(x, torch.bfloat16, "x", 2)
+    _need(qt.fq, torch.int8, "fq", 2)
+    _need(qt.fs, torch.bfloat16, "fs", 2)
+    B, K = x.shape
+    n2, G = qt.fs.shape
+    if qt.fl != "il" or qt.fb is not None:
+        raise ValueError("K6 takes interleaved byte planes without a bias")
+    if K != qt.k or qt.fq.shape != (n2, K) or K % G or n2 % 128 or K % 32:
+        raise ValueError(f"x {tuple(x.shape)} vs planes {tuple(qt.fq.shape)}"
+                         f" / {tuple(qt.fs.shape)}")
+    dev = x.device
+    xil = torch.empty((B, K), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((B, n2), dtype=torch.float32, device=dev)
+    lib = _lib("fast_byte")
+    rc = lib.fast_byte_run(_ptr(x), B, K, _ptr(qt.fq), _ptr(qt.fs), n2, G,
+                           _ptr(xil), _ptr(out), _stream(dev))
+    _check(lib, rc, "fast_byte")
+    LAUNCHES["fast_byte"] += 1
     return out
 
 

@@ -1,10 +1,12 @@
 """Weight-fusion transforms: fewer launches per decode step.
 
-Counterpart of ggml_hexagon_tpu/models/fuse.py:25-209, 212-250, 310-342 for
-the transposed qp8 layout, the only layout the port has:
+Counterpart of ggml_hexagon_tpu/models/fuse.py:25-209, 212-250, 310-342:
 
 - fuse_weights concatenates Q/K/V (or Q/K when V has another qtype, the
-  Q4_K_M shape) and gate/up along the planes' output-feature axis;
+  Q4_K_M shape) and gate/up along the planes' output-feature axis (lanes
+  of the t-layout, rows of the interleaved one); layers whose Q and K
+  types differ (Mixtral's Q5_K wq, Q8_0 wk) stay unfused, and MoE layers
+  have no gate/up to fuse;
 - attach_norm_planes records the RMS-norm weights the fused norm+matmul
   kernels take (raw: the t-layout has no column interleave);
 - interleave_gateup_rows renames w_gateup to w_gateup_il, which routes
@@ -26,14 +28,15 @@ from ..quant.pack import QTensor
 
 def _concat_qtensors(parts: list) -> QTensor | None:
     """Row-concatenate same-type tensors with unpadded rows, or None.
-    Wire planes concatenate; t-planes concatenate when unpadded, else are
-    rebuilt from the concatenated wire (per-part lane padding would land
-    mid-tensor)."""
+    Wire planes concatenate; matmul planes concatenate on their
+    output-feature axis when unpadded, else are rebuilt from the
+    concatenated wire (per-part padding would land mid-tensor)."""
     p0 = parts[0]
     for p in parts:
         if (not isinstance(p, QTensor) or p.cfg != p0.cfg or p.k != p0.k
                 or p.fl != p0.fl or p.n != p.n_pad):
             return None
+    fax = 1 if p0.fl == "t" else 0
 
     def cat(field, dim=0):
         arrs = [getattr(p, field) for p in parts]
@@ -41,7 +44,7 @@ def _concat_qtensors(parts: list) -> QTensor | None:
             return None
         return torch.cat(arrs, dim=dim)
 
-    planes_unpadded = all(p.fq is not None and p.fq.shape[1] == p.n
+    planes_unpadded = all(p.fq is not None and p.fq.shape[fax] == p.n
                           for p in parts)
     n = sum(p.n for p in parts)
     if all(p.q is not None for p in parts):
@@ -51,14 +54,14 @@ def _concat_qtensors(parts: list) -> QTensor | None:
             if planes_unpadded:
                 fused = QTensor(fused.cfg, n, p0.k, fused.q, fused.d,
                                 fused.qh, fused.sc, fused.dmin, fused.m,
-                                cat("fq", 1), cat("fs", 1), cat("fb", 1),
-                                fl=p0.fl)
+                                cat("fq", fax), cat("fs", fax),
+                                cat("fb", fax), fl=p0.fl)
             else:
-                fused = fused.with_t_planes()
+                fused = fused.with_fast_planes()
         return fused
     if planes_unpadded:
-        return QTensor(p0.cfg, n, p0.k, fq=cat("fq", 1), fs=cat("fs", 1),
-                       fb=cat("fb", 1), fl=p0.fl)
+        return QTensor(p0.cfg, n, p0.k, fq=cat("fq", fax), fs=cat("fs", fax),
+                       fb=cat("fb", fax), fl=p0.fl)
     return None
 
 

@@ -1,11 +1,16 @@
 """LLaMA model: config, KV cache, and the forward step in PyTorch.
 
 Counterpart of the llama branches of ggml_hexagon_tpu/models/llama.py
-(:33-169, 352-541, 741-799, 899-1326).  The forward takes the JAX
-package's decode fast paths on every device: the dual QKV projection (K2)
-for mixed-type layers, the fused decode attention (K4) with one bulk KV
-write after the layer loop, wo with the residual added in the kernel (K1),
-and the fused act+down with residual (K1).  Whether a projection runs its
+(:33-169, 342-349, 352-541, 565-741, 850-881, 899-1326).  The forward takes
+the JAX package's decode fast paths on every device: the dual QKV
+projection (K2) for mixed-type layers, the fused decode attention (K4)
+with one bulk KV write after the layer loop, wo with the residual added in
+the kernel (K1), and the fused act+down with residual (K1).  Layers whose
+Q/K/V types differ from each other in layout (Mixtral: Q5_K wq, Q8_0
+wk/wv) run the unfused branch: the RMSNorm in torch, then each projection
+through `matmul` (K1/K3 on t-planes, K6 on interleaved planes).  MoE layers
+(Mixtral) route each token to its top-k experts: gathered-expert GEMVs (K5)
+at <= 8 rows, every expert through K3 above.  Whether a projection runs its
 CUDA kernel or its plain version is decided by the wrappers (CUDA or CPU
 tensor), or by `plain=True`, which runs the plain versions everywhere.
 
@@ -24,11 +29,23 @@ from ..ops.attention import flash_attention_cache
 from ..ops.basic import (RopeParams, apply_rope, rms_norm, rope_freqs, silu,
                          softmax_ext)
 from ..ops.decode_attn import fused_decode_attention
-from ..ops.qmatmul import dequantize, take_rows_wire
+from ..ops.qmatmul import dequantize, qmatmul, take_rows_wire
 from ..ops.qmm_qp8 import (QP8_MAX_DECODE, qp8_matmul, qp8_matmul_act,
-                           qp8_matmul_dual, qp8_matmul_normed, qp8_matmul_res,
-                           supports_qp8_dual)
+                           qp8_matmul_dual, qp8_matmul_indirect,
+                           qp8_matmul_normed, qp8_matmul_res,
+                           supports_qp8_dual, supports_qp8_indirect)
 from ..quant.pack import QTensor
+
+#: set to a list to record the MoE routing of each _moe_ffn call, in layer
+#: order: (router probabilities [B, T, E] f32, top-k ids [B, T, k]), as
+#: device tensors (no host synchronisation); None records nothing
+MOE_ROUTING = None
+
+#: set to a callable hook(il, h_in, h_out) -> h, called after each layer
+#: of forward with the residual stream before and after the layer; what it
+#: returns continues as the residual (chip_smoke.py feeds two routes the
+#: same input to each layer this way); None calls nothing
+LAYER_HOOK = None
 
 
 @dataclass(frozen=True)
@@ -127,7 +144,7 @@ class LlamaConfig:
 _LLAMA_ONLY = dict(
     act="silu", attn_bias=False, embd_scale=1.0, norm_plus_one=False, post_norms=False,
     attn_logit_softcap=0.0, final_logit_softcap=0.0, swa_window=0,
-    n_expert=0, norm_type="rms", pos_embd=False, parallel_residual=False,
+    norm_type="rms", pos_embd=False, parallel_residual=False,
     logit_scale=1.0, pre_norms=True, alibi_max_bias=0.0, clamp_qkv=0.0,
     residual_scale=1.0, swin_norm=False, n_head_arr=(), n_head_kv_arr=(),
     rope_sections=())
@@ -135,10 +152,20 @@ _LLAMA_ONLY = dict(
 
 def check_supported(cfg: LlamaConfig):
     bad = [k for k, v in _LLAMA_ONLY.items() if getattr(cfg, k) != v]
+    if cfg.n_expert and cfg.moe_gating != "softmax":
+        bad.append("moe_gating")
     if bad or cfg.rope_mode not in ("norm", "neox", "none"):
         raise NotImplementedError(
             f"config {cfg.arch}: {bad or cfg.rope_mode} take branches of the "
             "JAX forward that the port does not have yet")
+
+
+def matmul(x, w, plain=False):
+    """QTensor -> the quantized-matmul dispatcher; a dense array (the MoE
+    router) -> a plain f32 product x @ w.T."""
+    if isinstance(w, QTensor):
+        return qmatmul(x, w, plain=plain)
+    return torch.matmul(x.to(w.dtype), w.t()).to(torch.float32)
 
 
 def embed(tok_embd: QTensor, ids, dtype=torch.bfloat16):
@@ -215,14 +242,125 @@ def _attention(cfg, q, k_all, v_all, pos_start: int, T: int, scale: float,
 
 
 def _check_fused(lw: dict):
-    """The layer layouts fuse_weights produces for the t-plane types: the
-    only ones this forward runs (the reference's unfused branches wait)."""
-    attn = "wqkv" in lw or ("wqk" in lw and "attn_norm_il_v" in lw)
-    if not (attn and "attn_norm_il" in lw and "w_gateup_il" in lw
-            and "ffn_norm_il" in lw):
+    """The layer layouts this forward runs, as fuse_weights leaves them:
+    attention fused with its norm planes (wqkv, or wqk + wv) or unfused
+    (wq, wk, wv); the dense FFN fused (w_gateup_il) or an MoE FFN (router
+    and stacked experts).  The reference's other branches wait."""
+    attn = ("attn_norm_il" in lw and ("wqkv" in lw or (
+        "wqk" in lw and "attn_norm_il_v" in lw))) or (
+        "attn_norm" in lw and all(k in lw for k in ("wq", "wk", "wv")))
+    ffn = ("w_gateup_il" in lw and "ffn_norm_il" in lw) or (
+        "ffn_norm" in lw and "ffn_gate_inp" in lw
+        and "ffn_norm_exps" not in lw
+        and all(k in lw for k in ("ffn_gate_exps", "ffn_up_exps",
+                                  "ffn_down_exps")))
+    if not (attn and ffn):
         raise NotImplementedError(
-            "forward runs fused t-plane weights (models.fuse.fuse_weights); "
-            f"this layer has {sorted(lw)}")
+            "forward runs fused weights (models.fuse.fuse_weights) or "
+            f"unfused attention with an MoE FFN; this layer has {sorted(lw)}")
+
+
+def qtensor_rows(qt, start: int, n: int):
+    """Row-slice a QTensor (one expert of a stacked MoE weight) without a
+    copy: wire planes and interleaved planes slice their rows, t-planes
+    their lanes (a view keeping the full planes' row pitch, which K1 and
+    K3 take as it is)."""
+    if not isinstance(qt, QTensor):
+        return qt[start:start + n]
+
+    def gw(a):
+        return None if a is None else a[start:start + n]
+
+    def gf(a):
+        if a is None:
+            return None
+        return a[:, start:start + n] if qt.fl == "t" else a[start:start + n]
+
+    return QTensor(qt.cfg, n, qt.k, gw(qt.q), gw(qt.d), gw(qt.qh), gw(qt.sc),
+                   gw(qt.dmin), gw(qt.m), gf(qt.fq), gf(qt.fs), gf(qt.fb),
+                   fl=qt.fl)
+
+
+def _moe_indirect(cfg, lw, f, topv, topi, cd, plain=False):
+    """Gathered top-k expert FFN (MUL_MAT_ID): only the selected experts'
+    lanes are read (K5), so decode cost scales with n_expert_used."""
+    B, T, d = f.shape
+    Kc = cfg.n_expert_used
+    n_ff_e = cfg.n_ff_exp or cfg.n_ff
+    P = B * T * Kc
+    ids = topi.reshape(P)
+    xp = torch.repeat_interleave(f.reshape(B * T, d).to(torch.float32), Kc,
+                                 dim=0)
+    g = qp8_matmul_indirect(xp, lw["ffn_gate_exps"], ids, n_ff_e, plain=plain)
+    u = qp8_matmul_indirect(xp, lw["ffn_up_exps"], ids, n_ff_e, plain=plain)
+    gu = silu(g.to(cd)) * u.to(cd)
+    dly = qp8_matmul_indirect(gu.to(torch.float32), lw["ffn_down_exps"], ids,
+                              d, plain=plain)
+    return torch.sum(dly.reshape(B, T, Kc, d)
+                     * topv[..., None].to(torch.float32), dim=2)
+
+
+def _moe_ffn(cfg, lw, f, cd, plain=False):
+    """Mixture-of-experts FFN on the normed input f [B, T, d]: router
+    softmax -> top-k -> renorm; the gathered path (K5) at <= 8 rows, else
+    the dense all-experts evaluation (every expert computed, unselected
+    ones weighted 0), as the JAX package does."""
+    if cfg.moe_gating != "softmax":
+        raise NotImplementedError(f"moe_gating {cfg.moe_gating!r}")
+    E, K = cfg.n_expert, cfg.n_expert_used
+    n_ff = cfg.n_ff_exp or cfg.n_ff
+    router = matmul(f, lw["ffn_gate_inp"], plain).to(torch.float32)
+    probs = torch.softmax(router, dim=-1)
+    topv, topi = torch.topk(probs, K, dim=-1)
+    if MOE_ROUTING is not None:
+        MOE_ROUTING.append((probs, topi))
+    if cfg.norm_topk_prob:
+        topv = topv / torch.sum(topv, dim=-1, keepdim=True)
+    if (math.prod(f.shape[:-1]) <= QP8_MAX_DECODE
+            and _supports_moe_indirect(cfg, lw)):
+        out = _moe_indirect(cfg, lw, f, topv, topi, cd, plain)
+        return out.to(cd) + _shared_expert_out(cfg, lw, f, cd, plain)
+    onehot = torch.nn.functional.one_hot(topi, E).to(torch.float32)
+    w_tok = torch.einsum("btk,btke->bte", topv, onehot)
+    d = cfg.n_embd
+    out = 0.0
+    for e in range(E):
+        gate_e = qtensor_rows(lw["ffn_gate_exps"], e * n_ff, n_ff)
+        up_e = qtensor_rows(lw["ffn_up_exps"], e * n_ff, n_ff)
+        down_e = qtensor_rows(lw["ffn_down_exps"], e * d, d)
+        g = silu(matmul(f, gate_e, plain).to(cd))
+        u = matmul(f, up_e, plain).to(cd)
+        dly = matmul(g * u, down_e, plain).to(torch.float32)
+        out = out + dly * w_tok[..., e:e + 1]
+    out = out + _shared_expert_out(cfg, lw, f, cd, plain)
+    return out.to(cd)
+
+
+def _shared_expert_out(cfg, lw, f, cd, plain=False):
+    """Shared-expert branch (deepseek/qwen2moe), added to the routed sum."""
+    if "ffn_gate_shexp" not in lw:
+        return torch.zeros((), dtype=cd, device=f.device)
+    g = silu(matmul(f, lw["ffn_gate_shexp"], plain).to(cd))
+    u = matmul(f, lw["ffn_up_shexp"], plain).to(cd)
+    sh = matmul(g * u, lw["ffn_down_shexp"], plain).to(torch.float32)
+    if "ffn_gate_inp_shexp" in lw:  # qwen2moe: sigmoid-gated shared expert
+        sh = torch.sigmoid(
+            matmul(f, lw["ffn_gate_inp_shexp"], plain).to(torch.float32)) * sh
+    return sh.to(cd)
+
+
+def _supports_moe_indirect(cfg, lw) -> bool:
+    """The gathered path applies: t-layout stacks whose expert boundaries
+    fall on plane lanes.  Interleaved stacks take K8 in the JAX package,
+    which the port does not have yet."""
+    n_ff_e = cfg.n_ff_exp or cfg.n_ff
+    stacks = [(lw.get("ffn_gate_exps"), n_ff_e), (lw.get("ffn_up_exps"), n_ff_e),
+              (lw.get("ffn_down_exps"), cfg.n_embd)]
+    if any(isinstance(qt, QTensor) and qt.fl == "il" for qt, _ in stacks):
+        raise NotImplementedError(
+            "MoE experts in the interleaved layout need K8, not ported yet "
+            "(ROADMAP.md queue 2)")
+    return all(supports_qp8_indirect(qt, npe) for qt, npe in stacks)
 
 
 def _ffn(cfg, lw, h, cd, plain=False):
@@ -237,6 +375,15 @@ def _ffn(cfg, lw, h, cd, plain=False):
     ng = dn.k
     gu = silu(gu2[..., :ng].to(cd)) * gu2[..., ng:].to(cd)
     return h + qp8_matmul(gu, dn, plain=plain).to(cd)
+
+
+def _ffn_out(cfg, lw, h, cd, plain=False):
+    """FFN dispatch (MoE or dense) on the residual h; returns the new
+    residual."""
+    if "ffn_gate_inp" in lw:
+        f = rms_norm(h, lw["ffn_norm"], cfg.rms_eps)
+        return h + _moe_ffn(cfg, lw, f, cd, plain)
+    return _ffn(cfg, lw, h, cd, plain)
 
 
 def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
@@ -260,13 +407,19 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
     fused_kv = []
     for il, lw in enumerate(weights["layers"]):
         _check_fused(lw)
+        h_in = h
         nh, nhkv = cfg.nh(il), cfg.nhkv(il)
         nq, nk = nh * cfg.hd, nhkv * cfg.hd
-        wn = lw["attn_norm_il"]
+        wn = lw.get("attn_norm_il")
         use_fused = (T == 1 and cfg.rope_mode in ("neox", "none")
                      and nh % nhkv == 0 and cfg.hd % 128 == 0)
         flat_qkv = q = k = v = None
-        if "wqkv" in lw:
+        if "wq" in lw:  # unfused: mixed layouts (Mixtral's Q8_0 wk/wv)
+            a = rms_norm(h, lw["attn_norm"], eps)
+            q = matmul(a, lw["wq"], plain)
+            k = matmul(a, lw["wk"], plain)
+            v = matmul(a, lw["wv"], plain)
+        elif "wqkv" in lw:
             qkv = qp8_matmul_normed(h, lw["wqkv"], wn, eps, plain=plain)
             q, k, v = qkv[..., :nq], qkv[..., nq:nq + nk], qkv[..., nq + nk:]
         elif (use_fused and B <= QP8_MAX_DECODE
@@ -324,8 +477,10 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
         if T == 1 and B <= QP8_MAX_DECODE:
             h = qp8_matmul_res(attn, lw["wo"], h, plain=plain).to(cd)
         else:
-            h = h + qp8_matmul(attn, lw["wo"], plain=plain).to(cd)
-        h = _ffn(cfg, lw, h, cd, plain)
+            h = h + matmul(attn, lw["wo"], plain).to(cd)
+        h = _ffn_out(cfg, lw, h, cd, plain)
+        if LAYER_HOOK is not None:
+            h = LAYER_HOOK(il, h_in, h)
 
     if fused_kv:
         # one cache write for all fused layers (the rows never touched the
@@ -344,5 +499,5 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
     h = rms_norm(h, weights["output_norm"], eps)
     if not logits_all:
         h = h[:, -1, :]
-    logits = qp8_matmul(h, weights["output"], plain=plain)
+    logits = matmul(h, weights["output"], plain)
     return logits.to(torch.float32), kv_cache

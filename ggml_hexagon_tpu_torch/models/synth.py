@@ -1,12 +1,14 @@
-"""A random Llama-3-8B Q4_K_M model with the exact plane layout, drawn on
-the device from a seeded torch.Generator.
+"""Random Llama-3-8B Q4_K_M and Mixtral-8x7B Q5_K_M models with the exact
+plane layout, drawn on the device from a seeded torch.Generator.
 
 Counterpart of bench.py:26-125 (`random_qtensor`, `host_concat`,
-`build_8b`).  The wire planes are drawn with the bench's distributions
-(uniform packed bytes, f16-exact scales, 6-bit sub-scales and mins) and the
-t-planes are built on the device, which takes seconds where the host build
-of the reference takes minutes.  No real checkpoint is involved: the bytes
-and the compute profile are those of a real Q4_K_M file.
+`build_8b`).  The wire planes are drawn as the bench draws them (uniform
+packed bytes, f16-exact scales, 6-bit sub-scales), but with scales and
+mins that centre the weights and give them a trained checkpoint's RMS
+(`random_qtensor`), and the matmul planes are built on the device, which
+takes seconds where the host
+build of the reference takes minutes.  No real checkpoint is involved: the
+bytes and the compute profile are those of a real file of that mixture.
 """
 from __future__ import annotations
 
@@ -23,10 +25,26 @@ LLAMA3_8B = dict(n_vocab=128256, n_embd=4096, n_layer=32, n_head=32,
                  n_head_kv=8, n_ff=14336, rope_theta=500000.0,
                  n_ctx_train=8192)
 
+#: mistralai/Mixtral-8x7B-v0.1 config.json (rope "norm", which
+#: permute_rope_neox turns into neox)
+MIXTRAL_8X7B = dict(n_vocab=32000, n_embd=4096, n_layer=32, n_head=32,
+                    n_head_kv=8, n_ff=14336, n_expert=8, n_expert_used=2,
+                    rope_theta=1e6, rms_eps=1e-5, n_ctx_train=32768)
+
 
 def random_qtensor(gen: torch.Generator, n: int, k: int, qtype: GGMLType,
                    device) -> QTensor:
-    """Random wire planes with realistic scale magnitudes (bench.py:26)."""
+    """Random wire planes (uniform packed bytes, f16-exact scales, 6-bit
+    sub-scales; a signed type's q plane, Q8_0, is int8 in [-127, 127])
+    whose weights are scaled like a trained checkpoint's: zero-mean, of RMS
+    about 1/sqrt(k), so a unit-RMS input gives outputs of unit RMS.
+
+    bench.py:26 draws its scales independently of the values, which makes
+    every Q4_K/Q5_K weight positive (mean about 0.5, RMS about 0.6): at
+    full width the attention logits then spread over ~1e4, the softmax is
+    an argmax, and a rounding-level difference between two routes can
+    switch the key a token attends to.  Here the sub-block mins centre the
+    values (m = sc, dmin = d * qmax / 2) and d sets the RMS."""
     cfg = QCONFIGS[qtype]
     n_pad = (n + 127) // 128 * 128
 
@@ -38,16 +56,22 @@ def random_qtensor(gen: torch.Generator, n: int, k: int, qtype: GGMLType,
         return torch.rand(shape, dtype=torch.float32, device=device,
                           generator=gen)
 
-    q = ints(0, 256, (n_pad, k * cfg.bits_lo // 8), torch.uint8)
+    q = (ints(-127, 128, (n_pad, k), torch.int8) if cfg.signed
+         else ints(0, 256, (n_pad, k * cfg.bits_lo // 8), torch.uint8))
     qh = (ints(0, 256, (n_pad, k * cfg.bits_hi // 8), torch.uint8)
           if cfg.bits_hi else None)
     groups = k // 256 if cfg.superblock else k // cfg.gs
-    d = (unif((n_pad, groups)) * 2e-3 + 1e-4).half().float()
+    n_q = 255 if cfg.signed else 2 ** (cfg.bits_lo + cfg.bits_hi)
+    q_rms = ((n_q * n_q - 1) / 12) ** 0.5          # of the centred values
+    sc_rms = (63 * 127 / 6) ** 0.5 if cfg.superblock else 1.0  # U{0..63}
+    u_rms = (1 / 3 + 0.05 + 0.05 ** 2) ** 0.5      # of U(0.05, 1.05)
+    d0 = 1.0 / (k ** 0.5 * q_rms * sc_rms * u_rms)
+    d = ((unif((n_pad, groups)) + 0.05) * d0).half().float()
     sc = ints(0, 64, (n_pad, k // cfg.gs), torch.int8) if cfg.superblock else None
-    dmin = ((unif((n_pad, k // 256)) * 1e-3).half().float()
-            if cfg.asym == "minsb" else None)
-    m = (ints(0, 64, (n_pad, k // cfg.gs), torch.uint8)
-         if cfg.asym == "minsb" else None)
+    dmin = m = None
+    if cfg.asym == "minsb":
+        dmin = (d * ((n_q - 1) / 2)).half().float()
+        m = sc.to(torch.uint8)
     return QTensor(cfg, n, k, q, d, qh, sc, dmin, m)
 
 
@@ -75,7 +99,7 @@ def build_model(cfg: LlamaConfig, seed: int = 0, device="cuda"):
     d = cfg.n_embd
 
     def t(qt):
-        return qt.with_t_planes().without_wire()
+        return qt.with_fast_planes().without_wire()
 
     layers = []
     for il in range(cfg.n_layer):
@@ -99,7 +123,7 @@ def build_model(cfg: LlamaConfig, seed: int = 0, device="cuda"):
             # wire kept until fuse_weights has concatenated wq and wk: at
             # widths that pad the planes' lanes it rebuilds from the wire
             for key, p in zip(("wq", "wk", "wv"), qkv):
-                lw[key] = p.with_t_planes()
+                lw[key] = p.with_fast_planes()
         layers.append(lw)
         del gate, up, qkv
     weights = {
@@ -118,3 +142,61 @@ def build_model(cfg: LlamaConfig, seed: int = 0, device="cuda"):
 def build_8b(seed: int = 0, device="cuda"):
     """Llama-3-8B, all 32 layers at full width (bench.py:76-79)."""
     return build_model(LlamaConfig(**LLAMA3_8B), seed=seed, device=device)
+
+
+def build_moe_model(cfg: LlamaConfig, seed: int = 0, device="cuda"):
+    """(cfg', weights) of a random MoE model under llama.cpp's Q5_K_M
+    per-tensor policy (at n_expert=8, Mixtral's mixture: Q5_K
+    attn_q/attn_output and expert gate/up stacks, Q8_0 attn_k/attn_v,
+    ffn_down stacks Q6_K in the _use_more_bits layers and Q5_K elsewhere,
+    Q6_K head, Q5_K embedding kept as wire, f32 router), through the
+    production load pipeline.  Each tensor is drawn, given its matmul
+    planes and stripped of its wire before the next is drawn, so the peak
+    above the model is one tensor's transient (a full-width expert stack's
+    int32 values are 1.9 GB)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    E, d, nff = cfg.n_expert, cfg.n_embd, cfg.n_ff_exp or cfg.n_ff
+    policy = QuantPolicy("Q5_K_M", cfg.n_layer,
+                         n_gqa=cfg.n_head // cfg.n_head_kv, n_expert=E)
+
+    def qt(name, n, k, wire=False):
+        w = random_qtensor(gen, n, k, policy.tensor_type(name, (n, k)), device)
+        return w if wire else w.with_fast_planes().without_wire()
+
+    def ones():
+        return torch.ones(d, dtype=torch.float32, device=device)
+
+    nq, nkv = cfg.n_head * cfg.hd, cfg.n_head_kv * cfg.hd
+    layers = []
+    for il in range(cfg.n_layer):
+        p = f"blk.{il}."
+        layers.append({
+            "attn_norm": ones(),
+            "wq": qt(p + "attn_q.weight", nq, d),
+            "wk": qt(p + "attn_k.weight", nkv, d),
+            "wv": qt(p + "attn_v.weight", nkv, d),
+            "wo": qt(p + "attn_output.weight", d, nq),
+            "ffn_norm": ones(),
+            # router logits of about unit spread on a unit-RMS input
+            "ffn_gate_inp": torch.randn(E, d, generator=gen, device=device)
+            * (1.0 / d ** 0.5),
+            "ffn_gate_exps": qt(p + "ffn_gate_exps.weight", E * nff, d),
+            "ffn_up_exps": qt(p + "ffn_up_exps.weight", E * nff, d),
+            "ffn_down_exps": qt(p + "ffn_down_exps.weight", E * d, nff),
+        })
+    weights = {
+        "tok_embd": qt("token_embd.weight", cfg.n_vocab, d, wire=True),
+        "output_norm": ones(),
+        "output": qt("output.weight", cfg.n_vocab, d),
+        "layers": layers,
+    }
+    weights, cfg = permute_rope_neox(weights, cfg)
+    return cfg, drop_wire_planes(fuse_weights(weights, cfg))
+
+
+def build_mixtral(seed: int = 0, device="cuda"):
+    """Mixtral-8x7B Q5_K_M, all 32 layers at full width."""
+    return build_moe_model(LlamaConfig(**MIXTRAL_8X7B), seed=seed,
+                           device=device)

@@ -1,15 +1,21 @@
-"""Wire-plane dequantization in plain PyTorch.
+"""Wire-plane dequantization in plain PyTorch, and the quantized-matmul
+dispatcher.
 
 Counterpart of ggml_hexagon_tpu/ops/qmatmul.py:116-164 (`_unpack_plane`,
-`_dequant_expr`, `dequantize_jax`): the main path uses it for the Q4_K
-embedding-row gather; wire-less tensors reconstruct from their t-planes.
+`_dequant_expr`, `dequantize_jax`) and :320-347 (`qmatmul`): the main path
+dequantizes the embedding-row gather here (wire-less tensors reconstruct
+from their matmul planes) and routes every quantized projection through
+`qmatmul`.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..quant.pack import QTensor
-from .qmm_qp8 import KVALUES_IQ4NL, _unpack_rows, dequantize_qp8
+from .qmm_fast import MAX_FAST_BATCH, dequantize_fast, qmatmul_fast
+from .qmm_qp8 import KVALUES_IQ4NL, _unpack_rows, qp8_matmul
 
 
 def _dequant_expr(qt: QTensor, dtype):
@@ -46,10 +52,29 @@ def _dequant_expr(qt: QTensor, dtype):
 
 
 def dequantize(qt: QTensor, dtype=torch.float32):
-    """Whole-tensor dequantize; wire-less tensors use their t-planes."""
+    """Whole-tensor dequantize; wire-less tensors use their matmul
+    planes."""
     if qt.q is None:
-        return dequantize_qp8(qt, dtype)
+        return dequantize_fast(qt, dtype)
     return _dequant_expr(qt, dtype)
+
+
+def qmatmul(x, qt: QTensor, out_dtype=torch.float32, plain=False):
+    """Quantized matmul x [..., K] -> [..., n] over the matmul planes (the
+    JAX dispatcher's fast-plane cases): t-planes go to qp8_matmul (K1 at
+    <= 8 rows, K3 above), interleaved planes to qmatmul_fast (K6) for up
+    to MAX_FAST_BATCH rows.  Anything else raises: the port has no
+    wire-plane matmul."""
+    if qt.fq is None:
+        raise NotImplementedError("quantized weight without matmul planes")
+    if qt.fl == "t":
+        return qp8_matmul(x, qt, out_dtype=out_dtype, plain=plain)
+    B = math.prod(x.shape[:-1])
+    if B > MAX_FAST_BATCH:
+        raise NotImplementedError(
+            f"{B} rows on interleaved planes: the port's K6 takes "
+            f"<= {MAX_FAST_BATCH}")
+    return qmatmul_fast(x, qt, out_dtype=out_dtype, plain=plain)
 
 
 def take_rows_wire(qt: QTensor, ids) -> QTensor:

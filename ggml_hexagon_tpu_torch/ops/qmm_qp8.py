@@ -1,5 +1,6 @@
 """Transposed-plane (qp8) quantized GEMV/GEMM: t-plane building, plain
-PyTorch versions, and the wrappers over the CUDA kernels K1-K3.
+PyTorch versions, and the wrappers over the CUDA kernels K1-K3 and K5 (the
+MoE gathered-expert GEMV).
 
 Counterpart of ggml_hexagon_tpu/ops/qmm_qp8.py.  Plane layout (one set
 serves decode and prefill):
@@ -21,6 +22,8 @@ Numerics contracts (held by the plain versions and the kernels alike):
   prefill (B > 8, K3): w*scale is rounded to bf16, then a bf16 x bf16
       product accumulated in f32; the bias is f32 group sums of x times
       fb (or off*fs).
+  gathered experts (K5): the decode contract, row p of x against the lanes
+      [ids[p]*npe, (ids[p]+1)*npe) of stacked expert planes only.
 
 The wrappers launch the kernel for CUDA tensors and run the plain version
 for CPU tensors; they never fall back from one to the other.  `plain=True`
@@ -385,6 +388,33 @@ def qp8_gemm(x, qt: QTensor):
     return kernels.qp8_gemm(x, qt)
 
 
+def qp8_indirect_plain(x, qt: QTensor, ids, npe: int):
+    """Plain K5: x f32 [P, K], ids [P] -> y [P, npe] f32, K1's plain body
+    on each row against its expert's lanes only.  The lanes are gathered
+    with device-side index arithmetic: the ids never reach the host."""
+    x8, xs = quant_act_seg(x.to(torch.float32))
+    lanes = torch.arange(npe, device=x.device)
+    rows = []
+    for p in range(x.shape[0]):
+        sel = ids[p].to(torch.long) * npe + lanes
+
+        def g(a):
+            return None if a is None else a.index_select(1, sel)
+
+        sub = QTensor(qt.cfg, npe, qt.k, fq=g(qt.fq), fs=g(qt.fs),
+                      fb=g(qt.fb))
+        rows.append(_gemv_body_plain(x8[p:p + 1], xs[p:p + 1], sub))
+    return torch.cat(rows)
+
+
+def qp8_indirect(x, qt: QTensor, ids, npe: int):
+    """K5: gathered-expert GEMV -> y [P, npe] f32."""
+    _no_code_map(qt)
+    if not x.is_cuda:
+        return qp8_indirect_plain(x, qt, ids, npe)
+    return kernels.qp8_indirect(x, qt, ids, npe)
+
+
 # ---------------------------------------------------------------------------
 # public entries (the JAX package's signatures)
 # ---------------------------------------------------------------------------
@@ -393,7 +423,7 @@ def _lead2(x, qt: QTensor, width: int, decode_only: bool = False):
     """x [..., width] -> (lead shape, rows B, x as [B, width]); raises on
     a weight without t-planes, a width that does not fit it, or more rows
     than the decode kernels take."""
-    if qt.fq is None:
+    if qt.fq is None or qt.fl != "t":
         raise ValueError("quantized weight without t-planes")
     if x.shape[-1] != width:
         raise ValueError(f"x width {x.shape[-1]} vs {width} for K={qt.k}")
@@ -474,3 +504,29 @@ def qp8_matmul_dual(x, qt_a: QTensor, qt_b: QTensor, wn=None, eps=None,
         wn=None if wn is None else wn.to(torch.float32),
         eps=None if eps is None else float(eps))
     return y.reshape(*lead, qt_a.n + qt_b.n).to(out_dtype)
+
+
+def supports_qp8_indirect(qt, npe: int) -> bool:
+    """Stacked [E*npe, k] expert planes can serve the gathered path when
+    a lane block divides the per-expert width and no lane padding exists
+    (expert boundaries must align with plane lanes)."""
+    if not isinstance(qt, QTensor) or qt.fq is None or qt.fl != "t":
+        return False
+    if npe <= 0 or qt.fq.shape[1] != qt.n or qt.n % npe:
+        return False
+    return any(npe % b == 0 for b in (1024, 512, 256, 128))
+
+
+def qp8_matmul_indirect(x, qt: QTensor, ids, npe: int,
+                        out_dtype=torch.float32, plain=False):
+    """y[p] = x[p] @ dequant(W_{ids[p]}).T over stacked expert planes
+    (MUL_MAT_ID): decode cost scales with the experts used, not E.  ids
+    stay on x's device."""
+    P, K = x.shape
+    if K != qt.k or not supports_qp8_indirect(qt, npe):
+        raise ValueError(f"x [{P}, {K}] / {npe} lanes an expert do not fit "
+                         f"the stacked planes of K={qt.k}, n={qt.n}")
+    y = (qp8_indirect_plain if plain else qp8_indirect)(
+        x.to(torch.float32).contiguous(), qt,
+        ids.to(torch.int32).contiguous(), npe)
+    return y.to(out_dtype)

@@ -14,9 +14,17 @@ The port's counterpart of ggml_hexagon_tpu/quant/pack.py:46-238.  A weight
     fq   uint8 [K*(bits_lo+bits_hi)/8, n2]
     fs   bf16  [K/gs, n2]  per-group scales
     fb   bf16  [K/gs, n2]  affine bias, or None
+  interleaved planes (fl == "il", output features on axis 0; the byte
+  family: Q8_0 and the IQ4 LUT types):
+    fq   int8  [n2, K]  values, column j holding original column
+                        (j % G)*gs + j//G
+    fs   bf16  [n2, G]  per-group scales
+    fb   bf16  [n2, G]  affine bias, or None (never for Q8_0)
 
 Element s*(K/per) + j of a b-bit row-planar plane sits in byte j at shift
-b*s (per = 8/b).  The t-planes are built by ops/qmm_qp8.build_t_planes.
+b*s (per = 8/b).  The t-planes are built by ops/qmm_qp8.build_t_planes,
+the interleaved ones by ops/qmm_fast.build_fast_planes; use_qp8_layout
+picks between them as the JAX package does.
 """
 from __future__ import annotations
 
@@ -92,29 +100,37 @@ class QTensor:
     def n_pad(self) -> int:
         if self.q is not None:
             return self.q.shape[0]
-        return self.fq.shape[1]
+        return self.fq.shape[1 if self.fl == "t" else 0]
 
     @property
     def device(self) -> torch.device:
         return (self.q if self.q is not None else self.fq).device
 
-    def with_t_planes(self) -> "QTensor":
-        """Copy carrying transposed qp8 planes built from the wire planes
-        (no-op when they exist or the type has no t-layout)."""
+    def with_fast_planes(self) -> "QTensor":
+        """Copy carrying matmul planes built from the wire planes: the
+        t-layout where use_qp8_layout says so, else the interleaved one
+        (no-op when planes exist or the type has neither)."""
         if self.fq is not None:
             return self
-        from ..ops.qmm_qp8 import build_t_planes
+        if use_qp8_layout(self.cfg, self.k):
+            from ..ops.qmm_qp8 import build_t_planes
 
-        fq, fs, fb = build_t_planes(self)
+            fq, fs, fb = build_t_planes(self)
+            fl = "t"
+        else:
+            from ..ops.qmm_fast import build_fast_planes
+
+            fq, fs, fb = build_fast_planes(self)
+            fl = "il"
         if fq is None:
             return self
         return QTensor(self.cfg, self.n, self.k, self.q, self.d, self.qh,
-                       self.sc, self.dmin, self.m, fq, fs, fb, fl="t")
+                       self.sc, self.dmin, self.m, fq, fs, fb, fl=fl)
 
     def take_rows(self, perm) -> "QTensor":
         """Reorder the n output-feature rows by `perm` (a permutation of
-        range(n)).  Wire planes gather on axis 0, t-planes on axis 1;
-        padding rows beyond n stay in place."""
+        range(n)).  Wire planes and interleaved planes gather on axis 0,
+        t-planes on axis 1; padding rows beyond n stay in place."""
         perm = torch.as_tensor(perm, dtype=torch.long).reshape(-1)
         if perm.numel() != self.n:
             raise ValueError(f"take_rows: {perm.numel()} indices for n={self.n}")
@@ -127,27 +143,49 @@ class QTensor:
                                            device=a.device)])
             return a.index_select(axis, full).contiguous()
 
+        fax = 1 if self.fl == "t" else 0
         return QTensor(self.cfg, self.n, self.k, g(self.q), g(self.d),
                        g(self.qh), g(self.sc), g(self.dmin), g(self.m),
-                       g(self.fq, 1), g(self.fs, 1), g(self.fb, 1),
+                       g(self.fq, fax), g(self.fs, fax), g(self.fb, fax),
                        fl=self.fl)
 
     def without_wire(self) -> "QTensor":
-        """Drop the wire planes (keeps the t-planes)."""
+        """Drop the wire planes (keeps the matmul planes)."""
         if self.fq is None:
             return self
         return QTensor(self.cfg, self.n, self.k, fq=self.fq, fs=self.fs,
                        fb=self.fb, fl=self.fl)
 
 
-#: per-layer dense matmul keys whose wire planes are dead weight once the
-#: t-planes exist (embeddings keep wire: the token gather dequantizes rows)
+def use_qp8_layout(cfg: QConfig, k: int) -> bool:
+    """True when (cfg, K) takes the transposed qp8 planes, False for the
+    interleaved layout (ggml_hexagon_tpu/quant/pack.py:245-272 at its
+    default, GHT_QP8=1): every type with a t-layout takes it, so only
+    Q8_0 and the IQ4 LUT types (and widths without a t-layout) keep the
+    interleaved route."""
+    from ..ops.qmm_qp8 import supports_qp8
+
+    return supports_qp8(cfg, k)
+
+
+#: per-layer matmul keys whose wire planes are dead weight once the matmul
+#: planes exist (embeddings keep wire: the token gather dequantizes rows)
 _DROPPABLE_KEYS = {"wq", "wk", "wv", "wo", "wqkv", "wqk", "ffn_gate",
-                   "ffn_up", "ffn_down", "w_gateup", "w_gateup_il"}
+                   "ffn_up", "ffn_down", "w_gateup", "w_gateup_il",
+                   "ffn_gate_exps", "ffn_up_exps", "ffn_down_exps",
+                   "ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp"}
 
 
 def drop_wire_planes(weights: dict) -> dict:
-    """Strip redundant wire planes from a model's matmul weights."""
+    """Strip redundant wire planes from a model's matmul weights.
+
+    Unlike the JAX package (ggml_hexagon_tpu/quant/pack.py:216-221), the
+    MoE expert stacks (`*_exps`) lose their wire planes too.  The JAX
+    package keeps them because its prefill above 512 rows dequantizes the
+    wire; the port's expert slices run on the t-planes at any batch, and
+    its Engine never feeds more than 512 rows.  Kept, they would add
+    about 33 GB to a Mixtral-8x7B on the card
+    (0.72-0.83 bytes a weight over 45 G expert weights)."""
     out = dict(weights)
     if isinstance(out.get("output"), QTensor):
         out["output"] = out["output"].without_wire()

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card, at the main path's shapes (Llama-3-8B Q4_K_M widths).
+card, at the main paths' shapes (Llama-3-8B Q4_K_M and Mixtral-8x7B Q5_K_M
+widths).
 
 These need an NVIDIA card: they carry the `gpu` marker and skip without
 one.  The repository's conftest imports JAX, which the card's machine does
@@ -16,13 +17,19 @@ Tolerances, per kernel, with their reasons:
   K3 (bf16 GEMM): identical bf16 products, f32 accumulation in another
       order.  NMSE <= 1e-6.
   K4 (attention): f32 throughout, another order and expf: max|d| <= 1e-4.
+  K5 (gathered-expert GEMV): K1's arithmetic on the selected lanes.
+      NMSE <= 1e-6.
+  K6 (interleaved byte planes): identical f32 (B <= 8) or bf16 (B > 8)
+      products, f32 sums in another order.  NMSE <= 1e-6.
 """
 import pytest
 import torch
 
 from ggml_hexagon_tpu_torch import kernels
+from ggml_hexagon_tpu_torch.models.llama import qtensor_rows
 from ggml_hexagon_tpu_torch.models.synth import random_qtensor
 from ggml_hexagon_tpu_torch.ops import decode_attn as PD
+from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
 from ggml_hexagon_tpu_torch.ops import qmm_qp8 as P
 from ggml_hexagon_tpu_torch.quant.formats import GGMLType
 
@@ -48,7 +55,7 @@ def _qt(dev, n, k, qtype):
     if key not in _QT:
         g = torch.Generator(device=dev)
         g.manual_seed(n * 7 + k + int(qtype))
-        _QT[key] = random_qtensor(g, n, k, qtype, dev).with_t_planes().without_wire()
+        _QT[key] = random_qtensor(g, n, k, qtype, dev).with_fast_planes().without_wire()
     return _QT[key]
 
 
@@ -66,8 +73,10 @@ def _x(dev, *shape, seed=0):
 @pytest.mark.parametrize("shape", [(6144, 4096, GGMLType.Q4_K),
                                    (4096, 14336, GGMLType.Q6_K),
                                    (4096, 14336, GGMLType.Q4_K),
-                                   (1000, 4096, GGMLType.Q6_K)],
-                         ids=["wqkv", "down_q6k", "down_q4k", "head_like"])
+                                   (1000, 4096, GGMLType.Q6_K),
+                                   (4096, 4096, GGMLType.Q5_K)],
+                         ids=["wqkv", "down_q6k", "down_q4k", "head_like",
+                              "wq_q5k"])
 @pytest.mark.parametrize("B", [1, 3, 8])
 @pytest.mark.parametrize("mode", ["raw", "normed", "res", "act"])
 def test_qp8_gemv_kernel_matches_plain(dev, shape, B, mode):
@@ -105,8 +114,9 @@ def test_qp8_dual_kernel_matches_plain(dev, B):
 
 @pytest.mark.parametrize("M", [16, 100, 512])
 @pytest.mark.parametrize("shape", [(1024, 4096, GGMLType.Q4_K),
-                                   (512, 14336, GGMLType.Q6_K)],
-                         ids=["q4k", "q6k"])
+                                   (512, 14336, GGMLType.Q6_K),
+                                   (1024, 4096, GGMLType.Q5_K)],
+                         ids=["q4k", "q6k", "q5k"])
 def test_qp8_gemm_kernel_matches_plain(dev, M, shape):
     n, k, qtype = shape
     qt = _qt(dev, n, k, qtype)
@@ -114,6 +124,67 @@ def test_qp8_gemm_kernel_matches_plain(dev, M, shape):
     got = P.qp8_gemm(x, qt)
     want = P.qp8_gemm_plain(x, qt)
     torch.cuda.synchronize()
+    assert _nmse(got, want) <= NMSE_MAX
+
+
+def test_qp8_gemm_and_gemv_kernels_take_expert_lane_slices(dev):
+    """K3 and K1 on one expert's lane slice of stacked planes (a view with
+    the stack's row pitch), against the plain version on a copy."""
+    stack = _qt(dev, 4 * 1024, 4096, GGMLType.Q5_K)
+    e2 = qtensor_rows(stack, 2 * 1024, 1024)
+    assert not e2.fq.is_contiguous()
+    copy = type(e2)(e2.cfg, e2.n, e2.k, fq=e2.fq.contiguous(),
+                    fs=e2.fs.contiguous(), fb=e2.fb.contiguous())
+    x = _x(dev, 100, 4096, seed=5).to(torch.bfloat16)
+    assert _nmse(P.qp8_gemm(x, e2), P.qp8_gemm_plain(x, copy)) <= NMSE_MAX
+    x1 = _x(dev, 2, 4096, seed=6)
+    assert _nmse(P.qp8_gemv(x1, e2), P.qp8_gemv_plain(x1, copy)) <= NMSE_MAX
+
+
+_MOE = {"gate_q5k": (14336, 4096, GGMLType.Q5_K),
+        "down_q5k": (4096, 14336, GGMLType.Q5_K),
+        "down_q6k": (4096, 14336, GGMLType.Q6_K)}
+
+
+@pytest.mark.parametrize("stack", list(_MOE))
+@pytest.mark.parametrize("ids", [[5, 2], [3, 3], list(range(8)) * 2],
+                         ids=["P2", "P2_dup", "P16"])
+def test_qp8_indirect_kernel_matches_plain(dev, stack, ids):
+    npe, k, qtype = _MOE[stack]
+    qt = _qt(dev, 8 * npe, k, qtype)
+    ids = torch.tensor(ids, dtype=torch.int32, device=dev)
+    x = _x(dev, ids.numel(), k, seed=ids.numel())
+    before = kernels.LAUNCHES["qp8_indirect"]
+    got = P.qp8_indirect(x, qt, ids, npe)
+    want = P.qp8_indirect_plain(x, qt, ids, npe)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["qp8_indirect"] == before + 1
+    assert got.shape == (ids.numel(), npe)
+    assert _nmse(got, want) <= NMSE_MAX
+
+
+def test_qp8_indirect_kernel_marks_bad_ids(dev):
+    qt = _qt(dev, 8 * 4096, 14336, GGMLType.Q6_K)
+    ids = torch.tensor([1, 8], dtype=torch.int32, device=dev)
+    got = P.qp8_indirect(_x(dev, 2, 14336), qt, ids, 4096)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got[0]).all() and torch.isnan(got[1]).all()
+
+
+@pytest.mark.parametrize("n", [1024, 300])
+@pytest.mark.parametrize("B", [1, 3, 8, 16, 128, 512])
+def test_fast_byte_kernel_matches_plain(dev, n, B):
+    g = torch.Generator(device=dev)
+    g.manual_seed(n + B)
+    qt = random_qtensor(g, n, 4096, GGMLType.Q8_0, dev).with_fast_planes()
+    assert qt.fl == "il"
+    x = _x(dev, B, 4096, seed=B).to(torch.bfloat16)
+    before = kernels.LAUNCHES["fast_byte"]
+    got = PF.fast_byte(x, qt)
+    want = PF.fast_byte_plain(x, qt)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fast_byte"] == before + 1
+    assert got.shape == (B, qt.fq.shape[0])
     assert _nmse(got, want) <= NMSE_MAX
 
 
@@ -156,3 +227,6 @@ def test_wrappers_refuse_cpu_tensors_for_the_kernels(dev):
         kernels.qp8_gemv(torch.zeros(1, 4096), qt)
     with pytest.raises(ValueError):
         kernels.qp8_gemm(torch.zeros(16, 4096, dtype=torch.bfloat16), qt)
+    with pytest.raises(ValueError):
+        kernels.qp8_indirect(torch.zeros(2, 4096), qt,
+                             torch.zeros(2, dtype=torch.int32), 512)

@@ -1,0 +1,143 @@
+"""The port's interleaved layout and its byte-plane matmul (K6) against the
+JAX package, on the same planes and inputs:
+
+  planes       byte-equal to `build_fast_planes` (Q8_0, and IQ4_NL, whose
+               LUT values are byte planes too);
+  plain K6     `fast_byte_plain` against `qmatmul_fast(interpret=True)`,
+               the Pallas `_byte_kernel` in interpret mode, at B in
+               {1, 8, 16} (f32 route at <= 8 rows, bf16 route above),
+               rtol = atol = 5e-4, the JAX package's own kernel-vs-oracle
+               tolerance;
+  dequantize   `dequantize_fast` against the JAX one, exactly (both take
+               the same f32 expression);
+  take_rows    interleaved planes gather on their rows (axis 0);
+  dispatch     `qmatmul` sends t-planes to qp8_matmul and interleaved
+               planes to K6, and raises where the port has no route.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ggml_hexagon_tpu.ops import qmm_fast as JF
+from ggml_hexagon_tpu.quant.formats import GGMLType
+from ggml_hexagon_tpu.quant.pack import quantize_tensor
+
+from _torch_port import jax_qt_leaf, port_qt
+from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
+from ggml_hexagon_tpu_torch.ops.qmatmul import qmatmul
+from ggml_hexagon_tpu_torch.quant.pack import QCONFIGS, use_qp8_layout
+
+TOL = dict(rtol=5e-4, atol=5e-4)
+_QT = {}
+
+
+def _qt(qtype=GGMLType.Q8_0, n=1024, k=512):
+    """A JAX QTensor with interleaved planes (wire kept) and its port
+    twin, cached."""
+    key = (qtype, n, k)
+    if key not in _QT:
+        rng = np.random.default_rng(int(qtype) * 3 + n + k)
+        w = rng.normal(size=(n, k)).astype(np.float32) * 0.05
+        jq = quantize_tensor(w, qtype).astype_device(fast=True)
+        assert jq.fl == "il"
+        _QT[key] = (jq, port_qt(jq))
+    return _QT[key]
+
+
+def _bits(t):
+    """A plane as numpy, bf16 as its uint16 bits."""
+    if isinstance(t, torch.Tensor):
+        return (t.view(torch.int16).numpy().view(np.uint16)
+                if t.dtype == torch.bfloat16 else t.numpy())
+    t = np.asarray(t)
+    return t.view(np.uint16) if t.dtype.name == "bfloat16" else t
+
+
+@pytest.mark.parametrize("qtype,n,k", [(GGMLType.Q8_0, 300, 512),
+                                       (GGMLType.Q8_0, 1024, 4096),
+                                       (GGMLType.IQ4_NL, 256, 512)],
+                         ids=["q8_0_padded", "q8_0_wk", "iq4_nl"])
+def test_interleaved_planes_byte_equal(qtype, n, k):
+    rng = np.random.default_rng(n + k)
+    qt = quantize_tensor(rng.normal(size=(n, k)).astype(np.float32), qtype)
+    want = JF.build_fast_planes(qt)
+    got = PF.build_fast_planes(port_qt(qt))
+    assert not use_qp8_layout(QCONFIGS[qtype], k)
+    for name, g, w in zip(("fq", "fs", "fb"), got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        g, w = _bits(g), _bits(w)
+        assert g.shape == w.shape and g.dtype == w.dtype, (name, g.shape, w.shape)
+        np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+@pytest.mark.parametrize("B", [1, 8, 16])
+def test_fast_byte_plain_matches_pallas(B):
+    jq, pq = _qt()
+    x = np.random.default_rng(B).normal(size=(B, jq.k)).astype(np.float32)
+    want = JF.qmatmul_fast(jnp.asarray(x), jq, interpret=True)
+    got = PF.qmatmul_fast(torch.from_numpy(x), pq)
+    assert got.shape == (B, jq.n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_fast_byte_wrapper_takes_plain_only_on_cpu():
+    """On CPU tensors the K6 wrapper is the plain version, bit for bit."""
+    _, pq = _qt()
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(2, pq.k)).astype(np.float32)).to(torch.bfloat16)
+    torch.testing.assert_close(PF.fast_byte(x, pq), PF.fast_byte_plain(x, pq),
+                               rtol=0, atol=0)
+
+
+def test_dequantize_fast_matches_jax():
+    jq, pq = _qt(n=300)
+    want = np.asarray(JF.dequantize_fast(jq.without_wire()))
+    got = PF.dequantize_fast(pq.without_wire()).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_take_rows_interleaved_matches_jax():
+    jq, pq = _qt(n=512)
+    perm = np.random.default_rng(4).permutation(jq.n)
+    want = jax_qt_leaf(jq.take_rows(perm))
+    got = pq.take_rows(torch.from_numpy(perm))
+    for f in ("q", "d", "fq", "fs"):
+        np.testing.assert_array_equal(_bits(getattr(got, f)), want[f],
+                                      err_msg=f)
+
+
+def test_qmatmul_dispatch():
+    """t-planes -> qp8_matmul, interleaved -> K6 up to 512 rows; beyond
+    that, and for a weight without matmul planes, it raises."""
+    jq, pq = _qt()
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(3, pq.k)).astype(np.float32))
+    torch.testing.assert_close(qmatmul(x, pq), PF.qmatmul_fast(x, pq),
+                               rtol=0, atol=0)
+    rng = np.random.default_rng(6)
+    jt = quantize_tensor(rng.normal(size=(512, 512)).astype(np.float32),
+                         GGMLType.Q5_K).astype_device(fast=True)
+    pt = port_qt(jt)
+    assert pt.fl == "t"
+    want = JF.qmatmul_fast(jnp.asarray(x.numpy()), jt, interpret=True)
+    np.testing.assert_allclose(qmatmul(x, pt).numpy(), np.asarray(want), **TOL)
+    with pytest.raises(NotImplementedError):
+        qmatmul(torch.zeros(513, pq.k), pq)
+    with pytest.raises(NotImplementedError):
+        qmatmul(x, port_qt(quantize_tensor(
+            rng.normal(size=(128, 512)).astype(np.float32), GGMLType.Q8_0)))
+
+
+def test_nibble_planes_raise():
+    """4-bit interleaved planes need K6's nibble kernel (not ported): a
+    ternary tensor at K=1024 has no t-layout (a 2-group chunk must divide
+    its K/4 shift period) and takes coded nibble planes."""
+    qt = quantize_tensor(np.random.default_rng(7).normal(
+        size=(128, 1024)).astype(np.float32), GGMLType.TQ2_0)
+    assert not use_qp8_layout(QCONFIGS[GGMLType.TQ2_0], 1024)
+    assert PF.supports_fast(QCONFIGS[GGMLType.TQ2_0], 1024)
+    with pytest.raises(NotImplementedError):
+        port_qt(qt).with_fast_planes()

@@ -59,7 +59,7 @@ def test_unsupported_types_have_no_t_planes():
 
 @pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K,
                                    GGMLType.Q8_0, GGMLType.Q5_1,
-                                   GGMLType.IQ4_NL],
+                                   GGMLType.IQ4_NL, GGMLType.Q5_K],
                          ids=lambda t: t.name)
 def test_wire_dequant_matches_jax(qtype):
     qt = _wire(qtype, n=128, k=512, seed=1)
@@ -73,7 +73,7 @@ def test_t_dequant_matches_wire():
     """dequantize of a wire-less tensor reconstructs from the t-planes
     (bf16 scale planes: NMSE budget 5e-5, as the JAX package's test)."""
     qt = _wire(GGMLType.Q4_K, n=256, k=512, seed=2)
-    pt = port_qt(qt).with_t_planes()
+    pt = port_qt(qt).with_fast_planes()
     exact = dequantize(pt).numpy()
     got = dequantize(pt.without_wire()).numpy()[:qt.n]
     nmse = float(np.mean((got - exact) ** 2) / np.mean(exact ** 2))
