@@ -12,12 +12,20 @@
    the launch counters zeroed just before and read just after; profiles a
    prefill and decode steps; compares kernels and plain versions end to
    end;
-3. Mixtral-8x7B Q5_K_M (this slice's path), after the 8B model is freed:
-   the same phases at full width and depth, with K5 (gathered-expert
+3. Mixtral-8x7B Q5_K_M (the second slice's path), after the 8B model is
+   freed: the same phases at full width and depth, with K5 (gathered-expert
    GEMV), K6 (interleaved Q8_0 matmul) and K1/K3 on Q5_K held against
    their plain versions, exact launch counts per decode step and prefill
    chunk, and the end-to-end comparison checking the expert routing of
-   both runs layer by layer.
+   both runs layer by layer;
+4. Llama-3-8B IQ4_XS (the third slice's path), after Mixtral is freed: the
+   same phases, with K6's normed, residual and act modes (and its plain
+   mode at prefill) held against their plain versions and the launch
+   counts held to LAUNCH_TABLES;
+5. Mixtral-8x7B IQ4_XS, after the 8B IQ4_XS is freed: the same phases,
+   with K8 (gathered experts on interleaved stacks) and K6's plain mode on
+   IQ4_XS held against their plain versions; its decode steps run K8 on
+   the IQ4_XS stacks and K5 on the Q5_K down stacks of layers 0-3.
 
 Any failure raises: the script exits non-zero and prints no result.  The
 last line is {"ok": true, "device": {...}}; the line before it lists the
@@ -364,38 +372,69 @@ REQUESTS = [("bf16", 512, 32), ("bf16", 128, 32), ("bf16", 7, 16),
             ("q8_0", 512, 32)]
 
 
-def want_launches(cfg, weights, rows, step):
-    """Exact launches of one forward over `rows` tokens (a decode step when
-    `step`), counted from the dispatch of models/llama.py."""
+#: exact launches of each configuration per unit: "step" a decode step,
+#: "bucket8" the 8-token prefill chunk, "chunk" a 128- or 512-token chunk.
+#: Derived from the JAX dispatch (llama.py:620-799, 1022-1068, 1196-1213;
+#: qmm_fast.py supports_dual, supports_fused_epilogue, supports_indirect)
+#: under each configuration's QuantPolicy.
+LAUNCH_TABLES = {
+    # wqkv (16 layers) or wqk + wv through K2 (16), wo+res, gate_up, act +
+    # down, the head: all t-planes (K1 at <= 8 rows, K3 above)
+    "Llama-3-8B Q4_K_M": {
+        "step": dict(qp8_gemv=113, qp8_dual=16, decode_attn=32),
+        "bucket8": dict(qp8_gemv=145),
+        "chunk": dict(qp8_gemm=145),
+    },
+    # wq, wo and the head on Q5_K/Q6_K t-planes; wk, wv on Q8_0 interleaved
+    # planes (K6); the experts gathered at <= 8 rows (K5: gate, up, down),
+    # else every expert's gate, up and down through K3
+    "Mixtral-8x7B Q5_K_M": {
+        "step": dict(qp8_gemv=65, qp8_indirect=96, fast_byte=64,
+                     decode_attn=32),
+        "bucket8": dict(qp8_gemv=65, qp8_indirect=96, fast_byte=64),
+        "chunk": dict(qp8_gemm=833, fast_byte=64),
+    },
+    # wqk IQ4_XS il + wv Q5_K t (no dual on mixed layouts): 32 K6 normed +
+    # 32 K1 normed; wo IQ4_XS il: 32 K6 res; gate_up IQ4_XS il: 32 K6
+    # normed; down Q5_K t in layers 0-3 (K1 act) and IQ4_XS il in 4-31 (K6
+    # act); the Q6_K head on K1
+    "Llama-3-8B IQ4_XS": {
+        "step": dict(fast_byte_normed=64, fast_byte_res=32, fast_byte_act=28,
+                     qp8_gemv=37, decode_attn=32),
+        "bucket8": dict(fast_byte_normed=64, fast_byte=32, fast_byte_act=28,
+                        qp8_gemv=37),
+        "chunk": dict(fast_byte_normed=64, fast_byte=60, qp8_gemm=37),
+    },
+    # wq IQ4_XS, wk/wv Q8_0, all il and unfused: 96 K6; wo Q5_K and the
+    # head on K1/K3; gate/up IQ4_XS stacks (K8) and down stacks Q5_K in
+    # layers 0-3 (K5) and IQ4_XS in 4-31 (K8) gathered at <= 8 rows, every
+    # expert's gate, up and down through K6 / K3 above
+    "Mixtral-8x7B IQ4_XS": {
+        "step": dict(fast_byte=96, fast_indirect=92, qp8_indirect=4,
+                     qp8_gemv=33, decode_attn=32),
+        "bucket8": dict(fast_byte=96, fast_indirect=92, qp8_indirect=4,
+                        qp8_gemv=33),
+        "chunk": dict(fast_byte=832, qp8_gemm=65),
+    },
+}
+
+
+def want_launches(table, rows, step):
+    """The exact launches of one forward over `rows` tokens (a decode step
+    when `step`), all kernels, from a LAUNCH_TABLES entry."""
     from ggml_hexagon_tpu_torch import kernels
 
-    L = cfg.n_layer
+    unit = "step" if step else ("bucket8" if rows <= 8 else "chunk")
     c = dict.fromkeys(kernels.LAUNCHES, 0)
-    proj = "qp8_gemv" if rows <= 8 else "qp8_gemm"
-    if "ffn_gate_inp" in weights["layers"][0]:
-        # wq, wo and the head on Q5_K/Q6_K t-planes; wk, wv on Q8_0
-        # interleaved planes (K6); the experts gathered at <= 8 rows (K5:
-        # gate, up, down), else every expert's gate, up and down through K3
-        c[proj] = 2 * L + 1 + (0 if rows <= 8 else 3 * cfg.n_expert * L)
-        c["fast_byte"] = 2 * L
-        if rows <= 8:
-            c["qp8_indirect"] = 3 * L
-    else:
-        n_mixed = sum("wqk" in lw for lw in weights["layers"])
-        if step:  # wqkv (or K2 for wqk + wv), wo+res, gate_up, act+down, head
-            c["qp8_gemv"] = 4 * L - n_mixed + 1
-            c["qp8_dual"] = n_mixed
-        else:     # wqkv (or wqk and wv), wo, gate_up, down, head
-            c[proj] = 4 * L + n_mixed + 1
-    if step:
-        c["decode_attn"] = L
+    c.update(table[unit])
     return c
 
 
-def serve(dev, cfg, weights, path_kernels):
+def serve(dev, cfg, weights, table):
     """The main path: greedy requests through Engine, each prefill chunk
-    and decode step held to its exact launch counts; returns the launch
-    counts of the whole run, zeroed just before it."""
+    and decode step held to its exact launch counts (a LAUNCH_TABLES
+    entry); returns the launch counts of the whole run, zeroed just before
+    it, after checking that every kernel of the table ran."""
     from ggml_hexagon_tpu_torch import kernels
     from ggml_hexagon_tpu_torch.runtime.engine import PREFILL_BUCKETS, Engine
 
@@ -413,7 +452,7 @@ def serve(dev, cfg, weights, path_kernels):
         if logits.shape != (1, cfg.n_vocab) or not np.isfinite(logits).all():
             raise AssertionError(f"prefill logits {logits.shape} not finite")
         bucket = next(b for b in PREFILL_BUCKETS if b >= n_prompt)
-        want_pre = want_launches(cfg, weights, bucket, step=False)
+        want_pre = want_launches(table, bucket, step=False)
         if pre != want_pre:
             raise AssertionError(f"prefill launches {pre} != {want_pre}")
         toks = [int(np.argmax(logits[0]))]
@@ -429,7 +468,7 @@ def serve(dev, cfg, weights, path_kernels):
         dec = {k: kernels.LAUNCHES[k] - mid[k] for k in mid}
         steps = n_gen - 1
         want_dec = {k: v * steps for k, v in
-                    want_launches(cfg, weights, 1, step=True).items()}
+                    want_launches(table, 1, step=True).items()}
         if dec != want_dec:
             raise AssertionError(f"decode launches {dec} != {want_dec}")
         per = {k: v // steps for k, v in dec.items() if v}
@@ -440,7 +479,7 @@ def serve(dev, cfg, weights, path_kernels):
             f"step {per}, tokens {toks[:8]}...")
         del eng
     counts = dict(kernels.LAUNCHES)
-    missing = [k for k in path_kernels if counts[k] == 0]
+    missing = [k for unit in table.values() for k in unit if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     return counts
@@ -792,6 +831,187 @@ def check_kernels_moe(dev, weights, cfg):
     return [K5, K6]
 
 
+def check_kernels_il(dev, weights, cfg):
+    """K6's normed, act and residual modes (8B IQ4_XS) or K8 and K6's plain
+    mode on IQ4_XS (Mixtral IQ4_XS) against their plain versions at the
+    configuration's main-path shapes; returns the reports of the modes and
+    of K8 that this configuration's path runs."""
+    from ggml_hexagon_tpu_torch.models.llama import qtensor_rows
+    from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2468)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    layers = weights["layers"]
+    n_l = len(layers)
+    moe = "ffn_gate_inp" in layers[0]
+
+    def held(what, got, want):
+        sync(dev)
+        err, e2 = float((got - want).abs().max()), nmse(got, want)
+        if not (e2 <= NMSE_KERNEL and torch.isfinite(got).all()):
+            raise AssertionError(f"{what}: nmse {e2}")
+        return err, e2
+
+    def deq_t(qt):  # bf16 [K, n2] in natural order
+        return PF.dequantize_fast(qt, torch.bfloat16).t().contiguous()
+
+    def report(key, unit):
+        return KernelReport(key, "cuda", "ggml_hexagon_tpu_torch/csrc/fast_byte.cu",
+                            "ggml_hexagon_tpu/ops/qmm_fast.py:510", unit)
+
+    def mode_row(rep, name, qt, mode, B, count):
+        """One K6 call: kernel vs plain, kernel / plain / yardstick times and
+        the bound; added to rep (when given) count times."""
+        K = qt.k
+        kw = {}
+        x = randn(B, 2 * K if mode == "act" else K).to(torch.bfloat16)
+        if mode == "normed":
+            kw = dict(wn=torch.rand(K, device=dev, generator=gen) + 0.5,
+                      eps=cfg.rms_eps)
+        elif mode in ("res", "act"):
+            kw = dict(res=randn(B, qt.n))
+        if mode == "act":
+            kw["act"] = "silu"
+        elif mode == "pre_il":
+            kw = dict(pre_il=True)
+        got = PF.fast_byte(x, qt, **kw)
+        err, e2 = held(f"K6 {mode} {name} B={B}", got,
+                       PF.fast_byte_plain(x, qt, **kw))
+        ms = time_ms(lambda: PF.fast_byte(x, qt, **kw), iters=10 if B > 8 else 20)
+        pms = time_plain_ms(lambda: PF.fast_byte_plain(x, qt, **kw))
+        deq = deq_t(qt)
+        xl = x[:, :K]
+        lib = time_ms(lambda: torch.matmul(xl, deq), iters=10 if B > 8 else 20)
+        del deq
+        peak = F32_OPS if B <= 8 else BF16_OPS
+        byts = plane_bytes(qt) + nbytes(x, got, kw.get("wn"), kw.get("res"))
+        ops = 2 * B * K * qt.fq.shape[0]
+        bms, by = bound_ms(byts, ops, peak)
+        log(f"  {mode:6s} {name:10s} {qt.cfg.qtype.name} {qt.n}x{K} B={B:3d} "
+            f"max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms plain={pms:.3f}ms "
+            f"bf16-matmul={lib:.4f}ms bound={bms:.4f}ms ({by}) "
+            f"{bms / ms:.0%} of bound")
+        if rep is not None:
+            rep.add(count, err, ms, pms, byts, ops, peak, lib)
+
+    if not moe:
+        lw_il = next(lw for lw in layers if lw["ffn_down"].fl == "il")
+        n_dn = sum(lw["ffn_down"].fl == "il" for lw in layers)
+        KN = report("fast_byte_normed", f"one 8B IQ4_XS decode step (B=1): {2 * n_l} launches")
+        KR = report("fast_byte_res", f"one 8B IQ4_XS decode step (B=1): {n_l} launches")
+        KA = report("fast_byte_act", f"one 8B IQ4_XS decode step (B=1): {n_dn} launches")
+        log(f"K6 modes on the 8B IQ4_XS shapes (kernel vs plain, NMSE <= {NMSE_KERNEL})")
+        for B in (1, 8, 128, 512):
+            for name, qt in (("wqk", lw_il["wqk"]), ("gate_up", lw_il["w_gateup_il"])):
+                mode_row(KN if B == 1 else None, name, qt, "normed", B, n_l)
+        for B in (1, 8):
+            mode_row(KR if B == 1 else None, "wo", lw_il["wo"], "res", B, n_l)
+            mode_row(KA if B == 1 else None, "down", lw_il["ffn_down"], "act", B, n_dn)
+        for B in (128, 512):  # the prefill's plain launches
+            mode_row(None, "wo", lw_il["wo"], "plain", B, n_l)
+            mode_row(None, "down", lw_il["ffn_down"], "pre_il", B, n_dn)
+        return [KN, KR, KA]
+
+    E, nff, d = cfg.n_expert, cfg.n_ff_exp or cfg.n_ff, cfg.n_embd
+    lw_il = next(lw for lw in layers if lw["ffn_down_exps"].fl == "il")
+    n_dn = sum(lw["ffn_down_exps"].fl == "il" for lw in layers)
+    K8 = KernelReport("fast_indirect", "cuda",
+                      "ggml_hexagon_tpu_torch/csrc/fast_byte.cu",
+                      "ggml_hexagon_tpu/ops/qmm_fast.py:1259",
+                      f"one Mixtral IQ4_XS decode step (B=1, P=2): "
+                      f"{2 * n_l + n_dn} launches")
+    rng = np.random.default_rng(9)
+    id_sets = [("P2", [5, 2]), ("P2_dup", [3, 3]),
+               ("P16", [int(e) for _ in range(8)
+                        for e in rng.permutation(E)[:2]])]
+    log(f"K8 fast_indirect (kernel vs plain, NMSE <= {NMSE_KERNEL})")
+    for name, qt, npe, per_step in (
+            ("gate_up", lw_il["ffn_gate_exps"], nff, 2 * n_l),
+            ("down", lw_il["ffn_down_exps"], d, n_dn)):
+        for label, id_list in id_sets:
+            ids = torch.tensor(id_list, dtype=torch.int32, device=dev)
+            x = randn(len(id_list), qt.k).to(torch.bfloat16)
+            got = PF.fast_indirect(x, qt, ids, npe)
+            err, e2 = held(f"K8 {name} {label}", got,
+                           PF.fast_indirect_plain(x, qt, ids, npe))
+            ms = time_ms(lambda: PF.fast_indirect(x, qt, ids, npe))
+            pms = time_plain_ms(lambda: PF.fast_indirect_plain(x, qt, ids, npe))
+            uniq = sorted(set(id_list))
+            w_e = {e: deq_t(qtensor_rows(qt, e * npe, npe)) for e in uniq}
+            wsel = torch.stack([w_e[e] for e in id_list])   # [P, K, npe]
+            xb = x[:, None, :]
+            lib = time_ms(lambda: torch.bmm(xb, wsel))
+            del w_e, wsel
+            byts = (len(uniq) * plane_bytes(qtensor_rows(qt, 0, npe))
+                    + nbytes(x, ids, got))
+            ops = 2 * len(id_list) * qt.k * npe
+            bms, by = bound_ms(byts, ops, F32_OPS)
+            log(f"  {name:8s} {qt.cfg.qtype.name} {E}x{npe}x{qt.k} {label:6s} "
+                f"max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms "
+                f"plain={pms:.3f}ms bf16-bmm={lib:.4f}ms bound={bms:.4f}ms "
+                f"({by}) {bms / ms:.0%} of bound")
+            if label == "P2":
+                K8.add(per_step, err, ms, pms, byts, ops, F32_OPS, lib)
+    log(f"K6 plain mode on the Mixtral IQ4_XS shapes (NMSE <= {NMSE_KERNEL})")
+    for B in (1, 8, 128, 512):
+        mode_row(None, "wq", layers[0]["wq"], "plain", B, n_l)
+    for B in (128, 512):  # the dense prefill's expert slices
+        mode_row(None, "gate_e", qtensor_rows(lw_il["ffn_gate_exps"], 0, nff),
+                 "plain", B, 2 * E * n_l)
+        mode_row(None, "down_e", qtensor_rows(lw_il["ffn_down_exps"], 0, d),
+                 "plain", B, E * n_dn)
+    return [K8]
+
+
+def build_phase(name, builder, dev):
+    """Build a configuration on the card and print its layout."""
+    t0 = time.perf_counter()
+    cfg, weights = builder(seed=0, device=dev)
+    torch.cuda.synchronize()
+    types = {}
+    for lw in weights["layers"]:
+        for key, v in lw.items():
+            if hasattr(v, "fq"):
+                types.setdefault(key, set()).add(f"{v.cfg.qtype.name}/{v.fl}")
+    log(f"{name} (random planes, seed 0): built on the card in "
+        f"{time.perf_counter() - t0:.1f} s; matmul planes "
+        f"{plane_gb(weights):.3f} GB; {cfg.n_layer} layers"
+        + (f", {cfg.n_expert} experts, top-{cfg.n_expert_used}"
+           if cfg.n_expert else "")
+        + f"; per-tensor types { {k: sorted(v) for k, v in types.items()} }, "
+        f"head {weights['output'].cfg.qtype.name}/{weights['output'].fl}, "
+        f"embedding {weights['tok_embd'].cfg.qtype.name} (wire); resident "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return cfg, weights
+
+
+def run_phase(name, builder, check, dev):
+    """One configuration: build, kernel checks (`check`), serving held to
+    its launch table, profile, end-to-end comparison; the model is freed
+    after.  Returns (kernel reports, the main path's launch counts)."""
+    t_ph = phase(name, dev)
+    cfg, weights = build_phase(name, builder, dev)
+    reports = check(dev, weights, cfg)
+    log("serving (launch counters zeroed before, read after)")
+    counts = serve(dev, cfg, weights, LAUNCH_TABLES[name])
+    log(f"main-path launches ({name}): {counts}")
+    log("where the time goes (profiler; after the counts were read)")
+    profile_path(dev, cfg, weights)
+    log(f"kernel vs plain versions, end to end (logits NMSE <= {NMSE_LOGITS}"
+        + (f"; routing flips must have margin < {FLIP_MARGIN})" if cfg.n_expert
+           else ")"))
+    compare_plain(dev, cfg, weights)
+    phase_end(name, dev, t_ph)
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    return reports, counts
+
+
 def plane_gb(weights):
     qts = [v for lw in weights["layers"] for v in lw.values() if hasattr(v, "fq")]
     return sum(plane_bytes(v) for v in qts + [weights["output"]]) / 1e9
@@ -803,7 +1023,9 @@ def main():
         sys.exit(2)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ggml_hexagon_tpu_torch import kernels
-    from ggml_hexagon_tpu_torch.models.synth import build_8b, build_mixtral
+    from ggml_hexagon_tpu_torch.models.synth import (build_8b, build_8b_iq4xs,
+                                                     build_mixtral,
+                                                     build_mixtral_iq4xs)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -819,60 +1041,18 @@ def main():
     log(f"kernel build: {compiling:.1f} s compiling, "
         f"{time.perf_counter() - t0:.1f} s to loaded")
 
-    t_ph = phase("Llama-3-8B Q4_K_M (first slice)", dev)
-    t0 = time.perf_counter()
-    cfg, weights = build_8b(seed=0, device=dev)
-    torch.cuda.synchronize()
-    log(f"Llama-3-8B Q4_K_M (random planes, seed 0): built on the card in "
-        f"{time.perf_counter() - t0:.1f} s; matmul planes "
-        f"{plane_gb(weights):.3f} GB; layers with wqkv "
-        f"{sum('wqkv' in lw for lw in weights['layers'])}, wqk+wv "
-        f"{sum('wqk' in lw for lw in weights['layers'])}")
-    reports = check_kernels(dev, weights, cfg)
-    log("serving (launch counters zeroed before, read after)")
-    counts = serve(dev, cfg, weights,
-                   ["qp8_gemv", "qp8_dual", "qp8_gemm", "decode_attn"])
-    log(f"main-path launches (8B): {counts}")
-    log("where the time goes (profiler; after the counts were read)")
-    profile_path(dev, cfg, weights)
-    log(f"kernel vs plain versions, end to end (logits NMSE <= {NMSE_LOGITS})")
-    compare_plain(dev, cfg, weights)
-    phase_end("Llama-3-8B phases", dev, t_ph)
-    del weights
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    t_ph = phase("Mixtral-8x7B Q5_K_M (this slice)", dev)
-    t0 = time.perf_counter()
-    cfg, weights = build_mixtral(seed=0, device=dev)
-    torch.cuda.synchronize()
-    types = {}
-    for lw in weights["layers"]:
-        for key, v in lw.items():
-            if hasattr(v, "fq"):
-                types.setdefault(key, set()).add(f"{v.cfg.qtype.name}/{v.fl}")
-    log(f"Mixtral-8x7B Q5_K_M (random planes, seed 0): built on the card in "
-        f"{time.perf_counter() - t0:.1f} s; matmul planes "
-        f"{plane_gb(weights):.3f} GB; {cfg.n_layer} layers, "
-        f"{cfg.n_expert} experts, top-{cfg.n_expert_used}; per-tensor types "
-        f"{ {k: sorted(v) for k, v in types.items()} }, head "
-        f"{weights['output'].cfg.qtype.name}, embedding "
-        f"{weights['tok_embd'].cfg.qtype.name} (wire); resident "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    reports += check_kernels_moe(dev, weights, cfg)
-    log("serving (launch counters zeroed before, read after)")
-    counts_moe = serve(dev, cfg, weights, ["qp8_gemv", "qp8_gemm", "decode_attn",
-                                           "qp8_indirect", "fast_byte"])
-    log(f"main-path launches (Mixtral): {counts_moe}")
-    log("where the time goes (profiler; after the counts were read)")
-    profile_path(dev, cfg, weights)
-    log(f"kernel vs plain versions, end to end (logits NMSE <= {NMSE_LOGITS} "
-        f"while the routing agrees; flips must have margin < {FLIP_MARGIN})")
-    compare_plain(dev, cfg, weights)
-    phase_end("Mixtral phases", dev, t_ph)
+    reports, runs = [], []
+    for name, builder, check in (
+            ("Llama-3-8B Q4_K_M", build_8b, check_kernels),
+            ("Mixtral-8x7B Q5_K_M", build_mixtral, check_kernels_moe),
+            ("Llama-3-8B IQ4_XS", build_8b_iq4xs, check_kernels_il),
+            ("Mixtral-8x7B IQ4_XS", build_mixtral_iq4xs, check_kernels_il)):
+        reps, counts = run_phase(name, builder, check, dev)
+        reports += reps
+        runs.append(counts)
 
     for r in reports:
-        r.d["launches"] = counts[r.d["name"]] + counts_moe[r.d["name"]]
+        r.d["launches"] = sum(c[r.d["name"]] for c in runs)
     log(f"whole run {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": [r.d for r in reports]}))
     log(json.dumps({"ok": True, "device": {

@@ -33,16 +33,19 @@ SOURCES = {
     "qp8_gemv": "qp8_gemv.cu",      # K1, K2 and K5
     "qp8_gemm": "qp8_gemm.cu",      # K3
     "decode_attn": "decode_attn.cu",  # K4
-    "fast_byte": "fast_byte.cu",    # K6 (byte planes)
+    "fast_byte": "fast_byte.cu",    # K6 (byte planes, four modes) and K8
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: launches per kernel (K1 qp8_gemv, K2 qp8_dual, K3 qp8_gemm, K4
-#: decode_attn, K5 qp8_indirect, K6 fast_byte)
+#: decode_attn, K5 qp8_indirect; K6 by mode: fast_byte (plain, natural or
+#: pre-interleaved input), fast_byte_normed, fast_byte_res, fast_byte_act
+#: (with or without a residual); K8 fast_indirect)
 LAUNCHES = {"qp8_gemv": 0, "qp8_dual": 0, "qp8_gemm": 0, "decode_attn": 0,
-            "qp8_indirect": 0, "fast_byte": 0}
+            "qp8_indirect": 0, "fast_byte": 0, "fast_byte_normed": 0,
+            "fast_byte_res": 0, "fast_byte_act": 0, "fast_indirect": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -60,7 +63,9 @@ _ARGTYPES = {
                          _P, _P, _P, _I, _P, _P],
     "qp8_gemm_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P,
                      _P, _P],
-    "fast_byte_run": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
+    "fast_byte_run": [_I, _P, _I, _I, _P, _P, _I, _I, _P, _F, _P, _I, _P, _P,
+                      _P],
+    "fast_indirect_run": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P],
     "decode_attn_run": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                         _I, _F, _I, _P, _P, _P, _P],
 }
@@ -296,27 +301,87 @@ def qp8_indirect(x, qt, ids, npe: int):
     return out
 
 
-def fast_byte(x, qt):
-    """K6 on the card: x bf16 [B, K] in natural column order, interleaved
-    byte planes (fq int8 [n2, K], fs bf16 [n2, G], no bias) -> [B, n2]."""
-    _need(x, torch.bfloat16, "x", 2)
+def _byte_plane_args(qt):
+    """(n2, G) of bias-free interleaved byte planes, checked."""
     _need(qt.fq, torch.int8, "fq", 2)
     _need(qt.fs, torch.bfloat16, "fs", 2)
-    B, K = x.shape
     n2, G = qt.fs.shape
+    K = qt.k
     if qt.fl != "il" or qt.fb is not None:
-        raise ValueError("K6 takes interleaved byte planes without a bias")
-    if K != qt.k or qt.fq.shape != (n2, K) or K % G or n2 % 128 or K % 32:
-        raise ValueError(f"x {tuple(x.shape)} vs planes {tuple(qt.fq.shape)}"
-                         f" / {tuple(qt.fs.shape)}")
+        raise ValueError("K6 and K8 take interleaved byte planes without a bias")
+    if qt.fq.shape != (n2, K) or K % G or K % 32:
+        raise ValueError(f"planes {tuple(qt.fq.shape)} / {tuple(qt.fs.shape)} "
+                         f"do not fit K={K}")
+    return n2, G
+
+
+def fast_byte(x, qt, wn=None, eps=None, act: str = "", res=None,
+              pre_il: bool = False):
+    """K6 on the card, interleaved byte planes (fq int8 [n2, K], fs bf16
+    [n2, G], no bias) -> [B, n2] f32.  x bf16 [B, K] in natural column
+    order; normed with wn (f32 [K], interleaved) and eps; interleaved
+    already with pre_il; [B, 2K] gate ++ up (interleaved) with act="silu".
+    res (f32 [B, n <= n2]) is added last."""
+    if act not in ("", "silu"):
+        raise NotImplementedError(f"act {act!r}: K6 takes silu only")
+    if bool(act) + (eps is not None) + pre_il > 1:
+        raise ValueError("K6 takes one mode: pre_il, normed or act")
+    _need(x, torch.bfloat16, "x", 2)
+    _need(wn, torch.float32, "wn", 1)
+    _need(res, torch.float32, "res", 2)
+    n2, G = _byte_plane_args(qt)
+    K = qt.k
+    B = x.shape[0]
+    if x.shape[1] != (2 * K if act else K) or n2 % 128:
+        raise ValueError(f"x {tuple(x.shape)} vs planes {tuple(qt.fq.shape)}")
+    if (eps is None) != (wn is None) or (wn is not None and wn.shape[0] != K):
+        raise ValueError("the normed mode takes wn [K] and eps together")
+    if res is not None and (res.shape[0] != B or res.shape[1] > n2):
+        raise ValueError(f"res {tuple(res.shape)} vs output [{B}, {n2}]")
+    if act:
+        mode, key = 2, "fast_byte_act"
+    elif eps is not None:
+        mode, key = 1, "fast_byte_normed"
+    else:
+        mode, key = (3 if pre_il else 0), ("fast_byte_res" if res is not None
+                                           else "fast_byte")
     dev = x.device
-    xil = torch.empty((B, K), dtype=torch.bfloat16, device=dev)
+    xil = (None if pre_il
+           else torch.empty((B, K), dtype=torch.bfloat16, device=dev))
     out = torch.empty((B, n2), dtype=torch.float32, device=dev)
     lib = _lib("fast_byte")
-    rc = lib.fast_byte_run(_ptr(x), B, K, _ptr(qt.fq), _ptr(qt.fs), n2, G,
+    rc = lib.fast_byte_run(mode, _ptr(x), B, K, _ptr(qt.fq), _ptr(qt.fs), n2,
+                           G, _ptr(wn), 0.0 if eps is None else float(eps),
+                           _ptr(res), 0 if res is None else res.shape[1],
                            _ptr(xil), _ptr(out), _stream(dev))
-    _check(lib, rc, "fast_byte")
-    LAUNCHES["fast_byte"] += 1
+    _check(lib, rc, key)
+    LAUNCHES[key] += 1
+    return out
+
+
+def fast_indirect(x, qt, ids, npe: int):
+    """K8 on the card: x bf16 [P, K] in natural column order, ids int32 [P]
+    (read on the card) -> y [P, npe] f32, row p against rows
+    [ids[p]*npe, (ids[p]+1)*npe) of the stacked interleaved byte planes; an
+    id outside [0, E) gives a NaN row."""
+    _need(x, torch.bfloat16, "x", 2)
+    _need(ids, torch.int32, "ids", 1)
+    n2, G = _byte_plane_args(qt)
+    P, K = x.shape
+    if K != qt.k or ids.shape[0] != P:
+        raise ValueError(f"x {tuple(x.shape)} / ids {tuple(ids.shape)} vs "
+                         f"weight K={qt.k}")
+    if npe < 1 or n2 % npe:
+        raise ValueError(f"{npe} rows an expert do not tile {n2} rows")
+    dev = x.device
+    xil = torch.empty((P, K), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((P, npe), dtype=torch.float32, device=dev)
+    lib = _lib("fast_byte")
+    rc = lib.fast_indirect_run(_ptr(x), P, K, _ptr(ids), npe, n2 // npe,
+                               _ptr(qt.fq), _ptr(qt.fs), G, _ptr(xil),
+                               _ptr(out), _stream(dev))
+    _check(lib, rc, "fast_indirect")
+    LAUNCHES["fast_indirect"] += 1
     return out
 
 

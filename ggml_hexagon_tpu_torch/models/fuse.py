@@ -8,9 +8,12 @@ Counterpart of ggml_hexagon_tpu/models/fuse.py:25-209, 212-250, 310-342:
   types differ (Mixtral's Q5_K wq, Q8_0 wk) stay unfused, and MoE layers
   have no gate/up to fuse;
 - attach_norm_planes records the RMS-norm weights the fused norm+matmul
-  kernels take (raw: the t-layout has no column interleave);
-- interleave_gateup_rows renames w_gateup to w_gateup_il, which routes
-  decode through the fused act+down kernel (natural column order);
+  kernels take, interleaved like the matmul's columns (raw for t-planes,
+  which have no column interleave);
+- interleave_gateup_rows turns w_gateup into w_gateup_il, which routes
+  decode through the fused act+down kernel: its rows permuted per half
+  into ffn_down's interleaved column order, or renamed only when ffn_down
+  has t-planes (natural column order);
 - permute_rope_neox converts an adjacent-pair ("norm") rope model to
   split-half pairing by permuting the Q/K output rows once.
 
@@ -23,6 +26,7 @@ from dataclasses import replace
 
 import torch
 
+from ..ops.qmm_fast import interleave_perm, supports_fused_epilogue
 from ..quant.pack import QTensor
 
 
@@ -65,15 +69,24 @@ def _concat_qtensors(parts: list) -> QTensor | None:
     return None
 
 
-def _norm_w(wn, plus_one: bool):
-    """The effective f32 norm weight for a fused norm+matmul launch."""
+def _norm_il(wn, qt: QTensor, plus_one: bool):
+    """The f32 norm weight of a fused norm+matmul launch, in qt's column
+    order: new column j <- original (j % G)*gs + j//G on the interleaved
+    layout, raw on the t-layout (gemma-class +1 applied)."""
     w = wn.to(torch.float32)
-    return 1.0 + w if plus_one else w
+    if plus_one:
+        w = 1.0 + w
+    if qt.fl == "t":
+        return w
+    G = qt.k // qt.cfg.gs
+    return w.reshape(G, qt.cfg.gs).transpose(0, 1).reshape(qt.k).contiguous()
 
 
 def attach_norm_planes(weights: dict, cfg) -> dict:
     """Attach attn_norm_il / attn_norm_il_v / ffn_norm_il per layer where
-    the forward folds the pre-matmul RMSNorm into the qmm kernel."""
+    the forward folds the pre-matmul RMSNorm into the qmm kernel; each is
+    in the column order of the tensor it feeds (wv has its own, since the
+    interleave depends on the tensor's layout and group size)."""
     if (cfg.norm_type != "rms" or cfg.swin_norm or not cfg.pre_norms
             or cfg.parallel_residual):
         return weights
@@ -86,19 +99,19 @@ def attach_norm_planes(weights: dict, cfg) -> dict:
         if (isinstance(wq, QTensor) and wq.fq is not None
                 and lw.get("attn_norm") is not None
                 and "attn_norm_b" not in lw and "bqkv" not in lw):
-            new["attn_norm_il"] = _norm_w(lw["attn_norm"], plus_one)
+            new["attn_norm_il"] = _norm_il(lw["attn_norm"], wq, plus_one)
         wqk, wv = lw.get("wqk"), lw.get("wv")
         if (isinstance(wqk, QTensor) and wqk.fq is not None
                 and isinstance(wv, QTensor) and wv.fq is not None
                 and lw.get("attn_norm") is not None
                 and "attn_norm_b" not in lw):
-            new["attn_norm_il"] = _norm_w(lw["attn_norm"], plus_one)
-            new["attn_norm_il_v"] = _norm_w(lw["attn_norm"], plus_one)
+            new["attn_norm_il"] = _norm_il(lw["attn_norm"], wqk, plus_one)
+            new["attn_norm_il_v"] = _norm_il(lw["attn_norm"], wv, plus_one)
         gu = lw.get("w_gateup")
         if (isinstance(gu, QTensor) and gu.fq is not None
                 and lw.get("ffn_norm") is not None
                 and "ffn_norm_b" not in lw and "ffn_gate_inp" not in lw):
-            new["ffn_norm_il"] = _norm_w(lw["ffn_norm"], plus_one)
+            new["ffn_norm_il"] = _norm_il(lw["ffn_norm"], gu, plus_one)
         out["layers"].append(new)
     return out
 
@@ -150,9 +163,13 @@ def permute_rope_neox(weights: dict, cfg):
 
 
 def interleave_gateup_rows(weights: dict, cfg) -> dict:
-    """Rename w_gateup to w_gateup_il where ffn_down takes the fused
-    act+down epilogue; the t-layout consumes the gate_up output in natural
-    column order, so no rows move."""
+    """Replace w_gateup with w_gateup_il where ffn_down takes the fused
+    act+down epilogue (supports_fused_epilogue): on the interleaved layout
+    the gate_up output rows are permuted, per half, into ffn_down's
+    interleaved column order, so the raw gate_up output feeds the fused
+    kernel with no relayout (act-mul commutes with the permutation applied
+    to both halves); the t-layout consumes it in natural order, so only
+    the name changes."""
     if cfg.act not in ("silu", "gelu", "relu"):
         return weights
     out = dict(weights)
@@ -161,9 +178,14 @@ def interleave_gateup_rows(weights: dict, cfg) -> dict:
         new = dict(lw)
         gu, dn = lw.get("w_gateup"), lw.get("ffn_down")
         if (isinstance(gu, QTensor) and gu.fq is not None
-                and isinstance(dn, QTensor) and dn.fq is not None
-                and dn.fl == "t" and gu.n == 2 * dn.k):
-            new["w_gateup_il"] = gu
+                and isinstance(dn, QTensor) and supports_fused_epilogue(dn)
+                and gu.n == 2 * dn.k):
+            if dn.fl == "t":
+                new["w_gateup_il"] = gu
+            else:
+                perm = interleave_perm(dn.k, dn.cfg.gs)
+                new["w_gateup_il"] = gu.take_rows(torch.cat([perm,
+                                                             dn.k + perm]))
             del new["w_gateup"]
         out["layers"].append(new)
     return out

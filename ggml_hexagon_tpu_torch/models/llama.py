@@ -1,18 +1,21 @@
 """LLaMA model: config, KV cache, and the forward step in PyTorch.
 
 Counterpart of the llama branches of ggml_hexagon_tpu/models/llama.py
-(:33-169, 342-349, 352-541, 565-741, 850-881, 899-1326).  The forward takes
+(:33-169, 342-349, 352-541, 565-799, 850-881, 899-1326).  The forward takes
 the JAX package's decode fast paths on every device: the dual QKV
-projection (K2) for mixed-type layers, the fused decode attention (K4)
-with one bulk KV write after the layer loop, wo with the residual added in
-the kernel (K1), and the fused act+down with residual (K1).  Layers whose
-Q/K/V types differ from each other in layout (Mixtral: Q5_K wq, Q8_0
-wk/wv) run the unfused branch: the RMSNorm in torch, then each projection
-through `matmul` (K1/K3 on t-planes, K6 on interleaved planes).  MoE layers
-(Mixtral) route each token to its top-k experts: gathered-expert GEMVs (K5)
-at <= 8 rows, every expert through K3 above.  Whether a projection runs its
-CUDA kernel or its plain version is decided by the wrappers (CUDA or CPU
-tensor), or by `plain=True`, which runs the plain versions everywhere.
+projection (K2) where wqk and wv both have t-planes, else one fused
+norm+matmul each (K1 on t-planes, K6's normed mode on interleaved ones);
+the fused decode attention (K4) with one bulk KV write after the layer
+loop; wo with the residual added in the kernel (K1, or K6's residual
+mode); and the fused act+down with residual (K1, or K6's act mode).
+Layers whose Q and K types differ (Mixtral: Q5_K or IQ4_XS wq, Q8_0 wk/wv)
+run the unfused branch: the RMSNorm in torch, then each projection through
+`matmul` (K1/K3 on t-planes, K6 on interleaved planes).  MoE layers route
+each token to its top-k experts: gathered-expert GEMVs at <= 8 rows (K5 on
+t-stacks, K8 on interleaved ones), every expert through `matmul` above.
+Whether a projection runs its CUDA kernel or its plain version is decided
+by the wrappers (CUDA or CPU tensor), or by `plain=True`, which runs the
+plain versions everywhere.
 
 The residual stream is kept in compute_dtype (bf16) at the same places as
 the reference, so the int8 activation rounding sees the same inputs.
@@ -29,11 +32,12 @@ from ..ops.attention import flash_attention_cache
 from ..ops.basic import (RopeParams, apply_rope, rms_norm, rope_freqs, silu,
                          softmax_ext)
 from ..ops.decode_attn import fused_decode_attention
-from ..ops.qmatmul import dequantize, qmatmul, take_rows_wire
-from ..ops.qmm_qp8 import (QP8_MAX_DECODE, qp8_matmul, qp8_matmul_act,
-                           qp8_matmul_dual, qp8_matmul_indirect,
-                           qp8_matmul_normed, qp8_matmul_res,
-                           supports_qp8_dual, supports_qp8_indirect)
+from ..ops.qmatmul import dequantize, qmatmul, qmatmul_normed, take_rows_wire
+from ..ops.qmm_fast import (qmatmul_fast, qmatmul_fast_act,
+                            qmatmul_fast_indirect, qmatmul_fast_res,
+                            supports_dual, supports_fused_epilogue,
+                            supports_indirect)
+from ..ops.qmm_qp8 import QP8_MAX_DECODE, qp8_matmul_dual
 from ..quant.pack import QTensor
 
 #: set to a list to record the MoE routing of each _moe_ffn call, in layer
@@ -283,7 +287,8 @@ def qtensor_rows(qt, start: int, n: int):
 
 def _moe_indirect(cfg, lw, f, topv, topi, cd, plain=False):
     """Gathered top-k expert FFN (MUL_MAT_ID): only the selected experts'
-    lanes are read (K5), so decode cost scales with n_expert_used."""
+    planes are read (K5 on t-stacks, K8 on interleaved ones, stack by
+    stack), so decode cost scales with n_expert_used."""
     B, T, d = f.shape
     Kc = cfg.n_expert_used
     n_ff_e = cfg.n_ff_exp or cfg.n_ff
@@ -291,18 +296,19 @@ def _moe_indirect(cfg, lw, f, topv, topi, cd, plain=False):
     ids = topi.reshape(P)
     xp = torch.repeat_interleave(f.reshape(B * T, d).to(torch.float32), Kc,
                                  dim=0)
-    g = qp8_matmul_indirect(xp, lw["ffn_gate_exps"], ids, n_ff_e, plain=plain)
-    u = qp8_matmul_indirect(xp, lw["ffn_up_exps"], ids, n_ff_e, plain=plain)
+    g = qmatmul_fast_indirect(xp, lw["ffn_gate_exps"], ids, n_ff_e,
+                              plain=plain)
+    u = qmatmul_fast_indirect(xp, lw["ffn_up_exps"], ids, n_ff_e, plain=plain)
     gu = silu(g.to(cd)) * u.to(cd)
-    dly = qp8_matmul_indirect(gu.to(torch.float32), lw["ffn_down_exps"], ids,
-                              d, plain=plain)
+    dly = qmatmul_fast_indirect(gu.to(torch.float32), lw["ffn_down_exps"],
+                                ids, d, plain=plain)
     return torch.sum(dly.reshape(B, T, Kc, d)
                      * topv[..., None].to(torch.float32), dim=2)
 
 
 def _moe_ffn(cfg, lw, f, cd, plain=False):
     """Mixture-of-experts FFN on the normed input f [B, T, d]: router
-    softmax -> top-k -> renorm; the gathered path (K5) at <= 8 rows, else
+    softmax -> top-k -> renorm; the gathered path (K5/K8) at <= 8 rows, else
     the dense all-experts evaluation (every expert computed, unselected
     ones weighted 0), as the JAX package does."""
     if cfg.moe_gating != "softmax":
@@ -350,31 +356,29 @@ def _shared_expert_out(cfg, lw, f, cd, plain=False):
 
 
 def _supports_moe_indirect(cfg, lw) -> bool:
-    """The gathered path applies: t-layout stacks whose expert boundaries
-    fall on plane lanes.  Interleaved stacks take K8 in the JAX package,
-    which the port does not have yet."""
+    """The gathered path applies to every expert stack of the layer (each
+    stack on its own layout: K5 for t-planes, K8 for interleaved ones)."""
     n_ff_e = cfg.n_ff_exp or cfg.n_ff
-    stacks = [(lw.get("ffn_gate_exps"), n_ff_e), (lw.get("ffn_up_exps"), n_ff_e),
-              (lw.get("ffn_down_exps"), cfg.n_embd)]
-    if any(isinstance(qt, QTensor) and qt.fl == "il" for qt, _ in stacks):
-        raise NotImplementedError(
-            "MoE experts in the interleaved layout need K8, not ported yet "
-            "(ROADMAP.md queue 2)")
-    return all(supports_qp8_indirect(qt, npe) for qt, npe in stacks)
+    return (supports_indirect(lw.get("ffn_gate_exps"), n_ff_e)
+            and supports_indirect(lw.get("ffn_up_exps"), n_ff_e)
+            and supports_indirect(lw.get("ffn_down_exps"), cfg.n_embd))
 
 
 def _ffn(cfg, lw, h, cd, plain=False):
     """Gated FFN on the residual h, RMSNorm folded into the gate_up matmul
     (the reference's `w_gateup_il` branch).  Returns the new residual: on
-    the decode path the act+down kernel adds h itself."""
-    gu2 = qp8_matmul_normed(h, lw["w_gateup_il"], lw["ffn_norm_il"],
-                            cfg.rms_eps, plain=plain)
+    the decode path the act+down kernel adds h itself.  The gate_up output
+    is in ffn_down's column order (natural for t-planes, interleaved for
+    the interleaved layout): the act-mul at prefill runs on it as it is
+    and the down projection takes it pre-interleaved."""
+    gu2 = qmatmul_normed(h, lw["w_gateup_il"], lw["ffn_norm_il"],
+                         cfg.rms_eps, plain=plain)
     dn = lw["ffn_down"]
     if math.prod(gu2.shape[:-1]) <= QP8_MAX_DECODE:
-        return qp8_matmul_act(gu2, dn, cfg.act, res=h, plain=plain).to(cd)
+        return qmatmul_fast_act(gu2, dn, cfg.act, res=h, plain=plain).to(cd)
     ng = dn.k
     gu = silu(gu2[..., :ng].to(cd)) * gu2[..., ng:].to(cd)
-    return h + qp8_matmul(gu, dn, plain=plain).to(cd)
+    return h + qmatmul_fast(gu, dn, plain=plain, pre_interleaved=True).to(cd)
 
 
 def _ffn_out(cfg, lw, h, cd, plain=False):
@@ -420,16 +424,16 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
             k = matmul(a, lw["wk"], plain)
             v = matmul(a, lw["wv"], plain)
         elif "wqkv" in lw:
-            qkv = qp8_matmul_normed(h, lw["wqkv"], wn, eps, plain=plain)
+            qkv = qmatmul_normed(h, lw["wqkv"], wn, eps, plain=plain)
             q, k, v = qkv[..., :nq], qkv[..., nq:nq + nk], qkv[..., nq + nk:]
         elif (use_fused and B <= QP8_MAX_DECODE
-              and supports_qp8_dual(lw["wqk"], lw["wv"])):
+              and supports_dual(lw["wqk"], lw["wv"])):
             flat_qkv = qp8_matmul_dual(h[:, 0], lw["wqk"], lw["wv"], wn, eps,
                                        plain=plain)
-        else:
-            qk = qp8_matmul_normed(h, lw["wqk"], wn, eps, plain=plain)
-            v = qp8_matmul_normed(h, lw["wv"], lw["attn_norm_il_v"], eps,
-                                  plain=plain)
+        else:  # mixed layouts (IQ4_XS wqk, Q5_K wv): one normed call each
+            qk = qmatmul_normed(h, lw["wqk"], wn, eps, plain=plain)
+            v = qmatmul_normed(h, lw["wv"], lw["attn_norm_il_v"], eps,
+                               plain=plain)
             q, k = qk[..., :nq], qk[..., nq:]
         if use_fused:
             if flat_qkv is None:
@@ -474,8 +478,9 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
             v_full = kv_cache["v"][il].reshape(B, S, nhkv, cfg.hd)
             attn = _attention(cfg, q, k_full, v_full, pos_start, T, scale,
                               k_scale=k_sc, v_scale=v_sc).to(cd)
-        if T == 1 and B <= QP8_MAX_DECODE:
-            h = qp8_matmul_res(attn, lw["wo"], h, plain=plain).to(cd)
+        if (T == 1 and B <= QP8_MAX_DECODE
+                and supports_fused_epilogue(lw["wo"])):
+            h = qmatmul_fast_res(attn, lw["wo"], h, plain=plain).to(cd)
         else:
             h = h + matmul(attn, lw["wo"], plain).to(cd)
         h = _ffn_out(cfg, lw, h, cd, plain)

@@ -1,5 +1,6 @@
-"""Random Llama-3-8B Q4_K_M and Mixtral-8x7B Q5_K_M models with the exact
-plane layout, drawn on the device from a seeded torch.Generator.
+"""Random Llama-3-8B and Mixtral-8x7B models with the exact plane layout of
+a GGUF file of a given llama.cpp mixture (Q4_K_M, Q5_K_M, IQ4_XS), drawn on
+the device from a seeded torch.Generator.
 
 Counterpart of bench.py:26-125 (`random_qtensor`, `host_concat`,
 `build_8b`).  The wire planes are drawn as the bench draws them (uniform
@@ -9,6 +10,7 @@ mins that centre the weights and give them a trained checkpoint's RMS
 takes seconds where the host
 build of the reference takes minutes.  No real checkpoint is involved: the
 bytes and the compute profile are those of a real file of that mixture.
+The per-tensor types come from `QuantPolicy`, as the JAX loader takes them.
 """
 from __future__ import annotations
 
@@ -17,8 +19,9 @@ import torch
 from .. import resolve_device
 from ..quant.formats import GGMLType
 from ..quant.pack import QCONFIGS, QTensor, drop_wire_planes
-from ..quant.policy import FTYPES, QuantPolicy
+from ..quant.policy import QuantPolicy
 from .fuse import fuse_weights, permute_rope_neox
+from ..ops.qmm_qp8 import KVALUES_IQ4NL
 from .llama import LlamaConfig
 
 LLAMA3_8B = dict(n_vocab=128256, n_embd=4096, n_layer=32, n_head=32,
@@ -44,7 +47,14 @@ def random_qtensor(gen: torch.Generator, n: int, k: int, qtype: GGMLType,
     full width the attention logits then spread over ~1e4, the softmax is
     an argmax, and a rounding-level difference between two routes can
     switch the key a token attends to.  Here the sub-block mins centre the
-    values (m = sc, dmin = d * qmax / 2) and d sets the RMS."""
+    values (m = sc, dmin = d * qmax / 2) and d sets the RMS.
+
+    The IQ4 types' codes index KVALUES_IQ4NL (-127..113, RMS about 67.4),
+    so d is sized from that table's RMS; IQ4_XS draws its sub-scales over
+    the wire's signed -32..31 (as int8, like the JAX package's unpacked
+    wire), which centres its weights, and IQ4_NL draws the sign of d, as
+    the reference quantizer's d takes the sign of the row's largest
+    value."""
     cfg = QCONFIGS[qtype]
     n_pad = (n + 127) // 128 * 128
 
@@ -61,13 +71,22 @@ def random_qtensor(gen: torch.Generator, n: int, k: int, qtype: GGMLType,
     qh = (ints(0, 256, (n_pad, k * cfg.bits_hi // 8), torch.uint8)
           if cfg.bits_hi else None)
     groups = k // 256 if cfg.superblock else k // cfg.gs
-    n_q = 255 if cfg.signed else 2 ** (cfg.bits_lo + cfg.bits_hi)
-    q_rms = ((n_q * n_q - 1) / 12) ** 0.5          # of the centred values
-    sc_rms = (63 * 127 / 6) ** 0.5 if cfg.superblock else 1.0  # U{0..63}
+    sc_lo = -32 if cfg.lut else 0                  # IQ4_XS: signed sub-scales
+    if cfg.lut:                                    # RMS of the table's values
+        q_rms = (sum(v * v for v in KVALUES_IQ4NL) / 16) ** 0.5
+    else:
+        n_q = 255 if cfg.signed else 2 ** (cfg.bits_lo + cfg.bits_hi)
+        q_rms = ((n_q * n_q - 1) / 12) ** 0.5      # of the centred values
+    # RMS of the sub-scales: U{0..63}, or U{-32..31} for IQ4_XS
+    sc_rms = ((sum(s * s for s in range(sc_lo, sc_lo + 64)) / 64) ** 0.5
+              if cfg.superblock else 1.0)
     u_rms = (1 / 3 + 0.05 + 0.05 ** 2) ** 0.5      # of U(0.05, 1.05)
     d0 = 1.0 / (k ** 0.5 * q_rms * sc_rms * u_rms)
     d = ((unif((n_pad, groups)) + 0.05) * d0).half().float()
-    sc = ints(0, 64, (n_pad, k // cfg.gs), torch.int8) if cfg.superblock else None
+    sc = (ints(sc_lo, sc_lo + 64, (n_pad, k // cfg.gs), torch.int8)
+          if cfg.superblock else None)
+    if cfg.lut and not cfg.superblock:             # IQ4_NL: signed d
+        d = d * (ints(0, 2, (n_pad, groups), torch.int8) * 2 - 1).float()
     dmin = m = None
     if cfg.asym == "minsb":
         dmin = (d * ((n_q - 1) / 2)).half().float()
@@ -87,51 +106,63 @@ def concat_wire(parts: list) -> QTensor:
                    cat("qh"), cat("sc"), cat("dmin"), cat("m"))
 
 
-def build_model(cfg: LlamaConfig, seed: int = 0, device="cuda"):
-    """(cfg', weights) of a random model under the Q4_K_M per-tensor
-    policy, through the production load pipeline: NEOX rope permutation,
-    projection fusion, wire-plane drop."""
+def _policy(cfg: LlamaConfig, ftype: str) -> QuantPolicy:
+    return QuantPolicy(ftype, cfg.n_layer, n_gqa=cfg.n_head // cfg.n_head_kv,
+                       n_expert=max(cfg.n_expert, 1))
+
+
+def build_model(cfg: LlamaConfig, seed: int = 0, device="cuda",
+                ftype: str = "Q4_K_M"):
+    """(cfg', weights) of a random dense model under llama.cpp's `ftype`
+    per-tensor policy, every type taken from QuantPolicy, through the
+    production load pipeline: NEOX rope permutation, projection fusion,
+    wire-plane drop.  Q4_K_M: Q4_K everywhere but Q6_K attn_v/ffn_down in
+    the _use_more_bits layers and a Q6_K head.  IQ4_XS (at n_gqa >= 4):
+    IQ4_XS on the interleaved layout, but Q5_K attn_v and ffn_down in the
+    first eighth of the layers, a Q6_K head."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    policy = QuantPolicy("Q4_K_M", cfg.n_layer)
-    base = FTYPES["Q4_K_M"]
+    policy = _policy(cfg, ftype)
     d = cfg.n_embd
+
+    def draw(name, n, k):
+        return random_qtensor(gen, n, k, policy.tensor_type(name, (n, k)),
+                              device)
 
     def t(qt):
         return qt.with_fast_planes().without_wire()
 
+    nq, nkv = cfg.n_head * cfg.hd, cfg.n_head_kv * cfg.hd
     layers = []
     for il in range(cfg.n_layer):
-        t_v = policy.tensor_type(f"blk.{il}.attn_v.weight", (d, d))
-        t_dn = policy.tensor_type(f"blk.{il}.ffn_down.weight", (d, cfg.n_ff))
-        gate = random_qtensor(gen, cfg.n_ff, d, base, device)
-        up = random_qtensor(gen, cfg.n_ff, d, base, device)
-        qkv = [random_qtensor(gen, cfg.n_head * cfg.hd, d, base, device),
-               random_qtensor(gen, cfg.n_head_kv * cfg.hd, d, base, device),
-               random_qtensor(gen, cfg.n_head_kv * cfg.hd, d, t_v, device)]
+        p = f"blk.{il}."
+        gate = draw(p + "ffn_gate.weight", cfg.n_ff, d)
+        up = draw(p + "ffn_up.weight", cfg.n_ff, d)
+        qkv = [draw(p + "attn_q.weight", nq, d),
+               draw(p + "attn_k.weight", nkv, d),
+               draw(p + "attn_v.weight", nkv, d)]
         lw = {
             "attn_norm": torch.ones(d, dtype=torch.float32, device=device),
-            "wo": t(random_qtensor(gen, d, cfg.n_head * cfg.hd, base, device)),
+            "wo": t(draw(p + "attn_output.weight", d, nq)),
             "ffn_norm": torch.ones(d, dtype=torch.float32, device=device),
-            "ffn_down": t(random_qtensor(gen, d, cfg.n_ff, t_dn, device)),
+            "ffn_down": t(draw(p + "ffn_down.weight", d, cfg.n_ff)),
             "w_gateup": t(concat_wire([gate, up])),
         }
-        if all(p.cfg == qkv[0].cfg for p in qkv):
+        if all(w.cfg == qkv[0].cfg for w in qkv):
             lw["wqkv"] = t(concat_wire(qkv))
         else:
             # wire kept until fuse_weights has concatenated wq and wk: at
             # widths that pad the planes' lanes it rebuilds from the wire
-            for key, p in zip(("wq", "wk", "wv"), qkv):
-                lw[key] = p.with_fast_planes()
+            for key, w in zip(("wq", "wk", "wv"), qkv):
+                lw[key] = w.with_fast_planes()
         layers.append(lw)
         del gate, up, qkv
     weights = {
-        # embeddings are gather-only: wire planes, no t-planes
-        "tok_embd": random_qtensor(gen, cfg.n_vocab, d, base, device),
+        # embeddings are gather-only: wire planes, no matmul planes
+        "tok_embd": draw("token_embd.weight", cfg.n_vocab, d),
         "output_norm": torch.ones(d, dtype=torch.float32, device=device),
-        "output": t(random_qtensor(gen, cfg.n_vocab, d, GGMLType.Q6_K,
-                                   device)),
+        "output": t(draw("output.weight", cfg.n_vocab, d)),
         "layers": layers,
     }
     weights, cfg = permute_rope_neox(weights, cfg)
@@ -140,26 +171,35 @@ def build_model(cfg: LlamaConfig, seed: int = 0, device="cuda"):
 
 
 def build_8b(seed: int = 0, device="cuda"):
-    """Llama-3-8B, all 32 layers at full width (bench.py:76-79)."""
+    """Llama-3-8B Q4_K_M, all 32 layers at full width (bench.py:76-79)."""
     return build_model(LlamaConfig(**LLAMA3_8B), seed=seed, device=device)
 
 
-def build_moe_model(cfg: LlamaConfig, seed: int = 0, device="cuda"):
-    """(cfg', weights) of a random MoE model under llama.cpp's Q5_K_M
-    per-tensor policy (at n_expert=8, Mixtral's mixture: Q5_K
+def build_8b_iq4xs(seed: int = 0, device="cuda"):
+    """Llama-3-8B IQ4_XS, all 32 layers at full width."""
+    return build_model(LlamaConfig(**LLAMA3_8B), seed=seed, device=device,
+                       ftype="IQ4_XS")
+
+
+def build_moe_model(cfg: LlamaConfig, seed: int = 0, device="cuda",
+                    ftype: str = "Q5_K_M"):
+    """(cfg', weights) of a random MoE model under llama.cpp's `ftype`
+    per-tensor policy, through the production load pipeline.  At
+    n_expert=8, Q5_K_M is Mixtral's mixture of the second slice (Q5_K
     attn_q/attn_output and expert gate/up stacks, Q8_0 attn_k/attn_v,
     ffn_down stacks Q6_K in the _use_more_bits layers and Q5_K elsewhere,
-    Q6_K head, Q5_K embedding kept as wire, f32 router), through the
-    production load pipeline.  Each tensor is drawn, given its matmul
-    planes and stripped of its wire before the next is drawn, so the peak
-    above the model is one tensor's transient (a full-width expert stack's
-    int32 values are 1.9 GB)."""
+    Q6_K head, Q5_K embedding kept as wire, f32 router); IQ4_XS keeps Q8_0
+    attn_k/attn_v, the Q5_K attn_output and the Q6_K head, with IQ4_XS
+    attn_q, gate/up stacks and embedding, and down stacks Q5_K in the first
+    eighth of the layers and IQ4_XS elsewhere.  Each tensor is drawn, given
+    its matmul planes and stripped of its wire before the next is drawn, so
+    the peak above the model is one tensor's transient (a full-width expert
+    stack's int32 values are 1.9 GB)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     E, d, nff = cfg.n_expert, cfg.n_embd, cfg.n_ff_exp or cfg.n_ff
-    policy = QuantPolicy("Q5_K_M", cfg.n_layer,
-                         n_gqa=cfg.n_head // cfg.n_head_kv, n_expert=E)
+    policy = _policy(cfg, ftype)
 
     def qt(name, n, k, wire=False):
         w = random_qtensor(gen, n, k, policy.tensor_type(name, (n, k)), device)
@@ -200,3 +240,9 @@ def build_mixtral(seed: int = 0, device="cuda"):
     """Mixtral-8x7B Q5_K_M, all 32 layers at full width."""
     return build_moe_model(LlamaConfig(**MIXTRAL_8X7B), seed=seed,
                            device=device)
+
+
+def build_mixtral_iq4xs(seed: int = 0, device="cuda"):
+    """Mixtral-8x7B IQ4_XS, all 32 layers at full width."""
+    return build_moe_model(LlamaConfig(**MIXTRAL_8X7B), seed=seed,
+                           device=device, ftype="IQ4_XS")

@@ -2,10 +2,11 @@
 dispatcher.
 
 Counterpart of ggml_hexagon_tpu/ops/qmatmul.py:116-164 (`_unpack_plane`,
-`_dequant_expr`, `dequantize_jax`) and :320-347 (`qmatmul`): the main path
-dequantizes the embedding-row gather here (wire-less tensors reconstruct
-from their matmul planes) and routes every quantized projection through
-`qmatmul`.
+`_dequant_expr`, `dequantize_jax`) and :320-373 (`qmatmul`,
+`qmatmul_normed`): the main path dequantizes the embedding-row gather here
+(wire-less tensors reconstruct from their matmul planes) and routes every
+quantized projection through `qmatmul`, or `qmatmul_normed` where the
+RMSNorm folds into the matmul.
 """
 from __future__ import annotations
 
@@ -14,7 +15,9 @@ import math
 import torch
 
 from ..quant.pack import QTensor
-from .qmm_fast import MAX_FAST_BATCH, dequantize_fast, qmatmul_fast
+from .basic import rms_norm
+from .qmm_fast import (MAX_FAST_BATCH, dequantize_fast, qmatmul_fast,
+                       qmatmul_fast_normed, uninterleave_norm)
 from .qmm_qp8 import KVALUES_IQ4NL, _unpack_rows, qp8_matmul
 
 
@@ -75,6 +78,22 @@ def qmatmul(x, qt: QTensor, out_dtype=torch.float32, plain=False):
             f"{B} rows on interleaved planes: the port's K6 takes "
             f"<= {MAX_FAST_BATCH}")
     return qmatmul_fast(x, qt, out_dtype=out_dtype, plain=plain)
+
+
+def qmatmul_normed(x, qt: QTensor, wn_il, eps: float,
+                   out_dtype=torch.float32, plain=False):
+    """RMSNorm + quantized matmul: t-planes go to qp8_matmul_normed (K1's
+    norm prologue at <= 8 rows, the norm then K3 above), interleaved planes
+    to qmatmul_fast_normed (K6's normed mode) for up to MAX_FAST_BATCH
+    rows; wn_il is the norm weight in the planes' column order
+    (models/fuse.attach_norm_planes).  Above that the norm runs apart and
+    `qmatmul` takes the rows."""
+    B = math.prod(x.shape[:-1])
+    if B <= MAX_FAST_BATCH:
+        return qmatmul_fast_normed(x, qt, wn_il, eps, out_dtype=out_dtype,
+                                   plain=plain)
+    wn = wn_il if qt.fl == "t" else uninterleave_norm(wn_il, qt.cfg.gs)
+    return qmatmul(rms_norm(x, wn, eps), qt, out_dtype=out_dtype, plain=plain)
 
 
 def take_rows_wire(qt: QTensor, ids) -> QTensor:

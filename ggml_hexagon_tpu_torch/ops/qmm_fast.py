@@ -1,29 +1,40 @@
 """Interleaved-layout ("il") quantized matmul: plane building, the plain
-version, and the wrapper over the CUDA kernel K6 (byte planes).
+versions, and the wrappers over the CUDA kernels K6 (byte planes, with its
+normed, act and residual modes) and K8 (gathered experts).
 
 Counterpart of ggml_hexagon_tpu/ops/qmm_fast.py: `supports_fast` and
 `build_fast_planes` (:120-242; `_int_values` and `_group_scale_bias` are
-shared with ops/qmm_qp8.py), `_fast_ref` (:683-706), `_interleave_x`
-(:721-734), `dequantize_fast` and `qmatmul_fast` (:817-869).  The
-layout stores weight column j as original column (j % G)*gs + j//G, so
-column j's scale is fs[:, j % G]:
+shared with ops/qmm_qp8.py), `_pick_blocks` (:523-597, the blocking that
+decides which fused entries apply), `_fast_ref` (:683-706), `_interleave_x`
+(:721-734), `dequantize_fast` and `qmatmul_fast` (:817-869),
+`supports_dual` (:1016-1044), `supports_fused_epilogue` and
+`interleave_perm` (:1110-1127), `qmatmul_fast_act` and `qmatmul_fast_res`
+(:1130-1233), `supports_indirect` and `qmatmul_fast_indirect`
+(:1300-1356), `uninterleave_cols`, `uninterleave_norm` and
+`qmatmul_fast_normed` (:1359-1433).  The layout stores weight column j as
+original column (j % G)*gs + j//G, so column j's scale is fs[:, j % G]:
 
   fq  int8 [n2, K]  interleaved integer values (rows padded to 512, or to
                     2048 from 65536 rows)
   fs  bf16 [n2, G]  per-group scales
-  fb  bf16 [n2, G]  affine bias, or None (always None for Q8_0)
+  fb  bf16 [n2, G]  affine bias, or None (always None for Q8_0 and IQ4)
 
-Numerics contract (qmm_fast.py:464-494, 768), held by the plain version
-and the kernel alike: x is rounded to bf16; at B <= 8 each product is f32
-x times the f32 weight q*scale, summed in f32; above 8 rows q*scale is
-rounded to bf16 and the bf16 x bf16 products are summed in f32.
+Numerics contract (qmm_fast.py:342-387, 464-494, 768), held by the plain
+versions and the kernels alike: x is rounded to bf16 and interleaved; the
+normed mode takes f32 of that bf16 x, inv = rsqrt(mean(x^2) + eps), and
+rounds (x*inv)*wn_il to bf16; the act mode takes the bf16 gate ++ up
+halves (already interleaved) and rounds silu(g)*u, computed in f32, to
+bf16.  At B <= 8 each product is f32 x times the f32 weight q*scale,
+summed in f32; above 8 rows q*scale is rounded to bf16 and the bf16 x bf16
+products are summed in f32.  The residual mode adds an f32 row last.  The
+gathered-expert entry (K8) takes the B <= 8 route for every row.
 
 The port has the byte family only (Q8_0 and the IQ4 LUT types, whose
 values fit int8).  The nibble kernel's planes (Q4_0/Q4_1/Q4_K when the JAX
-package runs with GHT_QP8=0, coded i-quants at widths without a t-layout)
-and byte planes with a group bias (Q5_0/Q5_1/Q4_1-class types at widths
-without a t-layout) raise NotImplementedError: ROADMAP.md queue 2, K6
-nibble.
+package runs with GHT_QP8=0, coded i-quants at widths without a t-layout),
+byte planes with a group bias (Q5_0/Q5_1/Q4_1-class types at widths
+without a t-layout) and the interleaved dual projection (K7) raise
+NotImplementedError: ROADMAP.md queue 2.
 """
 from __future__ import annotations
 
@@ -33,7 +44,11 @@ import torch
 
 from .. import kernels
 from ..quant.pack import QConfig, QTensor
-from .qmm_qp8 import _group_scale_bias, _int_values, dequantize_qp8, qp8_matmul
+from .basic import rms_norm
+from .qmm_qp8 import (_group_scale_bias, _int_values, dequantize_qp8,
+                      qp8_matmul, qp8_matmul_act, qp8_matmul_indirect,
+                      qp8_matmul_normed, qp8_matmul_res, supports_qp8_dual,
+                      supports_qp8_indirect)
 
 #: the interleaved-layout entry serves up to this many rows
 #: (ops/qmatmul.qmatmul routes larger batches elsewhere)
@@ -98,8 +113,103 @@ def build_fast_planes(qt: QTensor):
     return fq.contiguous(), fs, fb
 
 
-def _interleave_x(x2, G: int, gs: int):
-    """Activation [B, K] into the planes' interleaved column order."""
+def _is_packed(cfg: QConfig) -> bool:
+    return _is_nibble(cfg) or bool(cfg.code_map)
+
+
+def _n_slices(cols: int, G: int, bn: int, per_col: int = 12) -> int:
+    """The JAX kernel's column slicing of a weight block (qmm_fast.py:414),
+    which `_pick_blocks` budgets for."""
+    target = max(512, 25 * 1024 * 1024 // (per_col * bn))
+    if cols <= target:
+        return 1
+    for n in (2, 4, 7, 8, 14, 16, 28, 32, 56):
+        if cols % n == 0 and cols // n <= target and (cols // n) % G == 0:
+            return n
+    return 1
+
+
+def _pick_blocks(B: int, K: int, nibble: bool, gs: int):
+    """-> (bn, nkj): the JAX package's row block and K-split for B rows
+    (qmm_fast.py:523-597, without its GHT_QMM_* overrides).  The port's
+    kernels split nothing; nkj == 1 decides, as in the JAX dispatch, where
+    the fused norm, act and residual modes and the gathered experts apply
+    (each needs the full K in one block)."""
+    mb = 1024 * 1024
+    G = K // gs
+    pmax = gs // 2 if nibble else gs
+    valid = [p for p in range(1, pmax + 1) if pmax % p == 0]
+    per_col = 12 if nibble else 8
+    cols = K // 2 if nibble else K
+    if B <= 8:
+        for bn in ((1024, 512, 256) if nibble else (2048, 1024, 512, 256)):
+            fixed = 2 * bn * G * 2 * 2 + B * bn * 4 + K * 4
+            blk = (B * K * 2 + bn * cols) * 2
+            if fixed + blk + per_col * bn * cols <= 96 * mb:
+                return bn, 1
+    for bn in (2048, 1024, 512):
+        nsl = (_n_slices(cols, G, bn, per_col)
+               if (nibble or cols > 8192) else 1)
+        csl = cols // nsl
+        if csl % G:
+            continue
+        fixed = 2 * bn * G * 2 * 2 + B * bn * 4
+        if fixed + B * K * 2 + bn * cols * 2 + per_col * bn * csl <= 96 * mb:
+            return bn, 1
+    for bn in (512, 256, 128):
+        fixed = 2 * bn * G * 2 * 2 + B * bn * 4
+        for p in valid:
+            bk = K // p
+            bcols = bk // 2 if nibble else bk
+            blk = (B * bk * 2 + bn * bcols) * 2
+            if fixed + blk + (12 if nibble else 6) * bn * bcols <= 13 * mb:
+                return bn, p
+    return 128, valid[-1]
+
+
+def _padded_rows(B: int) -> int:
+    """The JAX entries pad the rows to a multiple of 8 before blocking."""
+    return max(8, -(-B // 8) * 8)
+
+
+def supports_fused_epilogue(qt, B: int = 8) -> bool:
+    """True when the tensor's decode blocking takes the full K in one block
+    (nkj == 1), which the fused act-mul and residual modes need; t-planes
+    always qualify."""
+    if not isinstance(qt, QTensor) or qt.fq is None:
+        return False
+    if qt.fl == "t":
+        return True
+    _, nkj = _pick_blocks(max(8, B), qt.k, _is_packed(qt.cfg), qt.cfg.gs)
+    return nkj == 1
+
+
+def interleave_perm(k: int, gs: int):
+    """The layout's column interleave: new column j <- original column
+    (j % G)*gs + j//G (models/fuse.py permutes gate_up rows by it)."""
+    G = k // gs
+    j = torch.arange(k)
+    return (j % G) * gs + j // G
+
+
+def uninterleave_cols(x, gs: int):
+    """Inverse of the column interleave along the last axis."""
+    K = x.shape[-1]
+    lead = x.shape[:-1]
+    return x.reshape(*lead, gs, K // gs).transpose(-1, -2).reshape(*lead, K)
+
+
+def uninterleave_norm(wn_il, gs: int):
+    """A norm weight interleaved by models/fuse.py, back in natural order."""
+    K = wn_il.shape[-1]
+    return wn_il.reshape(gs, K // gs).transpose(0, 1).reshape(K)
+
+
+def _interleave_x(x2, G: int, gs: int, pre_il: bool = False):
+    """Activation [B, K] into the planes' interleaved column order; with
+    pre_il, x2 is in that order already (the w_gateup_il prefill path)."""
+    if pre_il:
+        return x2
     B, K = x2.shape
     return x2.reshape(B, G, gs).transpose(1, 2).reshape(B, K)
 
@@ -135,37 +245,243 @@ def _byte_planes(qt: QTensor):
             "are not ported yet (ROADMAP.md queue 2, K6)")
 
 
-def fast_byte_plain(x, qt: QTensor):
-    """Plain K6 (the JAX `_fast_ref` with the kernel's rounding): x bf16
-    [B, K] in natural order -> y [B, n2] f32."""
-    B, K = x.shape
-    G = qt.fs.shape[1]
-    x_il = _interleave_x(x.to(torch.bfloat16), G, K // G).to(torch.float32)
-    sc = qt.fs.repeat(1, K // G)                     # bf16 [n2, K]: fs[:, j % G]
+# ---------------------------------------------------------------------------
+# plain versions (the kernels' arithmetic in PyTorch)
+# ---------------------------------------------------------------------------
+
+def _kernel_x_plain(x, G: int, wn=None, eps=None, act: str = "",
+                    pre_il: bool = False):
+    """The kernel's bf16 interleaved activation [B, K] (`_kernel_x`): x
+    interleaved (or taken as it is with pre_il), RMS-normed with the
+    interleaved weight wn when eps is given, or silu(gate)*up of the
+    interleaved halves of x [B, 2K] with act."""
+    if bool(act) + (eps is not None) + pre_il > 1:
+        raise ValueError("K6 takes one mode: pre_il, normed or act")
+    xb = x.to(torch.bfloat16)
+    if act:
+        if act != "silu":
+            raise NotImplementedError(f"act {act!r}: K6 takes silu only")
+        xw = xb.to(torch.float32)
+        K = xw.shape[1] // 2
+        g = xw[:, :K]
+        return (g * torch.sigmoid(g) * xw[:, K:]).to(torch.bfloat16)
+    x_il = _interleave_x(xb, G, xb.shape[1] // G, pre_il)
+    if eps is None:
+        return x_il
+    xf = x_il.to(torch.float32)
+    inv = torch.rsqrt(torch.mean(xf * xf, dim=1, keepdim=True) + eps)
+    return (xf * inv * wn.to(torch.float32)).to(torch.bfloat16)
+
+
+def _byte_body_plain(x_il, fq, fs):
+    """x_il bf16 [B, K] against the byte planes -> [B, rows] f32 (f32
+    weights at B <= 8, bf16 weights above)."""
+    B, K = x_il.shape
+    sc = fs.repeat(1, K // fs.shape[1])            # bf16 [rows, K]: fs[:, j % G]
     if B <= 8:
-        w = qt.fq.to(torch.float32) * sc.to(torch.float32)
+        w = fq.to(torch.float32) * sc.to(torch.float32)
     else:
-        w = (qt.fq.to(torch.bfloat16) * sc).to(torch.float32)
-    return x_il @ w.t()
+        w = (fq.to(torch.bfloat16) * sc).to(torch.float32)
+    return x_il.to(torch.float32) @ w.t()
 
 
-def fast_byte(x, qt: QTensor):
+def fast_byte_plain(x, qt: QTensor, wn=None, eps=None, act: str = "",
+                    res=None, pre_il: bool = False):
+    """Plain K6 (the JAX `_byte_kernel` with the kernel's rounding), every
+    mode: x bf16 [B, K] in natural order (interleaved with pre_il; [B, 2K]
+    gate ++ up, interleaved, with act) -> y [B, n2] f32, plus res [B, n]
+    on its first n columns when given."""
+    x_il = _kernel_x_plain(x, qt.fs.shape[1], wn, eps, act, pre_il)
+    y = _byte_body_plain(x_il, qt.fq, qt.fs)
+    if res is not None:
+        y[:, :res.shape[1]] += res.to(torch.float32)
+    return y
+
+
+def fast_byte(x, qt: QTensor, wn=None, eps=None, act: str = "", res=None,
+              pre_il: bool = False):
     """K6: the kernel for CUDA tensors, the plain version for CPU ones."""
     if not x.is_cuda:
-        return fast_byte_plain(x, qt)
-    return kernels.fast_byte(x, qt)
+        return fast_byte_plain(x, qt, wn, eps, act, res, pre_il)
+    return kernels.fast_byte(x, qt, wn=wn, eps=eps, act=act, res=res,
+                             pre_il=pre_il)
 
 
-def qmatmul_fast(x, qt: QTensor, out_dtype=torch.float32, plain=False):
-    """y = x @ dequant(qt).T over the matmul planes: the t-layout goes to
-    qp8_matmul (K1/K3), the interleaved layout to K6."""
-    if qt.fl == "t":
-        return qp8_matmul(x, qt, out_dtype=out_dtype, plain=plain)
+def fast_indirect_plain(x, qt: QTensor, ids, npe: int):
+    """Plain K8: x bf16 [P, K], ids [P] -> y [P, npe] f32, row p against
+    rows [ids[p]*npe, (ids[p]+1)*npe) of the stacked planes on K6's B <= 8
+    route; an id outside [0, E) gives a NaN row.  The rows are gathered
+    with device-side index arithmetic: the ids never reach the host."""
+    P, K = x.shape
+    G = qt.fs.shape[1]
+    x_il = _interleave_x(x.to(torch.bfloat16), G, K // G)
+    ids = ids.to(torch.long)
+    valid = (ids >= 0) & (ids < qt.fq.shape[0] // npe)
+    rows = (torch.where(valid, ids, torch.zeros_like(ids))[:, None] * npe
+            + torch.arange(npe, device=x.device))
+    y = torch.cat([_byte_body_plain(x_il[p:p + 1], qt.fq.index_select(0, r),
+                                    qt.fs.index_select(0, r))
+                   for p, r in enumerate(rows)])
+    return torch.where(valid[:, None], y, torch.full_like(y, float("nan")))
+
+
+def fast_indirect(x, qt: QTensor, ids, npe: int):
+    """K8: the kernel for CUDA tensors, the plain version for CPU ones."""
+    if not x.is_cuda:
+        return fast_indirect_plain(x, qt, ids, npe)
+    return kernels.fast_indirect(x, qt, ids, npe)
+
+
+# ---------------------------------------------------------------------------
+# public entries (the JAX package's signatures)
+# ---------------------------------------------------------------------------
+
+def _rows(x, qt: QTensor, width: int):
+    """x [..., width] -> (lead shape, rows B, x as bf16 [B, width])."""
     _byte_planes(qt)
-    if x.shape[-1] != qt.k:
-        raise ValueError(f"x width {x.shape[-1]} vs weight K={qt.k}")
+    if x.shape[-1] != width:
+        raise ValueError(f"x width {x.shape[-1]} vs {width} for K={qt.k}")
     lead = x.shape[:-1]
     B = math.prod(lead) if lead else 1
-    x2 = x.reshape(B, qt.k).to(torch.bfloat16).contiguous()
-    y = (fast_byte_plain if plain else fast_byte)(x2, qt)
+    return lead, B, x.reshape(B, width).to(torch.bfloat16).contiguous()
+
+
+def _full_k(qt: QTensor, B: int, what: str):
+    if not supports_fused_epilogue(qt, _padded_rows(B)):
+        raise ValueError(f"{what} needs a full-K blocking: {qt.n}x{qt.k} at "
+                         f"{B} rows has none")
+
+
+def qmatmul_fast(x, qt: QTensor, out_dtype=torch.float32, plain=False,
+                 pre_interleaved=False):
+    """y = x @ dequant(qt).T over the matmul planes: the t-layout goes to
+    qp8_matmul (K1/K3), the interleaved layout to K6.  pre_interleaved: x's
+    columns are in the planes' interleaved order already (no effect on
+    t-planes, which have none)."""
+    if qt.fl == "t":
+        return qp8_matmul(x, qt, out_dtype=out_dtype, plain=plain)
+    lead, B, x2 = _rows(x, qt, qt.k)
+    y = (fast_byte_plain if plain else fast_byte)(
+        x2, qt, pre_il=pre_interleaved)
     return y[:, :qt.n].reshape(*lead, qt.n).to(out_dtype)
+
+
+def qmatmul_fast_normed(x, qt: QTensor, wn_il, eps: float,
+                        out_dtype=torch.float32, plain=False):
+    """Fused RMSNorm + matmul: y = rms_norm(x, wn) @ dequant(qt).T, with
+    wn_il the norm weight interleaved like qt's columns (models/fuse.py).
+    t-planes take qp8_matmul_normed (wn_il is the raw weight there); a
+    blocking that splits K takes the norm apart, as the JAX entry does."""
+    if qt.fl == "t":
+        return qp8_matmul_normed(x, qt, wn_il, eps, out_dtype=out_dtype,
+                                 plain=plain)
+    lead, B, x2 = _rows(x, qt, qt.k)
+    _, nkj = _pick_blocks(_padded_rows(B), qt.k, False, qt.cfg.gs)
+    if nkj > 1:
+        xn = rms_norm(x, uninterleave_norm(wn_il, qt.cfg.gs), eps)
+        return qmatmul_fast(xn, qt, out_dtype=out_dtype, plain=plain)
+    y = (fast_byte_plain if plain else fast_byte)(
+        x2, qt, wn=wn_il.to(torch.float32).contiguous(), eps=float(eps))
+    return y[:, :qt.n].reshape(*lead, qt.n).to(out_dtype)
+
+
+def qmatmul_fast_res(x, qt: QTensor, res, out_dtype=torch.float32,
+                     plain=False):
+    """y = x @ dequant(qt).T + res, the residual added in the kernel."""
+    if qt.fl == "t":
+        return qp8_matmul_res(x, qt, res, out_dtype=out_dtype, plain=plain)
+    lead, B, x2 = _rows(x, qt, qt.k)
+    _full_k(qt, B, "the residual mode")
+    r2 = res.to(torch.float32).reshape(B, qt.n).contiguous()
+    y = (fast_byte_plain if plain else fast_byte)(x2, qt, res=r2)
+    return y[:, :qt.n].reshape(*lead, qt.n).to(out_dtype)
+
+
+def qmatmul_fast_act(x, qt: QTensor, act: str, res=None,
+                     out_dtype=torch.float32, plain=False):
+    """Fused act-mul + matmul: (act(gate)*up) @ dequant(qt).T [+ res]; x
+    [..., 2K] is the raw output of a gate_up projection whose rows were
+    permuted at load (models/fuse.interleave_gateup_rows) so both halves
+    arrive in qt's interleaved column order.  t-planes take qp8_matmul_act
+    (natural order)."""
+    if qt.fl == "t":
+        return qp8_matmul_act(x, qt, act, res=res, out_dtype=out_dtype,
+                              plain=plain)
+    lead, B, x2 = _rows(x, qt, 2 * qt.k)
+    _full_k(qt, B, "the act mode")
+    r2 = (None if res is None
+          else res.to(torch.float32).reshape(B, qt.n).contiguous())
+    y = (fast_byte_plain if plain else fast_byte)(x2, qt, act=act, res=r2)
+    return y[:, :qt.n].reshape(*lead, qt.n).to(out_dtype)
+
+
+def _dual_blocking(qt_a: QTensor, qt_b: QTensor):
+    """The JAX package's common row block of an interleaved dual launch
+    (K7) at decode, or None."""
+    if qt_a.fq is None or qt_b.fq is None or qt_a.k != qt_b.k:
+        return None
+    if qt_a.fl == "t" or qt_b.fl == "t":
+        return None
+    if qt_a.n != qt_a.fq.shape[0] or qt_b.n != qt_b.fq.shape[0]:
+        return None
+    bns = []
+    for qt in (qt_a, qt_b):
+        bn, nkj = _pick_blocks(8, qt.k, _is_packed(qt.cfg), qt.cfg.gs)
+        if nkj != 1:
+            return None
+        bns.append(bn)
+    bn = min(bns)
+    if qt_a.n % bn or qt_b.n % bn:
+        bn = 512 if (qt_a.n % 512 == 0 and qt_b.n % 512 == 0) else None
+    return bn
+
+
+def supports_dual(qt_a, qt_b) -> bool:
+    """Whether one launch can run both projections of the same activation:
+    a pair of t-planes through K2 (supports_qp8_dual); never a pair of
+    mixed layouts.  A pair of interleaved planes that the JAX package runs
+    through K7 raises, since the port has no K7 yet."""
+    if not (isinstance(qt_a, QTensor) and isinstance(qt_b, QTensor)):
+        return False
+    if qt_a.fl == "t" and qt_b.fl == "t":
+        return supports_qp8_dual(qt_a, qt_b)
+    if _dual_blocking(qt_a, qt_b) is None:
+        return False
+    raise NotImplementedError(
+        "two interleaved projections in one launch need K7 (the JAX "
+        "_dual_kernel), not ported yet (ROADMAP.md queue 2)")
+
+
+def supports_indirect(qt, npe: int) -> bool:
+    """Stacked [E*npe, k] expert planes can serve the gathered-expert path:
+    t-planes as supports_qp8_indirect says (K5); interleaved planes when
+    their decode blocking takes the full K and a row block divides npe
+    (K8)."""
+    if not isinstance(qt, QTensor) or qt.fq is None or npe <= 0:
+        return False
+    if qt.fl == "t":
+        return supports_qp8_indirect(qt, npe)
+    bn, nkj = _pick_blocks(8, qt.k, _is_packed(qt.cfg), qt.cfg.gs)
+    if nkj != 1:
+        return False
+    return any(npe % b == 0 for b in (bn, 512, 256, 128) if b <= bn)
+
+
+def qmatmul_fast_indirect(x, qt: QTensor, ids, npe: int,
+                          out_dtype=torch.float32, plain=False):
+    """MUL_MAT_ID: y[p] = x[p] @ dequant(W_{ids[p]}).T over stacked expert
+    planes [(E*npe), k]; only the selected experts' planes are read, and
+    the ids stay on x's device.  t-planes take qp8_matmul_indirect (K5),
+    interleaved ones K8.  Returns [P, npe]."""
+    if qt.fl == "t":
+        return qp8_matmul_indirect(x, qt, ids, npe, out_dtype=out_dtype,
+                                   plain=plain)
+    _byte_planes(qt)
+    P, K = x.shape
+    if K != qt.k or not supports_indirect(qt, npe) or qt.fq.shape[0] % npe:
+        raise ValueError(f"x [{P}, {K}] / {npe} rows an expert do not fit "
+                         f"the stacked planes {tuple(qt.fq.shape)}")
+    y = (fast_indirect_plain if plain else fast_indirect)(
+        x.to(torch.bfloat16).contiguous(), qt, ids.to(torch.int32).contiguous(),
+        npe)
+    return y.to(out_dtype)

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card, at the main paths' shapes (Llama-3-8B Q4_K_M and Mixtral-8x7B Q5_K_M
-widths).
+card, at the main paths' shapes (Llama-3-8B Q4_K_M and IQ4_XS, Mixtral-8x7B
+Q5_K_M and IQ4_XS widths).
 
 These need an NVIDIA card: they carry the `gpu` marker and skip without
 one.  The repository's conftest imports JAX, which the card's machine does
@@ -19,8 +19,12 @@ Tolerances, per kernel, with their reasons:
   K4 (attention): f32 throughout, another order and expf: max|d| <= 1e-4.
   K5 (gathered-expert GEMV): K1's arithmetic on the selected lanes.
       NMSE <= 1e-6.
-  K6 (interleaved byte planes): identical f32 (B <= 8) or bf16 (B > 8)
-      products, f32 sums in another order.  NMSE <= 1e-6.
+  K6 (interleaved byte planes), every mode: identical f32 (B <= 8) or
+      bf16 (B > 8) products, f32 sums in another order; the normed and act
+      prologues can differ in the last ulp of 1/sqrt and expf, which can
+      move an activation across a bf16 rounding step.  NMSE <= 1e-6.
+  K8 (gathered experts on interleaved planes): K6's B <= 8 arithmetic on
+      the selected rows.  NMSE <= 1e-6.
 """
 import pytest
 import torch
@@ -188,6 +192,96 @@ def test_fast_byte_kernel_matches_plain(dev, n, B):
     assert _nmse(got, want) <= NMSE_MAX
 
 
+_IL = {"wqk_iq4xs": (5120, 4096, GGMLType.IQ4_XS),
+       "wo_iq4xs": (4096, 4096, GGMLType.IQ4_XS),
+       "down_iq4xs": (4096, 14336, GGMLType.IQ4_XS),
+       "wk_q8_0": (1024, 4096, GGMLType.Q8_0)}
+
+
+def _il(dev, name):
+    n, k, qtype = _IL[name]
+    qt = _qt(dev, n, k, qtype)
+    assert qt.fl == "il"
+    return qt
+
+
+@pytest.mark.parametrize("name", ["wqk_iq4xs", "wk_q8_0"])
+@pytest.mark.parametrize("B", [1, 3, 8, 128, 512])
+def test_fast_byte_normed_kernel_matches_plain(dev, name, B):
+    qt = _il(dev, name)
+    x = _x(dev, B, qt.k, seed=B).to(torch.bfloat16)
+    wn = torch.rand(qt.k, device=dev) + 0.5
+    before = kernels.LAUNCHES["fast_byte_normed"]
+    got = PF.fast_byte(x, qt, wn=wn, eps=1e-5)
+    want = PF.fast_byte_plain(x, qt, wn=wn, eps=1e-5)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fast_byte_normed"] == before + 1
+    assert _nmse(got, want) <= NMSE_MAX
+
+
+@pytest.mark.parametrize("name", ["wo_iq4xs", "wk_q8_0"])
+@pytest.mark.parametrize("B", [1, 3, 8, 16])
+@pytest.mark.parametrize("pre_il", [False, True], ids=["natural", "pre_il"])
+def test_fast_byte_res_kernel_matches_plain(dev, name, B, pre_il):
+    qt = _il(dev, name)
+    x = _x(dev, B, qt.k, seed=B).to(torch.bfloat16)
+    res = _x(dev, B, qt.n, seed=9)
+    before = kernels.LAUNCHES["fast_byte_res"]
+    got = PF.fast_byte(x, qt, res=res, pre_il=pre_il)
+    want = PF.fast_byte_plain(x, qt, res=res, pre_il=pre_il)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fast_byte_res"] == before + 1
+    assert _nmse(got, want) <= NMSE_MAX
+
+
+@pytest.mark.parametrize("name", ["down_iq4xs", "wo_iq4xs"])
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("with_res", [False, True], ids=["", "res"])
+def test_fast_byte_act_kernel_matches_plain(dev, name, B, with_res):
+    qt = _il(dev, name)
+    x = (_x(dev, B, 2 * qt.k, seed=B) * 2).to(torch.bfloat16)
+    res = _x(dev, B, qt.n, seed=9) if with_res else None
+    before = kernels.LAUNCHES["fast_byte_act"]
+    got = PF.fast_byte(x, qt, act="silu", res=res)
+    want = PF.fast_byte_plain(x, qt, act="silu", res=res)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fast_byte_act"] == before + 1
+    assert _nmse(got, want) <= NMSE_MAX
+
+
+_IL_MOE = {"gate_iq4xs": (14336, 4096, GGMLType.IQ4_XS),
+           "down_iq4xs": (4096, 14336, GGMLType.IQ4_XS),
+           "gate_q8_0": (14336, 4096, GGMLType.Q8_0)}
+
+
+@pytest.mark.parametrize("stack", list(_IL_MOE))
+@pytest.mark.parametrize("ids", [[5, 2], [3, 3], list(range(8)) * 2],
+                         ids=["P2", "P2_dup", "P16"])
+def test_fast_indirect_kernel_matches_plain(dev, stack, ids):
+    npe, k, qtype = _IL_MOE[stack]
+    qt = _qt(dev, 8 * npe, k, qtype)
+    assert qt.fl == "il" and PF.supports_indirect(qt, npe)
+    ids = torch.tensor(ids, dtype=torch.int32, device=dev)
+    x = _x(dev, ids.numel(), k, seed=ids.numel()).to(torch.bfloat16)
+    before = kernels.LAUNCHES["fast_indirect"]
+    got = PF.fast_indirect(x, qt, ids, npe)
+    want = PF.fast_indirect_plain(x, qt, ids, npe)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fast_indirect"] == before + 1
+    assert got.shape == (ids.numel(), npe)
+    assert _nmse(got, want) <= NMSE_MAX
+
+
+def test_fast_indirect_kernel_marks_bad_ids(dev):
+    qt = _qt(dev, 8 * 4096, 14336, GGMLType.IQ4_XS)
+    ids = torch.tensor([1, 8, -1], dtype=torch.int32, device=dev)
+    x = _x(dev, 3, 14336).to(torch.bfloat16)
+    got = PF.fast_indirect(x, qt, ids, 4096)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got[0]).all()
+    assert torch.isnan(got[1]).all() and torch.isnan(got[2]).all()
+
+
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
 @pytest.mark.parametrize("pos", [0, 1, 700])
 @pytest.mark.parametrize("B", [1, 4])
@@ -230,3 +324,9 @@ def test_wrappers_refuse_cpu_tensors_for_the_kernels(dev):
     with pytest.raises(ValueError):
         kernels.qp8_indirect(torch.zeros(2, 4096), qt,
                              torch.zeros(2, dtype=torch.int32), 512)
+    il = _il(dev, "wk_q8_0")
+    with pytest.raises(ValueError):
+        kernels.fast_byte(torch.zeros(1, 4096, dtype=torch.bfloat16), il)
+    with pytest.raises(ValueError):
+        kernels.fast_indirect(torch.zeros(2, 4096, dtype=torch.bfloat16), il,
+                              torch.zeros(2, dtype=torch.int32), 512)

@@ -128,12 +128,14 @@ def test_qtensor_rows_matches_jax(qtype):
 
 
 @pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q5_K,
-                                   GGMLType.Q6_K, GGMLType.Q8_0],
+                                   GGMLType.Q6_K, GGMLType.Q8_0,
+                                   GGMLType.IQ4_XS, GGMLType.IQ4_NL],
                          ids=lambda t: t.name)
 def test_random_weights_are_centred_with_checkpoint_rms(qtype):
     """The synthetic weights are zero-mean with RMS about 1/sqrt(K), so a
     full-width random model's attention and router stay smooth functions
-    (mean within 5% of the RMS, RMS within 10% of 1/sqrt(K))."""
+    (mean within 5% of the RMS, RMS within 10% of 1/sqrt(K)); the IQ4
+    types' codes index the non-linear table, whose RMS sizes d."""
     K = 4096
     g = torch.Generator().manual_seed(int(qtype))
     w = dequantize(random_qtensor(g, 256, K, qtype, "cpu"))
