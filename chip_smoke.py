@@ -25,7 +25,17 @@
 5. Mixtral-8x7B IQ4_XS, after the 8B IQ4_XS is freed: the same phases,
    with K8 (gathered experts on interleaved stacks) and K6's plain mode on
    IQ4_XS held against their plain versions; its decode steps run K8 on
-   the IQ4_XS stacks and K5 on the Q5_K down stacks of layers 0-3.
+   the IQ4_XS stacks and K5 on the Q5_K down stacks of layers 0-3;
+6. Llama-3-8B Q4_K_M on the interleaved layout everywhere (the JAX
+   package's GHT_QP8=0 route; the fourth slice's path), after Mixtral
+   IQ4_XS is freed: the same phases, with K6 on nibble planes in every mode,
+   K6 on Q6_K byte planes with the derived bias (act mode, the head) and K7
+   (the dual wqk + wv projection) held against their plain versions; no
+   t-plane kernel launches;
+7. Mixtral-8x7B Q4_K_M on the interleaved layout everywhere: the same
+   phases, with K8 on the Q4_K (nibble) stacks and on the Q6_K stacks with
+   the derived bias, K6 on nibble planes (wq) and on Q5_K planes with a
+   stored bias (wo, residual mode) held against their plain versions.
 
 Any failure raises: the script exits non-zero and prints no result.  The
 last line is {"ok": true, "device": {...}}; the line before it lists the
@@ -145,6 +155,29 @@ def nbytes(*ts):
 
 def plane_bytes(qt):
     return nbytes(qt.fq, qt.fs, qt.fb)
+
+
+def held(what, got, want):
+    """Kernel against plain version: (max |d|, NMSE), or raise past
+    NMSE_KERNEL or on a non-finite output."""
+    torch.cuda.synchronize()
+    err, e2 = float((got - want).abs().max()), nmse(got, want)
+    if not (e2 <= NMSE_KERNEL and torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: nmse {e2}")
+    return err, e2
+
+
+def deq_t(qt):
+    """bf16 [K, n2] weight in natural order (the yardstick's operand)."""
+    from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
+
+    return PF.dequantize_fast(qt, torch.bfloat16).t().contiguous()
+
+
+def bias_ops(qt, rows):
+    """Operations of the group-bias dot on `rows` activation rows."""
+    return 2 * rows * qt.fs.shape[1] * qt.fs.shape[0] if (
+        qt.fb is not None or qt.cfg.offset) else 0
 
 
 class KernelReport:
@@ -416,6 +449,35 @@ LAUNCH_TABLES = {
                         qp8_gemv=33),
         "chunk": dict(fast_byte=832, qp8_gemm=65),
     },
+    # the interleaved layout everywhere: wqkv (16 layers, Q4_K) and gate_up
+    # through K6 nibble normed, wqk Q4_K + wv Q6_K through K7 (16), wo
+    # through K6 nibble res; down Q4_K (16) K6 nibble act, Q6_K (16) K6
+    # byte act with the derived bias; the Q6_K head K6 byte.  At prefill no
+    # dual: wqk K6 nibble normed and wv K6 byte normed, wo K6 nibble; at the
+    # 8-bucket the act modes, above it down pre-interleaved through K6
+    "Llama-3-8B Q4_K_M il": {
+        "step": dict(fast_nibble_normed=48, fast_nibble_res=32,
+                     fast_nibble_act=16, fast_byte_act=16, fast_byte=1,
+                     fast_dual=16, decode_attn=32),
+        "bucket8": dict(fast_nibble_normed=64, fast_byte_normed=16,
+                        fast_nibble=32, fast_nibble_act=16, fast_byte_act=16,
+                        fast_byte=1),
+        "chunk": dict(fast_nibble_normed=64, fast_byte_normed=16,
+                      fast_nibble=48, fast_byte=17),
+    },
+    # wq Q4_K K6 nibble, wk/wv Q8_0 and the Q6_K head K6 byte, wo Q5_K K6
+    # byte res (stored bias; plain mode above one token); gate/up Q4_K
+    # stacks and down stacks Q4_K (16 layers) through K8 nibble, Q6_K (16)
+    # through K8 byte, at <= 8 rows; every expert's gate, up and down through
+    # K6 above
+    "Mixtral-8x7B Q4_K_M il": {
+        "step": dict(fast_nibble=32, fast_byte=65, fast_byte_res=32,
+                     fast_indirect_nibble=80, fast_indirect=16,
+                     decode_attn=32),
+        "bucket8": dict(fast_nibble=32, fast_byte=97,
+                        fast_indirect_nibble=80, fast_indirect=16),
+        "chunk": dict(fast_nibble=672, fast_byte=225),
+    },
 }
 
 
@@ -677,7 +739,6 @@ def check_kernels_moe(dev, weights, cfg):
     shapes of the main path; returns the K5 and K6 reports and logs the
     Mixtral sums of K1 per decode step and K3 per 512-token chunk."""
     from ggml_hexagon_tpu_torch.models.llama import qtensor_rows
-    from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
     from ggml_hexagon_tpu_torch.ops import qmm_qp8 as P
 
     gen = torch.Generator(device=dev)
@@ -700,22 +761,10 @@ def check_kernels_moe(dev, weights, cfg):
                       "ggml_hexagon_tpu_torch/csrc/qp8_gemv.cu",
                       "ggml_hexagon_tpu/ops/qmm_qp8.py:1022",
                       f"one Mixtral decode step (B=1, P=2): {3 * n_l} launches")
-    K6 = KernelReport("fast_byte", "cuda",
-                      "ggml_hexagon_tpu_torch/csrc/fast_byte.cu",
-                      "ggml_hexagon_tpu/ops/qmm_fast.py:510",
+    K6 = KernelReport("fast_byte", "cuda", SRC_IL, K6_BYTE,
                       f"one Mixtral decode step (B=1): {2 * n_l} launches")
     M1 = KernelReport("qp8_gemv", "cuda", "", "", "Mixtral decode step")
     M3 = KernelReport("qp8_gemm", "cuda", "", "", "Mixtral 512-token chunk")
-
-    def deq_t(qt):  # bf16 [K, n2] in natural order
-        return PF.dequantize_fast(qt, torch.bfloat16).t().contiguous()
-
-    def held(what, got, want):
-        sync(dev)
-        err, e2 = float((got - want).abs().max()), nmse(got, want)
-        if not (e2 <= NMSE_KERNEL and torch.isfinite(got).all()):
-            raise AssertionError(f"{what}: nmse {e2}")
-        return err, e2
 
     rng = np.random.default_rng(7)
     id_sets = [("P2", [5, 2]), ("P2_dup", [3, 3]),
@@ -753,25 +802,9 @@ def check_kernels_moe(dev, weights, cfg):
 
     log(f"K6 fast_byte (NMSE <= {NMSE_KERNEL})")
     for name, qt in (("wk", layers[0]["wk"]), ("wv", layers[0]["wv"])):
-        deq = deq_t(qt)
         for B in (1, 8, 128, 512):
-            x = randn(B, qt.k).to(torch.bfloat16)
-            got = PF.fast_byte(x, qt)
-            err, e2 = held(f"K6 {name} B={B}", got, PF.fast_byte_plain(x, qt))
-            ms = time_ms(lambda: PF.fast_byte(x, qt))
-            pms = time_plain_ms(lambda: PF.fast_byte_plain(x, qt))
-            lib = time_ms(lambda: torch.matmul(x, deq))
-            peak = F32_OPS if B <= 8 else BF16_OPS
-            byts = nbytes(qt.fq, qt.fs, x, got)
-            ops = 2 * B * qt.k * qt.fq.shape[0]
-            bms, by = bound_ms(byts, ops, peak)
-            log(f"  {name} {qt.cfg.qtype.name} {qt.n}x{qt.k} B={B:3d} "
-                f"max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms "
-                f"plain={pms:.3f}ms bf16-matmul={lib:.4f}ms bound={bms:.4f}ms "
-                f"({by}) {bms / ms:.0%} of bound")
-            if B == 1:
-                K6.add(n_l, err, ms, pms, byts, ops, peak, lib)
-        del deq
+            k6_row(dev, gen, cfg, K6 if B == 1 else None, name, qt, "plain",
+                   B, n_l)
 
     log(f"K1 / K3 on the Mixtral shapes (NMSE <= {NMSE_KERNEL})")
     lw0 = layers[0]
@@ -831,72 +864,154 @@ def check_kernels_moe(dev, weights, cfg):
     return [K5, K6]
 
 
+SRC_IL = "ggml_hexagon_tpu_torch/csrc/fast_il.cu"
+K6_BYTE = "ggml_hexagon_tpu/ops/qmm_fast.py:510"
+K6_NIBBLE = "ggml_hexagon_tpu/ops/qmm_fast.py:497"
+K7_DUAL = "ggml_hexagon_tpu/ops/qmm_fast.py:872"
+K8_GATHER = "ggml_hexagon_tpu/ops/qmm_fast.py:1259"
+
+
+def k6_row(dev, gen, cfg, rep, name, qt, mode, B, count):
+    """One K6 call on interleaved planes of either family, with or without
+    a group bias (mode: plain, pre_il, normed, res, act with a residual):
+    kernel vs plain version on the group sums the entry would hand it,
+    kernel / plain / yardstick times and the bound; added to rep (when
+    given) count times."""
+    from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
+
+    K = qt.k
+    nib = PF._is_nibble(qt.cfg)
+    kw = {}
+    x = torch.randn(B, 2 * K if mode == "act" else K, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    if mode == "normed":
+        kw = dict(wn=torch.rand(K, device=dev, generator=gen) + 0.5,
+                  eps=cfg.rms_eps)
+    elif mode in ("res", "act"):
+        kw = dict(res=torch.randn(B, qt.n, generator=gen, device=dev))
+    if mode == "act":
+        kw["act"] = "silu"
+    elif mode == "pre_il":
+        kw = dict(pre_il=True)
+    _, nkj = PF._pick_blocks(PF._padded_rows(B), K, nib, qt.cfg.gs)
+    kw["xg"] = PF.group_sums(qt, x, mode, kw.get("wn"), nkj)
+    kern, plain = ((PF.fast_nibble, PF.fast_nibble_plain) if nib
+                   else (PF.fast_byte, PF.fast_byte_plain))
+    got = kern(x, qt, **kw)
+    err, e2 = held(f"K6 {mode} {name} B={B}", got, plain(x, qt, **kw))
+    iters = 10 if B > 8 else 20
+    ms = time_ms(lambda: kern(x, qt, **kw), iters=iters)
+    pms = time_plain_ms(lambda: plain(x, qt, **kw))
+    deq = deq_t(qt)
+    xl = x[:, :K]
+    lib = time_ms(lambda: torch.matmul(xl, deq), iters=iters)
+    del deq
+    peak = F32_OPS if B <= 8 else BF16_OPS
+    byts = plane_bytes(qt) + nbytes(x, got, kw.get("wn"), kw.get("res"),
+                                    kw["xg"])
+    ops = 2 * B * K * qt.fq.shape[0] + bias_ops(qt, B)
+    bms, by = bound_ms(byts, ops, peak)
+    xg_mode = PF._xg_mode(qt, nkj)
+    log(f"  {mode:6s} {name:10s} {qt.cfg.qtype.name} {qt.n}x{K} B={B:3d} "
+        f"{'nibble' if nib else 'byte'} bias-sums={xg_mode} "
+        f"max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms plain={pms:.3f}ms "
+        f"bf16-matmul={lib:.4f}ms bound={bms:.4f}ms ({by}) "
+        f"{bms / ms:.0%} of bound")
+    if rep is not None:
+        rep.add(count, err, ms, pms, byts, ops, peak, lib)
+
+
+def k8_rows(dev, gen, rep, name, qt, npe, per_step, seed):
+    """K8 on stacked interleaved planes of either family, at P=2, P=2 with
+    a duplicate id and P=16: kernel vs plain version, times, bound; the
+    P=2 row added to rep per_step times."""
+    from ggml_hexagon_tpu_torch.models.llama import qtensor_rows
+    from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
+
+    E = qt.fq.shape[0] // npe
+    rng = np.random.default_rng(seed)
+    id_sets = [("P2", [5, 2]), ("P2_dup", [3, 3]),
+               ("P16", [int(e) for _ in range(8)
+                        for e in rng.permutation(E)[:2]])]
+    bias = qt.fb is not None or bool(qt.cfg.offset)
+    for label, id_list in id_sets:
+        ids = torch.tensor(id_list, dtype=torch.int32, device=dev)
+        x = torch.randn(len(id_list), qt.k, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        xg = PF._sums_natural(x, qt.fs.shape[1]) if bias else None
+        got = PF.fast_indirect(x, qt, ids, npe, xg)
+        err, e2 = held(f"K8 {name} {label}", got,
+                       PF.fast_indirect_plain(x, qt, ids, npe, xg))
+        ms = time_ms(lambda: PF.fast_indirect(x, qt, ids, npe, xg))
+        pms = time_plain_ms(lambda: PF.fast_indirect_plain(x, qt, ids, npe, xg))
+        uniq = sorted(set(id_list))
+        w_e = {e: deq_t(qtensor_rows(qt, e * npe, npe)) for e in uniq}
+        wsel = torch.stack([w_e[e] for e in id_list])   # [P, K, npe]
+        xb = x[:, None, :]
+        lib = time_ms(lambda: torch.bmm(xb, wsel))
+        del w_e, wsel
+        one = qtensor_rows(qt, 0, npe)
+        byts = len(uniq) * plane_bytes(one) + nbytes(x, ids, got, xg)
+        ops = 2 * len(id_list) * qt.k * npe + bias_ops(one, len(id_list))
+        bms, by = bound_ms(byts, ops, F32_OPS)
+        log(f"  {name:8s} {qt.cfg.qtype.name} {E}x{npe}x{qt.k} {label:6s} "
+            f"max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms "
+            f"plain={pms:.3f}ms bf16-bmm={lib:.4f}ms bound={bms:.4f}ms "
+            f"({by}) {bms / ms:.0%} of bound")
+        if label == "P2" and rep is not None:
+            rep.add(per_step, err, ms, pms, byts, ops, F32_OPS, lib)
+
+
+def dual_row(dev, gen, cfg, rep, qa, qb, B, count):
+    """K7 on a normed pair (the decode QKV): kernel vs plain version, times
+    against a bf16 matmul on both weights at once, the bound."""
+    from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
+
+    K = qa.k
+    x = torch.randn(B, K, generator=gen, device=dev).to(torch.bfloat16)
+    kw = dict(wn_a=torch.rand(K, device=dev, generator=gen) + 0.5,
+              wn_b=torch.rand(K, device=dev, generator=gen) + 0.5,
+              eps=cfg.rms_eps)
+    kw["xg_a"] = PF.group_sums(qa, x, "normed", kw["wn_a"])
+    kw["xg_b"] = PF.group_sums(qb, x, "normed", kw["wn_b"])
+    got = PF.fast_dual(x, qa, qb, **kw)
+    err, e2 = held(f"K7 B={B}", got, PF.fast_dual_plain(x, qa, qb, **kw))
+    ms = time_ms(lambda: PF.fast_dual(x, qa, qb, **kw))
+    pms = time_plain_ms(lambda: PF.fast_dual_plain(x, qa, qb, **kw))
+    deq = torch.cat([deq_t(qa), deq_t(qb)], dim=1)
+    lib = time_ms(lambda: torch.matmul(x, deq))
+    del deq
+    byts = plane_bytes(qa) + plane_bytes(qb) + nbytes(
+        x, got, kw["wn_a"], kw["wn_b"], kw["xg_a"], kw["xg_b"])
+    ops = (2 * B * K * (qa.fq.shape[0] + qb.fq.shape[0]) + bias_ops(qa, B)
+           + bias_ops(qb, B))
+    bms, by = bound_ms(byts, ops, F32_OPS)
+    log(f"  wqk+wv {qa.cfg.qtype.name}+{qb.cfg.qtype.name} {qa.n}+{qb.n}x{K} "
+        f"B={B} max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms "
+        f"plain={pms:.3f}ms bf16-matmul={lib:.4f}ms bound={bms:.4f}ms ({by}) "
+        f"{bms / ms:.0%} of bound")
+    if rep is not None:
+        rep.add(count, err, ms, pms, byts, ops, F32_OPS, lib)
+
+
 def check_kernels_il(dev, weights, cfg):
     """K6's normed, act and residual modes (8B IQ4_XS) or K8 and K6's plain
     mode on IQ4_XS (Mixtral IQ4_XS) against their plain versions at the
     configuration's main-path shapes; returns the reports of the modes and
     of K8 that this configuration's path runs."""
     from ggml_hexagon_tpu_torch.models.llama import qtensor_rows
-    from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(2468)
-
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen, device=dev)
-
     layers = weights["layers"]
     n_l = len(layers)
     moe = "ffn_gate_inp" in layers[0]
 
-    def held(what, got, want):
-        sync(dev)
-        err, e2 = float((got - want).abs().max()), nmse(got, want)
-        if not (e2 <= NMSE_KERNEL and torch.isfinite(got).all()):
-            raise AssertionError(f"{what}: nmse {e2}")
-        return err, e2
-
-    def deq_t(qt):  # bf16 [K, n2] in natural order
-        return PF.dequantize_fast(qt, torch.bfloat16).t().contiguous()
-
     def report(key, unit):
-        return KernelReport(key, "cuda", "ggml_hexagon_tpu_torch/csrc/fast_byte.cu",
-                            "ggml_hexagon_tpu/ops/qmm_fast.py:510", unit)
+        return KernelReport(key, "cuda", SRC_IL, K6_BYTE, unit)
 
-    def mode_row(rep, name, qt, mode, B, count):
-        """One K6 call: kernel vs plain, kernel / plain / yardstick times and
-        the bound; added to rep (when given) count times."""
-        K = qt.k
-        kw = {}
-        x = randn(B, 2 * K if mode == "act" else K).to(torch.bfloat16)
-        if mode == "normed":
-            kw = dict(wn=torch.rand(K, device=dev, generator=gen) + 0.5,
-                      eps=cfg.rms_eps)
-        elif mode in ("res", "act"):
-            kw = dict(res=randn(B, qt.n))
-        if mode == "act":
-            kw["act"] = "silu"
-        elif mode == "pre_il":
-            kw = dict(pre_il=True)
-        got = PF.fast_byte(x, qt, **kw)
-        err, e2 = held(f"K6 {mode} {name} B={B}", got,
-                       PF.fast_byte_plain(x, qt, **kw))
-        ms = time_ms(lambda: PF.fast_byte(x, qt, **kw), iters=10 if B > 8 else 20)
-        pms = time_plain_ms(lambda: PF.fast_byte_plain(x, qt, **kw))
-        deq = deq_t(qt)
-        xl = x[:, :K]
-        lib = time_ms(lambda: torch.matmul(xl, deq), iters=10 if B > 8 else 20)
-        del deq
-        peak = F32_OPS if B <= 8 else BF16_OPS
-        byts = plane_bytes(qt) + nbytes(x, got, kw.get("wn"), kw.get("res"))
-        ops = 2 * B * K * qt.fq.shape[0]
-        bms, by = bound_ms(byts, ops, peak)
-        log(f"  {mode:6s} {name:10s} {qt.cfg.qtype.name} {qt.n}x{K} B={B:3d} "
-            f"max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms plain={pms:.3f}ms "
-            f"bf16-matmul={lib:.4f}ms bound={bms:.4f}ms ({by}) "
-            f"{bms / ms:.0%} of bound")
-        if rep is not None:
-            rep.add(count, err, ms, pms, byts, ops, peak, lib)
+    def row(rep, name, qt, mode, B, count):
+        k6_row(dev, gen, cfg, rep, name, qt, mode, B, count)
 
     if not moe:
         lw_il = next(lw for lw in layers if lw["ffn_down"].fl == "il")
@@ -907,64 +1022,130 @@ def check_kernels_il(dev, weights, cfg):
         log(f"K6 modes on the 8B IQ4_XS shapes (kernel vs plain, NMSE <= {NMSE_KERNEL})")
         for B in (1, 8, 128, 512):
             for name, qt in (("wqk", lw_il["wqk"]), ("gate_up", lw_il["w_gateup_il"])):
-                mode_row(KN if B == 1 else None, name, qt, "normed", B, n_l)
+                row(KN if B == 1 else None, name, qt, "normed", B, n_l)
         for B in (1, 8):
-            mode_row(KR if B == 1 else None, "wo", lw_il["wo"], "res", B, n_l)
-            mode_row(KA if B == 1 else None, "down", lw_il["ffn_down"], "act", B, n_dn)
+            row(KR if B == 1 else None, "wo", lw_il["wo"], "res", B, n_l)
+            row(KA if B == 1 else None, "down", lw_il["ffn_down"], "act", B, n_dn)
         for B in (128, 512):  # the prefill's plain launches
-            mode_row(None, "wo", lw_il["wo"], "plain", B, n_l)
-            mode_row(None, "down", lw_il["ffn_down"], "pre_il", B, n_dn)
+            row(None, "wo", lw_il["wo"], "plain", B, n_l)
+            row(None, "down", lw_il["ffn_down"], "pre_il", B, n_dn)
         return [KN, KR, KA]
 
     E, nff, d = cfg.n_expert, cfg.n_ff_exp or cfg.n_ff, cfg.n_embd
     lw_il = next(lw for lw in layers if lw["ffn_down_exps"].fl == "il")
     n_dn = sum(lw["ffn_down_exps"].fl == "il" for lw in layers)
-    K8 = KernelReport("fast_indirect", "cuda",
-                      "ggml_hexagon_tpu_torch/csrc/fast_byte.cu",
-                      "ggml_hexagon_tpu/ops/qmm_fast.py:1259",
+    K8 = KernelReport("fast_indirect", "cuda", SRC_IL, K8_GATHER,
                       f"one Mixtral IQ4_XS decode step (B=1, P=2): "
                       f"{2 * n_l + n_dn} launches")
-    rng = np.random.default_rng(9)
-    id_sets = [("P2", [5, 2]), ("P2_dup", [3, 3]),
-               ("P16", [int(e) for _ in range(8)
-                        for e in rng.permutation(E)[:2]])]
     log(f"K8 fast_indirect (kernel vs plain, NMSE <= {NMSE_KERNEL})")
-    for name, qt, npe, per_step in (
-            ("gate_up", lw_il["ffn_gate_exps"], nff, 2 * n_l),
-            ("down", lw_il["ffn_down_exps"], d, n_dn)):
-        for label, id_list in id_sets:
-            ids = torch.tensor(id_list, dtype=torch.int32, device=dev)
-            x = randn(len(id_list), qt.k).to(torch.bfloat16)
-            got = PF.fast_indirect(x, qt, ids, npe)
-            err, e2 = held(f"K8 {name} {label}", got,
-                           PF.fast_indirect_plain(x, qt, ids, npe))
-            ms = time_ms(lambda: PF.fast_indirect(x, qt, ids, npe))
-            pms = time_plain_ms(lambda: PF.fast_indirect_plain(x, qt, ids, npe))
-            uniq = sorted(set(id_list))
-            w_e = {e: deq_t(qtensor_rows(qt, e * npe, npe)) for e in uniq}
-            wsel = torch.stack([w_e[e] for e in id_list])   # [P, K, npe]
-            xb = x[:, None, :]
-            lib = time_ms(lambda: torch.bmm(xb, wsel))
-            del w_e, wsel
-            byts = (len(uniq) * plane_bytes(qtensor_rows(qt, 0, npe))
-                    + nbytes(x, ids, got))
-            ops = 2 * len(id_list) * qt.k * npe
-            bms, by = bound_ms(byts, ops, F32_OPS)
-            log(f"  {name:8s} {qt.cfg.qtype.name} {E}x{npe}x{qt.k} {label:6s} "
-                f"max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms "
-                f"plain={pms:.3f}ms bf16-bmm={lib:.4f}ms bound={bms:.4f}ms "
-                f"({by}) {bms / ms:.0%} of bound")
-            if label == "P2":
-                K8.add(per_step, err, ms, pms, byts, ops, F32_OPS, lib)
+    k8_rows(dev, gen, K8, "gate_up", lw_il["ffn_gate_exps"], nff, 2 * n_l, 9)
+    k8_rows(dev, gen, K8, "down", lw_il["ffn_down_exps"], d, n_dn, 10)
     log(f"K6 plain mode on the Mixtral IQ4_XS shapes (NMSE <= {NMSE_KERNEL})")
     for B in (1, 8, 128, 512):
-        mode_row(None, "wq", layers[0]["wq"], "plain", B, n_l)
+        row(None, "wq", layers[0]["wq"], "plain", B, n_l)
     for B in (128, 512):  # the dense prefill's expert slices
-        mode_row(None, "gate_e", qtensor_rows(lw_il["ffn_gate_exps"], 0, nff),
-                 "plain", B, 2 * E * n_l)
-        mode_row(None, "down_e", qtensor_rows(lw_il["ffn_down_exps"], 0, d),
-                 "plain", B, E * n_dn)
+        row(None, "gate_e", qtensor_rows(lw_il["ffn_gate_exps"], 0, nff),
+            "plain", B, 2 * E * n_l)
+        row(None, "down_e", qtensor_rows(lw_il["ffn_down_exps"], 0, d),
+            "plain", B, E * n_dn)
     return [K8]
+
+
+def check_kernels_nibble(dev, weights, cfg):
+    """The interleaved-everywhere route: K6 on nibble planes in every mode,
+    K6 on Q6_K byte planes with the derived bias and K7 (8B Q4_K_M il), or
+    K8 on nibble stacks and on Q6_K stacks with the derived bias, K6 on
+    nibble planes and on Q5_K planes with a stored bias (Mixtral Q4_K_M
+    il), against their plain versions at the configuration's main-path
+    shapes; returns the reports of what its decode step runs."""
+    from ggml_hexagon_tpu_torch.models.llama import qtensor_rows
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1357)
+    layers = weights["layers"]
+    n_l = len(layers)
+
+    def report(key, replaces, unit):
+        return KernelReport(key, "cuda", SRC_IL, replaces, unit)
+
+    def row(rep, name, qt, mode, B, count):
+        k6_row(dev, gen, cfg, rep, name, qt, mode, B, count)
+
+    if "ffn_gate_inp" not in layers[0]:
+        full = next(lw for lw in layers if "wqkv" in lw)
+        mixed = next(lw for lw in layers if "wqk" in lw)
+        n_full = sum("wqkv" in lw for lw in layers)
+        n_mixed = n_l - n_full
+
+        def dn(t):
+            return next(lw["ffn_down"] for lw in layers
+                        if lw["ffn_down"].cfg.qtype.name == t)
+
+        dn4, dn6 = dn("Q4_K"), dn("Q6_K")
+        n6 = sum(lw["ffn_down"].cfg.qtype.name == "Q6_K" for lw in layers)
+        unit = "one 8B Q4_K_M il decode step (B=1)"
+        KN = report("fast_nibble_normed", K6_NIBBLE, f"{unit}: {n_full + n_l} launches")
+        KR = report("fast_nibble_res", K6_NIBBLE, f"{unit}: {n_l} launches")
+        KA = report("fast_nibble_act", K6_NIBBLE, f"{unit}: {n_l - n6} launches")
+        BA = report("fast_byte_act", K6_BYTE,
+                    f"{unit}: {n6} launches (Q6_K, derived bias)")
+        BP = report("fast_byte", K6_BYTE, f"{unit}: 1 launch (Q6_K head, derived bias)")
+        KD = report("fast_dual", K7_DUAL, f"{unit}: {n_mixed} launches")
+        log(f"K6 on the 8B Q4_K_M il shapes (kernel vs plain, NMSE <= {NMSE_KERNEL})")
+        for B in (1, 8, 128, 512):
+            row(KN if B == 1 else None, "wqkv", full["wqkv"], "normed", B, n_full)
+            row(KN if B == 1 else None, "gate_up", full["w_gateup_il"], "normed", B, n_l)
+        for B in (1, 8):
+            row(KR if B == 1 else None, "wo", full["wo"], "res", B, n_l)
+            row(KA if B == 1 else None, "down_q4k", dn4, "act", B, n_l - n6)
+            row(BA if B == 1 else None, "down_q6k", dn6, "act", B, n6)
+        row(BP, "head_q6k", weights["output"], "plain", 1, 1)
+        for B in (128, 512):  # the prefill's other launches
+            row(None, "wqk", mixed["wqk"], "normed", B, n_mixed)
+            row(None, "wv_q6k", mixed["wv"], "normed", B, n_mixed)
+            row(None, "wo", full["wo"], "plain", B, n_l)
+            row(None, "down_q4k", dn4, "pre_il", B, n_l - n6)
+            row(None, "down_q6k", dn6, "pre_il", B, n6)
+        log(f"K7 fast_dual (NMSE <= {NMSE_KERNEL})")
+        for B in (1, 4, 8):
+            dual_row(dev, gen, cfg, KD if B == 1 else None, mixed["wqk"],
+                     mixed["wv"], B, n_mixed)
+        return [KN, KR, KA, BA, BP, KD]
+
+    E, nff, d = cfg.n_expert, cfg.n_ff_exp or cfg.n_ff, cfg.n_embd
+
+    def stack(t):
+        return next(lw for lw in layers
+                    if lw["ffn_down_exps"].cfg.qtype.name == t)
+
+    lw4, lw6 = stack("Q4_K"), stack("Q6_K")
+    n6 = sum(lw["ffn_down_exps"].cfg.qtype.name == "Q6_K" for lw in layers)
+    unit = "one Mixtral Q4_K_M il decode step (B=1"
+    KP = report("fast_nibble", K6_NIBBLE, f"{unit}): {n_l} launches (wq)")
+    KR = report("fast_byte_res", K6_BYTE, f"{unit}): {n_l} launches (Q5_K wo, stored bias)")
+    I4 = report("fast_indirect_nibble", K8_GATHER,
+                f"{unit}, P=2): {3 * n_l - n6} launches")
+    I6 = report("fast_indirect", K8_GATHER,
+                f"{unit}, P=2): {n6} launches (Q6_K, derived bias)")
+    log(f"K8 on the Mixtral Q4_K_M il stacks (kernel vs plain, NMSE <= {NMSE_KERNEL})")
+    k8_rows(dev, gen, I4, "gate_up", lw4["ffn_gate_exps"], nff, 2 * n_l, 11)
+    k8_rows(dev, gen, I4, "down_q4k", lw4["ffn_down_exps"], d, n_l - n6, 12)
+    k8_rows(dev, gen, I6, "down_q6k", lw6["ffn_down_exps"], d, n6, 13)
+    log(f"K6 on the Mixtral Q4_K_M il shapes (NMSE <= {NMSE_KERNEL})")
+    for B in (1, 8, 128, 512):
+        row(KP if B == 1 else None, "wq", layers[0]["wq"], "plain", B, n_l)
+    for B in (1, 8):
+        row(KR if B == 1 else None, "wo_q5k", layers[0]["wo"], "res", B, n_l)
+    row(None, "head_q6k", weights["output"], "plain", 1, 1)
+    for B in (128, 512):  # the prefill's wo and the dense expert slices
+        row(None, "wo_q5k", layers[0]["wo"], "plain", B, n_l)
+        row(None, "gate_e", qtensor_rows(lw4["ffn_gate_exps"], 0, nff),
+            "plain", B, 2 * E * n_l)
+        row(None, "down_q4k_e", qtensor_rows(lw4["ffn_down_exps"], 0, d),
+            "plain", B, E * (n_l - n6))
+        row(None, "down_q6k_e", qtensor_rows(lw6["ffn_down_exps"], 0, d),
+            "plain", B, E * n6)
+    return [KP, KR, I4, I6]
 
 
 def build_phase(name, builder, dev):
@@ -1023,9 +1204,11 @@ def main():
         sys.exit(2)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ggml_hexagon_tpu_torch import kernels
-    from ggml_hexagon_tpu_torch.models.synth import (build_8b, build_8b_iq4xs,
+    from ggml_hexagon_tpu_torch.models.synth import (build_8b, build_8b_il,
+                                                     build_8b_iq4xs,
                                                      build_mixtral,
-                                                     build_mixtral_iq4xs)
+                                                     build_mixtral_iq4xs,
+                                                     build_mixtral_q4km_il)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1046,7 +1229,10 @@ def main():
             ("Llama-3-8B Q4_K_M", build_8b, check_kernels),
             ("Mixtral-8x7B Q5_K_M", build_mixtral, check_kernels_moe),
             ("Llama-3-8B IQ4_XS", build_8b_iq4xs, check_kernels_il),
-            ("Mixtral-8x7B IQ4_XS", build_mixtral_iq4xs, check_kernels_il)):
+            ("Mixtral-8x7B IQ4_XS", build_mixtral_iq4xs, check_kernels_il),
+            ("Llama-3-8B Q4_K_M il", build_8b_il, check_kernels_nibble),
+            ("Mixtral-8x7B Q4_K_M il", build_mixtral_q4km_il,
+             check_kernels_nibble)):
         reps, counts = run_phase(name, builder, check, dev)
         reports += reps
         runs.append(counts)

@@ -33,19 +33,25 @@ SOURCES = {
     "qp8_gemv": "qp8_gemv.cu",      # K1, K2 and K5
     "qp8_gemm": "qp8_gemm.cu",      # K3
     "decode_attn": "decode_attn.cu",  # K4
-    "fast_byte": "fast_byte.cu",    # K6 (byte planes, four modes) and K8
+    "fast_il": "fast_il.cu",        # K6 (byte and nibble planes, four
+                                    # modes), K7 and K8
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: launches per kernel (K1 qp8_gemv, K2 qp8_dual, K3 qp8_gemm, K4
-#: decode_attn, K5 qp8_indirect; K6 by mode: fast_byte (plain, natural or
-#: pre-interleaved input), fast_byte_normed, fast_byte_res, fast_byte_act
-#: (with or without a residual); K8 fast_indirect)
+#: decode_attn, K5 qp8_indirect; K6 by family, byte or nibble planes, and
+#: mode: fast_byte / fast_nibble (plain, natural or pre-interleaved input),
+#: *_normed, *_res, *_act (with or without a residual), a launch on planes
+#: with a group bias under the same key; K7 fast_dual; K8 by family:
+#: fast_indirect (byte), fast_indirect_nibble)
 LAUNCHES = {"qp8_gemv": 0, "qp8_dual": 0, "qp8_gemm": 0, "decode_attn": 0,
             "qp8_indirect": 0, "fast_byte": 0, "fast_byte_normed": 0,
-            "fast_byte_res": 0, "fast_byte_act": 0, "fast_indirect": 0}
+            "fast_byte_res": 0, "fast_byte_act": 0, "fast_nibble": 0,
+            "fast_nibble_normed": 0, "fast_nibble_res": 0,
+            "fast_nibble_act": 0, "fast_dual": 0, "fast_indirect": 0,
+            "fast_indirect_nibble": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -63,9 +69,12 @@ _ARGTYPES = {
                          _P, _P, _P, _I, _P, _P],
     "qp8_gemm_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P,
                      _P, _P],
-    "fast_byte_run": [_I, _P, _I, _I, _P, _P, _I, _I, _P, _F, _P, _I, _P, _P,
-                      _P],
-    "fast_indirect_run": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P],
+    "fast_il_run": [_I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _P, _I, _P,
+                    _F, _P, _I, _P, _P, _P, _P],
+    "fast_dual_run": [_P, _I, _I, _F] + [_P, _P, _P, _P, _I, _I, _I, _F, _P,
+                                         _I, _P, _P] * 2 + [_P, _P],
+    "fast_indirect_run": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _P,
+                          _P, _P, _P, _P],
     "decode_attn_run": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                         _I, _F, _I, _P, _P, _P, _P],
 }
@@ -301,27 +310,41 @@ def qp8_indirect(x, qt, ids, npe: int):
     return out
 
 
-def _byte_plane_args(qt):
-    """(n2, G) of bias-free interleaved byte planes, checked."""
-    _need(qt.fq, torch.int8, "fq", 2)
+def _il_plane_args(qt):
+    """(n2, G, nibble, off) of interleaved planes, checked: fq int8 [n2, K]
+    (byte family) or uint8 [n2, K/2] (nibble family), fs and fb bf16
+    [n2, G] (fb None, or derived as off * fs when off != 0)."""
+    from .ops.qmm_fast import _is_nibble, _offset_bias
+
+    if qt.fl != "il":
+        raise ValueError(f"planes of layout {qt.fl!r}: K6-K8 take il")
+    if qt.cfg.code_map:
+        raise NotImplementedError(f"{qt.cfg.qtype.name}: coded nibble planes")
+    nib = _is_nibble(qt.cfg)
+    _need(qt.fq, torch.uint8 if nib else torch.int8, "fq", 2)
     _need(qt.fs, torch.bfloat16, "fs", 2)
+    _need(qt.fb, torch.bfloat16, "fb", 2)
     n2, G = qt.fs.shape
     K = qt.k
-    if qt.fl != "il" or qt.fb is not None:
-        raise ValueError("K6 and K8 take interleaved byte planes without a bias")
-    if qt.fq.shape != (n2, K) or K % G or K % 32:
+    if (qt.fq.shape != (n2, K // 2 if nib else K) or K % G
+            or K % (64 if nib else 32)
+            or (qt.fb is not None and qt.fb.shape != (n2, G))):
         raise ValueError(f"planes {tuple(qt.fq.shape)} / {tuple(qt.fs.shape)} "
                          f"do not fit K={K}")
-    return n2, G
+    return n2, G, nib, _offset_bias(qt.cfg, qt.fb)
 
 
-def fast_byte(x, qt, wn=None, eps=None, act: str = "", res=None,
-              pre_il: bool = False):
-    """K6 on the card, interleaved byte planes (fq int8 [n2, K], fs bf16
-    [n2, G], no bias) -> [B, n2] f32.  x bf16 [B, K] in natural column
-    order; normed with wn (f32 [K], interleaved) and eps; interleaved
-    already with pre_il; [B, 2K] gate ++ up (interleaved) with act="silu".
-    res (f32 [B, n <= n2]) is added last."""
+def _xg_args(xg, rows: int, G: int, bias: bool):
+    """(xg, xg_mode) of a launch: 0 planes without a bias, 1 the caller's
+    group sums xg f32 [rows, G], 2 sums taken in the kernel."""
+    _need(xg, torch.float32, "xg", 2)
+    if xg is not None and (not bias or xg.shape != (rows, G)):
+        raise ValueError(f"group sums {tuple(xg.shape)} for planes "
+                         f"{'with' if bias else 'without'} a bias, G={G}")
+    return 0 if not bias else (1 if xg is not None else 2)
+
+
+def _fast_launch(family: str, x, qt, wn, eps, act, res, pre_il, xg):
     if act not in ("", "silu"):
         raise NotImplementedError(f"act {act!r}: K6 takes silu only")
     if bool(act) + (eps is not None) + pre_il > 1:
@@ -329,7 +352,9 @@ def fast_byte(x, qt, wn=None, eps=None, act: str = "", res=None,
     _need(x, torch.bfloat16, "x", 2)
     _need(wn, torch.float32, "wn", 1)
     _need(res, torch.float32, "res", 2)
-    n2, G = _byte_plane_args(qt)
+    n2, G, nib, off = _il_plane_args(qt)
+    if nib != (family == "fast_nibble"):
+        raise ValueError(f"{qt.cfg.qtype.name} planes are not for {family}")
     K = qt.k
     B = x.shape[0]
     if x.shape[1] != (2 * K if act else K) or n2 % 128:
@@ -338,50 +363,123 @@ def fast_byte(x, qt, wn=None, eps=None, act: str = "", res=None,
         raise ValueError("the normed mode takes wn [K] and eps together")
     if res is not None and (res.shape[0] != B or res.shape[1] > n2):
         raise ValueError(f"res {tuple(res.shape)} vs output [{B}, {n2}]")
+    bias = qt.fb is not None or off != 0.0
+    xg_mode = _xg_args(xg, B, G, bias)
     if act:
-        mode, key = 2, "fast_byte_act"
+        mode, key = 2, family + "_act"
     elif eps is not None:
-        mode, key = 1, "fast_byte_normed"
+        mode, key = 1, family + "_normed"
     else:
-        mode, key = (3 if pre_il else 0), ("fast_byte_res" if res is not None
-                                           else "fast_byte")
+        mode, key = (3 if pre_il else 0), (family + "_res" if res is not None
+                                           else family)
     dev = x.device
     xil = (None if pre_il
            else torch.empty((B, K), dtype=torch.bfloat16, device=dev))
+    xgs = torch.empty((B, G), dtype=torch.float32, device=dev) if bias else None
     out = torch.empty((B, n2), dtype=torch.float32, device=dev)
-    lib = _lib("fast_byte")
-    rc = lib.fast_byte_run(mode, _ptr(x), B, K, _ptr(qt.fq), _ptr(qt.fs), n2,
-                           G, _ptr(wn), 0.0 if eps is None else float(eps),
-                           _ptr(res), 0 if res is None else res.shape[1],
-                           _ptr(xil), _ptr(out), _stream(dev))
+    lib = _lib("fast_il")
+    rc = lib.fast_il_run(mode, int(nib), _ptr(x), B, K, _ptr(qt.fq),
+                         _ptr(qt.fs), _ptr(qt.fb), n2, G, off, _ptr(xg),
+                         xg_mode, _ptr(wn), 0.0 if eps is None else float(eps),
+                         _ptr(res), 0 if res is None else res.shape[1],
+                         _ptr(xil), _ptr(xgs), _ptr(out), _stream(dev))
     _check(lib, rc, key)
     LAUNCHES[key] += 1
     return out
 
 
-def fast_indirect(x, qt, ids, npe: int):
+def fast_byte(x, qt, wn=None, eps=None, act: str = "", res=None,
+              pre_il: bool = False, xg=None):
+    """K6 on the card, interleaved byte planes (fq int8 [n2, K], fs bf16
+    [n2, G], fb bf16 [n2, G] or a bias derived as off * fs, or none) ->
+    [B, n2] f32.  x bf16 [B, K] in natural column order; normed with wn
+    (f32 [K], interleaved) and eps; interleaved already with pre_il; [B, 2K]
+    gate ++ up (interleaved) with act="silu".  xg f32 [B, G]: the caller's
+    group sums of planes with a bias (None: the kernel sums its own
+    activation).  res (f32 [B, n <= n2]) is added last."""
+    return _fast_launch("fast_byte", x, qt, wn, eps, act, res, pre_il, xg)
+
+
+def fast_nibble(x, qt, wn=None, eps=None, act: str = "", res=None,
+                pre_il: bool = False, xg=None):
+    """K6 on the card, interleaved nibble planes (fq uint8 [n2, K/2]);
+    otherwise as fast_byte."""
+    return _fast_launch("fast_nibble", x, qt, wn, eps, act, res, pre_il, xg)
+
+
+def fast_dual(x, qt_a, qt_b, wn_a=None, wn_b=None, eps=None, xg_a=None,
+              xg_b=None):
+    """K7 on the card: x bf16 [B <= 8, K] in natural column order against
+    two interleaved plane sets of either family -> [B, n2_a + n2_b] f32,
+    each part normed with its own wn_* (f32 [K], interleaved like its
+    planes) when eps is given and biased with its own group sums (xg_*
+    f32 [B, G_*], or None: taken in the kernel)."""
+    _need(x, torch.bfloat16, "x", 2)
+    B, K = x.shape
+    if not 1 <= B <= 8 or K != qt_a.k or K != qt_b.k:
+        raise ValueError(f"x {tuple(x.shape)}: expected [B<=8, {qt_a.k}] "
+                         f"for K={qt_a.k}/{qt_b.k}")
+    if (eps is None) != (wn_a is None) or (wn_a is None) != (wn_b is None):
+        raise ValueError("the normed mode takes wn_a, wn_b and eps together")
+    dev = x.device
+    # scratch stays referenced until the launch: a tensor freed earlier
+    # could be handed to `out` by the caching allocator
+    parts, n2s, scratch = [], [], []
+    for qt, wn, xg in ((qt_a, wn_a, xg_a), (qt_b, wn_b, xg_b)):
+        n2, G, nib, off = _il_plane_args(qt)
+        _need(wn, torch.float32, "wn", 1)
+        if wn is not None and wn.shape[0] != K:
+            raise ValueError(f"wn {tuple(wn.shape)} vs K={K}")
+        bias = qt.fb is not None or off != 0.0
+        xg_mode = _xg_args(xg, B, G, bias)
+        xil = torch.empty((B, K), dtype=torch.bfloat16, device=dev)
+        xgs = (torch.empty((B, G), dtype=torch.float32, device=dev)
+               if bias else None)
+        parts += [_ptr(wn), _ptr(qt.fq), _ptr(qt.fs), _ptr(qt.fb), n2, G,
+                  int(nib), off, _ptr(xg), xg_mode, _ptr(xil), _ptr(xgs)]
+        n2s.append(n2)
+        scratch += [xil, xgs]
+    out = torch.empty((B, sum(n2s)), dtype=torch.float32, device=dev)
+    lib = _lib("fast_il")
+    rc = lib.fast_dual_run(_ptr(x), B, K, 0.0 if eps is None else float(eps),
+                           *parts, _ptr(out), _stream(dev))
+    del scratch
+    _check(lib, rc, "fast_dual")
+    LAUNCHES["fast_dual"] += 1
+    return out
+
+
+def fast_indirect(x, qt, ids, npe: int, xg=None):
     """K8 on the card: x bf16 [P, K] in natural column order, ids int32 [P]
-    (read on the card) -> y [P, npe] f32, row p against rows
-    [ids[p]*npe, (ids[p]+1)*npe) of the stacked interleaved byte planes; an
-    id outside [0, E) gives a NaN row."""
+    (read on the card), xg f32 [P, G] the group sums of x where the planes
+    carry a bias -> y [P, npe] f32, row p against rows
+    [ids[p]*npe, (ids[p]+1)*npe) of the stacked interleaved planes (byte
+    or nibble); an id outside [0, E) gives a NaN row."""
     _need(x, torch.bfloat16, "x", 2)
     _need(ids, torch.int32, "ids", 1)
-    n2, G = _byte_plane_args(qt)
+    n2, G, nib, off = _il_plane_args(qt)
     P, K = x.shape
     if K != qt.k or ids.shape[0] != P:
         raise ValueError(f"x {tuple(x.shape)} / ids {tuple(ids.shape)} vs "
                          f"weight K={qt.k}")
     if npe < 1 or n2 % npe:
         raise ValueError(f"{npe} rows an expert do not tile {n2} rows")
+    bias = qt.fb is not None or off != 0.0
+    if _xg_args(xg, P, G, bias) == 2:
+        raise ValueError("K8 takes the group sums of planes with a bias as "
+                         "an input")
+    key = "fast_indirect_nibble" if nib else "fast_indirect"
     dev = x.device
     xil = torch.empty((P, K), dtype=torch.bfloat16, device=dev)
+    xgs = torch.empty((P, G), dtype=torch.float32, device=dev) if bias else None
     out = torch.empty((P, npe), dtype=torch.float32, device=dev)
-    lib = _lib("fast_byte")
+    lib = _lib("fast_il")
     rc = lib.fast_indirect_run(_ptr(x), P, K, _ptr(ids), npe, n2 // npe,
-                               _ptr(qt.fq), _ptr(qt.fs), G, _ptr(xil),
+                               _ptr(qt.fq), _ptr(qt.fs), _ptr(qt.fb), G,
+                               int(nib), off, _ptr(xg), _ptr(xil), _ptr(xgs),
                                _ptr(out), _stream(dev))
-    _check(lib, rc, "fast_indirect")
-    LAUNCHES["fast_indirect"] += 1
+    _check(lib, rc, key)
+    LAUNCHES[key] += 1
     return out
 
 

@@ -34,7 +34,8 @@ def _concat_qtensors(parts: list) -> QTensor | None:
     """Row-concatenate same-type tensors with unpadded rows, or None.
     Wire planes concatenate; matmul planes concatenate on their
     output-feature axis when unpadded, else are rebuilt from the
-    concatenated wire (per-part padding would land mid-tensor)."""
+    concatenated wire in the parts' layout (per-part padding would land
+    mid-tensor)."""
     p0 = parts[0]
     for p in parts:
         if (not isinstance(p, QTensor) or p.cfg != p0.cfg or p.k != p0.k
@@ -61,7 +62,7 @@ def _concat_qtensors(parts: list) -> QTensor | None:
                                 cat("fq", fax), cat("fs", fax),
                                 cat("fb", fax), fl=p0.fl)
             else:
-                fused = fused.with_fast_planes()
+                fused = fused.with_fast_planes(p0.fl)
         return fused
     if planes_unpadded:
         return QTensor(p0.cfg, n, p0.k, fq=cat("fq", fax), fs=cat("fs", fax),

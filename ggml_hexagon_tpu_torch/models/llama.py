@@ -3,8 +3,9 @@
 Counterpart of the llama branches of ggml_hexagon_tpu/models/llama.py
 (:33-169, 342-349, 352-541, 565-799, 850-881, 899-1326).  The forward takes
 the JAX package's decode fast paths on every device: the dual QKV
-projection (K2) where wqk and wv both have t-planes, else one fused
-norm+matmul each (K1 on t-planes, K6's normed mode on interleaved ones);
+projection where wqk and wv share a layout (K2 on t-planes, K7 on
+interleaved ones), else one fused norm+matmul each (K1 on t-planes, K6's
+normed mode on interleaved ones);
 the fused decode attention (K4) with one bulk KV write after the layer
 loop; wo with the residual added in the kernel (K1, or K6's residual
 mode); and the fused act+down with residual (K1, or K6's act mode).
@@ -34,10 +35,10 @@ from ..ops.basic import (RopeParams, apply_rope, rms_norm, rope_freqs, silu,
 from ..ops.decode_attn import fused_decode_attention
 from ..ops.qmatmul import dequantize, qmatmul, qmatmul_normed, take_rows_wire
 from ..ops.qmm_fast import (qmatmul_fast, qmatmul_fast_act,
-                            qmatmul_fast_indirect, qmatmul_fast_res,
-                            supports_dual, supports_fused_epilogue,
-                            supports_indirect)
-from ..ops.qmm_qp8 import QP8_MAX_DECODE, qp8_matmul_dual
+                            qmatmul_fast_dual, qmatmul_fast_indirect,
+                            qmatmul_fast_res, supports_dual,
+                            supports_fused_epilogue, supports_indirect)
+from ..ops.qmm_qp8 import QP8_MAX_DECODE
 from ..quant.pack import QTensor
 
 #: set to a list to record the MoE routing of each _moe_ffn call, in layer
@@ -428,8 +429,10 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
             q, k, v = qkv[..., :nq], qkv[..., nq:nq + nk], qkv[..., nq + nk:]
         elif (use_fused and B <= QP8_MAX_DECODE
               and supports_dual(lw["wqk"], lw["wv"])):
-            flat_qkv = qp8_matmul_dual(h[:, 0], lw["wqk"], lw["wv"], wn, eps,
-                                       plain=plain)
+            # one launch whose output is the flat q++k++v row (K2 or K7)
+            flat_qkv = qmatmul_fast_dual(h[:, 0], lw["wqk"], lw["wv"], wn,
+                                         lw["attn_norm_il_v"], eps,
+                                         plain=plain)
         else:  # mixed layouts (IQ4_XS wqk, Q5_K wv): one normed call each
             qk = qmatmul_normed(h, lw["wqk"], wn, eps, plain=plain)
             v = qmatmul_normed(h, lw["wv"], lw["attn_norm_il_v"], eps,

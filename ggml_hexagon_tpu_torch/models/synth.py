@@ -1,6 +1,8 @@
 """Random Llama-3-8B and Mixtral-8x7B models with the exact plane layout of
 a GGUF file of a given llama.cpp mixture (Q4_K_M, Q5_K_M, IQ4_XS), drawn on
-the device from a seeded torch.Generator.
+the device from a seeded torch.Generator, on the JAX package's default
+plane layouts (layout "t") or on the interleaved layout everywhere (layout
+"il", the JAX package under GHT_QP8=0).
 
 Counterpart of bench.py:26-125 (`random_qtensor`, `host_concat`,
 `build_8b`).  The wire planes are drawn as the bench draws them (uniform
@@ -112,14 +114,17 @@ def _policy(cfg: LlamaConfig, ftype: str) -> QuantPolicy:
 
 
 def build_model(cfg: LlamaConfig, seed: int = 0, device="cuda",
-                ftype: str = "Q4_K_M"):
+                ftype: str = "Q4_K_M", layout: str = "t"):
     """(cfg', weights) of a random dense model under llama.cpp's `ftype`
     per-tensor policy, every type taken from QuantPolicy, through the
     production load pipeline: NEOX rope permutation, projection fusion,
     wire-plane drop.  Q4_K_M: Q4_K everywhere but Q6_K attn_v/ffn_down in
     the _use_more_bits layers and a Q6_K head.  IQ4_XS (at n_gqa >= 4):
-    IQ4_XS on the interleaved layout, but Q5_K attn_v and ffn_down in the
-    first eighth of the layers, a Q6_K head."""
+    IQ4_XS (interleaved planes only), but Q5_K attn_v and ffn_down in the
+    first eighth of the layers, a Q6_K head.  layout "t": t-planes for
+    every type that has them, interleaved ones for the others (the JAX
+    package's default, independent of GHT_QP8); "il": interleaved planes
+    for every tensor."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -131,7 +136,7 @@ def build_model(cfg: LlamaConfig, seed: int = 0, device="cuda",
                               device)
 
     def t(qt):
-        return qt.with_fast_planes().without_wire()
+        return qt.with_fast_planes(layout).without_wire()
 
     nq, nkv = cfg.n_head * cfg.hd, cfg.n_head_kv * cfg.hd
     layers = []
@@ -155,7 +160,7 @@ def build_model(cfg: LlamaConfig, seed: int = 0, device="cuda",
             # wire kept until fuse_weights has concatenated wq and wk: at
             # widths that pad the planes' lanes it rebuilds from the wire
             for key, w in zip(("wq", "wk", "wv"), qkv):
-                lw[key] = w.with_fast_planes()
+                lw[key] = w.with_fast_planes(layout)
         layers.append(lw)
         del gate, up, qkv
     weights = {
@@ -175,6 +180,13 @@ def build_8b(seed: int = 0, device="cuda"):
     return build_model(LlamaConfig(**LLAMA3_8B), seed=seed, device=device)
 
 
+def build_8b_il(seed: int = 0, device="cuda"):
+    """Llama-3-8B Q4_K_M, all 32 layers at full width, on the interleaved
+    layout everywhere."""
+    return build_model(LlamaConfig(**LLAMA3_8B), seed=seed, device=device,
+                       layout="il")
+
+
 def build_8b_iq4xs(seed: int = 0, device="cuda"):
     """Llama-3-8B IQ4_XS, all 32 layers at full width."""
     return build_model(LlamaConfig(**LLAMA3_8B), seed=seed, device=device,
@@ -182,7 +194,7 @@ def build_8b_iq4xs(seed: int = 0, device="cuda"):
 
 
 def build_moe_model(cfg: LlamaConfig, seed: int = 0, device="cuda",
-                    ftype: str = "Q5_K_M"):
+                    ftype: str = "Q5_K_M", layout: str = "t"):
     """(cfg', weights) of a random MoE model under llama.cpp's `ftype`
     per-tensor policy, through the production load pipeline.  At
     n_expert=8, Q5_K_M is Mixtral's mixture of the second slice (Q5_K
@@ -191,7 +203,10 @@ def build_moe_model(cfg: LlamaConfig, seed: int = 0, device="cuda",
     Q6_K head, Q5_K embedding kept as wire, f32 router); IQ4_XS keeps Q8_0
     attn_k/attn_v, the Q5_K attn_output and the Q6_K head, with IQ4_XS
     attn_q, gate/up stacks and embedding, and down stacks Q5_K in the first
-    eighth of the layers and IQ4_XS elsewhere.  Each tensor is drawn, given
+    eighth of the layers and IQ4_XS elsewhere; Q4_K_M has Q4_K attn_q,
+    gate/up stacks and embedding, Q8_0 attn_k/attn_v, Q5_K attn_output, down
+    stacks Q6_K in the _use_more_bits layers and Q4_K elsewhere, a Q6_K
+    head.  layout as in build_model.  Each tensor is drawn, given
     its matmul planes and stripped of its wire before the next is drawn, so
     the peak above the model is one tensor's transient (a full-width expert
     stack's int32 values are 1.9 GB)."""
@@ -203,7 +218,7 @@ def build_moe_model(cfg: LlamaConfig, seed: int = 0, device="cuda",
 
     def qt(name, n, k, wire=False):
         w = random_qtensor(gen, n, k, policy.tensor_type(name, (n, k)), device)
-        return w if wire else w.with_fast_planes().without_wire()
+        return w if wire else w.with_fast_planes(layout).without_wire()
 
     def ones():
         return torch.ones(d, dtype=torch.float32, device=device)
@@ -246,3 +261,10 @@ def build_mixtral_iq4xs(seed: int = 0, device="cuda"):
     """Mixtral-8x7B IQ4_XS, all 32 layers at full width."""
     return build_moe_model(LlamaConfig(**MIXTRAL_8X7B), seed=seed,
                            device=device, ftype="IQ4_XS")
+
+
+def build_mixtral_q4km_il(seed: int = 0, device="cuda"):
+    """Mixtral-8x7B Q4_K_M, all 32 layers at full width, on the interleaved
+    layout everywhere."""
+    return build_moe_model(LlamaConfig(**MIXTRAL_8X7B), seed=seed,
+                           device=device, ftype="Q4_K_M", layout="il")

@@ -1,39 +1,52 @@
 """Interleaved-layout ("il") quantized matmul: plane building, the plain
-versions, and the wrappers over the CUDA kernels K6 (byte planes, with its
-normed, act and residual modes) and K8 (gathered experts).
+versions, and the wrappers over the CUDA kernels K6 (byte and nibble
+planes, each in its plain, normed, act and residual modes), K7 (two
+projections of one activation in one launch) and K8 (gathered experts).
 
 Counterpart of ggml_hexagon_tpu/ops/qmm_fast.py: `supports_fast` and
 `build_fast_planes` (:120-242; `_int_values` and `_group_scale_bias` are
-shared with ops/qmm_qp8.py), `_pick_blocks` (:523-597, the blocking that
-decides which fused entries apply), `_fast_ref` (:683-706), `_interleave_x`
-(:721-734), `dequantize_fast` and `qmatmul_fast` (:817-869),
-`supports_dual` (:1016-1044), `supports_fused_epilogue` and
+shared with ops/qmm_qp8.py), `_offset_bias` and `_needs_xg` (:292-300),
+`_pick_blocks` (:523-597, the blocking that decides which fused entries
+apply and where the kernel takes its own group sums), `_interleave_x`
+(:721-734), `_fast_core`'s group sums (:757-767), `dequantize_fast` and
+`qmatmul_fast` (:817-869), `_dual_blocking`, `supports_dual` and
+`qmatmul_fast_dual` (:1016-1107), `supports_fused_epilogue` and
 `interleave_perm` (:1110-1127), `qmatmul_fast_act` and `qmatmul_fast_res`
 (:1130-1233), `supports_indirect` and `qmatmul_fast_indirect`
 (:1300-1356), `uninterleave_cols`, `uninterleave_norm` and
 `qmatmul_fast_normed` (:1359-1433).  The layout stores weight column j as
 original column (j % G)*gs + j//G, so column j's scale is fs[:, j % G]:
 
-  fq  int8 [n2, K]  interleaved integer values (rows padded to 512, or to
-                    2048 from 65536 rows)
-  fs  bf16 [n2, G]  per-group scales
-  fb  bf16 [n2, G]  affine bias, or None (always None for Q8_0 and IQ4)
+  fq  int8  [n2, K]    byte family: values (rows padded to 512, or to 2048
+                       from 65536 rows)
+      uint8 [n2, K/2]  nibble family (Q4_0, Q4_1, Q4_K): byte b holds
+                       column b in its low nibble and b + K/2 in its high
+                       one; (K/2) % G == 0, so both take fs[:, b % G]
+  fs  bf16  [n2, G]    per-group scales
+  fb  bf16  [n2, G]    affine bias, or None; the symmetric-offset types
+                       derive it as off * fs (Q4_0 -8, Q5_0 -16, Q3_K -4,
+                       Q6_K -32)
 
-Numerics contract (qmm_fast.py:342-387, 464-494, 768), held by the plain
-versions and the kernels alike: x is rounded to bf16 and interleaved; the
-normed mode takes f32 of that bf16 x, inv = rsqrt(mean(x^2) + eps), and
-rounds (x*inv)*wn_il to bf16; the act mode takes the bf16 gate ++ up
-halves (already interleaved) and rounds silu(g)*u, computed in f32, to
-bf16.  At B <= 8 each product is f32 x times the f32 weight q*scale,
-summed in f32; above 8 rows q*scale is rounded to bf16 and the bf16 x bf16
-products are summed in f32.  The residual mode adds an f32 row last.  The
-gathered-expert entry (K8) takes the B <= 8 route for every row.
+Numerics contract (qmm_fast.py:319-521, 757-767), held by the plain
+versions and the kernels alike:
 
-The port has the byte family only (Q8_0 and the IQ4 LUT types, whose
-values fit int8).  The nibble kernel's planes (Q4_0/Q4_1/Q4_K when the JAX
-package runs with GHT_QP8=0, coded i-quants at widths without a t-layout),
-byte planes with a group bias (Q5_0/Q5_1/Q4_1-class types at widths
-without a t-layout) and the interleaved dual projection (K7) raise
+  activation  x rounded to bf16 and interleaved; normed: inv =
+              rsqrt(mean(x^2) + eps) over the f32 of that bf16 x, then
+              bf16((x*inv)*wn_il); act: silu(g)*u in f32 of the bf16 gate
+              ++ up halves (interleaved already), rounded to bf16.
+  product     byte planes at B <= 8: f32 x times the f32 weight q*scale;
+              byte planes above 8 rows and nibble planes at every B:
+              q*scale rounded to bf16; products summed in f32.
+  bias        y += xg @ fb^T, or off * (xg @ fs^T), with xg [B, G] the
+              group sums of the activation: in the kernel from the bf16
+              effective activation (mode 2: the full K in one block and
+              G % 128 == 0), else from the caller's un-rounded input
+              (mode 1: the pre-norm x*wn_il, scaled by inv in the kernel,
+              in the normed mode; act(g)*u of the un-rounded gate_up
+              output in the act mode).  K8 always takes mode 1.
+  residual    an f32 row, added last: y + (bias + res).
+
+The coded i-quant nibble planes (`cm`, at widths without a t-layout) raise
 NotImplementedError: ROADMAP.md queue 2.
 """
 from __future__ import annotations
@@ -46,15 +59,17 @@ from .. import kernels
 from ..quant.pack import QConfig, QTensor
 from .basic import rms_norm
 from .qmm_qp8 import (_group_scale_bias, _int_values, dequantize_qp8,
-                      qp8_matmul, qp8_matmul_act, qp8_matmul_indirect,
-                      qp8_matmul_normed, qp8_matmul_res, supports_qp8_dual,
-                      supports_qp8_indirect)
+                      qp8_matmul, qp8_matmul_act, qp8_matmul_dual,
+                      qp8_matmul_indirect, qp8_matmul_normed, qp8_matmul_res,
+                      supports_qp8_dual, supports_qp8_indirect)
 
 #: the interleaved-layout entry serves up to this many rows
 #: (ops/qmatmul.qmatmul routes larger batches elsewhere)
 MAX_FAST_BATCH = 512
 #: row quantum of the interleaved planes
 _BN = 512
+#: rows of the byte family's f32 route, and of K7
+_DECODE_ROWS = 8
 
 
 def _is_nibble(cfg: QConfig) -> bool:
@@ -62,12 +77,16 @@ def _is_nibble(cfg: QConfig) -> bool:
             and not cfg.lut and not cfg.expand)
 
 
+def _is_packed(cfg: QConfig) -> bool:
+    return _is_nibble(cfg) or bool(cfg.code_map)
+
+
 def supports_fast(cfg: QConfig, k: int) -> bool:
     """True when (cfg, K) can build interleaved planes."""
     G = k // cfg.gs
     if G < 1 or k % cfg.gs:
         return False
-    packed = _is_nibble(cfg) or bool(cfg.code_map)
+    packed = _is_packed(cfg)
     if packed and ((k // 2) % G or (k // 2) < G):
         return False
     if not packed and k % G:
@@ -75,11 +94,22 @@ def supports_fast(cfg: QConfig, k: int) -> bool:
     return G % 128 == 0 or G in (8, 16, 32, 64) or k % 128 == 0
 
 
-def _no_nibble(cfg: QConfig):
-    if _is_nibble(cfg) or cfg.code_map:
+def _offset_bias(cfg: QConfig, fb) -> float:
+    """The offset of a bias derived as offset * scale (no fb plane stored:
+    the symmetric-offset types), else 0.0."""
+    return float(cfg.offset) if (fb is None and cfg.offset) else 0.0
+
+
+def _needs_xg(cfg: QConfig, fb) -> bool:
+    """Whether the planes carry a group bias (stored or derived)."""
+    return fb is not None or bool(_offset_bias(cfg, fb))
+
+
+def _no_code_map(cfg: QConfig):
+    if cfg.code_map:
         raise NotImplementedError(
-            f"{cfg.qtype.name}: packed 4-bit interleaved planes need K6's "
-            "nibble kernel, not ported yet (ROADMAP.md queue 2)")
+            f"{cfg.qtype.name}: coded nibble planes need the coded branch "
+            "of K6/K8, not ported yet (ROADMAP.md queue 2)")
 
 
 def build_fast_planes(qt: QTensor):
@@ -90,14 +120,18 @@ def build_fast_planes(qt: QTensor):
     K = qt.k
     if not supports_fast(cfg, K):
         return None, None, None
-    _no_nibble(cfg)
+    _no_code_map(cfg)
     v = _int_values(qt)                                   # [n_pad, K]
     scale_g, bias_g = _group_scale_bias(qt)
     G = K // cfg.gs
     rows = v.shape[0]
     # the interleave is a [G, gs] transpose of each row
-    fq = v.reshape(rows, G, cfg.gs).transpose(1, 2).reshape(rows, K).to(
-        torch.int8)
+    v = v.reshape(rows, G, cfg.gs).transpose(1, 2).reshape(rows, K)
+    if _is_nibble(cfg):
+        # byte b: interleaved column b (low nibble), b + K/2 (high nibble)
+        fq = (v[:, :K // 2] | (v[:, K // 2:] << 4)).to(torch.uint8)
+    else:
+        fq = v.to(torch.int8)
     if cfg.offset and cfg.asym == "none":
         bias_g = None  # derivable as offset * scale
     quantum = 2048 if rows >= 65536 else _BN
@@ -111,10 +145,6 @@ def build_fast_planes(qt: QTensor):
     fs = scale_g.to(torch.bfloat16).contiguous()
     fb = None if bias_g is None else bias_g.to(torch.bfloat16).contiguous()
     return fq.contiguous(), fs, fb
-
-
-def _is_packed(cfg: QConfig) -> bool:
-    return _is_nibble(cfg) or bool(cfg.code_map)
 
 
 def _n_slices(cols: int, G: int, bn: int, per_col: int = 12) -> int:
@@ -134,7 +164,8 @@ def _pick_blocks(B: int, K: int, nibble: bool, gs: int):
     (qmm_fast.py:523-597, without its GHT_QMM_* overrides).  The port's
     kernels split nothing; nkj == 1 decides, as in the JAX dispatch, where
     the fused norm, act and residual modes and the gathered experts apply
-    (each needs the full K in one block)."""
+    (each needs the full K in one block), and where the kernel takes its
+    own group sums."""
     mb = 1024 * 1024
     G = K // gs
     pmax = gs // 2 if nibble else gs
@@ -214,16 +245,34 @@ def _interleave_x(x2, G: int, gs: int, pre_il: bool = False):
     return x2.reshape(B, G, gs).transpose(1, 2).reshape(B, K)
 
 
+def _sums_natural(x2, G: int):
+    """f32 group sums [B, G] of x2 [B, K] in natural column order (group g
+    is columns g*gs ... g*gs + gs - 1)."""
+    B, K = x2.shape
+    return x2.to(torch.float32).reshape(B, G, K // G).sum(dim=2)
+
+
+def _sums_il(x_il, G: int):
+    """f32 group sums [B, G] of x_il [B, K] in interleaved order (column
+    r*G + g belongs to group g)."""
+    B, K = x_il.shape
+    return x_il.to(torch.float32).reshape(B, K // G, G).sum(dim=1)
+
+
 def dequantize_fast(qt: QTensor, dtype=torch.float32):
     """Dequantized [n2, K] matrix in the original column order from the
     planes of either layout."""
     if qt.fl == "t":
         return dequantize_qp8(qt, dtype)
     cfg = qt.cfg
-    _no_nibble(cfg)
+    _no_code_map(cfg)
     K, gs = qt.k, cfg.gs
     G = K // gs
-    v = qt.fq.to(torch.int32)
+    if _is_nibble(cfg):
+        p = qt.fq.to(torch.int32)
+        v = torch.cat([p & 15, p >> 4], dim=1)
+    else:
+        v = qt.fq.to(torch.int32)
     if qt.fb is None and cfg.offset:
         v = v + int(cfg.offset)
     w_il = v.to(torch.float32) * qt.fs.to(torch.float32).repeat(1, gs)
@@ -234,15 +283,12 @@ def dequantize_fast(qt: QTensor, dtype=torch.float32):
     return w_il.reshape(rows, gs, G).transpose(1, 2).reshape(rows, K).to(dtype)
 
 
-def _byte_planes(qt: QTensor):
-    """Raise unless qt carries bias-free interleaved byte planes."""
+def _il_planes(qt: QTensor):
+    """Raise unless qt carries interleaved planes of the byte or nibble
+    family."""
     if qt.fq is None or qt.fl != "il":
         raise ValueError("expected a weight with interleaved planes")
-    _no_nibble(qt.cfg)
-    if qt.fb is not None or qt.cfg.offset:
-        raise NotImplementedError(
-            f"{qt.cfg.qtype.name}: interleaved byte planes with a group bias "
-            "are not ported yet (ROADMAP.md queue 2, K6)")
+    _no_code_map(qt.cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -251,10 +297,11 @@ def _byte_planes(qt: QTensor):
 
 def _kernel_x_plain(x, G: int, wn=None, eps=None, act: str = "",
                     pre_il: bool = False):
-    """The kernel's bf16 interleaved activation [B, K] (`_kernel_x`): x
-    interleaved (or taken as it is with pre_il), RMS-normed with the
-    interleaved weight wn when eps is given, or silu(gate)*up of the
-    interleaved halves of x [B, 2K] with act."""
+    """The kernel's bf16 interleaved activation [B, K] (`_kernel_x`) and
+    the normed mode's rsqrt factor [B, 1] (else None): x interleaved (or
+    taken as it is with pre_il), RMS-normed with the interleaved weight wn
+    when eps is given, or silu(gate)*up of the interleaved halves of x
+    [B, 2K] with act."""
     if bool(act) + (eps is not None) + pre_il > 1:
         raise ValueError("K6 takes one mode: pre_il, normed or act")
     xb = x.to(torch.bfloat16)
@@ -264,72 +311,157 @@ def _kernel_x_plain(x, G: int, wn=None, eps=None, act: str = "",
         xw = xb.to(torch.float32)
         K = xw.shape[1] // 2
         g = xw[:, :K]
-        return (g * torch.sigmoid(g) * xw[:, K:]).to(torch.bfloat16)
+        return (g * torch.sigmoid(g) * xw[:, K:]).to(torch.bfloat16), None
     x_il = _interleave_x(xb, G, xb.shape[1] // G, pre_il)
     if eps is None:
-        return x_il
+        return x_il, None
     xf = x_il.to(torch.float32)
     inv = torch.rsqrt(torch.mean(xf * xf, dim=1, keepdim=True) + eps)
-    return (xf * inv * wn.to(torch.float32)).to(torch.bfloat16)
+    return (xf * inv * wn.to(torch.float32)).to(torch.bfloat16), inv
 
 
-def _byte_body_plain(x_il, fq, fs):
-    """x_il bf16 [B, K] against the byte planes -> [B, rows] f32 (f32
-    weights at B <= 8, bf16 weights above)."""
+def _body_plain(x_il, fq, fs, nibble: bool):
+    """x_il bf16 [B, K] against the planes' rows -> [B, rows] f32 (f32
+    weights on byte planes at B <= 8; q*scale rounded to bf16 on byte
+    planes above and on nibble planes at every B)."""
     B, K = x_il.shape
     sc = fs.repeat(1, K // fs.shape[1])            # bf16 [rows, K]: fs[:, j % G]
-    if B <= 8:
+    if nibble:
+        p = fq.to(torch.int32)
+        v = torch.cat([p & 15, p >> 4], dim=1)     # interleaved column order
+        w = (v.to(torch.bfloat16) * sc).to(torch.float32)
+    elif B <= _DECODE_ROWS:
         w = fq.to(torch.float32) * sc.to(torch.float32)
     else:
         w = (fq.to(torch.bfloat16) * sc).to(torch.float32)
     return x_il.to(torch.float32) @ w.t()
 
 
-def fast_byte_plain(x, qt: QTensor, wn=None, eps=None, act: str = "",
-                    res=None, pre_il: bool = False):
-    """Plain K6 (the JAX `_byte_kernel` with the kernel's rounding), every
-    mode: x bf16 [B, K] in natural order (interleaved with pre_il; [B, 2K]
-    gate ++ up, interleaved, with act) -> y [B, n2] f32, plus res [B, n]
-    on its first n columns when given."""
-    x_il = _kernel_x_plain(x, qt.fs.shape[1], wn, eps, act, pre_il)
-    y = _byte_body_plain(x_il, qt.fq, qt.fs)
+def _bias_plain(xg, fb, fs, off: float):
+    """The group-bias term [B, rows] (`_bias_term`): xg @ fb^T, or
+    off * (xg @ fs^T) when the bias is derived."""
+    if fb is not None:
+        return xg @ fb.to(torch.float32).t()
+    return off * (xg @ fs.to(torch.float32).t())
+
+
+def _fast_plain(x, qt: QTensor, nibble: bool, wn=None, eps=None,
+                act: str = "", res=None, pre_il: bool = False, xg=None):
+    _il_planes(qt)
+    if _is_nibble(qt.cfg) != nibble:
+        raise ValueError(f"{qt.cfg.qtype.name} planes are not of the "
+                         f"{'nibble' if nibble else 'byte'} family")
+    G = qt.fs.shape[1]
+    x_il, inv = _kernel_x_plain(x, G, wn, eps, act, pre_il)
+    y = _body_plain(x_il, qt.fq, qt.fs, nibble)
+    once = None
+    if _needs_xg(qt.cfg, qt.fb):
+        if xg is None:     # mode 2: sums of the effective activation
+            xg = _sums_il(x_il, G)
+        elif inv is not None:
+            xg = xg * inv  # mode 1, normed: the pre-norm sums rescaled
+        once = _bias_plain(xg, qt.fb, qt.fs, _offset_bias(qt.cfg, qt.fb))
+    elif xg is not None:
+        raise ValueError("group sums given for planes without a bias")
     if res is not None:
-        y[:, :res.shape[1]] += res.to(torch.float32)
-    return y
+        r = torch.nn.functional.pad(res.to(torch.float32),
+                                    (0, y.shape[1] - res.shape[1]))
+        once = r if once is None else once + r
+    return y if once is None else y + once
+
+
+def fast_byte_plain(x, qt: QTensor, wn=None, eps=None, act: str = "",
+                    res=None, pre_il: bool = False, xg=None):
+    """Plain K6 on byte planes (the JAX `_byte_kernel` with the kernel's
+    rounding), every mode: x bf16 [B, K] in natural order (interleaved with
+    pre_il; [B, 2K] gate ++ up, interleaved, with act); xg f32 [B, G] the
+    mode-1 group sums of planes with a bias (None: mode 2) -> y [B, n2]
+    f32, plus res [B, n] on its first n columns when given."""
+    return _fast_plain(x, qt, False, wn, eps, act, res, pre_il, xg)
+
+
+def fast_nibble_plain(x, qt: QTensor, wn=None, eps=None, act: str = "",
+                      res=None, pre_il: bool = False, xg=None):
+    """Plain K6 on nibble planes (the JAX `_nibble_kernel`, `_nibble_y`
+    :432-461): as fast_byte_plain."""
+    return _fast_plain(x, qt, True, wn, eps, act, res, pre_il, xg)
 
 
 def fast_byte(x, qt: QTensor, wn=None, eps=None, act: str = "", res=None,
-              pre_il: bool = False):
-    """K6: the kernel for CUDA tensors, the plain version for CPU ones."""
+              pre_il: bool = False, xg=None):
+    """K6 on byte planes: the kernel for CUDA tensors, the plain version
+    for CPU ones."""
     if not x.is_cuda:
-        return fast_byte_plain(x, qt, wn, eps, act, res, pre_il)
+        return fast_byte_plain(x, qt, wn, eps, act, res, pre_il, xg)
     return kernels.fast_byte(x, qt, wn=wn, eps=eps, act=act, res=res,
-                             pre_il=pre_il)
+                             pre_il=pre_il, xg=xg)
 
 
-def fast_indirect_plain(x, qt: QTensor, ids, npe: int):
-    """Plain K8: x bf16 [P, K], ids [P] -> y [P, npe] f32, row p against
-    rows [ids[p]*npe, (ids[p]+1)*npe) of the stacked planes on K6's B <= 8
-    route; an id outside [0, E) gives a NaN row.  The rows are gathered
-    with device-side index arithmetic: the ids never reach the host."""
+def fast_nibble(x, qt: QTensor, wn=None, eps=None, act: str = "", res=None,
+                pre_il: bool = False, xg=None):
+    """K6 on nibble planes: the kernel for CUDA tensors, the plain version
+    for CPU ones."""
+    if not x.is_cuda:
+        return fast_nibble_plain(x, qt, wn, eps, act, res, pre_il, xg)
+    return kernels.fast_nibble(x, qt, wn=wn, eps=eps, act=act, res=res,
+                               pre_il=pre_il, xg=xg)
+
+
+def fast_dual_plain(x, qt_a: QTensor, qt_b: QTensor, wn_a=None, wn_b=None,
+                    eps=None, xg_a=None, xg_b=None):
+    """Plain K7 (`_dual_kernel`): x bf16 [B <= 8, K] in natural order, each
+    part on its own family and group geometry, normed with its own
+    interleaved weight when eps is given, biased with its own group sums
+    (xg_*: mode 1; None: mode 2) -> [B, n2_a + n2_b] f32, part a first."""
+    return torch.cat([
+        _fast_plain(x, qt, _is_nibble(qt.cfg), wn, eps, xg=xg)
+        for qt, wn, xg in ((qt_a, wn_a, xg_a), (qt_b, wn_b, xg_b))], dim=1)
+
+
+def fast_dual(x, qt_a: QTensor, qt_b: QTensor, wn_a=None, wn_b=None,
+              eps=None, xg_a=None, xg_b=None):
+    """K7: the kernel for CUDA tensors, the plain version for CPU ones."""
+    if not x.is_cuda:
+        return fast_dual_plain(x, qt_a, qt_b, wn_a, wn_b, eps, xg_a, xg_b)
+    return kernels.fast_dual(x, qt_a, qt_b, wn_a=wn_a, wn_b=wn_b, eps=eps,
+                             xg_a=xg_a, xg_b=xg_b)
+
+
+def fast_indirect_plain(x, qt: QTensor, ids, npe: int, xg=None):
+    """Plain K8: x bf16 [P, K], ids [P], xg f32 [P, G] the group sums of
+    the un-interleaved input (planes with a bias) -> y [P, npe] f32, row p
+    against rows [ids[p]*npe, (ids[p]+1)*npe) of the stacked planes on
+    K6's B <= 8 route of their family; an id outside [0, E) gives a NaN
+    row.  The rows are gathered with device-side index arithmetic: the ids
+    never reach the host."""
+    _il_planes(qt)
     P, K = x.shape
     G = qt.fs.shape[1]
+    nibble = _is_nibble(qt.cfg)
+    bias = _needs_xg(qt.cfg, qt.fb)
+    off = _offset_bias(qt.cfg, qt.fb)
     x_il = _interleave_x(x.to(torch.bfloat16), G, K // G)
     ids = ids.to(torch.long)
     valid = (ids >= 0) & (ids < qt.fq.shape[0] // npe)
     rows = (torch.where(valid, ids, torch.zeros_like(ids))[:, None] * npe
             + torch.arange(npe, device=x.device))
-    y = torch.cat([_byte_body_plain(x_il[p:p + 1], qt.fq.index_select(0, r),
-                                    qt.fs.index_select(0, r))
-                   for p, r in enumerate(rows)])
+    ys = []
+    for p, r in enumerate(rows):
+        fs = qt.fs.index_select(0, r)
+        y = _body_plain(x_il[p:p + 1], qt.fq.index_select(0, r), fs, nibble)
+        if bias:
+            fb = None if qt.fb is None else qt.fb.index_select(0, r)
+            y = y + _bias_plain(xg[p:p + 1], fb, fs, off)
+        ys.append(y)
+    y = torch.cat(ys)
     return torch.where(valid[:, None], y, torch.full_like(y, float("nan")))
 
 
-def fast_indirect(x, qt: QTensor, ids, npe: int):
+def fast_indirect(x, qt: QTensor, ids, npe: int, xg=None):
     """K8: the kernel for CUDA tensors, the plain version for CPU ones."""
     if not x.is_cuda:
-        return fast_indirect_plain(x, qt, ids, npe)
-    return kernels.fast_indirect(x, qt, ids, npe)
+        return fast_indirect_plain(x, qt, ids, npe, xg)
+    return kernels.fast_indirect(x, qt, ids, npe, xg=xg)
 
 
 # ---------------------------------------------------------------------------
@@ -337,13 +469,56 @@ def fast_indirect(x, qt: QTensor, ids, npe: int):
 # ---------------------------------------------------------------------------
 
 def _rows(x, qt: QTensor, width: int):
-    """x [..., width] -> (lead shape, rows B, x as bf16 [B, width])."""
-    _byte_planes(qt)
+    """x [..., width] -> (lead shape, rows B, x [B, width] as given, the
+    same rounded to bf16).  The mode-1 group sums take the first: the
+    kernel's input is the second."""
+    _il_planes(qt)
     if x.shape[-1] != width:
         raise ValueError(f"x width {x.shape[-1]} vs {width} for K={qt.k}")
     lead = x.shape[:-1]
     B = math.prod(lead) if lead else 1
-    return lead, B, x.reshape(B, width).to(torch.bfloat16).contiguous()
+    xr = x.reshape(B, width)
+    return lead, B, xr, xr.to(torch.bfloat16).contiguous()
+
+
+def _xg_mode(qt: QTensor, nkj: int = 1) -> int:
+    """0: no group bias; 2: the kernel sums its own activation (the full K
+    in one block and G % 128 == 0); 1: the caller's input gives the sums
+    (`_fast_core` :757-767)."""
+    if not _needs_xg(qt.cfg, qt.fb):
+        return 0
+    return 2 if nkj == 1 and qt.fs.shape[1] % 128 == 0 else 1
+
+
+def group_sums(qt: QTensor, xr, mode: str, wn=None, nkj: int = 1):
+    """The mode-1 group sums f32 [B, G] that an entry hands K6 or K7 for the
+    rows xr [B, K] (act: [B, 2K]) as the caller gave them, un-rounded, or
+    None where the planes have no bias or the kernel takes its own (mode
+    2).  mode: "plain" and "res" (natural column order), "pre_il"
+    (interleaved order), "normed" (the pre-norm x*wn_il, interleaved; the
+    kernel scales them by its rsqrt factor), "act" (silu(g)*u of the
+    interleaved halves).  nkj: the blocking's K-split."""
+    if _xg_mode(qt, nkj) != 1:
+        return None
+    G = qt.fs.shape[1]
+    if mode in ("plain", "res"):
+        return _sums_natural(xr, G)
+    if mode == "pre_il":
+        return _sums_il(xr, G)
+    if mode == "normed":
+        return _sums_il(_interleave_x(xr, G, qt.cfg.gs).to(torch.float32)
+                        * wn.to(torch.float32), G)
+    if mode == "act":
+        g = xr[:, :qt.k].to(torch.float32)
+        return _sums_il(g * torch.sigmoid(g) * xr[:, qt.k:].to(torch.float32),
+                        G)
+    raise ValueError(f"mode {mode!r}")
+
+
+def _k6(qt: QTensor, plain: bool):
+    if _is_nibble(qt.cfg):
+        return fast_nibble_plain if plain else fast_nibble
+    return fast_byte_plain if plain else fast_byte
 
 
 def _full_k(qt: QTensor, B: int, what: str):
@@ -360,9 +535,11 @@ def qmatmul_fast(x, qt: QTensor, out_dtype=torch.float32, plain=False,
     t-planes, which have none)."""
     if qt.fl == "t":
         return qp8_matmul(x, qt, out_dtype=out_dtype, plain=plain)
-    lead, B, x2 = _rows(x, qt, qt.k)
-    y = (fast_byte_plain if plain else fast_byte)(
-        x2, qt, pre_il=pre_interleaved)
+    lead, B, xr, x2 = _rows(x, qt, qt.k)
+    _, nkj = _pick_blocks(_padded_rows(B), qt.k, _is_packed(qt.cfg),
+                          qt.cfg.gs)
+    xg = group_sums(qt, xr, "pre_il" if pre_interleaved else "plain", nkj=nkj)
+    y = _k6(qt, plain)(x2, qt, pre_il=pre_interleaved, xg=xg)
     return y[:, :qt.n].reshape(*lead, qt.n).to(out_dtype)
 
 
@@ -375,13 +552,15 @@ def qmatmul_fast_normed(x, qt: QTensor, wn_il, eps: float,
     if qt.fl == "t":
         return qp8_matmul_normed(x, qt, wn_il, eps, out_dtype=out_dtype,
                                  plain=plain)
-    lead, B, x2 = _rows(x, qt, qt.k)
-    _, nkj = _pick_blocks(_padded_rows(B), qt.k, False, qt.cfg.gs)
+    lead, B, xr, x2 = _rows(x, qt, qt.k)
+    gs = qt.cfg.gs
+    _, nkj = _pick_blocks(_padded_rows(B), qt.k, _is_packed(qt.cfg), gs)
     if nkj > 1:
-        xn = rms_norm(x, uninterleave_norm(wn_il, qt.cfg.gs), eps)
+        xn = rms_norm(x, uninterleave_norm(wn_il, gs), eps)
         return qmatmul_fast(xn, qt, out_dtype=out_dtype, plain=plain)
-    y = (fast_byte_plain if plain else fast_byte)(
-        x2, qt, wn=wn_il.to(torch.float32).contiguous(), eps=float(eps))
+    wn = wn_il.to(torch.float32).contiguous()
+    xg = group_sums(qt, xr, "normed", wn)
+    y = _k6(qt, plain)(x2, qt, wn=wn, eps=float(eps), xg=xg)
     return y[:, :qt.n].reshape(*lead, qt.n).to(out_dtype)
 
 
@@ -390,10 +569,10 @@ def qmatmul_fast_res(x, qt: QTensor, res, out_dtype=torch.float32,
     """y = x @ dequant(qt).T + res, the residual added in the kernel."""
     if qt.fl == "t":
         return qp8_matmul_res(x, qt, res, out_dtype=out_dtype, plain=plain)
-    lead, B, x2 = _rows(x, qt, qt.k)
+    lead, B, xr, x2 = _rows(x, qt, qt.k)
     _full_k(qt, B, "the residual mode")
     r2 = res.to(torch.float32).reshape(B, qt.n).contiguous()
-    y = (fast_byte_plain if plain else fast_byte)(x2, qt, res=r2)
+    y = _k6(qt, plain)(x2, qt, res=r2, xg=group_sums(qt, xr, "res"))
     return y[:, :qt.n].reshape(*lead, qt.n).to(out_dtype)
 
 
@@ -407,11 +586,14 @@ def qmatmul_fast_act(x, qt: QTensor, act: str, res=None,
     if qt.fl == "t":
         return qp8_matmul_act(x, qt, act, res=res, out_dtype=out_dtype,
                               plain=plain)
-    lead, B, x2 = _rows(x, qt, 2 * qt.k)
+    if act != "silu":
+        raise NotImplementedError(f"act {act!r}: K6 takes silu only")
+    lead, B, xr, x2 = _rows(x, qt, 2 * qt.k)
     _full_k(qt, B, "the act mode")
     r2 = (None if res is None
           else res.to(torch.float32).reshape(B, qt.n).contiguous())
-    y = (fast_byte_plain if plain else fast_byte)(x2, qt, act=act, res=r2)
+    y = _k6(qt, plain)(x2, qt, act=act, res=r2,
+                       xg=group_sums(qt, xr, "act"))
     return y[:, :qt.n].reshape(*lead, qt.n).to(out_dtype)
 
 
@@ -423,7 +605,7 @@ def _dual_blocking(qt_a: QTensor, qt_b: QTensor):
     if qt_a.fl == "t" or qt_b.fl == "t":
         return None
     if qt_a.n != qt_a.fq.shape[0] or qt_b.n != qt_b.fq.shape[0]:
-        return None
+        return None  # padding rows would land mid-output
     bns = []
     for qt in (qt_a, qt_b):
         bn, nkj = _pick_blocks(8, qt.k, _is_packed(qt.cfg), qt.cfg.gs)
@@ -438,18 +620,44 @@ def _dual_blocking(qt_a: QTensor, qt_b: QTensor):
 
 def supports_dual(qt_a, qt_b) -> bool:
     """Whether one launch can run both projections of the same activation:
-    a pair of t-planes through K2 (supports_qp8_dual); never a pair of
-    mixed layouts.  A pair of interleaved planes that the JAX package runs
-    through K7 raises, since the port has no K7 yet."""
+    a pair of t-planes through K2 (supports_qp8_dual), a pair of
+    interleaved planes through K7 where `_dual_blocking` finds a common
+    row block; never a pair of mixed layouts."""
     if not (isinstance(qt_a, QTensor) and isinstance(qt_b, QTensor)):
         return False
     if qt_a.fl == "t" and qt_b.fl == "t":
         return supports_qp8_dual(qt_a, qt_b)
+    return _dual_blocking(qt_a, qt_b) is not None
+
+
+def qmatmul_fast_dual(x, qt_a: QTensor, qt_b: QTensor, wn_a_il=None,
+                      wn_b_il=None, eps=None, out_dtype=torch.float32,
+                      plain=False):
+    """Two projections of the same activation in one launch, at decode (B
+    <= 8): the row [x @ A' ++ x @ B'], the flat q++k++v row of the
+    mixed-type QKV.  A pair of t-planes takes qp8_matmul_dual (K2; wn_a_il
+    is the raw norm weight there, shared), an interleaved pair K7, each
+    part normed with its own interleaved weight when eps is given."""
+    if qt_a.fl == "t" and qt_b.fl == "t":
+        return qp8_matmul_dual(x, qt_a, qt_b, wn=wn_a_il, eps=eps,
+                               out_dtype=out_dtype, plain=plain)
     if _dual_blocking(qt_a, qt_b) is None:
-        return False
-    raise NotImplementedError(
-        "two interleaved projections in one launch need K7 (the JAX "
-        "_dual_kernel), not ported yet (ROADMAP.md queue 2)")
+        raise ValueError("qmatmul_fast_dual: no common blocking for planes "
+                         f"{tuple(qt_a.fq.shape)} and {tuple(qt_b.fq.shape)}")
+    lead, B, xr, x2 = _rows(x, qt_a, qt_a.k)
+    _il_planes(qt_b)
+    if B > _DECODE_ROWS:
+        raise ValueError(f"K7 takes <= {_DECODE_ROWS} rows, got {B}")
+    wns, xgs = [], []
+    for qt, wn in ((qt_a, wn_a_il), (qt_b, wn_b_il)):
+        wn = None if eps is None else wn.to(torch.float32).contiguous()
+        wns.append(wn)
+        xgs.append(group_sums(qt, xr, "plain" if eps is None else "normed",
+                              wn))
+    y = (fast_dual_plain if plain else fast_dual)(
+        x2, qt_a, qt_b, wns[0], wns[1], None if eps is None else float(eps),
+        xgs[0], xgs[1])
+    return y.reshape(*lead, qt_a.n + qt_b.n).to(out_dtype)
 
 
 def supports_indirect(qt, npe: int) -> bool:
@@ -472,16 +680,19 @@ def qmatmul_fast_indirect(x, qt: QTensor, ids, npe: int,
     """MUL_MAT_ID: y[p] = x[p] @ dequant(W_{ids[p]}).T over stacked expert
     planes [(E*npe), k]; only the selected experts' planes are read, and
     the ids stay on x's device.  t-planes take qp8_matmul_indirect (K5),
-    interleaved ones K8.  Returns [P, npe]."""
+    interleaved ones K8 (group sums, where the planes carry a bias, from
+    the un-rounded x).  Returns [P, npe]."""
     if qt.fl == "t":
         return qp8_matmul_indirect(x, qt, ids, npe, out_dtype=out_dtype,
                                    plain=plain)
-    _byte_planes(qt)
+    _il_planes(qt)
     P, K = x.shape
     if K != qt.k or not supports_indirect(qt, npe) or qt.fq.shape[0] % npe:
         raise ValueError(f"x [{P}, {K}] / {npe} rows an expert do not fit "
                          f"the stacked planes {tuple(qt.fq.shape)}")
+    xg = (_sums_natural(x, qt.fs.shape[1]) if _needs_xg(qt.cfg, qt.fb)
+          else None)
     y = (fast_indirect_plain if plain else fast_indirect)(
         x.to(torch.bfloat16).contiguous(), qt, ids.to(torch.int32).contiguous(),
-        npe)
+        npe, xg)
     return y.to(out_dtype)

@@ -14,20 +14,27 @@ The port's counterpart of ggml_hexagon_tpu/quant/pack.py:46-238.  A weight
     fq   uint8 [K*(bits_lo+bits_hi)/8, n2]
     fs   bf16  [K/gs, n2]  per-group scales
     fb   bf16  [K/gs, n2]  affine bias, or None
-  interleaved planes (fl == "il", output features on axis 0; the byte
-  family: Q8_0 and the IQ4 LUT types):
-    fq   int8  [n2, K]  values, column j holding original column
-                        (j % G)*gs + j//G
+  interleaved planes (fl == "il", output features on axis 0; column j
+  holds original column (j % G)*gs + j//G):
+    fq   int8  [n2, K]    values, the byte family (Q8_0, the IQ4 LUT
+                          types, and every type of more than 4 bits)
+         uint8 [n2, K/2]  packed values, the nibble family (Q4_0, Q4_1,
+                          Q4_K): byte b holds column b in its low nibble
+                          and column b + K/2 in its high nibble
     fs   bf16  [n2, G]  per-group scales
-    fb   bf16  [n2, G]  affine bias, or None (never for Q8_0)
+    fb   bf16  [n2, G]  affine bias of the asymmetric types (Q4_1, Q5_1,
+                        Q2_K, Q4_K, Q5_K), or None; the symmetric-offset
+                        types (Q4_0, Q5_0, Q3_K, Q6_K) derive it as
+                        offset * fs
 
 Element s*(K/per) + j of a b-bit row-planar plane sits in byte j at shift
 b*s (per = 8/b).  The t-planes are built by ops/qmm_qp8.build_t_planes,
 the interleaved ones by ops/qmm_fast.build_fast_planes; use_qp8_layout
-picks between them as the JAX package does.
+picks between them as the JAX package does, GHT_QP8 included.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Any
 
@@ -106,18 +113,23 @@ class QTensor:
     def device(self) -> torch.device:
         return (self.q if self.q is not None else self.fq).device
 
-    def with_fast_planes(self) -> "QTensor":
-        """Copy carrying matmul planes built from the wire planes: the
-        t-layout where use_qp8_layout says so, else the interleaved one
-        (no-op when planes exist or the type has neither)."""
+    def with_fast_planes(self, layout: str | None = None) -> "QTensor":
+        """Copy carrying matmul planes built from the wire planes (no-op
+        when planes exist or the type has neither layout).  layout "t"
+        takes the t-layout where the type has one and the interleaved one
+        elsewhere, "il" the interleaved layout, None what use_qp8_layout
+        says (ggml_hexagon_tpu/quant/pack.py:275-290)."""
         if self.fq is not None:
             return self
-        if use_qp8_layout(self.cfg, self.k):
+        if layout is None:
+            layout = "t" if use_qp8_layout(self.cfg, self.k) else "il"
+        fq = None
+        if layout == "t":
             from ..ops.qmm_qp8 import build_t_planes
 
             fq, fs, fb = build_t_planes(self)
             fl = "t"
-        else:
+        if fq is None:
             from ..ops.qmm_fast import build_fast_planes
 
             fq, fs, fb = build_fast_planes(self)
@@ -159,10 +171,12 @@ class QTensor:
 
 def use_qp8_layout(cfg: QConfig, k: int) -> bool:
     """True when (cfg, K) takes the transposed qp8 planes, False for the
-    interleaved layout (ggml_hexagon_tpu/quant/pack.py:245-272 at its
-    default, GHT_QP8=1): every type with a t-layout takes it, so only
-    Q8_0 and the IQ4 LUT types (and widths without a t-layout) keep the
-    interleaved route."""
+    interleaved layout (ggml_hexagon_tpu/quant/pack.py:245-272): every
+    type with a t-layout takes it, so only Q8_0 and the IQ4 LUT types (and
+    widths without a t-layout) keep the interleaved route; GHT_QP8=0 (or
+    empty) forces the interleaved layout everywhere."""
+    if os.environ.get("GHT_QP8", "1") in ("", "0"):
+        return False
     from ..ops.qmm_qp8 import supports_qp8
 
     return supports_qp8(cfg, k)

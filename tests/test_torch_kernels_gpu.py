@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card, at the main paths' shapes (Llama-3-8B Q4_K_M and IQ4_XS, Mixtral-8x7B
-Q5_K_M and IQ4_XS widths).
+card, at the main paths' shapes (Llama-3-8B Q4_K_M on both layouts and
+IQ4_XS, Mixtral-8x7B Q5_K_M, IQ4_XS and Q4_K_M widths).
 
 These need an NVIDIA card: they carry the `gpu` marker and skip without
 one.  The repository's conftest imports JAX, which the card's machine does
@@ -23,6 +23,10 @@ Tolerances, per kernel, with their reasons:
       bf16 (B > 8) products, f32 sums in another order; the normed and act
       prologues can differ in the last ulp of 1/sqrt and expf, which can
       move an activation across a bf16 rounding step.  NMSE <= 1e-6.
+  K6 on nibble planes, and on byte planes with a group bias: the same;
+      the bias is an f32 dot of the same group sums, in another order.
+      NMSE <= 1e-6.
+  K7 (dual projection): K6's B <= 8 arithmetic of each part.  NMSE <= 1e-6.
   K8 (gathered experts on interleaved planes): K6's B <= 8 arithmetic on
       the selected rows.  NMSE <= 1e-6.
 """
@@ -54,12 +58,15 @@ def dev():
 _QT = {}
 
 
-def _qt(dev, n, k, qtype):
-    key = (n, k, qtype)
+def _qt(dev, n, k, qtype, layout="t"):
+    """Random planes of (n, k, qtype): t-planes where the type has them
+    (layout "t"), or interleaved ones ("il")."""
+    key = (n, k, qtype, layout)
     if key not in _QT:
         g = torch.Generator(device=dev)
         g.manual_seed(n * 7 + k + int(qtype))
-        _QT[key] = random_qtensor(g, n, k, qtype, dev).with_fast_planes().without_wire()
+        _QT[key] = random_qtensor(g, n, k, qtype, dev).with_fast_planes(
+            layout).without_wire()
     return _QT[key]
 
 
@@ -280,6 +287,136 @@ def test_fast_indirect_kernel_marks_bad_ids(dev):
     torch.cuda.synchronize()
     assert torch.isfinite(got[0]).all()
     assert torch.isnan(got[1]).all() and torch.isnan(got[2]).all()
+
+
+_NIB = {"wqkv_q4k": (6144, 4096, GGMLType.Q4_K),
+        "wo_q4k": (4096, 4096, GGMLType.Q4_K),
+        "down_q4k": (4096, 14336, GGMLType.Q4_K),
+        "wq_q4_0": (1024, 4096, GGMLType.Q4_0),
+        "down_q6k": (4096, 14336, GGMLType.Q6_K),
+        "head_q6k": (1000, 4096, GGMLType.Q6_K),
+        "wo_q5k": (4096, 4096, GGMLType.Q5_K)}
+
+
+def _il_qt(dev, name):
+    n, k, qtype = _NIB[name]
+    qt = _qt(dev, n, k, qtype, "il")
+    assert qt.fl == "il"
+    return qt
+
+
+def _k6_case(dev, name, mode, B, with_res=False, force_xg=False):
+    """One K6 call on interleaved planes of either family: kernel against
+    plain version, launch counted under its family and mode."""
+    qt = _il_qt(dev, name)
+    nib = PF._is_nibble(qt.cfg)
+    fam = "fast_nibble" if nib else "fast_byte"
+    x = _x(dev, B, 2 * qt.k if mode == "act" else qt.k, seed=B)
+    x = (x * (2 if mode == "act" else 1)).to(torch.bfloat16)
+    kw = {}
+    if mode == "normed":
+        kw = dict(wn=torch.rand(qt.k, device=dev) + 0.5, eps=1e-5)
+    elif mode == "pre_il":
+        kw = dict(pre_il=True)
+    elif mode == "act":
+        kw = dict(act="silu")
+    if with_res:
+        kw["res"] = _x(dev, B, qt.n, seed=9)
+    _, nkj = PF._pick_blocks(PF._padded_rows(B), qt.k, nib, qt.cfg.gs)
+    xg = PF.group_sums(qt, x, mode, kw.get("wn"), nkj)
+    if force_xg and xg is None:  # the side-input route at an aligned G
+        G = qt.fs.shape[1]
+        xg = PF._sums_il(PF._interleave_x(x, G, qt.cfg.gs).float() * kw["wn"],
+                         G)
+    key = fam + {"normed": "_normed", "act": "_act"}.get(
+        mode, "_res" if with_res else "")
+    wrapper = PF.fast_nibble if nib else PF.fast_byte
+    plain = PF.fast_nibble_plain if nib else PF.fast_byte_plain
+    before = kernels.LAUNCHES[key]
+    got = wrapper(x, qt, xg=xg, **kw)
+    want = plain(x, qt, xg=xg, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[key] == before + 1
+    assert got.shape == (B, qt.fq.shape[0])
+    assert _nmse(got, want) <= NMSE_MAX
+
+
+@pytest.mark.parametrize("name", ["wqkv_q4k", "down_q4k", "wq_q4_0",
+                                  "down_q6k", "head_q6k", "wo_q5k"])
+@pytest.mark.parametrize("B", [1, 3, 8, 16, 128, 512])
+@pytest.mark.parametrize("mode", ["plain", "pre_il"])
+def test_fast_il_plain_kernel_matches_plain(dev, name, B, mode):
+    """K6's plain mode on nibble planes and on byte planes with a bias."""
+    _k6_case(dev, name, mode, B)
+
+
+@pytest.mark.parametrize("name", ["wqkv_q4k", "wo_q5k"])
+@pytest.mark.parametrize("B", [1, 3, 8, 128, 512])
+@pytest.mark.parametrize("side", [False, True], ids=["in_kernel", "side"])
+def test_fast_il_normed_kernel_matches_plain(dev, name, B, side):
+    """The normed mode with the group sums taken in the kernel, or handed
+    in pre-norm (rescaled by the kernel's rsqrt factor)."""
+    _k6_case(dev, name, "normed", B, force_xg=side)
+
+
+@pytest.mark.parametrize("name", ["wo_q4k", "wo_q5k"])
+@pytest.mark.parametrize("B", [1, 3, 8, 16])
+def test_fast_il_res_kernel_matches_plain(dev, name, B):
+    _k6_case(dev, name, "plain", B, with_res=True)
+
+
+@pytest.mark.parametrize("name", ["down_q4k", "down_q6k"])
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("with_res", [False, True], ids=["", "res"])
+def test_fast_il_act_kernel_matches_plain(dev, name, B, with_res):
+    _k6_case(dev, name, "act", B, with_res=with_res)
+
+
+@pytest.mark.parametrize("B", [1, 4, 8])
+@pytest.mark.parametrize("normed", [True, False], ids=["normed", "raw"])
+def test_fast_dual_kernel_matches_plain(dev, B, normed):
+    """K7 on the 8B pair: Q4_K wqk (nibble, stored bias) + Q6_K wv (byte,
+    derived bias)."""
+    a = _qt(dev, 5120, 4096, GGMLType.Q4_K, "il")
+    b = _qt(dev, 1024, 4096, GGMLType.Q6_K, "il")
+    assert PF.supports_dual(a, b)
+    x = _x(dev, B, 4096, seed=B).to(torch.bfloat16)
+    kw = {}
+    if normed:
+        kw = dict(wn_a=torch.rand(4096, device=dev) + 0.5,
+                  wn_b=torch.rand(4096, device=dev) + 0.5, eps=1e-5)
+    before = kernels.LAUNCHES["fast_dual"]
+    got = PF.fast_dual(x, a, b, **kw)
+    want = PF.fast_dual_plain(x, a, b, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fast_dual"] == before + 1
+    assert got.shape == (B, 6144)
+    assert _nmse(got, want) <= NMSE_MAX
+
+
+_IL_MOE_BIAS = {"gate_q4k": (14336, 4096, GGMLType.Q4_K),
+                "down_q4k": (4096, 14336, GGMLType.Q4_K),
+                "down_q6k": (4096, 14336, GGMLType.Q6_K)}
+
+
+@pytest.mark.parametrize("stack", list(_IL_MOE_BIAS))
+@pytest.mark.parametrize("ids", [[5, 2], [3, 3], list(range(8)) * 2],
+                         ids=["P2", "P2_dup", "P16"])
+def test_fast_indirect_bias_kernel_matches_plain(dev, stack, ids):
+    """K8 on nibble stacks and on byte stacks with a derived bias."""
+    npe, k, qtype = _IL_MOE_BIAS[stack]
+    qt = _qt(dev, 8 * npe, k, qtype, "il")
+    assert qt.fl == "il" and PF.supports_indirect(qt, npe)
+    ids = torch.tensor(ids, dtype=torch.int32, device=dev)
+    x = _x(dev, ids.numel(), k, seed=ids.numel()).to(torch.bfloat16)
+    xg = PF._sums_natural(x, qt.fs.shape[1])
+    key = "fast_indirect_nibble" if PF._is_nibble(qt.cfg) else "fast_indirect"
+    before = kernels.LAUNCHES[key]
+    got = PF.fast_indirect(x, qt, ids, npe, xg=xg)
+    want = PF.fast_indirect_plain(x, qt, ids, npe, xg=xg)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[key] == before + 1
+    assert _nmse(got, want) <= NMSE_MAX
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
