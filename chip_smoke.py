@@ -35,7 +35,19 @@
 7. Mixtral-8x7B Q4_K_M on the interleaved layout everywhere: the same
    phases, with K8 on the Q4_K (nibble) stacks and on the Q6_K stacks with
    the derived bias, K6 on nibble planes (wq) and on Q5_K planes with a
-   stored bias (wo, residual mode) held against their plain versions.
+   stored bias (wo, residual mode) held against their plain versions;
+8. Llama-3-8B IQ3_XXS (made with an imatrix; the fifth slice's path, the
+   coded i-quants), on the default layouts: the same phases, with the
+   code-map branch of K2 (a coded IQ2_S wqk beside a Q4_K wv), of K1 (res,
+   normed, act) and of K3 held against their plain versions, and iq1 and
+   ternary (which no served configuration uses) on one K1, K3 and K6 shape
+   each;
+9. Llama-3-8B IQ3_XXS on the interleaved layout everywhere: K7 with a coded
+   part and K6 on coded nibble planes in every mode;
+10. Mixtral-8x7B IQ3_XXS on the interleaved layout everywhere: K8 on the
+   coded expert stacks and K6's coded plain mode;
+11. Mixtral-8x7B IQ3_XXS on the default layouts: K5 on the coded stacks, K1
+   and K3 on coded t-planes.
 
 Any failure raises: the script exits non-zero and prints no result.  The
 last line is {"ok": true, "device": {...}}; the line before it lists the
@@ -48,6 +60,7 @@ import os
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -62,6 +75,15 @@ NMSE_KERNEL = 1e-6   # K1-K3, K5, K6 vs plain: same integer/f32/bf16
 ATTN_MAX_ABS = 1e-4  # K4 vs plain: f32 throughout, another order and expf
 FLIP_MARGIN = 1e-3   # a routing flip between kernel and plain runs must be
                      # a near-tie: top-k-th minus next probability below this
+
+#: the port's kernel sources and the TPU kernels they replace
+SRC_GEMV = "ggml_hexagon_tpu_torch/csrc/qp8_gemv.cu"
+SRC_GEMM = "ggml_hexagon_tpu_torch/csrc/qp8_gemm.cu"
+SRC_IL = "ggml_hexagon_tpu_torch/csrc/fast_il.cu"
+K6_BYTE = "ggml_hexagon_tpu/ops/qmm_fast.py:510"
+K6_NIBBLE = "ggml_hexagon_tpu/ops/qmm_fast.py:497"
+K7_DUAL = "ggml_hexagon_tpu/ops/qmm_fast.py:872"
+K8_GATHER = "ggml_hexagon_tpu/ops/qmm_fast.py:1259"
 
 
 def log(*a):
@@ -206,7 +228,6 @@ class KernelReport:
 def check_kernels(dev, weights, cfg):
     """Each kernel against its plain version at the main path's shapes."""
     from ggml_hexagon_tpu_torch.ops import decode_attn as PD
-    from ggml_hexagon_tpu_torch.ops import qmm_qp8 as P
     from ggml_hexagon_tpu_torch.ops.basic import rope_freqs
 
     gen = torch.Generator(device=dev)
@@ -226,125 +247,42 @@ def check_kernels(dev, weights, cfg):
                  if lw["ffn_down"].cfg.qtype.name == "Q6_K")
     n_dn_q6 = sum(lw["ffn_down"].cfg.qtype.name == "Q6_K" for lw in layers)
     head = weights["output"]
-    wn = full["attn_norm_il"]
-    eps = cfg.rms_eps
-    K1 = KernelReport("qp8_gemv", "cuda", "ggml_hexagon_tpu_torch/csrc/qp8_gemv.cu",
+    K1 = KernelReport("qp8_gemv", "cuda", SRC_GEMV,
                       "ggml_hexagon_tpu/ops/qmm_qp8.py:426",
                       "one decode step (B=1): 113 launches")
-    K2 = KernelReport("qp8_dual", "cuda", "ggml_hexagon_tpu_torch/csrc/qp8_gemv.cu",
+    K2 = KernelReport("qp8_dual", "cuda", SRC_GEMV,
                       "ggml_hexagon_tpu/ops/qmm_qp8.py:475",
                       "one decode step (B=1): 16 launches")
-    K3 = KernelReport("qp8_gemm", "cuda", "ggml_hexagon_tpu_torch/csrc/qp8_gemm.cu",
+    K3 = KernelReport("qp8_gemm", "cuda", SRC_GEMM,
                       "ggml_hexagon_tpu/ops/qmm_qp8.py:529",
                       "one 512-token prefill chunk: 145 launches")
     K4 = KernelReport("decode_attn", "cuda", "ggml_hexagon_tpu_torch/csrc/decode_attn.cu",
                       "ggml_hexagon_tpu/ops/decode_attn.py:177",
                       "one decode step at pos 700 of 1024 (B=1): 32 launches")
 
-    def deq_bf16(qt):
-        return P.dequantize_qp8(qt, torch.bfloat16).t().contiguous()  # [K, n2]
-
-    # ---- K1: (name, qt, mode, launches per decode step at B=1)
-    k1_cases = [("wqkv", full["wqkv"], "normed", n_full),
-                ("wo", full["wo"], "res", len(layers)),
-                ("gate_up", full["w_gateup_il"], "normed", len(layers)),
-                ("down_q4k", dn_q4, "act", len(layers) - n_dn_q6),
-                ("down_q6k", dn_q6, "act", n_dn_q6),
-                ("head_q6k", head, "raw", 1)]
     log(f"K1 qp8_gemv (kernel vs plain, NMSE <= {NMSE_KERNEL}; times are "
         "medians, L2 flushed)")
-    for name, qt, mode, per_step in k1_cases:
-        deq = deq_bf16(qt)
+    for name, qt, mode, per_step in (
+            ("wqkv", full["wqkv"], "normed", n_full),
+            ("wo", full["wo"], "res", len(layers)),
+            ("gate_up", full["w_gateup_il"], "normed", len(layers)),
+            ("down_q4k", dn_q4, "act", len(layers) - n_dn_q6),
+            ("down_q6k", dn_q6, "act", n_dn_q6), ("head_q6k", head, "raw", 1)):
         for B in (1, 8):
-            x = randn(B, 2 * qt.k if mode == "act" else qt.k)
-            kw = {}
-            if mode == "normed":
-                kw = dict(wn=wn, eps=eps)
-            elif mode == "res":
-                kw = dict(res=randn(B, qt.n))
-            elif mode == "act":
-                kw = dict(act="silu", res=randn(B, qt.n))
-            got = P.qp8_gemv(x, qt, **kw)
-            want = P.qp8_gemv_plain(x, qt, **kw)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            e2 = nmse(got, want)
-            if not (e2 <= NMSE_KERNEL and torch.isfinite(got).all()):
-                raise AssertionError(f"K1 {name} B={B} {mode}: nmse {e2}")
-            ms = time_ms(lambda: P.qp8_gemv(x, qt, **kw))
-            pms = time_plain_ms(lambda: P.qp8_gemv_plain(x, qt, **kw))
-            xl = x[:, :qt.k].to(torch.bfloat16)
-            lib = time_ms(lambda: torch.matmul(xl, deq))
-            byts = plane_bytes(qt) + nbytes(x, got) + (
-                nbytes(kw["res"]) if "res" in kw else 0)
-            ops = 2 * B * qt.k * qt.fq.shape[1]
-            bms, by = bound_ms(byts, ops, INT8_OPS)
-            log(f"  {name:9s} {qt.cfg.qtype.name} {qt.n}x{qt.k} B={B} {mode:6s} "
-                f"max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms "
-                f"plain={pms:.3f}ms bf16-matmul={lib:.4f}ms bound={bms:.4f}ms "
-                f"({by}) {bms / ms:.0%} of bound")
-            if B == 1:
-                K1.add(per_step, err, ms, pms, byts, ops, INT8_OPS, lib)
-        del deq
-
+            k1_row(dev, gen, cfg, K1 if B == 1 else None, name, qt, mode, B,
+                   per_step)
     log(f"K2 qp8_dual (NMSE <= {NMSE_KERNEL})")
-    wqk, wv = mixed["wqk"], mixed["wv"]
-    deq = torch.cat([deq_bf16(wqk), deq_bf16(wv)], dim=1)
     for B in (1, 4):
-        x = randn(B, wqk.k)
-        wn2 = mixed["attn_norm_il"]
-        got = P.qp8_dual(x, wqk, wv, wn=wn2, eps=eps)
-        want = P.qp8_dual_plain(x, wqk, wv, wn=wn2, eps=eps)
-        torch.cuda.synchronize()
-        err, e2 = float((got - want).abs().max()), nmse(got, want)
-        if not e2 <= NMSE_KERNEL:
-            raise AssertionError(f"K2 B={B}: nmse {e2}")
-        ms = time_ms(lambda: P.qp8_dual(x, wqk, wv, wn=wn2, eps=eps))
-        pms = time_plain_ms(
-            lambda: P.qp8_dual_plain(x, wqk, wv, wn=wn2, eps=eps))
-        xl = x.to(torch.bfloat16)
-        lib = time_ms(lambda: torch.matmul(xl, deq))
-        byts = plane_bytes(wqk) + plane_bytes(wv) + nbytes(x, got)
-        ops = 2 * B * wqk.k * got.shape[1]
-        bms, by = bound_ms(byts, ops, INT8_OPS)
-        log(f"  wqk+wv {wqk.n}+{wv.n}x{wqk.k} B={B} max|d|={err:.3e} "
-            f"nmse={e2:.2e} kernel={ms:.4f}ms plain={pms:.3f}ms "
-            f"bf16-matmul={lib:.4f}ms bound={bms:.4f}ms ({by}) "
-            f"{bms / ms:.0%} of bound")
-        if B == 1:
-            K2.add(n_mixed, err, ms, pms, byts, ops, INT8_OPS, lib)
-    del deq
-
+        dual_row(dev, gen, cfg, K2 if B == 1 else None, mixed["wqk"],
+                 mixed["wv"], B, n_mixed)
     log(f"K3 qp8_gemm (M=512, NMSE <= {NMSE_KERNEL})")
-    M = 512
-    k3_cases = [("wqkv", full["wqkv"], n_full),
-                ("wqk", mixed["wqk"], n_mixed), ("wv", mixed["wv"], n_mixed),
-                ("wo", full["wo"], len(layers)),
-                ("gate_up", full["w_gateup_il"], len(layers)),
-                ("down_q4k", dn_q4, len(layers) - n_dn_q6),
-                ("down_q6k", dn_q6, n_dn_q6), ("head_q6k", head, 1)]
-    for name, qt, count in k3_cases:
-        x = randn(M, qt.k).to(torch.bfloat16)
-        got = P.qp8_gemm(x, qt)
-        want = P.qp8_gemm_plain(x, qt)
-        torch.cuda.synchronize()
-        err, e2 = float((got - want).abs().max()), nmse(got, want)
-        if not (e2 <= NMSE_KERNEL and torch.isfinite(got).all()):
-            raise AssertionError(f"K3 {name}: nmse {e2}")
-        ms = time_ms(lambda: P.qp8_gemm(x, qt), iters=10)
-        pms = time_plain_ms(lambda: P.qp8_gemm_plain(x, qt))
-        deq = deq_bf16(qt)
-        lib = time_ms(lambda: torch.matmul(x, deq), iters=10)
-        del deq
-        byts = plane_bytes(qt) + nbytes(x, got)
-        ops = 2 * M * qt.k * qt.fq.shape[1]
-        bms, by = bound_ms(byts, ops, BF16_OPS)
-        log(f"  {name:9s} {qt.cfg.qtype.name} {qt.n}x{qt.k} M={M} "
-            f"max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms "
-            f"plain={pms:.3f}ms bf16-matmul={lib:.4f}ms bound={bms:.4f}ms "
-            f"({by}) {bms / ms:.0%} of bound "
-            f"{ops / ms / 1e9:.1f} TFLOP/s")
-        K3.add(count, err, ms, pms, byts, ops, BF16_OPS, lib)
+    for name, qt, count in (
+            ("wqkv", full["wqkv"], n_full), ("wqk", mixed["wqk"], n_mixed),
+            ("wv", mixed["wv"], n_mixed), ("wo", full["wo"], len(layers)),
+            ("gate_up", full["w_gateup_il"], len(layers)),
+            ("down_q4k", dn_q4, len(layers) - n_dn_q6),
+            ("down_q6k", dn_q6, n_dn_q6), ("head_q6k", head, 1)):
+        k3_row(dev, gen, K3, name, qt, count)
 
     log(f"K4 decode_attn (S=1024, max|d| <= {ATTN_MAX_ABS})")
     Hq, Hkv, D, S = cfg.n_head, cfg.n_head_kv, cfg.hd, 1024
@@ -477,6 +415,49 @@ LAUNCH_TABLES = {
         "bucket8": dict(fast_nibble=32, fast_byte=97,
                         fast_indirect_nibble=80, fast_indirect=16),
         "chunk": dict(fast_nibble=672, fast_byte=225),
+    },
+    # the coded i-quants (IQ3_XXS with an imatrix) on t-planes: IQ2_S wqk +
+    # Q4_K wv through K2 at decode (at prefill one normed K1/K3 each), IQ3_S
+    # wo (K1 res), IQ3_XXS gate_up (normed) and down (act), all coded; the
+    # Q5_K head on K1 (K3 above the 8-bucket)
+    "Llama-3-8B IQ3_XXS": {
+        "step": dict(qp8_dual_coded=32, qp8_gemv_coded=96, qp8_gemv=1,
+                     decode_attn=32),
+        "bucket8": dict(qp8_gemv_coded=128, qp8_gemv=33),
+        "chunk": dict(qp8_gemm_coded=128, qp8_gemm=33),
+    },
+    # the same on interleaved planes: K7 on the coded wqk + the Q4_K nibble
+    # wv, K6 coded res / normed / act; at prefill wqk K6 coded normed, wv K6
+    # nibble normed, wo K6 coded, down K6 coded act (8-bucket) or
+    # pre-interleaved (chunk); the Q5_K head K6 byte with its stored bias
+    "Llama-3-8B IQ3_XXS il": {
+        "step": dict(fast_dual_coded=32, fast_coded_res=32,
+                     fast_coded_normed=32, fast_coded_act=32, fast_byte=1,
+                     decode_attn=32),
+        "bucket8": dict(fast_coded_normed=64, fast_nibble_normed=32,
+                        fast_coded=32, fast_coded_act=32, fast_byte=1),
+        "chunk": dict(fast_coded_normed=64, fast_nibble_normed=32,
+                      fast_coded=64, fast_byte=1),
+    },
+    # IQ2_S wq K6 coded, Q8_0 wk/wv and the Q5_K head K6 byte, Q5_K wo K6
+    # byte res (plain mode above one token); the IQ3_XXS stacks through K8
+    # coded at <= 8 rows, every expert's gate, up and down through K6 coded
+    # above
+    "Mixtral-8x7B IQ3_XXS il": {
+        "step": dict(fast_coded=32, fast_byte=65, fast_byte_res=32,
+                     fast_indirect_coded=96, decode_attn=32),
+        "bucket8": dict(fast_coded=32, fast_byte=97, fast_indirect_coded=96),
+        "chunk": dict(fast_coded=800, fast_byte=97),
+    },
+    # IQ2_S wq on coded t-planes (K1 / K3), Q8_0 wk/wv K6 byte, Q5_K wo and
+    # head K1 / K3; the IQ3_XXS stacks through K5 coded at <= 8 rows, every
+    # expert through K3 coded above
+    "Mixtral-8x7B IQ3_XXS": {
+        "step": dict(qp8_gemv_coded=32, qp8_gemv=33, fast_byte=64,
+                     qp8_indirect_coded=96, decode_attn=32),
+        "bucket8": dict(qp8_gemv_coded=32, qp8_gemv=33, fast_byte=64,
+                        qp8_indirect_coded=96),
+        "chunk": dict(qp8_gemm_coded=800, qp8_gemm=33, fast_byte=64),
     },
 }
 
@@ -739,14 +720,9 @@ def check_kernels_moe(dev, weights, cfg):
     shapes of the main path; returns the K5 and K6 reports and logs the
     Mixtral sums of K1 per decode step and K3 per 512-token chunk."""
     from ggml_hexagon_tpu_torch.models.llama import qtensor_rows
-    from ggml_hexagon_tpu_torch.ops import qmm_qp8 as P
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(4321)
-
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen, device=dev)
-
     layers = weights["layers"]
     n_l, E = len(layers), cfg.n_expert
     nff, d = cfg.n_ff, cfg.n_embd
@@ -757,8 +733,7 @@ def check_kernels_moe(dev, weights, cfg):
     lw6 = next(lw for lw in layers if dn(lw) == "Q6_K")
     lw5 = next((lw for lw in layers if dn(lw) == "Q5_K"), lw6)
     n_q6 = sum(dn(lw) == "Q6_K" for lw in layers)
-    K5 = KernelReport("qp8_indirect", "cuda",
-                      "ggml_hexagon_tpu_torch/csrc/qp8_gemv.cu",
+    K5 = KernelReport("qp8_indirect", "cuda", SRC_GEMV,
                       "ggml_hexagon_tpu/ops/qmm_qp8.py:1022",
                       f"one Mixtral decode step (B=1, P=2): {3 * n_l} launches")
     K6 = KernelReport("fast_byte", "cuda", SRC_IL, K6_BYTE,
@@ -766,39 +741,12 @@ def check_kernels_moe(dev, weights, cfg):
     M1 = KernelReport("qp8_gemv", "cuda", "", "", "Mixtral decode step")
     M3 = KernelReport("qp8_gemm", "cuda", "", "", "Mixtral 512-token chunk")
 
-    rng = np.random.default_rng(7)
-    id_sets = [("P2", [5, 2]), ("P2_dup", [3, 3]),
-               ("P16", [int(e) for _ in range(8)
-                        for e in rng.permutation(E)[:2]])]
     log(f"K5 qp8_indirect (kernel vs plain, NMSE <= {NMSE_KERNEL})")
-    k5_cases = [("gate_up_q5k", lw5["ffn_gate_exps"], nff, 2 * n_l),
-                ("down_q5k", lw5["ffn_down_exps"], d, n_l - n_q6),
-                ("down_q6k", lw6["ffn_down_exps"], d, n_q6)]
-    for name, qt, npe, per_step in k5_cases:
-        for label, id_list in id_sets:
-            ids = torch.tensor(id_list, dtype=torch.int32, device=dev)
-            x = randn(len(id_list), qt.k)
-            got = P.qp8_indirect(x, qt, ids, npe)
-            err, e2 = held(f"K5 {name} {label}", got,
-                           P.qp8_indirect_plain(x, qt, ids, npe))
-            ms = time_ms(lambda: P.qp8_indirect(x, qt, ids, npe))
-            pms = time_plain_ms(lambda: P.qp8_indirect_plain(x, qt, ids, npe))
-            uniq = sorted(set(id_list))
-            w_e = {e: deq_t(qtensor_rows(qt, e * npe, npe)) for e in uniq}
-            wsel = torch.stack([w_e[e] for e in id_list])   # [P, K, npe]
-            xb = x.to(torch.bfloat16)[:, None, :]
-            lib = time_ms(lambda: torch.bmm(xb, wsel))
-            del w_e, wsel
-            byts = (len(uniq) * plane_bytes(qtensor_rows(qt, 0, npe))
-                    + nbytes(x, ids, got))
-            ops = 2 * len(id_list) * qt.k * npe
-            bms, by = bound_ms(byts, ops, INT8_OPS)
-            log(f"  {name:11s} {qt.cfg.qtype.name} {E}x{npe}x{qt.k} {label:6s} "
-                f"max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms "
-                f"plain={pms:.3f}ms bf16-bmm={lib:.4f}ms bound={bms:.4f}ms "
-                f"({by}) {bms / ms:.0%} of bound")
-            if label == "P2":
-                K5.add(per_step, err, ms, pms, byts, ops, INT8_OPS, lib)
+    for name, qt, npe, per_step in (
+            ("gate_up_q5k", lw5["ffn_gate_exps"], nff, 2 * n_l),
+            ("down_q5k", lw5["ffn_down_exps"], d, n_l - n_q6),
+            ("down_q6k", lw6["ffn_down_exps"], d, n_q6)):
+        gather_rows(dev, gen, K5, name, qt, npe, per_step, 7)
 
     log(f"K6 fast_byte (NMSE <= {NMSE_KERNEL})")
     for name, qt in (("wk", layers[0]["wk"]), ("wv", layers[0]["wv"])):
@@ -808,52 +756,19 @@ def check_kernels_moe(dev, weights, cfg):
 
     log(f"K1 / K3 on the Mixtral shapes (NMSE <= {NMSE_KERNEL})")
     lw0 = layers[0]
-    k1_cases = [("wq", lw0["wq"], "raw", n_l), ("wo", lw0["wo"], "res", n_l),
-                ("head_q6k", weights["output"], "raw", 1)]
-    for name, qt, mode, per_step in k1_cases:
-        deq = deq_t(qt)
+    for name, qt, mode, per_step in (("wq", lw0["wq"], "raw", n_l),
+                                     ("wo", lw0["wo"], "res", n_l),
+                                     ("head_q6k", weights["output"], "raw", 1)):
         for B in (1, 8):
-            x = randn(B, qt.k)
-            kw = dict(res=randn(B, qt.n)) if mode == "res" else {}
-            got = P.qp8_gemv(x, qt, **kw)
-            err, e2 = held(f"K1 {name} B={B}", got, P.qp8_gemv_plain(x, qt, **kw))
-            ms = time_ms(lambda: P.qp8_gemv(x, qt, **kw))
-            pms = time_plain_ms(lambda: P.qp8_gemv_plain(x, qt, **kw))
-            xl = x.to(torch.bfloat16)
-            lib = time_ms(lambda: torch.matmul(xl, deq))
-            byts = plane_bytes(qt) + nbytes(x, got, *kw.values())
-            ops = 2 * B * qt.k * qt.fq.shape[1]
-            bms, by = bound_ms(byts, ops, INT8_OPS)
-            log(f"  K1 {name:8s} {qt.cfg.qtype.name} {qt.n}x{qt.k} B={B} {mode:3s} "
-                f"max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms "
-                f"plain={pms:.3f}ms bf16-matmul={lib:.4f}ms bound={bms:.4f}ms "
-                f"({by}) {bms / ms:.0%} of bound")
-            if B == 1:
-                M1.add(per_step, err, ms, pms, byts, ops, INT8_OPS, lib)
-        del deq
-    M = 512
-    k3_cases = [("wq", lw0["wq"], n_l), ("wo", lw0["wo"], n_l),
-                ("gate_up_e", qtensor_rows(lw5["ffn_gate_exps"], 0, nff), 2 * E * n_l),
-                ("down_q5k_e", qtensor_rows(lw5["ffn_down_exps"], 0, d), E * (n_l - n_q6)),
-                ("down_q6k_e", qtensor_rows(lw6["ffn_down_exps"], 0, d), E * n_q6),
-                ("head_q6k", weights["output"], 1)]
-    for name, qt, count in k3_cases:
-        x = randn(M, qt.k).to(torch.bfloat16)
-        got = P.qp8_gemm(x, qt)
-        err, e2 = held(f"K3 {name}", got, P.qp8_gemm_plain(x, qt))
-        ms = time_ms(lambda: P.qp8_gemm(x, qt), iters=5)
-        pms = time_plain_ms(lambda: P.qp8_gemm_plain(x, qt))
-        deq = deq_t(qt)
-        lib = time_ms(lambda: torch.matmul(x, deq), iters=5)
-        del deq
-        byts = plane_bytes(qt) + nbytes(x, got)
-        ops = 2 * M * qt.k * qt.fq.shape[1]
-        bms, by = bound_ms(byts, ops, BF16_OPS)
-        log(f"  K3 {name:10s} {qt.cfg.qtype.name} {qt.n}x{qt.k} M={M} "
-            f"max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms "
-            f"plain={pms:.3f}ms bf16-matmul={lib:.4f}ms bound={bms:.4f}ms "
-            f"({by}) {bms / ms:.0%} of bound {ops / ms / 1e9:.1f} TFLOP/s")
-        M3.add(count, err, ms, pms, byts, ops, BF16_OPS, lib)
+            k1_row(dev, gen, cfg, M1 if B == 1 else None, name, qt, mode, B,
+                   per_step)
+    for name, qt, count in (
+            ("wq", lw0["wq"], n_l), ("wo", lw0["wo"], n_l),
+            ("gate_up_e", qtensor_rows(lw5["ffn_gate_exps"], 0, nff), 2 * E * n_l),
+            ("down_q5k_e", qtensor_rows(lw5["ffn_down_exps"], 0, d), E * (n_l - n_q6)),
+            ("down_q6k_e", qtensor_rows(lw6["ffn_down_exps"], 0, d), E * n_q6),
+            ("head_q6k", weights["output"], 1)):
+        k3_row(dev, gen, M3, name, qt, count)
     for r, unit in ((M1, f"decode step ({2 * n_l + 1} launches)"),
                     (M3, f"512-token chunk ({2 * n_l + 3 * E * n_l + 1} launches)")):
         d_ = r.d
@@ -864,23 +779,15 @@ def check_kernels_moe(dev, weights, cfg):
     return [K5, K6]
 
 
-SRC_IL = "ggml_hexagon_tpu_torch/csrc/fast_il.cu"
-K6_BYTE = "ggml_hexagon_tpu/ops/qmm_fast.py:510"
-K6_NIBBLE = "ggml_hexagon_tpu/ops/qmm_fast.py:497"
-K7_DUAL = "ggml_hexagon_tpu/ops/qmm_fast.py:872"
-K8_GATHER = "ggml_hexagon_tpu/ops/qmm_fast.py:1259"
-
-
 def k6_row(dev, gen, cfg, rep, name, qt, mode, B, count):
-    """One K6 call on interleaved planes of either family, with or without
-    a group bias (mode: plain, pre_il, normed, res, act with a residual):
+    """One K6 call on interleaved planes of any family (byte, nibble or
+    coded), with or without a group bias (mode: plain, pre_il, normed, res, act with a residual):
     kernel vs plain version on the group sums the entry would hand it,
     kernel / plain / yardstick times and the bound; added to rep (when
     given) count times."""
     from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
 
     K = qt.k
-    nib = PF._is_nibble(qt.cfg)
     kw = {}
     x = torch.randn(B, 2 * K if mode == "act" else K, generator=gen,
                     device=dev).to(torch.bfloat16)
@@ -893,10 +800,10 @@ def k6_row(dev, gen, cfg, rep, name, qt, mode, B, count):
         kw["act"] = "silu"
     elif mode == "pre_il":
         kw = dict(pre_il=True)
-    _, nkj = PF._pick_blocks(PF._padded_rows(B), K, nib, qt.cfg.gs)
+    _, nkj = PF._pick_blocks(PF._padded_rows(B), K, PF._is_packed(qt.cfg),
+                             qt.cfg.gs)
     kw["xg"] = PF.group_sums(qt, x, mode, kw.get("wn"), nkj)
-    kern, plain = ((PF.fast_nibble, PF.fast_nibble_plain) if nib
-                   else (PF.fast_byte, PF.fast_byte_plain))
+    kern, plain = PF._k6(qt, False), PF._k6(qt, True)
     got = kern(x, qt, **kw)
     err, e2 = held(f"K6 {mode} {name} B={B}", got, plain(x, qt, **kw))
     iters = 10 if B > 8 else 20
@@ -913,7 +820,7 @@ def k6_row(dev, gen, cfg, rep, name, qt, mode, B, count):
     bms, by = bound_ms(byts, ops, peak)
     xg_mode = PF._xg_mode(qt, nkj)
     log(f"  {mode:6s} {name:10s} {qt.cfg.qtype.name} {qt.n}x{K} B={B:3d} "
-        f"{'nibble' if nib else 'byte'} bias-sums={xg_mode} "
+        f"{PF._family(qt.cfg)} bias-sums={xg_mode} "
         f"max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms plain={pms:.3f}ms "
         f"bf16-matmul={lib:.4f}ms bound={bms:.4f}ms ({by}) "
         f"{bms / ms:.0%} of bound")
@@ -921,77 +828,282 @@ def k6_row(dev, gen, cfg, rep, name, qt, mode, B, count):
         rep.add(count, err, ms, pms, byts, ops, peak, lib)
 
 
-def k8_rows(dev, gen, rep, name, qt, npe, per_step, seed):
-    """K8 on stacked interleaved planes of either family, at P=2, P=2 with
-    a duplicate id and P=16: kernel vs plain version, times, bound; the
-    P=2 row added to rep per_step times."""
+def gather_rows(dev, gen, rep, name, qt, npe, per_step, seed):
+    """The gathered-expert GEMV on stacked planes, K8 on interleaved ones
+    (any family) or K5 on t-planes, at P=2, P=2 with a duplicate id and
+    P=16: kernel vs plain version, times, bound; the P=2 row added to rep
+    per_step times."""
     from ggml_hexagon_tpu_torch.models.llama import qtensor_rows
     from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
+    from ggml_hexagon_tpu_torch.ops import qmm_qp8 as P
 
-    E = qt.fq.shape[0] // npe
+    t = qt.fl == "t"
+    E = (qt.fq.shape[1] if t else qt.fq.shape[0]) // npe
     rng = np.random.default_rng(seed)
     id_sets = [("P2", [5, 2]), ("P2_dup", [3, 3]),
                ("P16", [int(e) for _ in range(8)
                         for e in rng.permutation(E)[:2]])]
     bias = qt.fb is not None or bool(qt.cfg.offset)
+    peak = INT8_OPS if t else F32_OPS
     for label, id_list in id_sets:
         ids = torch.tensor(id_list, dtype=torch.int32, device=dev)
-        x = torch.randn(len(id_list), qt.k, generator=gen,
-                        device=dev).to(torch.bfloat16)
-        xg = PF._sums_natural(x, qt.fs.shape[1]) if bias else None
-        got = PF.fast_indirect(x, qt, ids, npe, xg)
-        err, e2 = held(f"K8 {name} {label}", got,
-                       PF.fast_indirect_plain(x, qt, ids, npe, xg))
-        ms = time_ms(lambda: PF.fast_indirect(x, qt, ids, npe, xg))
-        pms = time_plain_ms(lambda: PF.fast_indirect_plain(x, qt, ids, npe, xg))
+        x = torch.randn(len(id_list), qt.k, generator=gen, device=dev)
+        if t:
+            args = (x, qt, ids, npe)
+            kern, plain = P.qp8_indirect, P.qp8_indirect_plain
+        else:
+            x = x.to(torch.bfloat16)
+            xg = PF._sums_natural(x, qt.fs.shape[1]) if bias else None
+            args = (x, qt, ids, npe, xg)
+            kern, plain = PF.fast_indirect, PF.fast_indirect_plain
+        got = kern(*args)
+        err, e2 = held(f"{'K5' if t else 'K8'} {name} {label}", got,
+                       plain(*args))
+        ms = time_ms(lambda: kern(*args))
+        pms = time_plain_ms(lambda: plain(*args))
         uniq = sorted(set(id_list))
         w_e = {e: deq_t(qtensor_rows(qt, e * npe, npe)) for e in uniq}
         wsel = torch.stack([w_e[e] for e in id_list])   # [P, K, npe]
-        xb = x[:, None, :]
+        xb = x.to(torch.bfloat16)[:, None, :]
         lib = time_ms(lambda: torch.bmm(xb, wsel))
         del w_e, wsel
         one = qtensor_rows(qt, 0, npe)
-        byts = len(uniq) * plane_bytes(one) + nbytes(x, ids, got, xg)
+        byts = len(uniq) * plane_bytes(one) + nbytes(*args[:1], ids, got,
+                                                     *args[4:])
         ops = 2 * len(id_list) * qt.k * npe + bias_ops(one, len(id_list))
-        bms, by = bound_ms(byts, ops, F32_OPS)
-        log(f"  {name:8s} {qt.cfg.qtype.name} {E}x{npe}x{qt.k} {label:6s} "
-            f"max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms "
+        bms, by = bound_ms(byts, ops, peak)
+        log(f"  {name:8s} {qt.cfg.qtype.name}/{qt.fl} {E}x{npe}x{qt.k} "
+            f"{label:6s} max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms "
             f"plain={pms:.3f}ms bf16-bmm={lib:.4f}ms bound={bms:.4f}ms "
             f"({by}) {bms / ms:.0%} of bound")
         if label == "P2" and rep is not None:
-            rep.add(per_step, err, ms, pms, byts, ops, F32_OPS, lib)
+            rep.add(per_step, err, ms, pms, byts, ops, peak, lib)
 
 
 def dual_row(dev, gen, cfg, rep, qa, qb, B, count):
-    """K7 on a normed pair (the decode QKV): kernel vs plain version, times
-    against a bf16 matmul on both weights at once, the bound."""
+    """The decode QKV's dual projection on a normed pair, K7 on interleaved
+    planes (each part with its own norm weight) or K2 on t-planes (one
+    shared): kernel vs plain version, times against a bf16 matmul on both
+    weights at once, the bound."""
     from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
+    from ggml_hexagon_tpu_torch.ops import qmm_qp8 as P
 
     K = qa.k
-    x = torch.randn(B, K, generator=gen, device=dev).to(torch.bfloat16)
-    kw = dict(wn_a=torch.rand(K, device=dev, generator=gen) + 0.5,
-              wn_b=torch.rand(K, device=dev, generator=gen) + 0.5,
-              eps=cfg.rms_eps)
-    kw["xg_a"] = PF.group_sums(qa, x, "normed", kw["wn_a"])
-    kw["xg_b"] = PF.group_sums(qb, x, "normed", kw["wn_b"])
-    got = PF.fast_dual(x, qa, qb, **kw)
-    err, e2 = held(f"K7 B={B}", got, PF.fast_dual_plain(x, qa, qb, **kw))
-    ms = time_ms(lambda: PF.fast_dual(x, qa, qb, **kw))
-    pms = time_plain_ms(lambda: PF.fast_dual_plain(x, qa, qb, **kw))
+    x = torch.randn(B, K, generator=gen, device=dev)
+    if qa.fl == "t":
+        kw = dict(wn=torch.rand(K, device=dev, generator=gen) + 0.5,
+                  eps=cfg.rms_eps)
+        kern, plain, peak, what = P.qp8_dual, P.qp8_dual_plain, INT8_OPS, "K2"
+    else:
+        x = x.to(torch.bfloat16)
+        kw = dict(wn_a=torch.rand(K, device=dev, generator=gen) + 0.5,
+                  wn_b=torch.rand(K, device=dev, generator=gen) + 0.5,
+                  eps=cfg.rms_eps)
+        kw["xg_a"] = PF.group_sums(qa, x, "normed", kw["wn_a"])
+        kw["xg_b"] = PF.group_sums(qb, x, "normed", kw["wn_b"])
+        kern, plain, peak, what = PF.fast_dual, PF.fast_dual_plain, F32_OPS, "K7"
+    got = kern(x, qa, qb, **kw)
+    err, e2 = held(f"{what} B={B}", got, plain(x, qa, qb, **kw))
+    ms = time_ms(lambda: kern(x, qa, qb, **kw))
+    pms = time_plain_ms(lambda: plain(x, qa, qb, **kw))
     deq = torch.cat([deq_t(qa), deq_t(qb)], dim=1)
-    lib = time_ms(lambda: torch.matmul(x, deq))
+    xl = x.to(torch.bfloat16)
+    lib = time_ms(lambda: torch.matmul(xl, deq))
     del deq
     byts = plane_bytes(qa) + plane_bytes(qb) + nbytes(
-        x, got, kw["wn_a"], kw["wn_b"], kw["xg_a"], kw["xg_b"])
-    ops = (2 * B * K * (qa.fq.shape[0] + qb.fq.shape[0]) + bias_ops(qa, B)
+        x, got, *(v for v in kw.values() if isinstance(v, torch.Tensor)))
+    ops = (2 * B * K * (qa.n_pad + qb.n_pad) + bias_ops(qa, B)
            + bias_ops(qb, B))
-    bms, by = bound_ms(byts, ops, F32_OPS)
-    log(f"  wqk+wv {qa.cfg.qtype.name}+{qb.cfg.qtype.name} {qa.n}+{qb.n}x{K} "
-        f"B={B} max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms "
-        f"plain={pms:.3f}ms bf16-matmul={lib:.4f}ms bound={bms:.4f}ms ({by}) "
+    bms, by = bound_ms(byts, ops, peak)
+    log(f"  {what} wqk+wv {qa.cfg.qtype.name}+{qb.cfg.qtype.name} "
+        f"{qa.n}+{qb.n}x{K} B={B} max|d|={err:.3e} nmse={e2:.2e} "
+        f"kernel={ms:.4f}ms plain={pms:.3f}ms bf16-matmul={lib:.4f}ms "
+        f"bound={bms:.4f}ms ({by}) {bms / ms:.0%} of bound")
+    if rep is not None:
+        rep.add(count, err, ms, pms, byts, ops, peak, lib)
+
+
+def k1_row(dev, gen, cfg, rep, name, qt, mode, B, count):
+    """One K1 call on t-planes (mode raw, normed, res, or act with a
+    residual): kernel vs plain version, kernel / plain / yardstick times and
+    the bound; added to rep (when given) count times."""
+    from ggml_hexagon_tpu_torch.ops import qmm_qp8 as P
+
+    x = torch.randn(B, 2 * qt.k if mode == "act" else qt.k, generator=gen,
+                    device=dev)
+    kw = {}
+    if mode == "normed":
+        kw = dict(wn=torch.rand(qt.k, device=dev, generator=gen) + 0.5,
+                  eps=cfg.rms_eps)
+    elif mode in ("res", "act"):
+        kw = dict(res=torch.randn(B, qt.n, generator=gen, device=dev))
+    if mode == "act":
+        kw["act"] = "silu"
+    got = P.qp8_gemv(x, qt, **kw)
+    err, e2 = held(f"K1 {mode} {name} B={B}", got, P.qp8_gemv_plain(x, qt, **kw))
+    ms = time_ms(lambda: P.qp8_gemv(x, qt, **kw))
+    pms = time_plain_ms(lambda: P.qp8_gemv_plain(x, qt, **kw))
+    deq = deq_t(qt)
+    xl = x[:, :qt.k].to(torch.bfloat16)
+    lib = time_ms(lambda: torch.matmul(xl, deq))
+    del deq
+    byts = plane_bytes(qt) + nbytes(x, got, kw.get("wn"), kw.get("res"))
+    ops = 2 * B * qt.k * qt.fq.shape[1]
+    bms, by = bound_ms(byts, ops, INT8_OPS)
+    log(f"  K1 {mode:6s} {name:9s} {qt.cfg.qtype.name} {qt.n}x{qt.k} B={B} "
+        f"max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms plain={pms:.3f}ms "
+        f"bf16-matmul={lib:.4f}ms bound={bms:.4f}ms ({by}) "
         f"{bms / ms:.0%} of bound")
     if rep is not None:
-        rep.add(count, err, ms, pms, byts, ops, F32_OPS, lib)
+        rep.add(count, err, ms, pms, byts, ops, INT8_OPS, lib)
+
+
+def k3_row(dev, gen, rep, name, qt, count, M=512):
+    """One K3 call on t-planes at M rows: kernel vs plain version, times,
+    bound; added to rep (when given) count times."""
+    from ggml_hexagon_tpu_torch.ops import qmm_qp8 as P
+
+    x = torch.randn(M, qt.k, generator=gen, device=dev).to(torch.bfloat16)
+    got = P.qp8_gemm(x, qt)
+    err, e2 = held(f"K3 {name}", got, P.qp8_gemm_plain(x, qt))
+    ms = time_ms(lambda: P.qp8_gemm(x, qt), iters=5)
+    pms = time_plain_ms(lambda: P.qp8_gemm_plain(x, qt))
+    deq = deq_t(qt)
+    lib = time_ms(lambda: torch.matmul(x, deq), iters=5)
+    del deq
+    byts = plane_bytes(qt) + nbytes(x, got)
+    ops = 2 * M * qt.k * qt.fq.shape[1]
+    bms, by = bound_ms(byts, ops, BF16_OPS)
+    log(f"  K3 {name:10s} {qt.cfg.qtype.name} {qt.n}x{qt.k} M={M} "
+        f"max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms plain={pms:.3f}ms "
+        f"bf16-matmul={lib:.4f}ms bound={bms:.4f}ms ({by}) "
+        f"{bms / ms:.0%} of bound {ops / ms / 1e9:.1f} TFLOP/s")
+    if rep is not None:
+        rep.add(count, err, ms, pms, byts, ops, BF16_OPS, lib)
+
+
+def check_codes_alone(dev, cfg):
+    """iq1 (IQ1_S) and ternary (TQ2_0), which no served configuration
+    uses: one K1, one K3 and one K6 shape each against their plain
+    versions (4096 x 4096, B=1 / M=512 / B=1)."""
+    from ggml_hexagon_tpu_torch.models.synth import random_qtensor
+    from ggml_hexagon_tpu_torch.quant.formats import GGMLType
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(97)
+    log(f"iq1 and ternary alone (kernel vs plain, NMSE <= {NMSE_KERNEL})")
+    for qtype in (GGMLType.IQ1_S, GGMLType.TQ2_0):
+        qt = random_qtensor(gen, 4096, 4096, qtype, dev)
+        t, il = (qt.with_fast_planes(fl).without_wire() for fl in ("t", "il"))
+        del qt
+        k1_row(dev, gen, cfg, None, "alone", t, "raw", 1, 0)
+        k3_row(dev, gen, None, "alone", t, 0)
+        k6_row(dev, gen, cfg, None, "alone", il, "plain", 1, 0)
+
+
+def check_kernels_coded(dev, weights, cfg):
+    """The code-map branch of every kernel against its plain version at the
+    shapes of the IQ3_XXS configuration's main path: K2 (coded wqk + Q4_K
+    wv), K1 (res, normed, act) and K3 on t-planes (Llama-3-8B IQ3_XXS), K7
+    and K6 in every mode on coded nibble planes (Llama-3-8B IQ3_XXS il), K8
+    and K6's plain mode (Mixtral-8x7B IQ3_XXS il), K5, K1 and K3 (Mixtral
+    IQ3_XXS); the first also holds iq1 and ternary alone.  Returns the
+    reports of what the configuration's decode step runs (K3: a 512-token
+    chunk)."""
+    from ggml_hexagon_tpu_torch.models.llama import qtensor_rows
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8642)
+    layers = weights["layers"]
+    n_l = len(layers)
+    lw = layers[0]
+    E, nff, d = cfg.n_expert, cfg.n_ff_exp or cfg.n_ff, cfg.n_embd
+
+    def report(key, src, replaces, unit):
+        return KernelReport(key, "cuda", src, replaces, unit)
+
+    if not E and lw["wqk"].fl == "t":
+        unit = "one 8B IQ3_XXS decode step (B=1)"
+        K1 = report("qp8_gemv_coded", SRC_GEMV, "ggml_hexagon_tpu/ops/qmm_qp8.py:426",
+                    f"{unit}: {3 * n_l} launches (res, normed, act)")
+        K2 = report("qp8_dual_coded", SRC_GEMV, "ggml_hexagon_tpu/ops/qmm_qp8.py:475",
+                    f"{unit}: {n_l} launches (IQ2_S wqk + Q4_K wv)")
+        K3 = report("qp8_gemm_coded", SRC_GEMM, "ggml_hexagon_tpu/ops/qmm_qp8.py:529",
+                    f"one 8B IQ3_XXS 512-token chunk: {4 * n_l} launches")
+        log(f"K2 / K1 / K3 on coded t-planes, 8B IQ3_XXS shapes (NMSE <= {NMSE_KERNEL})")
+        for B in (1, 4):
+            dual_row(dev, gen, cfg, K2 if B == 1 else None, lw["wqk"], lw["wv"],
+                     B, n_l)
+        for B in (1, 8):
+            for name, qt, mode in (("wo", lw["wo"], "res"),
+                                   ("gate_up", lw["w_gateup_il"], "normed"),
+                                   ("down", lw["ffn_down"], "act")):
+                k1_row(dev, gen, cfg, K1 if B == 1 else None, name, qt, mode, B,
+                       n_l)
+        for name in ("wqk", "wo", "w_gateup_il", "ffn_down"):
+            k3_row(dev, gen, K3, name, lw[name], n_l)
+        check_codes_alone(dev, cfg)
+        return [K1, K2, K3]
+
+    if not E:
+        unit = "one 8B IQ3_XXS il decode step (B=1)"
+        KD = report("fast_dual_coded", SRC_IL, K7_DUAL,
+                    f"{unit}: {n_l} launches (coded wqk + Q4_K nibble wv)")
+        KN = report("fast_coded_normed", SRC_IL, K6_NIBBLE, f"{unit}: {n_l} launches")
+        KR = report("fast_coded_res", SRC_IL, K6_NIBBLE, f"{unit}: {n_l} launches")
+        KA = report("fast_coded_act", SRC_IL, K6_NIBBLE, f"{unit}: {n_l} launches")
+        log(f"K7 / K6 on coded nibble planes, 8B IQ3_XXS il shapes (NMSE <= {NMSE_KERNEL})")
+        for B in (1, 4, 8):
+            dual_row(dev, gen, cfg, KD if B == 1 else None, lw["wqk"], lw["wv"],
+                     B, n_l)
+        for B in (1, 8, 128, 512):
+            k6_row(dev, gen, cfg, KN if B == 1 else None, "gate_up",
+                   lw["w_gateup_il"], "normed", B, n_l)
+        for B in (1, 8):
+            k6_row(dev, gen, cfg, KR if B == 1 else None, "wo", lw["wo"], "res",
+                   B, n_l)
+            k6_row(dev, gen, cfg, KA if B == 1 else None, "down", lw["ffn_down"],
+                   "act", B, n_l)
+        for B in (128, 512):  # the prefill's other coded launches
+            k6_row(dev, gen, cfg, None, "wqk", lw["wqk"], "normed", B, n_l)
+            k6_row(dev, gen, cfg, None, "wo", lw["wo"], "plain", B, n_l)
+            k6_row(dev, gen, cfg, None, "down", lw["ffn_down"], "pre_il", B, n_l)
+        return [KD, KN, KR, KA]
+
+    stacks = (("gate_up", lw["ffn_gate_exps"], nff, 2 * n_l),
+              ("down", lw["ffn_down_exps"], d, n_l))
+    if lw["ffn_gate_exps"].fl == "il":
+        unit = "one Mixtral IQ3_XXS il decode step (B=1"
+        K8 = report("fast_indirect_coded", SRC_IL, K8_GATHER,
+                    f"{unit}, P=2): {3 * n_l} launches")
+        KP = report("fast_coded", SRC_IL, K6_NIBBLE,
+                    f"{unit}): {n_l} launches (IQ2_S wq)")
+        log(f"K8 / K6 on coded nibble planes, Mixtral IQ3_XXS il shapes (NMSE <= {NMSE_KERNEL})")
+        for name, qt, npe, per_step in stacks:
+            gather_rows(dev, gen, K8, name, qt, npe, per_step, 14)
+        for B in (1, 8, 128, 512):
+            k6_row(dev, gen, cfg, KP if B == 1 else None, "wq", lw["wq"], "plain",
+                   B, n_l)
+        for B in (128, 512):  # the dense prefill's expert slices
+            k6_row(dev, gen, cfg, None, "gate_e",
+                   qtensor_rows(lw["ffn_gate_exps"], 0, nff), "plain", B, 2 * E * n_l)
+            k6_row(dev, gen, cfg, None, "down_e",
+                   qtensor_rows(lw["ffn_down_exps"], 0, d), "plain", B, E * n_l)
+        return [K8, KP]
+
+    K5 = report("qp8_indirect_coded", SRC_GEMV, "ggml_hexagon_tpu/ops/qmm_qp8.py:1022",
+                f"one Mixtral IQ3_XXS decode step (B=1, P=2): {3 * n_l} launches")
+    log(f"K5 / K1 / K3 on coded t-planes, Mixtral IQ3_XXS shapes (NMSE <= {NMSE_KERNEL})")
+    for name, qt, npe, per_step in stacks:
+        gather_rows(dev, gen, K5, name, qt, npe, per_step, 15)
+    for B in (1, 8):
+        k1_row(dev, gen, cfg, None, "wq", lw["wq"], "raw", B, n_l)
+    for name, qt, count in (
+            ("wq", lw["wq"], n_l),
+            ("gate_e", qtensor_rows(lw["ffn_gate_exps"], 0, nff), 2 * E * n_l),
+            ("down_e", qtensor_rows(lw["ffn_down_exps"], 0, d), E * n_l)):
+        k3_row(dev, gen, None, name, qt, count)
+    return [K5]
 
 
 def check_kernels_il(dev, weights, cfg):
@@ -1038,8 +1150,8 @@ def check_kernels_il(dev, weights, cfg):
                       f"one Mixtral IQ4_XS decode step (B=1, P=2): "
                       f"{2 * n_l + n_dn} launches")
     log(f"K8 fast_indirect (kernel vs plain, NMSE <= {NMSE_KERNEL})")
-    k8_rows(dev, gen, K8, "gate_up", lw_il["ffn_gate_exps"], nff, 2 * n_l, 9)
-    k8_rows(dev, gen, K8, "down", lw_il["ffn_down_exps"], d, n_dn, 10)
+    gather_rows(dev, gen, K8, "gate_up", lw_il["ffn_gate_exps"], nff, 2 * n_l, 9)
+    gather_rows(dev, gen, K8, "down", lw_il["ffn_down_exps"], d, n_dn, 10)
     log(f"K6 plain mode on the Mixtral IQ4_XS shapes (NMSE <= {NMSE_KERNEL})")
     for B in (1, 8, 128, 512):
         row(None, "wq", layers[0]["wq"], "plain", B, n_l)
@@ -1128,9 +1240,9 @@ def check_kernels_nibble(dev, weights, cfg):
     I6 = report("fast_indirect", K8_GATHER,
                 f"{unit}, P=2): {n6} launches (Q6_K, derived bias)")
     log(f"K8 on the Mixtral Q4_K_M il stacks (kernel vs plain, NMSE <= {NMSE_KERNEL})")
-    k8_rows(dev, gen, I4, "gate_up", lw4["ffn_gate_exps"], nff, 2 * n_l, 11)
-    k8_rows(dev, gen, I4, "down_q4k", lw4["ffn_down_exps"], d, n_l - n6, 12)
-    k8_rows(dev, gen, I6, "down_q6k", lw6["ffn_down_exps"], d, n6, 13)
+    gather_rows(dev, gen, I4, "gate_up", lw4["ffn_gate_exps"], nff, 2 * n_l, 11)
+    gather_rows(dev, gen, I4, "down_q4k", lw4["ffn_down_exps"], d, n_l - n6, 12)
+    gather_rows(dev, gen, I6, "down_q6k", lw6["ffn_down_exps"], d, n6, 13)
     log(f"K6 on the Mixtral Q4_K_M il shapes (NMSE <= {NMSE_KERNEL})")
     for B in (1, 8, 128, 512):
         row(KP if B == 1 else None, "wq", layers[0]["wq"], "plain", B, n_l)
@@ -1205,8 +1317,10 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ggml_hexagon_tpu_torch import kernels
     from ggml_hexagon_tpu_torch.models.synth import (build_8b, build_8b_il,
+                                                     build_8b_iq3xxs,
                                                      build_8b_iq4xs,
                                                      build_mixtral,
+                                                     build_mixtral_iq3xxs,
                                                      build_mixtral_iq4xs,
                                                      build_mixtral_q4km_il)
 
@@ -1232,7 +1346,15 @@ def main():
             ("Mixtral-8x7B IQ4_XS", build_mixtral_iq4xs, check_kernels_il),
             ("Llama-3-8B Q4_K_M il", build_8b_il, check_kernels_nibble),
             ("Mixtral-8x7B Q4_K_M il", build_mixtral_q4km_il,
-             check_kernels_nibble)):
+             check_kernels_nibble),
+            ("Llama-3-8B IQ3_XXS", partial(build_8b_iq3xxs, "t"),
+             check_kernels_coded),
+            ("Llama-3-8B IQ3_XXS il", partial(build_8b_iq3xxs, "il"),
+             check_kernels_coded),
+            ("Mixtral-8x7B IQ3_XXS il", partial(build_mixtral_iq3xxs, "il"),
+             check_kernels_coded),
+            ("Mixtral-8x7B IQ3_XXS", partial(build_mixtral_iq3xxs, "t"),
+             check_kernels_coded)):
         reps, counts = run_phase(name, builder, check, dev)
         reports += reps
         runs.append(counts)

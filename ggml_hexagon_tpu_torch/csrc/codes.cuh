@@ -1,0 +1,50 @@
+// Device decode of the coded i-quant and ternary planes, shared by
+// qp8_gemv.cu (K1, K2, K5), qp8_gemm.cu (K3) and fast_il.cu (K6, K7, K8).
+//
+// Replaces ggml_hexagon_tpu/ops/qmm_qp8.py `_decode_cm` (:262, with its
+// `_SHIFT_LUTS` :259) and ggml_hexagon_tpu/ops/qmm_fast.py `decode_codes`
+// (:62), which the TPU kernels apply to every unpacked code before the dot.
+//
+// A code is a magnitude index c into the type's alphabet and a sign bit:
+//   iq2    {0, 8, 25, 43}                  (IQ2_XXS, IQ2_XS, IQ2_S)
+//   iq3xxs {4, 12, 20, 28, 36, 44, 52, 62} (IQ3_XXS)
+//   iq3s   {1, 3, 5, ..., 15}              (IQ3_S)
+//   iq1    {0, 1, 7, 9}                    (IQ1_S, IQ1_M)
+//   tern   value + 1, no sign bit          (TQ1_0, TQ2_0)
+// The t-planes' 2+1 layouts (iq2, iq1) carry c in bits 0-1 and the sign in
+// bit 2; every other layout (the t-planes' 4+0 iq3 codes and all coded
+// nibbles of the interleaved planes) carries c in bits 0-2 and the sign in
+// bit 3.
+//
+// decode4 turns four codes, one a byte, into four signed int8 values in one
+// word: the alphabet is a table of eight bytes in two registers, and one
+// byte permute (prmt) looks the four magnitudes up at once; the sign is a
+// per-byte conditional negate, (m ^ s) - s with s = 0x00 or 0xff.  Codes
+// past an alphabet of four read its last entry, as the TPU's arithmetic
+// decode does.
+#pragma once
+#include <stdint.h>
+
+// code-map ids (kernels.CODE_MAPS)
+constexpr int CM_NONE = 0, CM_IQ2 = 1, CM_IQ3XXS = 2, CM_IQ3S = 3, CM_IQ1 = 4,
+              CM_TERN = 5;
+
+// v: four codes, one in each byte; sbit: the sign bit's position in a code
+// (2 for the t-planes' 2+1 layouts, 3 otherwise).  Returns four int8 values.
+__device__ __forceinline__ uint32_t decode4(uint32_t v, int cm, int sbit) {
+  if (cm == CM_TERN) return __vsub4(v, 0x01010101u);
+  uint32_t lo, hi;  // alphabet bytes 0-3 and 4-7
+  switch (cm) {
+    case CM_IQ2: lo = 0x2B190800u; hi = 0x2B2B2B2Bu; break;
+    case CM_IQ3XXS: lo = 0x1C140C04u; hi = 0x3E342C24u; break;
+    case CM_IQ3S: lo = 0x07050301u; hi = 0x0F0D0B09u; break;
+    default: lo = 0x09070100u; hi = 0x09090909u; break;  // iq1
+  }
+  const uint32_t c = v & (sbit == 2 ? 0x03030303u : 0x07070707u);
+  // one 3-bit selector a byte, packed into the low 16 bits of the selector
+  const uint32_t sel = (c & 0x7u) | ((c >> 4) & 0x70u) | ((c >> 8) & 0x700u) |
+                       ((c >> 12) & 0x7000u);
+  const uint32_t mag = __byte_perm(lo, hi, sel);
+  const uint32_t s = ((v >> sbit) & 0x01010101u) * 0xffu;
+  return __vsub4(mag ^ s, s);
+}

@@ -18,7 +18,10 @@
 // (j % G)*gs + j/G.  fq is int8 [n2, K] (byte family: Q8_0, the IQ4 LUT
 // types, every type of more than 4 bits) or uint8 [n2, K/2] (nibble family:
 // Q4_0, Q4_1, Q4_K; byte b holds column b in its low nibble and b + K/2 in
-// its high one, and (K/2) % G == 0, so both take the scale of group b % G);
+// its high one, and (K/2) % G == 0, so both take the scale of group b % G),
+// or uint8 [n2, K/2] of the same packing holding 4-bit sign+magnitude codes
+// (coded family: the i-quants and ternary, `cm` in the TPU kernels, a
+// code-map id here; decoded by codes.cuh `decode4`, no group bias);
 // fs bf16 [n2, G] group scales; the group bias is a stored plane fb bf16
 // [n2, G] (the asymmetric types), or off * fs (off = -8 Q4_0, -16 Q5_0, -4
 // Q3_K, -32 Q6_K), or absent.
@@ -34,8 +37,9 @@
 // the bf16 gate ++ up, both halves interleaved already, and silu(g)*u is
 // computed in f32 and rounded to bf16.  Byte planes at B <= 8 (and in K7
 // and K8) multiply the f32 x by the f32 weight q*scale; byte planes above 8
-// rows and nibble planes at every B round q*scale to bf16; every product
-// is summed in f32.  The bias is xg @ fb^T, or off * (xg @ fs^T), in f32,
+// rows, nibble and coded planes at every B round q*scale to bf16 (q the
+// decoded value on coded planes, exact in bf16); every product is summed
+// in f32.  The bias is xg @ fb^T, or off * (xg @ fs^T), in f32,
 // xg [B, G] being the activation's group sums: summed here from the bf16
 // effective activation (xg_mode 2), or the caller's (xg_mode 1: in the
 // normed mode the pre-norm sums, scaled here by inv).  The output is
@@ -67,10 +71,16 @@
 //    are 64 columns (b.. and K/2+b..), the A tile taking x's two matching
 //    column runs.  The bias is an f32 pass after the K loop over G in
 //    chunks of 32 groups staged in shared memory.
+//  * Coded planes take the nibble bodies with the codes decoded four at a
+//    time (low nibbles, then high ones, of each packed word) into signed
+//    values before the scale: a third family beside byte and nibble, whose
+//    id (`cm`) travels with each plane set, so K7's two parts keep their own.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "codes.cuh"
 
 using namespace nvcuda;
 
@@ -94,6 +104,7 @@ struct Planes {
   const float* xg;     // f32 [B, G] group sums, or null: no bias
   float off;           // the derived bias's offset (fb null)
   int n2, G, nib;
+  int cm;              // code-map id of coded planes (nib set), else CM_NONE
 };
 
 // GEMM tile geometry of a family: x columns a K step, shared memory
@@ -247,28 +258,48 @@ __device__ __forceinline__ void row_dots_byte(const uint16_t* __restrict__ xil,
   }
 }
 
+// The low and high nibbles of four packed bytes as decoded codes, one
+// signed value a byte (coded planes).
+__device__ __forceinline__ void decode_nibbles(uint32_t w, int cm, uint32_t& lo,
+                                               uint32_t& hi) {
+  lo = decode4(w & 0x0f0f0f0fu, cm, 3);
+  hi = decode4((w >> 4) & 0x0f0f0f0fu, cm, 3);
+}
+
 // The same on a nibble weight row (K/2 packed bytes): byte p gives the
-// weights of columns p and K/2 + p, each bf16(q * scale of group p % G).
-template <int NB>
+// weights of columns p and K/2 + p, each bf16(q * scale of group p % G);
+// CODED: q is the decoded code (code map cm).
+template <int NB, bool CODED>
 __device__ __forceinline__ void row_dots_nib(const uint16_t* __restrict__ xil,
                                              int ldx, const uint8_t* __restrict__ wrow,
                                              const uint16_t* __restrict__ srow,
-                                             int K, int G, int lane, float acc[NB]) {
+                                             int K, int G, int cm, int lane,
+                                             float acc[NB]) {
 #pragma unroll
   for (int b = 0; b < NB; ++b) acc[b] = 0.f;
   const int Kh = K / 2;
   for (int p0 = lane * 16; p0 < Kh; p0 += 32 * 16) {
     const uint4 wv = __ldg(reinterpret_cast<const uint4*>(wrow + p0));
     const uint32_t ww[4] = {wv.x, wv.y, wv.z, wv.w};
+    uint32_t dl[4], dh[4];
+    if constexpr (CODED) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) decode_nibbles(ww[j], cm, dl[j], dh[j]);
+    }
     float wl[16], wh[16];
     int g = p0 % G;
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const float s = bf2f(__ldg(srow + g));
       if (++g == G) g = 0;
-      const uint32_t q = byte_u(ww[i >> 2], i & 3);
-      wl[i] = bf_round((float)(q & 15u) * s);
-      wh[i] = bf_round((float)(q >> 4) * s);
+      if constexpr (CODED) {
+        wl[i] = bf_round(byte_f(dl[i >> 2], i & 3) * s);
+        wh[i] = bf_round(byte_f(dh[i >> 2], i & 3) * s);
+      } else {
+        const uint32_t q = byte_u(ww[i >> 2], i & 3);
+        wl[i] = bf_round((float)(q & 15u) * s);
+        wh[i] = bf_round((float)(q >> 4) * s);
+      }
     }
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
@@ -291,17 +322,21 @@ __device__ __forceinline__ void row_dots_nib(const uint16_t* __restrict__ xil,
 }
 
 // Row n of P against NB rows of x_il: the dot products and the bias dots
-// (xg @ fb^T or xg @ fs^T), warp-summed into every lane.  FAM: 1 nibble
-// planes, 0 byte planes, -1 either (P.nib read at run time, both bodies
-// compiled in: more registers, so only K7, whose parts may differ, takes
-// it).
+// (xg @ fb^T or xg @ fs^T), warp-summed into every lane.  FAM: 2 coded
+// planes, 1 nibble planes, 0 byte planes, -1 any (P.cm and P.nib read at
+// run time, all bodies compiled in: more registers, so only K7, whose parts
+// may differ, takes it).
 template <int NB, int FAM>
 __device__ __forceinline__ void row_eval(const uint16_t* __restrict__ xil, int ldx,
                                          const Planes& P, int K, size_t n, int lane,
                                          float dot[NB], float bias[NB]) {
   const int G = P.G;
-  if (FAM == 1 || (FAM < 0 && P.nib))
-    row_dots_nib<NB>(xil, ldx, P.fq + n * (size_t)(K / 2), P.fs + n * G, K, G, lane, dot);
+  if (FAM == 2 || (FAM < 0 && P.cm))
+    row_dots_nib<NB, true>(xil, ldx, P.fq + n * (size_t)(K / 2), P.fs + n * G, K, G,
+                           P.cm, lane, dot);
+  else if (FAM == 1 || (FAM < 0 && P.nib))
+    row_dots_nib<NB, false>(xil, ldx, P.fq + n * (size_t)(K / 2), P.fs + n * G, K, G,
+                            0, lane, dot);
   else
     row_dots_byte<NB>(xil, ldx, reinterpret_cast<const int8_t*>(P.fq) + n * (size_t)K,
                       P.fs + n * G, K, G, lane, dot);
@@ -387,7 +422,8 @@ __global__ void __launch_bounds__(GEMV_WARPS * 32) indirect_kernel(
   if (lane == 0) out[(size_t)p * npe + r] = finish(P, dot[0], bias[0], 0.f);
 }
 
-template <bool NIB, bool BIAS>
+// NIB: packed planes (nibble or coded); CODED: codes decoded with P.cm
+template <bool NIB, bool BIAS, bool CODED>
 __global__ void __launch_bounds__(NT) gemm_kernel(
     const __nv_bfloat16* __restrict__ xil, Planes P, int K, int M,
     const float* __restrict__ res, int n_res, float* __restrict__ out) {
@@ -433,6 +469,11 @@ __global__ void __launch_bounds__(NT) gemm_kernel(
       const int pb = p0 + th * 16;
       const uint4 wv = __ldg(reinterpret_cast<const uint4*>(P.fq + (size_t)(n0 + tr) * Kh + pb));
       const uint32_t ww[4] = {wv.x, wv.y, wv.z, wv.w};
+      uint32_t dl[4], dh[4];
+      if constexpr (CODED) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) decode_nibbles(ww[j], P.cm, dl[j], dh[j]);
+      }
       uint32_t lo[8], hi[8];
       int g = pb % G;
 #pragma unroll
@@ -441,12 +482,22 @@ __global__ void __launch_bounds__(NT) gemm_kernel(
         if (++g == G) g = 0;
         const float s1 = bf2f(__ldg(srow + g));
         if (++g == G) g = 0;
-        const uint32_t q0 = byte_u(ww[i >> 2], i & 3);
-        const uint32_t q1 = byte_u(ww[(i + 1) >> 2], (i + 1) & 3);
-        lo[i >> 1] = (uint32_t)f2bf((float)(q0 & 15u) * s0) |
-                     ((uint32_t)f2bf((float)(q1 & 15u) * s1) << 16);
-        hi[i >> 1] = (uint32_t)f2bf((float)(q0 >> 4) * s0) |
-                     ((uint32_t)f2bf((float)(q1 >> 4) * s1) << 16);
+        float l0, l1, h0, h1;
+        if constexpr (CODED) {
+          l0 = byte_f(dl[i >> 2], i & 3);
+          l1 = byte_f(dl[(i + 1) >> 2], (i + 1) & 3);
+          h0 = byte_f(dh[i >> 2], i & 3);
+          h1 = byte_f(dh[(i + 1) >> 2], (i + 1) & 3);
+        } else {
+          const uint32_t q0 = byte_u(ww[i >> 2], i & 3);
+          const uint32_t q1 = byte_u(ww[(i + 1) >> 2], (i + 1) & 3);
+          l0 = (float)(q0 & 15u);
+          l1 = (float)(q1 & 15u);
+          h0 = (float)(q0 >> 4);
+          h1 = (float)(q1 >> 4);
+        }
+        lo[i >> 1] = (uint32_t)f2bf(l0 * s0) | ((uint32_t)f2bf(l1 * s1) << 16);
+        hi[i >> 1] = (uint32_t)f2bf(h0 * s0) | ((uint32_t)f2bf(h1 * s1) << 16);
       }
       uint4* bl = reinterpret_cast<uint4*>(Bs + tr * T::LD + th * 16);
       uint4* bh = reinterpret_cast<uint4*>(Bs + tr * T::LD + 32 + th * 16);
@@ -571,7 +622,7 @@ __global__ void __launch_bounds__(NT) gemm_kernel(
 }
 
 Planes make_planes(const void* fq, const void* fs, const void* fb, int n2, int G,
-                   int nib, float off, const float* xg) {
+                   int nib, int cm, float off, const float* xg) {
   Planes P;
   P.fq = (const uint8_t*)fq;
   P.fs = (const uint16_t*)fs;
@@ -581,6 +632,7 @@ Planes make_planes(const void* fq, const void* fs, const void* fb, int n2, int G
   P.n2 = n2;
   P.G = G;
   P.nib = nib;
+  P.cm = cm;
   return P;
 }
 
@@ -618,7 +670,9 @@ template <int NB>
 void launch_gemv(const uint16_t* xil, const Planes& P, int K, const float* res,
                  int n_res, float* out, cudaStream_t s) {
   const int blocks = (P.n2 + GEMV_WARPS - 1) / GEMV_WARPS;
-  if (P.nib)
+  if (P.cm)
+    gemv_kernel<NB, 2><<<blocks, GEMV_WARPS * 32, 0, s>>>(xil, P, K, res, n_res, out);
+  else if (P.nib)
     gemv_kernel<NB, 1><<<blocks, GEMV_WARPS * 32, 0, s>>>(xil, P, K, res, n_res, out);
   else
     gemv_kernel<NB, 0><<<blocks, GEMV_WARPS * 32, 0, s>>>(xil, P, K, res, n_res, out);
@@ -632,27 +686,30 @@ void launch_dual(const uint16_t* xa, const uint16_t* xb, const Planes& A,
       xa, xb, A, Bq, K, out);
 }
 
-template <bool NIB, bool BIAS>
+template <bool NIB, bool BIAS, bool CODED = false>
 cudaError_t launch_gemm(const void* xil, const Planes& P, int K, int M,
                         const float* res, int n_res, float* out, cudaStream_t s) {
   constexpr int bytes = Tile<NIB>::smem(BIAS);
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gemm_kernel<NIB, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        gemm_kernel<NIB, BIAS, CODED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
   dim3 grid(P.n2 / BN, (M + BM - 1) / BM);
-  gemm_kernel<NIB, BIAS><<<grid, NT, bytes, s>>>(
+  gemm_kernel<NIB, BIAS, CODED><<<grid, NT, bytes, s>>>(
       (const __nv_bfloat16*)xil, P, K, M, res, n_res, out);
   return cudaGetLastError();
 }
 
-// Whether (K, G) and the bias arguments of one plane set are taken.
-bool bad_part(int nib, int K, int G, bool bias, int xg_mode, const float* xg_in,
-              const float* xg) {
+// Whether (K, G), the family and the bias arguments of one plane set are
+// taken (coded planes are packed and carry no bias).
+bool bad_part(int nib, int cm, int K, int G, bool bias, int xg_mode,
+              const float* xg_in, const float* xg) {
   return K % (nib ? 64 : 32) || G < 1 || K % G || bias != (xg_mode != 0) ||
+         cm < CM_NONE || cm > CM_TERN || (cm && (!nib || bias)) ||
          xg_mode < 0 || xg_mode > 2 || (xg_mode == 1 && xg_in == nullptr) ||
          (bias && xg == nullptr);
 }
@@ -666,13 +723,14 @@ const char* ght_error_string(int e) { return cudaGetErrorString((cudaError_t)e);
 // K6.  mode: 0 plain (x bf16 [B, K] in natural column order), 1 normed (the
 // same x; wn f32 [K] interleaved, eps), 2 act (x bf16 [B, 2K], gate ++ up,
 // both interleaved), 3 plain with x interleaved already (xil unused).
-// nibble: fq uint8 [n2, K/2] packed, else int8 [n2, K]; fs bf16 [n2, G];
+// nibble: fq uint8 [n2, K/2] packed, else int8 [n2, K]; cm: the code map of
+// coded packed planes (0: none); fs bf16 [n2, G];
 // the bias: fb bf16 [n2, G], or off * fs (fb null, off != 0), or none;
 // xg_mode 1 takes the group sums xg_in f32 [B, G] (pre-norm in the normed
 // mode), 2 takes them from the activation, 0 when there is no bias; res f32
 // [B, n_res] or null; scratch xil bf16 [B, K] and xg f32 [B, G] (with a
 // bias); out f32 [B, n2].
-int fast_il_run(int mode, int nibble, const void* x, int B, int K, const void* fq,
+int fast_il_run(int mode, int nibble, int cm, const void* x, int B, int K, const void* fq,
                 const void* fs, const void* fb, int n2, int G, float off,
                 const float* xg_in, int xg_mode, const float* wn, float eps,
                 const float* res, int n_res, void* xil, float* xg, float* out,
@@ -682,14 +740,14 @@ int fast_il_run(int mode, int nibble, const void* x, int B, int K, const void* f
   if (B < 1 || n2 % BN || mode < MODE_PLAIN || mode > MODE_PRE_IL ||
       (mode == MODE_NORMED && wn == nullptr) || n_res > n2 ||
       (mode != MODE_PRE_IL && xil == nullptr) ||
-      bad_part(nibble, K, G, bias, xg_mode, xg_in, xg))
+      bad_part(nibble, cm, K, G, bias, xg_mode, xg_in, xg))
     return (int)cudaErrorInvalidValue;
   if (mode == MODE_PRE_IL) xil = const_cast<void*>(x);
   const float* xg_eff;
   cudaError_t e = launch_prepass(mode, x, B, K, G, wn, eps, xg_in, xg_mode, xil, xg,
                                  &xg_eff, s);
   if (e != cudaSuccess) return (int)e;
-  const Planes P = make_planes(fq, fs, fb, n2, G, nibble, off, xg_eff);
+  const Planes P = make_planes(fq, fs, fb, n2, G, nibble, cm, off, xg_eff);
   const uint16_t* xi = (const uint16_t*)xil;
   if (B <= 8) {
     switch (B) {
@@ -704,7 +762,9 @@ int fast_il_run(int mode, int nibble, const void* x, int B, int K, const void* f
     }
     return (int)cudaGetLastError();
   }
-  if (nibble)
+  if (cm)
+    e = launch_gemm<true, false, true>(xil, P, K, B, res, n_res, out, s);
+  else if (nibble)
     e = P.xg ? launch_gemm<true, true>(xil, P, K, B, res, n_res, out, s)
              : launch_gemm<true, false>(xil, P, K, B, res, n_res, out, s);
   else
@@ -715,14 +775,14 @@ int fast_il_run(int mode, int nibble, const void* x, int B, int K, const void* f
 
 // K7.  x bf16 [B <= 8, K] in natural column order; eps and, per part,
 // wn_* f32 [K] interleaved like its planes (both null: no norm); per part
-// the planes, family, bias and group sums as in fast_il_run, scratch xil_*
+// the planes, family, code map, bias and group sums as in fast_il_run, scratch xil_*
 // bf16 [B, K] and xg_* f32 [B, G_*]; out f32 [B, n2_a + n2_b].
 int fast_dual_run(const void* x, int B, int K, float eps,
                   const float* wn_a, const void* fq_a, const void* fs_a,
-                  const void* fb_a, int n2_a, int G_a, int nib_a, float off_a,
+                  const void* fb_a, int n2_a, int G_a, int nib_a, int cm_a, float off_a,
                   const float* xg_in_a, int xg_mode_a, void* xil_a, float* xg_a,
                   const float* wn_b, const void* fq_b, const void* fs_b,
-                  const void* fb_b, int n2_b, int G_b, int nib_b, float off_b,
+                  const void* fb_b, int n2_b, int G_b, int nib_b, int cm_b, float off_b,
                   const float* xg_in_b, int xg_mode_b, void* xil_b, float* xg_b,
                   float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -730,8 +790,8 @@ int fast_dual_run(const void* x, int B, int K, float eps,
   const bool bias_b = fb_b != nullptr || off_b != 0.f;
   if (B < 1 || B > 8 || (wn_a == nullptr) != (wn_b == nullptr) || n2_a < 1 ||
       n2_b < 1 || xil_a == nullptr || xil_b == nullptr ||
-      bad_part(nib_a, K, G_a, bias_a, xg_mode_a, xg_in_a, xg_a) ||
-      bad_part(nib_b, K, G_b, bias_b, xg_mode_b, xg_in_b, xg_b))
+      bad_part(nib_a, cm_a, K, G_a, bias_a, xg_mode_a, xg_in_a, xg_a) ||
+      bad_part(nib_b, cm_b, K, G_b, bias_b, xg_mode_b, xg_in_b, xg_b))
     return (int)cudaErrorInvalidValue;
   const int mode = wn_a != nullptr ? MODE_NORMED : MODE_PLAIN;
   const float *xe_a, *xe_b;
@@ -741,8 +801,8 @@ int fast_dual_run(const void* x, int B, int K, float eps,
   e = launch_prepass(mode, x, B, K, G_b, wn_b, eps, xg_in_b, xg_mode_b, xil_b, xg_b,
                      &xe_b, s);
   if (e != cudaSuccess) return (int)e;
-  const Planes A = make_planes(fq_a, fs_a, fb_a, n2_a, G_a, nib_a, off_a, xe_a);
-  const Planes Bq = make_planes(fq_b, fs_b, fb_b, n2_b, G_b, nib_b, off_b, xe_b);
+  const Planes A = make_planes(fq_a, fs_a, fb_a, n2_a, G_a, nib_a, cm_a, off_a, xe_a);
+  const Planes Bq = make_planes(fq_b, fs_b, fb_b, n2_b, G_b, nib_b, cm_b, off_b, xe_b);
   const uint16_t* xa = (const uint16_t*)xil_a;
   const uint16_t* xb = (const uint16_t*)xil_b;
   switch (B) {
@@ -759,26 +819,29 @@ int fast_dual_run(const void* x, int B, int K, float eps,
 }
 
 // K8.  x bf16 [P, K] in natural column order; ids int32 [P] on the card;
-// stacked interleaved planes of n_exp*npe rows (family, bias as in
-// fast_il_run); xg_in f32 [P, G] the group sums of x where the planes carry
+// stacked interleaved planes of n_exp*npe rows (family, code map, bias as
+// in fast_il_run); xg_in f32 [P, G] the group sums of x where the planes carry
 // a bias; scratch xil bf16 [P, K] and xg f32 [P, G]; out f32 [P, npe].
 int fast_indirect_run(const void* x, int P, int K, const int* ids, int npe,
                       int n_exp, const void* fq, const void* fs, const void* fb,
-                      int G, int nibble, float off, const float* xg_in, void* xil,
+                      int G, int nibble, int cm, float off, const float* xg_in, void* xil,
                       float* xg, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const bool bias = fb != nullptr || off != 0.f;
   const int xg_mode = bias ? 1 : 0;
   if (P < 1 || npe < 1 || n_exp < 1 || xil == nullptr ||
-      bad_part(nibble, K, G, bias, xg_mode, xg_in, xg))
+      bad_part(nibble, cm, K, G, bias, xg_mode, xg_in, xg))
     return (int)cudaErrorInvalidValue;
   const float* xg_eff;
   cudaError_t e = launch_prepass(MODE_PLAIN, x, P, K, G, nullptr, 0.f, xg_in, xg_mode,
                                  xil, xg, &xg_eff, s);
   if (e != cudaSuccess) return (int)e;
-  const Planes Q = make_planes(fq, fs, fb, n_exp * npe, G, nibble, off, xg_eff);
+  const Planes Q = make_planes(fq, fs, fb, n_exp * npe, G, nibble, cm, off, xg_eff);
   dim3 grid((npe + GEMV_WARPS - 1) / GEMV_WARPS, P);
-  if (nibble)
+  if (cm)
+    indirect_kernel<2><<<grid, GEMV_WARPS * 32, 0, s>>>(
+        (const uint16_t*)xil, ids, npe, n_exp, Q, K, out);
+  else if (nibble)
     indirect_kernel<1><<<grid, GEMV_WARPS * 32, 0, s>>>(
         (const uint16_t*)xil, ids, npe, n_exp, Q, K, out);
   else

@@ -22,10 +22,16 @@
 //  * The planes' rows are addressed with a pitch `ld` apart from the lane
 //    count n2, so the MoE prefill runs one expert's lane slice of the
 //    stacked planes in place (no copy of ~35 GB of experts per chunk).
+//  * Coded planes (the i-quants and ternary) decode their codes to signed
+//    int8 values (codes.cuh `decode4`) where the four packed values are
+//    built; a value (at most 62 in magnitude) is exact in bf16, so
+//    bf16(q*scale) rounds as on the other planes.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "codes.cuh"
 
 using namespace nvcuda;
 
@@ -57,10 +63,13 @@ __global__ void group_sums_kernel(const uint16_t* __restrict__ x, int M, int K,
   xg[e] = s;
 }
 
+// CODED: the planes carry codes (cm != 0), decoded where the packed
+// values are built; the uncoded instance keeps no decode in its loop.
+template <bool CODED>
 __global__ void __launch_bounds__(NT) qp8_gemm_kernel(
     const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ fq,
     const uint16_t* __restrict__ fs, const uint16_t* __restrict__ fb, int n2,
-    int ld, int bl, int bh, int gs, float off, int M, int K,
+    int ld, int bl, int bh, int gs, float off, int cm, int M, int K,
     const float* __restrict__ xg, float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -119,15 +128,18 @@ __global__ void __launch_bounds__(NT) qp8_gemm_kernel(
           const uint32_t h = __ldg(reinterpret_cast<const unsigned int*>(fq + (size_t)(hi_base + r) * ld + nB));
           v |= ((h >> hi_shift) & mhi) << bl;
         }
+        if (CODED) v = decode4(v, cm, bh ? 2 : 3);
         const int g = (k0 + r) / gs;
         const uint2 sraw = __ldg(reinterpret_cast<const uint2*>(fs + (size_t)g * ld + nB));
         const float sc[4] = {bf2f(sraw.x & 0xffff), bf2f(sraw.x >> 16),
                              bf2f(sraw.y & 0xffff), bf2f(sraw.y >> 16)};
         uint32_t wb[4];
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          wb[c] = __bfloat16_as_ushort(
-              __float2bfloat16_rn((float)((v >> (8 * c)) & 0xffu) * sc[c]));
+        for (int c = 0; c < 4; ++c) {
+          const uint32_t b = (v >> (8 * c)) & 0xffu;
+          const float q = CODED ? (float)(int8_t)(uint8_t)b : (float)b;
+          wb[c] = __bfloat16_as_ushort(__float2bfloat16_rn(q * sc[c]));
+        }
         *reinterpret_cast<uint2*>(Bs + r * LDB + cq * 4) =
             make_uint2(wb[0] | (wb[1] << 16), wb[2] | (wb[3] << 16));
       }
@@ -210,12 +222,13 @@ extern "C" {
 
 const char* ght_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
-// x bf16 [M, K]; fq/fs/fb t-planes of n2 lanes and row pitch ld; xg
+// x bf16 [M, K]; fq/fs/fb t-planes of n2 lanes and row pitch ld, coded
+// with code-map cm (0: uncoded); xg
 // scratch f32 [M, K/gs] (written here when a bias applies); out f32
 // [M, n2].
 int qp8_gemm_run(const void* x, const void* fq, const void* fs, const void* fb,
-                 int n2, int ld, int bl, int bh, int gs, float off, int M,
-                 int K, float* xg, float* out, void* stream) {
+                 int n2, int ld, int bl, int bh, int gs, float off, int cm,
+                 int M, int K, float* xg, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (K % BK || n2 % BN || (K * bl / 8) % BK || (bh && (K * bh / 8) % BK))
     return (int)cudaErrorInvalidValue;
@@ -228,16 +241,24 @@ int qp8_gemm_run(const void* x, const void* fq, const void* fs, const void* fb,
   }
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(qp8_gemm_kernel,
+    cudaError_t e = cudaFuncSetAttribute(qp8_gemm_kernel<false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          SMEM_BYTES);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(qp8_gemm_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   dim3 grid(n2 / BN, (M + BM - 1) / BM);
-  qp8_gemm_kernel<<<grid, NT, SMEM_BYTES, s>>>(
-      (const __nv_bfloat16*)x, (const uint8_t*)fq, (const uint16_t*)fs,
-      (const uint16_t*)fb, n2, ld, bl, bh, gs, off, M, K, xg, out);
+  if (cm)
+    qp8_gemm_kernel<true><<<grid, NT, SMEM_BYTES, s>>>(
+        (const __nv_bfloat16*)x, (const uint8_t*)fq, (const uint16_t*)fs,
+        (const uint16_t*)fb, n2, ld, bl, bh, gs, off, cm, M, K, xg, out);
+  else
+    qp8_gemm_kernel<false><<<grid, NT, SMEM_BYTES, s>>>(
+        (const __nv_bfloat16*)x, (const uint8_t*)fq, (const uint16_t*)fs,
+        (const uint16_t*)fb, n2, ld, bl, bh, gs, off, cm, M, K, xg, out);
   return (int)cudaGetLastError();
 }
 

@@ -37,9 +37,16 @@
 //    carried over.)  Planes are addressed with a row pitch `ld` apart from
 //    the lane count, so an expert's lane slice of stacked planes needs no
 //    copy.
+//  * Coded planes (the i-quants and ternary: 2+1, 4+0 or 2+0 bits of
+//    arithmetic codes) are decoded where the packed bytes are built, four
+//    codes at a time (codes.cuh `decode4`), into signed int8 values; the
+//    products reach 127 * 62 * 32 per group at most, well inside int32.
+//    They carry no bias or offset.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "codes.cuh"
 
 #define SEG 256
 #define WARPS 8
@@ -125,6 +132,7 @@ struct Plane {
   const uint16_t* fb;  // bf16 bits or null
   int n2, ld, bl, bh, gs;  // lanes, row pitch of fq/fs/fb, packing
   float off;
+  int cm;  // code-map id (codes.cuh), CM_NONE for uncoded planes
 };
 
 // 4x4 byte transpose: out[c] byte i = in[i] byte c.
@@ -143,8 +151,10 @@ __device__ __forceinline__ void transpose4(const uint32_t q[4], uint32_t col[4])
 // grid.z: row groups of NB rows (K5: one row each, ids non-null).
 // rows = gridDim.z * NB output rows.  ksb == gridDim.y == 1: dst is the
 // output [rows, dst_stride] (+ residual); else dst holds partials
-// [ksb, rows, dst_stride].
-template <int NB>
+// [ksb, rows, dst_stride].  CODED: a plane may carry codes (P.cm); the
+// uncoded instance has no decode in its inner loop, which costs registers
+// and unrolling even when never taken.
+template <int NB, bool CODED>
 __global__ void __launch_bounds__(WARPS * 32) qp8_gemv_kernel(
     Plane A, Plane Bp, int nblk_a, int K, const int8_t* __restrict__ x8,
     const float* __restrict__ xs, float* __restrict__ dst, int dst_stride,
@@ -218,7 +228,7 @@ __global__ void __launch_bounds__(WARPS * 32) qp8_gemv_kernel(
                 P.fq + (size_t)(rows_lo + u0 + kk + i) * ld + n0));
             v |= ((h >> hi_shift) & mhi) << P.bl;
           }
-          q[i] = v;
+          q[i] = CODED && P.cm ? decode4(v, P.cm, P.bh ? 2 : 3) : v;
         }
         uint32_t col[4];
         transpose4(q, col);
@@ -296,9 +306,12 @@ void launch_gemv(const Plane& A, const Plane& B, int nblk_a, int nblk, int K,
                  const int8_t* x8, const float* xs, float* dst, int dst_stride,
                  const float* res, int n_res, int ksb, cudaStream_t s) {
   dim3 grid(nblk, ksb);
-  qp8_gemv_kernel<NB><<<grid, WARPS * 32, 0, s>>>(A, B, nblk_a, K, x8, xs, dst,
-                                                  dst_stride, res, n_res,
-                                                  nullptr, 0, 0);
+  if (A.cm || B.cm)
+    qp8_gemv_kernel<NB, true><<<grid, WARPS * 32, 0, s>>>(
+        A, B, nblk_a, K, x8, xs, dst, dst_stride, res, n_res, nullptr, 0, 0);
+  else
+    qp8_gemv_kernel<NB, false><<<grid, WARPS * 32, 0, s>>>(
+        A, B, nblk_a, K, x8, xs, dst, dst_stride, res, n_res, nullptr, 0, 0);
 }
 
 }  // namespace
@@ -312,8 +325,9 @@ const char* ght_error_string(int e) { return cudaGetErrorString((cudaError_t)e);
 int qp8_gemv_run(const float* x, const float* wn, int mode, float eps, int NB,
                  int K, const void* fq_a, const void* fs_a, const void* fb_a,
                  int n2_a, int ld_a, int bl_a, int bh_a, int gs_a, float off_a,
-                 const void* fq_b, const void* fs_b, const void* fb_b, int n2_b,
-                 int ld_b, int bl_b, int bh_b, int gs_b, float off_b, int8_t* x8,
+                 int cm_a, const void* fq_b, const void* fs_b, const void* fb_b,
+                 int n2_b, int ld_b, int bl_b, int bh_b, int gs_b, float off_b,
+                 int cm_b, int8_t* x8,
                  float* xs, float* ws, int ksb, float* out, const float* res,
                  int n_res, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -321,11 +335,11 @@ int qp8_gemv_run(const float* x, const float* wn, int mode, float eps, int NB,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   Plane A{(const uint8_t*)fq_a, (const uint16_t*)fs_a, (const uint16_t*)fb_a,
-          n2_a, ld_a, bl_a, bh_a, gs_a, off_a};
+          n2_a, ld_a, bl_a, bh_a, gs_a, off_a, cm_a};
   Plane B{(const uint8_t*)(n2_b ? fq_b : fq_a), (const uint16_t*)(n2_b ? fs_b : fs_a),
           (const uint16_t*)(n2_b ? fb_b : fb_a), n2_b ? n2_b : n2_a,
           n2_b ? ld_b : ld_a, n2_b ? bl_b : bl_a, n2_b ? bh_b : bh_a,
-          n2_b ? gs_b : gs_a, n2_b ? off_b : off_a};
+          n2_b ? gs_b : gs_a, n2_b ? off_b : off_a, n2_b ? cm_b : cm_a};
   const int ncols = n2_a + n2_b;
   const int nblk_a = n2_a / COLS;
   const int nblk = ncols / COLS;
@@ -358,7 +372,7 @@ int qp8_gemv_run(const float* x, const float* wn, int mode, float eps, int NB,
 // (+ finalize when ksb > 1).  out [P, npe]; ws [ksb, P, npe].
 int qp8_indirect_run(const float* x, int P, int K, const int* ids, int npe,
                      int n_exp, const void* fq, const void* fs, const void* fb,
-                     int ld, int bl, int bh, int gs, float off, int8_t* x8,
+                     int ld, int bl, int bh, int gs, float off, int cm, int8_t* x8,
                      float* xs, float* ws, int ksb, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (npe % COLS || P < 1 || P > 65535) return (int)cudaErrorInvalidValue;
@@ -366,11 +380,15 @@ int qp8_indirect_run(const float* x, int P, int K, const int* ids, int npe,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const Plane A{(const uint8_t*)fq, (const uint16_t*)fs, (const uint16_t*)fb,
-                npe, ld, bl, bh, gs, off};
+                npe, ld, bl, bh, gs, off, cm};
   dim3 grid(npe / COLS, ksb, P);
-  qp8_gemv_kernel<1><<<grid, WARPS * 32, 0, s>>>(
-      A, A, npe / COLS, K, x8, xs, ksb > 1 ? ws : out, npe, nullptr, 0, ids,
-      npe, n_exp);
+  float* dst = ksb > 1 ? ws : out;
+  if (cm)
+    qp8_gemv_kernel<1, true><<<grid, WARPS * 32, 0, s>>>(
+        A, A, npe / COLS, K, x8, xs, dst, npe, nullptr, 0, ids, npe, n_exp);
+  else
+    qp8_gemv_kernel<1, false><<<grid, WARPS * 32, 0, s>>>(
+        A, A, npe / COLS, K, x8, xs, dst, npe, nullptr, 0, ids, npe, n_exp);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if (ksb > 1) {

@@ -41,17 +41,26 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: launches per kernel (K1 qp8_gemv, K2 qp8_dual, K3 qp8_gemm, K4
-#: decode_attn, K5 qp8_indirect; K6 by family, byte or nibble planes, and
-#: mode: fast_byte / fast_nibble (plain, natural or pre-interleaved input),
-#: *_normed, *_res, *_act (with or without a residual), a launch on planes
-#: with a group bias under the same key; K7 fast_dual; K8 by family:
-#: fast_indirect (byte), fast_indirect_nibble)
+#: decode_attn, K5 qp8_indirect, each with a *_coded key for launches on
+#: coded planes (K2: either part coded); K6 by family, byte, nibble or
+#: coded planes, and mode: fast_byte / fast_nibble / fast_coded (plain,
+#: natural or pre-interleaved input), *_normed, *_res, *_act (with or
+#: without a residual), a launch on planes with a group bias under the same
+#: key; K7 fast_dual, fast_dual_coded (either part coded); K8 by family:
+#: fast_indirect (byte), fast_indirect_nibble, fast_indirect_coded)
 LAUNCHES = {"qp8_gemv": 0, "qp8_dual": 0, "qp8_gemm": 0, "decode_attn": 0,
-            "qp8_indirect": 0, "fast_byte": 0, "fast_byte_normed": 0,
+            "qp8_indirect": 0, "qp8_gemv_coded": 0, "qp8_dual_coded": 0,
+            "qp8_gemm_coded": 0, "qp8_indirect_coded": 0,
+            "fast_byte": 0, "fast_byte_normed": 0,
             "fast_byte_res": 0, "fast_byte_act": 0, "fast_nibble": 0,
             "fast_nibble_normed": 0, "fast_nibble_res": 0,
-            "fast_nibble_act": 0, "fast_dual": 0, "fast_indirect": 0,
-            "fast_indirect_nibble": 0}
+            "fast_nibble_act": 0, "fast_coded": 0, "fast_coded_normed": 0,
+            "fast_coded_res": 0, "fast_coded_act": 0, "fast_dual": 0,
+            "fast_dual_coded": 0, "fast_indirect": 0,
+            "fast_indirect_nibble": 0, "fast_indirect_coded": 0}
+
+#: the C entries' code-map ids (0: uncoded planes); csrc/codes.cuh
+CODE_MAPS = {"": 0, "iq2": 1, "iq3xxs": 2, "iq3s": 3, "iq1": 4, "tern": 5}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -61,20 +70,20 @@ _F = ctypes.c_float
 
 _ARGTYPES = {
     "qp8_gemv_run": [_P, _P, _I, _F, _I, _I,
-                     _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                     _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                     _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                     _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                      _P, _P, _P, _I, _P, _P, _I, _P],
     "qp8_indirect_run": [_P, _I, _I, _P, _I, _I,
-                         _P, _P, _P, _I, _I, _I, _I, _F,
+                         _P, _P, _P, _I, _I, _I, _I, _F, _I,
                          _P, _P, _P, _I, _P, _P],
-    "qp8_gemm_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P,
-                     _P, _P],
-    "fast_il_run": [_I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _P, _I, _P,
-                    _F, _P, _I, _P, _P, _P, _P],
-    "fast_dual_run": [_P, _I, _I, _F] + [_P, _P, _P, _P, _I, _I, _I, _F, _P,
-                                         _I, _P, _P] * 2 + [_P, _P],
-    "fast_indirect_run": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _P,
-                          _P, _P, _P, _P],
+    "qp8_gemm_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+                     _P, _P, _P],
+    "fast_il_run": [_I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _P, _I,
+                    _P, _F, _P, _I, _P, _P, _P, _P],
+    "fast_dual_run": [_P, _I, _I, _F] + [_P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                         _P, _I, _P, _P] * 2 + [_P, _P],
+    "fast_indirect_run": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F,
+                          _P, _P, _P, _P, _P],
     "decode_attn_run": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                         _I, _F, _I, _P, _P, _P, _P],
 }
@@ -99,6 +108,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
+    # the shared headers are part of every source
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
@@ -178,10 +189,10 @@ def _need(t, dtype, what: str, ndim: int | None = None,
 
 
 def _plane_args(qt):
-    """Pointer and geometry arguments of a t-plane set.  The planes may be
-    a lane slice of wider planes (an expert of a stacked MoE tensor,
-    models.llama.qtensor_rows): rows then keep the full planes' pitch,
-    passed as ld, and no copy is made."""
+    """Pointer and geometry arguments of a t-plane set (its code-map id
+    last).  The planes may be a lane slice of wider planes (an expert of a
+    stacked MoE tensor, models.llama.qtensor_rows): rows then keep the full
+    planes' pitch, passed as ld, and no copy is made."""
     from .ops.qmm_qp8 import _offset_bias_t, _pack_bits
 
     if qt.fl != "t":
@@ -202,7 +213,7 @@ def _plane_args(qt):
         raise ValueError(f"t-planes of shape {tuple(qt.fq.shape)} / "
                          f"{tuple(qt.fs.shape)} do not fit K={qt.k}")
     return [_ptr(qt.fq), _ptr(qt.fs), _ptr(qt.fb), n2, ld, bl, bh, qt.cfg.gs,
-            _offset_bias_t(qt.cfg, qt.fb)]
+            _offset_bias_t(qt.cfg, qt.fb), CODE_MAPS[qt.cfg.code_map]]
 
 
 def _pick_ksb(ncols: int, qts) -> int:
@@ -233,7 +244,8 @@ def _gemv_launch(kind: str, x, qts, wn, eps, act, res):
     _need(res, torch.float32, "res", 2)
     mode = 2 if act else (1 if eps is not None else 0)
     a = _plane_args(qts[0])
-    b = _plane_args(qts[1]) if len(qts) > 1 else [None, None, None, 0, 0, 0, 0, 0, 0.0]
+    b = (_plane_args(qts[1]) if len(qts) > 1
+         else [None, None, None, 0, 0, 0, 0, 0, 0.0, 0])
     ncols = a[3] + b[3]
     ksb = _pick_ksb(ncols, qts)
     dev = x.device
@@ -248,6 +260,8 @@ def _gemv_launch(kind: str, x, qts, wn, eps, act, res):
         _ptr(x), _ptr(wn), mode, 0.0 if eps is None else float(eps), B, K,
         *a, *b, _ptr(x8), _ptr(xs), _ptr(ws), ksb, _ptr(out), _ptr(res),
         n_res, _stream(dev))
+    if any(qt.cfg.code_map for qt in qts):
+        kind += "_coded"
     _check(lib, rc, kind)
     LAUNCHES[kind] += 1
     return out
@@ -269,15 +283,16 @@ def qp8_gemm(x, qt):
     M, K = x.shape
     if K != qt.k:
         raise ValueError(f"x K={K} vs weight K={qt.k}")
-    fq, fs, fb, n2, ld, bl, bh, gs, off = _plane_args(qt)
+    fq, fs, fb, n2, ld, bl, bh, gs, off, cm = _plane_args(qt)
     dev = x.device
     xg = torch.empty((M, K // gs), dtype=torch.float32, device=dev)
     out = torch.empty((M, n2), dtype=torch.float32, device=dev)
     lib = _lib("qp8_gemm")
-    rc = lib.qp8_gemm_run(_ptr(x), fq, fs, fb, n2, ld, bl, bh, gs, off, M, K,
-                          _ptr(xg), _ptr(out), _stream(dev))
-    _check(lib, rc, "qp8_gemm")
-    LAUNCHES["qp8_gemm"] += 1
+    rc = lib.qp8_gemm_run(_ptr(x), fq, fs, fb, n2, ld, bl, bh, gs, off, cm, M,
+                          K, _ptr(xg), _ptr(out), _stream(dev))
+    key = "qp8_gemm_coded" if cm else "qp8_gemm"
+    _check(lib, rc, key)
+    LAUNCHES[key] += 1
     return out
 
 
@@ -291,7 +306,7 @@ def qp8_indirect(x, qt, ids, npe: int):
     if K != qt.k or ids.shape[0] != P:
         raise ValueError(f"x {tuple(x.shape)} / ids {tuple(ids.shape)} vs "
                          f"weight K={qt.k}")
-    fq, fs, fb, n2, ld, bl, bh, gs, off = _plane_args(qt)
+    fq, fs, fb, n2, ld, bl, bh, gs, off, cm = _plane_args(qt)
     if npe % 128 or n2 % npe:
         raise ValueError(f"{npe} lanes an expert do not tile {n2} lanes")
     ksb = _pick_ksb(P * npe, [qt])
@@ -304,23 +319,23 @@ def qp8_indirect(x, qt, ids, npe: int):
     lib = _lib("qp8_gemv")
     rc = lib.qp8_indirect_run(
         _ptr(x), P, K, _ptr(ids), npe, n2 // npe, fq, fs, fb, ld, bl, bh, gs,
-        off, _ptr(x8), _ptr(xs), _ptr(ws), ksb, _ptr(out), _stream(dev))
-    _check(lib, rc, "qp8_indirect")
-    LAUNCHES["qp8_indirect"] += 1
+        off, cm, _ptr(x8), _ptr(xs), _ptr(ws), ksb, _ptr(out), _stream(dev))
+    key = "qp8_indirect_coded" if cm else "qp8_indirect"
+    _check(lib, rc, key)
+    LAUNCHES[key] += 1
     return out
 
 
 def _il_plane_args(qt):
-    """(n2, G, nibble, off) of interleaved planes, checked: fq int8 [n2, K]
-    (byte family) or uint8 [n2, K/2] (nibble family), fs and fb bf16
-    [n2, G] (fb None, or derived as off * fs when off != 0)."""
-    from .ops.qmm_fast import _is_nibble, _offset_bias
+    """(n2, G, nibble, off, cm) of interleaved planes, checked: fq int8
+    [n2, K] (byte family) or uint8 [n2, K/2] (nibble and coded families),
+    fs and fb bf16 [n2, G] (fb None, or derived as off * fs when off != 0);
+    cm the code-map id (0 uncoded)."""
+    from .ops.qmm_fast import _is_packed, _offset_bias
 
     if qt.fl != "il":
         raise ValueError(f"planes of layout {qt.fl!r}: K6-K8 take il")
-    if qt.cfg.code_map:
-        raise NotImplementedError(f"{qt.cfg.qtype.name}: coded nibble planes")
-    nib = _is_nibble(qt.cfg)
+    nib = _is_packed(qt.cfg)
     _need(qt.fq, torch.uint8 if nib else torch.int8, "fq", 2)
     _need(qt.fs, torch.bfloat16, "fs", 2)
     _need(qt.fb, torch.bfloat16, "fb", 2)
@@ -331,7 +346,7 @@ def _il_plane_args(qt):
             or (qt.fb is not None and qt.fb.shape != (n2, G))):
         raise ValueError(f"planes {tuple(qt.fq.shape)} / {tuple(qt.fs.shape)} "
                          f"do not fit K={K}")
-    return n2, G, nib, _offset_bias(qt.cfg, qt.fb)
+    return n2, G, nib, _offset_bias(qt.cfg, qt.fb), CODE_MAPS[qt.cfg.code_map]
 
 
 def _xg_args(xg, rows: int, G: int, bias: bool):
@@ -352,8 +367,10 @@ def _fast_launch(family: str, x, qt, wn, eps, act, res, pre_il, xg):
     _need(x, torch.bfloat16, "x", 2)
     _need(wn, torch.float32, "wn", 1)
     _need(res, torch.float32, "res", 2)
-    n2, G, nib, off = _il_plane_args(qt)
-    if nib != (family == "fast_nibble"):
+    from .ops.qmm_fast import _family
+
+    n2, G, nib, off, cm = _il_plane_args(qt)
+    if family != "fast_" + _family(qt.cfg):
         raise ValueError(f"{qt.cfg.qtype.name} planes are not for {family}")
     K = qt.k
     B = x.shape[0]
@@ -378,7 +395,7 @@ def _fast_launch(family: str, x, qt, wn, eps, act, res, pre_il, xg):
     xgs = torch.empty((B, G), dtype=torch.float32, device=dev) if bias else None
     out = torch.empty((B, n2), dtype=torch.float32, device=dev)
     lib = _lib("fast_il")
-    rc = lib.fast_il_run(mode, int(nib), _ptr(x), B, K, _ptr(qt.fq),
+    rc = lib.fast_il_run(mode, int(nib), cm, _ptr(x), B, K, _ptr(qt.fq),
                          _ptr(qt.fs), _ptr(qt.fb), n2, G, off, _ptr(xg),
                          xg_mode, _ptr(wn), 0.0 if eps is None else float(eps),
                          _ptr(res), 0 if res is None else res.shape[1],
@@ -407,6 +424,13 @@ def fast_nibble(x, qt, wn=None, eps=None, act: str = "", res=None,
     return _fast_launch("fast_nibble", x, qt, wn, eps, act, res, pre_il, xg)
 
 
+def fast_coded(x, qt, wn=None, eps=None, act: str = "", res=None,
+               pre_il: bool = False, xg=None):
+    """K6 on the card, interleaved coded planes (fq uint8 [n2, K/2] of
+    4-bit sign+magnitude codes, no group bias); otherwise as fast_byte."""
+    return _fast_launch("fast_coded", x, qt, wn, eps, act, res, pre_il, xg)
+
+
 def fast_dual(x, qt_a, qt_b, wn_a=None, wn_b=None, eps=None, xg_a=None,
               xg_b=None):
     """K7 on the card: x bf16 [B <= 8, K] in natural column order against
@@ -426,7 +450,7 @@ def fast_dual(x, qt_a, qt_b, wn_a=None, wn_b=None, eps=None, xg_a=None,
     # could be handed to `out` by the caching allocator
     parts, n2s, scratch = [], [], []
     for qt, wn, xg in ((qt_a, wn_a, xg_a), (qt_b, wn_b, xg_b)):
-        n2, G, nib, off = _il_plane_args(qt)
+        n2, G, nib, off, cm = _il_plane_args(qt)
         _need(wn, torch.float32, "wn", 1)
         if wn is not None and wn.shape[0] != K:
             raise ValueError(f"wn {tuple(wn.shape)} vs K={K}")
@@ -436,7 +460,7 @@ def fast_dual(x, qt_a, qt_b, wn_a=None, wn_b=None, eps=None, xg_a=None,
         xgs = (torch.empty((B, G), dtype=torch.float32, device=dev)
                if bias else None)
         parts += [_ptr(wn), _ptr(qt.fq), _ptr(qt.fs), _ptr(qt.fb), n2, G,
-                  int(nib), off, _ptr(xg), xg_mode, _ptr(xil), _ptr(xgs)]
+                  int(nib), cm, off, _ptr(xg), xg_mode, _ptr(xil), _ptr(xgs)]
         n2s.append(n2)
         scratch += [xil, xgs]
     out = torch.empty((B, sum(n2s)), dtype=torch.float32, device=dev)
@@ -444,8 +468,10 @@ def fast_dual(x, qt_a, qt_b, wn_a=None, wn_b=None, eps=None, xg_a=None,
     rc = lib.fast_dual_run(_ptr(x), B, K, 0.0 if eps is None else float(eps),
                            *parts, _ptr(out), _stream(dev))
     del scratch
-    _check(lib, rc, "fast_dual")
-    LAUNCHES["fast_dual"] += 1
+    key = ("fast_dual_coded" if qt_a.cfg.code_map or qt_b.cfg.code_map
+           else "fast_dual")
+    _check(lib, rc, key)
+    LAUNCHES[key] += 1
     return out
 
 
@@ -457,7 +483,7 @@ def fast_indirect(x, qt, ids, npe: int, xg=None):
     or nibble); an id outside [0, E) gives a NaN row."""
     _need(x, torch.bfloat16, "x", 2)
     _need(ids, torch.int32, "ids", 1)
-    n2, G, nib, off = _il_plane_args(qt)
+    n2, G, nib, off, cm = _il_plane_args(qt)
     P, K = x.shape
     if K != qt.k or ids.shape[0] != P:
         raise ValueError(f"x {tuple(x.shape)} / ids {tuple(ids.shape)} vs "
@@ -468,7 +494,8 @@ def fast_indirect(x, qt, ids, npe: int, xg=None):
     if _xg_args(xg, P, G, bias) == 2:
         raise ValueError("K8 takes the group sums of planes with a bias as "
                          "an input")
-    key = "fast_indirect_nibble" if nib else "fast_indirect"
+    key = ("fast_indirect_coded" if cm else
+           "fast_indirect_nibble" if nib else "fast_indirect")
     dev = x.device
     xil = torch.empty((P, K), dtype=torch.bfloat16, device=dev)
     xgs = torch.empty((P, G), dtype=torch.float32, device=dev) if bias else None
@@ -476,7 +503,8 @@ def fast_indirect(x, qt, ids, npe: int, xg=None):
     lib = _lib("fast_il")
     rc = lib.fast_indirect_run(_ptr(x), P, K, _ptr(ids), npe, n2 // npe,
                                _ptr(qt.fq), _ptr(qt.fs), _ptr(qt.fb), G,
-                               int(nib), off, _ptr(xg), _ptr(xil), _ptr(xgs),
+                               int(nib), cm, off, _ptr(xg), _ptr(xil),
+                               _ptr(xgs),
                                _ptr(out), _stream(dev))
     _check(lib, rc, key)
     LAUNCHES[key] += 1

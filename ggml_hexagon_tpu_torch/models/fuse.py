@@ -34,8 +34,10 @@ def _concat_qtensors(parts: list) -> QTensor | None:
     """Row-concatenate same-type tensors with unpadded rows, or None.
     Wire planes concatenate; matmul planes concatenate on their
     output-feature axis when unpadded, else are rebuilt from the
-    concatenated wire in the parts' layout (per-part padding would land
-    mid-tensor)."""
+    concatenated wire (per-part padding would land mid-tensor) on the
+    interleaved layout, whatever the parts' layout: the JAX package
+    rebuilds from a device-resident wire, which picks the interleaved
+    layout (`_build_planes_auto` takes t-planes from host arrays only)."""
     p0 = parts[0]
     for p in parts:
         if (not isinstance(p, QTensor) or p.cfg != p0.cfg or p.k != p0.k
@@ -62,7 +64,7 @@ def _concat_qtensors(parts: list) -> QTensor | None:
                                 cat("fq", fax), cat("fs", fax),
                                 cat("fb", fax), fl=p0.fl)
             else:
-                fused = fused.with_fast_planes(p0.fl)
+                fused = fused.with_fast_planes("il")
         return fused
     if planes_unpadded:
         return QTensor(p0.cfg, n, p0.k, fq=cat("fq", fax), fs=cat("fs", fax),

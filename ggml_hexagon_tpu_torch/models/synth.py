@@ -1,5 +1,6 @@
 """Random Llama-3-8B and Mixtral-8x7B models with the exact plane layout of
-a GGUF file of a given llama.cpp mixture (Q4_K_M, Q5_K_M, IQ4_XS), drawn on
+a GGUF file of a given llama.cpp mixture (Q4_K_M, Q5_K_M, IQ4_XS, IQ3_XXS
+made with an imatrix), drawn on
 the device from a seeded torch.Generator, on the JAX package's default
 plane layouts (layout "t") or on the interleaved layout everywhere (layout
 "il", the JAX package under GHT_QP8=0).
@@ -23,7 +24,7 @@ from ..quant.formats import GGMLType
 from ..quant.pack import QCONFIGS, QTensor, drop_wire_planes
 from ..quant.policy import QuantPolicy
 from .fuse import fuse_weights, permute_rope_neox
-from ..ops.qmm_qp8 import KVALUES_IQ4NL
+from ..ops.qmm_qp8 import _CODE_ALPHABETS, KVALUES_IQ4NL, decode_codes
 from .llama import LlamaConfig
 
 LLAMA3_8B = dict(n_vocab=128256, n_embd=4096, n_layer=32, n_head=32,
@@ -56,7 +57,13 @@ def random_qtensor(gen: torch.Generator, n: int, k: int, qtype: GGMLType,
     the wire's signed -32..31 (as int8, like the JAX package's unpacked
     wire), which centres its weights, and IQ4_NL draws the sign of d, as
     the reference quantizer's d takes the sign of the row's largest
-    value."""
+    value.
+
+    The coded types (i-quants below 4 bits, ternary) are drawn as the JAX
+    loader holds them: int8 values of the expanded wire, each a sign times
+    a magnitude of the type's alphabet (`_CODE_ALPHABETS`; ternary -1..2),
+    with one scale d a group of gs, sized from the alphabet's RMS; the
+    ternary types draw the sign of d, which centres their values."""
     cfg = QCONFIGS[qtype]
     n_pad = (n + 127) // 128 * 128
 
@@ -67,6 +74,27 @@ def random_qtensor(gen: torch.Generator, n: int, k: int, qtype: GGMLType,
     def unif(shape):
         return torch.rand(shape, dtype=torch.float32, device=device,
                           generator=gen)
+
+    u_rms = (1 / 3 + 0.05 + 0.05 ** 2) ** 0.5      # of U(0.05, 1.05)
+    if cfg.code_map:
+        cm = cfg.code_map
+        if cm == "tern":
+            vals, n_codes = (-1, 0, 1, 2), 4
+        else:
+            mags = _CODE_ALPHABETS[cm]
+            vals, n_codes = mags, 2 * len(mags)
+        # a uniform code: magnitude index and sign (bit 3), decoded
+        r = ints(0, n_codes, (n_pad, k), torch.int32)
+        if n_codes == 8:                           # 4-entry alphabets
+            r = (r & 3) | ((r & 4) << 1)
+        q = decode_codes(cm, r).to(torch.int8)
+        del r
+        q_rms = (sum(v * v for v in vals) / len(vals)) ** 0.5
+        d0 = 1.0 / (k ** 0.5 * q_rms * u_rms)
+        d = ((unif((n_pad, k // cfg.gs)) + 0.05) * d0).half().float()
+        if cm == "tern":
+            d = d * (ints(0, 2, d.shape, torch.int8) * 2 - 1).float()
+        return QTensor(cfg, n, k, q, d)
 
     q = (ints(-127, 128, (n_pad, k), torch.int8) if cfg.signed
          else ints(0, 256, (n_pad, k * cfg.bits_lo // 8), torch.uint8))
@@ -82,7 +110,6 @@ def random_qtensor(gen: torch.Generator, n: int, k: int, qtype: GGMLType,
     # RMS of the sub-scales: U{0..63}, or U{-32..31} for IQ4_XS
     sc_rms = ((sum(s * s for s in range(sc_lo, sc_lo + 64)) / 64) ** 0.5
               if cfg.superblock else 1.0)
-    u_rms = (1 / 3 + 0.05 + 0.05 ** 2) ** 0.5      # of U(0.05, 1.05)
     d0 = 1.0 / (k ** 0.5 * q_rms * sc_rms * u_rms)
     d = ((unif((n_pad, groups)) + 0.05) * d0).half().float()
     sc = (ints(sc_lo, sc_lo + 64, (n_pad, k // cfg.gs), torch.int8)
@@ -108,27 +135,32 @@ def concat_wire(parts: list) -> QTensor:
                    cat("qh"), cat("sc"), cat("dmin"), cat("m"))
 
 
-def _policy(cfg: LlamaConfig, ftype: str) -> QuantPolicy:
+def _policy(cfg: LlamaConfig, ftype: str,
+            has_imatrix: bool = False) -> QuantPolicy:
     return QuantPolicy(ftype, cfg.n_layer, n_gqa=cfg.n_head // cfg.n_head_kv,
-                       n_expert=max(cfg.n_expert, 1))
+                       n_expert=max(cfg.n_expert, 1), has_imatrix=has_imatrix)
 
 
 def build_model(cfg: LlamaConfig, seed: int = 0, device="cuda",
-                ftype: str = "Q4_K_M", layout: str = "t"):
+                ftype: str = "Q4_K_M", layout: str = "t",
+                has_imatrix: bool = False):
     """(cfg', weights) of a random dense model under llama.cpp's `ftype`
     per-tensor policy, every type taken from QuantPolicy, through the
     production load pipeline: NEOX rope permutation, projection fusion,
     wire-plane drop.  Q4_K_M: Q4_K everywhere but Q6_K attn_v/ffn_down in
     the _use_more_bits layers and a Q6_K head.  IQ4_XS (at n_gqa >= 4):
     IQ4_XS (interleaved planes only), but Q5_K attn_v and ffn_down in the
-    first eighth of the layers, a Q6_K head.  layout "t": t-planes for
-    every type that has them, interleaved ones for the others (the JAX
+    first eighth of the layers, a Q6_K head.  IQ3_XXS with an imatrix (at
+    n_gqa >= 4): IQ3_XXS gate/up/down, IQ2_S attn_q/attn_k, a Q4_K attn_v,
+    an IQ3_S attn_output and embedding, a Q5_K head.  layout "t": t-planes
+    for every type that has them, interleaved ones for the others (the JAX
     package's default, independent of GHT_QP8); "il": interleaved planes
-    for every tensor."""
+    for every tensor.  has_imatrix: the mixture llama-quantize writes when
+    given an importance matrix."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    policy = _policy(cfg, ftype)
+    policy = _policy(cfg, ftype, has_imatrix)
     d = cfg.n_embd
 
     def draw(name, n, k):
@@ -193,8 +225,16 @@ def build_8b_iq4xs(seed: int = 0, device="cuda"):
                        ftype="IQ4_XS")
 
 
+def build_8b_iq3xxs(layout: str = "t", seed: int = 0, device="cuda"):
+    """Llama-3-8B IQ3_XXS (made with an imatrix), all 32 layers at full
+    width, on the default layouts ("t") or interleaved everywhere ("il")."""
+    return build_model(LlamaConfig(**LLAMA3_8B), seed=seed, device=device,
+                       ftype="IQ3_XXS", layout=layout, has_imatrix=True)
+
+
 def build_moe_model(cfg: LlamaConfig, seed: int = 0, device="cuda",
-                    ftype: str = "Q5_K_M", layout: str = "t"):
+                    ftype: str = "Q5_K_M", layout: str = "t",
+                    has_imatrix: bool = False):
     """(cfg', weights) of a random MoE model under llama.cpp's `ftype`
     per-tensor policy, through the production load pipeline.  At
     n_expert=8, Q5_K_M is Mixtral's mixture of the second slice (Q5_K
@@ -206,7 +246,10 @@ def build_moe_model(cfg: LlamaConfig, seed: int = 0, device="cuda",
     eighth of the layers and IQ4_XS elsewhere; Q4_K_M has Q4_K attn_q,
     gate/up stacks and embedding, Q8_0 attn_k/attn_v, Q5_K attn_output, down
     stacks Q6_K in the _use_more_bits layers and Q4_K elsewhere, a Q6_K
-    head.  layout as in build_model.  Each tensor is drawn, given
+    head; IQ3_XXS with an imatrix has IQ3_XXS expert stacks (down
+    included), IQ2_S attn_q, Q8_0 attn_k/attn_v, Q5_K attn_output and head,
+    an IQ3_S embedding.  layout and has_imatrix as in build_model.  Each
+    tensor is drawn, given
     its matmul planes and stripped of its wire before the next is drawn, so
     the peak above the model is one tensor's transient (a full-width expert
     stack's int32 values are 1.9 GB)."""
@@ -214,7 +257,7 @@ def build_moe_model(cfg: LlamaConfig, seed: int = 0, device="cuda",
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     E, d, nff = cfg.n_expert, cfg.n_embd, cfg.n_ff_exp or cfg.n_ff
-    policy = _policy(cfg, ftype)
+    policy = _policy(cfg, ftype, has_imatrix)
 
     def qt(name, n, k, wire=False):
         w = random_qtensor(gen, n, k, policy.tensor_type(name, (n, k)), device)
@@ -261,6 +304,14 @@ def build_mixtral_iq4xs(seed: int = 0, device="cuda"):
     """Mixtral-8x7B IQ4_XS, all 32 layers at full width."""
     return build_moe_model(LlamaConfig(**MIXTRAL_8X7B), seed=seed,
                            device=device, ftype="IQ4_XS")
+
+
+def build_mixtral_iq3xxs(layout: str = "t", seed: int = 0, device="cuda"):
+    """Mixtral-8x7B IQ3_XXS (made with an imatrix), all 32 layers at full
+    width, on the default layouts ("t") or interleaved everywhere ("il")."""
+    return build_moe_model(LlamaConfig(**MIXTRAL_8X7B), seed=seed,
+                           device=device, ftype="IQ3_XXS", layout=layout,
+                           has_imatrix=True)
 
 
 def build_mixtral_q4km_il(seed: int = 0, device="cuda"):

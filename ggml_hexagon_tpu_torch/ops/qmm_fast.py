@@ -1,11 +1,12 @@
 """Interleaved-layout ("il") quantized matmul: plane building, the plain
-versions, and the wrappers over the CUDA kernels K6 (byte and nibble
-planes, each in its plain, normed, act and residual modes), K7 (two
+versions, and the wrappers over the CUDA kernels K6 (byte, nibble and
+coded planes, each in its plain, normed, act and residual modes), K7 (two
 projections of one activation in one launch) and K8 (gathered experts).
 
 Counterpart of ggml_hexagon_tpu/ops/qmm_fast.py: `supports_fast` and
-`build_fast_planes` (:120-242; `_int_values` and `_group_scale_bias` are
-shared with ops/qmm_qp8.py), `_offset_bias` and `_needs_xg` (:292-300),
+`build_fast_planes` (:120-242, the coded repack :204-208; `_int_values`,
+`_group_scale_bias`, `encode_codes` and `decode_codes` are shared with
+ops/qmm_qp8.py), `_offset_bias` and `_needs_xg` (:292-300),
 `_pick_blocks` (:523-597, the blocking that decides which fused entries
 apply and where the kernel takes its own group sums), `_interleave_x`
 (:721-734), `_fast_core`'s group sums (:757-767), `dequantize_fast` and
@@ -22,6 +23,10 @@ original column (j % G)*gs + j//G, so column j's scale is fs[:, j % G]:
       uint8 [n2, K/2]  nibble family (Q4_0, Q4_1, Q4_K): byte b holds
                        column b in its low nibble and b + K/2 in its high
                        one; (K/2) % G == 0, so both take fs[:, b % G]
+      uint8 [n2, K/2]  coded family (the i-quants and ternary, code_map):
+                       the same packing of 4-bit sign+magnitude codes (bit 3
+                       the sign; ternary value + 1), decoded arithmetically
+                       (`decode_codes`) before the scale; no group bias
   fs  bf16  [n2, G]    per-group scales
   fb  bf16  [n2, G]    affine bias, or None; the symmetric-offset types
                        derive it as off * fs (Q4_0 -8, Q5_0 -16, Q3_K -4,
@@ -35,8 +40,9 @@ versions and the kernels alike:
               bf16((x*inv)*wn_il); act: silu(g)*u in f32 of the bf16 gate
               ++ up halves (interleaved already), rounded to bf16.
   product     byte planes at B <= 8: f32 x times the f32 weight q*scale;
-              byte planes above 8 rows and nibble planes at every B:
-              q*scale rounded to bf16; products summed in f32.
+              byte planes above 8 rows, nibble and coded planes at every
+              B: q*scale rounded to bf16 (q the decoded code on coded
+              planes); products summed in f32.
   bias        y += xg @ fb^T, or off * (xg @ fs^T), with xg [B, G] the
               group sums of the activation: in the kernel from the bf16
               effective activation (mode 2: the full K in one block and
@@ -46,8 +52,10 @@ versions and the kernels alike:
               output in the act mode).  K8 always takes mode 1.
   residual    an f32 row, added last: y + (bias + res).
 
-The coded i-quant nibble planes (`cm`, at widths without a t-layout) raise
-NotImplementedError: ROADMAP.md queue 2.
+Coded nibble planes arise under GHT_QP8=0 (layout "il") for every coded
+type, and on the default route where a width has no t-layout; K6, K7 and K8
+take them in every mode (`_nibble_kernel` with `cm`, `_nibble_y`
+:432-461).
 """
 from __future__ import annotations
 
@@ -58,8 +66,8 @@ import torch
 from .. import kernels
 from ..quant.pack import QConfig, QTensor
 from .basic import rms_norm
-from .qmm_qp8 import (_group_scale_bias, _int_values, dequantize_qp8,
-                      qp8_matmul, qp8_matmul_act, qp8_matmul_dual,
+from .qmm_qp8 import (_group_scale_bias, _int_values, decode_codes,
+                      dequantize_qp8, encode_codes, qp8_matmul, qp8_matmul_act, qp8_matmul_dual,
                       qp8_matmul_indirect, qp8_matmul_normed, qp8_matmul_res,
                       supports_qp8_dual, supports_qp8_indirect)
 
@@ -79,6 +87,14 @@ def _is_nibble(cfg: QConfig) -> bool:
 
 def _is_packed(cfg: QConfig) -> bool:
     return _is_nibble(cfg) or bool(cfg.code_map)
+
+
+def _family(cfg: QConfig) -> str:
+    """The planes' kernel family: "coded" (4-bit codes), "nibble" (4-bit
+    values) or "byte"."""
+    if cfg.code_map:
+        return "coded"
+    return "nibble" if _is_nibble(cfg) else "byte"
 
 
 def supports_fast(cfg: QConfig, k: int) -> bool:
@@ -105,13 +121,6 @@ def _needs_xg(cfg: QConfig, fb) -> bool:
     return fb is not None or bool(_offset_bias(cfg, fb))
 
 
-def _no_code_map(cfg: QConfig):
-    if cfg.code_map:
-        raise NotImplementedError(
-            f"{cfg.qtype.name}: coded nibble planes need the coded branch "
-            "of K6/K8, not ported yet (ROADMAP.md queue 2)")
-
-
 def build_fast_planes(qt: QTensor):
     """-> (fq, fs, fb) interleaved planes from the wire planes, or
     (None,)*3 when (cfg, K) has none.  Byte-equal to the JAX package's
@@ -120,14 +129,15 @@ def build_fast_planes(qt: QTensor):
     K = qt.k
     if not supports_fast(cfg, K):
         return None, None, None
-    _no_code_map(cfg)
     v = _int_values(qt)                                   # [n_pad, K]
     scale_g, bias_g = _group_scale_bias(qt)
     G = K // cfg.gs
     rows = v.shape[0]
     # the interleave is a [G, gs] transpose of each row
     v = v.reshape(rows, G, cfg.gs).transpose(1, 2).reshape(rows, K)
-    if _is_nibble(cfg):
+    if cfg.code_map:
+        v = encode_codes(cfg.code_map, v).to(torch.int32)
+    if _is_packed(cfg):
         # byte b: interleaved column b (low nibble), b + K/2 (high nibble)
         fq = (v[:, :K // 2] | (v[:, K // 2:] << 4)).to(torch.uint8)
     else:
@@ -265,12 +275,13 @@ def dequantize_fast(qt: QTensor, dtype=torch.float32):
     if qt.fl == "t":
         return dequantize_qp8(qt, dtype)
     cfg = qt.cfg
-    _no_code_map(cfg)
     K, gs = qt.k, cfg.gs
     G = K // gs
-    if _is_nibble(cfg):
+    if _is_packed(cfg):
         p = qt.fq.to(torch.int32)
         v = torch.cat([p & 15, p >> 4], dim=1)
+        if cfg.code_map:
+            v = decode_codes(cfg.code_map, v)
     else:
         v = qt.fq.to(torch.int32)
     if qt.fb is None and cfg.offset:
@@ -284,11 +295,9 @@ def dequantize_fast(qt: QTensor, dtype=torch.float32):
 
 
 def _il_planes(qt: QTensor):
-    """Raise unless qt carries interleaved planes of the byte or nibble
-    family."""
+    """Raise unless qt carries interleaved planes."""
     if qt.fq is None or qt.fl != "il":
         raise ValueError("expected a weight with interleaved planes")
-    _no_code_map(qt.cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -320,15 +329,17 @@ def _kernel_x_plain(x, G: int, wn=None, eps=None, act: str = "",
     return (xf * inv * wn.to(torch.float32)).to(torch.bfloat16), inv
 
 
-def _body_plain(x_il, fq, fs, nibble: bool):
+def _body_plain(x_il, fq, fs, cfg: QConfig):
     """x_il bf16 [B, K] against the planes' rows -> [B, rows] f32 (f32
     weights on byte planes at B <= 8; q*scale rounded to bf16 on byte
-    planes above and on nibble planes at every B)."""
+    planes above and on nibble and coded planes at every B)."""
     B, K = x_il.shape
     sc = fs.repeat(1, K // fs.shape[1])            # bf16 [rows, K]: fs[:, j % G]
-    if nibble:
+    if _is_packed(cfg):
         p = fq.to(torch.int32)
         v = torch.cat([p & 15, p >> 4], dim=1)     # interleaved column order
+        if cfg.code_map:
+            v = decode_codes(cfg.code_map, v)
         w = (v.to(torch.bfloat16) * sc).to(torch.float32)
     elif B <= _DECODE_ROWS:
         w = fq.to(torch.float32) * sc.to(torch.float32)
@@ -345,15 +356,15 @@ def _bias_plain(xg, fb, fs, off: float):
     return off * (xg @ fs.to(torch.float32).t())
 
 
-def _fast_plain(x, qt: QTensor, nibble: bool, wn=None, eps=None,
+def _fast_plain(x, qt: QTensor, family: str, wn=None, eps=None,
                 act: str = "", res=None, pre_il: bool = False, xg=None):
     _il_planes(qt)
-    if _is_nibble(qt.cfg) != nibble:
+    if _family(qt.cfg) != family:
         raise ValueError(f"{qt.cfg.qtype.name} planes are not of the "
-                         f"{'nibble' if nibble else 'byte'} family")
+                         f"{family} family")
     G = qt.fs.shape[1]
     x_il, inv = _kernel_x_plain(x, G, wn, eps, act, pre_il)
-    y = _body_plain(x_il, qt.fq, qt.fs, nibble)
+    y = _body_plain(x_il, qt.fq, qt.fs, qt.cfg)
     once = None
     if _needs_xg(qt.cfg, qt.fb):
         if xg is None:     # mode 2: sums of the effective activation
@@ -377,14 +388,22 @@ def fast_byte_plain(x, qt: QTensor, wn=None, eps=None, act: str = "",
     pre_il; [B, 2K] gate ++ up, interleaved, with act); xg f32 [B, G] the
     mode-1 group sums of planes with a bias (None: mode 2) -> y [B, n2]
     f32, plus res [B, n] on its first n columns when given."""
-    return _fast_plain(x, qt, False, wn, eps, act, res, pre_il, xg)
+    return _fast_plain(x, qt, "byte", wn, eps, act, res, pre_il, xg)
 
 
 def fast_nibble_plain(x, qt: QTensor, wn=None, eps=None, act: str = "",
                       res=None, pre_il: bool = False, xg=None):
     """Plain K6 on nibble planes (the JAX `_nibble_kernel`, `_nibble_y`
     :432-461): as fast_byte_plain."""
-    return _fast_plain(x, qt, True, wn, eps, act, res, pre_il, xg)
+    return _fast_plain(x, qt, "nibble", wn, eps, act, res, pre_il, xg)
+
+
+def fast_coded_plain(x, qt: QTensor, wn=None, eps=None, act: str = "",
+                     res=None, pre_il: bool = False, xg=None):
+    """Plain K6 on coded nibble planes (`_nibble_y` with `cm`: each code
+    decoded by `decode_codes`, then bf16(value * scale)): as
+    fast_byte_plain; the planes carry no group bias, so xg stays None."""
+    return _fast_plain(x, qt, "coded", wn, eps, act, res, pre_il, xg)
 
 
 def fast_byte(x, qt: QTensor, wn=None, eps=None, act: str = "", res=None,
@@ -407,6 +426,16 @@ def fast_nibble(x, qt: QTensor, wn=None, eps=None, act: str = "", res=None,
                                pre_il=pre_il, xg=xg)
 
 
+def fast_coded(x, qt: QTensor, wn=None, eps=None, act: str = "", res=None,
+               pre_il: bool = False, xg=None):
+    """K6 on coded nibble planes: the kernel for CUDA tensors, the plain
+    version for CPU ones."""
+    if not x.is_cuda:
+        return fast_coded_plain(x, qt, wn, eps, act, res, pre_il, xg)
+    return kernels.fast_coded(x, qt, wn=wn, eps=eps, act=act, res=res,
+                              pre_il=pre_il, xg=xg)
+
+
 def fast_dual_plain(x, qt_a: QTensor, qt_b: QTensor, wn_a=None, wn_b=None,
                     eps=None, xg_a=None, xg_b=None):
     """Plain K7 (`_dual_kernel`): x bf16 [B <= 8, K] in natural order, each
@@ -414,7 +443,7 @@ def fast_dual_plain(x, qt_a: QTensor, qt_b: QTensor, wn_a=None, wn_b=None,
     interleaved weight when eps is given, biased with its own group sums
     (xg_*: mode 1; None: mode 2) -> [B, n2_a + n2_b] f32, part a first."""
     return torch.cat([
-        _fast_plain(x, qt, _is_nibble(qt.cfg), wn, eps, xg=xg)
+        _fast_plain(x, qt, _family(qt.cfg), wn, eps, xg=xg)
         for qt, wn, xg in ((qt_a, wn_a, xg_a), (qt_b, wn_b, xg_b))], dim=1)
 
 
@@ -437,7 +466,6 @@ def fast_indirect_plain(x, qt: QTensor, ids, npe: int, xg=None):
     _il_planes(qt)
     P, K = x.shape
     G = qt.fs.shape[1]
-    nibble = _is_nibble(qt.cfg)
     bias = _needs_xg(qt.cfg, qt.fb)
     off = _offset_bias(qt.cfg, qt.fb)
     x_il = _interleave_x(x.to(torch.bfloat16), G, K // G)
@@ -448,7 +476,7 @@ def fast_indirect_plain(x, qt: QTensor, ids, npe: int, xg=None):
     ys = []
     for p, r in enumerate(rows):
         fs = qt.fs.index_select(0, r)
-        y = _body_plain(x_il[p:p + 1], qt.fq.index_select(0, r), fs, nibble)
+        y = _body_plain(x_il[p:p + 1], qt.fq.index_select(0, r), fs, qt.cfg)
         if bias:
             fb = None if qt.fb is None else qt.fb.index_select(0, r)
             y = y + _bias_plain(xg[p:p + 1], fb, fs, off)
@@ -515,10 +543,13 @@ def group_sums(qt: QTensor, xr, mode: str, wn=None, nkj: int = 1):
     raise ValueError(f"mode {mode!r}")
 
 
+_K6 = {"byte": (fast_byte, fast_byte_plain),
+       "nibble": (fast_nibble, fast_nibble_plain),
+       "coded": (fast_coded, fast_coded_plain)}
+
+
 def _k6(qt: QTensor, plain: bool):
-    if _is_nibble(qt.cfg):
-        return fast_nibble_plain if plain else fast_nibble
-    return fast_byte_plain if plain else fast_byte
+    return _K6[_family(qt.cfg)][plain]
 
 
 def _full_k(qt: QTensor, B: int, what: str):

@@ -7,7 +7,11 @@ serves decode and prefill):
 
   fq  u8  [K*(bits_lo+bits_hi)/8, n2]: bits_lo-packed value plane (value k
       sits in byte row k mod (K*bits_lo/8) at shift bits_lo*(k div that)),
-      the bits_hi plane's rows concatenated below in the same scheme
+      the bits_hi plane's rows concatenated below in the same scheme; the
+      coded i-quants and ternary (cfg.code_map) store arithmetic codes,
+      decoded to signed values before any product (`_decode_cm`): iq2/iq1
+      2+1 bits (magnitude code in bits 0-1, sign in bit 2), iq3xxs/iq3s
+      4+0 (sign in bit 3), ternary 2+0 (value + 1)
   fs  bf16 [G, n2]  per-group scales, transposed
   fb  bf16 [G, n2]  affine bias (minsb: -dmin*m; min: m), or None;
       symmetric offsets derive as off*fs
@@ -155,6 +159,46 @@ _CODE_ALPHABETS = {
 }
 
 
+#: 4-entry magnitude alphabets as one 32-bit word (byte c = alphabet[c])
+_SHIFT_LUTS = {"iq2": 0x2B190800, "iq1": 0x09070100}
+
+
+def decode_codes(cm: str, n):
+    """Stored sign+magnitude codes -> int values (the inverse of
+    encode_codes): bit 3 the sign, bits 0-2 the magnitude code; ternary
+    n - 1.  Arithmetic, as the JAX package's decode_codes."""
+    if cm == "tern":
+        return n - 1
+    s_ = n >> 3
+    c = n & 7
+    if cm == "iq2":        # {0, 8, 25, 43}
+        mag = torch.where(c < 2, 8 * c, torch.where(c == 2, 25, 43))
+    elif cm == "iq3xxs":   # 4 + 8c, with 60 -> 62
+        mag = 4 + 8 * c + 2 * ((c + 1) >> 3)
+    elif cm == "iq3s":     # 2c + 1
+        mag = 2 * c + 1
+    elif cm == "iq1":      # {0, 1, 7, 9}
+        mag = torch.where(c < 2, c, torch.where(c == 2, 7, 9))
+    else:
+        raise ValueError(cm)
+    return (1 - 2 * s_) * mag
+
+
+def _decode_cm(cm: str, pb: tuple, w):
+    """Raw (bits_lo + bits_hi)-bit t-plane codes w (int32) -> int values;
+    identity for uncoded planes.  The 2+1 layouts carry the magnitude code
+    in bits 0-1 and the sign in bit 2; the nibble layouts the sign in bit
+    3; ternary is value + 1."""
+    if not cm:
+        return w
+    if pb == (2, 1):
+        if cm in _SHIFT_LUTS:
+            mag = (_SHIFT_LUTS[cm] >> ((w & 3) * 8)) & 0xFF
+            return (1 - ((w >> 2) << 1)) * mag
+        w = (w & 3) | ((w >> 2) << 3)
+    return decode_codes(cm, w)
+
+
 def encode_codes(cm: str, v):
     """int values -> stored sign+magnitude codes (bit 3 = sign, bits 0-2 =
     magnitude code; ternary: value+1).  Raises on out-of-alphabet values."""
@@ -232,12 +276,9 @@ def _offset_bias_t(cfg: QConfig, fb) -> float:
 
 
 def _unpack_t(qt: QTensor):
-    """Integer weight values [K, n2] (int32) from the t-planes."""
+    """Integer weight values [K, n2] (int32) from the t-planes, the coded
+    types' codes decoded."""
     cfg = qt.cfg
-    if cfg.code_map:
-        raise NotImplementedError(
-            f"{cfg.qtype.name}: coded t-planes have no compute path in the "
-            "port yet")
     bits_lo, bits_hi = _pack_bits(cfg)
     K = qt.k
     rows_lo = K * bits_lo // 8
@@ -245,7 +286,7 @@ def _unpack_t(qt: QTensor):
     if bits_hi:
         wh = _unpack_rows(qt.fq[rows_lo:].t(), bits_hi).t()
         w = w | (wh << bits_lo)
-    return w
+    return _decode_cm(cfg.code_map, (bits_lo, bits_hi), w)
 
 
 def dequantize_qp8(qt: QTensor, dtype=torch.float32):
@@ -356,17 +397,8 @@ def qp8_gemm_plain(x, qt: QTensor):
 # kernel wrappers: the kernel for CUDA tensors, the plain version for CPU
 # ---------------------------------------------------------------------------
 
-def _no_code_map(*qts):
-    for qt in qts:
-        if qt.cfg.code_map:
-            raise NotImplementedError(
-                f"{qt.cfg.qtype.name}: coded t-planes have no compute path "
-                "in the port yet")
-
-
 def qp8_gemv(x, qt: QTensor, wn=None, eps=None, act: str = "", res=None):
     """K1: B <= 8 decode GEMV -> y [B, n2] f32."""
-    _no_code_map(qt)
     if not x.is_cuda:
         return qp8_gemv_plain(x, qt, wn, eps, act, res)
     return kernels.qp8_gemv(x, qt, wn=wn, eps=eps, act=act, res=res)
@@ -374,7 +406,6 @@ def qp8_gemv(x, qt: QTensor, wn=None, eps=None, act: str = "", res=None):
 
 def qp8_dual(x, qt_a: QTensor, qt_b: QTensor, wn=None, eps=None):
     """K2: shared prologue + two projections -> y [B, n2_a + n2_b] f32."""
-    _no_code_map(qt_a, qt_b)
     if not x.is_cuda:
         return qp8_dual_plain(x, qt_a, qt_b, wn, eps)
     return kernels.qp8_dual(x, qt_a, qt_b, wn=wn, eps=eps)
@@ -382,7 +413,6 @@ def qp8_dual(x, qt_a: QTensor, qt_b: QTensor, wn=None, eps=None):
 
 def qp8_gemm(x, qt: QTensor):
     """K3: B > 8 prefill GEMM, x bf16 -> y [B, n2] f32."""
-    _no_code_map(qt)
     if not x.is_cuda:
         return qp8_gemm_plain(x, qt)
     return kernels.qp8_gemm(x, qt)
@@ -409,7 +439,6 @@ def qp8_indirect_plain(x, qt: QTensor, ids, npe: int):
 
 def qp8_indirect(x, qt: QTensor, ids, npe: int):
     """K5: gathered-expert GEMV -> y [P, npe] f32."""
-    _no_code_map(qt)
     if not x.is_cuda:
         return qp8_indirect_plain(x, qt, ids, npe)
     return kernels.qp8_indirect(x, qt, ids, npe)

@@ -56,3 +56,51 @@ def nmse(got, want) -> float:
     got = np.asarray(got, np.float64)
     want = np.asarray(want, np.float64)
     return float(np.mean((got - want) ** 2) / (np.mean(want ** 2) + 1e-30))
+
+
+#: the coded types' value alphabets (magnitudes; ternary: the values)
+CODE_VALUES = {"iq2": (0, 8, 25, 43),
+               "iq3xxs": (4, 12, 20, 28, 36, 44, 52, 62),
+               "iq3s": (1, 3, 5, 7, 9, 11, 13, 15),
+               "iq1": (0, 1, 7, 9),
+               "tern": (-1, 0, 1, 2)}
+
+
+def coded_qtensor(qtype, n: int, k: int, seed: int = 0, n_align: int = 128):
+    """A JAX wire QTensor of a coded type (an i-quant below 4 bits, or
+    ternary) as the JAX loader holds one after expanding the wire: int8
+    values, each a sign times a magnitude of the type's alphabet, and one
+    f32 scale a group, of weights with RMS about 1/sqrt(k); rows padded
+    with zeros to n_align.  Drawn directly: the package's encoders take
+    seconds per 0.5 M weights."""
+    from ggml_hexagon_tpu.quant.pack import QCONFIGS
+
+    cfg = QCONFIGS[qtype]
+    rng = np.random.default_rng(seed * 1009 + int(qtype) * 31 + n + k)
+    vals = np.asarray(CODE_VALUES[cfg.code_map])
+    q = vals[rng.integers(0, len(vals), (n, k))]
+    if cfg.code_map != "tern":
+        q = q * rng.choice([-1, 1], (n, k))
+    rms = float(np.sqrt(np.mean(vals.astype(np.float64) ** 2)))
+    d = (rng.random((n, k // cfg.gs)) + 0.5) / (rms * np.sqrt(k))
+    n_pad = -(-n // n_align) * n_align
+    qp = np.zeros((n_pad, k), np.int8)
+    qp[:n] = q
+    dp = np.zeros((n_pad, k // cfg.gs), np.float32)
+    dp[:n] = d
+    return JQTensor(cfg, n, k, q=qp, d=dp)
+
+
+def normed_input(seed: int, B: int, k: int):
+    """(x [B, k], eps) whose rows all have the mean square 4 - eps exactly:
+    signed permutations of one vector of multiples of 1/8 (every partial
+    sum of squares exact), eps = 4 - that mean (exact, Sterbenz), so
+    rsqrt(mean + eps) = 0.5 in any summation order and any rsqrt (XLA's
+    and PyTorch's rsqrt differ in the last bit on ~40% of rows)."""
+    rng = np.random.default_rng(seed)
+    base = np.round(rng.normal(size=k) * 1.7 * 8) / 8
+    x = np.stack([base[rng.permutation(k)] * rng.choice([-1.0, 1.0], k)
+                  for _ in range(B)]).astype(np.float32)
+    mean = np.float32(np.sum(base.astype(np.float32) ** 2)) / np.float32(k)
+    assert 2.0 <= mean < 4.0
+    return x, float(np.float32(4.0) - mean)

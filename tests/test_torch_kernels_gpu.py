@@ -29,6 +29,10 @@ Tolerances, per kernel, with their reasons:
   K7 (dual projection): K6's B <= 8 arithmetic of each part.  NMSE <= 1e-6.
   K8 (gathered experts on interleaved planes): K6's B <= 8 arithmetic on
       the selected rows.  NMSE <= 1e-6.
+  The coded i-quants and ternary on both layouts (K1, K2, K3, K5 on
+      t-planes; K6, K7, K8 on coded nibble planes): the codes decode to the
+      same integers on both sides, so each kernel keeps its tolerance and
+      counts its launches under its *_coded key.  NMSE <= 1e-6.
 """
 import pytest
 import torch
@@ -417,6 +421,140 @@ def test_fast_indirect_bias_kernel_matches_plain(dev, stack, ids):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES[key] == before + 1
     assert _nmse(got, want) <= NMSE_MAX
+
+
+#: coded shapes of the IQ3_XXS configurations, and one of each other code map
+_CODED = {"wqk_iq2s": (5120, 4096, GGMLType.IQ2_S),
+          "wo_iq3s": (4096, 4096, GGMLType.IQ3_S),
+          "down_iq3xxs": (4096, 14336, GGMLType.IQ3_XXS),
+          "gu_iq3xxs": (4096, 4096, GGMLType.IQ3_XXS),
+          "iq1s": (1024, 4096, GGMLType.IQ1_S),
+          "iq1m": (1024, 4096, GGMLType.IQ1_M),
+          "tq2": (1024, 4096, GGMLType.TQ2_0)}
+
+
+def _coded(dev, name, layout):
+    n, k, qtype = _CODED[name]
+    qt = _qt(dev, n, k, qtype, layout)
+    assert qt.fl == layout and qt.cfg.code_map
+    return qt
+
+
+def _counted(key, fn, plain):
+    """fn() against plain(), with one launch counted under key."""
+    before = kernels.LAUNCHES[key]
+    got = fn()
+    want = plain()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[key] == before + 1
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert _nmse(got, want) <= NMSE_MAX
+
+
+@pytest.mark.parametrize("name", list(_CODED))
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("mode", ["raw", "normed", "res", "act"])
+def test_qp8_gemv_coded_kernel_matches_plain(dev, name, B, mode):
+    qt = _coded(dev, name, "t")
+    x = _x(dev, B, 2 * qt.k if mode == "act" else qt.k, seed=B)
+    kw = {}
+    if mode == "normed":
+        kw = dict(wn=torch.rand(qt.k, device=dev) + 0.5, eps=1e-5)
+    elif mode in ("res", "act"):
+        kw = dict(res=_x(dev, B, qt.n, seed=9))
+        if mode == "act":
+            kw["act"] = "silu"
+    _counted("qp8_gemv_coded", lambda: P.qp8_gemv(x, qt, **kw),
+             lambda: P.qp8_gemv_plain(x, qt, **kw))
+
+
+@pytest.mark.parametrize("B", [1, 4, 8])
+def test_qp8_dual_coded_kernel_matches_plain(dev, B):
+    """K2 on the 8B IQ3_XXS pair: IQ2_S wqk (coded) + Q4_K wv."""
+    a = _coded(dev, "wqk_iq2s", "t")
+    b = _qt(dev, 1024, 4096, GGMLType.Q4_K)
+    x = _x(dev, B, 4096, seed=3)
+    wn = torch.rand(4096, device=dev) + 0.5
+    _counted("qp8_dual_coded", lambda: P.qp8_dual(x, a, b, wn=wn, eps=1e-5),
+             lambda: P.qp8_dual_plain(x, a, b, wn=wn, eps=1e-5))
+
+
+@pytest.mark.parametrize("name", list(_CODED))
+@pytest.mark.parametrize("M", [16, 100, 512])
+def test_qp8_gemm_coded_kernel_matches_plain(dev, name, M):
+    qt = _coded(dev, name, "t")
+    x = _x(dev, M, qt.k, seed=M).to(torch.bfloat16)
+    _counted("qp8_gemm_coded", lambda: P.qp8_gemm(x, qt),
+             lambda: P.qp8_gemm_plain(x, qt))
+
+
+_CODED_MOE = {"gate_iq3xxs": (2048, 4096, GGMLType.IQ3_XXS),
+              "down_iq3xxs": (4096, 14336, GGMLType.IQ3_XXS)}
+
+
+@pytest.mark.parametrize("stack", list(_CODED_MOE))
+@pytest.mark.parametrize("layout", ["t", "il"])
+@pytest.mark.parametrize("ids", [[5, 2], [3, 3], list(range(8)) * 2],
+                         ids=["P2", "P2_dup", "P16"])
+def test_indirect_coded_kernels_match_plain(dev, stack, layout, ids):
+    """K5 (t-stacks) and K8 (coded nibble stacks) on IQ3_XXS experts."""
+    npe, k, qtype = _CODED_MOE[stack]
+    qt = _qt(dev, 8 * npe, k, qtype, layout)
+    assert qt.fl == layout and PF.supports_indirect(qt, npe)
+    ids = torch.tensor(ids, dtype=torch.int32, device=dev)
+    x = _x(dev, ids.numel(), k, seed=ids.numel())
+    if layout == "t":
+        _counted("qp8_indirect_coded", lambda: P.qp8_indirect(x, qt, ids, npe),
+                 lambda: P.qp8_indirect_plain(x, qt, ids, npe))
+    else:
+        xb = x.to(torch.bfloat16)
+        _counted("fast_indirect_coded",
+                 lambda: PF.fast_indirect(xb, qt, ids, npe),
+                 lambda: PF.fast_indirect_plain(xb, qt, ids, npe))
+
+
+@pytest.mark.parametrize("name", list(_CODED))
+@pytest.mark.parametrize("mode,B", [("plain", b) for b in (1, 3, 8, 16, 128, 512)]
+                         + [("pre_il", 8), ("pre_il", 128), ("res", 1),
+                            ("res", 8), ("act", 1), ("act", 8)]
+                         + [("normed", b) for b in (1, 3, 8, 128, 512)],
+                         ids=lambda c: str(c))
+def test_fast_coded_kernel_matches_plain(dev, name, mode, B):
+    """K6 on coded nibble planes, every mode, GEMV and GEMM."""
+    qt = _coded(dev, name, "il")
+    x = _x(dev, B, 2 * qt.k if mode == "act" else qt.k, seed=B)
+    x = (x * (2 if mode == "act" else 1)).to(torch.bfloat16)
+    kw = {}
+    if mode == "normed":
+        kw = dict(wn=torch.rand(qt.k, device=dev) + 0.5, eps=1e-5)
+    elif mode == "pre_il":
+        kw = dict(pre_il=True)
+    elif mode in ("res", "act"):
+        kw = dict(res=_x(dev, B, qt.n, seed=9))
+        if mode == "act":
+            kw["act"] = "silu"
+    key = "fast_coded" + {"normed": "_normed", "act": "_act",
+                          "res": "_res"}.get(mode, "")
+    _counted(key, lambda: PF.fast_coded(x, qt, **kw),
+             lambda: PF.fast_coded_plain(x, qt, **kw))
+
+
+@pytest.mark.parametrize("B", [1, 4, 8])
+@pytest.mark.parametrize("normed", [True, False], ids=["normed", "raw"])
+def test_fast_dual_coded_kernel_matches_plain(dev, B, normed):
+    """K7 on the 8B IQ3_XXS il pair: IQ2_S wqk (coded, G = 256) + Q4_K wv
+    (nibble, stored bias, taken in the kernel): the family of one part
+    must not reach the other."""
+    a = _coded(dev, "wqk_iq2s", "il")
+    b = _qt(dev, 1024, 4096, GGMLType.Q4_K, "il")
+    assert PF.supports_dual(a, b)
+    x = _x(dev, B, 4096, seed=B).to(torch.bfloat16)
+    kw = {}
+    if normed:
+        kw = dict(wn_a=torch.rand(4096, device=dev) + 0.5,
+                  wn_b=torch.rand(4096, device=dev) + 0.5, eps=1e-5)
+    _counted("fast_dual_coded", lambda: PF.fast_dual(x, a, b, **kw),
+             lambda: PF.fast_dual_plain(x, a, b, **kw))
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])

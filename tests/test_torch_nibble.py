@@ -27,7 +27,7 @@ variant against the JAX package, on the same planes and inputs.
 
 Tolerance rtol = atol = 5e-4, the JAX package's kernel-vs-oracle tolerance.
 The normed cases take inputs whose RMS factor is exact in both packages
-(`_normed_input`): XLA's and PyTorch's rsqrt differ in the last bit on
+(`normed_input`): XLA's and PyTorch's rsqrt differ in the last bit on
 about 40% of rows, which can move one bf16 rounding of the normed
 activation and with it single outputs by ~1e-3.
 """
@@ -41,7 +41,7 @@ from ggml_hexagon_tpu.ops import qmm_fast as JF
 from ggml_hexagon_tpu.quant.formats import GGMLType
 from ggml_hexagon_tpu.quant.pack import quantize_tensor
 
-from _torch_port import jax_qt_leaf, port_qt
+from _torch_port import jax_qt_leaf, normed_input, port_qt
 from ggml_hexagon_tpu_torch.models import fuse as PFU
 from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
 from ggml_hexagon_tpu_torch.quant.pack import QCONFIGS, QTensor, use_qp8_layout
@@ -82,20 +82,6 @@ def _bits(t):
 
 def _rand(seed, *shape):
     return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
-
-
-def _normed_input(seed, B, k):
-    """(x [B, k], eps) whose rows all have the mean square 4 - eps exactly:
-    signed permutations of one vector of multiples of 1/8 (every partial
-    sum of squares exact), eps = 4 - that mean (exact, Sterbenz), so
-    rsqrt(mean + eps) = 0.5 in any summation order and any rsqrt."""
-    rng = np.random.default_rng(seed)
-    base = np.round(rng.normal(size=k) * 1.7 * 8) / 8
-    x = np.stack([base[rng.permutation(k)] * rng.choice([-1.0, 1.0], k)
-                  for _ in range(B)]).astype(np.float32)
-    mean = np.float32(np.sum(base.astype(np.float32) ** 2)) / np.float32(k)
-    assert 2.0 <= mean < 4.0
-    return x, float(np.float32(4.0) - mean)
 
 
 @pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q4_0,
@@ -182,7 +168,7 @@ def test_mode_plain_matches_pallas(case, mode, B):
     x = _rand(B * 7 + k, B, width) * (2.0 if mode == "act" else 1.5)
     eps = 1e-5
     if mode == "normed":
-        x, eps = _normed_input(B * 7 + k, B, k)
+        x, eps = normed_input(B * 7 + k, B, k)
     wn = np.random.default_rng(k).random(k).astype(np.float32) + 0.5
     wn_il = wn[JF.interleave_perm(k, jq.cfg.gs)]
     res = _rand(B + 3, B, jq.n) if mode in ("res", "act") else None
@@ -219,7 +205,7 @@ def test_dual_plain_matches_pallas(k, normed, B):
     x = _rand(B + k, B, k) * 1.5
     kw = {}
     if normed:
-        x, eps = _normed_input(B + k, B, k)
+        x, eps = normed_input(B + k, B, k)
         kw = dict(eps=eps)
     wn = np.random.default_rng(5).random(k).astype(np.float32) + 0.5
     wa, wb = wn[JF.interleave_perm(k, 32)], wn[JF.interleave_perm(k, 16)]
@@ -317,7 +303,7 @@ def test_mode1_group_sums_take_the_unrounded_input(mode):
         3.0 if mode == "act" else 20.0)
     eps = 1e-5
     if mode == "normed":
-        x, eps = _normed_input(11, 4, 768)
+        x, eps = normed_input(11, 4, 768)
         x = x + np.float32(1 / 1024)   # off the bf16 grid; mean square moves
     wn = np.random.default_rng(6).random(768).astype(np.float32) + 0.5
     wn_il = wn[JF.interleave_perm(768, 32)]

@@ -132,12 +132,20 @@ def test_qmatmul_dispatch():
 
 
 def test_nibble_planes_raise():
-    """4-bit interleaved planes need K6's nibble kernel (not ported): a
-    ternary tensor at K=1024 has no t-layout (a 2-group chunk must divide
-    its K/4 shift period) and takes coded nibble planes."""
+    """A ternary tensor at K=1024 has no t-layout (a 2-group chunk must
+    divide its K/4 shift period) and takes coded nibble planes on the
+    default route: byte-equal to the JAX build, served by K6's coded
+    family, and refused by the byte and nibble families' wrappers."""
     qt = quantize_tensor(np.random.default_rng(7).normal(
         size=(128, 1024)).astype(np.float32), GGMLType.TQ2_0)
     assert not use_qp8_layout(QCONFIGS[GGMLType.TQ2_0], 1024)
     assert PF.supports_fast(QCONFIGS[GGMLType.TQ2_0], 1024)
-    with pytest.raises(NotImplementedError):
-        port_qt(qt).with_fast_planes()
+    il = port_qt(qt).with_fast_planes()
+    assert il.fl == "il"
+    np.testing.assert_array_equal(il.fq.numpy(),
+                                  np.asarray(JF.build_fast_planes(qt)[0]))
+    x = torch.ones(2, 1024, dtype=torch.bfloat16)
+    assert PF.fast_coded(x, il).shape == (2, 512)
+    for family in (PF.fast_nibble, PF.fast_byte):
+        with pytest.raises(ValueError):
+            family(x, il)
