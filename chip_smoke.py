@@ -47,7 +47,14 @@
 10. Mixtral-8x7B IQ3_XXS on the interleaved layout everywhere: K8 on the
    coded expert stacks and K6's coded plain mode;
 11. Mixtral-8x7B IQ3_XXS on the default layouts: K5 on the coded stacks, K1
-   and K3 on coded t-planes.
+   and K3 on coded t-planes;
+12. Llama-3-8B Q4_K_M on the interleaved layout with the whole-FFN
+   megakernel layout (the JAX package's GHT_FFN_FUSED=1; the sixth slice's
+   path): each decode layer's wo + residual, RMSNorm, gate_up, silu*up and
+   down + residual as one K9 launch, held against its plain version at the
+   main path's shapes (Q4_K and Q6_K down, B = 1 and 3) and at one
+   full-width shape of each other down branch (Q5_K, Q4_0, IQ3_XXS), timed
+   beside the three K6 launches of the split path on the same layer.
 
 Any failure raises: the script exits non-zero and prints no result.  The
 last line is {"ok": true, "device": {...}}; the line before it lists the
@@ -84,6 +91,8 @@ K6_BYTE = "ggml_hexagon_tpu/ops/qmm_fast.py:510"
 K6_NIBBLE = "ggml_hexagon_tpu/ops/qmm_fast.py:497"
 K7_DUAL = "ggml_hexagon_tpu/ops/qmm_fast.py:872"
 K8_GATHER = "ggml_hexagon_tpu/ops/qmm_fast.py:1259"
+SRC_FFN = "ggml_hexagon_tpu_torch/csrc/ffn_fused.cu"
+K9_FFN = "ggml_hexagon_tpu/ops/ffn_fused.py:93"
 
 
 def log(*a):
@@ -458,6 +467,21 @@ LAUNCH_TABLES = {
         "bucket8": dict(qp8_gemv_coded=32, qp8_gemv=33, fast_byte=64,
                         qp8_indirect_coded=96),
         "chunk": dict(qp8_gemm_coded=800, qp8_gemm=33, fast_byte=64),
+    },
+    # the interleaved layout with the megakernel layout on every layer: at
+    # decode one K9 a layer (down Q4_K in 16 layers, Q6_K in 16) after wqkv
+    # (K6 nibble normed, 16) or wqk + wv (K7, 16) and K4; the Q6_K head K6
+    # byte.  At prefill no K9 and no act mode, at any bucket: wo K6 nibble
+    # (its output un-permuted), gate_up K6 nibble normed, down K6
+    # pre-interleaved (nibble 16, byte 16)
+    "Llama-3-8B Q4_K_M il ffn": {
+        "step": dict(ffn_fused_nibble=16, ffn_fused_byte=16,
+                     fast_nibble_normed=16, fast_dual=16, fast_byte=1,
+                     decode_attn=32),
+        "bucket8": dict(fast_nibble_normed=64, fast_byte_normed=16,
+                        fast_nibble=48, fast_byte=17),
+        "chunk": dict(fast_nibble_normed=64, fast_byte_normed=16,
+                      fast_nibble=48, fast_byte=17),
     },
 }
 
@@ -1260,6 +1284,110 @@ def check_kernels_nibble(dev, weights, cfg):
     return [KP, KR, I4, I6]
 
 
+def k9_row(dev, gen, cfg, rep, name, lw, dn, B, count):
+    """One K9 call on a layer's planes in the megakernel layout (dn: the
+    layer's own down planes, or another type's drawn at the same shape):
+    kernel vs plain version on the same inputs, kernel and plain times and
+    the bound; with `rep`, the three K6 launches of the split path on the
+    same planes un-permuted (wo residual mode, gate_up normed, down act),
+    timed in the same way, and count times into rep."""
+    from ggml_hexagon_tpu_torch import kernels
+    from ggml_hexagon_tpu_torch.ops import ffn_fused as PFF
+    from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
+
+    d, wo, gu, wn = cfg.n_embd, lw["wo"], lw["w_gateup_il"], lw["ffn_norm_il"]
+    G, gs, n_ff = wo.fs.shape[1], wo.cfg.gs, dn.k
+    attn = torch.randn(B, d, generator=gen, device=dev).to(torch.bfloat16).float()
+    h = torch.randn(B, d, generator=gen, device=dev).to(torch.bfloat16).float()
+    x_a = PF._interleave_x(attn, G, gs).to(torch.bfloat16).contiguous()
+    xg_a = PF._sums_natural(attn, G).contiguous()
+    h_il = PF._interleave_x(h, G, gs).contiguous()
+    args = (x_a, xg_a, h_il, wn, wo, gu, dn, cfg.rms_eps)
+    got = kernels.ffn_fused(*args)
+    err, e2 = held(f"K9 {name} B={B}", got, PFF.ffn_fused_plain(*args))
+    ms = time_ms(lambda: kernels.ffn_fused(*args))
+    pms = time_plain_ms(lambda: PFF.ffn_fused_plain(*args))
+    planes = plane_bytes(wo) + plane_bytes(gu) + plane_bytes(dn)
+    byts = planes + nbytes(x_a, xg_a, h_il, wn, got)
+    ops = (2 * B * (d * d + 2 * n_ff * d + n_ff * d) + bias_ops(wo, B)
+           + bias_ops(gu, B) + bias_ops(dn, B))
+    bms, by = bound_ms(byts, ops, F32_OPS)
+    line = (f"  K9 {name:9s} down {dn.cfg.qtype.name} {PF._family(dn.cfg)} "
+            f"B={B} max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms "
+            f"plain={pms:.3f}ms bound={bms:.4f}ms ({by}) {bms / ms:.0%} of "
+            f"bound; planes {planes / 1e6:.2f} MB")
+    if rep is None:
+        log(line)
+        return
+    # the split path: the same rows of the same planes, un-permuted
+    inv = torch.argsort(PF.interleave_perm(d, 32))
+    wo_n, dn_n = wo.take_rows(inv), dn.take_rows(inv)
+    k6_wo, k6_gu, k6_dn = PF._k6(wo_n, False), PF._k6(gu, False), PF._k6(dn_n, False)
+    x = attn.to(torch.bfloat16)
+    h1 = k6_wo(x, wo_n, res=h)
+    x1 = h1.to(torch.bfloat16)
+    gu2 = k6_gu(x1, gu, wn=wn, eps=cfg.rms_eps)
+    x2 = gu2.to(torch.bfloat16)
+    xg = PF.group_sums(dn_n, gu2, "act")
+
+    def split():
+        k6_wo(x, wo_n, res=h)
+        k6_gu(x1, gu, wn=wn, eps=cfg.rms_eps)
+        k6_dn(x2, dn_n, act="silu", res=h1, xg=xg)
+
+    sms = time_ms(split)
+    log(f"{line}; split path (K6 res + normed + act) {sms:.4f}ms")
+    rep.add(count, err, ms, pms, byts, ops, F32_OPS)
+    rep.d["split_ms"] += count * sms
+
+
+def check_kernels_ffn(dev, weights, cfg):
+    """K9 against its plain version at the 8B Q4_K_M il ffn main path's
+    shapes (a Q4_K-down and a Q6_K-down layer, B = 1 and 3), timed at B = 1
+    beside the split path's three K6 launches; then one full-width shape of
+    each down branch the cell does not serve: Q5_K (byte, stored fb), Q4_0
+    (nibble, derived -8), IQ3_XXS (coded), drawn on the card; returns the
+    reports of what its decode step runs."""
+    from ggml_hexagon_tpu_torch.models.synth import random_qtensor
+    from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
+    from ggml_hexagon_tpu_torch.quant.formats import GGMLType
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2468)
+    layers = weights["layers"]
+    if not all("ffp" in lw for lw in layers):
+        raise AssertionError("a layer lacks the megakernel layout")
+
+    def layer(t):
+        return next(lw for lw in layers if lw["ffn_down"].cfg.qtype.name == t)
+
+    lw4, lw6 = layer("Q4_K"), layer("Q6_K")
+    n6 = sum(lw["ffn_down"].cfg.qtype.name == "Q6_K" for lw in layers)
+    unit = "one 8B Q4_K_M il ffn decode step (B=1)"
+    KN = KernelReport("ffn_fused_nibble", "cuda", SRC_FFN, K9_FFN,
+                      f"{unit}: {len(layers) - n6} launches (Q4_K down)")
+    KB = KernelReport("ffn_fused_byte", "cuda", SRC_FFN, K9_FFN,
+                      f"{unit}: {n6} launches (Q6_K down, derived bias)")
+    for r in (KN, KB):
+        r.d["split_ms"] = 0.0
+    log(f"K9 on the 8B Q4_K_M il ffn shapes (kernel vs plain, NMSE <= "
+        f"{NMSE_KERNEL})")
+    for B in (1, 3):
+        k9_row(dev, gen, cfg, KN if B == 1 else None, "down_q4k", lw4,
+               lw4["ffn_down"], B, len(layers) - n6)
+        k9_row(dev, gen, cfg, KB if B == 1 else None, "down_q6k", lw6,
+               lw6["ffn_down"], B, n6)
+    log("K9's other down branches at full width (drawn on the card)")
+    perm = PF.interleave_perm(cfg.n_embd, 32)
+    for qtype in (GGMLType.Q5_K, GGMLType.Q4_0, GGMLType.IQ3_XXS):
+        dn = random_qtensor(gen, cfg.n_embd, cfg.n_ff, qtype, dev)
+        dn = dn.with_fast_planes("il").without_wire().take_rows(perm)
+        for B in (1, 3):
+            k9_row(dev, gen, cfg, None, qtype.name.lower(), lw4, dn, B, 0)
+        del dn
+    return [KN, KB]
+
+
 def build_phase(name, builder, dev):
     """Build a configuration on the card and print its layout."""
     t0 = time.perf_counter()
@@ -1354,7 +1482,9 @@ def main():
             ("Mixtral-8x7B IQ3_XXS il", partial(build_mixtral_iq3xxs, "il"),
              check_kernels_coded),
             ("Mixtral-8x7B IQ3_XXS", partial(build_mixtral_iq3xxs, "t"),
-             check_kernels_coded)):
+             check_kernels_coded),
+            ("Llama-3-8B Q4_K_M il ffn", partial(build_8b_il, ffn_fused=True),
+             check_kernels_ffn)):
         reps, counts = run_phase(name, builder, check, dev)
         reports += reps
         runs.append(counts)

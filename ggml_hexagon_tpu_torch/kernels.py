@@ -35,6 +35,7 @@ SOURCES = {
     "decode_attn": "decode_attn.cu",  # K4
     "fast_il": "fast_il.cu",        # K6 (byte and nibble planes, four
                                     # modes), K7 and K8
+    "ffn_fused": "ffn_fused.cu",    # K9
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -47,7 +48,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: natural or pre-interleaved input), *_normed, *_res, *_act (with or
 #: without a residual), a launch on planes with a group bias under the same
 #: key; K7 fast_dual, fast_dual_coded (either part coded); K8 by family:
-#: fast_indirect (byte), fast_indirect_nibble, fast_indirect_coded)
+#: fast_indirect (byte), fast_indirect_nibble, fast_indirect_coded; K9 by
+#: the family of its down planes: ffn_fused_byte, ffn_fused_nibble,
+#: ffn_fused_coded)
 LAUNCHES = {"qp8_gemv": 0, "qp8_dual": 0, "qp8_gemm": 0, "decode_attn": 0,
             "qp8_indirect": 0, "qp8_gemv_coded": 0, "qp8_dual_coded": 0,
             "qp8_gemm_coded": 0, "qp8_indirect_coded": 0,
@@ -57,7 +60,8 @@ LAUNCHES = {"qp8_gemv": 0, "qp8_dual": 0, "qp8_gemm": 0, "decode_attn": 0,
             "fast_nibble_act": 0, "fast_coded": 0, "fast_coded_normed": 0,
             "fast_coded_res": 0, "fast_coded_act": 0, "fast_dual": 0,
             "fast_dual_coded": 0, "fast_indirect": 0,
-            "fast_indirect_nibble": 0, "fast_indirect_coded": 0}
+            "fast_indirect_nibble": 0, "fast_indirect_coded": 0,
+            "ffn_fused_byte": 0, "ffn_fused_nibble": 0, "ffn_fused_coded": 0}
 
 #: the C entries' code-map ids (0: uncoded planes); csrc/codes.cuh
 CODE_MAPS = {"": 0, "iq2": 1, "iq3xxs": 2, "iq3s": 3, "iq1": 4, "tern": 5}
@@ -84,6 +88,8 @@ _ARGTYPES = {
                                          _P, _I, _P, _P] * 2 + [_P, _P],
     "fast_indirect_run": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F,
                           _P, _P, _P, _P, _P],
+    "ffn_fused_run": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I] + [_P] * 9
+    + [_I, _I, _F, _P, _P, _P, _P, _P, _P],
     "decode_attn_run": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                         _I, _F, _I, _P, _P, _P, _P],
 }
@@ -506,6 +512,61 @@ def fast_indirect(x, qt, ids, npe: int, xg=None):
                                int(nib), cm, off, _ptr(xg), _ptr(xil),
                                _ptr(xgs),
                                _ptr(out), _stream(dev))
+    _check(lib, rc, key)
+    LAUNCHES[key] += 1
+    return out
+
+
+_FAMILY_ID = {"byte": 0, "nibble": 1, "coded": 2}
+
+
+def ffn_fused(x_a, xg_a, h_il, wn, wo, gu, dn, eps: float, act: str = "silu"):
+    """K9 on the card: x_a bf16 [B <= 8, d] (the attention output in wo's
+    interleaved column order), xg_a f32 [B, G] (its group sums), h_il f32
+    [B, d] (the residual, interleaved), wn f32 [d] (the ffn norm weight,
+    interleaved); wo [d, d] and gate_up [2 n_ff, d] on nibble planes with a
+    stored fb, down [d, n_ff] on nibble, byte or coded planes (rows of wo and
+    down in the il32 order) -> the layer output f32 [B, d] in that order."""
+    if act != "silu":
+        raise NotImplementedError(f"act {act!r}: K9 takes silu only")
+    from .ops.qmm_fast import _family
+
+    _need(x_a, torch.bfloat16, "x_a", 2)
+    _need(xg_a, torch.float32, "xg_a", 2)
+    _need(h_il, torch.float32, "h_il", 2)
+    _need(wn, torch.float32, "wn", 1)
+    B, d = x_a.shape
+    n_wo, G, nib_wo, _, _ = _il_plane_args(wo)
+    n_gu, G_gu, nib_gu, _, _ = _il_plane_args(gu)
+    n_dn, Gc, _, off, cm = _il_plane_args(dn)
+    n_ff = dn.k
+    if not (nib_wo and nib_gu and _family(wo.cfg) == _family(gu.cfg) == "nibble"
+            and wo.fb is not None and gu.fb is not None):
+        raise ValueError("K9 takes nibble wo and gate_up planes with a stored fb")
+    if (not 1 <= B <= 8 or wo.k != d or n_wo != d or gu.k != d or G_gu != G
+            or n_gu != 2 * n_ff or n_dn != d or xg_a.shape != (B, G)
+            or h_il.shape != (B, d) or wn.shape != (d,)):
+        raise ValueError(f"K9 shapes: x_a {tuple(x_a.shape)}, wo "
+                         f"{tuple(wo.fq.shape)}, gate_up {tuple(gu.fq.shape)}, "
+                         f"down {tuple(dn.fq.shape)}")
+    family = _family(dn.cfg)
+    key = "ffn_fused_" + family
+    bias = dn.fb is not None or off != 0.0
+    dev = x_a.device
+    # scratch stays referenced until the launch is enqueued
+    h2 = torch.empty((B, d), dtype=torch.float32, device=dev)
+    gus = torch.empty((B, 2 * n_ff), dtype=torch.float32, device=dev)
+    xd = torch.empty((B, n_ff), dtype=torch.bfloat16, device=dev)
+    xsg = (torch.empty((B, Gc), dtype=torch.float32, device=dev) if bias
+           else None)
+    out = torch.empty((B, d), dtype=torch.float32, device=dev)
+    lib = _lib("ffn_fused")
+    rc = lib.ffn_fused_run(
+        _ptr(x_a), _ptr(xg_a), _ptr(h_il), _ptr(wn), float(eps), B, d, n_ff,
+        G, Gc, _ptr(wo.fq), _ptr(wo.fs), _ptr(wo.fb), _ptr(gu.fq),
+        _ptr(gu.fs), _ptr(gu.fb), _ptr(dn.fq), _ptr(dn.fs), _ptr(dn.fb),
+        _FAMILY_ID[family], cm, off, _ptr(h2), _ptr(gus), _ptr(xd), _ptr(xsg),
+        _ptr(out), _stream(dev))
     _check(lib, rc, key)
     LAUNCHES[key] += 1
     return out

@@ -1,6 +1,6 @@
 """Weight-fusion transforms: fewer launches per decode step.
 
-Counterpart of ggml_hexagon_tpu/models/fuse.py:25-209, 212-250, 310-342:
+Counterpart of ggml_hexagon_tpu/models/fuse.py:25-209, 212-307, 310-342:
 
 - fuse_weights concatenates Q/K/V (or Q/K when V has another qtype, the
   Q4_K_M shape) and gate/up along the planes' output-feature axis (lanes
@@ -14,11 +14,13 @@ Counterpart of ggml_hexagon_tpu/models/fuse.py:25-209, 212-250, 310-342:
   decode through the fused act+down kernel: its rows permuted per half
   into ffn_down's interleaved column order, or renamed only when ffn_down
   has t-planes (natural column order);
+- attach_ffn_fused_layout prepares the whole-FFN megakernel (K9,
+  ops/ffn_fused.py): the output rows of wo and ffn_down permuted by
+  interleave_perm(d, 32) and the marker key "ffp" (value None) on each
+  layer that qualifies; fuse_weights applies it last when asked
+  (ffn_fused=True), where the JAX package reads GHT_FFN_FUSED=1;
 - permute_rope_neox converts an adjacent-pair ("norm") rope model to
   split-half pairing by permuting the Q/K output rows once.
-
-The whole-FFN megakernel layout (attach_ffn_fused_layout) is off by default
-in the JAX package and waits for its kernel (K9).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from dataclasses import replace
 
 import torch
 
+from ..ops.ffn_fused import supports_ffn_fused
 from ..ops.qmm_fast import interleave_perm, supports_fused_epilogue
 from ..quant.pack import QTensor
 
@@ -194,9 +197,50 @@ def interleave_gateup_rows(weights: dict, cfg) -> dict:
     return out
 
 
-def fuse_weights(weights: dict, cfg) -> dict:
+#: layer keys that keep a layer off the megakernel (the JAX list, fuse.py:
+#: 291-297): LoRA, scales, biases, sub-norms, control vectors, MoE
+_NOT_FFP = ("wo_lora", "wo_scale", "bo", "attn_sub_norm", "ffn_down_lora",
+            "ffn_down_b", "ffn_down_scale", "ffn_sub_norm", "cvec",
+            "ffn_gate_inp")
+
+
+def attach_ffn_fused_layout(weights: dict, cfg) -> dict:
+    """Prepare the layers that qualify for the whole-FFN megakernel (K9):
+    their wo and ffn_down output rows permuted by interleave_perm(d, 32),
+    so the hidden state streams through the kernel in the il32 order that
+    gate_up's planes consume, and the marker key "ffp" set (value None).
+    The rows are permuted in place of the old ones (no copy kept); the
+    prefill and fallback paths un-permute the projections' outputs
+    (models/llama.py).  A layer qualifies with interleaved wo, w_gateup_il
+    and ffn_down that `supports_ffn_fused` takes, an ffn_norm_il, and none
+    of the _NOT_FFP keys; the config must be a pre-norm RMS model without
+    post-norms, sandwich norms, a parallel residual or a residual scale."""
+    if (cfg.norm_type != "rms" or cfg.act not in ("silu", "gelu", "relu")
+            or cfg.post_norms or cfg.swin_norm or cfg.parallel_residual
+            or cfg.residual_scale != 1.0 or not cfg.pre_norms):
+        return weights
+    d = cfg.n_embd
+    out = dict(weights)
+    out["layers"] = []
+    for lw in weights["layers"]:
+        new = dict(lw)
+        wo, gu, dn = lw.get("wo"), lw.get("w_gateup_il"), lw.get("ffn_down")
+        if (all(isinstance(t, QTensor) and t.fl == "il" for t in (wo, gu, dn))
+                and "ffn_norm_il" in lw
+                and not any(k in lw for k in _NOT_FFP)
+                and supports_ffn_fused(wo, gu, dn, d, dn.k)):
+            perm = interleave_perm(d, 32)
+            new["wo"] = wo.take_rows(perm)
+            new["ffn_down"] = dn.take_rows(perm)
+            new["ffp"] = None
+        out["layers"].append(new)
+    return out
+
+
+def fuse_weights(weights: dict, cfg, ffn_fused: bool = False) -> dict:
     """wqkv / wqk / w_gateup fused where possible, plus the norm weights
-    for in-kernel norm+matmul fusion."""
+    for in-kernel norm+matmul fusion; with ffn_fused, the megakernel
+    layout on the layers that take it (attach_ffn_fused_layout)."""
     out = dict(weights)
     out["layers"] = []
     for lw in weights["layers"]:
@@ -219,4 +263,5 @@ def fuse_weights(weights: dict, cfg) -> dict:
                 new["w_gateup"] = fused
                 del new["ffn_gate"], new["ffn_up"]
         out["layers"].append(new)
-    return interleave_gateup_rows(attach_norm_planes(out, cfg), cfg)
+    out = interleave_gateup_rows(attach_norm_planes(out, cfg), cfg)
+    return attach_ffn_fused_layout(out, cfg) if ffn_fused else out

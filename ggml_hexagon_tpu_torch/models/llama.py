@@ -8,7 +8,11 @@ interleaved ones), else one fused norm+matmul each (K1 on t-planes, K6's
 normed mode on interleaved ones);
 the fused decode attention (K4) with one bulk KV write after the layer
 loop; wo with the residual added in the kernel (K1, or K6's residual
-mode); and the fused act+down with residual (K1, or K6's act mode).
+mode); and the fused act+down with residual (K1, or K6's act mode).  A
+layer carrying the megakernel layout ("ffp", models/fuse.py) runs wo, the
+ffn norm, gate_up, silu(gate)*up and down with both residuals as one K9
+launch at decode (ops/ffn_fused.py); elsewhere it runs the split path with
+its wo and down outputs un-permuted from the il32 row order.
 Layers whose Q and K types differ (Mixtral: Q5_K or IQ4_XS wq, Q8_0 wk/wv)
 run the unfused branch: the RMSNorm in torch, then each projection through
 `matmul` (K1/K3 on t-planes, K6 on interleaved planes).  MoE layers route
@@ -33,11 +37,13 @@ from ..ops.attention import flash_attention_cache
 from ..ops.basic import (RopeParams, apply_rope, rms_norm, rope_freqs, silu,
                          softmax_ext)
 from ..ops.decode_attn import fused_decode_attention
+from ..ops.ffn_fused import ffn_fused
 from ..ops.qmatmul import dequantize, qmatmul, qmatmul_normed, take_rows_wire
 from ..ops.qmm_fast import (qmatmul_fast, qmatmul_fast_act,
                             qmatmul_fast_dual, qmatmul_fast_indirect,
                             qmatmul_fast_res, supports_dual,
-                            supports_fused_epilogue, supports_indirect)
+                            supports_fused_epilogue, supports_indirect,
+                            uninterleave_cols)
 from ..ops.qmm_qp8 import QP8_MAX_DECODE
 from ..quant.pack import QTensor
 
@@ -249,8 +255,9 @@ def _attention(cfg, q, k_all, v_all, pos_start: int, T: int, scale: float,
 def _check_fused(lw: dict):
     """The layer layouts this forward runs, as fuse_weights leaves them:
     attention fused with its norm planes (wqkv, or wqk + wv) or unfused
-    (wq, wk, wv); the dense FFN fused (w_gateup_il) or an MoE FFN (router
-    and stacked experts).  The reference's other branches wait."""
+    (wq, wk, wv); the dense FFN fused (w_gateup_il), with or without the
+    megakernel layout (the marker "ffp"), or an MoE FFN (router and stacked
+    experts).  The reference's other branches wait."""
     attn = ("attn_norm_il" in lw and ("wqkv" in lw or (
         "wqk" in lw and "attn_norm_il_v" in lw))) or (
         "attn_norm" in lw and all(k in lw for k in ("wq", "wk", "wv")))
@@ -259,6 +266,8 @@ def _check_fused(lw: dict):
         and "ffn_norm_exps" not in lw
         and all(k in lw for k in ("ffn_gate_exps", "ffn_up_exps",
                                   "ffn_down_exps")))
+    if "ffp" in lw:  # the megakernel layout: a dense fused FFN only
+        ffn = ffn and "w_gateup_il" in lw
     if not (attn and ffn):
         raise NotImplementedError(
             "forward runs fused weights (models.fuse.fuse_weights) or "
@@ -371,15 +380,21 @@ def _ffn(cfg, lw, h, cd, plain=False):
     the decode path the act+down kernel adds h itself.  The gate_up output
     is in ffn_down's column order (natural for t-planes, interleaved for
     the interleaved layout): the act-mul at prefill runs on it as it is
-    and the down projection takes it pre-interleaved."""
+    and the down projection takes it pre-interleaved.  A megakernel-layout
+    layer ("ffp") never takes the act mode: its down output comes in the
+    il32 row order and is un-permuted before the residual is added."""
     gu2 = qmatmul_normed(h, lw["w_gateup_il"], lw["ffn_norm_il"],
                          cfg.rms_eps, plain=plain)
     dn = lw["ffn_down"]
-    if math.prod(gu2.shape[:-1]) <= QP8_MAX_DECODE:
+    ffp = "ffp" in lw
+    if not ffp and math.prod(gu2.shape[:-1]) <= QP8_MAX_DECODE:
         return qmatmul_fast_act(gu2, dn, cfg.act, res=h, plain=plain).to(cd)
     ng = dn.k
     gu = silu(gu2[..., :ng].to(cd)) * gu2[..., ng:].to(cd)
-    return h + qmatmul_fast(gu, dn, plain=plain, pre_interleaved=True).to(cd)
+    y = qmatmul_fast(gu, dn, plain=plain, pre_interleaved=True)
+    if ffp:
+        y = uninterleave_cols(y, 32)
+    return h + y.to(cd)
 
 
 def _ffn_out(cfg, lw, h, cd, plain=False):
@@ -481,12 +496,22 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
             v_full = kv_cache["v"][il].reshape(B, S, nhkv, cfg.hd)
             attn = _attention(cfg, q, k_full, v_full, pos_start, T, scale,
                               k_scale=k_sc, v_scale=v_sc).to(cd)
-        if (T == 1 and B <= QP8_MAX_DECODE
-                and supports_fused_epilogue(lw["wo"])):
-            h = qmatmul_fast_res(attn, lw["wo"], h, plain=plain).to(cd)
+        ffp = "ffp" in lw
+        if ffp and T == 1 and B <= QP8_MAX_DECODE:
+            # the whole FFN with both residuals in one launch (K9)
+            h = ffn_fused(attn[:, 0], h[:, 0], lw["wo"], lw["w_gateup_il"],
+                          lw["ffn_down"], lw["ffn_norm_il"], eps, act=cfg.act,
+                          out_dtype=cd, plain=plain)[:, None]
         else:
-            h = h + matmul(attn, lw["wo"], plain).to(cd)
-        h = _ffn_out(cfg, lw, h, cd, plain)
+            if (T == 1 and B <= QP8_MAX_DECODE and not ffp
+                    and supports_fused_epilogue(lw["wo"])):
+                h = qmatmul_fast_res(attn, lw["wo"], h, plain=plain).to(cd)
+            else:
+                y = matmul(attn, lw["wo"], plain)
+                if ffp:  # wo's rows in the il32 order
+                    y = uninterleave_cols(y, 32)
+                h = h + y.to(cd)
+            h = _ffn_out(cfg, lw, h, cd, plain)
         if LAYER_HOOK is not None:
             h = LAYER_HOOK(il, h_in, h)
 

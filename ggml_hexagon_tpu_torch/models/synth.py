@@ -143,7 +143,7 @@ def _policy(cfg: LlamaConfig, ftype: str,
 
 def build_model(cfg: LlamaConfig, seed: int = 0, device="cuda",
                 ftype: str = "Q4_K_M", layout: str = "t",
-                has_imatrix: bool = False):
+                has_imatrix: bool = False, ffn_fused: bool = False):
     """(cfg', weights) of a random dense model under llama.cpp's `ftype`
     per-tensor policy, every type taken from QuantPolicy, through the
     production load pipeline: NEOX rope permutation, projection fusion,
@@ -156,7 +156,8 @@ def build_model(cfg: LlamaConfig, seed: int = 0, device="cuda",
     for every type that has them, interleaved ones for the others (the JAX
     package's default, independent of GHT_QP8); "il": interleaved planes
     for every tensor.  has_imatrix: the mixture llama-quantize writes when
-    given an importance matrix."""
+    given an importance matrix.  ffn_fused: the whole-FFN megakernel layout
+    (fuse_weights(ffn_fused=True)) on the layers that take it."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -203,7 +204,7 @@ def build_model(cfg: LlamaConfig, seed: int = 0, device="cuda",
         "layers": layers,
     }
     weights, cfg = permute_rope_neox(weights, cfg)
-    weights = drop_wire_planes(fuse_weights(weights, cfg))
+    weights = drop_wire_planes(fuse_weights(weights, cfg, ffn_fused=ffn_fused))
     return cfg, weights
 
 
@@ -212,11 +213,12 @@ def build_8b(seed: int = 0, device="cuda"):
     return build_model(LlamaConfig(**LLAMA3_8B), seed=seed, device=device)
 
 
-def build_8b_il(seed: int = 0, device="cuda"):
+def build_8b_il(seed: int = 0, device="cuda", ffn_fused: bool = False):
     """Llama-3-8B Q4_K_M, all 32 layers at full width, on the interleaved
-    layout everywhere."""
+    layout everywhere; with ffn_fused, every layer in the whole-FFN
+    megakernel layout (K9 at decode)."""
     return build_model(LlamaConfig(**LLAMA3_8B), seed=seed, device=device,
-                       layout="il")
+                       layout="il", ffn_fused=ffn_fused)
 
 
 def build_8b_iq4xs(seed: int = 0, device="cuda"):

@@ -104,3 +104,38 @@ def normed_input(seed: int, B: int, k: int):
     mean = np.float32(np.sum(base.astype(np.float32) ** 2)) / np.float32(k)
     assert 2.0 <= mean < 4.0
     return x, float(np.float32(4.0) - mean)
+
+
+def wire_qtensor(qtype, n: int, k: int, seed: int = 0):
+    """A JAX wire QTensor of a K-quant or legacy type (Q4_0 ... Q6_K) in
+    the dtypes and shapes `quantize_tensor` gives: uniform packed bytes,
+    f16-exact scales, 6-bit sub-scales, with mins that centre the weights
+    (m = sc, dmin = d * (2^bits - 1) / 2) and d giving an RMS about
+    1/sqrt(k), as models/synth.random_qtensor draws them.  Drawn directly:
+    the package's K-quant encoder takes tens of seconds per 16 M weights.
+    n must be a multiple of 128 (no row padding)."""
+    from ggml_hexagon_tpu.quant.pack import QCONFIGS
+
+    cfg = QCONFIGS[qtype]
+    assert n % 128 == 0 and not (cfg.signed or cfg.lut or cfg.expand)
+    rng = np.random.default_rng(seed * 1009 + int(qtype) * 31 + n + k)
+    n_q = 2 ** (cfg.bits_lo + cfg.bits_hi)
+    q = rng.integers(0, 256, (n, k * cfg.bits_lo // 8), dtype=np.uint8)
+    qh = (rng.integers(0, 256, (n, k * cfg.bits_hi // 8), dtype=np.uint8)
+          if cfg.bits_hi else None)
+    q_rms = np.sqrt((n_q * n_q - 1) / 12)
+    u_rms = np.sqrt(1 / 3 + 0.05 + 0.05 ** 2)        # of U(0.05, 1.05)
+    sc = m = dmin = None
+    if cfg.superblock:
+        sc = rng.integers(0, 64, (n, k // cfg.gs)).astype(
+            np.int8 if cfg.asym == "none" else np.int32)
+        sc_rms, groups = np.sqrt(np.mean(np.arange(64.0) ** 2)), k // 256
+    else:
+        sc_rms, groups = 1.0, k // cfg.gs
+    d0 = 1.0 / (np.sqrt(k) * q_rms * sc_rms * u_rms)
+    d = ((rng.random((n, groups)) + 0.05) * d0).astype(np.float16).astype(
+        np.float32)
+    if cfg.asym == "minsb":
+        dmin = (d * ((n_q - 1) / 2)).astype(np.float16).astype(np.float32)
+        m = sc.astype(np.int32)
+    return JQTensor(cfg, n, k, q=q, d=d, qh=qh, sc=sc, dmin=dmin, m=m)

@@ -33,6 +33,10 @@ Tolerances, per kernel, with their reasons:
       t-planes; K6, K7, K8 on coded nibble planes): the codes decode to the
       same integers on both sides, so each kernel keeps its tolerance and
       counts its launches under its *_coded key.  NMSE <= 1e-6.
+  K9 (the whole-FFN megakernel): K6's B <= 8 arithmetic in each phase;
+      f32 sums in another order can move xb and xd across a bf16 rounding
+      step, and 1/sqrt and expf can differ in their last ulp.  NMSE <= 1e-6
+      (about 1e-9 measured at Llama-3-8B widths with unit-scale inputs).
 """
 import pytest
 import torch
@@ -41,6 +45,7 @@ from ggml_hexagon_tpu_torch import kernels
 from ggml_hexagon_tpu_torch.models.llama import qtensor_rows
 from ggml_hexagon_tpu_torch.models.synth import random_qtensor
 from ggml_hexagon_tpu_torch.ops import decode_attn as PD
+from ggml_hexagon_tpu_torch.ops import ffn_fused as PFF
 from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
 from ggml_hexagon_tpu_torch.ops import qmm_qp8 as P
 from ggml_hexagon_tpu_torch.quant.formats import GGMLType
@@ -588,6 +593,38 @@ def test_decode_attn_kernel_matches_plain(dev, quant, pos, B, swa, cap):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert float((g - w).abs().max()) <= 1e-4
+
+
+_K9_DOWN = {"q4k": GGMLType.Q4_K, "q6k": GGMLType.Q6_K, "q5k": GGMLType.Q5_K,
+            "q4_0": GGMLType.Q4_0, "iq3xxs": GGMLType.IQ3_XXS}
+
+
+@pytest.mark.parametrize("down", list(_K9_DOWN))
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_ffn_fused_kernel_matches_plain(dev, down, B):
+    """K9 at d = 4096, n_ff = 2048 on each down branch: the wrapper's
+    kernel against its plain version, one launch under the down family's
+    key."""
+    d, n_ff = 4096, 2048
+    perm = PF.interleave_perm(d, 32)
+    wo = _qt(dev, d, d, GGMLType.Q4_K, "il").take_rows(perm)
+    dn = _qt(dev, d, n_ff, _K9_DOWN[down], "il")
+    pc = PF.interleave_perm(n_ff, dn.cfg.gs).to(dev)
+    gu = _qt(dev, 2 * n_ff, d, GGMLType.Q4_K, "il").take_rows(
+        torch.cat([pc, n_ff + pc]))
+    dn = dn.take_rows(perm)
+    assert PFF.supports_ffn_fused(wo, gu, dn, d, n_ff)
+    wn = torch.rand(d, device=dev) + 0.5
+    attn, h = _x(dev, B, d, seed=B), _x(dev, B, d, seed=B + 1)
+    key = "ffn_fused_" + PF._family(dn.cfg)
+    before = kernels.LAUNCHES[key]
+    got = PFF.ffn_fused(attn, h, wo, gu, dn, wn, 1e-5, out_dtype=torch.float32)
+    want = PFF.ffn_fused(attn, h, wo, gu, dn, wn, 1e-5, out_dtype=torch.float32,
+                         plain=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[key] == before + 1
+    assert got.shape == (B, d) and torch.isfinite(got).all()
+    assert _nmse(got, want) <= NMSE_MAX
 
 
 def test_wrappers_refuse_cpu_tensors_for_the_kernels(dev):
