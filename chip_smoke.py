@@ -54,7 +54,18 @@
    down + residual as one K9 launch, held against its plain version at the
    main path's shapes (Q4_K and Q6_K down, B = 1 and 3) and at one
    full-width shape of each other down branch (Q5_K, Q4_0, IQ3_XXS), timed
-   beside the three K6 launches of the split path on the same layer.
+   beside the three K6 launches of the split path on the same layer;
+13. the conformance entry points (the seventh slice's path; no model):
+   qmatmul(backend="pallas") (K10, the wire-plane dequant x matmul) on the
+   Llama-3-8B shapes (Q4_K wq and gate, Q6_K down and head; B = 1, 8, 512)
+   and on all 21 wire types at 4096 x 4096 (B = 1, 8; bf16 and f32
+   compute on one shape), flash_attention_pallas (K11) at the 512-token
+   prefill (B=1, H=32, T=512, S=1024, D=128, a causal [1,1,T,S] mask with
+   a dead tail; f32 and bf16) and decode_attention_pallas (K12) at the
+   decode step (Hkv=8, G=4, S=1024, bf16 cache, B=1 at pos 700 and B=4 at
+   spread positions; plain, swa=256, logit_cap=30): driven once with the
+   counters zeroed before and read after, each launch count exact, then
+   each output held against its plain twin and timed.
 
 Any failure raises: the script exits non-zero and prints no result.  The
 last line is {"ok": true, "device": {...}}; the line before it lists the
@@ -93,6 +104,11 @@ K7_DUAL = "ggml_hexagon_tpu/ops/qmm_fast.py:872"
 K8_GATHER = "ggml_hexagon_tpu/ops/qmm_fast.py:1259"
 SRC_FFN = "ggml_hexagon_tpu_torch/csrc/ffn_fused.cu"
 K9_FFN = "ggml_hexagon_tpu/ops/ffn_fused.py:93"
+SRC_WIRE = "ggml_hexagon_tpu_torch/csrc/qmm_wire.cu"
+SRC_ATTN = "ggml_hexagon_tpu_torch/csrc/attention.cu"
+K10_WIRE = "ggml_hexagon_tpu/ops/qmatmul.py:203"
+K11_FLASH = "ggml_hexagon_tpu/ops/attention.py:81"
+K12_GQA = "ggml_hexagon_tpu/ops/attention.py:206"
 
 
 def log(*a):
@@ -1388,6 +1404,179 @@ def check_kernels_ffn(dev, weights, cfg):
     return [KN, KB]
 
 
+def wire_bytes(qt):
+    return nbytes(qt.q, qt.qh, qt.d, qt.sc, qt.dmin, qt.m)
+
+
+def conformance_cases(dev, gen):
+    """The inputs of the conformance phase, drawn on the card: a list of
+    (kernel, label, report unit or None, entry, plain, bound (bytes, ops,
+    peak), yardstick or None)."""
+    from ggml_hexagon_tpu_torch.models.synth import random_qtensor
+    from ggml_hexagon_tpu_torch.ops import attention as PA
+    from ggml_hexagon_tpu_torch.ops import qmatmul as PQ
+    from ggml_hexagon_tpu_torch.quant.formats import GGMLType
+    from ggml_hexagon_tpu_torch.quant.pack import QCONFIGS
+
+    cases = []
+
+    def k10(label, qt, B, unit, cd=torch.bfloat16):
+        x = torch.randn(B, qt.k, generator=gen, device=dev)
+        entry = partial(PQ.qmatmul, x, qt, compute_dtype=cd, backend="pallas")
+        plain = partial(PQ.qmatmul_pallas, x, qt, compute_dtype=cd, plain=True)
+        byts = wire_bytes(qt) + nbytes(x) + B * qt.n_pad * 4
+        ops = 2 * B * qt.n_pad * qt.k
+        peak = BF16_OPS if cd == torch.bfloat16 else F32_OPS
+
+        def lib():
+            deq = PQ.dequantize(qt, torch.bfloat16)
+            xb = x.to(torch.bfloat16)
+            return time_ms(lambda: torch.matmul(xb, deq.t()), iters=10)
+
+        cases.append(("K10", f"{label} {qt.cfg.qtype.name} {qt.n}x{qt.k} "
+                      f"B={B} {str(cd)[6:]}", unit, entry, plain,
+                      (byts, ops, peak), lib))
+
+    shapes = (("wq", 4096, 4096, GGMLType.Q4_K, (1, 8, 512)),
+              ("gate", 14336, 4096, GGMLType.Q4_K, (1, 8, 512)),
+              ("down", 4096, 14336, GGMLType.Q6_K, (1, 8, 512)),
+              ("head", 128256, 4096, GGMLType.Q6_K, (1, 8)))
+    wq = None
+    for label, n, k, qtype, batches in shapes:
+        qt = random_qtensor(gen, n, k, qtype, dev)
+        if wq is None:
+            wq = qt
+        for B in batches:
+            k10(label, qt, B, "8b" if B == 1 else None)
+    k10("wq", wq, 8, None, torch.float32)
+    for qtype in sorted(QCONFIGS, key=int):
+        qt = random_qtensor(gen, 4096, 4096, qtype, dev)
+        for B in (1, 8):
+            k10("type", qt, B, None)
+
+    B, H, T, S, D = 1, 32, 512, 1024, 128
+    t = torch.arange(T, device=dev)[:, None]
+    sl = torch.arange(S, device=dev)[None, :]
+    dead = 64
+    mask = torch.where(sl <= S - dead - T + t, 0.0, -1e30)
+    mask[:, S - dead:] = -1e30
+    mask = mask[None, None].contiguous()
+    for dtype in (torch.float32, torch.bfloat16):
+        q, kk, vv = (torch.randn(B, H, n_, D, generator=gen, device=dev).to(dtype)
+                     for n_ in (T, S, S))
+        entry = partial(PA.flash_attention_pallas, q, kk, vv, mask, D ** -0.5)
+        plain = partial(PA.flash_attention_pallas, q, kk, vv, mask, D ** -0.5,
+                        plain=True)
+        byts = nbytes(q, kk, vv, mask) + B * H * T * D * 4
+        ops = 4 * B * H * T * S * D
+        m_lib = mask.to(dtype)
+        lib = partial(time_ms, lambda q=q, kk=kk, vv=vv, m_lib=m_lib:
+                      torch.nn.functional.scaled_dot_product_attention(
+                          q, kk, vv, attn_mask=m_lib, scale=D ** -0.5))
+        cases.append(("K11", f"B={B} H={H} T={T} S={S} D={D} "
+                      f"{str(dtype)[6:]}", "prefill" if dtype == torch.float32
+                      else None, entry, plain, (byts, ops, F32_OPS), lib))
+
+    Hkv, G = 8, 4
+    for pos in ([700], [700, 3, 1023, 400]):
+        Bq = len(pos)
+        qg = torch.randn(Bq, Hkv, G, 1, D, generator=gen, device=dev)
+        kc, vc = (torch.randn(Bq, S, Hkv, D, generator=gen,
+                              device=dev).to(torch.bfloat16) for _ in range(2))
+        posb = torch.tensor(pos, dtype=torch.int32, device=dev)
+        for swa, cap in ((0, 0.0), (256, 0.0), (0, 30.0)):
+            entry = partial(PA.decode_attention_pallas, qg, kc, vc, posb,
+                            D ** -0.5, swa=swa, logit_cap=cap)
+            plain = partial(PA.decode_attention_pallas, qg, kc, vc, posb,
+                            D ** -0.5, swa=swa, logit_cap=cap, plain=True)
+            live = [min(p, S - 1) + 1 - (max(0, p - swa + 1) if swa else 0)
+                    for p in pos]
+            byts = (nbytes(qg, posb) + Bq * Hkv * G * D * 4
+                    + 2 * sum(live) * Hkv * D * 2)
+            ops = 4 * sum(live) * Hkv * G * D
+            lib = None
+            if Bq == 1:
+                p0 = pos[0]
+                lo = max(0, p0 - swa + 1) if swa else 0
+                q4 = qg.reshape(1, Hkv * G, 1, D).to(torch.bfloat16)
+                k4 = kc[:, lo:p0 + 1].transpose(1, 2)
+                v4 = vc[:, lo:p0 + 1].transpose(1, 2)
+                lib = partial(time_ms, lambda q4=q4, k4=k4, v4=v4:
+                              torch.nn.functional.scaled_dot_product_attention(
+                                  q4, k4, v4, scale=D ** -0.5,
+                                  enable_gqa=True))
+            cases.append(("K12", f"B={Bq} pos={pos} swa={swa} cap={cap}",
+                          "step" if Bq == 1 and not swa and not cap else None,
+                          entry, plain, (byts, ops, BF16_OPS), lib))
+    return cases
+
+
+def run_conformance(dev):
+    """The conformance entry points (K10-K12), which no configuration
+    serves: each case driven once through its entry point with the
+    counters zeroed before and read after (the counts exact), then each
+    output held against its plain twin and timed.  Returns (kernel
+    reports, the drive's launch counts)."""
+    from ggml_hexagon_tpu_torch import kernels
+
+    name = "conformance entry points (K10-K12)"
+    t_ph = phase(name, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(77)
+    cases = conformance_cases(dev, gen)
+    keys = {"K10": "qmm_wire", "K11": "flash_attn", "K12": "decode_attn_gqa"}
+    sync(dev)
+    kernels.reset_launches()
+    outs = [entry() for _, _, _, entry, _, _, _ in cases]
+    sync(dev)
+    counts = dict(kernels.LAUNCHES)
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    for kern, *_ in cases:
+        want[keys[kern]] += 1
+    if counts != want:
+        raise AssertionError(f"conformance launches {counts} != {want}")
+    log(f"main-path launches ({name}): "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    reps = {
+        "K10": KernelReport("qmm_wire", "cuda", SRC_WIRE, K10_WIRE,
+                            "the 8B's Q4_K wq and gate, Q6_K down and head "
+                            "at B=1, bf16 compute: one launch each"),
+        "K11": KernelReport("flash_attn", "cuda", SRC_ATTN, K11_FLASH,
+                            "one 512-token prefill attention (B=1, H=32, "
+                            "T=512, S=1024, D=128), f32: one launch"),
+        "K12": KernelReport("decode_attn_gqa", "cuda", SRC_ATTN, K12_GQA,
+                            "one decode-step attention at pos 700 (B=1, "
+                            "Hkv=8, G=4, S=1024, bf16 cache): one launch")}
+    log(f"K10 NMSE <= {NMSE_KERNEL}, K11/K12 max|d| <= {ATTN_MAX_ABS} against "
+        "the plain twins; times are medians, L2 flushed")
+    for (kern, label, unit, entry, plain, (byts, ops, peak), lib), got in zip(
+            cases, outs):
+        want_ = plain()
+        if kern == "K10":
+            err, e2 = held(f"K10 {label}", got, want_)
+        else:
+            torch.cuda.synchronize()
+            err, e2 = float((got - want_).abs().max()), nmse(got, want_)
+            if not (err <= ATTN_MAX_ABS and torch.isfinite(got).all()):
+                raise AssertionError(f"{kern} {label}: max|d| {err}")
+        del want_
+        ms = time_ms(entry, iters=10)
+        pms = time_plain_ms(plain)
+        lms = lib() if lib is not None else None
+        bms, by = bound_ms(byts, ops, peak)
+        log(f"  {kern} {label}: max|d|={err:.3e} nmse={e2:.2e} "
+            f"kernel={ms:.4f}ms plain={pms:.3f}ms library="
+            f"{'n/a' if lms is None else f'{lms:.4f}ms'} bound={bms:.4f}ms "
+            f"({by}) {bms / ms:.0%} of bound")
+        if unit is not None:
+            reps[kern].add(1, err, ms, pms, byts, ops, peak, lms)
+    del cases, outs
+    phase_end(name, dev, t_ph)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return list(reps.values()), counts
+
+
 def build_phase(name, builder, dev):
     """Build a configuration on the card and print its layout."""
     t0 = time.perf_counter()
@@ -1488,6 +1677,9 @@ def main():
         reps, counts = run_phase(name, builder, check, dev)
         reports += reps
         runs.append(counts)
+    reps, counts = run_conformance(dev)
+    reports += reps
+    runs.append(counts)
 
     for r in reports:
         r.d["launches"] = sum(c[r.d["name"]] for c in runs)

@@ -36,6 +36,8 @@ SOURCES = {
     "fast_il": "fast_il.cu",        # K6 (byte and nibble planes, four
                                     # modes), K7 and K8
     "ffn_fused": "ffn_fused.cu",    # K9
+    "qmm_wire": "qmm_wire.cu",      # K10
+    "attention": "attention.cu",    # K11 and K12
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,7 +52,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: key; K7 fast_dual, fast_dual_coded (either part coded); K8 by family:
 #: fast_indirect (byte), fast_indirect_nibble, fast_indirect_coded; K9 by
 #: the family of its down planes: ffn_fused_byte, ffn_fused_nibble,
-#: ffn_fused_coded)
+#: ffn_fused_coded; K10 qmm_wire, K11 flash_attn, K12 decode_attn_gqa)
 LAUNCHES = {"qp8_gemv": 0, "qp8_dual": 0, "qp8_gemm": 0, "decode_attn": 0,
             "qp8_indirect": 0, "qp8_gemv_coded": 0, "qp8_dual_coded": 0,
             "qp8_gemm_coded": 0, "qp8_indirect_coded": 0,
@@ -61,7 +63,8 @@ LAUNCHES = {"qp8_gemv": 0, "qp8_dual": 0, "qp8_gemm": 0, "decode_attn": 0,
             "fast_coded_res": 0, "fast_coded_act": 0, "fast_dual": 0,
             "fast_dual_coded": 0, "fast_indirect": 0,
             "fast_indirect_nibble": 0, "fast_indirect_coded": 0,
-            "ffn_fused_byte": 0, "ffn_fused_nibble": 0, "ffn_fused_coded": 0}
+            "ffn_fused_byte": 0, "ffn_fused_nibble": 0, "ffn_fused_coded": 0,
+            "qmm_wire": 0, "flash_attn": 0, "decode_attn_gqa": 0}
 
 #: the C entries' code-map ids (0: uncoded planes); csrc/codes.cuh
 CODE_MAPS = {"": 0, "iq2": 1, "iq3xxs": 2, "iq3s": 3, "iq1": 4, "tern": 5}
@@ -71,6 +74,8 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+
+_L = ctypes.c_longlong
 
 _ARGTYPES = {
     "qp8_gemv_run": [_P, _P, _I, _F, _I, _I,
@@ -92,6 +97,12 @@ _ARGTYPES = {
     + [_I, _I, _F, _P, _P, _P, _P, _P, _P],
     "decode_attn_run": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                         _I, _F, _I, _P, _P, _P, _P],
+    "qmm_wire_run": [_I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F,
+                     _P, _P],
+    "flash_attn_run": [_P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _I, _I, _I,
+                       _F, _I, _P, _P],
+    "decode_attn_gqa_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F,
+                            _I, _P, _P, _P],
 }
 
 
@@ -602,3 +613,156 @@ def decode_attn(qkv, k_cache, v_cache, pos, cos_sin, *, Hq, Hkv, D, scale,
     _check(lib, rc, "decode_attn")
     LAUNCHES["decode_attn"] += 1
     return out, k_r, v_r
+
+
+#: K10's plane families, (bits_lo, bits_hi, signed, lut, superblock, asym)
+#: -> the C entry's id; the signed family holds Q8_0 and the expanded
+#: i-quants and ternary
+_WIRE_FAMILIES = {
+    (8, 0, True, False, False, "none"): 0,
+    (4, 0, False, True, False, "none"): 1,     # IQ4_NL
+    (4, 0, False, True, True, "none"): 2,      # IQ4_XS
+    (4, 0, False, False, False, "none"): 3,    # Q4_0
+    (4, 0, False, False, False, "min"): 4,     # Q4_1
+    (4, 1, False, False, False, "none"): 5,    # Q5_0
+    (4, 1, False, False, False, "min"): 6,     # Q5_1
+    (2, 0, False, False, True, "minsb"): 7,    # Q2_K
+    (2, 1, False, False, True, "none"): 8,     # Q3_K
+    (4, 0, False, False, True, "minsb"): 9,    # Q4_K
+    (4, 1, False, False, True, "minsb"): 10,   # Q5_K
+    (4, 2, False, False, True, "none"): 11,    # Q6_K
+}
+
+
+def wire_family(cfg) -> int:
+    key = (cfg.bits_lo, cfg.bits_hi, cfg.signed, cfg.lut, cfg.superblock,
+           cfg.asym)
+    if key not in _WIRE_FAMILIES:
+        raise NotImplementedError(f"{cfg.qtype.name}: no K10 family")
+    return _WIRE_FAMILIES[key]
+
+
+def qmm_wire(x, cfg, planes, K: int, compute_dtype=torch.bfloat16):
+    """K10 on the card: x f32 [B, K] against the wire planes (q, qh, d, sc,
+    dmin, m) of a QConfig, in the dtypes ops.qmatmul._wire_planes gives
+    them -> [B, n_pad] f32, the products of x and w rounded to
+    compute_dtype (bf16 or f32) summed in f32."""
+    q, qh, d, sc, dmin, m = planes
+    fam = wire_family(cfg)
+    _need(x, torch.float32, "x", 2)
+    B = x.shape[0]
+    n_pad = q.shape[0]
+    gs = cfg.gs
+    dg = K // 256 if cfg.superblock else K // gs
+    want = {"q": (q, torch.int8 if cfg.signed else torch.uint8,
+                  K * cfg.bits_lo // 8),
+            "qh": (qh, torch.uint8, K * cfg.bits_hi // 8),
+            "d": (d, torch.float32, dg),
+            "sc": (sc, torch.int8, K // gs),
+            "dmin": (dmin, torch.float32, K // 256),
+            "m": (m, torch.float32 if cfg.asym == "min" else torch.uint8,
+                  K // gs)}
+    used = {"q": True, "qh": cfg.bits_hi > 0, "d": True,
+            "sc": cfg.superblock, "dmin": cfg.asym == "minsb",
+            "m": cfg.asym in ("min", "minsb")}
+    for what, (t, dtype, cols) in want.items():
+        if not used[what]:
+            continue
+        if t is None:
+            raise ValueError(f"{cfg.qtype.name}: the {what} plane is missing")
+        _need(t, dtype, what, 2)
+        if t.shape != (n_pad, cols):
+            raise ValueError(f"{what} {tuple(t.shape)}: expected "
+                             f"[{n_pad}, {cols}]")
+    if x.shape[1] != K or K % 256 or n_pad % 64 or B < 1:
+        raise ValueError(f"x {tuple(x.shape)} vs K={K}, n_pad={n_pad}")
+    if compute_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"compute dtype {compute_dtype}")
+
+    def p(what, t):
+        return _ptr(t) if used[what] else None
+
+    dev = x.device
+    out = torch.empty((B, n_pad), dtype=torch.float32, device=dev)
+    lib = _lib("qmm_wire")
+    rc = lib.qmm_wire_run(fam, int(compute_dtype == torch.float32), _ptr(x),
+                          B, K, _ptr(q), p("qh", qh), _ptr(d), p("sc", sc),
+                          p("dmin", dmin), p("m", m), n_pad, gs,
+                          float(cfg.offset), _ptr(out), _stream(dev))
+    _check(lib, rc, "qmm_wire")
+    LAUNCHES["qmm_wire"] += 1
+    return out
+
+
+def flash_attn(q, k, v, mask, scale: float):
+    """K11 on the card: q [B,H,T,D], k/v [B,H,S,D] (f32, or bf16 all
+    three; D a multiple of 32 up to 128), mask additive, broadcastable to
+    [B,H,T,S] (f32, read through its broadcast strides) -> f32
+    [B,H,T,D]."""
+    dtype = q.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q dtype {dtype}: K11 takes f32 or bf16")
+    for what, t in (("q", q), ("k", k), ("v", v)):
+        _need(t, dtype, what, 4)
+    B, H, T, D = q.shape
+    S = k.shape[2]
+    if k.shape != (B, H, S, D) or v.shape != k.shape or D % 32 or D > 128:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}: D a multiple of 32 up to 128")
+    if not mask.is_cuda or mask.device != q.device:
+        raise ValueError("mask: expected a CUDA tensor on q's device")
+    mf = mask.to(torch.float32).expand(B, H, T, S)
+    out = torch.empty((B, H, T, D), dtype=torch.float32, device=q.device)
+    lib = _lib("attention")
+    rc = lib.flash_attn_run(_ptr(q), _ptr(k), _ptr(v), _ptr(mf), *mf.stride(),
+                            B, H, T, S, D, float(scale),
+                            int(dtype == torch.bfloat16), _ptr(out),
+                            _stream(q.device))
+    _check(lib, rc, "flash_attn")
+    LAUNCHES["flash_attn"] += 1
+    return out
+
+
+def _pick_nsplit(rows: int, S: int) -> int:
+    """K12's slot splits: enough blocks to cover the card twice, each split
+    at least 64 slots of the whole cache."""
+    return max(1, min(-(-264 // rows), -(-S // 64)))
+
+
+def decode_attn_gqa(qg, k, v, pos, scale: float, swa: int = 0,
+                    logit_cap: float = 0.0):
+    """K12 on the card: qg [B,Hkv,G,1,128] (f32 or bf16), k/v
+    [B,S,Hkv,128] bf16 or f32 (the cache layout), pos int32 [B] -> f32
+    [B,Hkv,G,1,128]; row b attends slots idx <= pos[b] (and pos[b] - idx
+    < swa when swa > 0)."""
+    B, Hkv, G, T, D = qg.shape
+    if D != 128 or T != 1 or not 1 <= G <= 8:
+        raise ValueError(f"qg {tuple(qg.shape)}: K12 takes head_dim 128, "
+                         "one token and up to 8 query heads a KV head")
+    cdt = k.dtype
+    if cdt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"cache dtype {cdt}: K12 takes bf16 or f32")
+    _need(k, cdt, "k", 4)
+    _need(v, cdt, "v", 4)
+    _need(pos, torch.int32, "pos", 1)
+    S = k.shape[1]
+    if k.shape != (B, S, Hkv, D) or v.shape != k.shape or pos.shape[0] != B:
+        raise ValueError(f"k {tuple(k.shape)} / pos {tuple(pos.shape)} vs "
+                         f"qg {tuple(qg.shape)}")
+    if not qg.is_cuda:
+        raise ValueError(f"qg: expected a CUDA tensor, got {qg.device}")
+    q32 = qg.to(torch.float32).contiguous()
+    nsplit = _pick_nsplit(B * Hkv, S)
+    dev = qg.device
+    part = torch.empty((B, Hkv, nsplit, G, D + 2), dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((B, Hkv, G, 1, D), dtype=torch.float32, device=dev)
+    lib = _lib("attention")
+    rc = lib.decode_attn_gqa_run(_ptr(q32), _ptr(k), _ptr(v), _ptr(pos), B,
+                                 Hkv, G, S, nsplit, float(scale), int(swa),
+                                 float(logit_cap),
+                                 int(cdt == torch.bfloat16), _ptr(part),
+                                 _ptr(out), _stream(dev))
+    _check(lib, rc, "decode_attn_gqa")
+    LAUNCHES["decode_attn_gqa"] += 1
+    return out

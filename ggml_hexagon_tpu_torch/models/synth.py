@@ -50,7 +50,8 @@ def random_qtensor(gen: torch.Generator, n: int, k: int, qtype: GGMLType,
     full width the attention logits then spread over ~1e4, the softmax is
     an argmax, and a rounding-level difference between two routes can
     switch the key a token attends to.  Here the sub-block mins centre the
-    values (m = sc, dmin = d * qmax / 2) and d sets the RMS.
+    values (m = sc, dmin = d * qmax / 2; Q4_1 and Q5_1, whose wire holds
+    the min itself, an f16-exact m = -d * qmax / 2) and d sets the RMS.
 
     The IQ4 types' codes index KVALUES_IQ4NL (-127..113, RMS about 67.4),
     so d is sized from that table's RMS; IQ4_XS draws its sub-scales over
@@ -120,6 +121,8 @@ def random_qtensor(gen: torch.Generator, n: int, k: int, qtype: GGMLType,
     if cfg.asym == "minsb":
         dmin = (d * ((n_q - 1) / 2)).half().float()
         m = sc.to(torch.uint8)
+    elif cfg.asym == "min":                        # Q4_1, Q5_1: f32 m plane
+        m = (-d * ((n_q - 1) / 2)).half().float()
     return QTensor(cfg, n, k, q, d, qh, sc, dmin, m)
 
 

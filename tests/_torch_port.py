@@ -106,25 +106,50 @@ def normed_input(seed: int, B: int, k: int):
     return x, float(np.float32(4.0) - mean)
 
 
-def wire_qtensor(qtype, n: int, k: int, seed: int = 0):
-    """A JAX wire QTensor of a K-quant or legacy type (Q4_0 ... Q6_K) in
-    the dtypes and shapes `quantize_tensor` gives: uniform packed bytes,
-    f16-exact scales, 6-bit sub-scales, with mins that centre the weights
-    (m = sc, dmin = d * (2^bits - 1) / 2) and d giving an RMS about
-    1/sqrt(k), as models/synth.random_qtensor draws them.  Drawn directly:
-    the package's K-quant encoder takes tens of seconds per 16 M weights.
-    n must be a multiple of 128 (no row padding)."""
+def wire_qtensor(qtype, n: int, k: int, seed: int = 0, n_align: int = 128):
+    """A JAX wire QTensor of any type in the dtypes and shapes
+    `quantize_tensor` gives (the expanded i-quants and ternary as
+    `coded_qtensor` draws them): uniform packed bytes (int8 values in
+    -127..127 for Q8_0), f16-exact scales, 6-bit sub-scales (IQ4_XS: signed
+    -32..31), with mins that centre the weights (m = sc, dmin = d *
+    (2^bits - 1) / 2; Q4_1 and Q5_1: an f32 m = -d * (2^bits - 1) / 2) and
+    d giving an RMS about 1/sqrt(k), as models/synth.random_qtensor draws
+    them; IQ4_NL draws the sign of d.  Rows past n, up to a multiple of
+    n_align, are zero, as `pack_tensor` pads them.  Drawn directly: the
+    package's K-quant encoder takes tens of seconds per 16 M weights, its
+    i-quant encoders seconds per 0.5 M."""
+    from ggml_hexagon_tpu.quant.iquants import KVALUES_IQ4NL
     from ggml_hexagon_tpu.quant.pack import QCONFIGS
 
     cfg = QCONFIGS[qtype]
-    assert n % 128 == 0 and not (cfg.signed or cfg.lut or cfg.expand)
+    if cfg.expand:
+        return coded_qtensor(qtype, n, k, seed, n_align)
     rng = np.random.default_rng(seed * 1009 + int(qtype) * 31 + n + k)
+    u_rms = np.sqrt(1 / 3 + 0.05 + 0.05 ** 2)        # of U(0.05, 1.05)
+    if cfg.signed or cfg.lut:
+        if cfg.signed:                               # Q8_0
+            q = rng.integers(-127, 128, (n, k)).astype(np.int8)
+            q_rms = np.sqrt((255 * 255 - 1) / 12)
+        else:                                        # 4-bit LUT codes
+            q = rng.integers(0, 256, (n, k // 2), dtype=np.uint8)
+            q_rms = np.sqrt(np.mean(np.asarray(KVALUES_IQ4NL, np.float64) ** 2))
+        sc = None
+        if cfg.superblock:                           # IQ4_XS
+            sc = rng.integers(-32, 32, (n, k // cfg.gs)).astype(np.int8)
+            sc_rms, groups = np.sqrt(np.mean(np.arange(-32.0, 32.0) ** 2)), k // 256
+        else:
+            sc_rms, groups = 1.0, k // cfg.gs
+        d0 = 1.0 / (np.sqrt(k) * q_rms * sc_rms * u_rms)
+        d = ((rng.random((n, groups)) + 0.05) * d0).astype(np.float16).astype(
+            np.float32)
+        if cfg.lut and not cfg.superblock:           # IQ4_NL: signed d
+            d = d * rng.choice([-1.0, 1.0], d.shape).astype(np.float32)
+        return _pad_rows(JQTensor(cfg, n, k, q=q, d=d, sc=sc), n_align)
     n_q = 2 ** (cfg.bits_lo + cfg.bits_hi)
     q = rng.integers(0, 256, (n, k * cfg.bits_lo // 8), dtype=np.uint8)
     qh = (rng.integers(0, 256, (n, k * cfg.bits_hi // 8), dtype=np.uint8)
           if cfg.bits_hi else None)
     q_rms = np.sqrt((n_q * n_q - 1) / 12)
-    u_rms = np.sqrt(1 / 3 + 0.05 + 0.05 ** 2)        # of U(0.05, 1.05)
     sc = m = dmin = None
     if cfg.superblock:
         sc = rng.integers(0, 64, (n, k // cfg.gs)).astype(
@@ -138,4 +163,26 @@ def wire_qtensor(qtype, n: int, k: int, seed: int = 0):
     if cfg.asym == "minsb":
         dmin = (d * ((n_q - 1) / 2)).astype(np.float16).astype(np.float32)
         m = sc.astype(np.int32)
-    return JQTensor(cfg, n, k, q=q, d=d, qh=qh, sc=sc, dmin=dmin, m=m)
+    elif cfg.asym == "min":
+        m = (-d * ((n_q - 1) / 2)).astype(np.float16).astype(np.float32)
+    return _pad_rows(JQTensor(cfg, n, k, q=q, d=d, qh=qh, sc=sc, dmin=dmin,
+                              m=m), n_align)
+
+
+def _pad_rows(qt, n_align: int):
+    """Zero rows appended to every wire plane up to a multiple of
+    n_align."""
+    n_pad = -(-qt.n // n_align) * n_align
+    if n_pad == qt.n:
+        return qt
+
+    def pad(a):
+        if a is None:
+            return None
+        out = np.zeros((n_pad,) + a.shape[1:], a.dtype)
+        out[:qt.n] = a
+        return out
+
+    return JQTensor(qt.cfg, qt.n, qt.k, q=pad(qt.q), d=pad(qt.d),
+                    qh=pad(qt.qh), sc=pad(qt.sc), dmin=pad(qt.dmin),
+                    m=pad(qt.m))

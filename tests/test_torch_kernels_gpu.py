@@ -37,6 +37,11 @@ Tolerances, per kernel, with their reasons:
       f32 sums in another order can move xb and xd across a bf16 rounding
       step, and 1/sqrt and expf can differ in their last ulp.  NMSE <= 1e-6
       (about 1e-9 measured at Llama-3-8B widths with unit-scale inputs).
+  K10 (wire-plane dequant x matmul): the same f32 weight from the same
+      roundings, the same bf16 (or f32) operands, f32 sums in another
+      order.  NMSE <= 1e-6.
+  K11 (masked flash attention) and K12 (GQA cache attention): f32
+      throughout, another order and expf, as K4: max|d| <= 1e-4.
 """
 import pytest
 import torch
@@ -44,10 +49,12 @@ import torch
 from ggml_hexagon_tpu_torch import kernels
 from ggml_hexagon_tpu_torch.models.llama import qtensor_rows
 from ggml_hexagon_tpu_torch.models.synth import random_qtensor
+from ggml_hexagon_tpu_torch.ops import attention as PA
 from ggml_hexagon_tpu_torch.ops import decode_attn as PD
 from ggml_hexagon_tpu_torch.ops import ffn_fused as PFF
 from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
 from ggml_hexagon_tpu_torch.ops import qmm_qp8 as P
+from ggml_hexagon_tpu_torch.ops import qmatmul as PQ
 from ggml_hexagon_tpu_torch.quant.formats import GGMLType
 
 pytestmark = pytest.mark.gpu
@@ -625,6 +632,106 @@ def test_ffn_fused_kernel_matches_plain(dev, down, B):
     assert kernels.LAUNCHES[key] == before + 1
     assert got.shape == (B, d) and torch.isfinite(got).all()
     assert _nmse(got, want) <= NMSE_MAX
+
+
+#: one type of each K10 plane family, and two expanded (signed) types
+_K10_TYPES = [GGMLType.Q8_0, GGMLType.IQ4_NL, GGMLType.IQ4_XS, GGMLType.Q4_0,
+              GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q2_K,
+              GGMLType.Q3_K, GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K,
+              GGMLType.IQ2_XS, GGMLType.TQ1_0]
+_WIRE = {}
+
+
+def _wire(dev, n, k, qtype):
+    key = (n, k, qtype)
+    if key not in _WIRE:
+        g = torch.Generator(device=dev)
+        g.manual_seed(n + k + int(qtype))
+        _WIRE[key] = random_qtensor(g, n, k, qtype, dev)
+    return _WIRE[key]
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 512])
+@pytest.mark.parametrize("qtype", _K10_TYPES, ids=lambda t: t.name)
+def test_qmm_wire_kernel_matches_plain(dev, qtype, B):
+    """K10 through qmatmul(backend="pallas") at 1000 x 4096 (rows padded
+    to 1024): one launch, the plain twin's result."""
+    qt = _wire(dev, 1000, 4096, qtype)
+    x = _x(dev, B, 4096, seed=B)
+    before = kernels.LAUNCHES["qmm_wire"]
+    got = PQ.qmatmul(x, qt, backend="pallas")
+    want = PQ.qmatmul_pallas(x, qt, plain=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["qmm_wire"] == before + 1
+    assert got.shape == (B, 1000) and torch.isfinite(got).all()
+    assert _nmse(got, want) <= NMSE_MAX
+
+
+@pytest.mark.parametrize("B", [1, 8, 100])
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K,
+                                   GGMLType.Q5_1, GGMLType.IQ3_XXS],
+                         ids=lambda t: t.name)
+def test_qmm_wire_kernel_f32_matches_plain(dev, qtype, B):
+    qt = _wire(dev, 1000, 4096, qtype)
+    x = _x(dev, B, 4096, seed=B)
+    got = PQ.qmatmul_pallas(x, qt, compute_dtype=torch.float32)
+    want = PQ.qmatmul_pallas(x, qt, compute_dtype=torch.float32, plain=True)
+    torch.cuda.synchronize()
+    assert _nmse(got, want) <= NMSE_MAX
+
+
+def _causal_mask(dev, T, S, dead):
+    t = torch.arange(T, device=dev)[:, None]
+    s = torch.arange(S, device=dev)[None, :]
+    m = torch.where(s <= S - dead - T + t, 0.0, -1e30)
+    m[:, S - dead:] = -1e30
+    return m[None, None]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 4, 16, 512, 64), (1, 8, 100, 1024, 128)],
+                         ids=["fixture", "ragged_t"])
+def test_flash_attn_kernel_matches_plain(dev, dtype, shape):
+    """K11 on a broadcast causal mask with a dead tail, and with one row
+    whose slots are all masked (it averages v)."""
+    B, H, T, S, D = shape
+    q = _x(dev, B, H, T, D, seed=1).to(dtype)
+    k = _x(dev, B, H, S, D, seed=2).to(dtype)
+    v = _x(dev, B, H, S, D, seed=3).to(dtype)
+    mask = _causal_mask(dev, T, S, 64)
+    mask[..., 3, :] = -1e30
+    before = kernels.LAUNCHES["flash_attn"]
+    got = PA.flash_attention_pallas(q, k, v, mask, D ** -0.5, chunk=256)
+    want = PA.flash_attention_pallas(q, k, v, mask, D ** -0.5, chunk=256,
+                                     plain=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attn"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (B, H, T, D)
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("cache", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("pos", [[0], [700], [700, 3, 1023, 2000], [-1]],
+                         ids=["p0", "p700", "spread", "dead"])
+@pytest.mark.parametrize("swa,cap", [(0, 0.0), (256, 0.0), (0, 30.0)],
+                         ids=["plain", "swa", "cap"])
+def test_decode_attn_gqa_kernel_matches_plain(dev, cache, pos, swa, cap):
+    B, Hkv, G, S, D = len(pos), 8, 4, 1024, 128
+    qg = _x(dev, B, Hkv, G, 1, D, seed=4)
+    k = _x(dev, B, S, Hkv, D, seed=5).to(cache)
+    v = _x(dev, B, S, Hkv, D, seed=6).to(cache)
+    posb = torch.tensor(pos, dtype=torch.int32, device=dev)
+    before = kernels.LAUNCHES["decode_attn_gqa"]
+    got = PA.decode_attention_pallas(qg, k, v, posb, D ** -0.5, swa=swa,
+                                     logit_cap=cap)
+    want = PA.decode_attention_pallas(qg, k, v, posb, D ** -0.5, swa=swa,
+                                      logit_cap=cap, plain=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["decode_attn_gqa"] == before + 1
+    assert got.shape == qg.shape and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-4
 
 
 def test_wrappers_refuse_cpu_tensors_for_the_kernels(dev):

@@ -12,8 +12,12 @@ JAX package, on the same planes and inputs:
                the same f32 expression);
   take_rows    interleaved planes gather on their rows (axis 0);
   dispatch     `qmatmul` sends t-planes to qp8_matmul and interleaved
-               planes to K6, and raises where the port has no route.
+               planes to K6, the rows past 512 on planes with wire and a
+               weight without matmul planes to the wire route, and raises
+               where the port has no route.
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +32,8 @@ from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
 from ggml_hexagon_tpu_torch.ops.qmatmul import qmatmul
 from ggml_hexagon_tpu_torch.quant.pack import QCONFIGS, use_qp8_layout
 
+# the JAX ops package exports a function named qmatmul beside the module
+JQ = importlib.import_module("ggml_hexagon_tpu.ops.qmatmul")
 TOL = dict(rtol=5e-4, atol=5e-4)
 _QT = {}
 
@@ -111,7 +117,10 @@ def test_take_rows_interleaved_matches_jax():
 
 def test_qmatmul_dispatch():
     """t-planes -> qp8_matmul, interleaved -> K6 up to 512 rows; beyond
-    that, and for a weight without matmul planes, it raises."""
+    that on planes that keep their wire, and for a weight without matmul
+    planes, the wire route (qmatmul_xla), each held against the JAX
+    dispatcher in the same mode; beyond 512 rows on interleaved planes
+    without wire it raises (the JAX package runs K6's GEMM there)."""
     jq, pq = _qt()
     x = torch.from_numpy(np.random.default_rng(5).normal(
         size=(3, pq.k)).astype(np.float32))
@@ -124,11 +133,19 @@ def test_qmatmul_dispatch():
     assert pt.fl == "t"
     want = JF.qmatmul_fast(jnp.asarray(x.numpy()), jt, interpret=True)
     np.testing.assert_allclose(qmatmul(x, pt).numpy(), np.asarray(want), **TOL)
+    x513 = rng.normal(size=(513, pq.k)).astype(np.float32)
+    want = JQ.qmatmul(jnp.asarray(x513), jq)
+    np.testing.assert_allclose(qmatmul(torch.from_numpy(x513), pq).numpy(),
+                               np.asarray(want), **TOL)
     with pytest.raises(NotImplementedError):
-        qmatmul(torch.zeros(513, pq.k), pq)
-    with pytest.raises(NotImplementedError):
-        qmatmul(x, port_qt(quantize_tensor(
-            rng.normal(size=(128, 512)).astype(np.float32), GGMLType.Q8_0)))
+        qmatmul(torch.zeros(513, pq.k), pq.without_wire())
+    jw = quantize_tensor(rng.normal(size=(128, 512)).astype(np.float32),
+                         GGMLType.Q8_0)
+    pw = port_qt(jw)
+    assert pw.fq is None
+    np.testing.assert_allclose(qmatmul(x, pw).numpy(),
+                               np.asarray(JQ.qmatmul(jnp.asarray(x.numpy()),
+                                                     jw)), **TOL)
 
 
 def test_nibble_planes_raise():
