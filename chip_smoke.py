@@ -4,9 +4,12 @@
 
 1. builds the port's CUDA kernels from ggml_hexagon_tpu_torch/csrc;
 2. Llama-3-8B Q4_K_M (the first slice's path): holds K1 (qp8 decode GEMV),
-   K2 (dual QKV GEMV), K3 (qp8 prefill GEMM) and K4 (fused decode
-   attention) against their plain PyTorch versions at the main path's
-   shapes, timing kernel, plain version and a one-call PyTorch yardstick
+   K2 (dual QKV GEMV), K3 (qp8 prefill GEMM: wgmma on weights decoded in
+   registers, x by TMA; at M = 512 and at the 32- and 128-token buckets)
+   and K4 (fused decode attention, the live slots split over blocks and
+   merged; at pos 0, 1, 700 and 1023) against their plain PyTorch
+   versions at the main path's shapes, timing kernel, plain version and a
+   one-call PyTorch yardstick
    with CUDA events; builds the random model at full width and depth on
    the card and serves greedy requests through Engine (bf16 and q8_0 KV),
    the launch counters zeroed just before and read just after; profiles a
@@ -308,12 +311,18 @@ def check_kernels(dev, weights, cfg):
             ("down_q4k", dn_q4, len(layers) - n_dn_q6),
             ("down_q6k", dn_q6, n_dn_q6), ("head_q6k", head, 1)):
         k3_row(dev, gen, K3, name, qt, count)
+    log(f"K3 qp8_gemm at the 32- and 128-token prefill buckets (NMSE <= "
+        f"{NMSE_KERNEL})")
+    for M in (32, 128):
+        for name, qt in (("gate_up", full["w_gateup_il"]), ("down_q4k", dn_q4),
+                         ("down_q6k", dn_q6)):
+            k3_row(dev, gen, None, name, qt, 0, M=M)
 
     log(f"K4 decode_attn (S=1024, max|d| <= {ATTN_MAX_ABS})")
     Hq, Hkv, D, S = cfg.n_head, cfg.n_head_kv, cfg.hd, 1024
     for quant in (False, True):
         for B in (1, 4):
-            for pos in (0, 1, 700):
+            for pos in (0, 1, 700, S - 1):
                 qkv = randn(B, (Hq + 2 * Hkv) * D)
                 if quant:
                     kc = torch.randint(-127, 128, (B, S, Hkv * D), device=dev,

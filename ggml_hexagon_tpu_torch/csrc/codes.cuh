@@ -29,22 +29,36 @@
 constexpr int CM_NONE = 0, CM_IQ2 = 1, CM_IQ3XXS = 2, CM_IQ3S = 3, CM_IQ1 = 4,
               CM_TERN = 5;
 
-// v: four codes, one in each byte; sbit: the sign bit's position in a code
-// (2 for the t-planes' 2+1 layouts, 3 otherwise).  Returns four int8 values.
-__device__ __forceinline__ uint32_t decode4(uint32_t v, int cm, int sbit) {
-  if (cm == CM_TERN) return __vsub4(v, 0x01010101u);
-  uint32_t lo, hi;  // alphabet bytes 0-3 and 4-7
+// The alphabet of code map cm (not ternary) as eight bytes in two words,
+// bytes 0-3 and 4-7; a caller may look it up once, outside its loop.
+struct CodeAlphabet {
+  uint32_t lo, hi;
+};
+
+__device__ __forceinline__ CodeAlphabet code_alphabet(int cm) {
   switch (cm) {
-    case CM_IQ2: lo = 0x2B190800u; hi = 0x2B2B2B2Bu; break;
-    case CM_IQ3XXS: lo = 0x1C140C04u; hi = 0x3E342C24u; break;
-    case CM_IQ3S: lo = 0x07050301u; hi = 0x0F0D0B09u; break;
-    default: lo = 0x09070100u; hi = 0x09090909u; break;  // iq1
+    case CM_IQ2: return {0x2B190800u, 0x2B2B2B2Bu};
+    case CM_IQ3XXS: return {0x1C140C04u, 0x3E342C24u};
+    case CM_IQ3S: return {0x07050301u, 0x0F0D0B09u};
+    default: return {0x09070100u, 0x09090909u};  // iq1
   }
+}
+
+// decode4 with the alphabet given (tern: the ternary map, which has none).
+__device__ __forceinline__ uint32_t decode4_with(uint32_t v, CodeAlphabet al, bool tern,
+                                                 int sbit) {
+  if (tern) return __vsub4(v, 0x01010101u);
   const uint32_t c = v & (sbit == 2 ? 0x03030303u : 0x07070707u);
   // one 3-bit selector a byte, packed into the low 16 bits of the selector
   const uint32_t sel = (c & 0x7u) | ((c >> 4) & 0x70u) | ((c >> 8) & 0x700u) |
                        ((c >> 12) & 0x7000u);
-  const uint32_t mag = __byte_perm(lo, hi, sel);
+  const uint32_t mag = __byte_perm(al.lo, al.hi, sel);
   const uint32_t s = ((v >> sbit) & 0x01010101u) * 0xffu;
   return __vsub4(mag ^ s, s);
+}
+
+// v: four codes, one in each byte; sbit: the sign bit's position in a code
+// (2 for the t-planes' 2+1 layouts, 3 otherwise).  Returns four int8 values.
+__device__ __forceinline__ uint32_t decode4(uint32_t v, int cm, int sbit) {
+  return decode4_with(v, code_alphabet(cm), cm == CM_TERN, sbit);
 }

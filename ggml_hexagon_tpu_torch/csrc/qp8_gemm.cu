@@ -6,214 +6,656 @@
 // What bounds it: operations at the main path's 512-token chunks
 // (2*M*K*N bf16 flops against 4.5-6.5 bits per weight: ~1000 flops per
 // weight byte at M=512, past the card's bf16 ridge of ~295); bytes at
-// the 16- and 32-token buckets.
+// the 16- and 32-token buckets.  In practice, at M=512, also the
+// L2-to-SM traffic of x: every block of 128 lanes reads all of its token
+// tile of x, so x crosses from L2 n2/128 times.
 //
-// Design (a simple, right first version; wgmma/TMA wait for later work):
-//  * 128x128 output tiles, 8 warps of 64x32, bf16 WMMA 16x16x16 with f32
-//    accumulators, K walked in steps of 32.
-//  * Each step decodes a 32x128 weight tile from fq straight into shared
-//    memory: unpack, multiply by the group scale, and round w*scale to
-//    bf16, exactly as the TPU kernel does before its bf16 dot.  The
-//    dequantized weight never exists in device memory.
-//  * The affine bias (group sums of x times fb, or off*fs) is one f32
-//    [M,G]x[G,N] product in the TPU kernel; here the group sums come from a
-//    small pre-pass and each thread adds its columns' bias in f32 in the
-//    epilogue, from shared-memory tiles of the sums.
+// Design (Hopper: wgmma fed by a TMA/cp.async ring, warp-specialised):
+//  * Swap-AB.  The weight lanes are wgmma's M side and the tokens its N
+//    side: y^T[lanes, tokens] = W[lanes, K] x^T[K, tokens].  A block owns
+//    128 lanes (two consumer warpgroups of 64) and N tokens (32 for
+//    M <= 32, 128 for M <= 128, else 256: the 32- and 128-token buckets
+//    run without padding to 256).  The weight is bf16 only after the
+//    per-element decode and rounding, so it goes to wgmma from registers
+//    (A operand), decoded and rounded in place, and never exists in
+//    shared or device memory; x comes from shared memory (B operand,
+//    K-major).  The other option, decoding into a bf16 B tile in shared
+//    memory, would write and read every weight element once more through
+//    shared memory and pad M=32 to 64-row tiles.
+//  * A K-stage is 64 columns organised around the plane with the fewest
+//    bits: R byte rows r0..r0+R of that plane (R = 64 / values a byte)
+//    taken at all of their shifts, i.e. k = r0 + j + t*P (j < R, P the
+//    plane's period).  Every fq byte of the stage (low and high plane) is
+//    copied once, read from shared memory by the one thread that owns its
+//    lane and unpacked once per output tile.  x's columns come in the
+//    same order: one TMA copy per shift run t, an [N][R] block whose
+//    R*2-byte rows carry the swizzle of that width (64 and 32 bytes;
+//    none for 16), which is the operand layout wgmma reads.  The group
+//    scales of the stage (one row per group it touches) are staged beside
+//    the bytes and read once per 8-column chunk.
+//  * A producer warpgroup (its registers given to the consumers with
+//    setmaxnreg) fills a ring of stages: x by TMA, the plane bytes and
+//    scales by 16-byte cp.async, each stage's mbarrier counting both.  The
+//    two consumer warpgroups wait on it, decode their A fragments, issue
+//    four m64nNk16 wgmmas, and decode the next stage into a second set of
+//    fragments while those run; a stage is released once the products
+//    after it were issued.
+//  * Where the output tiles alone leave SMs idle (the 8B's 4096-lane wo
+//    and down, Mixtral's experts), K is split over blocks (the host picks
+//    the splits, kernels._gemm_splits) and a small kernel sums the
+//    partials in split order.
+//  * Every weight element is __float2bfloat16_rn(q * scale), rounded
+//    before the product as the TPU kernel's w.astype(bf16) * sc does;
+//    products go into f32 accumulators in registers.
+//  * The affine bias (x's group sums times fb, or off*fs) is an f32
+//    [M,G]x[G,N] product.  It runs as extra K-stages of the same
+//    pipeline, into the same accumulators: A is the fb (or bf16(off*fs))
+//    tile, B the group sums split exactly into three bf16 parts
+//    (hi + mid + lo == the f32 sum), written by a small pre-pass.  Each
+//    product is exact in f32, so only the order of the f32 sums differs
+//    from an f32 dot.  No C tile goes through shared memory: each thread
+//    stores its accumulators with 8-byte stores (8 threads cover 64
+//    contiguous bytes of an output row).
 //  * The planes' rows are addressed with a pitch `ld` apart from the lane
 //    count n2, so the MoE prefill runs one expert's lane slice of the
 //    stacked planes in place (no copy of ~35 GB of experts per chunk).
 //  * Coded planes (the i-quants and ternary) decode their codes to signed
-//    int8 values (codes.cuh `decode4`) where the four packed values are
-//    built; a value (at most 62 in magnitude) is exact in bf16, so
-//    bf16(q*scale) rounds as on the other planes.
+//    int8 values (codes.cuh `decode4_with`, the alphabet looked up once)
+//    four at a time; a value (at most 62 in magnitude) is exact in bf16,
+//    so bf16(q*scale) rounds as on the other planes.  The plane family
+//    (low/high bits) and CODED are template parameters: a run-time branch
+//    in the decode once cost the uncoded kernels 30-75%.
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "codes.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 32, NT = 256;
-constexpr int LDA = BK + 8;    // bf16 elements
-constexpr int LDB = BN + 8;    // bf16 elements
-constexpr int LDC = BN + 4;    // floats
-constexpr int GCH = 32;        // groups per bias chunk
-constexpr int SMEM_TILES = BM * LDA * 2 + BK * LDB * 2;
-constexpr int SMEM_C = BM * LDC * 4;
-constexpr int SMEM_BYTES = (SMEM_TILES > SMEM_C ? SMEM_TILES : SMEM_C) + BM * GCH * 4;
+constexpr int KT = 64;          // K columns a stage
+constexpr int NCW = 8;          // consumer warps (two warpgroups)
+constexpr int NPT = 128;        // producer threads (one warpgroup)
+constexpr int NTH = NCW * 32 + NPT;
+constexpr int BNL = 128;        // weight lanes a block
+constexpr int RP = 144;         // raw weight row pitch in shared memory
+constexpr int FBP = 272;        // fb tile row pitch (64 groups x 128 lanes bf16)
+constexpr int SCP = 256;        // scale row pitch
+constexpr int SCL_OFF = 48 * RP;     // scales after at most 48 raw rows
+constexpr int AREA = 64 * FBP;       // per-stage weight/bias area (bytes)
 
-__device__ __forceinline__ float bf2f(uint16_t v) {
-  return __uint_as_float(((uint32_t)v) << 16);
+__host__ __device__ constexpr int xtile_bytes(int n) { return n * KT * 2; }
+__host__ __device__ constexpr int stage_bytes(int n) { return xtile_bytes(n) + AREA; }
+__host__ __device__ constexpr int n_stages(int n) { return n >= 256 ? 4 : n >= 128 ? 6 : 8; }
+__host__ __device__ constexpr int smem_bytes(int n) {
+  return 1024 + n_stages(n) * stage_bytes(n) + 2 * n_stages(n) * 8;
+}
+static_assert(stage_bytes(256) % 1024 == 0 && stage_bytes(128) % 1024 == 0 &&
+              stage_bytes(32) % 1024 == 0, "x tiles must stay 1024-aligned");
+static_assert(SCL_OFF + 8 * SCP <= AREA, "weight stage overflows its area");
+
+__device__ __forceinline__ float bf2f(uint32_t v) { return __uint_as_float(v << 16); }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// xg[m, g] = sum of the gs bf16 values of x row m in group g (f32).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// One arrival on bar that also expects `bytes` from TMA copies.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0,
+                                            int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// arrives on bar once this thread's earlier cp.async copies have landed
+__device__ __forceinline__ void mbar_arrive_cp_async(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Waits for the phase of parity `parity` to complete; traps (a launch
+// error, not a hang) if it never does.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t ok = 0;
+  for (long long spin = 0;; ++spin) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (ok) return;
+    if (spin > (1ll << 26)) __trap();
+  }
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Descriptor of a K-major bf16 operand in shared memory: start address,
+// leading and stride byte offsets, and the swizzle (layout type 1: 128-byte,
+// 2: 64-byte, 3: 32-byte rows; 0: none, 8x16-byte core matrices).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, int lbo, int sbo, int layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)layout << 62);
+}
+
+// The x tile of a weight stage holds one block per shift run t, [N][R]
+// bf16 rows of R*2 bytes, as TMA wrote them with the matching swizzle:
+// 64-byte rows (R=32) and 32-byte rows (R=16) are swizzled atoms of 8 rows,
+// 16-byte rows (R=8) are plain core matrices, the next run's block LBO
+// bytes on.  Returns the descriptor of 16-column step s.
+template <int R, int N>
+__device__ __forceinline__ uint64_t weight_step_desc(uint32_t xs, int s) {
+  const int c0 = 16 * s;                         // first column of the step
+  const uint32_t addr = xs + (c0 / R) * N * R * 2 + (c0 % R) * 2;
+  if constexpr (R == 32) return smem_desc(addr, 16, 8 * 64, 2);
+  else if constexpr (R == 16) return smem_desc(addr, 16, 8 * 32, 3);
+  else return smem_desc(addr, N * 16, 128, 0);
+}
+
+// D[64 x 32] += A[64 x 16] (registers) * B[16 x 32] (shared, K-major,
+// 128-byte swizzle)
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] (registers) * B[16 x 128]
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// D[64 x 256] += A[64 x 16] (registers) * B[16 x 256]
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tile(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  if constexpr (N == 256) wgmma_n256(d, a, desc);
+  else if constexpr (N == 128) wgmma_n128(d, a, desc);
+  else wgmma_n32(d, a, desc);
+}
+
+// The geometry of a plane family: BL low bits, BH high bits a value.
+template <int BL, int BH>
+struct Fam {
+  static constexpr int PER_LO = 8 / BL;              // values a low byte
+  static constexpr int PER_MIN = 8 / (BH ? BH : BL); // values a byte of the
+                                                     // plane with fewest bits
+  static constexpr int R = KT / PER_MIN;             // its byte rows a stage
+  static constexpr int U = PER_MIN / PER_LO;         // low rows per such row
+  static constexpr int JB = R / 8;                   // 8-column runs per shift
+  static constexpr int LO_ROWS = U * R;
+  static constexpr int ROWS = LO_ROWS + (BH ? R : 0);
+  static_assert(R >= 8 && ROWS <= 48, "stage geometry");
+};
+
+// Column c of a stage (chunk cc = c / 8 of 8 consecutive k) maps to
+// t = cc / JB (the shift run) and jb = cc % JB: k = r0 + 8*jb + (c%8) + t*P.
+
+// xgs[m, p*Gp + g] = part p of the f32 sum of x row m over group g
+// (hi, mid, lo: three bf16 values whose sum is the f32 sum exactly);
+// zero for g >= G.
 __global__ void group_sums_kernel(const uint16_t* __restrict__ x, int M, int K,
-                                  int gs, float* __restrict__ xg) {
+                                  int gs, int Gp, __nv_bfloat16* __restrict__ xgs) {
   const int G = K / gs;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= M * G) return;
-  const int m = e / G, g = e % G;
-  const uint16_t* p = x + (size_t)m * K + (size_t)g * gs;
+  if (e >= M * Gp) return;
+  const int m = e / Gp, g = e % Gp;
   float s = 0.f;
-  for (int i = 0; i < gs; ++i) s += bf2f(p[i]);
-  xg[e] = s;
+  if (g < G) {
+    const uint16_t* p = x + (size_t)m * K + (size_t)g * gs;
+    for (int i = 0; i < gs; ++i) s += bf2f(p[i]);
+  }
+  const __nv_bfloat16 hi = __float2bfloat16_rn(s);
+  const float r1 = s - __bfloat162float(hi);
+  const __nv_bfloat16 mid = __float2bfloat16_rn(r1);
+  const __nv_bfloat16 lo = __float2bfloat16_rn(r1 - __bfloat162float(mid));
+  __nv_bfloat16* row = xgs + (size_t)m * 3 * Gp;
+  row[g] = hi;
+  row[Gp + g] = mid;
+  row[2 * Gp + g] = lo;
 }
 
-// CODED: the planes carry codes (cm != 0), decoded where the packed
-// values are built; the uncoded instance keeps no decode in its loop.
-template <bool CODED>
-__global__ void __launch_bounds__(NT) qp8_gemm_kernel(
-    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ fq,
-    const uint16_t* __restrict__ fs, const uint16_t* __restrict__ fb, int n2,
-    int ld, int bl, int bh, int gs, float off, int cm, int M, int K,
-    const float* __restrict__ xg, float* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + BM * LDA;
-  float* Cs = reinterpret_cast<float*>(smem);  // aliases the tiles after the K loop
-  float* Xg = reinterpret_cast<float*>(smem + (SMEM_TILES > SMEM_C ? SMEM_TILES : SMEM_C));
+struct Args {
+  const __nv_bfloat16* x;
+  const uint8_t* fq;
+  const __nv_bfloat16* fs;
+  const __nv_bfloat16* fb;   // null: the bias is off*fs (when bias)
+  const __nv_bfloat16* xgs;  // [M, 3*Gp] (when bias)
+  float* out;                // [M, n2], or [ks, M, n2] partials when ks > 1
+  int n2, ld, gs, gs_shift, cm, M, K, G, Gp, ks;
+  float off;
+  int bias;
+};
 
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int rows_lo = K * bl / 8;
-  const int rows_hi = K * bh / 8;
-  const uint32_t mlo = ((1u << bl) - 1u) * 0x01010101u;
-  const uint32_t mhi = ((1u << bh) - 1u) * 0x01010101u;
+// A fragments of one stage for one thread: ra[cc] holds lane a's columns
+// 8cc+e0 and 8cc+e0+1, rb[cc] lane a+1's.
+struct Frag {
+  uint32_t ra[8], rb[8];
+};
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+// Decode this thread's A fragments of weight stage `area` (raw fq rows,
+// then the stage's scale rows).
+template <int BL, int BH, bool CODED>
+__device__ __forceinline__ void decode_weights(const unsigned char* area, int lp, int e0,
+                                               int HG, const Args& a, CodeAlphabet al,
+                                               Frag& f) {
+  using F = Fam<BL, BH>;
+  constexpr uint32_t MLO = ((1u << BL) - 1u) * 0x01010101u;
+  constexpr uint32_t MHI = BH ? ((1u << BH) - 1u) * 0x01010101u : 0u;
+  uint32_t hw[F::JB];
+  if constexpr (BH != 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  // A-tile load slot: row ar, 16 columns at ah*16
-  const int ar = tid >> 1, ah = tid & 1;
-  // B-tile decode slot: rows 4*rq..4*rq+3, columns 4*cq..4*cq+3
-  const int cq = tid & 31, rq = tid >> 5;
-  const int nB = n0 + cq * 4;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    {
-      uint4 v0 = make_uint4(0, 0, 0, 0), v1 = make_uint4(0, 0, 0, 0);
-      if (m0 + ar < M) {
-        const uint4* src = reinterpret_cast<const uint4*>(x + (size_t)(m0 + ar) * K + k0 + ah * 16);
-        v0 = src[0];
-        v1 = src[1];
-      }
-      uint4* dstp = reinterpret_cast<uint4*>(As + ar * LDA + ah * 16);
-      dstp[0] = v0;
-      dstp[1] = v1;
+    for (int jb = 0; jb < F::JB; ++jb) {
+      const int row = F::LO_ROWS + 8 * jb + e0;
+      hw[jb] = *reinterpret_cast<const uint16_t*>(area + row * RP + lp) |
+               ((uint32_t)*reinterpret_cast<const uint16_t*>(area + (row + 1) * RP + lp) << 16);
     }
-    {
-      const int s_lo = k0 / rows_lo;
-      const int lo_shift = bl * s_lo;
-      const int lo_base = k0 - s_lo * rows_lo;
-      int hi_shift = 0, hi_base = 0;
-      if (bh) {
-        const int s_hi = k0 / rows_hi;
-        hi_shift = bh * s_hi;
-        hi_base = rows_lo + k0 - s_hi * rows_hi;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = rq * 4 + i;
-        const uint32_t w = __ldg(reinterpret_cast<const unsigned int*>(fq + (size_t)(lo_base + r) * ld + nB));
-        uint32_t v = (w >> lo_shift) & mlo;
-        if (bh) {
-          const uint32_t h = __ldg(reinterpret_cast<const unsigned int*>(fq + (size_t)(hi_base + r) * ld + nB));
-          v |= ((h >> hi_shift) & mhi) << bl;
-        }
-        if (CODED) v = decode4(v, cm, bh ? 2 : 3);
-        const int g = (k0 + r) / gs;
-        const uint2 sraw = __ldg(reinterpret_cast<const uint2*>(fs + (size_t)g * ld + nB));
-        const float sc[4] = {bf2f(sraw.x & 0xffff), bf2f(sraw.x >> 16),
-                             bf2f(sraw.y & 0xffff), bf2f(sraw.y >> 16)};
-        uint32_t wb[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const uint32_t b = (v >> (8 * c)) & 0xffu;
-          const float q = CODED ? (float)(int8_t)(uint8_t)b : (float)b;
-          wb[c] = __bfloat16_as_ushort(__float2bfloat16_rn(q * sc[c]));
-        }
-        *reinterpret_cast<uint2*>(Bs + r * LDB + cq * 4) =
-            make_uint2(wb[0] | (wb[1] << 16), wb[2] | (wb[3] << 16));
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 64 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + kk * LDB + wn * 32 + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
   }
+#pragma unroll
+  for (int u = 0; u < F::U; ++u) {
+#pragma unroll
+    for (int jb = 0; jb < F::JB; ++jb) {
+      const int row = u * F::R + 8 * jb + e0;
+      // bytes: lane a col e0, lane b col e0, lane a col e0+1, lane b col e0+1
+      const uint32_t lw =
+          *reinterpret_cast<const uint16_t*>(area + row * RP + lp) |
+          ((uint32_t)*reinterpret_cast<const uint16_t*>(area + (row + 1) * RP + lp) << 16);
+#pragma unroll
+      for (int s = 0; s < F::PER_LO; ++s) {
+        const int t = u + F::U * s;
+        const int cc = t * F::JB + jb;
+        uint32_t v = (lw >> (BL * s)) & MLO;
+        if constexpr (BH != 0) v |= ((hw[jb] >> (BH * t)) & MHI) << BL;
+        // each byte into a float's low mantissa: 2^23 + byte (signed codes
+        // biased by 128 first)
+        float bias = 8388608.f;
+        if constexpr (CODED) {
+          v = decode4_with(v, al, a.cm == CM_TERN, BH ? 2 : 3) ^ 0x80808080u;
+          bias = 8388736.f;
+        }
+        const float f0 = __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7650)) - bias;
+        const float f1 = __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7651)) - bias;
+        const float f2 = __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7652)) - bias;
+        const float f3 = __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7653)) - bias;
+        const int srow = t * HG + (F::R > a.gs ? (8 * jb) >> a.gs_shift : 0);
+        const uint32_t sw =
+            *reinterpret_cast<const uint32_t*>(area + SCL_OFF + srow * SCP + 2 * lp);
+        const float sa = bf2f(sw & 0xffffu), sb = bf2f(sw >> 16);
+        const __nv_bfloat162 pa = __floats2bfloat162_rn(f0 * sa, f2 * sa);
+        const __nv_bfloat162 pb = __floats2bfloat162_rn(f1 * sb, f3 * sb);
+        f.ra[cc] = *reinterpret_cast<const uint32_t*>(&pa);
+        f.rb[cc] = *reinterpret_cast<const uint32_t*>(&pb);
+      }
+    }
+  }
+}
 
+// A fragments of a bias stage: the fb tile (or bf16(off * fs)).
+__device__ __forceinline__ void decode_bias(const unsigned char* area, int lp, int e0,
+                                            const Args& a, Frag& f) {
+  const bool use_off = a.fb == nullptr;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int cc = 0; cc < 8; ++cc) {
+    const int row = 8 * cc + e0;
+    const uint32_t x0 = *reinterpret_cast<const uint32_t*>(area + row * FBP + 2 * lp);
+    const uint32_t x1 = *reinterpret_cast<const uint32_t*>(area + (row + 1) * FBP + 2 * lp);
+    uint32_t va = __byte_perm(x0, x1, 0x5410), vb = __byte_perm(x0, x1, 0x7632);
+    if (use_off) {
+      const __nv_bfloat162 pa = __floats2bfloat162_rn(a.off * bf2f(va & 0xffffu),
+                                                      a.off * bf2f(va >> 16));
+      const __nv_bfloat162 pb = __floats2bfloat162_rn(a.off * bf2f(vb & 0xffffu),
+                                                      a.off * bf2f(vb >> 16));
+      va = *reinterpret_cast<const uint32_t*>(&pa);
+      vb = *reinterpret_cast<const uint32_t*>(&pb);
+    }
+    f.ra[cc] = va;
+    f.rb[cc] = vb;
+  }
+}
+
+// The four 16-column wgmmas of a stage: weight stages read x in their
+// family's blocks, bias stages a plain [N][64] tile with the 128-byte
+// swizzle.
+template <int R, int N>
+__device__ __forceinline__ void issue_stage(float (&acc)[N / 2], const Frag& f, uint32_t xs,
+                                            bool weights) {
+  wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 64 + i * 16) * LDC + wn * 32 + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
+  for (int s = 0; s < KT / 16; ++s) {
+    const uint32_t frag[4] = {f.ra[2 * s], f.rb[2 * s], f.ra[2 * s + 1], f.rb[2 * s + 1]};
+    const uint64_t desc = weights ? weight_step_desc<R, N>(xs, s)
+                                  : smem_desc(xs + 32 * s, 16, 1024, 1);
+    wgmma_tile<N>(acc, frag, desc);
+  }
+  wgmma_commit();
+}
+
+template <int BL, int BH, bool CODED, int N>
+__global__ void __launch_bounds__(NTH, 1) qp8_gemm_kernel(
+    const Args a, const __grid_constant__ CUtensorMap tmx,
+    const __grid_constant__ CUtensorMap tmg) {
+  using F = Fam<BL, BH>;
+  constexpr int NS = n_stages(N);
+  constexpr int SB = stage_bytes(N);
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw0 = smem_u32(smem_raw);
+  const uint32_t base = (raw0 + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw0);
+  const uint32_t bars = base + NS * SB;  // full[NS], then empty[NS]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n0 = blockIdx.x * BNL, m0 = blockIdx.y * N;
+  const int K = a.K;
+  const int P_lo = K * BL / 8;                   // low plane's period (rows)
+  const int P = BH ? K * BH / 8 : P_lo;          // fewest-bits plane's period
+  const int nws = K / KT;                        // weight stages
+  const int nst = nws + (a.bias ? 3 * a.Gp / KT : 0);
+  // this block's share of the stages (a split of K when ks > 1)
+  const int per = (nst + a.ks - 1) / a.ks;
+  const int s0 = blockIdx.z * per, ns = max(0, min(nst, s0 + per) - s0);
+  const int HG = F::R > a.gs ? F::R / a.gs : 1;  // scale rows per shift run
+
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(bars + 8 * s, NPT + 1);          // every producer thread's
+                                                 // copies, and the TMA's bytes
+      mbar_init(bars + 8 * (NS + s), NCW * 32);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  if (fb != nullptr || off != 0.f) {
-    const int G = K / gs;
-    const int col = tid & (BN - 1), rh = tid >> 7;  // rows rh*64 .. rh*64+63
-    float bsum[64];
+  if (warp >= NCW) {
+    // ---------------- producer warpgroup ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int pt = tid - NCW * 32;
+    for (int i = 0; i < ns; ++i) {
+      const int st = s0 + i, slot = i % NS;
+      if (i >= NS) mbar_wait(bars + 8 * (NS + slot), ((i / NS) & 1) ^ 1);
+      const uint32_t xs = base + slot * SB;
+      const uint32_t area = xs + xtile_bytes(N);
+      if (st < nws) {
+        const int r0 = st * F::R;
+        if (pt == 0) {  // x[m0.., r0 + t*P + j], one [N][R] block per run t
+          mbar_expect_tx(bars + 8 * slot, xtile_bytes(N));
 #pragma unroll
-    for (int r = 0; r < 64; ++r) bsum[r] = 0.f;
-    for (int g0 = 0; g0 < G; g0 += GCH) {
-      for (int e = tid; e < BM * GCH; e += NT) {
-        const int r = e / GCH, gg = e % GCH;
-        float v = 0.f;
-        if (m0 + r < M && g0 + gg < G) v = xg[(size_t)(m0 + r) * G + g0 + gg];
-        Xg[e] = v;
-      }
-      __syncthreads();
-      float fbv[GCH];
-#pragma unroll
-      for (int gg = 0; gg < GCH; ++gg) {
-        float f = 0.f;
-        if (g0 + gg < G) {
-          const size_t idx = (size_t)(g0 + gg) * ld + n0 + col;
-          f = fb != nullptr ? bf2f(fb[idx]) : off * bf2f(fs[idx]);
+          for (int t = 0; t < F::PER_MIN; ++t)
+            tma_load_2d(xs + t * N * F::R * 2, &tmx, r0 + t * P, m0, bars + 8 * slot);
         }
-        fbv[gg] = f;
+        for (int e = pt; e < F::ROWS * 8; e += NPT) {
+          const int row = e >> 3, c = e & 7;
+          const int grow = row < F::LO_ROWS ? r0 + (row % F::R) + (row / F::R) * P
+                                            : P_lo + r0 + (row - F::LO_ROWS);
+          cp_async16(area + row * RP + 16 * c, a.fq + (size_t)grow * a.ld + n0 + 16 * c, 16);
+        }
+        for (int e = pt; e < F::PER_MIN * HG * 16; e += NPT) {
+          const int row = e >> 4, c = e & 15;
+          const int g = ((r0 + (row / HG) * P) >> a.gs_shift) + row % HG;
+          cp_async16(area + SCL_OFF + row * SCP + 16 * c,
+                     a.fs + (size_t)g * a.ld + n0 + 8 * c, 16);
+        }
+      } else {
+        const int b = st - nws, gq = a.Gp / KT;
+        const int p = b / gq, g0 = (b % gq) * KT;
+        if (pt == 0) {  // the group sums' part p, groups g0..g0+63
+          mbar_expect_tx(bars + 8 * slot, xtile_bytes(N));
+          tma_load_2d(xs, &tmg, p * a.Gp + g0, m0, bars + 8 * slot);
+        }
+        const __nv_bfloat16* fbp = a.fb != nullptr ? a.fb : a.fs;
+        for (int e = pt; e < KT * 16; e += NPT) {
+          const int row = e >> 4, c = e & 15;
+          const int g = g0 + row;
+          cp_async16(area + row * FBP + 16 * c,
+                     fbp + (size_t)(g < a.G ? g : 0) * a.ld + n0 + 8 * c,
+                     g < a.G ? 16 : 0);
+        }
       }
-#pragma unroll
-      for (int r = 0; r < 64; ++r) {
-        const float* xr = Xg + (rh * 64 + r) * GCH;
-        float s = bsum[r];
-#pragma unroll
-        for (int gg = 0; gg < GCH; ++gg) s += xr[gg] * fbv[gg];
-        bsum[r] = s;
-      }
-      __syncthreads();
+      mbar_arrive_cp_async(bars + 8 * slot);
     }
-#pragma unroll
-    for (int r = 0; r < 64; ++r) Cs[(rh * 64 + r) * LDC + col] += bsum[r];
-    __syncthreads();
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
   }
 
-  for (int e = tid; e < BM * BN; e += NT) {
-    const int r = e / BN, c = e % BN;
-    if (m0 + r < M) out[(size_t)(m0 + r) * n2 + n0 + c] = Cs[r * LDC + c];
+  // ---------------- consumer warpgroups ----------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = warp >> 2, w = warp & 3;
+  const int e0 = 2 * (lane & 3);                     // this thread's column pair
+  const int lp = wg * 64 + w * 16 + 2 * (lane >> 2); // its lane pair (a, a+1)
+
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+
+  const CodeAlphabet al = code_alphabet(a.cm);   // looked up once
+  // Stage i's products run while stage i+1 is decoded (two fragment sets);
+  // a stage is released once the products after it were issued.
+  Frag fr[2];
+  auto step = [&](int i, Frag& f) {
+    const int st = s0 + i, slot = i % NS;
+    mbar_wait(bars + 8 * slot, (i / NS) & 1);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    const unsigned char* area = smem + slot * SB + xtile_bytes(N);
+    if (st < nws) decode_weights<BL, BH, CODED>(area, lp, e0, HG, a, al, f);
+    else decode_bias(area, lp, e0, a, f);
+    issue_stage<F::R, N>(acc, f, base + slot * SB, st < nws);
+  };
+  for (int i = 0; i < ns; i += 2) {
+    step(i, fr[0]);
+    if (i > 0) {
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      mbar_arrive(bars + 8 * (NS + (i - 1) % NS));
+    }
+    if (i + 1 < ns) {
+      step(i + 1, fr[1]);
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      mbar_arrive(bars + 8 * (NS + i % NS));
+    }
   }
+  wgmma_wait0();
+
+  // acc[4i + {0,1}]: lane a, tokens 8i + e0 + {0,1}; acc[4i + {2,3}]: lane a+1
+  float* outp = a.out + (size_t)blockIdx.z * a.M * a.n2 + n0 + lp;
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+    const int m = m0 + 8 * i + e0;
+    if (m < a.M)
+      *reinterpret_cast<float2*>(outp + (size_t)m * a.n2) = make_float2(acc[4 * i], acc[4 * i + 2]);
+    if (m + 1 < a.M)
+      *reinterpret_cast<float2*>(outp + (size_t)(m + 1) * a.n2) =
+          make_float2(acc[4 * i + 1], acc[4 * i + 3]);
+  }
+}
+
+// out[i] = sum over the ks partials, in split order.
+__global__ void ksum_kernel(const float4* __restrict__ part, int ks, size_t n4,
+                            float4* __restrict__ out) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  float4 s = part[i];
+  for (int k = 1; k < ks; ++k) {
+    const float4 v = part[(size_t)k * n4 + i];
+    s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+  }
+  out[i] = s;
+}
+
+// cuTensorMapEncodeTiled, a CUDA driver-API function, looked up through
+// the runtime's entry-point query (the library links no libcuda).
+PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// A 2-D bf16 tensor map of `rows` x `cols` (row pitch `pitch` elements)
+// whose box of `bc` columns x `br` rows lands in shared memory as rows of
+// bc*2 bytes, with the swizzle of that width (none for 16 bytes); rows past
+// the tensor's end read as zeros.
+bool encode_map(CUtensorMap* map, const void* base, int cols, int rows, int pitch, int bc,
+                int br) {
+  const auto fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)bc, (cuuint32_t)br};
+  const cuuint32_t es[2] = {1, 1};
+  const CUtensorMapSwizzle sw = bc == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : bc == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                : bc == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                           : CU_TENSOR_MAP_SWIZZLE_NONE;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+            strides, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BL, int BH, bool CODED, int N>
+int launch(const Args& a, cudaStream_t s) {
+  using F = Fam<BL, BH>;
+  static bool attr_set = false;
+  auto kern = qp8_gemm_kernel<BL, BH, CODED, N>;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(N));
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  // x's [N][R] blocks (a weight stage's runs) and the group sums' [N][64]
+  CUtensorMap tmx, tmg;
+  if (!encode_map(&tmx, a.x, a.K, a.M, a.K, F::R, N)) return (int)cudaErrorInvalidValue;
+  if (a.bias) {
+    if (!encode_map(&tmg, a.xgs, 3 * a.Gp, a.M, 3 * a.Gp, KT, N))
+      return (int)cudaErrorInvalidValue;
+  } else {
+    tmg = tmx;  // unused
+  }
+  dim3 grid(a.n2 / BNL, (a.M + N - 1) / N, a.ks);
+  kern<<<grid, NTH, smem_bytes(N), s>>>(a, tmx, tmg);
+  return (int)cudaGetLastError();
+}
+
+template <int BL, int BH, bool CODED>
+int launch_n(const Args& a, cudaStream_t s) {
+  if (a.M <= 32) return launch<BL, BH, CODED, 32>(a, s);
+  if (a.M <= 128) return launch<BL, BH, CODED, 128>(a, s);
+  return launch<BL, BH, CODED, 256>(a, s);
+}
+
+int launch_family(const Args& a, int bl, int bh, cudaStream_t s) {
+  if (a.cm) {
+    if (bl == 4 && bh == 0) return launch_n<4, 0, true>(a, s);   // iq3 codes
+    if (bl == 2 && bh == 0) return launch_n<2, 0, true>(a, s);   // ternary
+    if (bl == 2 && bh == 1) return launch_n<2, 1, true>(a, s);   // iq2, iq1
+  } else {
+    if (bl == 4 && bh == 0) return launch_n<4, 0, false>(a, s);  // Q4_K, Q4_0
+    if (bl == 4 && bh == 1) return launch_n<4, 1, false>(a, s);  // Q5_K, Q5_0
+    if (bl == 4 && bh == 2) return launch_n<4, 2, false>(a, s);  // Q6_K
+    if (bl == 2 && bh == 0) return launch_n<2, 0, false>(a, s);  // Q2_K
+    if (bl == 2 && bh == 1) return launch_n<2, 1, false>(a, s);  // Q3_K
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -223,42 +665,52 @@ extern "C" {
 const char* ght_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
 // x bf16 [M, K]; fq/fs/fb t-planes of n2 lanes and row pitch ld, coded
-// with code-map cm (0: uncoded); xg
-// scratch f32 [M, K/gs] (written here when a bias applies); out f32
+// with code-map cm (0: uncoded); xg scratch of at least M * 3 * Gp bf16
+// (Gp = K/gs rounded up to 64; written here when a bias applies); ks
+// splits of K, with ws scratch f32 [ks, M, n2] when ks > 1; out f32
 // [M, n2].
 int qp8_gemm_run(const void* x, const void* fq, const void* fs, const void* fb,
                  int n2, int ld, int bl, int bh, int gs, float off, int cm,
-                 int M, int K, float* xg, float* out, void* stream) {
+                 int M, int K, void* xg, int ks, float* ws, float* out,
+                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (K % BK || n2 % BN || (K * bl / 8) % BK || (bh && (K * bh / 8) % BK))
+  const int bmin = bh ? bh : bl;
+  const int R = KT * bmin / 8;
+  if (M < 1 || K % KT || n2 % BNL || ld % 16 || gs < 8 || (gs & (gs - 1)) ||
+      K % gs || (K * bmin / 8) % R || ks < 1 || (ks > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
-  const bool bias = fb != nullptr || off != 0.f;
-  if (bias) {
-    const int total = M * (K / gs);
-    group_sums_kernel<<<(total + 255) / 256, 256, 0, s>>>((const uint16_t*)x, M, K, gs, xg);
-    cudaError_t e = cudaGetLastError();
+  Args a;
+  a.x = (const __nv_bfloat16*)x;
+  a.fq = (const uint8_t*)fq;
+  a.fs = (const __nv_bfloat16*)fs;
+  a.fb = (const __nv_bfloat16*)fb;
+  a.xgs = (const __nv_bfloat16*)xg;
+  a.out = ks > 1 ? ws : out;
+  a.n2 = n2;
+  a.ld = ld;
+  a.gs = gs;
+  a.gs_shift = __builtin_ctz(gs);
+  a.cm = cm;
+  a.M = M;
+  a.K = K;
+  a.G = K / gs;
+  a.Gp = (a.G + KT - 1) / KT * KT;
+  a.ks = ks;
+  a.off = off;
+  a.bias = fb != nullptr || off != 0.f;
+  if (a.bias) {
+    if (xg == nullptr) return (int)cudaErrorInvalidValue;
+    const int total = M * a.Gp;
+    group_sums_kernel<<<(total + 255) / 256, 256, 0, s>>>(
+        (const uint16_t*)x, M, K, gs, a.Gp, (__nv_bfloat16*)xg);
+    const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(qp8_gemm_kernel<false>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         SMEM_BYTES);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(qp8_gemm_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
-  dim3 grid(n2 / BN, (M + BM - 1) / BM);
-  if (cm)
-    qp8_gemm_kernel<true><<<grid, NT, SMEM_BYTES, s>>>(
-        (const __nv_bfloat16*)x, (const uint8_t*)fq, (const uint16_t*)fs,
-        (const uint16_t*)fb, n2, ld, bl, bh, gs, off, cm, M, K, xg, out);
-  else
-    qp8_gemm_kernel<false><<<grid, NT, SMEM_BYTES, s>>>(
-        (const __nv_bfloat16*)x, (const uint8_t*)fq, (const uint16_t*)fs,
-        (const uint16_t*)fb, n2, ld, bl, bh, gs, off, cm, M, K, xg, out);
+  const int rc = launch_family(a, bl, bh, s);
+  if (rc != 0 || ks == 1) return rc;
+  const size_t n4 = (size_t)M * n2 / 4;
+  ksum_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, s>>>(
+      (const float4*)ws, ks, n4, (float4*)out);
   return (int)cudaGetLastError();
 }
 

@@ -15,6 +15,7 @@ after, to show the run went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -86,7 +87,7 @@ _ARGTYPES = {
                          _P, _P, _P, _I, _I, _I, _I, _F, _I,
                          _P, _P, _P, _I, _P, _P],
     "qp8_gemm_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I,
-                     _P, _P, _P],
+                     _P, _I, _P, _P, _P],
     "fast_il_run": [_I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _P, _I,
                     _P, _F, _P, _I, _P, _P, _P, _P],
     "fast_dual_run": [_P, _I, _I, _F] + [_P, _P, _P, _P, _I, _I, _I, _I, _F,
@@ -96,7 +97,7 @@ _ARGTYPES = {
     "ffn_fused_run": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I] + [_P] * 9
     + [_I, _I, _F, _P, _P, _P, _P, _P, _P],
     "decode_attn_run": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                        _I, _F, _I, _P, _P, _P, _P],
+                        _I, _F, _I, _I, _P, _P, _P, _P, _P],
     "qmm_wire_run": [_I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F,
                      _P, _P],
     "flash_attn_run": [_P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _I, _I, _I,
@@ -294,6 +295,31 @@ def qp8_dual(x, qt_a, qt_b, wn=None, eps=None):
     return _gemv_launch("qp8_dual", x, [qt_a, qt_b], wn, eps, "", None)
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _gemm_splits(M: int, n2: int, K: int, dev) -> int:
+    """K3's splits of K: more blocks when the output tiles alone leave the
+    card's SMs idle (the 8B's 4096-lane wo and down, Mixtral's experts),
+    taken only where they cut the waves of blocks by at least 15%, with
+    at least 8 stages of 64 columns a split."""
+    tokens = 32 if M <= 32 else 128 if M <= 128 else 256  # its token tile
+    blocks = n2 // 128 * -(-M // tokens)
+    sms = _sm_count(dev.index if dev.index is not None else
+                    torch.cuda.current_device())
+
+    def waves(ks):
+        return -(-blocks * ks // sms) / ks
+
+    best = 1
+    for ks in range(2, 9):
+        if K // 64 // ks >= 8 and waves(ks) < 0.85 * waves(best):
+            best = ks
+    return best
+
+
 def qp8_gemm(x, qt):
     """K3 on the card: x bf16 [M, K] -> [M, n2] f32."""
     _need(x, torch.bfloat16, "x", 2)
@@ -302,11 +328,17 @@ def qp8_gemm(x, qt):
         raise ValueError(f"x K={K} vs weight K={qt.k}")
     fq, fs, fb, n2, ld, bl, bh, gs, off, cm = _plane_args(qt)
     dev = x.device
-    xg = torch.empty((M, K // gs), dtype=torch.float32, device=dev)
+    # the group sums as three bf16 parts, groups padded to a stage of 64
+    gp = -(-(K // gs) // 64) * 64
+    xg = (torch.empty((M, 3 * gp), dtype=torch.bfloat16, device=dev)
+          if fb is not None or off else None)
+    ks = _gemm_splits(M, n2, K, dev)
+    ws = (torch.empty((ks, M, n2), dtype=torch.float32, device=dev)
+          if ks > 1 else None)
     out = torch.empty((M, n2), dtype=torch.float32, device=dev)
     lib = _lib("qp8_gemm")
     rc = lib.qp8_gemm_run(_ptr(x), fq, fs, fb, n2, ld, bl, bh, gs, off, cm, M,
-                          K, _ptr(xg), _ptr(out), _stream(dev))
+                          K, _ptr(xg), ks, _ptr(ws), _ptr(out), _stream(dev))
     key = "qp8_gemm_coded" if cm else "qp8_gemm"
     _check(lib, rc, key)
     LAUNCHES[key] += 1
@@ -601,6 +633,10 @@ def decode_attn(qkv, k_cache, v_cache, pos, cos_sin, *, Hq, Hkv, D, scale,
     if k_cache.shape[2] != Hkv * D or qkv.shape != (B, (Hq + 2 * Hkv) * D):
         raise ValueError("qkv / cache shapes do not match the head counts")
     dev = qkv.device
+    nsplit = _pick_nsplit(B * Hkv, S, min_slots=32)
+    # one partial a split and a head, and the fresh row's self-term
+    part = torch.empty((B, Hkv, nsplit + 1, Hq // Hkv, D + 2),
+                       dtype=torch.float32, device=dev)
     out = torch.empty((B, Hq * D), dtype=torch.float32, device=dev)
     k_r = torch.empty((B, Hkv * D), dtype=torch.float32, device=dev)
     v_r = torch.empty((B, Hkv * D), dtype=torch.float32, device=dev)
@@ -609,7 +645,7 @@ def decode_attn(qkv, k_cache, v_cache, pos, cos_sin, *, Hq, Hkv, D, scale,
         _ptr(qkv), _ptr(k_cache), _ptr(v_cache), _ptr(k_scale),
         _ptr(v_scale), _ptr(pos), _ptr(cos_sin), B, Hq, Hkv, S,
         n_dims or D, float(scale), int(swa), float(logit_cap), int(quant),
-        _ptr(out), _ptr(k_r), _ptr(v_r), _stream(dev))
+        nsplit, _ptr(part), _ptr(out), _ptr(k_r), _ptr(v_r), _stream(dev))
     _check(lib, rc, "decode_attn")
     LAUNCHES["decode_attn"] += 1
     return out, k_r, v_r
@@ -723,10 +759,11 @@ def flash_attn(q, k, v, mask, scale: float):
     return out
 
 
-def _pick_nsplit(rows: int, S: int) -> int:
-    """K12's slot splits: enough blocks to cover the card twice, each split
-    at least 64 slots of the whole cache."""
-    return max(1, min(-(-264 // rows), -(-S // 64)))
+def _pick_nsplit(rows: int, S: int, min_slots: int = 64) -> int:
+    """K12's (and, with min_slots=32, K4's) slot splits, from the shapes
+    alone: enough blocks to cover the card twice, each split at least
+    min_slots slots of the whole cache."""
+    return max(1, min(-(-264 // rows), -(-S // min_slots)))
 
 
 def decode_attn_gqa(qg, k, v, pos, scale: float, swa: int = 0,

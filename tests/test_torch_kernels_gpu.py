@@ -15,8 +15,11 @@ Tolerances, per kernel, with their reasons:
       last ulp of rsqrt/sigmoid, which can move an activation across an
       int8 rounding tie.  NMSE <= 1e-6.
   K3 (bf16 GEMM): identical bf16 products, f32 accumulation in another
-      order.  NMSE <= 1e-6.
-  K4 (attention): f32 throughout, another order and expf: max|d| <= 1e-4.
+      order (K split over blocks where the output tiles alone leave SMs
+      idle); the group bias is the f32 group sums, split exactly into
+      three bf16 parts, times fb, each product exact.  NMSE <= 1e-6.
+  K4 (attention): f32 throughout, another order and expf (the live slots
+      split over blocks, their partials merged): max|d| <= 1e-4.
   K5 (gathered-expert GEMV): K1's arithmetic on the selected lanes.
       NMSE <= 1e-6.
   K6 (interleaved byte planes), every mode: identical f32 (B <= 8) or
@@ -139,11 +142,24 @@ def test_qp8_dual_kernel_matches_plain(dev, B):
     assert _nmse(got, want) <= NMSE_MAX
 
 
-@pytest.mark.parametrize("M", [16, 100, 512])
+#: K3's M cases: the 9-row edge of the prefill route, the 32- and
+#: 128-token buckets (token tiles of 32 and 128), a ragged 200 and the
+#: 512-token chunk (tiles of 256); 16 and 100 as before
+_K3_M = [9, 16, 32, 100, 128, 200, 512]
+
+
+# Every t-plane family of K3: Q4_K with a stored bias (fb), Q6_K with the
+# offset bias (4+2 bits), Q5_K (4+1), Q4_0 (4 bits, offset), Q2_K (2 bits,
+# fb) and Q3_K (2+1, offset).  Q8_0 has no t-planes (its weights take the
+# interleaved byte planes, K6), so K3 never sees it.
+@pytest.mark.parametrize("M", _K3_M)
 @pytest.mark.parametrize("shape", [(1024, 4096, GGMLType.Q4_K),
                                    (512, 14336, GGMLType.Q6_K),
-                                   (1024, 4096, GGMLType.Q5_K)],
-                         ids=["q4k", "q6k", "q5k"])
+                                   (1024, 4096, GGMLType.Q5_K),
+                                   (1024, 4096, GGMLType.Q4_0),
+                                   (1024, 4096, GGMLType.Q2_K),
+                                   (1024, 4096, GGMLType.Q3_K)],
+                         ids=["q4k", "q6k", "q5k", "q4_0", "q2k", "q3k"])
 def test_qp8_gemm_kernel_matches_plain(dev, M, shape):
     n, k, qtype = shape
     qt = _qt(dev, n, k, qtype)
@@ -154,7 +170,8 @@ def test_qp8_gemm_kernel_matches_plain(dev, M, shape):
     assert _nmse(got, want) <= NMSE_MAX
 
 
-def test_qp8_gemm_and_gemv_kernels_take_expert_lane_slices(dev):
+@pytest.mark.parametrize("M", [100, 512])
+def test_qp8_gemm_and_gemv_kernels_take_expert_lane_slices(dev, M):
     """K3 and K1 on one expert's lane slice of stacked planes (a view with
     the stack's row pitch), against the plain version on a copy."""
     stack = _qt(dev, 4 * 1024, 4096, GGMLType.Q5_K)
@@ -162,7 +179,7 @@ def test_qp8_gemm_and_gemv_kernels_take_expert_lane_slices(dev):
     assert not e2.fq.is_contiguous()
     copy = type(e2)(e2.cfg, e2.n, e2.k, fq=e2.fq.contiguous(),
                     fs=e2.fs.contiguous(), fb=e2.fb.contiguous())
-    x = _x(dev, 100, 4096, seed=5).to(torch.bfloat16)
+    x = _x(dev, M, 4096, seed=5).to(torch.bfloat16)
     assert _nmse(P.qp8_gemm(x, e2), P.qp8_gemm_plain(x, copy)) <= NMSE_MAX
     x1 = _x(dev, 2, 4096, seed=6)
     assert _nmse(P.qp8_gemv(x1, e2), P.qp8_gemv_plain(x1, copy)) <= NMSE_MAX
@@ -171,6 +188,18 @@ def test_qp8_gemm_and_gemv_kernels_take_expert_lane_slices(dev):
 _MOE = {"gate_q5k": (14336, 4096, GGMLType.Q5_K),
         "down_q5k": (4096, 14336, GGMLType.Q5_K),
         "down_q6k": (4096, 14336, GGMLType.Q6_K)}
+
+
+@pytest.mark.parametrize("M", [32, 512])
+def test_qp8_gemm_kernel_without_k_splits(dev, M):
+    """A gate_up-wide K3 (224 lane tiles) fills the card without splitting
+    K; the narrow shapes above split it (partials summed on the card)."""
+    qt = _qt(dev, 28672, 4096, GGMLType.Q4_K)
+    assert kernels._gemm_splits(M, qt.fq.shape[1], qt.k, dev) == 1
+    assert kernels._gemm_splits(M, 1024, qt.k, dev) > 1
+    x = _x(dev, M, qt.k, seed=M).to(torch.bfloat16)
+    _counted("qp8_gemm", lambda: P.qp8_gemm(x, qt),
+             lambda: P.qp8_gemm_plain(x, qt))
 
 
 @pytest.mark.parametrize("stack", list(_MOE))
@@ -492,7 +521,7 @@ def test_qp8_dual_coded_kernel_matches_plain(dev, B):
 
 
 @pytest.mark.parametrize("name", list(_CODED))
-@pytest.mark.parametrize("M", [16, 100, 512])
+@pytest.mark.parametrize("M", _K3_M)
 def test_qp8_gemm_coded_kernel_matches_plain(dev, name, M):
     qt = _coded(dev, name, "t")
     x = _x(dev, M, qt.k, seed=M).to(torch.bfloat16)
@@ -569,13 +598,22 @@ def test_fast_dual_coded_kernel_matches_plain(dev, B, normed):
              lambda: PF.fast_dual_plain(x, a, b, **kw))
 
 
+#: K4's positions at S=1024: empty and one-slot caches, both sides of the
+#: split boundaries (B=1: 32 splits, so 32 and 33; B=4: 9 splits, 288 and
+#: 289), several tiles of 32 in a split (700), and the last slot
+_K4_POS = [0, 1, 2, 31, 32, 33, 288, 289, 700, 1023]
+
+
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("pos", [0, 1, 700])
+@pytest.mark.parametrize("pos", _K4_POS)
 @pytest.mark.parametrize("B", [1, 4])
 @pytest.mark.parametrize("swa,cap", [(0, 0.0), (100, 2.0)],
                          ids=["plain", "swa_cap"])
-def test_decode_attn_kernel_matches_plain(dev, quant, pos, B, swa, cap):
-    Hq, Hkv, D, S = 32, 8, 128, 1024
+@pytest.mark.parametrize("Hq,Hkv", [(32, 8), (8, 8), (32, 4)],
+                         ids=["G4", "G1", "G8"])
+def test_decode_attn_kernel_matches_plain(dev, quant, pos, B, swa, cap, Hq,
+                                          Hkv):
+    D, S = 128, 1024
     qkv = _x(dev, B, (Hq + 2 * Hkv) * D, seed=pos)
     if quant:
         kc = torch.randint(-127, 128, (B, S, Hkv * D), device=dev,
@@ -588,18 +626,28 @@ def test_decode_attn_kernel_matches_plain(dev, quant, pos, B, swa, cap):
         kc = _x(dev, B, S, Hkv * D, seed=1).to(torch.bfloat16)
         vc = _x(dev, B, S, Hkv * D, seed=2).to(torch.bfloat16)
         ks = vs = None
-    posb = torch.full((B,), pos, dtype=torch.int32, device=dev)
-    posb[-1] = max(0, pos - 3)  # rows at different positions
+    # rows at different positions (B=4: below, at half, past pos)
+    rows = [pos, max(0, pos - 3), pos // 2, min(S - 1, pos + 5)][:B]
+    posb = torch.tensor(rows, dtype=torch.int32, device=dev)
     inv = 500000.0 ** (-torch.arange(0, D, 2, device=dev).float() / D)
     ang = posb[:, None].float() * inv[None]
     cs = torch.cat([torch.cos(ang), torch.sin(ang)], dim=1).contiguous()
     kw = dict(Hq=Hq, Hkv=Hkv, D=D, scale=D ** -0.5, k_scale=ks, v_scale=vs,
               swa=swa, logit_cap=cap)
+    before = kernels.LAUNCHES["decode_attn"]
     got = PD.decode_attn(qkv, kc, vc, posb, cs, **kw)
     want = PD.decode_attn_plain(qkv, kc, vc, posb, cs, **kw)
     torch.cuda.synchronize()
+    assert kernels.LAUNCHES["decode_attn"] == before + 1
     for g, w in zip(got, want):
         assert float((g - w).abs().max()) <= 1e-4
+
+
+def test_decode_attn_splits_cover_the_card(dev):
+    """At B=1 on the 8B's 8 KV heads and a 1024-slot cache, K4 launches at
+    least one block an SM (flash-decoding over the live slots)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert 8 * kernels._pick_nsplit(8, 1024, min_slots=32) >= sms
 
 
 _K9_DOWN = {"q4k": GGMLType.Q4_K, "q6k": GGMLType.Q6_K, "q5k": GGMLType.Q5_K,
