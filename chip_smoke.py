@@ -70,6 +70,15 @@
    counters zeroed before and read after, each launch count exact, then
    each output held against its plain twin and timed.
 
+K6 above 8 rows is its own kernel, the wgmma GEMM of csrc/fast_il_gemm.cu
+(the ninth slice): every configuration whose prefill chunk runs it holds
+it against its plain version at M = 32, 128 and 512 on the chunk's shapes,
+and once at M = 1024 (outside the served path); its launches are counted
+apart by family and bias (kernels.GEMM_LAUNCHES, exact per chunk:
+GEMM_TABLES), and one report each (fast_byte_gemm, ..._derived,
+..._stored, fast_nibble_gemm_stored, fast_coded_gemm) sums one 512-token
+chunk of each configuration that runs it, logged per configuration too.
+
 Any failure raises: the script exits non-zero and prints no result.  The
 last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their times and bounds.  Card rates for the bounds: the H100
@@ -101,6 +110,7 @@ FLIP_MARGIN = 1e-3   # a routing flip between kernel and plain runs must be
 SRC_GEMV = "ggml_hexagon_tpu_torch/csrc/qp8_gemv.cu"
 SRC_GEMM = "ggml_hexagon_tpu_torch/csrc/qp8_gemm.cu"
 SRC_IL = "ggml_hexagon_tpu_torch/csrc/fast_il.cu"
+SRC_IL_GEMM = "ggml_hexagon_tpu_torch/csrc/fast_il_gemm.cu"
 K6_BYTE = "ggml_hexagon_tpu/ops/qmm_fast.py:510"
 K6_NIBBLE = "ggml_hexagon_tpu/ops/qmm_fast.py:497"
 K7_DUAL = "ggml_hexagon_tpu/ops/qmm_fast.py:872"
@@ -511,6 +521,37 @@ LAUNCH_TABLES = {
 }
 
 
+#: exact K6 GEMM launches (kernels.GEMM_LAUNCHES) of each configuration's
+#: 128- or 512-token prefill chunk, from its "chunk" entry above: the K6
+#: launches of more than 8 rows by family and bias (the prefill takes the
+#: head's logits on every row of the chunk); none at decode or the
+#: 8-bucket
+GEMM_TABLES = {
+    "Mixtral-8x7B Q5_K_M": dict(fast_byte_gemm=64),            # wk, wv Q8_0
+    "Llama-3-8B IQ4_XS": dict(fast_byte_gemm=124),             # IQ4_XS
+    "Mixtral-8x7B IQ4_XS": dict(fast_byte_gemm=832),           # and Q8_0
+    # wqkv, wqk, gate_up, wo, down Q4_K; wv, down and the head Q6_K
+    "Llama-3-8B Q4_K_M il": dict(fast_nibble_gemm_stored=112,
+                                 fast_byte_gemm_derived=33),
+    # wq and the Q4_K experts; wk, wv Q8_0; wo Q5_K; the Q6_K down experts
+    # and head
+    "Mixtral-8x7B Q4_K_M il": dict(fast_nibble_gemm_stored=672,
+                                   fast_byte_gemm=64,
+                                   fast_byte_gemm_stored=32,
+                                   fast_byte_gemm_derived=129),
+    # wqk, gate_up, wo, down; wv Q4_K; the Q5_K head
+    "Llama-3-8B IQ3_XXS il": dict(fast_coded_gemm=128,
+                                  fast_nibble_gemm_stored=32,
+                                  fast_byte_gemm_stored=1),
+    # wq and the experts; wk, wv Q8_0; wo and the head Q5_K
+    "Mixtral-8x7B IQ3_XXS il": dict(fast_coded_gemm=800, fast_byte_gemm=64,
+                                    fast_byte_gemm_stored=33),
+    "Mixtral-8x7B IQ3_XXS": dict(fast_byte_gemm=64),           # wk, wv Q8_0
+    "Llama-3-8B Q4_K_M il ffn": dict(fast_nibble_gemm_stored=112,
+                                     fast_byte_gemm_derived=33),
+}
+
+
 def want_launches(table, rows, step):
     """The exact launches of one forward over `rows` tokens (a decode step
     when `step`), all kernels, from a LAUNCH_TABLES entry."""
@@ -522,20 +563,25 @@ def want_launches(table, rows, step):
     return c
 
 
-def serve(dev, cfg, weights, table):
+def serve(dev, cfg, weights, name):
     """The main path: greedy requests through Engine, each prefill chunk
-    and decode step held to its exact launch counts (a LAUNCH_TABLES
-    entry); returns the launch counts of the whole run, zeroed just before
-    it, after checking that every kernel of the table ran."""
+    and decode step held to its exact launch counts (the LAUNCH_TABLES
+    entry of configuration `name`, and its GEMM_TABLES entry for K6's GEMM);
+    returns the launch counts of the whole run (K6's GEMM under its
+    GEMM_LAUNCHES keys), zeroed just before it, after checking that every
+    kernel of the tables ran."""
+    table = LAUNCH_TABLES[name]
     from ggml_hexagon_tpu_torch import kernels
     from ggml_hexagon_tpu_torch.runtime.engine import PREFILL_BUCKETS, Engine
 
     rng = np.random.default_rng(0)
+    gemm_table = GEMM_TABLES.get(name, {})
     kernels.reset_launches()
     for kv, n_prompt, n_gen in REQUESTS:
         eng = Engine(cfg, weights, max_seq=1024, kv_dtype=kv, device=dev)
         prompt = rng.integers(0, cfg.n_vocab, n_prompt)
         before = dict(kernels.LAUNCHES)
+        gemm_before = dict(kernels.GEMM_LAUNCHES)
         sync(dev)
         t0 = time.perf_counter()
         logits = eng.prefill(prompt[None])
@@ -547,6 +593,12 @@ def serve(dev, cfg, weights, table):
         want_pre = want_launches(table, bucket, step=False)
         if pre != want_pre:
             raise AssertionError(f"prefill launches {pre} != {want_pre}")
+        gemm = {k: v - gemm_before[k] for k, v in kernels.GEMM_LAUNCHES.items()}
+        want_gemm = dict.fromkeys(gemm, 0)
+        if bucket > 8:
+            want_gemm.update(gemm_table)
+        if gemm != want_gemm:
+            raise AssertionError(f"prefill K6 GEMM launches {gemm} != {want_gemm}")
         toks = [int(np.argmax(logits[0]))]
         mid = dict(kernels.LAUNCHES)
         sync(dev)
@@ -558,6 +610,9 @@ def serve(dev, cfg, weights, table):
             toks.append(int(np.argmax(lg[0])))
         dt = time.perf_counter() - t0
         dec = {k: kernels.LAUNCHES[k] - mid[k] for k in mid}
+        if any(kernels.GEMM_LAUNCHES[k] != v + gemm[k]
+               for k, v in gemm_before.items()):
+            raise AssertionError("K6's GEMM launched at decode")
         steps = n_gen - 1
         want_dec = {k: v * steps for k, v in
                     want_launches(table, 1, step=True).items()}
@@ -570,8 +625,9 @@ def serve(dev, cfg, weights, table):
             f"{ {k: v for k, v in pre.items() if v} }, launches per decode "
             f"step {per}, tokens {toks[:8]}...")
         del eng
-    counts = dict(kernels.LAUNCHES)
-    missing = [k for unit in table.values() for k in unit if counts[k] == 0]
+    counts = {**kernels.LAUNCHES, **kernels.GEMM_LAUNCHES}
+    missing = [k for unit in (*table.values(), gemm_table) for k in unit
+               if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     return counts
@@ -797,11 +853,13 @@ def check_kernels_moe(dev, weights, cfg):
             ("down_q6k", lw6["ffn_down_exps"], d, n_q6)):
         gather_rows(dev, gen, K5, name, qt, npe, per_step, 7)
 
-    log(f"K6 fast_byte (NMSE <= {NMSE_KERNEL})")
+    log(f"K6 fast_byte (NMSE <= {NMSE_KERNEL}; its GEMM above 8 rows, at "
+        "1024 rows outside the served path)")
     for name, qt in (("wk", layers[0]["wk"]), ("wv", layers[0]["wv"])):
-        for B in (1, 8, 128, 512):
+        for B in (1, 8, 32, 128, 512):
             k6_row(dev, gen, cfg, K6 if B == 1 else None, name, qt, "plain",
                    B, n_l)
+    k6_row(dev, gen, cfg, None, "wk", layers[0]["wk"], "plain", 1024, 0)
 
     log(f"K1 / K3 on the Mixtral shapes (NMSE <= {NMSE_KERNEL})")
     lw0 = layers[0]
@@ -828,12 +886,57 @@ def check_kernels_moe(dev, weights, cfg):
     return [K5, K6]
 
 
+#: K6's GEMM (B > 8, csrc/fast_il_gemm.cu) by family and bias, the
+#: kernels.GEMM_LAUNCHES key: its reports sum one 512-token chunk of each
+#: configuration that runs it (k6_row at B = 512), GEMM_CELL the chunk of
+#: the configuration being checked
+GEMM_REPORTS: dict = {}
+GEMM_CELL: dict = {}
+
+
+def gemm_add(qt, count, err, ms, pms, byts, ops, lib):
+    """A K6 GEMM row at B = 512, count launches of the chunk: into its
+    family's report and the current configuration's chunk sums."""
+    from ggml_hexagon_tpu_torch import kernels
+    from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
+
+    key = kernels.gemm_key(qt)
+    if key not in GEMM_REPORTS:
+        GEMM_REPORTS[key] = KernelReport(
+            key, "cuda", SRC_IL_GEMM,
+            K6_BYTE if PF._family(qt.cfg) == "byte" else K6_NIBBLE,
+            "one 512-token chunk of each configuration that runs it")
+    GEMM_REPORTS[key].add(count, err, ms, pms, byts, ops, BF16_OPS, lib)
+    cell = GEMM_CELL.setdefault(key, [0, 0.0, 0.0, 0.0, 0.0])
+    for i, v in enumerate((count, count * ms, count * pms, count * lib,
+                           count * bound_ms(byts, ops, BF16_OPS)[0])):
+        cell[i] += v
+
+
+def log_gemm_cell(name):
+    """The K6 GEMM launches of one 512-token chunk of configuration
+    `name`, by family, then their sum; GEMM_CELL emptied."""
+    if not GEMM_CELL:
+        return
+    tot = [0, 0.0, 0.0, 0.0, 0.0]
+    for key, (n, ms, pms, lib, bms) in sorted(GEMM_CELL.items()):
+        log(f"  K6 GEMM, {name} 512-token chunk, {key}: {n} launches, kernel "
+            f"{ms:.3f} ms, plain {pms:.1f} ms, bf16 yardstick {lib:.3f} ms, "
+            f"bound {bms:.3f} ms")
+        tot = [a + b for a, b in zip(tot, (n, ms, pms, lib, bms))]
+    log(f"  K6 GEMM, {name} 512-token chunk, all: {tot[0]} launches, kernel "
+        f"{tot[1]:.3f} ms, bf16 yardstick {tot[3]:.3f} ms "
+        f"({tot[1] / tot[3]:.2f}x), bound {tot[4]:.3f} ms")
+    GEMM_CELL.clear()
+
+
 def k6_row(dev, gen, cfg, rep, name, qt, mode, B, count):
     """One K6 call on interleaved planes of any family (byte, nibble or
-    coded), with or without a group bias (mode: plain, pre_il, normed, res, act with a residual):
-    kernel vs plain version on the group sums the entry would hand it,
-    kernel / plain / yardstick times and the bound; added to rep (when
-    given) count times."""
+    coded), with or without a group bias (mode: plain, pre_il, normed, res,
+    act with a residual): kernel vs plain version on the group sums the
+    entry would hand it, kernel / plain / yardstick times and the bound;
+    added to rep (when given) count times, and at B = 512 (K6's GEMM on the
+    512-token chunk) to its family's GEMM report count times."""
     from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
 
     K = qt.k
@@ -875,6 +978,8 @@ def k6_row(dev, gen, cfg, rep, name, qt, mode, B, count):
         f"{bms / ms:.0%} of bound")
     if rep is not None:
         rep.add(count, err, ms, pms, byts, ops, peak, lib)
+    if B == 512 and count:
+        gemm_add(qt, count, err, ms, pms, byts, ops, lib)
 
 
 def gather_rows(dev, gen, rep, name, qt, npe, per_step, seed):
@@ -1105,7 +1210,7 @@ def check_kernels_coded(dev, weights, cfg):
         for B in (1, 4, 8):
             dual_row(dev, gen, cfg, KD if B == 1 else None, lw["wqk"], lw["wv"],
                      B, n_l)
-        for B in (1, 8, 128, 512):
+        for B in (1, 8, 32, 128, 512):
             k6_row(dev, gen, cfg, KN if B == 1 else None, "gate_up",
                    lw["w_gateup_il"], "normed", B, n_l)
         for B in (1, 8):
@@ -1113,10 +1218,13 @@ def check_kernels_coded(dev, weights, cfg):
                    B, n_l)
             k6_row(dev, gen, cfg, KA if B == 1 else None, "down", lw["ffn_down"],
                    "act", B, n_l)
-        for B in (128, 512):  # the prefill's other coded launches
+        for B in (32, 128, 512):  # the prefill's other launches (wv: Q4_K)
             k6_row(dev, gen, cfg, None, "wqk", lw["wqk"], "normed", B, n_l)
+            k6_row(dev, gen, cfg, None, "wv", lw["wv"], "normed", B, n_l)
             k6_row(dev, gen, cfg, None, "wo", lw["wo"], "plain", B, n_l)
             k6_row(dev, gen, cfg, None, "down", lw["ffn_down"], "pre_il", B, n_l)
+            k6_row(dev, gen, cfg, None, "head_q5k", weights["output"], "plain", B, 1)
+        k6_row(dev, gen, cfg, None, "gate_up", lw["w_gateup_il"], "normed", 1024, 0)
         return [KD, KN, KR, KA]
 
     stacks = (("gate_up", lw["ffn_gate_exps"], nff, 2 * n_l),
@@ -1130,14 +1238,18 @@ def check_kernels_coded(dev, weights, cfg):
         log(f"K8 / K6 on coded nibble planes, Mixtral IQ3_XXS il shapes (NMSE <= {NMSE_KERNEL})")
         for name, qt, npe, per_step in stacks:
             gather_rows(dev, gen, K8, name, qt, npe, per_step, 14)
-        for B in (1, 8, 128, 512):
+        for B in (1, 8, 32, 128, 512):
             k6_row(dev, gen, cfg, KP if B == 1 else None, "wq", lw["wq"], "plain",
                    B, n_l)
-        for B in (128, 512):  # the dense prefill's expert slices
+        for B in (32, 128, 512):  # wk, wv (Q8_0), wo and head (Q5_K), experts
+            for name in ("wk", "wv", "wo"):
+                k6_row(dev, gen, cfg, None, name, lw[name], "plain", B, n_l)
+            k6_row(dev, gen, cfg, None, "head_q5k", weights["output"], "plain", B, 1)
             k6_row(dev, gen, cfg, None, "gate_e",
                    qtensor_rows(lw["ffn_gate_exps"], 0, nff), "plain", B, 2 * E * n_l)
             k6_row(dev, gen, cfg, None, "down_e",
                    qtensor_rows(lw["ffn_down_exps"], 0, d), "plain", B, E * n_l)
+        k6_row(dev, gen, cfg, None, "wq", lw["wq"], "plain", 1024, 0)
         return [K8, KP]
 
     K5 = report("qp8_indirect_coded", SRC_GEMV, "ggml_hexagon_tpu/ops/qmm_qp8.py:1022",
@@ -1147,6 +1259,9 @@ def check_kernels_coded(dev, weights, cfg):
         gather_rows(dev, gen, K5, name, qt, npe, per_step, 15)
     for B in (1, 8):
         k1_row(dev, gen, cfg, None, "wq", lw["wq"], "raw", B, n_l)
+    for B in (32, 128, 512):  # wk, wv: Q8_0 byte planes, K6
+        for name in ("wk", "wv"):
+            k6_row(dev, gen, cfg, None, name, lw[name], "plain", B, n_l)
     for name, qt, count in (
             ("wq", lw["wq"], n_l),
             ("gate_e", qtensor_rows(lw["ffn_gate_exps"], 0, nff), 2 * E * n_l),
@@ -1181,15 +1296,16 @@ def check_kernels_il(dev, weights, cfg):
         KR = report("fast_byte_res", f"one 8B IQ4_XS decode step (B=1): {n_l} launches")
         KA = report("fast_byte_act", f"one 8B IQ4_XS decode step (B=1): {n_dn} launches")
         log(f"K6 modes on the 8B IQ4_XS shapes (kernel vs plain, NMSE <= {NMSE_KERNEL})")
-        for B in (1, 8, 128, 512):
+        for B in (1, 8, 32, 128, 512):
             for name, qt in (("wqk", lw_il["wqk"]), ("gate_up", lw_il["w_gateup_il"])):
                 row(KN if B == 1 else None, name, qt, "normed", B, n_l)
         for B in (1, 8):
             row(KR if B == 1 else None, "wo", lw_il["wo"], "res", B, n_l)
             row(KA if B == 1 else None, "down", lw_il["ffn_down"], "act", B, n_dn)
-        for B in (128, 512):  # the prefill's plain launches
+        for B in (32, 128, 512):  # the prefill's plain launches
             row(None, "wo", lw_il["wo"], "plain", B, n_l)
             row(None, "down", lw_il["ffn_down"], "pre_il", B, n_dn)
+        row(None, "gate_up", lw_il["w_gateup_il"], "normed", 1024, 0)
         return [KN, KR, KA]
 
     E, nff, d = cfg.n_expert, cfg.n_ff_exp or cfg.n_ff, cfg.n_embd
@@ -1202,14 +1318,46 @@ def check_kernels_il(dev, weights, cfg):
     gather_rows(dev, gen, K8, "gate_up", lw_il["ffn_gate_exps"], nff, 2 * n_l, 9)
     gather_rows(dev, gen, K8, "down", lw_il["ffn_down_exps"], d, n_dn, 10)
     log(f"K6 plain mode on the Mixtral IQ4_XS shapes (NMSE <= {NMSE_KERNEL})")
-    for B in (1, 8, 128, 512):
+    for B in (1, 8, 32, 128, 512):
         row(None, "wq", layers[0]["wq"], "plain", B, n_l)
-    for B in (128, 512):  # the dense prefill's expert slices
+    for B in (32, 128, 512):  # wk, wv (Q8_0) and the dense prefill's experts
+        for name in ("wk", "wv"):
+            row(None, name, layers[0][name], "plain", B, n_l)
         row(None, "gate_e", qtensor_rows(lw_il["ffn_gate_exps"], 0, nff),
             "plain", B, 2 * E * n_l)
         row(None, "down_e", qtensor_rows(lw_il["ffn_down_exps"], 0, d),
             "plain", B, E * n_dn)
+    row(None, "wq", layers[0]["wq"], "plain", 1024, 0)
     return [K8]
+
+
+def il_8b_chunk(weights):
+    """The Llama-3-8B Q4_K_M il layers' planes (a wqkv layer, a wqk + wv
+    layer, a Q4_K and a Q6_K down, the wqkv and Q6_K-down layer counts)
+    and the K6 launches of its prefill chunk, (name, planes, mode, count),
+    the head's included, with or without the megakernel layout (the
+    prefill runs no K9)."""
+    layers = weights["layers"]
+    n_l = len(layers)
+    full = next(lw for lw in layers if "wqkv" in lw)
+    mixed = next(lw for lw in layers if "wqk" in lw)
+    n_full = sum("wqkv" in lw for lw in layers)
+
+    def dn(t):
+        return next(lw["ffn_down"] for lw in layers
+                    if lw["ffn_down"].cfg.qtype.name == t)
+
+    dn4, dn6 = dn("Q4_K"), dn("Q6_K")
+    n6 = sum(lw["ffn_down"].cfg.qtype.name == "Q6_K" for lw in layers)
+    chunk = [("wqkv", full["wqkv"], "normed", n_full),
+             ("wqk", mixed["wqk"], "normed", n_l - n_full),
+             ("wv_q6k", mixed["wv"], "normed", n_l - n_full),
+             ("gate_up", full["w_gateup_il"], "normed", n_l),
+             ("wo", full["wo"], "plain", n_l),
+             ("down_q4k", dn4, "pre_il", n_l - n6),
+             ("down_q6k", dn6, "pre_il", n6),
+             ("head_q6k", weights["output"], "plain", 1)]
+    return full, mixed, dn4, dn6, n_full, n6, chunk
 
 
 def check_kernels_nibble(dev, weights, cfg):
@@ -1233,17 +1381,8 @@ def check_kernels_nibble(dev, weights, cfg):
         k6_row(dev, gen, cfg, rep, name, qt, mode, B, count)
 
     if "ffn_gate_inp" not in layers[0]:
-        full = next(lw for lw in layers if "wqkv" in lw)
-        mixed = next(lw for lw in layers if "wqk" in lw)
-        n_full = sum("wqkv" in lw for lw in layers)
+        full, mixed, dn4, dn6, n_full, n6, chunk = il_8b_chunk(weights)
         n_mixed = n_l - n_full
-
-        def dn(t):
-            return next(lw["ffn_down"] for lw in layers
-                        if lw["ffn_down"].cfg.qtype.name == t)
-
-        dn4, dn6 = dn("Q4_K"), dn("Q6_K")
-        n6 = sum(lw["ffn_down"].cfg.qtype.name == "Q6_K" for lw in layers)
         unit = "one 8B Q4_K_M il decode step (B=1)"
         KN = report("fast_nibble_normed", K6_NIBBLE, f"{unit}: {n_full + n_l} launches")
         KR = report("fast_nibble_res", K6_NIBBLE, f"{unit}: {n_l} launches")
@@ -1253,20 +1392,17 @@ def check_kernels_nibble(dev, weights, cfg):
         BP = report("fast_byte", K6_BYTE, f"{unit}: 1 launch (Q6_K head, derived bias)")
         KD = report("fast_dual", K7_DUAL, f"{unit}: {n_mixed} launches")
         log(f"K6 on the 8B Q4_K_M il shapes (kernel vs plain, NMSE <= {NMSE_KERNEL})")
-        for B in (1, 8, 128, 512):
+        for B in (1, 8):
             row(KN if B == 1 else None, "wqkv", full["wqkv"], "normed", B, n_full)
             row(KN if B == 1 else None, "gate_up", full["w_gateup_il"], "normed", B, n_l)
-        for B in (1, 8):
             row(KR if B == 1 else None, "wo", full["wo"], "res", B, n_l)
             row(KA if B == 1 else None, "down_q4k", dn4, "act", B, n_l - n6)
             row(BA if B == 1 else None, "down_q6k", dn6, "act", B, n6)
         row(BP, "head_q6k", weights["output"], "plain", 1, 1)
-        for B in (128, 512):  # the prefill's other launches
-            row(None, "wqk", mixed["wqk"], "normed", B, n_mixed)
-            row(None, "wv_q6k", mixed["wv"], "normed", B, n_mixed)
-            row(None, "wo", full["wo"], "plain", B, n_l)
-            row(None, "down_q4k", dn4, "pre_il", B, n_l - n6)
-            row(None, "down_q6k", dn6, "pre_il", B, n6)
+        for B in (32, 128, 512):  # the prefill chunk's launches
+            for name, qt, mode, count in chunk:
+                row(None, name, qt, mode, B, count)
+        row(None, "gate_up", full["w_gateup_il"], "normed", 1024, 0)
         log(f"K7 fast_dual (NMSE <= {NMSE_KERNEL})")
         for B in (1, 4, 8):
             dual_row(dev, gen, cfg, KD if B == 1 else None, mixed["wqk"],
@@ -1293,13 +1429,17 @@ def check_kernels_nibble(dev, weights, cfg):
     gather_rows(dev, gen, I4, "down_q4k", lw4["ffn_down_exps"], d, n_l - n6, 12)
     gather_rows(dev, gen, I6, "down_q6k", lw6["ffn_down_exps"], d, n6, 13)
     log(f"K6 on the Mixtral Q4_K_M il shapes (NMSE <= {NMSE_KERNEL})")
-    for B in (1, 8, 128, 512):
+    for B in (1, 8, 32, 128, 512):
         row(KP if B == 1 else None, "wq", layers[0]["wq"], "plain", B, n_l)
     for B in (1, 8):
         row(KR if B == 1 else None, "wo_q5k", layers[0]["wo"], "res", B, n_l)
     row(None, "head_q6k", weights["output"], "plain", 1, 1)
-    for B in (128, 512):  # the prefill's wo and the dense expert slices
+    row(None, "wq", layers[0]["wq"], "plain", 1024, 0)
+    for B in (32, 128, 512):  # the prefill's wk, wv, wo, head and experts
+        for name in ("wk", "wv"):
+            row(None, name, layers[0][name], "plain", B, n_l)
         row(None, "wo_q5k", layers[0]["wo"], "plain", B, n_l)
+        row(None, "head_q6k", weights["output"], "plain", B, 1)
         row(None, "gate_e", qtensor_rows(lw4["ffn_gate_exps"], 0, nff),
             "plain", B, 2 * E * n_l)
         row(None, "down_q4k_e", qtensor_rows(lw4["ffn_down_exps"], 0, d),
@@ -1402,6 +1542,10 @@ def check_kernels_ffn(dev, weights, cfg):
                lw4["ffn_down"], B, len(layers) - n6)
         k9_row(dev, gen, cfg, KB if B == 1 else None, "down_q6k", lw6,
                lw6["ffn_down"], B, n6)
+    log(f"K6's GEMM on the cell's 512-token chunk (the prefill runs no K9; "
+        f"NMSE <= {NMSE_KERNEL})")
+    for name, qt, mode, count in il_8b_chunk(weights)[-1]:
+        k6_row(dev, gen, cfg, None, name, qt, mode, 512, count)
     log("K9's other down branches at full width (drawn on the card)")
     perm = PF.interleave_perm(cfg.n_embd, 32)
     for qtype in (GGMLType.Q5_K, GGMLType.Q4_0, GGMLType.IQ3_XXS):
@@ -1615,8 +1759,9 @@ def run_phase(name, builder, check, dev):
     t_ph = phase(name, dev)
     cfg, weights = build_phase(name, builder, dev)
     reports = check(dev, weights, cfg)
+    log_gemm_cell(name)
     log("serving (launch counters zeroed before, read after)")
-    counts = serve(dev, cfg, weights, LAUNCH_TABLES[name])
+    counts = serve(dev, cfg, weights, name)
     log(f"main-path launches ({name}): {counts}")
     log("where the time goes (profiler; after the counts were read)")
     profile_path(dev, cfg, weights)
@@ -1690,8 +1835,11 @@ def main():
     reports += reps
     runs.append(counts)
 
+    reports += list(GEMM_REPORTS.values())
     for r in reports:
-        r.d["launches"] = sum(c[r.d["name"]] for c in runs)
+        r.d["launches"] = sum(c.get(r.d["name"], 0) for c in runs)
+        if r.d["launches"] == 0:
+            raise AssertionError(f"{r.d['name']} never launched on the main path")
     log(f"whole run {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": [r.d for r in reports]}))
     log(json.dumps({"ok": True, "device": {

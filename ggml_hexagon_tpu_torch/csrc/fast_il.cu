@@ -1,5 +1,6 @@
-// K6, K7 and K8: the interleaved-layout quantized matmul, its dual
-// projection and its gathered-expert GEMV, for sm_90a.
+// K6 at B <= 8, K7 and K8: the interleaved-layout quantized GEMV, its dual
+// projection and its gathered-expert GEMV, for sm_90a.  K6 above 8 rows
+// (the prefill GEMM) is fast_il_gemm.cu.
 //
 // Replaces, in ggml_hexagon_tpu/ops/qmm_fast.py:
 //  * K6: `_byte_kernel` (:510) and `_nibble_kernel` (:497, body `_nibble_y`
@@ -26,26 +27,23 @@
 // [n2, G] (the asymmetric types), or off * fs (off = -8 Q4_0, -16 Q5_0, -4
 // Q3_K, -32 Q6_K), or absent.
 //
-// What bounds them: bytes at decode (B <= 8, K7 and K8: each weight byte
-// feeds B multiply-adds, 2B for a nibble byte), operations at the 128- and
-// 512-token prefill chunks (past the card's bf16 ridge of ~295 operations a
-// byte from B=148 on byte planes, B=74 on nibble planes).
+// What bounds them: bytes (B <= 8, K7 and K8: each weight byte feeds B
+// multiply-adds, 2B for a nibble byte).
 //
 // Numerics, the TPU kernels' contract (qmm_fast.py:319-521, 757-767): x is
 // rounded to bf16 and interleaved; normed: inv = 1/sqrt(mean(x^2) + eps)
 // over the f32 of that bf16 x, then bf16((x*inv)*wn_il); act: the input is
 // the bf16 gate ++ up, both halves interleaved already, and silu(g)*u is
-// computed in f32 and rounded to bf16.  Byte planes at B <= 8 (and in K7
-// and K8) multiply the f32 x by the f32 weight q*scale; byte planes above 8
-// rows, nibble and coded planes at every B round q*scale to bf16 (q the
-// decoded value on coded planes, exact in bf16); every product is summed
-// in f32.  The bias is xg @ fb^T, or off * (xg @ fs^T), in f32,
+// computed in f32 and rounded to bf16.  Byte planes multiply the f32 x by
+// the f32 weight q*scale; nibble and coded planes round q*scale to bf16 (q
+// the decoded value on coded planes, exact in bf16); every product is
+// summed in f32.  The bias is xg @ fb^T, or off * (xg @ fs^T), in f32,
 // xg [B, G] being the activation's group sums: summed here from the bf16
 // effective activation (xg_mode 2), or the caller's (xg_mode 1: in the
 // normed mode the pre-norm sums, scaled here by inv).  The output is
 // y + (bias + res), res an optional f32 row [B, n_res].
 //
-// Design (a simple, right first version; wgmma/TMA wait for later work):
+// Design:
 //  * A pre-pass writes the effective activation in the planes' interleaved
 //    column order: an elementwise interleave or silu(g)*u over the whole
 //    grid, one block a row for the norm (its sum(x^2) first), nothing for a
@@ -64,32 +62,18 @@
 //  * K8: grid (row blocks of one expert, P); each block reads ids[p] from
 //    device memory, so the top-k never reaches the host and only the
 //    selected experts' rows are read.  An id outside [0, E) writes a NaN row.
-//  * B > 8: 128x128 output tiles, 8 warps of 64x32, bf16 WMMA 16x16x16 with
-//    f32 accumulators; each step decodes the weight tile into shared memory
-//    as bf16(q*scale), k-contiguous, read as a column-major B operand: 32
-//    columns a step on byte planes; on nibble planes 32 packed bytes, which
-//    are 64 columns (b.. and K/2+b..), the A tile taking x's two matching
-//    column runs.  The bias is an f32 pass after the K loop over G in
-//    chunks of 32 groups staged in shared memory.
-//  * Coded planes take the nibble bodies with the codes decoded four at a
+//  * Coded planes take the nibble body with the codes decoded four at a
 //    time (low nibbles, then high ones, of each packed word) into signed
 //    values before the scale: a third family beside byte and nibble, whose
 //    id (`cm`) travels with each plane set, so K7's two parts keep their own.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "codes.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int BM = 128, BN = 128, NT = 256;
-constexpr int LDC = BN + 4;           // floats
-constexpr int BG = 32;                // groups a bias chunk (GEMM)
-constexpr int LDG = BG + 1;           // floats
 constexpr int GEMV_WARPS = 8;
 constexpr int PRE_THREADS = 256;
 
@@ -105,19 +89,6 @@ struct Planes {
   float off;           // the derived bias's offset (fb null)
   int n2, G, nib;
   int cm;              // code-map id of coded planes (nib set), else CM_NONE
-};
-
-// GEMM tile geometry of a family: x columns a K step, shared memory
-template <bool NIB>
-struct Tile {
-  static constexpr int BK = NIB ? 64 : 32;
-  static constexpr int LD = BK + 8;   // bf16 elements
-  static constexpr int TILES = (BM + BN) * LD * 2;
-  static constexpr int CS = BM * LDC * 4;
-  static constexpr int BASE = TILES > CS ? TILES : CS;
-  // the bias staging beyond the tiles and C: only a launch with a bias
-  // asks for it (2 blocks an SM with it, 3 without)
-  static constexpr int smem(bool bias) { return BASE + (bias ? (BM + BN) * LDG * 4 : 0); }
 };
 
 __device__ __forceinline__ float bf2f(uint16_t v) {
@@ -422,205 +393,6 @@ __global__ void __launch_bounds__(GEMV_WARPS * 32) indirect_kernel(
   if (lane == 0) out[(size_t)p * npe + r] = finish(P, dot[0], bias[0], 0.f);
 }
 
-// NIB: packed planes (nibble or coded); CODED: codes decoded with P.cm
-template <bool NIB, bool BIAS, bool CODED>
-__global__ void __launch_bounds__(NT) gemm_kernel(
-    const __nv_bfloat16* __restrict__ xil, Planes P, int K, int M,
-    const float* __restrict__ res, int n_res, float* __restrict__ out) {
-  using T = Tile<NIB>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + BM * T::LD;
-  float* Cs = reinterpret_cast<float*>(smem);  // aliases the tiles after the K loop
-
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int G = P.G, Kh = K / 2;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  // load / decode slot: tile row tid/2, half th of the step's columns
-  const int tr = tid >> 1, th = tid & 1;
-  const uint16_t* srow = P.fs + (size_t)(n0 + tr) * G;
-  const __nv_bfloat16* xrow = xil + (size_t)(m0 + tr) * K;
-  const bool live = m0 + tr < M;
-  const int steps = NIB ? Kh / 32 : K / 32;
-
-  for (int st = 0; st < steps; ++st) {
-    if constexpr (NIB) {
-      // A: x columns p0.. (th 0) or K/2 + p0.. (th 1), 32 each
-      const int p0 = st * 32;
-      uint4 v[4] = {};
-      if (live) {
-        const uint4* src = reinterpret_cast<const uint4*>(xrow + (th ? Kh : 0) + p0);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) v[i] = src[i];
-      }
-      uint4* dstp = reinterpret_cast<uint4*>(As + tr * T::LD + th * 32);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dstp[i] = v[i];
-      // B: packed bytes pb..pb+15 -> low nibbles at tile columns th*16..,
-      // high nibbles at 32 + th*16..
-      const int pb = p0 + th * 16;
-      const uint4 wv = __ldg(reinterpret_cast<const uint4*>(P.fq + (size_t)(n0 + tr) * Kh + pb));
-      const uint32_t ww[4] = {wv.x, wv.y, wv.z, wv.w};
-      uint32_t dl[4], dh[4];
-      if constexpr (CODED) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) decode_nibbles(ww[j], P.cm, dl[j], dh[j]);
-      }
-      uint32_t lo[8], hi[8];
-      int g = pb % G;
-#pragma unroll
-      for (int i = 0; i < 16; i += 2) {
-        const float s0 = bf2f(__ldg(srow + g));
-        if (++g == G) g = 0;
-        const float s1 = bf2f(__ldg(srow + g));
-        if (++g == G) g = 0;
-        float l0, l1, h0, h1;
-        if constexpr (CODED) {
-          l0 = byte_f(dl[i >> 2], i & 3);
-          l1 = byte_f(dl[(i + 1) >> 2], (i + 1) & 3);
-          h0 = byte_f(dh[i >> 2], i & 3);
-          h1 = byte_f(dh[(i + 1) >> 2], (i + 1) & 3);
-        } else {
-          const uint32_t q0 = byte_u(ww[i >> 2], i & 3);
-          const uint32_t q1 = byte_u(ww[(i + 1) >> 2], (i + 1) & 3);
-          l0 = (float)(q0 & 15u);
-          l1 = (float)(q1 & 15u);
-          h0 = (float)(q0 >> 4);
-          h1 = (float)(q1 >> 4);
-        }
-        lo[i >> 1] = (uint32_t)f2bf(l0 * s0) | ((uint32_t)f2bf(l1 * s1) << 16);
-        hi[i >> 1] = (uint32_t)f2bf(h0 * s0) | ((uint32_t)f2bf(h1 * s1) << 16);
-      }
-      uint4* bl = reinterpret_cast<uint4*>(Bs + tr * T::LD + th * 16);
-      uint4* bh = reinterpret_cast<uint4*>(Bs + tr * T::LD + 32 + th * 16);
-      bl[0] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-      bl[1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
-      bh[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      bh[1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
-    } else {
-      const int k0 = st * 32;
-      uint4 v0 = make_uint4(0, 0, 0, 0), v1 = make_uint4(0, 0, 0, 0);
-      if (live) {
-        const uint4* src = reinterpret_cast<const uint4*>(xrow + k0 + th * 16);
-        v0 = src[0];
-        v1 = src[1];
-      }
-      uint4* dstp = reinterpret_cast<uint4*>(As + tr * T::LD + th * 16);
-      dstp[0] = v0;
-      dstp[1] = v1;
-      const int kb = k0 + th * 16;
-      const int8_t* wrow = reinterpret_cast<const int8_t*>(P.fq) + (size_t)(n0 + tr) * K;
-      const uint4 wv = __ldg(reinterpret_cast<const uint4*>(wrow + kb));
-      const uint32_t ww[4] = {wv.x, wv.y, wv.z, wv.w};
-      uint32_t wb[8];
-      int g = kb % G;
-#pragma unroll
-      for (int i = 0; i < 16; i += 2) {
-        const float s0 = bf2f(__ldg(srow + g));
-        if (++g == G) g = 0;
-        const float s1 = bf2f(__ldg(srow + g));
-        if (++g == G) g = 0;
-        const uint32_t lo = f2bf(byte_f(ww[i >> 2], i & 3) * s0);
-        const uint32_t hi = f2bf(byte_f(ww[(i + 1) >> 2], (i + 1) & 3) * s1);
-        wb[i >> 1] = lo | (hi << 16);
-      }
-      uint4* dstb = reinterpret_cast<uint4*>(Bs + tr * T::LD + th * 16);
-      dstb[0] = make_uint4(wb[0], wb[1], wb[2], wb[3]);
-      dstb[1] = make_uint4(wb[4], wb[5], wb[6], wb[7]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < T::BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 64 + i * 16) * T::LD + kk, T::LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + (wn * 32 + j * 16) * T::LD + kk, T::LD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 64 + i * 16) * LDC + wn * 32 + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
-
-  // epilogue: this thread's outputs are column c, rows r0 + 2i
-  constexpr int PER = BM * BN / NT;
-  const int c = tid % BN, r0 = tid / BN;
-  const int n = n0 + c;
-  if constexpr (!BIAS) {
-    __syncthreads();
-    for (int i = 0; i < PER; ++i) {
-      const int r = r0 + 2 * i, m = m0 + r;
-      if (m < M) {
-        const float rv = (res != nullptr && n < n_res) ? res[(size_t)m * n_res + n] : 0.f;
-        out[(size_t)m * P.n2 + n] = Cs[r * LDC + c] + rv;
-      }
-    }
-  } else {
-    // the group bias: sum_g xg[m, g] * fb[n, g] (or fs), chunks of BG groups
-    // staged in shared memory (the loops over the thread's rows unrolled by
-    // 4: unrolled in full they cost registers and ran slower on the card)
-    float* Xg = reinterpret_cast<float*>(smem + T::BASE);  // [BM][LDG]
-    float* Fg = Xg + BM * LDG;                             // [BN][LDG]
-    float bacc[PER];
-#pragma unroll
-    for (int i = 0; i < PER; ++i) bacc[i] = 0.f;
-    const uint16_t* bplane = P.fb != nullptr ? P.fb : P.fs;
-    for (int g0 = 0; g0 < G; g0 += BG) {
-      for (int e = tid; e < BM * BG; e += NT) {
-        const int r = e / BG, gg = e % BG;
-        Xg[r * LDG + gg] = (m0 + r < M && g0 + gg < G)
-                               ? P.xg[(size_t)(m0 + r) * G + g0 + gg] : 0.f;
-      }
-      for (int e = tid; e < BN * BG; e += NT) {
-        const int cc = e / BG, gg = e % BG;
-        Fg[cc * LDG + gg] = g0 + gg < G
-                                ? bf2f(__ldg(bplane + (size_t)(n0 + cc) * G + g0 + gg)) : 0.f;
-      }
-      __syncthreads();
-      float f[BG];
-#pragma unroll
-      for (int gg = 0; gg < BG; ++gg) f[gg] = Fg[c * LDG + gg];
-#pragma unroll 4
-      for (int i = 0; i < PER; ++i) {
-        const float* xr = Xg + (r0 + 2 * i) * LDG;
-        float s = bacc[i];
-#pragma unroll
-        for (int gg = 0; gg < BG; ++gg) s = fmaf(xr[gg], f[gg], s);
-        bacc[i] = s;
-      }
-      __syncthreads();
-    }
-#pragma unroll 4
-    for (int i = 0; i < PER; ++i) {
-      const int r = r0 + 2 * i, m = m0 + r;
-      if (m < M) {
-        const float rv = (res != nullptr && n < n_res) ? res[(size_t)m * n_res + n] : 0.f;
-        out[(size_t)m * P.n2 + n] = finish(P, Cs[r * LDC + c], bacc[i], rv);
-      }
-    }
-  }
-}
-
 Planes make_planes(const void* fq, const void* fs, const void* fb, int n2, int G,
                    int nib, int cm, float off, const float* xg) {
   Planes P;
@@ -686,24 +458,6 @@ void launch_dual(const uint16_t* xa, const uint16_t* xb, const Planes& A,
       xa, xb, A, Bq, K, out);
 }
 
-template <bool NIB, bool BIAS, bool CODED = false>
-cudaError_t launch_gemm(const void* xil, const Planes& P, int K, int M,
-                        const float* res, int n_res, float* out, cudaStream_t s) {
-  constexpr int bytes = Tile<NIB>::smem(BIAS);
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gemm_kernel<NIB, BIAS, CODED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
-  dim3 grid(P.n2 / BN, (M + BM - 1) / BM);
-  gemm_kernel<NIB, BIAS, CODED><<<grid, NT, bytes, s>>>(
-      (const __nv_bfloat16*)xil, P, K, M, res, n_res, out);
-  return cudaGetLastError();
-}
-
 // Whether (K, G), the family and the bias arguments of one plane set are
 // taken (coded planes are packed and carry no bias).
 bool bad_part(int nib, int cm, int K, int G, bool bias, int xg_mode,
@@ -720,7 +474,7 @@ extern "C" {
 
 const char* ght_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
-// K6.  mode: 0 plain (x bf16 [B, K] in natural column order), 1 normed (the
+// K6 at B <= 8.  mode: 0 plain (x bf16 [B, K] in natural column order), 1 normed (the
 // same x; wn f32 [K] interleaved, eps), 2 act (x bf16 [B, 2K], gate ++ up,
 // both interleaved), 3 plain with x interleaved already (xil unused).
 // nibble: fq uint8 [n2, K/2] packed, else int8 [n2, K]; cm: the code map of
@@ -737,7 +491,7 @@ int fast_il_run(int mode, int nibble, int cm, const void* x, int B, int K, const
                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const bool bias = fb != nullptr || off != 0.f;
-  if (B < 1 || n2 % BN || mode < MODE_PLAIN || mode > MODE_PRE_IL ||
+  if (B < 1 || B > 8 || n2 % 128 || mode < MODE_PLAIN || mode > MODE_PRE_IL ||
       (mode == MODE_NORMED && wn == nullptr) || n_res > n2 ||
       (mode != MODE_PRE_IL && xil == nullptr) ||
       bad_part(nibble, cm, K, G, bias, xg_mode, xg_in, xg))
@@ -749,28 +503,17 @@ int fast_il_run(int mode, int nibble, int cm, const void* x, int B, int K, const
   if (e != cudaSuccess) return (int)e;
   const Planes P = make_planes(fq, fs, fb, n2, G, nibble, cm, off, xg_eff);
   const uint16_t* xi = (const uint16_t*)xil;
-  if (B <= 8) {
-    switch (B) {
-      case 1: launch_gemv<1>(xi, P, K, res, n_res, out, s); break;
-      case 2: launch_gemv<2>(xi, P, K, res, n_res, out, s); break;
-      case 3: launch_gemv<3>(xi, P, K, res, n_res, out, s); break;
-      case 4: launch_gemv<4>(xi, P, K, res, n_res, out, s); break;
-      case 5: launch_gemv<5>(xi, P, K, res, n_res, out, s); break;
-      case 6: launch_gemv<6>(xi, P, K, res, n_res, out, s); break;
-      case 7: launch_gemv<7>(xi, P, K, res, n_res, out, s); break;
-      default: launch_gemv<8>(xi, P, K, res, n_res, out, s); break;
-    }
-    return (int)cudaGetLastError();
+  switch (B) {
+    case 1: launch_gemv<1>(xi, P, K, res, n_res, out, s); break;
+    case 2: launch_gemv<2>(xi, P, K, res, n_res, out, s); break;
+    case 3: launch_gemv<3>(xi, P, K, res, n_res, out, s); break;
+    case 4: launch_gemv<4>(xi, P, K, res, n_res, out, s); break;
+    case 5: launch_gemv<5>(xi, P, K, res, n_res, out, s); break;
+    case 6: launch_gemv<6>(xi, P, K, res, n_res, out, s); break;
+    case 7: launch_gemv<7>(xi, P, K, res, n_res, out, s); break;
+    default: launch_gemv<8>(xi, P, K, res, n_res, out, s); break;
   }
-  if (cm)
-    e = launch_gemm<true, false, true>(xil, P, K, B, res, n_res, out, s);
-  else if (nibble)
-    e = P.xg ? launch_gemm<true, true>(xil, P, K, B, res, n_res, out, s)
-             : launch_gemm<true, false>(xil, P, K, B, res, n_res, out, s);
-  else
-    e = P.xg ? launch_gemm<false, true>(xil, P, K, B, res, n_res, out, s)
-             : launch_gemm<false, false>(xil, P, K, B, res, n_res, out, s);
-  return (int)e;
+  return (int)cudaGetLastError();
 }
 
 // K7.  x bf16 [B <= 8, K] in natural column order; eps and, per part,

@@ -1,26 +1,40 @@
-"""In-call A/B of K3 (qp8 prefill GEMM) and K4 (fused decode attention):
-this tree's kernels against an earlier tree's sources, on one card, in
-the order parent, change, change, parent.
+"""In-call A/B of the port's kernels against an earlier tree's sources, on
+one card, in the order parent, change, change, parent.
 
-    git show <commit>:ggml_hexagon_tpu_torch/csrc/qp8_gemm.cu > DIR/qp8_gemm.cu
-    git show <commit>:ggml_hexagon_tpu_torch/csrc/decode_attn.cu > DIR/decode_attn.cu
+    git show 5c3a64d:ggml_hexagon_tpu_torch/csrc/fast_il.cu > DIR/fast_il.cu
+    git show 3b0f551:ggml_hexagon_tpu_torch/csrc/qp8_gemm.cu > DIR/qp8_gemm.cu
+    git show 3b0f551:ggml_hexagon_tpu_torch/csrc/decode_attn.cu > DIR/decode_attn.cu
     python3 -m ggml_hexagon_tpu_torch.kernel_ab --parent DIR
 
-The parent files must have the C entries of 3b0f551 (the last tree before
-K3 and K4 were redesigned); they are built with this tree's nvcc flags
-and headers.  Shapes: every K3 launch of the Llama-3-8B Q4_K_M prefill
-chunk at M = 512, 128 and 32, the coded launches of Llama-3-8B IQ3_XXS
-at M = 512, one Mixtral-8x7B expert's lane slice of stacked Q5_K / Q6_K
-planes at M = 128 and 512; K4 at pos 0, 1, 700 and 1023, bf16 and int8
-caches, B = 1 and 4.  Times are device times of a CUDA-graph replay after
-an L2 flush (median of iterations), as chip_smoke.py takes them; each
-row also prints the bf16 `torch.matmul` (K3, weight dequantized
-beforehand) or SDPA (K4, bf16) yardstick and the bound.  Needs a card.
+Each part runs when DIR holds its parent source; the parents are built
+with this tree's nvcc flags and headers.
+
+  fast_il.cu (5c3a64d, the last tree whose K6 took its GEMM there, a wmma
+      kernel): K6's GEMM on the 512-token chunk launch mix of Llama-3-8B
+      IQ4_XS (byte planes), Q4_K_M il (nibble planes with a stored bias,
+      Q6_K byte planes with the derived one, the head included) and
+      IQ3_XXS il (coded and nibble planes) at M = 512, 128 and 32, a Q5_K
+      wo (byte planes with a stored bias) at M = 512 and 128, and one
+      Mixtral-8x7B expert's gate (Q4_K) and down (Q6_K) slice at M = 512,
+      each unit also summed by GEMM family and bias; K6's B = 1 modes, K7
+      and K8 on the Q4_K_M il decode step's shapes, which must stay level.
+  qp8_gemm.cu and decode_attn.cu (3b0f551, the last tree before K3 and K4
+      were redesigned): every K3 launch of the Llama-3-8B Q4_K_M prefill
+      chunk at M = 512, 128 and 32, the coded launches of Llama-3-8B
+      IQ3_XXS at M = 512, one Mixtral-8x7B expert's lane slice of stacked
+      Q5_K / Q6_K planes at M = 128 and 512; K4 at pos 0, 1, 700 and 1023,
+      bf16 and int8 caches, B = 1 and 4.
+
+Times are device times of a CUDA-graph replay after an L2 flush (median
+of iterations), as chip_smoke.py takes them; each row also prints the
+bf16 `torch.matmul` (weight dequantized beforehand) or SDPA (K4, bf16)
+yardstick and the bound, and each unit its sums.  Needs a card.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import os
 import subprocess
 import sys
 
@@ -29,20 +43,29 @@ import torch
 
 from . import kernels
 from .models.llama import qtensor_rows
-from .models.synth import build_8b, build_8b_iq3xxs, random_qtensor
+from .models.synth import (build_8b, build_8b_il, build_8b_iq3xxs,
+                           build_8b_iq4xs, random_qtensor)
 from .ops import decode_attn as PD
+from .ops import qmm_fast as PF
 from .ops import qmm_qp8 as P
 from .ops.basic import rope_freqs
 from .quant.formats import GGMLType
 
 HBM_BPS = 3.35e12
 BF16_OPS = 989e12
+F32_OPS = 67e12      # K6's GEMV, outside the tensor cores
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: the parent's C entries (3b0f551)
+#: the parents' C entries: K3 and K4 of 3b0f551, K6-K8 of 5c3a64d (the
+#: same as this tree's fast_il.cu entries)
 _PARENT_ARGS = {
     "qp8_gemm_run": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _I] + [_P] * 3,
     "decode_attn_run": [_P] * 7 + [_I] * 5 + [_F, _I, _F, _I] + [_P] * 4,
+    "fast_il_run": kernels._ARGTYPES["fast_il_run"],
+    "fast_dual_run": kernels._ARGTYPES["fast_dual_run"],
+    "fast_indirect_run": kernels._ARGTYPES["fast_indirect_run"],
 }
+_PARENT_FNS = {"qp8_gemm": ["qp8_gemm_run"], "decode_attn": ["decode_attn_run"],
+               "fast_il": ["fast_il_run", "fast_dual_run", "fast_indirect_run"]}
 _FLUSH = None
 
 
@@ -74,20 +97,33 @@ def _time_ms(fn, iters=10):
 
 
 def _build_parent(directory: str) -> dict:
-    libs = {}
+    """The parent sources found in `directory`, built in parallel and
+    loaded: C entry name -> function (the library as `lib:<name>`)."""
+    fns = {}
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    for name in ("qp8_gemm", "decode_attn"):
-        out = kernels.BUILD_DIR / f"parent_{name}.so"
-        subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I",
-                        str(kernels.CSRC), "-o", str(out),
-                        f"{directory}/{name}.cu"], check=True,
-                       capture_output=True)
+    procs = {}
+    for name in _PARENT_FNS:
+        src = f"{directory}/{name}.cu"
+        if os.path.exists(src):
+            out = kernels.BUILD_DIR / f"parent_{name}.so"
+            procs[name] = (out, subprocess.Popen(
+                [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC),
+                 "-o", str(out), src], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+    for name, (out, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for the parent {name}.cu:\n{log}")
         lib = ctypes.CDLL(str(out))
-        fn = getattr(lib, f"{name}_run")
-        fn.argtypes = _PARENT_ARGS[f"{name}_run"]
-        fn.restype = ctypes.c_int
-        libs[name] = fn
-    return libs
+        lib.ght_error_string.argtypes = [ctypes.c_int]
+        lib.ght_error_string.restype = ctypes.c_char_p
+        for entry in _PARENT_FNS[name]:
+            fn = getattr(lib, entry)
+            fn.argtypes = _PARENT_ARGS[entry]
+            fn.restype = ctypes.c_int
+            fns[entry] = fn
+        fns[f"lib:{name}"] = lib
+    return fns
 
 
 def _nmse(got, want):
@@ -103,12 +139,147 @@ class AB:
         self.gen.manual_seed(1234)
         self.units: dict = {}
 
+    def _as_parent(self, fn):
+        """fn() with the fast_il library swapped for the parent's: its B
+        <= 8 entries (K6's GEMV, K7, K8) keep their C signatures."""
+        mine = kernels._LIBS["fast_il"]
+        kernels._LIBS["fast_il"] = self.par["lib:fast_il"]
+        try:
+            return fn()
+        finally:
+            kernels._LIBS["fast_il"] = mine
+
+    def parent_k6_gemm(self, x, qt, wn=None, eps=None, act="", res=None,
+                       pre_il=False, xg=None):
+        """The parent's K6 above 8 rows (its wmma GEMM in fast_il_run), on
+        the arguments kernels._fast_launch would pass."""
+        n2, G, nib, off, cm = kernels._il_plane_args(qt)
+        B, K = x.shape[0], qt.k
+        bias = qt.fb is not None or off != 0.0
+        xg_mode = kernels._xg_args(xg, B, G, bias)
+        mode = 2 if act else 1 if eps is not None else 3 if pre_il else 0
+        dev = self.dev
+        xil = (None if pre_il
+               else torch.empty((B, K), dtype=torch.bfloat16, device=dev))
+        xgs = (torch.empty((B, G), dtype=torch.float32, device=dev)
+               if bias else None)
+        out = torch.empty((B, n2), dtype=torch.float32, device=dev)
+        rc = self.par["fast_il_run"](
+            mode, int(nib), cm, x.data_ptr(), B, K, qt.fq.data_ptr(),
+            qt.fs.data_ptr(), kernels._ptr(qt.fb), n2, G, off,
+            kernels._ptr(xg), xg_mode, kernels._ptr(wn),
+            0.0 if eps is None else float(eps), kernels._ptr(res),
+            0 if res is None else res.shape[1], kernels._ptr(xil),
+            kernels._ptr(xgs), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"parent fast_il_run: CUDA error {rc}")
+        return out
+
+    def _unit(self, unit, count, t, lib, bound):
+        u = self.units.setdefault(unit, [0.0, 0.0, 0.0, 0.0, 0])
+        u[0] += count * (t[0] + t[3]) / 2
+        u[1] += count * (t[1] + t[2]) / 2
+        u[2] += count * lib
+        u[3] += count * bound
+        u[4] += count
+
+    def k6(self, unit, name, qt, mode, B, count, cfg=None):
+        """One K6 row (mode plain, pre_il, normed, res, act with a
+        residual) on the group sums the entry would hand it; its P C C P
+        times join the unit's sums count times."""
+        K, dev, gen = qt.k, self.dev, self.gen
+        x = torch.randn(B, 2 * K if mode == "act" else K, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        kw = {}
+        if mode == "normed":
+            kw = dict(wn=torch.rand(K, device=dev, generator=gen) + 0.5,
+                      eps=1e-5)
+        elif mode in ("res", "act"):
+            kw = dict(res=torch.randn(B, qt.n, generator=gen, device=dev))
+            if mode == "act":
+                kw["act"] = "silu"
+        elif mode == "pre_il":
+            kw = dict(pre_il=True)
+        _, nkj = PF._pick_blocks(PF._padded_rows(B), K, PF._is_packed(qt.cfg),
+                                 qt.cfg.gs)
+        kw["xg"] = PF.group_sums(qt, x, mode, kw.get("wn"), nkj)
+        kern = PF._k6(qt, False)
+        new = lambda: kern(x, qt, **kw)  # noqa: E731
+        if B > 8:
+            old = lambda: self.parent_k6_gemm(x, qt, **kw)  # noqa: E731
+        else:
+            old = lambda: self._as_parent(new)  # noqa: E731
+        want = PF._k6(qt, True)(x, qt, **kw)
+        e_new, e_old = _nmse(new(), want), _nmse(old(), want)
+        t = [_time_ms(old), _time_ms(new), _time_ms(new), _time_ms(old)]
+        deq = PF.dequantize_fast(qt, torch.bfloat16).t().contiguous()
+        xl = x[:, :K]
+        lib = _time_ms(lambda: torch.matmul(xl, deq))
+        del deq
+        n2 = qt.fq.shape[0]
+        ops = 2 * B * K * n2
+        byts = sum(t_.numel() * t_.element_size() for t_ in
+                   (qt.fq, qt.fs, qt.fb, x, kw.get("wn"), kw.get("res"),
+                    kw["xg"]) if t_ is not None) + B * n2 * 4
+        peak = BF16_OPS if B > 8 else F32_OPS
+        bound = max(byts / HBM_BPS, ops / peak) * 1e3
+        print(f"K6 {unit} {mode} {name} {qt.cfg.qtype.name} {qt.n}x{K} B={B} "
+              f"{PF._family(qt.cfg)} nmse={e_new:.2e} (parent {e_old:.2e}) "
+              f"P={t[0]:.4f} C={t[1]:.4f} C={t[2]:.4f} P={t[3]:.4f} ms "
+              f"matmul={lib:.4f} bound={bound:.4f} x{count}", flush=True)
+        self._unit(unit, count, t, lib, bound)
+        if B > 8:  # the unit's share of each GEMM family and bias
+            self._unit(f"{unit} {kernels.gemm_key(qt)}", count, t, lib, bound)
+        return e_new
+
+    def k7(self, unit, qa, qb, B, count):
+        """One K7 row (normed, each part its own weight), P C C P."""
+        K, dev, gen = qa.k, self.dev, self.gen
+        x = torch.randn(B, K, generator=gen, device=dev).to(torch.bfloat16)
+        kw = dict(wn_a=torch.rand(K, device=dev, generator=gen) + 0.5,
+                  wn_b=torch.rand(K, device=dev, generator=gen) + 0.5,
+                  eps=1e-5)
+        kw["xg_a"] = PF.group_sums(qa, x, "normed", kw["wn_a"])
+        kw["xg_b"] = PF.group_sums(qb, x, "normed", kw["wn_b"])
+        new = lambda: PF.fast_dual(x, qa, qb, **kw)  # noqa: E731
+        old = lambda: self._as_parent(new)  # noqa: E731
+        want = PF.fast_dual_plain(x, qa, qb, **kw)
+        e_new = _nmse(new(), want)
+        t = [_time_ms(old), _time_ms(new), _time_ms(new), _time_ms(old)]
+        deq = torch.cat([PF.dequantize_fast(q, torch.bfloat16).t()
+                         for q in (qa, qb)], 1).contiguous()
+        lib = _time_ms(lambda: torch.matmul(x, deq))
+        del deq
+        print(f"K7 {unit} B={B} {qa.cfg.qtype.name}+{qb.cfg.qtype.name} "
+              f"nmse={e_new:.2e} P={t[0]:.4f} C={t[1]:.4f} C={t[2]:.4f} "
+              f"P={t[3]:.4f} ms matmul={lib:.4f} x{count}", flush=True)
+        self._unit(unit, count, t, lib, 0.0)
+        return e_new
+
+    def k8(self, unit, name, stack, npe, count):
+        """One K8 row at P=2 (ids 5, 2), P C C P."""
+        dev, gen = self.dev, self.gen
+        ids = torch.tensor([5, 2], dtype=torch.int32, device=dev)
+        x = torch.randn(2, stack.k, generator=gen, device=dev).to(torch.bfloat16)
+        xg = (PF._sums_natural(x, stack.fs.shape[1])
+              if PF._needs_xg(stack.cfg, stack.fb) else None)
+        new = lambda: PF.fast_indirect(x, stack, ids, npe, xg)  # noqa: E731
+        old = lambda: self._as_parent(new)  # noqa: E731
+        e_new = _nmse(new(), PF.fast_indirect_plain(x, stack, ids, npe, xg))
+        t = [_time_ms(old), _time_ms(new), _time_ms(new), _time_ms(old)]
+        print(f"K8 {unit} {name} {stack.cfg.qtype.name} {npe}x{stack.k} P=2 "
+              f"nmse={e_new:.2e} P={t[0]:.4f} C={t[1]:.4f} C={t[2]:.4f} "
+              f"P={t[3]:.4f} ms x{count}", flush=True)
+        self._unit(unit, count, t, 0.0, 0.0)
+        return e_new
+
     def parent_gemm(self, x, qt):
         fq, fs, fb, n2, ld, bl, bh, gs, off, cm = kernels._plane_args(qt)
         M, K = x.shape
         xg = torch.empty((M, K // gs), dtype=torch.float32, device=self.dev)
         out = torch.empty((M, n2), dtype=torch.float32, device=self.dev)
-        rc = self.par["qp8_gemm"](
+        rc = self.par["qp8_gemm_run"](
             x.data_ptr(), fq, fs, fb, n2, ld, bl, bh, gs, off, cm, M, K,
             xg.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
@@ -123,7 +294,7 @@ class AB:
         out = torch.empty((B, Hq * D), device=dev)
         k_r = torch.empty((B, Hkv * D), device=dev)
         v_r = torch.empty((B, Hkv * D), device=dev)
-        rc = self.par["decode_attn"](
+        rc = self.par["decode_attn_run"](
             qkv.data_ptr(), kc.data_ptr(), vc.data_ptr(),
             kernels._ptr(k_scale), kernels._ptr(v_scale), pos.data_ptr(),
             cs.data_ptr(), B, Hq, Hkv, S, D, float(scale), 0, 0.0,
@@ -157,12 +328,7 @@ class AB:
               f"nmse={e_new:.2e} (parent {e_old:.2e}) P={t[0]:.4f} "
               f"C={t[1]:.4f} C={t[2]:.4f} P={t[3]:.4f} ms matmul={lib:.4f} "
               f"bound={bound:.4f} x{count}", flush=True)
-        u = self.units.setdefault(unit, [0.0, 0.0, 0.0, 0.0, 0])
-        u[0] += count * (t[0] + t[3]) / 2
-        u[1] += count * (t[1] + t[2]) / 2
-        u[2] += count * lib
-        u[3] += count * bound
-        u[4] += count
+        self._unit(unit, count, t, lib, bound)
         return e_new
 
     def k4(self, cfg, quant, B, pos, layers):
@@ -222,24 +388,91 @@ class AB:
         return err
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", required=True,
-                    help="directory holding the parent's qp8_gemm.cu and "
-                         "decode_attn.cu")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("kernel_ab: no CUDA device", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
-    kernels.build_all()
-    ab = AB(args.parent, dev)
+def run_il(ab, dev) -> bool:
+    """K6's GEMM on the 8B chunk mixes and two Mixtral expert slices; K6's
+    B = 1 modes, K7 and K8 on the Q4_K_M il decode step."""
     ok = True
+    cfg, w = build_8b_iq4xs(seed=0, device=dev)
+    layers = w["layers"]
+    lw = next(lw for lw in layers if lw["ffn_down"].fl == "il")
+    n_l, n_dn = len(layers), sum(lw["ffn_down"].fl == "il" for lw in layers)
+    for M in (512, 128, 32):
+        for name, mode, count in (("wqk", "normed", n_l),
+                                  ("w_gateup_il", "normed", n_l),
+                                  ("wo", "plain", n_l),
+                                  ("ffn_down", "pre_il", n_dn)):
+            ok &= ab.k6(f"8B-IQ4_XS-M{M}", name, lw[name], mode, M,
+                        count) <= 1e-6
+    del w, layers, lw
+    torch.cuda.empty_cache()
 
+    cfg, w = build_8b_il(seed=0, device=dev)
+    layers = w["layers"]
+    full = next(lw for lw in layers if "wqkv" in lw)
+    mixed = next(lw for lw in layers if "wqk" in lw)
+    n_full = sum("wqkv" in lw for lw in layers)
+    n_mixed = n_l - n_full
+    dn = {q: next(lw["ffn_down"] for lw in layers
+                  if lw["ffn_down"].cfg.qtype.name == q) for q in ("Q4_K", "Q6_K")}
+    n6 = sum(lw["ffn_down"].cfg.qtype.name == "Q6_K" for lw in layers)
+    for M in (512, 128, 32):
+        for name, qt, mode, count in (
+                ("wqkv", full["wqkv"], "normed", n_full),
+                ("wqk", mixed["wqk"], "normed", n_mixed),
+                ("wv_q6k", mixed["wv"], "normed", n_mixed),
+                ("gate_up", full["w_gateup_il"], "normed", n_l),
+                ("wo", full["wo"], "plain", n_l),
+                ("down_q4k", dn["Q4_K"], "pre_il", n_l - n6),
+                ("down_q6k", dn["Q6_K"], "pre_il", n6),
+                ("head_q6k", w["output"], "plain", 1)):
+            ok &= ab.k6(f"8B-Q4_K_M-il-M{M}", name, qt, mode, M, count) <= 1e-6
+    step = "8B-Q4_K_M-il-decode-step"
+    for name, qt, mode, count in (
+            ("wqkv", full["wqkv"], "normed", n_full),
+            ("gate_up", full["w_gateup_il"], "normed", n_l),
+            ("wo", full["wo"], "res", n_l),
+            ("down_q4k", dn["Q4_K"], "act", n_l - n6),
+            ("down_q6k", dn["Q6_K"], "act", n6),
+            ("head_q6k", w["output"], "plain", 1)):
+        ok &= ab.k6(step, name, qt, mode, 1, count) <= 1e-6
+    ok &= ab.k7(step, mixed["wqk"], mixed["wv"], 1, n_mixed) <= 1e-6
+    del w, layers, full, mixed, dn
+    torch.cuda.empty_cache()
+
+    cfg, w = build_8b_iq3xxs("il", seed=0, device=dev)
+    lw = w["layers"][0]
+    for M in (512, 128, 32):
+        for name, mode in (("wqk", "normed"), ("wv", "normed"),
+                           ("w_gateup_il", "normed"), ("wo", "plain"),
+                           ("ffn_down", "pre_il")):
+            ok &= ab.k6(f"8B-IQ3_XXS-il-M{M}", name, lw[name], mode, M,
+                        n_l) <= 1e-6
+    del w, lw
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    wo = random_qtensor(g, 4096, 4096, GGMLType.Q5_K, dev).with_fast_planes(
+        "il").without_wire()  # a stored bias (fb): Mixtral's Q5_K wo
+    for M in (512, 128):
+        ok &= ab.k6(f"Q5_K-wo-M{M}", "wo", wo, "plain", M, 1) <= 1e-6
+    del wo
+    for name, n, k, qtype in (("gate", 14336, 4096, GGMLType.Q4_K),
+                              ("down", 4096, 14336, GGMLType.Q6_K)):
+        stack = random_qtensor(g, 8 * n, k, qtype, dev).with_fast_planes(
+            "il").without_wire()
+        ok &= ab.k6("Mixtral-expert-M512", name, qtensor_rows(stack, 2 * n, n),
+                    "plain", 512, 1) <= 1e-6
+        ok &= ab.k8("Mixtral-decode-K8", name, stack, n, 1) <= 1e-6
+        del stack
+        torch.cuda.empty_cache()
+    return ok
+
+
+def run_k3k4(ab, dev) -> bool:
+    """K3 on the 8B chunk mixes and Mixtral expert slices, K4 at the 8B
+    decode step's shapes."""
+    ok = True
     cfg, w = build_8b(seed=0, device=dev)
     layers = w["layers"]
     full = next(lw for lw in layers if "wqkv" in lw)
@@ -282,13 +515,42 @@ def main(argv=None):
                         M=M) <= 1e-6
         del stack, expert
         torch.cuda.empty_cache()
+    return ok
 
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", required=True,
+                    help="directory holding the parent's fast_il.cu, or "
+                         "qp8_gemm.cu and decode_attn.cu, or all three")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    kernels.build_all()
+    ab = AB(args.parent, dev)
+    if not any(k.startswith("lib:") for k in ab.par):
+        print(f"kernel_ab: no parent source in {args.parent}", file=sys.stderr)
+        return 2
+    ok = True
+    if "lib:fast_il" in ab.par:
+        ok &= run_il(ab, dev)
+    if "lib:qp8_gemm" in ab.par and "lib:decode_attn" in ab.par:
+        ok &= run_k3k4(ab, dev)
     for unit, (p, c, lib, bound, n) in ab.units.items():
+        vs = f" ({c / lib:.2f}x)" if lib else ""
         print(f"UNIT {unit}: {n} launches, parent {p:.3f} ms, change "
-              f"{c:.3f} ms, bf16 matmul {lib:.3f} ms ({c / lib:.2f}x), "
+              f"{c:.3f} ms, bf16 matmul {lib:.3f} ms{vs}, "
               f"bound {bound:.4f} ms", flush=True)
     print("ALL HELD" if ok else "FAILURES", flush=True)
     return 0 if ok else 1
+
+
 
 
 if __name__ == "__main__":

@@ -34,8 +34,9 @@ SOURCES = {
     "qp8_gemv": "qp8_gemv.cu",      # K1, K2 and K5
     "qp8_gemm": "qp8_gemm.cu",      # K3
     "decode_attn": "decode_attn.cu",  # K4
-    "fast_il": "fast_il.cu",        # K6 (byte and nibble planes, four
-                                    # modes), K7 and K8
+    "fast_il": "fast_il.cu",        # K6 at B <= 8 (every family and
+                                    # mode), K7 and K8
+    "fast_il_gemm": "fast_il_gemm.cu",  # K6 above 8 rows (the prefill GEMM)
     "ffn_fused": "ffn_fused.cu",    # K9
     "qmm_wire": "qmm_wire.cu",      # K10
     "attention": "attention.cu",    # K11 and K12
@@ -67,6 +68,13 @@ LAUNCHES = {"qp8_gemv": 0, "qp8_dual": 0, "qp8_gemm": 0, "decode_attn": 0,
             "ffn_fused_byte": 0, "ffn_fused_nibble": 0, "ffn_fused_coded": 0,
             "qmm_wire": 0, "flash_attn": 0, "decode_attn_gqa": 0}
 
+#: K6's GEMM launches (B > 8), apart from LAUNCHES, which counts each of
+#: them under its family-and-mode key as well: by family and group bias
+#: (none, derived as off * fs, or a stored fb)
+GEMM_LAUNCHES = {"fast_byte_gemm": 0, "fast_byte_gemm_derived": 0,
+                 "fast_byte_gemm_stored": 0, "fast_nibble_gemm_derived": 0,
+                 "fast_nibble_gemm_stored": 0, "fast_coded_gemm": 0}
+
 #: the C entries' code-map ids (0: uncoded planes); csrc/codes.cuh
 CODE_MAPS = {"": 0, "iq2": 1, "iq3xxs": 2, "iq3s": 3, "iq1": 4, "tern": 5}
 
@@ -90,6 +98,8 @@ _ARGTYPES = {
                      _P, _I, _P, _P, _P],
     "fast_il_run": [_I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _P, _I,
                     _P, _F, _P, _I, _P, _P, _P, _P],
+    "fast_il_gemm_run": [_I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _P,
+                         _I, _P, _F, _P, _I, _P, _P, _I, _P, _P, _P],
     "fast_dual_run": [_P, _I, _I, _F] + [_P, _P, _P, _P, _I, _I, _I, _I, _F,
                                          _P, _I, _P, _P] * 2 + [_P, _P],
     "fast_indirect_run": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F,
@@ -108,8 +118,9 @@ _ARGTYPES = {
 
 
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, GEMM_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:
@@ -300,13 +311,20 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def gemm_token_tile(M: int) -> int:
+    """The token tile (wgmma's N) that both wgmma GEMMs take for M rows:
+    32 and 128 for the 32- and 128-token buckets, 256 above (the C
+    entries' launch_n)."""
+    return 32 if M <= 32 else 128 if M <= 128 else 256
+
+
 def _gemm_splits(M: int, n2: int, K: int, dev) -> int:
-    """K3's splits of K: more blocks when the output tiles alone leave the
-    card's SMs idle (the 8B's 4096-lane wo and down, Mixtral's experts),
+    """The splits of K of the two wgmma GEMMs (K3, K6 above 8 rows): more
+    blocks when the output tiles alone leave the card's SMs idle (the 8B's
+    4096-lane wo and down, Mixtral's experts),
     taken only where they cut the waves of blocks by at least 15%, with
     at least 8 stages of 64 columns a split."""
-    tokens = 32 if M <= 32 else 128 if M <= 128 else 256  # its token tile
-    blocks = n2 // 128 * -(-M // tokens)
+    blocks = n2 // 128 * -(-M // gemm_token_tile(M))
     sms = _sm_count(dev.index if dev.index is not None else
                     torch.cuda.current_device())
 
@@ -375,6 +393,10 @@ def qp8_indirect(x, qt, ids, npe: int):
     return out
 
 
+#: the C entries' plane families
+_FAMILY_ID = {"byte": 0, "nibble": 1, "coded": 2}
+
+
 def _il_plane_args(qt):
     """(n2, G, nibble, off, cm) of interleaved planes, checked: fq int8
     [n2, K] (byte family) or uint8 [n2, K/2] (nibble and coded families),
@@ -439,18 +461,64 @@ def _fast_launch(family: str, x, qt, wn, eps, act, res, pre_il, xg):
         mode, key = (3 if pre_il else 0), (family + "_res" if res is not None
                                            else family)
     dev = x.device
+    out = torch.empty((B, n2), dtype=torch.float32, device=dev)
+    n_res = 0 if res is None else res.shape[1]
+    eps = 0.0 if eps is None else float(eps)
+    if B > 8:
+        return _fast_gemm(mode, key, x, qt, G, cm, off, xg, xg_mode, wn, eps,
+                          res, n_res, out)
     xil = (None if pre_il
            else torch.empty((B, K), dtype=torch.bfloat16, device=dev))
     xgs = torch.empty((B, G), dtype=torch.float32, device=dev) if bias else None
-    out = torch.empty((B, n2), dtype=torch.float32, device=dev)
     lib = _lib("fast_il")
     rc = lib.fast_il_run(mode, int(nib), cm, _ptr(x), B, K, _ptr(qt.fq),
                          _ptr(qt.fs), _ptr(qt.fb), n2, G, off, _ptr(xg),
-                         xg_mode, _ptr(wn), 0.0 if eps is None else float(eps),
-                         _ptr(res), 0 if res is None else res.shape[1],
+                         xg_mode, _ptr(wn), eps, _ptr(res), n_res,
                          _ptr(xil), _ptr(xgs), _ptr(out), _stream(dev))
     _check(lib, rc, key)
     LAUNCHES[key] += 1
+    return out
+
+
+def gemm_key(qt) -> str:
+    """The GEMM_LAUNCHES key of K6's GEMM on interleaved planes qt."""
+    from .ops.qmm_fast import _family, _offset_bias
+
+    key = f"fast_{_family(qt.cfg)}_gemm"
+    if qt.fb is not None:
+        return key + "_stored"
+    return key + ("_derived" if _offset_bias(qt.cfg, qt.fb) else "")
+
+
+def _fast_gemm(mode, key, x, qt, G, cm, off, xg, xg_mode, wn, eps, res,
+               n_res, out):
+    """K6 above 8 rows: the wgmma GEMM of fast_il_gemm.cu, its scratch (x
+    permuted for the A fragments, the group sums in three bf16 parts, the
+    partials of a K split) allocated here."""
+    from .ops.qmm_fast import _family
+
+    B, K = out.shape[0], qt.k
+    n2 = out.shape[1]
+    if K % 64 or G % 8:
+        raise ValueError(f"K6's GEMM takes K % 64 == 0 and G % 8 == 0, got "
+                         f"K={K}, G={G}")
+    dev = x.device
+    gp = -(-G // 64) * 64
+    xp = torch.empty((B, K), dtype=torch.bfloat16, device=dev)
+    xgs = (torch.empty((B, 3 * gp), dtype=torch.bfloat16, device=dev)
+           if xg_mode else None)
+    ks = _gemm_splits(B, n2, K, dev)
+    ws = (torch.empty((ks, B, n2), dtype=torch.float32, device=dev)
+          if ks > 1 else None)
+    lib = _lib("fast_il_gemm")
+    rc = lib.fast_il_gemm_run(
+        mode, _FAMILY_ID[_family(qt.cfg)], cm, _ptr(x), B, K, _ptr(qt.fq),
+        _ptr(qt.fs), _ptr(qt.fb), n2, G, off, _ptr(xg), xg_mode, _ptr(wn),
+        eps, _ptr(res), n_res, _ptr(xp), _ptr(xgs), ks, _ptr(ws), _ptr(out),
+        _stream(dev))
+    _check(lib, rc, key)
+    LAUNCHES[key] += 1
+    GEMM_LAUNCHES[gemm_key(qt)] += 1
     return out
 
 
@@ -558,9 +626,6 @@ def fast_indirect(x, qt, ids, npe: int, xg=None):
     _check(lib, rc, key)
     LAUNCHES[key] += 1
     return out
-
-
-_FAMILY_ID = {"byte": 0, "nibble": 1, "coded": 2}
 
 
 def ffn_fused(x_a, xg_a, h_il, wn, wo, gu, dn, eps: float, act: str = "silu"):

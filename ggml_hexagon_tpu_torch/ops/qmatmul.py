@@ -217,6 +217,14 @@ def qmatmul_pallas(x, qt: QTensor, out_dtype=torch.float32,
     return y[:, :qt.n].to(out_dtype).reshape(*lead, qt.n)
 
 
+def _takes_planes(x, qt: QTensor) -> bool:
+    """The JAX dispatcher's gate (ops/qmatmul.py:336-337, :365-366): the
+    matmul planes serve up to MAX_FAST_BATCH rows, and any count once the
+    wire planes are gone."""
+    B = math.prod(x.shape[:-1])
+    return qt.fq is not None and (B <= MAX_FAST_BATCH or qt.q is None)
+
+
 def qmatmul(x, qt: QTensor, out_dtype=torch.float32,
             compute_dtype=torch.bfloat16, backend: str = "auto",
             plain=False):
@@ -224,22 +232,16 @@ def qmatmul(x, qt: QTensor, out_dtype=torch.float32,
 
     backend "auto" routes as the JAX dispatcher does: a weight with matmul
     planes takes them (t-planes: qp8_matmul, K1 at <= 8 rows and K3 above;
-    interleaved planes: K6) at up to MAX_FAST_BATCH rows, and at any
-    count when its wire planes are gone; a weight without matmul planes,
-    or more rows on a weight that keeps its wire, takes qmatmul_xla.  More
-    than MAX_FAST_BATCH rows on interleaved planes without wire raise: the
-    JAX package runs K6's GEMM there, the port's K6 takes <= 512 rows.
-    "fast", "pallas" (K10) and "xla" pick a route outright."""
+    interleaved planes: K6, its GEMV at <= 8 rows and its GEMM above) at up
+    to MAX_FAST_BATCH rows, and at any count when its wire planes are gone;
+    a weight without matmul planes, or more rows on a weight that keeps its
+    wire, takes qmatmul_xla.  "fast", "pallas" (K10) and "xla" pick a route
+    outright."""
     if backend == "auto":
-        B = math.prod(x.shape[:-1])
-        if qt.fq is None or (B > MAX_FAST_BATCH and qt.q is not None):
+        if not _takes_planes(x, qt):
             return qmatmul_xla(x, qt, out_dtype, compute_dtype)
         if qt.fl == "t":
             return qp8_matmul(x, qt, out_dtype=out_dtype, plain=plain)
-        if B > MAX_FAST_BATCH:
-            raise NotImplementedError(
-                f"{B} rows on interleaved planes without wire: the port's "
-                f"K6 takes <= {MAX_FAST_BATCH}")
         return qmatmul_fast(x, qt, out_dtype=out_dtype, plain=plain)
     if backend == "fast":
         return qmatmul_fast(x, qt, out_dtype=out_dtype, plain=plain)
@@ -254,12 +256,13 @@ def qmatmul_normed(x, qt: QTensor, wn_il, eps: float,
                    out_dtype=torch.float32, plain=False):
     """RMSNorm + quantized matmul: t-planes go to qp8_matmul_normed (K1's
     norm prologue at <= 8 rows, the norm then K3 above), interleaved planes
-    to qmatmul_fast_normed (K6's normed mode) for up to MAX_FAST_BATCH
-    rows; wn_il is the norm weight in the planes' column order
-    (models/fuse.attach_norm_planes).  Above that the norm runs apart and
+    to qmatmul_fast_normed (K6's normed mode) where `qmatmul` would take
+    the planes (up to MAX_FAST_BATCH rows, any count without wire); wn_il
+    is the norm weight in the planes' column order
+    (models/fuse.attach_norm_planes).  Elsewhere the norm runs apart and
     `qmatmul` takes the rows."""
     B = math.prod(x.shape[:-1])
-    if B <= MAX_FAST_BATCH:
+    if B <= MAX_FAST_BATCH or _takes_planes(x, qt):
         return qmatmul_fast_normed(x, qt, wn_il, eps, out_dtype=out_dtype,
                                    plain=plain)
     wn = wn_il if qt.fl == "t" else uninterleave_norm(wn_il, qt.cfg.gs)

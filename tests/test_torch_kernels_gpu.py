@@ -29,6 +29,11 @@ Tolerances, per kernel, with their reasons:
   K6 on nibble planes, and on byte planes with a group bias: the same;
       the bias is an f32 dot of the same group sums, in another order.
       NMSE <= 1e-6.
+  K6 above 8 rows (the wgmma GEMM, every family): identical bf16(q*scale)
+      products, f32 sums in another order (K split over blocks where the
+      tiles leave SMs idle); the group bias is the f32 group sums, split
+      exactly into three bf16 parts, times fb (or bf16(off*fs), exact),
+      each product exact, folded into the same accumulators.  NMSE <= 1e-6.
   K7 (dual projection): K6's B <= 8 arithmetic of each part.  NMSE <= 1e-6.
   K8 (gathered experts on interleaved planes): K6's B <= 8 arithmetic on
       the selected rows.  NMSE <= 1e-6.
@@ -780,6 +785,114 @@ def test_decode_attn_gqa_kernel_matches_plain(dev, cache, pos, swa, cap):
     assert kernels.LAUNCHES["decode_attn_gqa"] == before + 1
     assert got.shape == qg.shape and torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 1e-4
+
+
+#: K6's GEMM (B > 8) on every family and bias kind: byte planes without a
+#: bias (IQ4_XS, Q8_0), with the derived bias (Q6_K, off * fs) and with a
+#: stored one (Q5_K); nibble planes with a stored (Q4_K) and a derived
+#: (Q4_0) bias; coded planes (IQ3_XXS, IQ2_S); and two widths whose group
+#: count is not a multiple of a stage's groups (64 on byte planes, 32 on
+#: packed ones), which load a stage's scales as boxes of 8 groups: Q8_0 at
+#: K = 5120 (G = 160) and Q4_K at K = 11008 (G = 344)
+_GEMM = {"iq4xs": (1024, 4096, GGMLType.IQ4_XS),
+         "q8_0": (1024, 4096, GGMLType.Q8_0),
+         "q6k": (512, 14336, GGMLType.Q6_K),
+         "q5k": (1024, 4096, GGMLType.Q5_K),
+         "q4k": (1024, 4096, GGMLType.Q4_K),
+         "q4_0": (1024, 4096, GGMLType.Q4_0),
+         "iq3xxs": (512, 14336, GGMLType.IQ3_XXS),
+         "iq2s": (1024, 4096, GGMLType.IQ2_S),
+         "q8_0_g160": (1024, 5120, GGMLType.Q8_0),
+         "q4k_g344": (1024, 11008, GGMLType.Q4_K)}
+#: its M cases: K3's, and 1024 (above the 512-token chunk, any M is tiled)
+_GEMM_M = _K3_M + [1024]
+
+
+def _gemm_case(dev, qt, mode, M, side=False):
+    """K6 above 8 rows on interleaved planes qt in one mode (plain, pre_il,
+    normed, res, act): kernel against plain version, one launch counted
+    under its family-and-mode key and one under its GEMM key.  side: the
+    normed mode with the caller's pre-norm group sums (xg_mode 1)."""
+    fam = PF._family(qt.cfg)
+    x = _x(dev, M, 2 * qt.k if mode == "act" else qt.k, seed=M)
+    x = (x * (2 if mode == "act" else 1)).to(torch.bfloat16)
+    kw = {}
+    if mode == "normed":
+        kw = dict(wn=torch.rand(qt.k, device=dev) + 0.5, eps=1e-5)
+    elif mode == "pre_il":
+        kw = dict(pre_il=True)
+    elif mode in ("res", "act"):
+        kw = dict(res=_x(dev, M, qt.n, seed=9))
+        if mode == "act":
+            kw["act"] = "silu"
+    _, nkj = PF._pick_blocks(PF._padded_rows(M), qt.k, PF._is_packed(qt.cfg),
+                             qt.cfg.gs)
+    xg = PF.group_sums(qt, x, mode, kw.get("wn"), nkj)
+    if side and xg is None and PF._needs_xg(qt.cfg, qt.fb):
+        G = qt.fs.shape[1]
+        xg = PF._sums_il(PF._interleave_x(x, G, qt.cfg.gs).float() * kw["wn"],
+                         G)
+    key = "fast_" + fam + {"normed": "_normed", "act": "_act",
+                           "res": "_res"}.get(mode, "")
+    gkey = kernels.gemm_key(qt)
+    before = kernels.GEMM_LAUNCHES[gkey]
+    wrapper, plain = PF._k6(qt, False), PF._k6(qt, True)
+    _counted(key, lambda: wrapper(x, qt, xg=xg, **kw),
+             lambda: plain(x, qt, xg=xg, **kw))
+    assert kernels.GEMM_LAUNCHES[gkey] == before + 1
+
+
+def _gemm_qt(dev, name):
+    n, k, qtype = _GEMM[name]
+    qt = _qt(dev, n, k, qtype, "il")
+    assert qt.fl == "il"
+    return qt
+
+
+@pytest.mark.parametrize("M", _GEMM_M)
+@pytest.mark.parametrize("name", list(_GEMM))
+def test_fast_gemm_kernel_matches_plain(dev, name, M):
+    """K6's GEMM in its plain mode, every family and bias kind."""
+    _gemm_case(dev, _gemm_qt(dev, name), "plain", M)
+
+
+@pytest.mark.parametrize("mode,M", [("pre_il", 16), ("pre_il", 512),
+                                    ("normed", 32), ("normed", 512),
+                                    ("side", 200), ("side", 512),
+                                    ("res", 100), ("res", 512),
+                                    ("act", 16), ("act", 512)])
+@pytest.mark.parametrize("name", list(_GEMM))
+def test_fast_gemm_modes_match_plain(dev, name, mode, M):
+    """K6's GEMM in its pre_il, normed (sums in the kernel, or the caller's
+    pre-norm sums: side), res and act modes."""
+    _gemm_case(dev, _gemm_qt(dev, name), "normed" if mode == "side" else mode,
+               M, side=mode == "side")
+
+
+@pytest.mark.parametrize("M", [100, 512])
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K,
+                                   GGMLType.IQ3_XXS], ids=lambda t: t.name)
+def test_fast_gemm_takes_an_expert_row_slice(dev, qtype, M):
+    """One Mixtral expert's rows of a stacked interleaved tensor (a view of
+    the stack, contiguous), as the dense MoE prefill runs them."""
+    stack = _qt(dev, 4 * 1024, 4096, qtype, "il")
+    e2 = qtensor_rows(stack, 2 * 1024, 1024)
+    assert e2.fq.data_ptr() == stack.fq[2048:].data_ptr()
+    _gemm_case(dev, e2, "plain", M)
+
+
+@pytest.mark.parametrize("M", [32, 512])
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q8_0],
+                         ids=lambda t: t.name)
+def test_fast_gemm_without_k_splits(dev, qtype, M):
+    """A gate_up-wide GEMM (224 lane tiles) fills the card without splitting
+    K; the 1024-row shapes above split it (partials summed on the card,
+    the residual added after)."""
+    qt = _qt(dev, 28672, 4096, qtype, "il")
+    assert kernels._gemm_splits(M, qt.fq.shape[0], qt.k, dev) == 1
+    assert kernels._gemm_splits(M, 1024, qt.k, dev) > 1
+    _gemm_case(dev, qt, "plain", M)
+    _gemm_case(dev, qt, "res", M)
 
 
 def test_wrappers_refuse_cpu_tensors_for_the_kernels(dev):

@@ -13,8 +13,13 @@ JAX package, on the same planes and inputs:
   take_rows    interleaved planes gather on their rows (axis 0);
   dispatch     `qmatmul` sends t-planes to qp8_matmul and interleaved
                planes to K6, the rows past 512 on planes with wire and a
-               weight without matmul planes to the wire route, and raises
-               where the port has no route.
+               weight without matmul planes to the wire route, and the
+               rows past 512 on interleaved planes without wire to K6
+               (its GEMM on the card), as the JAX dispatcher does: byte,
+               nibble and coded planes and the normed entry at 520 rows
+               against the JAX `qmatmul` / `qmatmul_normed` with
+               GHT_FAST_INTERPRET=1 (the Pallas kernels in interpret
+               mode), rtol = atol = 5e-4.
 """
 import importlib
 
@@ -27,9 +32,9 @@ from ggml_hexagon_tpu.ops import qmm_fast as JF
 from ggml_hexagon_tpu.quant.formats import GGMLType
 from ggml_hexagon_tpu.quant.pack import quantize_tensor
 
-from _torch_port import jax_qt_leaf, port_qt
+from _torch_port import coded_qtensor, jax_qt_leaf, normed_input, port_qt
 from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
-from ggml_hexagon_tpu_torch.ops.qmatmul import qmatmul
+from ggml_hexagon_tpu_torch.ops.qmatmul import qmatmul, qmatmul_normed
 from ggml_hexagon_tpu_torch.quant.pack import QCONFIGS, use_qp8_layout
 
 # the JAX ops package exports a function named qmatmul beside the module
@@ -115,12 +120,12 @@ def test_take_rows_interleaved_matches_jax():
                                       err_msg=f)
 
 
-def test_qmatmul_dispatch():
+def test_qmatmul_dispatch(monkeypatch):
     """t-planes -> qp8_matmul, interleaved -> K6 up to 512 rows; beyond
     that on planes that keep their wire, and for a weight without matmul
-    planes, the wire route (qmatmul_xla), each held against the JAX
-    dispatcher in the same mode; beyond 512 rows on interleaved planes
-    without wire it raises (the JAX package runs K6's GEMM there)."""
+    planes, the wire route (qmatmul_xla); beyond 512 rows on interleaved
+    planes without wire K6, each held against the JAX dispatcher in the
+    same mode."""
     jq, pq = _qt()
     x = torch.from_numpy(np.random.default_rng(5).normal(
         size=(3, pq.k)).astype(np.float32))
@@ -137,8 +142,12 @@ def test_qmatmul_dispatch():
     want = JQ.qmatmul(jnp.asarray(x513), jq)
     np.testing.assert_allclose(qmatmul(torch.from_numpy(x513), pq).numpy(),
                                np.asarray(want), **TOL)
-    with pytest.raises(NotImplementedError):
-        qmatmul(torch.zeros(513, pq.k), pq.without_wire())
+    monkeypatch.setenv("GHT_FAST_INTERPRET", "1")  # the JAX route to K6
+    want = JQ.qmatmul(jnp.asarray(x513), jq.without_wire())
+    np.testing.assert_allclose(
+        qmatmul(torch.from_numpy(x513), pq.without_wire()).numpy(),
+        np.asarray(want), **TOL)
+    monkeypatch.delenv("GHT_FAST_INTERPRET")
     jw = quantize_tensor(rng.normal(size=(128, 512)).astype(np.float32),
                          GGMLType.Q8_0)
     pw = port_qt(jw)
@@ -166,3 +175,55 @@ def test_nibble_planes_raise():
     for family in (PF.fast_nibble, PF.fast_byte):
         with pytest.raises(ValueError):
             family(x, il)
+
+
+def _il_without_wire(qtype, n=128, k=512):
+    """(JAX QTensor on interleaved planes, wire dropped, port twin): Q8_0
+    and Q4_K quantized from normal weights, IQ3_XXS drawn as alphabet
+    values (`coded_qtensor`)."""
+    if qtype == GGMLType.IQ3_XXS:
+        wire = coded_qtensor(qtype, n, k, seed=3)
+    else:
+        rng = np.random.default_rng(int(qtype) + n + k)
+        wire = quantize_tensor(
+            rng.normal(size=(n, k)).astype(np.float32) * 0.05, qtype)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("GHT_QP8", "0")
+        jq = wire.astype_device(fast=True)
+    assert jq.fl == "il"
+    jq = jq.without_wire()
+    return jq, port_qt(jq)
+
+
+_ABOVE_512 = [GGMLType.Q8_0, GGMLType.Q4_K, GGMLType.IQ3_XXS]
+
+
+@pytest.mark.parametrize("qtype", _ABOVE_512, ids=["byte", "nibble", "coded"])
+def test_qmatmul_above_512_rows_without_wire(monkeypatch, qtype):
+    """520 rows on interleaved planes without wire take K6 in both packages
+    (the JAX dispatcher's `B <= MAX_FAST_BATCH or qt.q is None`): the
+    port's route against the JAX qmatmul with the Pallas kernel in
+    interpret mode."""
+    jq, pq = _il_without_wire(qtype)
+    assert PF._family(pq.cfg) == ("byte", "nibble", "coded")[
+        _ABOVE_512.index(qtype)]
+    x = np.random.default_rng(8).normal(size=(520, pq.k)).astype(np.float32)
+    monkeypatch.setenv("GHT_FAST_INTERPRET", "1")
+    want = JQ.qmatmul(jnp.asarray(x), jq)
+    np.testing.assert_allclose(qmatmul(torch.from_numpy(x), pq).numpy(),
+                               np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("qtype", _ABOVE_512, ids=["byte", "nibble", "coded"])
+def test_qmatmul_normed_above_512_rows_without_wire(monkeypatch, qtype):
+    """The normed entry at 520 rows on interleaved planes without wire:
+    K6's normed route in both packages (rows of an exact rsqrt,
+    `normed_input`)."""
+    jq, pq = _il_without_wire(qtype)
+    x, eps = normed_input(11, 520, pq.k)
+    wn = np.random.default_rng(12).uniform(0.5, 1.5, pq.k).astype(np.float32)
+    wn_il = wn[PF.interleave_perm(pq.k, pq.cfg.gs).numpy()]
+    monkeypatch.setenv("GHT_FAST_INTERPRET", "1")
+    want = JQ.qmatmul_normed(jnp.asarray(x), jq, jnp.asarray(wn_il), eps)
+    got = qmatmul_normed(torch.from_numpy(x), pq, torch.from_numpy(wn_il), eps)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
