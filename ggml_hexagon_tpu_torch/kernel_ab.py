@@ -4,10 +4,21 @@ one card, in the order parent, change, change, parent.
     git show 5c3a64d:ggml_hexagon_tpu_torch/csrc/fast_il.cu > DIR/fast_il.cu
     git show 3b0f551:ggml_hexagon_tpu_torch/csrc/qp8_gemm.cu > DIR/qp8_gemm.cu
     git show 3b0f551:ggml_hexagon_tpu_torch/csrc/decode_attn.cu > DIR/decode_attn.cu
+    git show c8a736e:ggml_hexagon_tpu_torch/csrc/qp8_gemv.cu > DIR/qp8_gemv.cu
     python3 -m ggml_hexagon_tpu_torch.kernel_ab --parent DIR
 
 Each part runs when DIR holds its parent source; the parents are built
 with this tree's nvcc flags and headers.
+
+  qp8_gemv.cu (c8a736e, the last tree whose K1, K2 and K5 ran a
+      one-block activation pre-pass, a GEMV reading the planes with 4-byte
+      loads and a finalize pass for K splits, three launches a call):
+      K1 on the launch mix of a Llama-3-8B Q4_K_M decode step (B = 1) and
+      of its 8-token prefill bucket (B = 8), K2 on that step's mixed-type
+      QKV, K1 coded and K2 coded on a Llama-3-8B IQ3_XXS step, K5 on a
+      Mixtral-8x7B Q5_K_M step and K5 coded on a Mixtral-8x7B IQ3_XXS step
+      (P = 2, one random expert stack a type, launches counted per layer
+      type), each unit also summed.
 
   fast_il.cu (5c3a64d, the last tree whose K6 took its GEMM there, a wmma
       kernel): K6's GEMM on the 512-token chunk launch mix of Llama-3-8B
@@ -26,9 +37,11 @@ with this tree's nvcc flags and headers.
       bf16 and int8 caches, B = 1 and 4.
 
 Times are device times of a CUDA-graph replay after an L2 flush (median
-of iterations), as chip_smoke.py takes them; each row also prints the
-bf16 `torch.matmul` (weight dequantized beforehand) or SDPA (K4, bf16)
-yardstick and the bound, and each unit its sums.  Needs a card.
+of iterations), as chip_smoke.py takes them (K1/K2/K5 rows also the
+host microseconds a wrapper call takes to enqueue); each row also prints the
+bf16 `torch.matmul` (weight dequantized beforehand), `torch.bmm` (K5, the
+selected experts dequantized beforehand) or SDPA (K4, bf16) yardstick and
+the bound, and each unit its sums.  Needs a card.
 """
 from __future__ import annotations
 
@@ -37,14 +50,16 @@ import ctypes
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
 
 from . import kernels
 from .models.llama import qtensor_rows
-from .models.synth import (build_8b, build_8b_il, build_8b_iq3xxs,
-                           build_8b_iq4xs, random_qtensor)
+from .models.llama import LlamaConfig
+from .models.synth import (MIXTRAL_8X7B, _policy, build_8b, build_8b_il,
+                           build_8b_iq3xxs, build_8b_iq4xs, random_qtensor)
 from .ops import decode_attn as PD
 from .ops import qmm_fast as PF
 from .ops import qmm_qp8 as P
@@ -63,9 +78,17 @@ _PARENT_ARGS = {
     "fast_il_run": kernels._ARGTYPES["fast_il_run"],
     "fast_dual_run": kernels._ARGTYPES["fast_dual_run"],
     "fast_indirect_run": kernels._ARGTYPES["fast_indirect_run"],
+    # c8a736e's K1/K2 and K5: the pre-pass scratch x8, xs and the partials
+    # of its K splits
+    "qp8_gemv_run": [_P, _P, _I, _F, _I, _I] + [_P, _P, _P] + [_I] * 5
+    + [_F, _I] + [_P, _P, _P] + [_I] * 5 + [_F, _I]
+    + [_P, _P, _P, _I, _P, _P, _I, _P],
+    "qp8_indirect_run": [_P, _I, _I, _P, _I, _I, _P, _P, _P] + [_I] * 4
+    + [_F, _I, _P, _P, _P, _I, _P, _P],
 }
 _PARENT_FNS = {"qp8_gemm": ["qp8_gemm_run"], "decode_attn": ["decode_attn_run"],
-               "fast_il": ["fast_il_run", "fast_dual_run", "fast_indirect_run"]}
+               "fast_il": ["fast_il_run", "fast_dual_run", "fast_indirect_run"],
+               "qp8_gemv": ["qp8_gemv_run", "qp8_indirect_run"]}
 _FLUSH = None
 
 
@@ -96,6 +119,22 @@ def _time_ms(fn, iters=10):
     return float(np.median(times))
 
 
+def _host_us(fn, calls=100):
+    """Host microseconds a call of fn takes to enqueue its work (the
+    wrapper, its allocations and launches; no synchronisation inside the
+    timed calls), the median of three runs."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(runs))
+
+
 def _build_parent(directory: str) -> dict:
     """The parent sources found in `directory`, built in parallel and
     loaded: C entry name -> function (the library as `lib:<name>`)."""
@@ -124,6 +163,16 @@ def _build_parent(directory: str) -> dict:
             fns[entry] = fn
         fns[f"lib:{name}"] = lib
     return fns
+
+
+def _parent_ksb(ncols: int, qts) -> int:
+    """c8a736e's K splits of K1/K2/K5 (kernels._pick_ksb there)."""
+    blocks = ncols // 128
+    chunks = []
+    for qt in qts:
+        bl, bh = P._pack_bits(qt.cfg)
+        chunks.append(qt.k * (bh or bl) // 8 // qt.cfg.gs)
+    return max(1, min(-(-264 // blocks), min(chunks) // 8))
 
 
 def _nmse(got, want):
@@ -331,6 +380,131 @@ class AB:
         self._unit(unit, count, t, lib, bound)
         return e_new
 
+    def parent_gemv(self, x, qts, wn=None, eps=None, act="", res=None):
+        """c8a736e's K1 (one plane set) or K2 (two) on the arguments
+        kernels._gemv_launch would pass, with its scratch."""
+        B, K = x.shape[0], qts[0].k
+        mode = 2 if act else 1 if eps is not None else 0
+        a = kernels._plane_args(qts[0])
+        b = (kernels._plane_args(qts[1]) if len(qts) > 1
+             else [None, None, None, 0, 0, 0, 0, 0, 0.0, 0])
+        ncols = a[3] + b[3]
+        ksb = _parent_ksb(ncols, qts)
+        dev = self.dev
+        x8 = torch.empty((B, K), dtype=torch.int8, device=dev)
+        xs = torch.empty((B, K // 256), dtype=torch.float32, device=dev)
+        out = torch.empty((B, ncols), dtype=torch.float32, device=dev)
+        ws = (torch.empty((ksb, B, ncols), dtype=torch.float32, device=dev)
+              if ksb > 1 else None)
+        rc = self.par["qp8_gemv_run"](
+            x.data_ptr(), kernels._ptr(wn), mode,
+            0.0 if eps is None else float(eps), B, K, *a, *b, x8.data_ptr(),
+            xs.data_ptr(), kernels._ptr(ws), ksb, out.data_ptr(),
+            kernels._ptr(res), 0 if res is None else res.shape[1],
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"parent qp8_gemv_run: CUDA error {rc}")
+        return out
+
+    def parent_indirect(self, x, qt, ids, npe):
+        """c8a736e's K5 with its scratch."""
+        fq, fs, fb, n2, ld, bl, bh, gs, off, cm = kernels._plane_args(qt)
+        Pn, K = x.shape
+        ksb = _parent_ksb(Pn * npe, [qt])
+        dev = self.dev
+        x8 = torch.empty((Pn, K), dtype=torch.int8, device=dev)
+        xs = torch.empty((Pn, K // 256), dtype=torch.float32, device=dev)
+        out = torch.empty((Pn, npe), dtype=torch.float32, device=dev)
+        ws = (torch.empty((ksb, Pn, npe), dtype=torch.float32, device=dev)
+              if ksb > 1 else None)
+        rc = self.par["qp8_indirect_run"](
+            x.data_ptr(), Pn, K, ids.data_ptr(), npe, n2 // npe, fq, fs, fb,
+            ld, bl, bh, gs, off, cm, x8.data_ptr(), xs.data_ptr(),
+            kernels._ptr(ws), ksb, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"parent qp8_indirect_run: CUDA error {rc}")
+        return out
+
+    def gemv(self, unit, name, qts, mode, B, count):
+        """One K1 (one plane set; mode raw, normed, res, or act with a
+        residual) or K2 row (two plane sets, normed), P C C P, against the
+        bf16 matmul on the weights dequantized beforehand."""
+        K, dev, gen = qts[0].k, self.dev, self.gen
+        x = torch.randn(B, 2 * K if mode == "act" else K, generator=gen,
+                        device=dev)
+        kw = {}
+        if mode == "normed":
+            kw = dict(wn=torch.rand(K, device=dev, generator=gen) + 0.5,
+                      eps=1e-5)
+        elif mode in ("res", "act"):
+            kw = dict(res=torch.randn(B, qts[0].n, generator=gen, device=dev))
+            if mode == "act":
+                kw["act"] = "silu"
+        if len(qts) == 2:
+            new = lambda: P.qp8_dual(x, *qts, **kw)  # noqa: E731
+            want = P.qp8_dual_plain(x, *qts, **kw)
+        else:
+            new = lambda: P.qp8_gemv(x, qts[0], **kw)  # noqa: E731
+            want = P.qp8_gemv_plain(x, qts[0], **kw)
+        old = lambda: self.parent_gemv(x, qts, **kw)  # noqa: E731
+        got = new()
+        e_new, e_old = _nmse(got, want), _nmse(old(), want)
+        t = [_time_ms(old), _time_ms(new), _time_ms(new), _time_ms(old)]
+        deq = torch.cat([P.dequantize_qp8(q, torch.bfloat16).t() for q in qts],
+                        1).contiguous()
+        xl = x[:, :K].to(torch.bfloat16)
+        lib = _time_ms(lambda: torch.matmul(xl, deq))
+        del deq
+        byts = sum(t_.numel() * t_.element_size() for q in qts
+                   for t_ in (q.fq, q.fs, q.fb) if t_ is not None)
+        byts += sum(t_.numel() * t_.element_size() for t_ in
+                    (x, got, kw.get("wn"), kw.get("res")) if t_ is not None)
+        bound = byts / HBM_BPS * 1e3
+        plan = kernels._gemv_plan(qts, [q.fq.shape[1] for q in qts], B, 1, dev)
+        what = "K2" if len(qts) == 2 else "K1"
+        print(f"{what} {unit} {mode} {name} "
+              f"{'+'.join(q.cfg.qtype.name for q in qts)} "
+              f"{'+'.join(str(q.n) for q in qts)}x{K} B={B} {plan} "
+              f"nmse={e_new:.2e} (parent {e_old:.2e}) P={t[0]:.4f} "
+              f"C={t[1]:.4f} C={t[2]:.4f} P={t[3]:.4f} ms matmul={lib:.4f} "
+              f"bound={bound:.4f} x{count} host us/call "
+              f"P={_host_us(old):.1f} C={_host_us(new):.1f}", flush=True)
+        self._unit(unit, count, t, lib, bound)
+        return e_new
+
+    def k5(self, unit, name, stack, npe, count):
+        """One K5 row at P=2 (ids 5, 2), P C C P, against the bf16 bmm on
+        the two experts dequantized beforehand."""
+        dev, gen = self.dev, self.gen
+        ids = torch.tensor([5, 2], dtype=torch.int32, device=dev)
+        x = torch.randn(2, stack.k, generator=gen, device=dev)
+        new = lambda: P.qp8_indirect(x, stack, ids, npe)  # noqa: E731
+        old = lambda: self.parent_indirect(x, stack, ids, npe)  # noqa: E731
+        want = P.qp8_indirect_plain(x, stack, ids, npe)
+        got = new()
+        e_new, e_old = _nmse(got, want), _nmse(old(), want)
+        t = [_time_ms(old), _time_ms(new), _time_ms(new), _time_ms(old)]
+        wsel = torch.stack([P.dequantize_qp8(qtensor_rows(stack, e * npe, npe),
+                                             torch.bfloat16).t()
+                            for e in (5, 2)]).contiguous()
+        xb = x.to(torch.bfloat16)[:, None, :]
+        lib = _time_ms(lambda: torch.bmm(xb, wsel))
+        del wsel
+        one = qtensor_rows(stack, 0, npe)
+        byts = 2 * sum(t_.numel() * t_.element_size()
+                       for t_ in (one.fq, one.fs, one.fb) if t_ is not None)
+        byts += (x.numel() + got.numel()) * 4 + ids.numel() * 4
+        bound = byts / HBM_BPS * 1e3
+        plan = kernels._gemv_plan([stack], [npe], 1, 2, dev)
+        print(f"K5 {unit} {name} {stack.cfg.qtype.name} {npe}x{stack.k} P=2 "
+              f"{plan} nmse={e_new:.2e} (parent {e_old:.2e}) P={t[0]:.4f} "
+              f"C={t[1]:.4f} C={t[2]:.4f} P={t[3]:.4f} ms bmm={lib:.4f} "
+              f"bound={bound:.4f} x{count} host us/call "
+              f"P={_host_us(old):.1f} C={_host_us(new):.1f}", flush=True)
+        self._unit(unit, count, t, lib, bound)
+        return e_new
+
     def k4(self, cfg, quant, B, pos, layers):
         """One K4 row at S=1024; a step is `layers` launches."""
         Hq, Hkv, D, S = cfg.n_head, cfg.n_head_kv, cfg.hd, 1024
@@ -518,11 +692,78 @@ def run_k3k4(ab, dev) -> bool:
     return ok
 
 
+def run_gemv(ab, dev) -> bool:
+    """K1/K2 on the 8B step and bucket-8 mixes (Q4_K_M, IQ3_XXS coded), K5
+    on a Mixtral Q5_K_M and an IQ3_XXS step."""
+    ok = True
+    cfg, w = build_8b(seed=0, device=dev)
+    layers = w["layers"]
+    full = next(lw for lw in layers if "wqkv" in lw)
+    mixed = next(lw for lw in layers if "wqk" in lw)
+    n_l = len(layers)
+    n_full = sum("wqkv" in lw for lw in layers)
+    dn = {q: next(lw["ffn_down"] for lw in layers
+                  if lw["ffn_down"].cfg.qtype.name == q) for q in ("Q4_K", "Q6_K")}
+    n6 = sum(lw["ffn_down"].cfg.qtype.name == "Q6_K" for lw in layers)
+    step = (("wqkv", full["wqkv"], "normed", n_full),
+            ("wo", full["wo"], "res", n_l),
+            ("gate_up", full["w_gateup_il"], "normed", n_l),
+            ("down_q4k", dn["Q4_K"], "act", n_l - n6),
+            ("down_q6k", dn["Q6_K"], "act", n6),
+            ("head_q6k", w["output"], "raw", 1))
+    for name, qt, mode, count in step:
+        ok &= ab.gemv("8B-Q4_K_M-step-K1", name, [qt], mode, 1, count) <= 1e-6
+    ok &= ab.gemv("8B-Q4_K_M-step-K2", "wqk+wv", [mixed["wqk"], mixed["wv"]],
+                  "normed", 1, n_l - n_full) <= 1e-6
+    for name, qt, mode, count in step + (
+            ("wqk", mixed["wqk"], "normed", n_l - n_full),
+            ("wv", mixed["wv"], "normed", n_l - n_full)):
+        ok &= ab.gemv("8B-Q4_K_M-bucket8-K1", name, [qt], mode, 8,
+                      count) <= 1e-6
+    del w, layers, full, mixed, dn, step
+    torch.cuda.empty_cache()
+
+    cfg, w = build_8b_iq3xxs("t", seed=0, device=dev)
+    lw = w["layers"][0]
+    for name, mode in (("wo", "res"), ("w_gateup_il", "normed"),
+                       ("ffn_down", "act")):
+        ok &= ab.gemv("8B-IQ3_XXS-step-K1coded", name, [lw[name]], mode, 1,
+                      n_l) <= 1e-6
+    ok &= ab.gemv("8B-IQ3_XXS-step-K2coded", "wqk+wv", [lw["wqk"], lw["wv"]],
+                  "normed", 1, n_l) <= 1e-6
+    del w, lw
+    torch.cuda.empty_cache()
+
+    # the Mixtral-8x7B steps: one random stack of each type, counted by the
+    # layers of that type (gate and up stacks: two launches a layer)
+    mcfg = LlamaConfig(**MIXTRAL_8X7B)
+    E, d, nff, n_l = mcfg.n_expert, mcfg.n_embd, mcfg.n_ff, mcfg.n_layer
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    for ftype, imat, unit in (("Q5_K_M", False, "Mixtral-Q5_K_M-step-K5"),
+                              ("IQ3_XXS", True, "Mixtral-IQ3_XXS-step-K5coded")):
+        policy = _policy(mcfg, ftype, imat)
+        gate = policy.tensor_type("blk.0.ffn_gate_exps.weight", (E * nff, d))
+        downs = [policy.tensor_type(f"blk.{il}.ffn_down_exps.weight",
+                                    (E * d, nff)) for il in range(n_l)]
+        for name, n, k, qtype, count in (
+                [("gate_up", nff, d, gate, 2 * n_l)]
+                + [(f"down_{q.name.lower()}", d, nff, q, downs.count(q))
+                   for q in sorted(set(downs), key=lambda q: q.name)]):
+            stack = random_qtensor(g, E * n, k, qtype, dev).with_fast_planes(
+                "t").without_wire()
+            ok &= ab.k5(unit, name, stack, n, count) <= 1e-6
+            del stack
+            torch.cuda.empty_cache()
+    return ok
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True,
-                    help="directory holding the parent's fast_il.cu, or "
-                         "qp8_gemm.cu and decode_attn.cu, or all three")
+                    help="directory holding the parent's fast_il.cu, "
+                         "qp8_gemm.cu and decode_attn.cu, or qp8_gemv.cu, "
+                         "or any of these")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -542,11 +783,14 @@ def main(argv=None):
         ok &= run_il(ab, dev)
     if "lib:qp8_gemm" in ab.par and "lib:decode_attn" in ab.par:
         ok &= run_k3k4(ab, dev)
+    if "lib:qp8_gemv" in ab.par:
+        ok &= run_gemv(ab, dev)
     for unit, (p, c, lib, bound, n) in ab.units.items():
         vs = f" ({c / lib:.2f}x)" if lib else ""
+        share = f", {bound / c:.0%} of it" if bound and c else ""
         print(f"UNIT {unit}: {n} launches, parent {p:.3f} ms, change "
-              f"{c:.3f} ms, bf16 matmul {lib:.3f} ms{vs}, "
-              f"bound {bound:.4f} ms", flush=True)
+              f"{c:.3f} ms ({p / c:.2f}x faster), bf16 yardstick {lib:.3f} "
+              f"ms{vs}, bound {bound:.4f} ms{share}", flush=True)
     print("ALL HELD" if ok else "FAILURES", flush=True)
     return 0 if ok else 1
 

@@ -22,6 +22,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -90,10 +91,10 @@ _ARGTYPES = {
     "qp8_gemv_run": [_P, _P, _I, _F, _I, _I,
                      _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                      _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                     _P, _P, _P, _I, _P, _P, _I, _P],
+                     _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     "qp8_indirect_run": [_P, _I, _I, _P, _I, _I,
                          _P, _P, _P, _I, _I, _I, _I, _F, _I,
-                         _P, _P, _P, _I, _P, _P],
+                         _I, _I, _I, _I, _P, _P, _P, _P],
     "qp8_gemm_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I,
                      _P, _I, _P, _P, _P],
     "fast_il_run": [_I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _P, _I,
@@ -245,19 +246,180 @@ def _plane_args(qt):
             _offset_bias_t(qt.cfg, qt.fb), CODE_MAPS[qt.cfg.code_map]]
 
 
-def _pick_ksb(ncols: int, qts) -> int:
-    """K splits across blocks: enough blocks to cover the card twice, while
-    every warp keeps at least one chunk of group rows."""
+#: shared memory a block may take, and an SM's (each resident block also
+#: holds 1 KB of it)
+SMEM_BLOCK = 232448
+SMEM_SM = 233472
+#: K1/K2/K5 (csrc/qp8_gemv.cu): consumer threads a block, group sums a
+#: segment slot, most groups a unit row serves, a block's fixed cost in
+#: plane bytes (prologue, ramp, sums) for the picker
+_GEMV_NCT = 128
+_GEMV_GPS = 16
+_GEMV_MAXE = 8
+_GEMV_BLOCK_COST = 16384
+
+
+def _a128(v: int) -> int:
+    return (v + 127) & ~127
+
+
+def gemv_cols_per_thread(nb: int) -> int:
+    """Columns of a thread's register tile at nb rows (C x nb partials)."""
+    return 8 if nb <= 4 else 4
+
+
+def _gemv_nbp(nb: int) -> int:
+    return 1 if nb <= 1 else 2 if nb <= 2 else 4 if nb <= 4 else 8
+
+
+class GemvGeo(NamedTuple):
+    """A t-plane set as K1/K2/K5 stream it: U unit rows a shift slice (of
+    the plane with the fewest bits), nl low parts (U rows apart) paired with
+    a unit row, E groups a unit row serves, gs, nchunks = U / gs unit
+    chunks (a ring stage each), bh high bits, fb a stored bias plane."""
+    U: int
+    nl: int
+    E: int
+    gs: int
+    nchunks: int
+    bh: int
+    fb: bool
+
+    @property
+    def items(self) -> int:
+        """A stage's items of a team: its E groups, or one for both groups
+        of the 4+0 planes (a byte's two nibbles)."""
+        return 1 if self.E == 2 and not self.bh else self.E
+
+
+def gemv_geo(qt) -> GemvGeo:
     from .ops.qmm_qp8 import _pack_bits
 
-    blocks = ncols // 128
-    chunks = []
-    for qt in qts:
-        bl, bh = _pack_bits(qt.cfg)
-        units = qt.k * (bh or bl) // 8
-        chunks.append(units // qt.cfg.gs)
-    target = -(-264 // blocks)
-    return max(1, min(target, min(chunks) // 8))
+    bl, bh = _pack_bits(qt.cfg)
+    K, gs = qt.k, qt.cfg.gs
+    U = K * (bh or bl) // 8
+    return GemvGeo(U, bl // bh if bh else 1, K // U, gs, U // gs, bh,
+                   qt.fb is not None)
+
+
+def gemv_stage(geo: GemvGeo, cols: int) -> tuple[int, int]:
+    """(bytes a ring stage takes, bytes its copies bring) for tiles of
+    `cols` lanes: lo [nl][gs][cols], hi [gs][cols], fs and fb [E][cols]
+    bf16, each part 128-aligned (csrc/qp8_gemv.cu stage_of)."""
+    lo = geo.nl * geo.gs * cols
+    hi = geo.gs * cols if geo.bh else 0
+    sc = geo.E * cols * 2
+    nbytes = _a128(lo + hi) + _a128(sc) + (_a128(sc) if geo.fb else 0)
+    return nbytes, lo + hi + sc + (sc if geo.fb else 0)
+
+
+def gemv_slots(geo: GemvGeo, ks: int) -> int:
+    """Activation segments a block of ks splits may need: per group row,
+    those a range of its unit rows touches."""
+    su = -(-geo.nchunks // ks) * geo.gs
+    return geo.E * (-(-su // 256) + 1)
+
+
+def gemv_smem(nb: int, sb: int, ns: int, slots: int) -> int:
+    """Shared memory of a block (csrc/qp8_gemv.cu layout_of): the ring of
+    ns stages of sb bytes (at least the teams' sums), the int8 activation,
+    segment scales and group sums of its slots, tables and mbarriers."""
+    nbp = _gemv_nbp(nb)
+    red = _GEMV_NCT * gemv_cols_per_thread(nb) * nb * 4
+    x8 = _a128(max(ns * sb, red))
+    xs = x8 + slots * 64 * nbp * 4
+    gsum = xs + _a128(slots * nbp * 4)
+    tab = gsum + slots * _GEMV_GPS * nbp * 4
+    flag = tab + 4 * (2 * _GEMV_MAXE + 2) + 32 * nbp + 4 * nbp
+    return _a128(flag + 16) + 16 * ns
+
+
+class GemvPlan(NamedTuple):
+    """A K1/K2/K5 launch: cols lanes a column tile, ks splits of K, ns ring
+    stages, nteam teams at work, smem bytes a block, per_sm blocks an SM."""
+    cols: int
+    ks: int
+    ns: int
+    nteam: int
+    smem: int
+    per_sm: int
+
+
+@functools.lru_cache(maxsize=None)
+def pick_gemv(geos: tuple, n2s: tuple, nb: int, rows_z: int,
+              sms: int) -> GemvPlan:
+    """Tile, ring and K splits of a K1/K2/K5 launch from its shapes and the
+    card's SM count: 256-lane tiles where they fill the card twice over,
+    or at 8 columns a thread where every plane has 16 of them, else 128-lane
+    tiles (four teams a block or more); the splits (whole unit chunks, two
+    or more a split) that finish the
+    waves of blocks soonest, two blocks an SM where the ring and the
+    activation fit (one where they do not), counting each block's fixed
+    cost; the deepest ring that fits, up to 16 stages or the block's chunks;
+    every team at work unless a round's groups would outgrow the ring."""
+    c = gemv_cols_per_thread(nb)
+    wide = sum(n // 256 for n in n2s) * rows_z  # 256-lane tiles
+    cols = 256 if all(n % 256 == 0 for n in n2s) and (
+        wide >= 2 * sms or c == 8 and min(n2s) >= 4096) else 128
+    teams = _GEMV_NCT * c // cols
+    tiles = sum(n // cols for n in n2s) * rows_z
+    stages = [gemv_stage(g, cols) for g in geos]
+    sb = max(b for b, _ in stages)
+    tx = max(t for _, t in stages)
+    items = min(g.items for g in geos)
+    best = None
+    nch = min(g.nchunks for g in geos)
+    for ks in range(1, max(1, nch // 2) + 1):  # two chunks a split or more
+        per = max(-(-g.nchunks // ks) for g in geos)
+        slots = max(gemv_slots(g, ks) for g in geos)
+        for per_sm in (2, 1):
+            budget = min(SMEM_BLOCK, SMEM_SM // per_sm - 1024)
+            ns = min(16, per)
+            while ns > 1 and gemv_smem(nb, sb, ns, slots) > budget:
+                ns -= 1
+            if gemv_smem(nb, sb, ns, slots) <= budget and ns >= min(2, per):
+                break
+        else:
+            continue
+        nteam = teams if per <= ns else min(teams, (ns - 1) * items)
+        busy = min(nteam, per * items)  # teams with work in the block
+        waves = -(-tiles * ks // (sms * per_sm))
+        cost = waves * (per * tx * teams / busy + _GEMV_BLOCK_COST)
+        if best is None or cost < best[0]:
+            best = (cost, GemvPlan(cols, ks, ns, nteam,
+                                   gemv_smem(nb, sb, ns, slots), per_sm))
+        if tiles * ks >= 4 * sms * per_sm:
+            break
+    if best is None:
+        raise ValueError(f"no K1/K2/K5 plan fits shared memory for planes "
+                         f"{geos} at {nb} rows")
+    return best[1]
+
+
+#: per device, the int32 tile counters of K1/K2/K5's split sums: zero
+#: between calls (each call's last blocks reset theirs), so one buffer a
+#: device serves every call on its stream, as the built libraries do.
+#: Made at the device's first call, which must come before any CUDA-graph
+#: capture (a capture's allocations belong to the graph's pool).
+_COUNTERS: dict[int, torch.Tensor] = {}
+
+
+def _gemv_counters(dev, need: int):
+    """The device's tile counters, at least `need` of them."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _COUNTERS:
+        _COUNTERS[index] = torch.zeros(1 << 16, dtype=torch.int32, device=dev)
+    if need > _COUNTERS[index].numel():
+        raise ValueError(f"{need} column tiles: more than the "
+                         f"{_COUNTERS[index].numel()} split counters")
+    return _COUNTERS[index]
+
+
+def _gemv_plan(qts, n2s, nb, rows_z, dev) -> GemvPlan:
+    sms = _sm_count(dev.index if dev.index is not None else
+                    torch.cuda.current_device())
+    return pick_gemv(tuple(gemv_geo(qt) for qt in qts), tuple(n2s), nb,
+                     rows_z, sms)
 
 
 def _gemv_launch(kind: str, x, qts, wn, eps, act, res):
@@ -276,19 +438,18 @@ def _gemv_launch(kind: str, x, qts, wn, eps, act, res):
     b = (_plane_args(qts[1]) if len(qts) > 1
          else [None, None, None, 0, 0, 0, 0, 0, 0.0, 0])
     ncols = a[3] + b[3]
-    ksb = _pick_ksb(ncols, qts)
     dev = x.device
-    x8 = torch.empty((B, K), dtype=torch.int8, device=dev)
-    xs = torch.empty((B, K // 256), dtype=torch.float32, device=dev)
+    plan = _gemv_plan(qts, [a[3], b[3]][:len(qts)], B, 1, dev)
+    counters = _gemv_counters(dev, ncols // plan.cols)
     out = torch.empty((B, ncols), dtype=torch.float32, device=dev)
-    ws = (torch.empty((ksb, B, ncols), dtype=torch.float32, device=dev)
-          if ksb > 1 else None)
+    ws = (torch.empty((plan.ks, B, ncols), dtype=torch.float32, device=dev)
+          if plan.ks > 1 else None)
     n_res = 0 if res is None else res.shape[1]
     lib = _lib("qp8_gemv")
     rc = lib.qp8_gemv_run(
         _ptr(x), _ptr(wn), mode, 0.0 if eps is None else float(eps), B, K,
-        *a, *b, _ptr(x8), _ptr(xs), _ptr(ws), ksb, _ptr(out), _ptr(res),
-        n_res, _stream(dev))
+        *a, *b, plan.cols, plan.ks, plan.ns, plan.nteam, _ptr(ws),
+        _ptr(counters), _ptr(out), _ptr(res), n_res, _stream(dev))
     if any(qt.cfg.code_map for qt in qts):
         kind += "_coded"
     _check(lib, rc, kind)
@@ -376,17 +537,17 @@ def qp8_indirect(x, qt, ids, npe: int):
     fq, fs, fb, n2, ld, bl, bh, gs, off, cm = _plane_args(qt)
     if npe % 128 or n2 % npe:
         raise ValueError(f"{npe} lanes an expert do not tile {n2} lanes")
-    ksb = _pick_ksb(P * npe, [qt])
     dev = x.device
-    x8 = torch.empty((P, K), dtype=torch.int8, device=dev)
-    xs = torch.empty((P, K // 256), dtype=torch.float32, device=dev)
+    plan = _gemv_plan([qt], [npe], 1, P, dev)
+    counters = _gemv_counters(dev, P * npe // plan.cols)
     out = torch.empty((P, npe), dtype=torch.float32, device=dev)
-    ws = (torch.empty((ksb, P, npe), dtype=torch.float32, device=dev)
-          if ksb > 1 else None)
+    ws = (torch.empty((plan.ks, P, npe), dtype=torch.float32, device=dev)
+          if plan.ks > 1 else None)
     lib = _lib("qp8_gemv")
     rc = lib.qp8_indirect_run(
         _ptr(x), P, K, _ptr(ids), npe, n2 // npe, fq, fs, fb, ld, bl, bh, gs,
-        off, cm, _ptr(x8), _ptr(xs), _ptr(ws), ksb, _ptr(out), _stream(dev))
+        off, cm, plan.cols, plan.ks, plan.ns, plan.nteam, _ptr(ws),
+        _ptr(counters), _ptr(out), _stream(dev))
     key = "qp8_indirect_coded" if cm else "qp8_indirect"
     _check(lib, rc, key)
     LAUNCHES[key] += 1

@@ -50,7 +50,16 @@ Tolerances, per kernel, with their reasons:
       order.  NMSE <= 1e-6.
   K11 (masked flash attention) and K12 (GQA cache attention): f32
       throughout, another order and expf, as K4: max|d| <= 1e-4.
+  K1/K2/K5 on inputs whose prologue is exact in any implementation (rows
+      of mean square 4 - eps, whose rsqrt is 0.5; gates of magnitude 20 or
+      more, whose silu is the gate or quantizes to 0): the same int8
+      activation on both sides, exact integer group partials, f32 sums of
+      the scaled partials in another order.  NMSE <= 1e-9, every mode, at
+      1, 3 and 8 rows, K splits that end on a ragged chunk count included;
+      two launches on the same inputs give the same bits (the last block
+      of a split tile sums the splits in split order).
 """
+import numpy as np
 import pytest
 import torch
 
@@ -68,6 +77,7 @@ from ggml_hexagon_tpu_torch.quant.formats import GGMLType
 pytestmark = pytest.mark.gpu
 
 NMSE_MAX = 1e-6
+NMSE_EXACT = 1e-9  # K1/K2/K5 on inputs with an exact prologue
 
 
 @pytest.fixture(scope="module")
@@ -910,3 +920,178 @@ def test_wrappers_refuse_cpu_tensors_for_the_kernels(dev):
     with pytest.raises(ValueError):
         kernels.fast_indirect(torch.zeros(2, 4096, dtype=torch.bfloat16), il,
                               torch.zeros(2, dtype=torch.int32), 512)
+
+
+# ---------------------------------------------------------------------------
+# K1 / K2 / K5 at NMSE <= 1e-9: inputs whose prologue is exact on both sides
+# ---------------------------------------------------------------------------
+
+def _exact_x(dev, B, k, mode, seed):
+    """(x, kwargs) for K1's mode on rows whose prologue rounds alike in the
+    kernel and the plain version: raw and res take any x; normed takes
+    signed permutations of one vector of multiples of 1/8 with mean square
+    4 - eps (every partial sum exact, so rsqrt(mean + eps) = 0.5 in any
+    order); act takes gates of magnitude 20 to 30 (sigmoid is 1, or small
+    enough that the product quantizes to 0) beside any up."""
+    rng = np.random.default_rng(seed)
+    kw = {}
+    if mode == "normed":
+        base = np.round(rng.normal(size=k) * 1.7 * 8) / 8
+        x = np.stack([base[rng.permutation(k)] * rng.choice([-1.0, 1.0], k)
+                      for _ in range(B)]).astype(np.float32)
+        mean = np.float32(np.sum(base.astype(np.float32) ** 2)) / np.float32(k)
+        assert 2.0 <= mean < 4.0
+        kw = dict(wn=torch.tensor(rng.uniform(0.5, 1.5, k).astype(np.float32),
+                                  device=dev),
+                  eps=float(np.float32(4.0) - mean))
+    elif mode == "act":
+        gate = rng.choice([-1.0, 1.0], (B, k)) * rng.uniform(20, 30, (B, k))
+        x = np.concatenate([gate, rng.normal(size=(B, k))], 1).astype(np.float32)
+        kw = dict(act="silu")
+    else:
+        x = rng.normal(size=(B, k)).astype(np.float32)
+    return torch.tensor(x, device=dev), kw
+
+
+def _gemv_tight(dev, qt, mode, B, key):
+    x, kw = _exact_x(dev, B, qt.k, mode, seed=B + qt.k)
+    if mode in ("res", "act"):
+        kw["res"] = _x(dev, B, qt.n, seed=9)
+    before = kernels.LAUNCHES[key]
+    got = P.qp8_gemv(x, qt, **kw)
+    want = P.qp8_gemv_plain(x, qt, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[key] == before + 1
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert _nmse(got, want) <= NMSE_EXACT
+    return got
+
+
+_GEMV_TYPES = [GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K]
+_MODES = ["raw", "normed", "res", "act"]
+
+
+@pytest.mark.parametrize("qtype", _GEMV_TYPES, ids=lambda t: t.name)
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("mode", _MODES)
+def test_qp8_gemv_kernel_matches_plain_exactly(dev, qtype, B, mode):
+    _gemv_tight(dev, _qt(dev, 2048, 4096, qtype), mode, B, "qp8_gemv")
+
+
+#: one plane set of each code map (iq2, iq3xxs, iq3s, iq1, ternary)
+_CODE_MAPS = {"iq2": "wqk_iq2s", "iq3xxs": "down_iq3xxs", "iq3s": "wo_iq3s",
+              "iq1": "iq1s", "tern": "tq2"}
+
+
+@pytest.mark.parametrize("cm", list(_CODE_MAPS))
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("mode", _MODES)
+def test_qp8_gemv_coded_kernel_matches_plain_exactly(dev, cm, B, mode):
+    qt = _coded(dev, _CODE_MAPS[cm], "t")
+    assert qt.cfg.code_map == cm
+    _gemv_tight(dev, qt, mode, B, "qp8_gemv_coded")
+
+
+@pytest.mark.parametrize("pair", ["q4k_q6k", "iq2s_q4k"])
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_qp8_dual_kernel_matches_plain_exactly(dev, pair, B):
+    a = (_qt(dev, 5120, 4096, GGMLType.Q4_K) if pair == "q4k_q6k"
+         else _coded(dev, "wqk_iq2s", "t"))
+    b = _qt(dev, 1024, 4096, GGMLType.Q6_K if pair == "q4k_q6k"
+            else GGMLType.Q4_K)
+    x, kw = _exact_x(dev, B, 4096, "normed", seed=B)
+    got = P.qp8_dual(x, a, b, **kw)
+    want = P.qp8_dual_plain(x, a, b, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (B, 6144)
+    assert _nmse(got, want) <= NMSE_EXACT
+
+
+@pytest.mark.parametrize("stack", ["gate_q5k", "down_q5k", "down_q6k",
+                                   "gate_iq3xxs", "down_iq3xxs"])
+@pytest.mark.parametrize("ids", [[5, 2], [3, 3], list(range(8)) * 2],
+                         ids=["P2", "P2_dup", "P16"])
+def test_qp8_indirect_kernel_matches_plain_exactly(dev, stack, ids):
+    npe, k, qtype = {**_MOE, **_CODED_MOE}[stack]
+    qt = _qt(dev, 8 * npe, k, qtype)
+    ids = torch.tensor(ids, dtype=torch.int32, device=dev)
+    x = _x(dev, ids.numel(), k, seed=ids.numel())
+    key = "qp8_indirect_coded" if qt.cfg.code_map else "qp8_indirect"
+    before = kernels.LAUNCHES[key]
+    got = P.qp8_indirect(x, qt, ids, npe)
+    want = P.qp8_indirect_plain(x, qt, ids, npe)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[key] == before + 1
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert _nmse(got, want) <= NMSE_EXACT
+
+
+def _plan_with(qts, nb, ks, cols=256):
+    """A K1/K2/K5 plan of ks splits, the rest as the picker sizes it."""
+    geos = [kernels.gemv_geo(q) for q in qts]
+    per = max(-(-g.nchunks // ks) for g in geos)
+    sb = max(kernels.gemv_stage(g, cols)[0] for g in geos)
+    slots = max(kernels.gemv_slots(g, ks) for g in geos)
+    for per_sm in (2, 1):  # as the picker: one block an SM where two do not fit
+        budget = min(kernels.SMEM_BLOCK, kernels.SMEM_SM // per_sm - 1024)
+        ns = min(16, per)
+        while ns > 1 and kernels.gemv_smem(nb, sb, ns, slots) > budget:
+            ns -= 1
+        if ns >= min(2, per):
+            break
+    teams = 128 * kernels.gemv_cols_per_thread(nb) // cols
+    nteam = (teams if per <= ns
+             else min(teams, (ns - 1) * min(g.items for g in geos)))
+    return kernels.GemvPlan(cols, ks, ns, nteam,
+                            kernels.gemv_smem(nb, sb, ns, slots), per_sm)
+
+
+@pytest.mark.parametrize("shape,ks", [((4096, 4096, GGMLType.Q4_K), 11),
+                                      ((4096, 14336, GGMLType.Q6_K), 13),
+                                      ((4096, 4096, GGMLType.Q5_K), 3),
+                                      ((4096, 14336, GGMLType.IQ3_XXS), 9)],
+                         ids=["q4k_64_11", "q6k_224_13", "q5k_16_3",
+                              "iq3xxs_224_9"])
+@pytest.mark.parametrize("B", [1, 8])
+def test_qp8_gemv_kernel_on_a_ragged_k_split(dev, monkeypatch, shape, ks, B):
+    """K splits whose chunk counts differ by one (the plane's unit chunks do
+    not divide by ks): the last block of each tile sums them exactly."""
+    n, k, qtype = shape
+    qt = _qt(dev, n, k, qtype)
+    assert kernels.gemv_geo(qt).nchunks % ks
+    plan = _plan_with([qt], B, ks)
+    monkeypatch.setattr(kernels, "_gemv_plan", lambda *a: plan)
+    key = "qp8_gemv_coded" if qt.cfg.code_map else "qp8_gemv"
+    _gemv_tight(dev, qt, "res", B, key)
+
+
+@pytest.mark.parametrize("ks", [1, 16])
+def test_qp8_gemv_kernel_gives_the_same_bits_twice(dev, monkeypatch, ks):
+    """The split sum is deterministic: no float atomics, split order."""
+    qt = _qt(dev, 4096, 14336, GGMLType.Q4_K)
+    plan = _plan_with([qt], 1, ks)
+    monkeypatch.setattr(kernels, "_gemv_plan", lambda *a: plan)
+    x, kw = _exact_x(dev, 1, qt.k, "act", seed=4)
+    first = P.qp8_gemv(x, qt, **kw)
+    for _ in range(3):
+        assert torch.equal(P.qp8_gemv(x, qt, **kw), first)
+    assert _nmse(first, P.qp8_gemv_plain(x, qt, **kw)) <= NMSE_EXACT
+
+
+def test_qp8_indirect_reads_expert_slices_in_place(dev):
+    """K5 streams the selected experts' lanes of the stacked planes: the
+    call allocates its output and split partials, no copy of an expert."""
+    qt = _qt(dev, 8 * 4096, 14336, GGMLType.Q6_K)
+    ids = torch.tensor([6, 1], dtype=torch.int32, device=dev)
+    x = _x(dev, 2, 14336, seed=2)
+    P.qp8_indirect(x, qt, ids, 4096)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    got = P.qp8_indirect(x, qt, ids, 4096)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(dev) - before
+    one_expert = sum(t[:, :4096].numel() * t.element_size()
+                     for t in (qt.fq, qt.fs))
+    assert extra < one_expert // 16
+    assert _nmse(got, P.qp8_indirect_plain(x, qt, ids, 4096)) <= NMSE_EXACT
