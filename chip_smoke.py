@@ -79,6 +79,12 @@ GEMM_TABLES), and one report each (fast_byte_gemm, ..._derived,
 ..._stored, fast_nibble_gemm_stored, fast_coded_gemm) sums one 512-token
 chunk of each configuration that runs it, logged per configuration too.
 
+K6 at B <= 8 and K8 are one launch a call (csrc/fast_il.cu il_gemv_kernel,
+the eleventh slice): every configuration's profiled decode steps hold them
+to one il_gemv_kernel a K6/K8 call of the step's table, K7's pre-pass
+kernels appearing only where the step runs K7; the 8B IQ4_XS and Q4_K_M il
+configurations also sum their 8-token bucket's K6 mix at B = 8.
+
 Any failure raises: the script exits non-zero and prints no result.  The
 last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their times and bounds.  Card rates for the bounds: the H100
@@ -649,9 +655,42 @@ def _device_ms(prof, n):
     return sum(r[0] for r in rows), rows[:8]
 
 
-def profile_path(dev, cfg, weights):
+#: K7's pre-pass kernels (csrc/fast_il.cu): the interleave or the norm,
+#: then the group sums, up to four a K7 call; K6 at B <= 8 and K8 launch
+#: one il_gemv_kernel a call and none of them
+IL_PREPASS = ("interleave_kernel", "normed_kernel", "group_sums_kernel")
+
+
+def check_il_kernels(prof, table, n):
+    """In a profiler window of n decode steps: one il_gemv_kernel a K6 (B
+    <= 8) or K8 call of the step's table, and K7's pre-pass kernels only
+    where the step runs K7 (at most four a call).  The profiler can lose
+    the records of a window's first kernels (the first layers of its first
+    step), so up to one step's worth may be missing; none may be extra
+    (serve holds the launches exact).  Returns the counts."""
+    k7 = table["step"].get("fast_dual", 0) + table["step"].get("fast_dual_coded", 0)
+    il = sum(v for k, v in table["step"].items()
+             if k.startswith("fast_") and not k.startswith("fast_dual"))
+    seen = dict.fromkeys(("il_gemv_kernel",) + IL_PREPASS, 0)
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) is not None and "CUDA" not in str(e.device_type):
+            continue
+        for name in seen:
+            if name in e.key:
+                seen[name] += e.count
+    pre = sum(seen[k] for k in IL_PREPASS)
+    if (not il * (n - 1) <= seen["il_gemv_kernel"] <= il * n
+            or pre > 4 * k7 * n or (k7 and not pre)):
+        raise AssertionError(f"{n} decode steps: kernels {seen}, want {il * n} "
+                             f"il_gemv_kernel and the pre-pass of {k7 * n} K7 calls")
+    return seen
+
+
+def profile_path(dev, cfg, weights, table):
     """Where the time goes: host time vs device kernel time of a 512-token
-    prefill and of decode steps at pos ~512 (torch.profiler, CUPTI)."""
+    prefill and of decode steps at pos ~512 (torch.profiler, CUPTI), and
+    the decode steps' K6/K8 kernels held to one launch a call (table: the
+    configuration's LAUNCH_TABLES entry)."""
     from torch.profiler import ProfilerActivity, profile
 
     from ggml_hexagon_tpu_torch.runtime.engine import Engine
@@ -683,6 +722,11 @@ def profile_path(dev, cfg, weights):
                 tok = int(np.argmax(eng.decode_one(np.array([tok]))[0]))
             host = (time.perf_counter() - t0) * 1e3 / n
         dev_ms, top = _device_ms(prof, n)
+        if dev_ms is not None:
+            seen = check_il_kernels(prof, table, n)
+            log(f"  kv={kv} decode, per step: {seen['il_gemv_kernel'] // n} "
+                f"il_gemv_kernel (one a K6/K8 call), "
+                f"{sum(seen[k] for k in IL_PREPASS) // n} K7 pre-pass kernels")
         idle = "not measured" if dev_ms is None else f"{1 - dev_ms / host:.1%}"
         log(f"  kv={kv} decode step at pos ~{eng.n_past}: host {host:.2f} ms, "
             f"device {'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'}, "
@@ -930,13 +974,30 @@ def log_gemm_cell(name):
     GEMM_CELL.clear()
 
 
-def k6_row(dev, gen, cfg, rep, name, qt, mode, B, count):
+#: K6 rows at B = 8 of the configuration being checked, times their
+#: launches in its 8-token prefill bucket: [launches, kernel ms, bf16
+#: yardstick ms, bound ms]
+BUCKET8_CELL = [0, 0.0, 0.0, 0.0]
+
+
+def log_bucket8_cell(name):
+    """The K6 mix of one 8-token bucket of configuration `name`; emptied."""
+    n, ms, lib, bms = BUCKET8_CELL
+    if n:
+        log(f"  K6 at B = 8, {name} 8-token bucket: {n} launches, kernel "
+            f"{ms:.3f} ms, bf16 yardstick {lib:.3f} ms ({ms / lib:.2f}x), "
+            f"bound {bms:.3f} ms ({bms / ms:.0%} of it)")
+    BUCKET8_CELL[:] = [0, 0.0, 0.0, 0.0]
+
+
+def k6_row(dev, gen, cfg, rep, name, qt, mode, B, count, bucket=0):
     """One K6 call on interleaved planes of any family (byte, nibble or
     coded), with or without a group bias (mode: plain, pre_il, normed, res,
     act with a residual): kernel vs plain version on the group sums the
     entry would hand it, kernel / plain / yardstick times and the bound;
-    added to rep (when given) count times, and at B = 512 (K6's GEMM on the
-    512-token chunk) to its family's GEMM report count times."""
+    added to rep (when given) count times, at B = 512 (K6's GEMM on the
+    512-token chunk) to its family's GEMM report count times, and at B = 8
+    to the 8-token bucket's sum `bucket` times."""
     from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
 
     K = qt.k
@@ -980,6 +1041,9 @@ def k6_row(dev, gen, cfg, rep, name, qt, mode, B, count):
         rep.add(count, err, ms, pms, byts, ops, peak, lib)
     if B == 512 and count:
         gemm_add(qt, count, err, ms, pms, byts, ops, lib)
+    if B == 8 and bucket:
+        for i, v in enumerate((bucket, bucket * ms, bucket * lib, bucket * bms)):
+            BUCKET8_CELL[i] += v
 
 
 def gather_rows(dev, gen, rep, name, qt, npe, per_step, seed):
@@ -1286,8 +1350,8 @@ def check_kernels_il(dev, weights, cfg):
     def report(key, unit):
         return KernelReport(key, "cuda", SRC_IL, K6_BYTE, unit)
 
-    def row(rep, name, qt, mode, B, count):
-        k6_row(dev, gen, cfg, rep, name, qt, mode, B, count)
+    def row(rep, name, qt, mode, B, count, bucket=0):
+        k6_row(dev, gen, cfg, rep, name, qt, mode, B, count, bucket)
 
     if not moe:
         lw_il = next(lw for lw in layers if lw["ffn_down"].fl == "il")
@@ -1298,10 +1362,11 @@ def check_kernels_il(dev, weights, cfg):
         log(f"K6 modes on the 8B IQ4_XS shapes (kernel vs plain, NMSE <= {NMSE_KERNEL})")
         for B in (1, 8, 32, 128, 512):
             for name, qt in (("wqk", lw_il["wqk"]), ("gate_up", lw_il["w_gateup_il"])):
-                row(KN if B == 1 else None, name, qt, "normed", B, n_l)
+                row(KN if B == 1 else None, name, qt, "normed", B, n_l, n_l)
         for B in (1, 8):
             row(KR if B == 1 else None, "wo", lw_il["wo"], "res", B, n_l)
-            row(KA if B == 1 else None, "down", lw_il["ffn_down"], "act", B, n_dn)
+            row(KA if B == 1 else None, "down", lw_il["ffn_down"], "act", B, n_dn, n_dn)
+        row(None, "wo", lw_il["wo"], "plain", 8, n_l, n_l)  # the bucket's wo
         for B in (32, 128, 512):  # the prefill's plain launches
             row(None, "wo", lw_il["wo"], "plain", B, n_l)
             row(None, "down", lw_il["ffn_down"], "pre_il", B, n_dn)
@@ -1377,8 +1442,8 @@ def check_kernels_nibble(dev, weights, cfg):
     def report(key, replaces, unit):
         return KernelReport(key, "cuda", SRC_IL, replaces, unit)
 
-    def row(rep, name, qt, mode, B, count):
-        k6_row(dev, gen, cfg, rep, name, qt, mode, B, count)
+    def row(rep, name, qt, mode, B, count, bucket=0):
+        k6_row(dev, gen, cfg, rep, name, qt, mode, B, count, bucket)
 
     if "ffn_gate_inp" not in layers[0]:
         full, mixed, dn4, dn6, n_full, n6, chunk = il_8b_chunk(weights)
@@ -1393,12 +1458,18 @@ def check_kernels_nibble(dev, weights, cfg):
         KD = report("fast_dual", K7_DUAL, f"{unit}: {n_mixed} launches")
         log(f"K6 on the 8B Q4_K_M il shapes (kernel vs plain, NMSE <= {NMSE_KERNEL})")
         for B in (1, 8):
-            row(KN if B == 1 else None, "wqkv", full["wqkv"], "normed", B, n_full)
-            row(KN if B == 1 else None, "gate_up", full["w_gateup_il"], "normed", B, n_l)
+            row(KN if B == 1 else None, "wqkv", full["wqkv"], "normed", B, n_full, n_full)
+            row(KN if B == 1 else None, "gate_up", full["w_gateup_il"], "normed", B, n_l, n_l)
             row(KR if B == 1 else None, "wo", full["wo"], "res", B, n_l)
-            row(KA if B == 1 else None, "down_q4k", dn4, "act", B, n_l - n6)
-            row(BA if B == 1 else None, "down_q6k", dn6, "act", B, n6)
+            row(KA if B == 1 else None, "down_q4k", dn4, "act", B, n_l - n6, n_l - n6)
+            row(BA if B == 1 else None, "down_q6k", dn6, "act", B, n6, n6)
         row(BP, "head_q6k", weights["output"], "plain", 1, 1)
+        # the rest of the 8-token bucket's K6 mix: no dual, wo plain
+        for name, qt, mode, count in (("wqk", mixed["wqk"], "normed", n_mixed),
+                                      ("wv_q6k", mixed["wv"], "normed", n_mixed),
+                                      ("wo", full["wo"], "plain", n_l),
+                                      ("head_q6k", weights["output"], "plain", 1)):
+            row(None, name, qt, mode, 8, count, count)
         for B in (32, 128, 512):  # the prefill chunk's launches
             for name, qt, mode, count in chunk:
                 row(None, name, qt, mode, B, count)
@@ -1760,11 +1831,12 @@ def run_phase(name, builder, check, dev):
     cfg, weights = build_phase(name, builder, dev)
     reports = check(dev, weights, cfg)
     log_gemm_cell(name)
+    log_bucket8_cell(name)
     log("serving (launch counters zeroed before, read after)")
     counts = serve(dev, cfg, weights, name)
     log(f"main-path launches ({name}): {counts}")
     log("where the time goes (profiler; after the counts were read)")
-    profile_path(dev, cfg, weights)
+    profile_path(dev, cfg, weights, LAUNCH_TABLES[name])
     log(f"kernel vs plain versions, end to end (logits NMSE <= {NMSE_LOGITS}"
         + (f"; routing flips must have margin < {FLIP_MARGIN})" if cfg.n_expert
            else ")"))

@@ -1,7 +1,10 @@
 // Hopper building blocks shared by the two wgmma GEMMs, qp8_gemm.cu (K3)
-// and fast_il_gemm.cu (K6's GEMM): cp.async and TMA copies counted on
-// mbarriers, wgmma with A from registers and B from shared memory, the
-// operand descriptors, the sum of K-split partials and the TMA tensor maps.
+// and fast_il_gemm.cu (K6's GEMM), and the TMA-ring GEMVs, qp8_gemv.cu (K1,
+// K2, K5) and fast_il.cu (K6 at B <= 8, K8): cp.async and TMA copies
+// counted on mbarriers (with an evict-first L2 policy for planes read once
+// a step), wgmma with A from registers and B from shared memory, the
+// operand descriptors, the sum of K-split partials and the 2-D and 3-D TMA
+// tensor maps.
 // A TMA box with the S-byte swizzle (S = 32, 64, 128) stores byte offset o
 // of its dense rows at o ^ (((o >> 7) & (S/16 - 1)) << 4) (swizzled()).
 #pragma once
@@ -250,6 +253,51 @@ bool encode_map(CUtensorMap* map, const void* base, int cols, int rows, int pitc
                 int br) {
   return encode_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, cols, rows,
                        (long long)pitch * 2, bc, br, swizzle_of(bc * 2));
+}
+
+// The planes' copies, with an L2 policy that evicts them first: a decode
+// step reads each weight byte once, and what L2 holds (activations, the KV
+// cache) is worth more.
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(pol));
+  return pol;
+}
+
+__device__ __forceinline__ void tma_load_2d_ef(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                               uint32_t bar, uint64_t pol) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar), "l"(pol)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d_ef(uint32_t dst, const CUtensorMap* map, int c0,
+                                               int c1, int c2, uint32_t bar, uint64_t pol) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar), "l"(pol)
+      : "memory");
+}
+
+// A 3-D tensor map over `base`: dims d0 (contiguous) x d1 x d2 of `dtype`,
+// d1 and d2 `s1` and `s2` bytes apart, boxes of b0 x b1 x b2 landing dense
+// in shared memory.
+bool encode_map_3d(CUtensorMap* map, CUtensorMapDataType dtype, const void* base, long long d0,
+                   long long d1, long long d2, long long s1, long long s2, int b0, int b1,
+                   int b2) {
+  const auto fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)s1, (cuuint64_t)s2};
+  const cuuint32_t box[3] = {(cuuint32_t)b0, (cuuint32_t)b1, (cuuint32_t)b2};
+  const cuuint32_t es[3] = {1, 1, 1};
+  return fn(map, dtype, 3, const_cast<void*>(base), dims, strides, box, es,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
 }  // namespace

@@ -196,33 +196,6 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(NCT) : "memory");
 }
 
-// The planes' copies, with an L2 policy that evicts them first: a decode
-// step reads each weight byte once, and what L2 holds (activations, the KV
-// cache) is worth more.
-__device__ __forceinline__ uint64_t evict_first_policy() {
-  uint64_t pol;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(pol));
-  return pol;
-}
-
-__device__ __forceinline__ void tma_load_2d_ef(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                               uint32_t bar, uint64_t pol) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
-      "[%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar), "l"(pol)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d_ef(uint32_t dst, const CUtensorMap* map, int c0,
-                                               int c1, int c2, uint32_t bar, uint64_t pol) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
-      "[%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar), "l"(pol)
-      : "memory");
-}
-
 // 4x4 byte transpose: out[c] byte i = in[i] byte c.
 __device__ __forceinline__ void transpose4(const uint32_t q[4], uint32_t col[4]) {
   const uint32_t t0 = __byte_perm(q[0], q[1], 0x5140);
@@ -233,66 +206,6 @@ __device__ __forceinline__ void transpose4(const uint32_t q[4], uint32_t col[4])
   col[1] = __byte_perm(t0, t1, 0x7632);
   col[2] = __byte_perm(t2, t3, 0x5410);
   col[3] = __byte_perm(t2, t3, 0x7632);
-}
-
-// The coded planes' decode, four codes a word: the magnitude index (bits
-// 0-2, or 0-1 in the 2+1 layouts) picks a byte of the alphabet and of its
-// negation (two byte permutes of tables set up once a block), the sign bit
-// (3, or 2) blends the two; ternary is value + 1.  The same values as
-// codes.cuh `decode4_with`, in about half its instructions (no __vsub4).
-struct Decoder {
-  uint32_t plo, phi, nlo, nhi, cmask;
-  int sup;   // shift that brings the sign bit to a byte's top bit
-};
-
-__device__ __forceinline__ Decoder decoder_of(int cm, int sbit) {
-  Decoder d;
-  const CodeAlphabet al = code_alphabet(cm);
-  d.plo = al.lo;
-  d.phi = al.hi;
-  d.nlo = d.nhi = 0u;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    d.nlo |= ((0u - ((al.lo >> (8 * i)) & 0xffu)) & 0xffu) << (8 * i);
-    d.nhi |= ((0u - ((al.hi >> (8 * i)) & 0xffu)) & 0xffu) << (8 * i);
-  }
-  d.cmask = sbit == 2 ? 0x03030303u : 0x07070707u;
-  d.sup = 7 - sbit;
-  return d;
-}
-
-__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
-  uint32_t r;
-  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(s));
-  return r;
-}
-
-template <bool TERN>
-__device__ __forceinline__ uint32_t decode(uint32_t v, const Decoder& d) {
-  if constexpr (TERN) return (v + 0x7f7f7f7fu) ^ 0x80808080u;  // bytes 0..2 -> -1..1
-  const uint32_t c = v & d.cmask;
-  const uint32_t sel = prmt(c | (c >> 4), 0u, 0x4420u);  // four 3-bit indices
-  const uint32_t pos = prmt(d.plo, d.phi, sel), neg = prmt(d.nlo, d.nhi, sel);
-  const uint32_t m = prmt(v << d.sup, 0u, 0xba98u);  // 0xff where negative
-  return (pos & ~m) | (neg & m);
-}
-
-// The eight 4-bit codes of a raw word (each byte: one group's code in its
-// low nibble, the other's in its high one), decoded into two words of four
-// bytes, [b0 lo, b0 hi, b1 lo, b1 hi] and the same for bytes 2 and 3.  The
-// nibbles are the selectors themselves: a nibble's sign bit is prmt's
-// sign-replicate flag, so the positive lookup reads the alphabet where the
-// sign is clear, the negative one (signs flipped) its negation where it is
-// set, and the byte msbs that carry the signs (raw's and raw << 4's) give
-// the blend mask.
-__device__ __forceinline__ void decode_nibbles(uint32_t raw, const Decoder& d, uint32_t& lo,
-                                               uint32_t& hi) {
-  const uint32_t x = raw ^ 0x88888888u, s4 = raw << 4;
-  const uint32_t pl = prmt(d.plo, d.phi, raw), nl = prmt(d.nlo, d.nhi, x);
-  const uint32_t ph = prmt(d.plo, d.phi, raw >> 16), nh = prmt(d.nlo, d.nhi, x >> 16);
-  const uint32_t ml = prmt(raw, s4, 0x9d8cu), mh = prmt(raw, s4, 0xbfaeu);  // 0xff: negative
-  lo = (pl & ~ml) | (nl & ml);
-  hi = (ph & ~mh) | (nh & mh);
 }
 
 // C bytes of a staged plane row as C/4 words.
@@ -836,24 +749,6 @@ __global__ void __launch_bounds__(NTH, 2)
     a.out[(size_t)r * a.ncols + col] = v;
   }
   if (tid == 0) *counter = 0;  // ready for the next call
-}
-
-// A 3-D tensor map over `base`: dims d0 (contiguous) x d1 x d2 of `dtype`,
-// d1 and d2 `s1` and `s2` bytes apart, boxes of b0 x b1 x b2 landing dense
-// in shared memory.
-bool encode_map_3d(CUtensorMap* map, CUtensorMapDataType dtype, const void* base, long long d0,
-                   long long d1, long long d2, long long s1, long long s2, int b0, int b1,
-                   int b2) {
-  const auto fn = encode_fn();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
-  const cuuint64_t strides[2] = {(cuuint64_t)s1, (cuuint64_t)s2};
-  const cuuint32_t box[3] = {(cuuint32_t)b0, (cuuint32_t)b1, (cuuint32_t)b2};
-  const cuuint32_t es[3] = {1, 1, 1};
-  return fn(map, dtype, 3, const_cast<void*>(base), dims, strides, box, es,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
 }
 
 // The geometry of a plane set of K rows; false when the kernel cannot take

@@ -1,7 +1,7 @@
 """In-call A/B of the port's kernels against an earlier tree's sources, on
 one card, in the order parent, change, change, parent.
 
-    git show 5c3a64d:ggml_hexagon_tpu_torch/csrc/fast_il.cu > DIR/fast_il.cu
+    git show 1b81f9c:ggml_hexagon_tpu_torch/csrc/fast_il.cu > DIR/fast_il.cu
     git show 3b0f551:ggml_hexagon_tpu_torch/csrc/qp8_gemm.cu > DIR/qp8_gemm.cu
     git show 3b0f551:ggml_hexagon_tpu_torch/csrc/decode_attn.cu > DIR/decode_attn.cu
     git show c8a736e:ggml_hexagon_tpu_torch/csrc/qp8_gemv.cu > DIR/qp8_gemv.cu
@@ -10,6 +10,20 @@ one card, in the order parent, change, change, parent.
 Each part runs when DIR holds its parent source; the parents are built
 with this tree's nvcc flags and headers.
 
+  fast_il.cu (1b81f9c, the last tree whose K6 at B <= 8 and K8 ran a
+      pre-pass (interleave, norm or act, and the group sums) and then one
+      warp a weight row, two or three launches a call): K6 on the launch
+      mixes of the decode steps of Llama-3-8B IQ4_XS (byte planes: normed,
+      res, act), Q4_K_M il (nibble planes normed, res, act; Q6_K byte planes
+      with the derived bias, act and the head) and IQ3_XXS il (coded
+      planes: normed, res, act), and of Mixtral-8x7B Q4_K_M il (nibble wq,
+      Q5_K wo with a stored bias, res) and IQ3_XXS il (coded wq); K6 on the
+      8-token prefill bucket's mixes (B = 8) of Llama-3-8B Q4_K_M il and
+      IQ4_XS; K8 at P = 2 on the Mixtral-8x7B IQ4_XS (byte), Q4_K_M il
+      (nibble, and Q6_K byte with the derived bias) and IQ3_XXS il (coded)
+      steps (one random expert stack a type, launches counted per layer
+      type); K7 on the Q4_K_M il and IQ3_XXS il steps, which keeps its
+      kernel and must stay level.
   qp8_gemv.cu (c8a736e, the last tree whose K1, K2 and K5 ran a
       one-block activation pre-pass, a GEMV reading the planes with 4-byte
       loads and a finalize pass for K splits, three launches a call):
@@ -19,16 +33,6 @@ with this tree's nvcc flags and headers.
       Mixtral-8x7B Q5_K_M step and K5 coded on a Mixtral-8x7B IQ3_XXS step
       (P = 2, one random expert stack a type, launches counted per layer
       type), each unit also summed.
-
-  fast_il.cu (5c3a64d, the last tree whose K6 took its GEMM there, a wmma
-      kernel): K6's GEMM on the 512-token chunk launch mix of Llama-3-8B
-      IQ4_XS (byte planes), Q4_K_M il (nibble planes with a stored bias,
-      Q6_K byte planes with the derived one, the head included) and
-      IQ3_XXS il (coded and nibble planes) at M = 512, 128 and 32, a Q5_K
-      wo (byte planes with a stored bias) at M = 512 and 128, and one
-      Mixtral-8x7B expert's gate (Q4_K) and down (Q6_K) slice at M = 512,
-      each unit also summed by GEMM family and bias; K6's B = 1 modes, K7
-      and K8 on the Q4_K_M il decode step's shapes, which must stay level.
   qp8_gemm.cu and decode_attn.cu (3b0f551, the last tree before K3 and K4
       were redesigned): every K3 launch of the Llama-3-8B Q4_K_M prefill
       chunk at M = 512, 128 and 32, the coded launches of Llama-3-8B
@@ -37,11 +41,11 @@ with this tree's nvcc flags and headers.
       bf16 and int8 caches, B = 1 and 4.
 
 Times are device times of a CUDA-graph replay after an L2 flush (median
-of iterations), as chip_smoke.py takes them (K1/K2/K5 rows also the
-host microseconds a wrapper call takes to enqueue); each row also prints the
-bf16 `torch.matmul` (weight dequantized beforehand), `torch.bmm` (K5, the
-selected experts dequantized beforehand) or SDPA (K4, bf16) yardstick and
-the bound, and each unit its sums.  Needs a card.
+of iterations), as chip_smoke.py takes them (K1/K2/K5, K6 and K8 rows also
+the host microseconds a wrapper call takes to enqueue); each row also
+prints the bf16 `torch.matmul` (weight dequantized beforehand), `torch.bmm`
+(K5, K8: the selected experts dequantized beforehand) or SDPA (K4, bf16)
+yardstick and the bound, and each unit its sums.  Needs a card.
 """
 from __future__ import annotations
 
@@ -70,14 +74,16 @@ HBM_BPS = 3.35e12
 BF16_OPS = 989e12
 F32_OPS = 67e12      # K6's GEMV, outside the tensor cores
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: the parents' C entries: K3 and K4 of 3b0f551, K6-K8 of 5c3a64d (the
-#: same as this tree's fast_il.cu entries)
+#: the parents' C entries: K3 and K4 of 3b0f551, K6-K8 of 1b81f9c (K6 and
+#: K8 with their pre-pass scratch xil and xg; K7 the same as this tree's)
 _PARENT_ARGS = {
     "qp8_gemm_run": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _I] + [_P] * 3,
     "decode_attn_run": [_P] * 7 + [_I] * 5 + [_F, _I, _F, _I] + [_P] * 4,
-    "fast_il_run": kernels._ARGTYPES["fast_il_run"],
+    "fast_il_run": [_I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _P, _I,
+                    _P, _F, _P, _I, _P, _P, _P, _P],
     "fast_dual_run": kernels._ARGTYPES["fast_dual_run"],
-    "fast_indirect_run": kernels._ARGTYPES["fast_indirect_run"],
+    "fast_indirect_run": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F,
+                          _P, _P, _P, _P, _P],
     # c8a736e's K1/K2 and K5: the pre-pass scratch x8, xs and the partials
     # of its K splits
     "qp8_gemv_run": [_P, _P, _I, _F, _I, _I] + [_P, _P, _P] + [_I] * 5
@@ -189,8 +195,8 @@ class AB:
         self.units: dict = {}
 
     def _as_parent(self, fn):
-        """fn() with the fast_il library swapped for the parent's: its B
-        <= 8 entries (K6's GEMV, K7, K8) keep their C signatures."""
+        """fn() with the fast_il library swapped for the parent's, whose K7
+        entry keeps its C signature."""
         mine = kernels._LIBS["fast_il"]
         kernels._LIBS["fast_il"] = self.par["lib:fast_il"]
         try:
@@ -198,10 +204,11 @@ class AB:
         finally:
             kernels._LIBS["fast_il"] = mine
 
-    def parent_k6_gemm(self, x, qt, wn=None, eps=None, act="", res=None,
-                       pre_il=False, xg=None):
-        """The parent's K6 above 8 rows (its wmma GEMM in fast_il_run), on
-        the arguments kernels._fast_launch would pass."""
+    def parent_k6(self, x, qt, wn=None, eps=None, act="", res=None,
+                  pre_il=False, xg=None):
+        """The parent's K6 at B <= 8 (its pre-pass and one-warp-a-row
+        GEMV), on the arguments kernels._fast_launch would pass, with its
+        scratch."""
         n2, G, nib, off, cm = kernels._il_plane_args(qt)
         B, K = x.shape[0], qt.k
         bias = qt.fb is not None or off != 0.0
@@ -225,6 +232,26 @@ class AB:
             raise RuntimeError(f"parent fast_il_run: CUDA error {rc}")
         return out
 
+    def parent_k8(self, x, qt, ids, npe, xg=None):
+        """The parent's K8 (its interleave pre-pass and one warp a row)."""
+        n2, G, nib, off, cm = kernels._il_plane_args(qt)
+        Pn, K = x.shape
+        bias = qt.fb is not None or off != 0.0
+        dev = self.dev
+        xil = torch.empty((Pn, K), dtype=torch.bfloat16, device=dev)
+        xgs = (torch.empty((Pn, G), dtype=torch.float32, device=dev)
+               if bias else None)
+        out = torch.empty((Pn, npe), dtype=torch.float32, device=dev)
+        rc = self.par["fast_indirect_run"](
+            x.data_ptr(), Pn, K, ids.data_ptr(), npe, n2 // npe,
+            qt.fq.data_ptr(), qt.fs.data_ptr(), kernels._ptr(qt.fb), G,
+            int(nib), cm, off, kernels._ptr(xg), xil.data_ptr(),
+            kernels._ptr(xgs), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"parent fast_indirect_run: CUDA error {rc}")
+        return out
+
     def _unit(self, unit, count, t, lib, bound):
         u = self.units.setdefault(unit, [0.0, 0.0, 0.0, 0.0, 0])
         u[0] += count * (t[0] + t[3]) / 2
@@ -233,8 +260,8 @@ class AB:
         u[3] += count * bound
         u[4] += count
 
-    def k6(self, unit, name, qt, mode, B, count, cfg=None):
-        """One K6 row (mode plain, pre_il, normed, res, act with a
+    def k6(self, unit, name, qt, mode, B, count):
+        """One K6 row at B <= 8 (mode plain, pre_il, normed, res, act with a
         residual) on the group sums the entry would hand it; its P C C P
         times join the unit's sums count times."""
         K, dev, gen = qt.k, self.dev, self.gen
@@ -255,12 +282,10 @@ class AB:
         kw["xg"] = PF.group_sums(qt, x, mode, kw.get("wn"), nkj)
         kern = PF._k6(qt, False)
         new = lambda: kern(x, qt, **kw)  # noqa: E731
-        if B > 8:
-            old = lambda: self.parent_k6_gemm(x, qt, **kw)  # noqa: E731
-        else:
-            old = lambda: self._as_parent(new)  # noqa: E731
+        old = lambda: self.parent_k6(x, qt, **kw)  # noqa: E731
         want = PF._k6(qt, True)(x, qt, **kw)
-        e_new, e_old = _nmse(new(), want), _nmse(old(), want)
+        got = new()
+        e_new, e_old = _nmse(got, want), _nmse(old(), want)
         t = [_time_ms(old), _time_ms(new), _time_ms(new), _time_ms(old)]
         deq = PF.dequantize_fast(qt, torch.bfloat16).t().contiguous()
         xl = x[:, :K]
@@ -269,17 +294,19 @@ class AB:
         n2 = qt.fq.shape[0]
         ops = 2 * B * K * n2
         byts = sum(t_.numel() * t_.element_size() for t_ in
-                   (qt.fq, qt.fs, qt.fb, x, kw.get("wn"), kw.get("res"),
-                    kw["xg"]) if t_ is not None) + B * n2 * 4
-        peak = BF16_OPS if B > 8 else F32_OPS
-        bound = max(byts / HBM_BPS, ops / peak) * 1e3
+                   (qt.fq, qt.fs, qt.fb, x, got, kw.get("wn"), kw.get("res"),
+                    kw["xg"]) if t_ is not None)
+        bound = max(byts / HBM_BPS, ops / F32_OPS) * 1e3
+        plan = kernels._il_plan(qt, B, n2 // kernels.IL_ROWS, 1,
+                                2 if mode == "act" else 1 if mode == "normed"
+                                else 0, dev)
         print(f"K6 {unit} {mode} {name} {qt.cfg.qtype.name} {qt.n}x{K} B={B} "
-              f"{PF._family(qt.cfg)} nmse={e_new:.2e} (parent {e_old:.2e}) "
-              f"P={t[0]:.4f} C={t[1]:.4f} C={t[2]:.4f} P={t[3]:.4f} ms "
-              f"matmul={lib:.4f} bound={bound:.4f} x{count}", flush=True)
+              f"{PF._family(qt.cfg)} {plan} nmse={e_new:.2e} (parent "
+              f"{e_old:.2e}) P={t[0]:.4f} C={t[1]:.4f} C={t[2]:.4f} "
+              f"P={t[3]:.4f} ms matmul={lib:.4f} bound={bound:.4f} x{count} "
+              f"host us/call P={_host_us(old):.1f} C={_host_us(new):.1f}",
+              flush=True)
         self._unit(unit, count, t, lib, bound)
-        if B > 8:  # the unit's share of each GEMM family and bias
-            self._unit(f"{unit} {kernels.gemm_key(qt)}", count, t, lib, bound)
         return e_new
 
     def k7(self, unit, qa, qb, B, count):
@@ -307,20 +334,38 @@ class AB:
         return e_new
 
     def k8(self, unit, name, stack, npe, count):
-        """One K8 row at P=2 (ids 5, 2), P C C P."""
+        """One K8 row at P=2 (ids 5, 2), P C C P, against the bf16 bmm on
+        the two experts dequantized beforehand."""
         dev, gen = self.dev, self.gen
         ids = torch.tensor([5, 2], dtype=torch.int32, device=dev)
         x = torch.randn(2, stack.k, generator=gen, device=dev).to(torch.bfloat16)
         xg = (PF._sums_natural(x, stack.fs.shape[1])
               if PF._needs_xg(stack.cfg, stack.fb) else None)
         new = lambda: PF.fast_indirect(x, stack, ids, npe, xg)  # noqa: E731
-        old = lambda: self._as_parent(new)  # noqa: E731
-        e_new = _nmse(new(), PF.fast_indirect_plain(x, stack, ids, npe, xg))
+        old = lambda: self.parent_k8(x, stack, ids, npe, xg)  # noqa: E731
+        want = PF.fast_indirect_plain(x, stack, ids, npe, xg)
+        got = new()
+        e_new, e_old = _nmse(got, want), _nmse(old(), want)
         t = [_time_ms(old), _time_ms(new), _time_ms(new), _time_ms(old)]
+        wsel = torch.stack([PF.dequantize_fast(qtensor_rows(stack, e * npe, npe),
+                                               torch.bfloat16).t()
+                            for e in (5, 2)]).contiguous()
+        xb = x[:, None, :]
+        lib = _time_ms(lambda: torch.bmm(xb, wsel))
+        del wsel
+        one = qtensor_rows(stack, 0, npe)
+        byts = 2 * sum(t_.numel() * t_.element_size()
+                       for t_ in (one.fq, one.fs, one.fb) if t_ is not None)
+        byts += sum(t_.numel() * t_.element_size()
+                    for t_ in (x, got, ids, xg) if t_ is not None)
+        bound = byts / HBM_BPS * 1e3
+        plan = kernels._il_plan(stack, 1, npe // kernels.IL_ROWS, 2, 0, dev)
         print(f"K8 {unit} {name} {stack.cfg.qtype.name} {npe}x{stack.k} P=2 "
-              f"nmse={e_new:.2e} P={t[0]:.4f} C={t[1]:.4f} C={t[2]:.4f} "
-              f"P={t[3]:.4f} ms x{count}", flush=True)
-        self._unit(unit, count, t, 0.0, 0.0)
+              f"{plan} nmse={e_new:.2e} (parent {e_old:.2e}) P={t[0]:.4f} "
+              f"C={t[1]:.4f} C={t[2]:.4f} P={t[3]:.4f} ms bmm={lib:.4f} "
+              f"bound={bound:.4f} x{count} host us/call "
+              f"P={_host_us(old):.1f} C={_host_us(new):.1f}", flush=True)
+        self._unit(unit, count, t, lib, bound)
         return e_new
 
     def parent_gemm(self, x, qt):
@@ -563,20 +608,30 @@ class AB:
 
 
 def run_il(ab, dev) -> bool:
-    """K6's GEMM on the 8B chunk mixes and two Mixtral expert slices; K6's
-    B = 1 modes, K7 and K8 on the Q4_K_M il decode step."""
+    """K6 (B <= 8) on the decode steps of the interleaved Llama-3-8B cells
+    and on two 8-token buckets, K6 and K8 on the interleaved Mixtral-8x7B
+    steps (random stacks of each policy type), K7 level."""
     ok = True
+
+    def k6(unit, rows):
+        nonlocal ok
+        for name, qt, mode, count, B in rows:
+            ok &= ab.k6(unit, name, qt, mode, B, count) <= 1e-6
+
     cfg, w = build_8b_iq4xs(seed=0, device=dev)
     layers = w["layers"]
     lw = next(lw for lw in layers if lw["ffn_down"].fl == "il")
     n_l, n_dn = len(layers), sum(lw["ffn_down"].fl == "il" for lw in layers)
-    for M in (512, 128, 32):
-        for name, mode, count in (("wqk", "normed", n_l),
-                                  ("w_gateup_il", "normed", n_l),
-                                  ("wo", "plain", n_l),
-                                  ("ffn_down", "pre_il", n_dn)):
-            ok &= ab.k6(f"8B-IQ4_XS-M{M}", name, lw[name], mode, M,
-                        count) <= 1e-6
+    k6("8B-IQ4_XS-step-K6-byte-normed",
+       [("wqk", lw["wqk"], "normed", n_l, 1),
+        ("gate_up", lw["w_gateup_il"], "normed", n_l, 1)])
+    k6("8B-IQ4_XS-step-K6-byte-res", [("wo", lw["wo"], "res", n_l, 1)])
+    k6("8B-IQ4_XS-step-K6-byte-act", [("down", lw["ffn_down"], "act", n_dn, 1)])
+    k6("8B-IQ4_XS-bucket8-K6",
+       [("wqk", lw["wqk"], "normed", n_l, 8),
+        ("gate_up", lw["w_gateup_il"], "normed", n_l, 8),
+        ("wo", lw["wo"], "plain", n_l, 8),
+        ("down", lw["ffn_down"], "act", n_dn, 8)])
     del w, layers, lw
     torch.cuda.empty_cache()
 
@@ -589,57 +644,77 @@ def run_il(ab, dev) -> bool:
     dn = {q: next(lw["ffn_down"] for lw in layers
                   if lw["ffn_down"].cfg.qtype.name == q) for q in ("Q4_K", "Q6_K")}
     n6 = sum(lw["ffn_down"].cfg.qtype.name == "Q6_K" for lw in layers)
-    for M in (512, 128, 32):
-        for name, qt, mode, count in (
-                ("wqkv", full["wqkv"], "normed", n_full),
-                ("wqk", mixed["wqk"], "normed", n_mixed),
-                ("wv_q6k", mixed["wv"], "normed", n_mixed),
-                ("gate_up", full["w_gateup_il"], "normed", n_l),
-                ("wo", full["wo"], "plain", n_l),
-                ("down_q4k", dn["Q4_K"], "pre_il", n_l - n6),
-                ("down_q6k", dn["Q6_K"], "pre_il", n6),
-                ("head_q6k", w["output"], "plain", 1)):
-            ok &= ab.k6(f"8B-Q4_K_M-il-M{M}", name, qt, mode, M, count) <= 1e-6
-    step = "8B-Q4_K_M-il-decode-step"
-    for name, qt, mode, count in (
-            ("wqkv", full["wqkv"], "normed", n_full),
-            ("gate_up", full["w_gateup_il"], "normed", n_l),
-            ("wo", full["wo"], "res", n_l),
-            ("down_q4k", dn["Q4_K"], "act", n_l - n6),
-            ("down_q6k", dn["Q6_K"], "act", n6),
-            ("head_q6k", w["output"], "plain", 1)):
-        ok &= ab.k6(step, name, qt, mode, 1, count) <= 1e-6
-    ok &= ab.k7(step, mixed["wqk"], mixed["wv"], 1, n_mixed) <= 1e-6
+    step = "8B-Q4_K_M-il-step"
+    k6(f"{step}-K6-nibble-normed",
+       [("wqkv", full["wqkv"], "normed", n_full, 1),
+        ("gate_up", full["w_gateup_il"], "normed", n_l, 1)])
+    k6(f"{step}-K6-nibble-res", [("wo", full["wo"], "res", n_l, 1)])
+    k6(f"{step}-K6-nibble-act", [("down_q4k", dn["Q4_K"], "act", n_l - n6, 1)])
+    k6(f"{step}-K6-byte-derived-act", [("down_q6k", dn["Q6_K"], "act", n6, 1)])
+    k6(f"{step}-K6-byte-derived-head", [("head_q6k", w["output"], "plain", 1, 1)])
+    ok &= ab.k7(f"{step}-K7", mixed["wqk"], mixed["wv"], 1, n_mixed) <= 1e-6
+    k6("8B-Q4_K_M-il-bucket8-K6",
+       [("wqkv", full["wqkv"], "normed", n_full, 8),
+        ("wqk", mixed["wqk"], "normed", n_mixed, 8),
+        ("wv_q6k", mixed["wv"], "normed", n_mixed, 8),
+        ("gate_up", full["w_gateup_il"], "normed", n_l, 8),
+        ("wo", full["wo"], "plain", n_l, 8),
+        ("down_q4k", dn["Q4_K"], "act", n_l - n6, 8),
+        ("down_q6k", dn["Q6_K"], "act", n6, 8),
+        ("head_q6k", w["output"], "plain", 1, 8)])
     del w, layers, full, mixed, dn
     torch.cuda.empty_cache()
 
     cfg, w = build_8b_iq3xxs("il", seed=0, device=dev)
     lw = w["layers"][0]
-    for M in (512, 128, 32):
-        for name, mode in (("wqk", "normed"), ("wv", "normed"),
-                           ("w_gateup_il", "normed"), ("wo", "plain"),
-                           ("ffn_down", "pre_il")):
-            ok &= ab.k6(f"8B-IQ3_XXS-il-M{M}", name, lw[name], mode, M,
-                        n_l) <= 1e-6
+    step = "8B-IQ3_XXS-il-step"
+    k6(f"{step}-K6-coded-normed", [("gate_up", lw["w_gateup_il"], "normed", n_l, 1)])
+    k6(f"{step}-K6-coded-res", [("wo", lw["wo"], "res", n_l, 1)])
+    k6(f"{step}-K6-coded-act", [("down", lw["ffn_down"], "act", n_l, 1)])
+    ok &= ab.k7(f"{step}-K7coded", lw["wqk"], lw["wv"], 1, n_l) <= 1e-6
     del w, lw
     torch.cuda.empty_cache()
 
+    # the Mixtral-8x7B steps: one random plane set or expert stack of each
+    # policy type on the cell's layout (IQ4_XS: the default, where Q5_K
+    # down stacks take K5; the others interleaved everywhere), counted by
+    # the layers of that type (gate and up stacks: two launches a layer)
+    mcfg = LlamaConfig(**MIXTRAL_8X7B)
+    E, d, nff, n_l = mcfg.n_expert, mcfg.n_embd, mcfg.n_ff, mcfg.n_layer
+    nkv = mcfg.n_head_kv * mcfg.hd
     g = torch.Generator(device=dev)
-    g.manual_seed(5)
-    wo = random_qtensor(g, 4096, 4096, GGMLType.Q5_K, dev).with_fast_planes(
-        "il").without_wire()  # a stored bias (fb): Mixtral's Q5_K wo
-    for M in (512, 128):
-        ok &= ab.k6(f"Q5_K-wo-M{M}", "wo", wo, "plain", M, 1) <= 1e-6
-    del wo
-    for name, n, k, qtype in (("gate", 14336, 4096, GGMLType.Q4_K),
-                              ("down", 4096, 14336, GGMLType.Q6_K)):
-        stack = random_qtensor(g, 8 * n, k, qtype, dev).with_fast_planes(
-            "il").without_wire()
-        ok &= ab.k6("Mixtral-expert-M512", name, qtensor_rows(stack, 2 * n, n),
-                    "plain", 512, 1) <= 1e-6
-        ok &= ab.k8("Mixtral-decode-K8", name, stack, n, 1) <= 1e-6
-        del stack
-        torch.cuda.empty_cache()
+    g.manual_seed(11)
+    for ftype, imat, layout, tag, attn in (
+            ("IQ4_XS", False, None, "IQ4_XS",
+             (("attn_q", d, "plain", n_l), ("attn_k", nkv, "plain", 2 * n_l))),
+            ("Q4_K_M", False, "il", "Q4_K_M-il",
+             (("attn_q", d, "plain", n_l), ("attn_output", d, "res", n_l))),
+            ("IQ3_XXS", True, "il", "IQ3_XXS-il",
+             (("attn_q", d, "plain", n_l),))):
+        policy = _policy(mcfg, ftype, imat)
+        step = f"Mixtral-{tag}-step"
+        for name, n, mode, count in attn:
+            qt = random_qtensor(g, n, d, policy.tensor_type(
+                f"blk.0.{name}.weight", (n, d)), dev).with_fast_planes(
+                    layout).without_wire()
+            fam = PF._family(qt.cfg) + ("-stored" if qt.fb is not None else "")
+            k6(f"{step}-K6-{fam}-{mode}", [(name, qt, mode, count, 1)])
+            del qt
+        gate = policy.tensor_type("blk.0.ffn_gate_exps.weight", (E * nff, d))
+        downs = [policy.tensor_type(f"blk.{il}.ffn_down_exps.weight",
+                                    (E * d, nff)) for il in range(n_l)]
+        for name, n, k, qtype, count in (
+                [("gate_up", nff, d, gate, 2 * n_l)]
+                + [(f"down_{q.name.lower()}", d, nff, q, downs.count(q))
+                   for q in sorted(set(downs), key=lambda q: q.name)]):
+            stack = random_qtensor(g, E * n, k, qtype, dev).with_fast_planes(
+                layout).without_wire()
+            if stack.fl == "il":  # t-plane stacks are K5's
+                fam = PF._family(stack.cfg) + ("-derived" if PF._offset_bias(
+                    stack.cfg, stack.fb) else "")
+                ok &= ab.k8(f"{step}-K8-{fam}", name, stack, n, count) <= 1e-6
+            del stack
+            torch.cuda.empty_cache()
     return ok
 
 

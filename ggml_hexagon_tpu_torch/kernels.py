@@ -98,13 +98,13 @@ _ARGTYPES = {
     "qp8_gemm_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I,
                      _P, _I, _P, _P, _P],
     "fast_il_run": [_I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _P, _I,
-                    _P, _F, _P, _I, _P, _P, _P, _P],
+                    _P, _F, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "fast_il_gemm_run": [_I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _P,
                          _I, _P, _F, _P, _I, _P, _P, _I, _P, _P, _P],
     "fast_dual_run": [_P, _I, _I, _F] + [_P, _P, _P, _P, _I, _I, _I, _I, _F,
                                          _P, _I, _P, _P] * 2 + [_P, _P],
     "fast_indirect_run": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F,
-                          _P, _P, _P, _P, _P],
+                          _P, _I, _I, _I, _P, _P, _P, _P],
     "ffn_fused_run": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I] + [_P] * 9
     + [_I, _I, _F, _P, _P, _P, _P, _P, _P],
     "decode_attn_run": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
@@ -396,9 +396,10 @@ def pick_gemv(geos: tuple, n2s: tuple, nb: int, rows_z: int,
     return best[1]
 
 
-#: per device, the int32 tile counters of K1/K2/K5's split sums: zero
-#: between calls (each call's last blocks reset theirs), so one buffer a
-#: device serves every call on its stream, as the built libraries do.
+#: per device, the int32 tile counters of the split sums of K1/K2/K5 and
+#: of K6 (B <= 8) and K8: zero between calls (each call's last blocks reset
+#: theirs), so one buffer a device serves every call on its stream, as the
+#: built libraries do.
 #: Made at the device's first call, which must come before any CUDA-graph
 #: capture (a capture's allocations belong to the graph's pool).
 _COUNTERS: dict[int, torch.Tensor] = {}
@@ -420,6 +421,140 @@ def _gemv_plan(qts, n2s, nb, rows_z, dev) -> GemvPlan:
                     torch.cuda.current_device())
     return pick_gemv(tuple(gemv_geo(qt) for qt in qts), tuple(n2s), nb,
                      rows_z, sms)
+
+
+#: K6 at B <= 8 and K8 (csrc/fast_il.cu il_gemv_kernel): weight rows a
+#: tile; for the picker, in plane bytes of one SM's stream, a block's fixed
+#: cost (barriers, the tail) and a split tile's (the partials' fence, the
+#: counter's round trip, the last block's sum), and the weight of an
+#: activation byte (built from L2, latency-bound)
+IL_ROWS = 64
+_IL_BLOCK_COST = 32768
+_IL_SPLIT_COST = 65536
+_IL_ACT_WEIGHT = 4
+
+
+class IlGeo(NamedTuple):
+    """Interleaved planes as K6 (B <= 8) and K8 stream them (csrc/fast_il.cu
+    il_geo): GW residues (groups) a residue block, nrb blocks (the last
+    one ragged when GW does not divide G); nper weight
+    periods (gs, or gs/2 on packed planes), NP of them a stage, spr stages a
+    residue block, nst stages in all; wb bytes of a stage's weight box (GW x
+    NP x IL_ROWS), fsb of a scale box (GW x IL_ROWS bf16)."""
+    GW: int
+    NP: int
+    nper: int
+    spr: int
+    nrb: int
+    nst: int
+    wb: int
+    fsb: int
+
+
+def il_geo(K: int, G: int, packed: bool) -> IlGeo:
+    """The stages of K6's (B <= 8) and K8's planes: residue blocks of 128
+    groups from G = 128 up (the last one ragged where 128 does not divide
+    G, its columns past G read as zeros), else of the largest of 64, 32, 16
+    dividing G; ValueError where the kernel takes none (G not a multiple of
+    16, or gs not of 8, 16 on packed planes)."""
+    gs = K // G if G >= 1 and K % G == 0 else 0
+    GW = 128 if G >= 128 else next((w for w in (64, 32, 16) if G % w == 0), 0)
+    if not gs or G % 16 or not GW or gs % (16 if packed else 8):
+        raise ValueError(f"K6/K8 take G a multiple of 16 and K/G a multiple "
+                         f"of {16 if packed else 8}: K={K}, G={G}")
+    nper = gs // 2 if packed else gs
+    NP = min(256 // GW, nper)
+    if nper % NP:
+        raise ValueError(f"K6/K8: {nper} periods are not whole stages of {NP}")
+    nrb, spr = -(-G // GW), nper // NP
+    return IlGeo(GW, NP, nper, spr, nrb, nrb * spr, GW * IL_ROWS * NP,
+                 GW * IL_ROWS * 2)
+
+
+def il_touched(geo: IlGeo, ks: int) -> int:
+    """Residue blocks the widest of ks splits touches (its activation
+    slots): split y takes stages [y*nst//ks, (y+1)*nst//ks)."""
+    return max((((y + 1) * geo.nst // ks - 1) // geo.spr
+                - y * geo.nst // ks // geo.spr + 1) for y in range(ks))
+
+
+def il_smem(geo: IlGeo, fb: bool, bias: bool, ns: int, ks: int, gs: int,
+            nb: int) -> int:
+    """Shared memory of a block (csrc/fast_il.cu il_layout): ns ring slots
+    (a weight box each), two scale regions (a scale box, and an fb box with
+    a stored bias), the bf16 activation of the touched residue blocks, their
+    group sums' three parts (with a bias), the norm's partials and factors,
+    flag and mbarriers."""
+    arb = il_touched(geo, ks)
+    slab = nb * geo.GW * 2
+    xgp = ns * geo.wb + 2 * geo.fsb * (2 if fb else 1) + _a128(arb * gs * slab)
+    red = xgp + (_a128(arb * 3 * slab) if bias else 0)
+    return _a128(red + 4 * 32 + 4 * 8 + 16) + 8 * (2 * ns + 3)
+
+
+class IlPlan(NamedTuple):
+    """A K6 (B <= 8) or K8 launch: ks splits of the stages, ns ring
+    stages, nbx blocks along the tiles (each takes every nbx-th tile),
+    smem bytes a block, per_sm blocks an SM."""
+    ks: int
+    ns: int
+    nbx: int
+    smem: int
+    per_sm: int
+
+
+@functools.lru_cache(maxsize=None)
+def pick_il_gemv(K: int, G: int, packed: bool, fb: bool, bias: bool, nb: int,
+                 tiles: int, rows_z: int, mode: int, sms: int) -> IlPlan:
+    """Splits, ring and blocks of a K6 (B <= 8, mode 0-3 as fast_il_run's)
+    or K8 launch (rows_z input rows, nb = 1) over `tiles` tiles of IL_ROWS
+    rows, from its shapes and the card's SM count.  One wave of persistent
+    blocks (two an SM where the ring and the activation fit, else one), each
+    building its split's activation once and taking every nbx-th tile; the
+    splits (whole stages, at most 32) that stream the fewest plane bytes
+    through the busiest SM (a block alone streams at about half an SM's
+    rate), counting a block's fixed cost, its activation and, when K is
+    split, each of its tiles' split sum; the deepest ring that fits, up to 8
+    stages or the block's stages."""
+    geo = il_geo(K, G, packed)
+    gs = K // G
+    best = None
+    for ks in range(1, min(geo.nst, 32) + 1):
+        per = -(-geo.nst // ks)
+        for per_sm in (2, 1):
+            budget = min(SMEM_BLOCK, SMEM_SM // per_sm - 1024)
+            ns = min(8, per * tiles)
+            while ns > 1 and il_smem(geo, fb, bias, ns, ks, gs, nb) > budget:
+                ns -= 1
+            smem = il_smem(geo, fb, bias, ns, ks, gs, nb)
+            if smem <= budget and ns >= min(2, per * tiles):
+                break
+        else:
+            continue
+        nbx = max(1, min(tiles, sms * per_sm // (ks * rows_z)))
+        blocks, tpb = nbx * ks * rows_z, -(-tiles // nbx)
+        act = nb * 2 * (il_touched(geo, ks) * geo.GW * gs * (2 if mode == 2 else 1)
+                        + (K if mode == 1 else 0))
+        # a block alone streams at about half an SM's rate
+        streams = max(-(-blocks // sms), 2)
+        cost = (streams * tpb * per * geo.wb + _IL_BLOCK_COST
+                + _IL_ACT_WEIGHT * act + (tpb * _IL_SPLIT_COST if ks > 1 else 0))
+        if best is None or cost < best[0]:
+            best = (cost, IlPlan(ks, ns, nbx, smem, per_sm))
+    if best is None:
+        raise ValueError(f"no K6/K8 plan fits shared memory: K={K}, G={G}, "
+                         f"{nb} rows")
+    return best[1]
+
+
+def _il_plan(qt, nb: int, tiles: int, rows_z: int, mode: int, dev) -> IlPlan:
+    from .ops.qmm_fast import _is_packed, _needs_xg
+
+    sms = _sm_count(dev.index if dev.index is not None else
+                    torch.cuda.current_device())
+    return pick_il_gemv(qt.k, qt.fs.shape[1], _is_packed(qt.cfg),
+                        qt.fb is not None, _needs_xg(qt.cfg, qt.fb), nb,
+                        tiles, rows_z, mode, sms)
 
 
 def _gemv_launch(kind: str, x, qts, wn, eps, act, res):
@@ -628,14 +763,16 @@ def _fast_launch(family: str, x, qt, wn, eps, act, res, pre_il, xg):
     if B > 8:
         return _fast_gemm(mode, key, x, qt, G, cm, off, xg, xg_mode, wn, eps,
                           res, n_res, out)
-    xil = (None if pre_il
-           else torch.empty((B, K), dtype=torch.bfloat16, device=dev))
-    xgs = torch.empty((B, G), dtype=torch.float32, device=dev) if bias else None
+    plan = _il_plan(qt, B, n2 // IL_ROWS, 1, mode, dev)
+    ws = (torch.empty((plan.ks, B, n2), dtype=torch.float32, device=dev)
+          if plan.ks > 1 else None)
     lib = _lib("fast_il")
     rc = lib.fast_il_run(mode, int(nib), cm, _ptr(x), B, K, _ptr(qt.fq),
                          _ptr(qt.fs), _ptr(qt.fb), n2, G, off, _ptr(xg),
-                         xg_mode, _ptr(wn), eps, _ptr(res), n_res,
-                         _ptr(xil), _ptr(xgs), _ptr(out), _stream(dev))
+                         xg_mode, _ptr(wn), eps, _ptr(res), n_res, plan.ks,
+                         plan.ns, plan.nbx, _ptr(ws),
+                         _ptr(_gemv_counters(dev, n2 // IL_ROWS)), _ptr(out),
+                         _stream(dev))
     _check(lib, rc, key)
     LAUNCHES[key] += 1
     return out
@@ -766,8 +903,9 @@ def fast_indirect(x, qt, ids, npe: int, xg=None):
     if K != qt.k or ids.shape[0] != P:
         raise ValueError(f"x {tuple(x.shape)} / ids {tuple(ids.shape)} vs "
                          f"weight K={qt.k}")
-    if npe < 1 or n2 % npe:
-        raise ValueError(f"{npe} rows an expert do not tile {n2} rows")
+    if npe < 1 or n2 % npe or npe % IL_ROWS:
+        raise ValueError(f"{npe} rows an expert do not tile {n2} rows in "
+                         f"blocks of {IL_ROWS}")
     bias = qt.fb is not None or off != 0.0
     if _xg_args(xg, P, G, bias) == 2:
         raise ValueError("K8 takes the group sums of planes with a bias as "
@@ -775,14 +913,16 @@ def fast_indirect(x, qt, ids, npe: int, xg=None):
     key = ("fast_indirect_coded" if cm else
            "fast_indirect_nibble" if nib else "fast_indirect")
     dev = x.device
-    xil = torch.empty((P, K), dtype=torch.bfloat16, device=dev)
-    xgs = torch.empty((P, G), dtype=torch.float32, device=dev) if bias else None
+    plan = _il_plan(qt, 1, npe // IL_ROWS, P, 0, dev)
+    ws = (torch.empty((plan.ks, P, npe), dtype=torch.float32, device=dev)
+          if plan.ks > 1 else None)
     out = torch.empty((P, npe), dtype=torch.float32, device=dev)
     lib = _lib("fast_il")
     rc = lib.fast_indirect_run(_ptr(x), P, K, _ptr(ids), npe, n2 // npe,
                                _ptr(qt.fq), _ptr(qt.fs), _ptr(qt.fb), G,
-                               int(nib), cm, off, _ptr(xg), _ptr(xil),
-                               _ptr(xgs),
+                               int(nib), cm, off, _ptr(xg), plan.ks, plan.ns,
+                               plan.nbx, _ptr(ws),
+                               _ptr(_gemv_counters(dev, P * npe // IL_ROWS)),
                                _ptr(out), _stream(dev))
     _check(lib, rc, key)
     LAUNCHES[key] += 1

@@ -58,6 +58,13 @@ Tolerances, per kernel, with their reasons:
       1, 3 and 8 rows, K splits that end on a ragged chunk count included;
       two launches on the same inputs give the same bits (the last block
       of a split tile sums the splits in split order).
+  K6 at B <= 8 and K8 on such inputs in bf16 (normed: inv = 0.5 exactly;
+      act: silu(g) = g or about 0): the same bf16 activation on both sides,
+      every product exact (byte weights q*s as two exact bf16 parts),
+      f32 sums in another order, the group sums split into three exact
+      bf16 parts.  NMSE <= 1e-9, every family, bias kind and mode, at 1, 3
+      and 8 rows, ragged K splits included; repeated launches give the same
+      bits.
 """
 import numpy as np
 import pytest
@@ -1095,3 +1102,154 @@ def test_qp8_indirect_reads_expert_slices_in_place(dev):
                      for t in (qt.fq, qt.fs))
     assert extra < one_expert // 16
     assert _nmse(got, P.qp8_indirect_plain(x, qt, ids, 4096)) <= NMSE_EXACT
+
+
+# ---------------------------------------------------------------------------
+# K6 at B <= 8 and K8 (csrc/fast_il.cu il_gemv_kernel) at NMSE <= 1e-9:
+# inputs whose prologue is exact on both sides
+# ---------------------------------------------------------------------------
+
+#: one plane set of each family and bias kind: byte planes without a bias
+#: (IQ4_XS), with the derived bias (Q6_K: off * fs) and with a stored one
+#: (Q5_K); nibble planes (Q4_K, stored; Q4_0, derived); coded planes of two
+#: code maps (IQ3_XXS, IQ2_S), ternary; nibble planes at K = 14336
+_IL_EXACT = {"byte": (2048, 4096, GGMLType.IQ4_XS),
+             "byte_derived": (2048, 4096, GGMLType.Q6_K),
+             "byte_stored": (2048, 4096, GGMLType.Q5_K),
+             "nibble": (2048, 4096, GGMLType.Q4_K),
+             "nibble_derived": (1024, 4096, GGMLType.Q4_0),
+             "coded_iq3xxs": (2048, 4096, GGMLType.IQ3_XXS),
+             "coded_iq2s": (2048, 4096, GGMLType.IQ2_S),
+             "tern": (1024, 4096, GGMLType.TQ2_0),
+             # G = 448: a ragged last residue block (64 of 128 groups)
+             "nibble_g448": (1024, 14336, GGMLType.Q4_K)}
+_IL_MODES = ["plain", "pre_il", "normed", "act", "res"]
+
+
+def _exact_bf16(dev, B, k, mode, seed):
+    """(x bf16, kwargs) for K6's mode on rows whose prologue rounds alike in
+    the kernel and the plain version (_exact_x's rows, in bf16: multiples
+    of 1/8 of mean square 4 - eps for the norm, gates of magnitude 20-30
+    for silu)."""
+    x, kw = _exact_x(dev, B, k, "act" if mode == "act" else
+                     "normed" if mode == "normed" else "raw", seed)
+    if mode == "pre_il":
+        kw = dict(pre_il=True)
+    return x.to(torch.bfloat16), kw
+
+
+def _il_tight(dev, qt, mode, B, seed=0):
+    x, kw = _exact_bf16(dev, B, qt.k, mode, seed + B)
+    if mode == "res":
+        kw["res"] = _x(dev, B, qt.n, seed=9)
+    elif mode == "act":
+        kw["res"] = _x(dev, B, qt.n, seed=9)
+    _, nkj = PF._pick_blocks(PF._padded_rows(B), qt.k, PF._is_packed(qt.cfg),
+                             qt.cfg.gs)
+    kw["xg"] = PF.group_sums(qt, x, "plain" if mode == "res" else mode,
+                             kw.get("wn"), nkj)
+    fam = "fast_" + PF._family(qt.cfg)
+    key = fam + {"normed": "_normed", "act": "_act", "res": "_res"}.get(mode, "")
+    before = kernels.LAUNCHES[key]
+    got = PF._k6(qt, False)(x, qt, **kw)
+    want = PF._k6(qt, True)(x, qt, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[key] == before + 1
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert _nmse(got, want) <= NMSE_EXACT
+    return x, kw, got
+
+
+@pytest.mark.parametrize("name", list(_IL_EXACT))
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("mode", _IL_MODES)
+def test_fast_il_gemv_matches_plain_exactly(dev, name, B, mode):
+    """K6 at B <= 8, every family, bias kind and mode, one launch."""
+    n, k, qtype = _IL_EXACT[name]
+    _il_tight(dev, _qt(dev, n, k, qtype, "il"), mode, B)
+
+
+def _il_plan_with(qt, nb, ks, rows_z=1):
+    """A K6/K8 plan of ks splits and one tile a block, the ring the picker
+    would give."""
+    fb, bias = qt.fb is not None, PF._needs_xg(qt.cfg, qt.fb)
+    G = qt.fs.shape[1]
+    geo = kernels.il_geo(qt.k, G, PF._is_packed(qt.cfg))
+    ns = 2
+    return kernels.IlPlan(ks, ns, qt.fq.shape[0] // kernels.IL_ROWS,
+                          kernels.il_smem(geo, fb, bias, ns, ks, qt.k // G, nb),
+                          1)
+
+
+@pytest.mark.parametrize("name,ks", [("byte", 5), ("nibble_derived", 3),
+                                     ("coded_iq3xxs", 7), ("byte_stored", 6)])
+@pytest.mark.parametrize("B", [1, 8])
+def test_fast_il_gemv_on_a_ragged_k_split(dev, monkeypatch, name, ks, B):
+    """Splits whose stage counts differ by one, starting inside a residue
+    block: the last block of each tile sums them exactly, the bias once."""
+    n, k, qtype = _IL_EXACT[name]
+    qt = _qt(dev, n, k, qtype, "il")
+    geo = kernels.il_geo(k, qt.fs.shape[1], PF._is_packed(qt.cfg))
+    assert geo.nst % ks and geo.nst // ks < geo.spr
+    plan = _il_plan_with(qt, B, ks)
+    monkeypatch.setattr(kernels, "pick_il_gemv", lambda *a: plan)
+    _il_tight(dev, qt, "normed", B)
+
+
+@pytest.mark.parametrize("ns", [2, 4, 8])
+def test_fast_il_gemv_one_stage_a_split_many_tiles_a_block(dev, monkeypatch, ns):
+    """Every stage of a split loads its residue block's scales (one stage a
+    split) and each block takes five tiles, its ring running ahead across
+    them: a scale region is refilled only after its values fed the mma."""
+    qt = _qt(dev, 5120, 4096, GGMLType.IQ4_XS, "il")
+    geo = kernels.il_geo(qt.k, qt.fs.shape[1], False)
+    plan = kernels.IlPlan(geo.nst, ns, 16, 0, 2)
+    monkeypatch.setattr(kernels, "pick_il_gemv", lambda *a: plan)
+    for _ in range(3):
+        _il_tight(dev, qt, "plain", 1)
+
+
+@pytest.mark.parametrize("ks", [1, 4])
+def test_fast_il_gemv_gives_the_same_bits_twice(dev, monkeypatch, ks):
+    """The split sum is deterministic: no float atomics, split order."""
+    qt = _qt(dev, 2048, 4096, GGMLType.Q4_K, "il")
+    plan = _il_plan_with(qt, 3, ks)
+    monkeypatch.setattr(kernels, "pick_il_gemv", lambda *a: plan)
+    x, kw, first = _il_tight(dev, qt, "act", 3)
+    for _ in range(3):
+        assert torch.equal(PF.fast_nibble(x, qt, **kw), first)
+
+
+@pytest.mark.parametrize("stack", ["iq4xs", "q6k", "q4k", "iq3xxs"])
+@pytest.mark.parametrize("ids", [[5, 2], [3, 3], [1, 8, -1]],
+                         ids=["P2", "P2_dup", "bad_id"])
+def test_fast_indirect_matches_plain_exactly(dev, stack, ids):
+    """K8 on byte stacks without a bias and with the derived one, nibble
+    stacks with a stored one and coded stacks; an id outside [0, E) gives
+    a NaN row and leaves the others exact."""
+    qtype = {"iq4xs": GGMLType.IQ4_XS, "q6k": GGMLType.Q6_K,
+             "q4k": GGMLType.Q4_K, "iq3xxs": GGMLType.IQ3_XXS}[stack]
+    qt = _qt(dev, 8 * 1024, 4096, qtype, "il")
+    ids_t = torch.tensor(ids, dtype=torch.int32, device=dev)
+    x = _x(dev, len(ids), 4096, seed=len(ids)).to(torch.bfloat16)
+    xg = (PF._sums_natural(x, qt.fs.shape[1])
+          if PF._needs_xg(qt.cfg, qt.fb) else None)
+    key = ("fast_indirect_coded" if qt.cfg.code_map else "fast_indirect_nibble"
+           if PF._is_nibble(qt.cfg) else "fast_indirect")
+    before = kernels.LAUNCHES[key]
+    got = PF.fast_indirect(x, qt, ids_t, 1024, xg)
+    want = PF.fast_indirect_plain(x, qt, ids_t, 1024, xg)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[key] == before + 1
+    ok = (ids_t >= 0) & (ids_t < 8)
+    assert torch.isnan(got[~ok]).all() and torch.isfinite(got[ok]).all()
+    assert _nmse(got[ok], want[ok]) <= NMSE_EXACT
+
+
+def test_fast_il_gemv_refuses_planes_it_cannot_stage(dev):
+    """Groups that do not come in blocks of 16 (ternary at K = 1024: G = 4)
+    raise on the card rather than fall back."""
+    qt = _qt(dev, 1024, 1024, GGMLType.TQ2_0, "il")
+    x = _x(dev, 1, 1024).to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        PF.fast_coded(x, qt)

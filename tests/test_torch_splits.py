@@ -267,3 +267,164 @@ def test_gemv_picker_needs_no_card():
     plan = kernels.pick_gemv((geo,), (4096,), 1, 1, H100_SMS)
     assert plan == kernels.pick_gemv((geo,), (4096,), 1, 1, H100_SMS)
     assert isinstance(plan, kernels.GemvPlan)
+
+
+# ---------------------------------------------------------------------------
+# K6 at B <= 8 and K8 (csrc/fast_il.cu): the picker of splits, ring and
+# persistent blocks
+# ---------------------------------------------------------------------------
+
+#: every K6 (B <= 8) and K8 launch shape of the configurations that serve
+#: interleaved planes: (type, rows, K), and the input rows a launch takes
+#: (K6: 1..8; K8: P = 2 at decode, 16 at the 8-token bucket)
+_IL_LAUNCHES = {
+    # Llama-3-8B IQ4_XS: wqk, gate_up, wo, down (IQ4_XS)
+    "iq4xs_wqk": ((_T.IQ4_XS, 5120, 4096), "k6"),
+    "iq4xs_gate_up": ((_T.IQ4_XS, 28672, 4096), "k6"),
+    "iq4xs_wo": ((_T.IQ4_XS, 4096, 4096), "k6"),
+    "iq4xs_down": ((_T.IQ4_XS, 4096, 14336), "k6"),
+    # Mixtral-8x7B IQ4_XS and the Q5_K_M / IQ3_XXS default layouts: wq
+    # IQ4_XS, wk/wv Q8_0; the IQ4_XS expert stacks (K8)
+    "mixtral_wq_iq4xs": ((_T.IQ4_XS, 4096, 4096), "k6"),
+    "mixtral_wk_q8_0": ((_T.Q8_0, 1024, 4096), "k6"),
+    "mixtral_gate_iq4xs": ((_T.IQ4_XS, 14336, 4096), "k8"),
+    "mixtral_down_iq4xs": ((_T.IQ4_XS, 4096, 14336), "k8"),
+    # Llama-3-8B Q4_K_M il (and il ffn): wqkv, wqk, wv Q6_K, gate_up, wo,
+    # down Q4_K / Q6_K, the Q6_K head (129024 rows)
+    "il_wqkv": ((_T.Q4_K, 6144, 4096), "k6"),
+    "il_wqk": ((_T.Q4_K, 5120, 4096), "k6"),
+    "il_wv_q6k": ((_T.Q6_K, 1024, 4096), "k6"),
+    "il_gate_up": ((_T.Q4_K, 28672, 4096), "k6"),
+    "il_wo": ((_T.Q4_K, 4096, 4096), "k6"),
+    "il_down_q4k": ((_T.Q4_K, 4096, 14336), "k6"),
+    "il_down_q6k": ((_T.Q6_K, 4096, 14336), "k6"),
+    "il_head_q6k": ((_T.Q6_K, 129024, 4096), "k6"),
+    # Mixtral-8x7B Q4_K_M il: wq Q4_K, wo Q5_K (stored bias), the Q6_K head
+    # (32256 rows); Q4_K gate and down and Q6_K down stacks (K8)
+    "mixtral_il_wq": ((_T.Q4_K, 4096, 4096), "k6"),
+    "mixtral_il_wo_q5k": ((_T.Q5_K, 4096, 4096), "k6"),
+    "mixtral_il_head_q6k": ((_T.Q6_K, 32256, 4096), "k6"),
+    "mixtral_il_gate_q4k": ((_T.Q4_K, 14336, 4096), "k8"),
+    "mixtral_il_down_q4k": ((_T.Q4_K, 4096, 14336), "k8"),
+    "mixtral_il_down_q6k": ((_T.Q6_K, 4096, 14336), "k8"),
+    # Llama-3-8B IQ3_XXS il: IQ2_S wqk, Q4_K wv, IQ3_S wo, IQ3_XXS gate_up
+    # and down, the Q5_K head; iq1 and ternary alone
+    "iq3_il_wqk": ((_T.IQ2_S, 5120, 4096), "k6"),
+    "iq3_il_wv_q4k": ((_T.Q4_K, 1024, 4096), "k6"),
+    "iq3_il_wo": ((_T.IQ3_S, 4096, 4096), "k6"),
+    "iq3_il_gate_up": ((_T.IQ3_XXS, 28672, 4096), "k6"),
+    "iq3_il_down": ((_T.IQ3_XXS, 4096, 14336), "k6"),
+    "iq3_il_head_q5k": ((_T.Q5_K, 129024, 4096), "k6"),
+    "iq1s": ((_T.IQ1_S, 1024, 4096), "k6"),
+    "tq2": ((_T.TQ2_0, 1024, 4096), "k6"),
+    # Mixtral-8x7B IQ3_XXS il: IQ2_S wq, the IQ3_XXS stacks (K8)
+    "mixtral_iq3_il_wq": ((_T.IQ2_S, 4096, 4096), "k6"),
+    "mixtral_iq3_il_gate": ((_T.IQ3_XXS, 14336, 4096), "k8"),
+    "mixtral_iq3_il_down": ((_T.IQ3_XXS, 4096, 14336), "k8"),
+}
+
+
+def _il_kind(qtype):
+    """(packed, stored fb, any bias) of interleaved planes of qtype."""
+    from ggml_hexagon_tpu_torch.ops.qmm_fast import _family
+    from ggml_hexagon_tpu_torch.quant.pack import QCONFIGS
+
+    cfg = QCONFIGS[qtype]
+    fb = cfg.asym != "none"
+    return _family(cfg) != "byte", fb, fb or bool(cfg.offset)
+
+
+def _check_il_plan(qtype, rows, K, nb, tiles, rows_z, mode, sms):
+    cfg_packed, fb, bias = _il_kind(qtype)
+    from ggml_hexagon_tpu_torch.quant.pack import QCONFIGS
+
+    G = K // QCONFIGS[qtype].gs
+    geo = kernels.il_geo(K, G, cfg_packed)
+    # the stages cover the planes: residue blocks tile the groups (the
+    # last one ragged past G), a stage's periods tile a residue block's,
+    # every weight byte once
+    assert (geo.nrb - 1) * geo.GW < G <= geo.nrb * geo.GW
+    assert geo.GW == 128 or G % geo.GW == 0
+    assert geo.nper % geo.NP == 0 and geo.spr * geo.NP == geo.nper
+    assert geo.nper * G * (2 if cfg_packed else 1) == K
+    assert geo.wb == geo.GW * geo.NP * kernels.IL_ROWS <= 16384
+    plan = kernels.pick_il_gemv(K, G, cfg_packed, fb, bias, nb, tiles, rows_z,
+                                mode, sms)
+    # whole-stage splits, none empty, a legal ring, one wave of blocks
+    assert 1 <= plan.ks <= min(geo.nst, 32)
+    ends = [y * geo.nst // plan.ks for y in range(plan.ks + 1)]
+    assert all(b > a for a, b in zip(ends, ends[1:]))
+    assert 1 <= plan.ns <= 8 and 1 <= plan.nbx <= tiles
+    assert plan.per_sm in (1, 2)
+    assert plan.nbx * plan.ks * rows_z <= max(sms * plan.per_sm,
+                                              plan.ks * rows_z)
+    # the ring, the scales and the activation fit the block, per_sm blocks
+    # an SM; the layout's parts as the kernel lays them out
+    assert plan.smem == kernels.il_smem(geo, fb, bias, plan.ns, plan.ks,
+                                        K // G, nb)
+    assert plan.smem <= kernels.SMEM_BLOCK
+    assert plan.per_sm * (plan.smem + 1024) <= kernels.SMEM_SM
+    arb = kernels.il_touched(geo, plan.ks)
+    assert plan.smem >= (plan.ns * geo.wb + 2 * geo.fsb * (2 if fb else 1)
+                         + arb * (K // G) * nb * geo.GW * 2)
+    # legal TMA boxes: weights (GW, NP, rows) bytes, scales (GW, rows) bf16
+    for dims, elem in (((geo.GW, geo.NP, kernels.IL_ROWS), 1),
+                       ((geo.GW, kernels.IL_ROWS), 2)):
+        assert dims[0] * elem % 16 == 0 and all(1 <= d <= 256 for d in dims)
+    return plan
+
+
+@pytest.mark.parametrize("sm_count", [H100_SMS, 114], ids=["sxm", "pcie"])
+@pytest.mark.parametrize("name", list(_IL_LAUNCHES))
+def test_il_gemv_plans_fit_every_served_shape(name, sm_count):
+    """Every K6 (B <= 8, each mode) and K8 (P = 2, 16) launch of the served
+    interleaved configurations gets a legal plan at 132 and 114 SMs."""
+    (qtype, rows, K), kind = _IL_LAUNCHES[name]
+    tiles = rows // kernels.IL_ROWS
+    if kind == "k6":
+        for nb in range(1, 9):
+            for mode in range(4):
+                _check_il_plan(qtype, rows, K, nb, tiles, 1, mode, sm_count)
+    else:
+        for p in (2, 16):
+            _check_il_plan(qtype, rows, K, 1, tiles, p, 0, sm_count)
+
+
+@pytest.mark.parametrize("name", ["il_gate_up", "iq4xs_gate_up",
+                                  "il_head_q6k", "mixtral_il_gate_q4k"])
+def test_il_gemv_wide_shapes_keep_k_whole(name):
+    """Shapes with tiles for every block slot keep K whole (no split sums)
+    and two blocks an SM at one row."""
+    (qtype, rows, K), kind = _IL_LAUNCHES[name]
+    rows_z = 2 if kind == "k8" else 1
+    plan = _check_il_plan(qtype, rows, K, 1, rows // kernels.IL_ROWS, rows_z,
+                          0, H100_SMS)
+    assert plan.ks == 1 and plan.per_sm == 2
+
+
+@pytest.mark.parametrize("K,G,packed", [(14336, 56, True), (11008, 344, True),
+                                        (4096, 8, False)])
+def test_il_gemv_refuses_shapes_it_cannot_stage(K, G, packed):
+    """No plan where the groups do not come in blocks of 16 or more: the
+    wrapper raises instead of falling back."""
+    with pytest.raises(ValueError):
+        kernels.il_geo(K, G, packed)
+    with pytest.raises(ValueError):
+        kernels.pick_il_gemv(K, G, packed, False, False, 1, 16, 1, 0,
+                             H100_SMS)
+
+
+@pytest.mark.parametrize("qtype", [_T.Q4_K, _T.Q6_K, _T.IQ4_XS, _T.IQ3_XXS,
+                                   _T.TQ2_0], ids=lambda t: t.name)
+def test_il_geometry_of_real_planes(qtype):
+    """The stage geometry matches planes built here: a weight row is nper
+    periods of G residues (K or K/2 bytes; ternary's G = 16 at K = 4096)."""
+    g = torch.Generator()
+    g.manual_seed(int(qtype))
+    qt = random_qtensor(g, 128, 4096, qtype, "cpu").with_fast_planes("il")
+    assert qt.fl == "il"
+    packed, fb, _ = _il_kind(qtype)
+    G = qt.fs.shape[1]
+    geo = kernels.il_geo(qt.k, G, packed)
+    assert qt.fq.shape[1] == geo.nper * G
+    assert (qt.fb is not None) == fb
