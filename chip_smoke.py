@@ -104,7 +104,7 @@ import torch
 HBM_BPS = 3.35e12
 BF16_OPS = 989e12
 INT8_OPS = 1979e12
-F32_OPS = 67e12      # float32 outside the tensor cores (K6's decode route)
+F32_OPS = 67e12      # float32 outside the tensor cores (K7, K9, f32 K11)
 NMSE_LOGITS = 5e-4   # logits, kernels vs plain versions, end to end
 NMSE_KERNEL = 1e-6   # K1-K3, K5, K6 vs plain: same integer/f32/bf16
                      # products, f32 sums in another order
@@ -639,11 +639,15 @@ def serve(dev, cfg, weights, name):
     return counts
 
 
-def _device_ms(prof, n):
-    """Device (kernel) time per call from a profiler run of n calls, and
-    the top kernels by device time; (None, []) when the trace holds none."""
+def _device_ms(avgs, n):
+    """Device (kernel) time per call from a profiler run of n calls (its
+    key_averages), and the top kernels by device time; (None, []) when the
+    trace holds none.  The schedule's ProfilerStep ranges are left out:
+    their device time spans a whole step, idle gaps included."""
     rows = []
-    for e in prof.key_averages():
+    for e in avgs:
+        if e.key.startswith("ProfilerStep"):
+            continue
         t = getattr(e, "self_device_time_total", None)
         if t is None:
             t = getattr(e, "self_cuda_time_total", 0.0)
@@ -655,35 +659,54 @@ def _device_ms(prof, n):
     return sum(r[0] for r in rows), rows[:8]
 
 
-#: K7's pre-pass kernels (csrc/fast_il.cu): the interleave or the norm,
-#: then the group sums, up to four a K7 call; K6 at B <= 8 and K8 launch
-#: one il_gemv_kernel a call and none of them
+#: K7's pre-pass kernels (csrc/fast_il.cu): for each part the interleave
+#: or the norm, then the group sums where the kernel takes its own; K6 at B
+#: <= 8 and K8 launch one il_gemv_kernel a call and none of them
 IL_PREPASS = ("interleave_kernel", "normed_kernel", "group_sums_kernel")
 
 
-def check_il_kernels(prof, table, n):
-    """In a profiler window of n decode steps: one il_gemv_kernel a K6 (B
-    <= 8) or K8 call of the step's table, and K7's pre-pass kernels only
-    where the step runs K7 (at most four a call).  The profiler can lose
-    the records of a window's first kernels (the first layers of its first
-    step), so up to one step's worth may be missing; none may be extra
-    (serve holds the launches exact).  Returns the counts."""
+def k7_prepass(weights, table):
+    """K7's pre-pass launches a decode step: one a part (the norm), and one
+    more for a part whose bias sums the kernel takes itself (xg_mode 2),
+    over the layers whose QKV is an interleaved pair on K7 (as
+    models/llama.py dispatches it; their count must be the table's)."""
+    from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
+
     k7 = table["step"].get("fast_dual", 0) + table["step"].get("fast_dual_coded", 0)
+    pairs = [(lw["wqk"], lw["wv"]) for lw in weights["layers"]
+             if "wqk" in lw and "wq" not in lw and "wqkv" not in lw
+             and lw["wqk"].fl == "il" and lw["wv"].fl == "il"
+             and PF.supports_dual(lw["wqk"], lw["wv"])]
+    if len(pairs) != k7:
+        raise AssertionError(f"{len(pairs)} interleaved QKV pairs, {k7} K7 "
+                             f"launches a step")
+    return sum(2 + (PF._xg_mode(a) == 2) + (PF._xg_mode(b) == 2)
+               for a, b in pairs)
+
+
+def il_kernel_counts(avgs, table, n, prepass):
+    """In a profiler window of n decode steps (its key_averages, after a
+    warm-up step traced and dropped): the il_gemv_kernel and K7 pre-pass
+    records, and whether they are exactly one il_gemv_kernel a K6 (B <= 8)
+    or K8 call of the step's table and K7's pre-pass kernels (prepass a
+    step, k7_prepass).  More raises at once: a launch the path should not
+    make shows in every window.  Fewer is a window whose tracer lost
+    records (CUPTI drops a few of a long window now and then), to be
+    traced again."""
     il = sum(v for k, v in table["step"].items()
              if k.startswith("fast_") and not k.startswith("fast_dual"))
     seen = dict.fromkeys(("il_gemv_kernel",) + IL_PREPASS, 0)
-    for e in prof.key_averages():
+    for e in avgs:
         if getattr(e, "device_type", None) is not None and "CUDA" not in str(e.device_type):
             continue
         for name in seen:
             if name in e.key:
                 seen[name] += e.count
     pre = sum(seen[k] for k in IL_PREPASS)
-    if (not il * (n - 1) <= seen["il_gemv_kernel"] <= il * n
-            or pre > 4 * k7 * n or (k7 and not pre)):
-        raise AssertionError(f"{n} decode steps: kernels {seen}, want {il * n} "
-                             f"il_gemv_kernel and the pre-pass of {k7 * n} K7 calls")
-    return seen
+    want = f"want {il * n} il_gemv_kernel and {prepass * n} K7 pre-pass kernels"
+    if seen["il_gemv_kernel"] > il * n or pre > prepass * n:
+        raise AssertionError(f"{n} decode steps: kernels {seen}, {want}")
+    return seen, (seen["il_gemv_kernel"] == il * n and pre == prepass * n), want
 
 
 def profile_path(dev, cfg, weights, table):
@@ -691,7 +714,7 @@ def profile_path(dev, cfg, weights, table):
     prefill and of decode steps at pos ~512 (torch.profiler, CUPTI), and
     the decode steps' K6/K8 kernels held to one launch a call (table: the
     configuration's LAUNCH_TABLES entry)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from ggml_hexagon_tpu_torch.runtime.engine import Engine
 
@@ -706,7 +729,7 @@ def profile_path(dev, cfg, weights, table):
             t0 = time.perf_counter()
             logits = eng.prefill(prompt[None])
             host = (time.perf_counter() - t0) * 1e3
-        dev_ms, top = _device_ms(prof, 1)
+        dev_ms, top = _device_ms(prof.key_averages(), 1)
         log(f"  kv={kv} prefill 512: host {host:.2f} ms, device "
             f"{'not measured' if dev_ms is None else f'{dev_ms:.2f} ms'}")
         for ms, cnt, key in top[:5]:
@@ -714,16 +737,38 @@ def profile_path(dev, cfg, weights, table):
         tok = int(np.argmax(logits[0]))
         for _ in range(3):                  # warm
             tok = int(np.argmax(eng.decode_one(np.array([tok]))[0]))
-        n = 5
-        torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n):
+        # each window traces one more step first and drops it (the tracer
+        # can lose a window's first records); the counts must be exact in
+        # one of three windows
+        n, prepass = 5, k7_prepass(weights, table)
+        for attempt in range(3):
+            got = []
+            torch.cuda.synchronize()
+            with profile(activities=acts, schedule=schedule(wait=0, warmup=1, active=n),
+                         on_trace_ready=lambda p: got.append(p.key_averages())) as prof:
                 tok = int(np.argmax(eng.decode_one(np.array([tok]))[0]))
-            host = (time.perf_counter() - t0) * 1e3 / n
-        dev_ms, top = _device_ms(prof, n)
+                torch.cuda.synchronize()
+                prof.step()
+                t0 = time.perf_counter()
+                for i in range(n):
+                    tok = int(np.argmax(eng.decode_one(np.array([tok]))[0]))
+                    if i == n - 1:
+                        host = (time.perf_counter() - t0) * 1e3 / n
+                    prof.step()
+            if len(got) != 1:
+                raise AssertionError(f"the decode profile gave {len(got)} windows")
+            dev_ms, top = _device_ms(got[0], n)
+            if dev_ms is None:
+                break
+            seen, exact, want = il_kernel_counts(got[0], table, n, prepass)
+            if exact:
+                break
+            log(f"  kv={kv} decode window {attempt + 1}: tracer lost records "
+                f"({seen}, {want}); tracing again")
+        else:
+            raise AssertionError(f"{n} decode steps, three windows: kernels "
+                                 f"{seen}, {want}")
         if dev_ms is not None:
-            seen = check_il_kernels(prof, table, n)
             log(f"  kv={kv} decode, per step: {seen['il_gemv_kernel'] // n} "
                 f"il_gemv_kernel (one a K6/K8 call), "
                 f"{sum(seen[k] for k in IL_PREPASS) // n} K7 pre-pass kernels")
@@ -1026,7 +1071,7 @@ def k6_row(dev, gen, cfg, rep, name, qt, mode, B, count, bucket=0):
     xl = x[:, :K]
     lib = time_ms(lambda: torch.matmul(xl, deq), iters=iters)
     del deq
-    peak = F32_OPS if B <= 8 else BF16_OPS
+    peak = BF16_OPS  # bf16 mma at any B (il_gemv_kernel, fast_il_gemm.cu)
     byts = plane_bytes(qt) + nbytes(x, got, kw.get("wn"), kw.get("res"),
                                     kw["xg"])
     ops = 2 * B * K * qt.fq.shape[0] + bias_ops(qt, B)
@@ -1062,7 +1107,7 @@ def gather_rows(dev, gen, rep, name, qt, npe, per_step, seed):
                ("P16", [int(e) for _ in range(8)
                         for e in rng.permutation(E)[:2]])]
     bias = qt.fb is not None or bool(qt.cfg.offset)
-    peak = INT8_OPS if t else F32_OPS
+    peak = INT8_OPS if t else BF16_OPS  # K8: il_gemv_kernel's bf16 mma
     for label, id_list in id_sets:
         ids = torch.tensor(id_list, dtype=torch.int32, device=dev)
         x = torch.randn(len(id_list), qt.k, generator=gen, device=dev)

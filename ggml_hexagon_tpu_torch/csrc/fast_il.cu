@@ -47,13 +47,16 @@
 //    group, the "residue"; p the "period", 0 <= p < gs) is natural column
 //    g*gs + p, and a packed byte at (p, g) holds natural columns g*gs + p
 //    and g*gs + p + gs/2.  A residue block of GW groups (128 from G = 128
-//    up, the last block ragged where 128 does not divide G; else 64, 32 or
-//    16) is thus a contiguous run of natural columns, and its scales serve
-//    every period: the planes are read as a 3-D tensor [rows][periods]
-//    [residues].  A stage is one box of GW residues x NP periods x TR = 64
-//    rows (16 KB), brought by TMA from one producer thread with an
-//    evict-first L2 policy into a ring of 1-32 stages; past G the box reads
-//    zeros.  The first stage of each residue block (and of a tile's range)
+//    up, the last block ragged where 128 does not divide G; else 64 or 32
+//    dividing G, else 16) is thus a contiguous run of natural columns, and
+//    its scales serve every period: the planes are read as a 3-D tensor
+//    [rows][periods][residues].  A stage is one box of GW residues x NP
+//    periods x TR = 64 rows (16 KB), brought by TMA from one producer
+//    thread with an evict-first L2 policy into a ring of 1-32 stages; past
+//    G the box reads zeros.  Where G is a multiple of 8 but not of 16 (no
+//    TMA pitch; odd periods start off 16-byte units), the producer warp
+//    copies a stage's weights with 8-byte loads instead, as NP boxes of GW
+//    x TR, one a period, zeros past G.  The first stage of each residue block (and of a tile's range)
 //    also brings that block's fs (and fb) rows into one of two scale
 //    regions, which the consumers free once the stage's mma have used them.
 //  * Blocks are persistent: a block takes the tiles blockIdx.x, + nbx, ...
@@ -469,21 +472,25 @@ __host__ __device__ constexpr int align128(int v) { return (v + 127) & ~127; }
 
 // How a launch cuts its planes (kernels.il_geo mirrors it): GW residues a
 // residue block (128 from G = 128 up, the last block ragged where G is not
-// a multiple of 128; else 64, 32 or 16, dividing G), nrb blocks; nper
-// weight periods
-// (gs, or gs/2 on packed planes), NP of them a stage, spr stages a residue
+// a multiple of 128; else 64 or 32 dividing G, else 16, the last block
+// ragged where 16 does not divide G), nrb blocks; nper weight periods (gs,
+// or gs/2 on packed planes), NP of them a stage, spr stages a residue
 // block, nst stages in all; wb the bytes of a stage's weight box (GW x NP x
-// TR), fsb of a scale box (GW x TR bf16).
+// TR), fsb of a scale box (GW x TR bf16).  pp: G is not a multiple of 16,
+// so a period's G bytes are no TMA pitch and odd periods start off 16-byte
+// units; the producer warp then copies a stage's weights itself, 8 bytes a
+// load, as NP boxes of GW x TR, one a period (zeros past G).
 struct IlGeo {
-  int GW, NP, nper, spr, nrb, nst, wb, fsb;
+  int GW, NP, nper, spr, nrb, nst, wb, fsb, pp;
 };
 
 bool il_geo(IlGeo* g, int K, int G, bool packed) {
-  // G % 16: the planes' period pitch and the scales' row pitch are whole
-  // 16-byte units, as TMA needs
-  if (G < 16 || G % 16 || K % G) return false;
+  // G % 8: the scales' row pitch is whole 16-byte units, as TMA needs, and
+  // the activation's interleaved columns come 8 to a 16-byte load
+  if (G < 8 || G % 8 || K % G) return false;
   const int gs = K / G;
   g->GW = G >= 128 ? 128 : G % 64 == 0 ? 64 : G % 32 == 0 ? 32 : 16;
+  g->pp = G % 16 != 0;
   // 8 natural columns (periods) a load; packed planes pair periods p, p + gs/2
   if (gs % (packed ? 16 : 8)) return false;
   g->nper = packed ? gs / 2 : gs;
@@ -525,6 +532,7 @@ __host__ __device__ inline IlLayout il_layout(const IlGeo& g, int sb, int ns, in
 
 struct IlArgs {
   const uint16_t* x;   // bf16 [rows, xstride]: natural order (modes 0, 1) or interleaved
+  const unsigned char* fq;  // the weight planes [rows_w, G * nper] (copied by the warp when pp)
   const float* wn;     // f32 [K] interleaved (normed)
   const float* xg_in;  // f32 [rows, G] (xg_mode 1)
   const float* res;    // f32 [rows, n_res] or null
@@ -536,9 +544,40 @@ struct IlArgs {
   int mode, NB, K, G, gs, xstride, xg_mode, n_res, ncols;
   int ntiles, ks, ns, sb, arb;  // tiles, splits, ring stages, scale-region bytes,
                                 // residue blocks a split touches
-  int fb, bias, cm, npe, n_exp;
+  int fb, bias, cm, npe, n_exp, rows_w;
   float off, eps;
 };
+
+// pp: the weight bytes of stage (rb, pb) of the tile from plane row wrow,
+// [period][row][residue], copied by the 32 lanes of the producer warp with
+// 8-byte loads (G % 8 == 0), zeros past G and past the planes' last row.
+template <int GW>
+__device__ __forceinline__ void copy_stage(const IlArgs& a, unsigned char* dst, int rb, int pb,
+                                           int wrow, int lane) {
+  constexpr int UP = GW / 8;  // 8-byte units a period's residues
+  constexpr int U = 8;        // loads in flight a lane
+  const IlGeo& g = a.g;
+  const long long wbytes = (long long)a.G * g.nper;  // a plane row
+  const int upr = g.NP * UP, nu = TR * upr;
+  for (int u0 = lane; u0 < nu; u0 += 32 * U) {
+    uint2 v[U];
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const int u = u0 + 32 * k, row = u / upr, rem = u - row * upr, p = rem / UP;
+      const int res = rb * GW + (rem - p * UP) * 8;
+      v[k] = make_uint2(0u, 0u);
+      if (u < nu && res < a.G && wrow + row < a.rows_w)
+        v[k] = __ldcs(reinterpret_cast<const uint2*>(
+            a.fq + (wrow + row) * wbytes + (long long)(pb * g.NP + p) * a.G + res));
+    }
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const int u = u0 + 32 * k, row = u / upr, rem = u - row * upr, p = rem / UP;
+      if (u < nu)
+        *reinterpret_cast<uint2*>(dst + (p * TR + row) * GW + (rem - p * UP) * 8) = v[k];
+    }
+  }
+}
 
 struct IlMaps {
   CUtensorMap w, fs, fb;
@@ -913,8 +952,9 @@ __global__ void __launch_bounds__(NTH, 2)
   __syncthreads();
 
   if (warp == NCW) {
-    // ---- producer: one thread keeps the ring full ----
-    if (lane == 0) {
+    // ---- producer: one thread keeps the ring full (pp: the warp copies
+    // the weights, its lane 0 then hands the stage over) ----
+    if (lane == 0 || g.pp) {
       const uint64_t pol = evict_first_policy();
       int nsc = 0;  // scale stages so far
       for (int i = 0, slot = 0, par = 0, ti = 0, j = 0; i < nst; ++i) {
@@ -926,18 +966,24 @@ __global__ void __launch_bounds__(NTH, 2)
         const int wrow = wrow0 + ((int)blockIdx.x + ti * (int)gridDim.x) * TR;
         const uint32_t full = bars + 8 * slot;
         const bool scales = j == 0 || pb == 0;
-        if (scales) {
-          const int r = nsc & 1;
-          if (nsc >= 2) mbar_wait(sfree + 8 * r, ((nsc >> 1) & 1) ^ 1);
-          mbar_expect_tx(full, g.wb + sb);
-          const uint32_t sdst = base + L.scales + r * sb;
-          tma_load_2d(sdst, &maps.fs, rb * GW, wrow, full);
-          if (a.fb) tma_load_2d(sdst + g.fsb, &maps.fb, rb * GW, wrow, full);
-          ++nsc;
-        } else {
-          mbar_expect_tx(full, g.wb);
+        const int r = nsc & 1;
+        if (scales && nsc >= 2) mbar_wait(sfree + 8 * r, ((nsc >> 1) & 1) ^ 1);
+        if (g.pp) {
+          copy_stage<GW>(a, smem + slot * g.wb, rb, pb, wrow, lane);
+          __syncwarp();  // the lanes' copies precede lane 0's arrival
         }
-        tma_load_3d_ef(base + slot * g.wb, &maps.w, rb * GW, pb * g.NP, wrow, full, pol);
+        if (lane == 0) {
+          const int tx = (g.pp ? 0 : g.wb) + (scales ? sb : 0);
+          if (tx) mbar_expect_tx(full, tx);
+          else mbar_arrive(full);
+          if (scales) {
+            const uint32_t sdst = base + L.scales + r * sb;
+            tma_load_2d(sdst, &maps.fs, rb * GW, wrow, full);
+            if (a.fb) tma_load_2d(sdst + g.fsb, &maps.fb, rb * GW, wrow, full);
+          }
+          if (!g.pp) tma_load_3d_ef(base + slot * g.wb, &maps.w, rb * GW, pb * g.NP, wrow, full, pol);
+        }
+        if (scales) ++nsc;
         if (++slot == ns) slot = 0, par ^= 1;
         if (++j == nps) j = 0, ++ti;
       }
@@ -959,6 +1005,8 @@ __global__ void __launch_bounds__(NTH, 2)
   const int gid = lane >> 2, tq = lane & 3;
   const int nx = min(gid, NB - 1);  // columns past NB repeat the last row; dropped
   const int r0 = 16 * warp + gid;   // the thread's rows r0 and r0 + 8 of a tile
+  // a stage's weight bytes: [row][period][residue], or [period][row][residue]
+  const int rstep = g.pp ? GW : g.NP * GW, pstep = g.pp ? TR * GW : GW;
   const int rows = a.ids != nullptr ? (int)gridDim.z : NB;  // output rows
   const int nbo = a.ids != nullptr ? 1 : NB;                // this block's
   const float nan = __int_as_float(0x7fc00000);
@@ -1009,8 +1057,8 @@ __global__ void __launch_bounds__(NTH, 2)
       const uint16_t* xs = act + rbl * gs * slab;
       for (int p = 0; p < g.NP; ++p) {
         uint32_t w0[RT / 4], w1[RT / 4], xa[RT / 2], xb[RT / 2];
-        lds_words<RT / 4>(w0, st + (r0 * g.NP + p) * GW + RT * tq);
-        lds_words<RT / 4>(w1, st + ((r0 + 8) * g.NP + p) * GW + RT * tq);
+        lds_words<RT / 4>(w0, st + r0 * rstep + p * pstep + RT * tq);
+        lds_words<RT / 4>(w1, st + (r0 + 8) * rstep + p * pstep + RT * tq);
         const int pg = pb * g.NP + p;
         lds_frag<GW>(xa, xs + pg * slab, NB, nx, tq);
         if constexpr (PACKED) lds_frag<GW>(xb, xs + (pg + g.nper) * slab, NB, nx, tq);
@@ -1035,7 +1083,7 @@ __global__ void __launch_bounds__(NTH, 2)
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int n = 2 * tq + (k & 1), row = row0 + r0 + 8 * (k >> 1);
-      if (n >= nbo) continue;
+      if (n >= nbo || row >= a.ncols) continue;  // a ragged last tile's rows
       const int orow = a.ids != nullptr ? z : n;
       const float bt = a.bias ? (a.fb ? cb[k] : a.off * cb[k]) : 0.f;
       if (a.ks == 1) {
@@ -1056,6 +1104,7 @@ __global__ void __launch_bounds__(NTH, 2)
       __threadfence();  // the other splits' partials are visible past this
       for (int e = tid; e < nbo * TR; e += NCT) {
         const int n = e / TR, row = row0 + e % TR, orow = a.ids != nullptr ? z : n;
+        if (row >= a.ncols) continue;
         float v = 0.f;
         for (int q = 0; q < a.ks; ++q)
           v += __ldcg(a.ws + ((size_t)q * rows + orow) * a.ncols + row);
@@ -1111,8 +1160,12 @@ int il_run(IlArgs& a, int nibble, const void* fq, const void* fs, const void* fb
   const IlLayout L = il_layout(a.g, a.sb, a.ns, a.arb, a.gs, a.NB, a.bias);
   if (L.total > SMEM_MAX) return (int)cudaErrorInvalidValue;
   IlMaps m;
-  bool ok = encode_map_3d(&m.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, fq, a.G, a.g.nper, rows_w, a.G,
-                          (long long)a.G * a.g.nper, a.g.GW, a.g.NP, TR);
+  a.fq = (const unsigned char*)fq;
+  a.rows_w = rows_w;
+  // pp: no weight map, the producer warp copies the weights
+  bool ok = a.g.pp || encode_map_3d(&m.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, fq, a.G, a.g.nper,
+                                    rows_w, a.G, (long long)a.G * a.g.nper, a.g.GW, a.g.NP, TR);
+  if (a.g.pp) m.w = CUtensorMap{};  // unused
   ok = ok && encode_map_2d(&m.fs, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, fs, a.G, rows_w,
                            (long long)a.G * 2, a.g.GW, TR, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (fb != nullptr)
@@ -1144,7 +1197,8 @@ const char* ght_error_string(int e) { return cudaGetErrorString((cudaError_t)e);
 // them from the activation, 0 when there is no bias; res f32 [B, n_res] or
 // null.  The plan (kernels.pick_il_gemv): ks splits of the stages (ws f32
 // [ks, B, n2] when ks > 1), ns ring stages, nbx blocks along the tiles of
-// 64 rows; counters int32, one a tile, zero (each call leaves them so).
+// 64 rows (the last one ragged); counters int32, one a tile, zero (each
+// call leaves them so).
 // out f32 [B, n2].
 int fast_il_run(int mode, int nibble, int cm, const void* x, int B, int K, const void* fq,
                 const void* fs, const void* fb, int n2, int G, float off, const float* xg_in,
@@ -1152,7 +1206,7 @@ int fast_il_run(int mode, int nibble, int cm, const void* x, int B, int K, const
                 int ns, int nbx, float* ws, int* counters, float* out, void* stream) {
   const bool bias = fb != nullptr || off != 0.f;
   IlArgs a{};
-  if (B < 1 || B > 8 || n2 < TR || n2 % TR || mode < MODE_PLAIN || mode > MODE_PRE_IL ||
+  if (B < 1 || B > 8 || n2 < 1 || mode < MODE_PLAIN || mode > MODE_PRE_IL ||
       (mode == MODE_NORMED && wn == nullptr) || n_res > n2 || x == nullptr ||
       out == nullptr || bad_planes(nibble, cm, K, G, bias, xg_mode, xg_in) ||
       !il_geo(&a.g, K, G, nibble != 0))
@@ -1173,7 +1227,7 @@ int fast_il_run(int mode, int nibble, int cm, const void* x, int B, int K, const
   a.xg_mode = xg_mode;
   a.n_res = res != nullptr ? n_res : 0;
   a.ncols = n2;
-  a.ntiles = n2 / TR;
+  a.ntiles = (n2 + TR - 1) / TR;
   a.ks = ks;
   a.ns = ns;
   a.fb = fb != nullptr;
@@ -1240,7 +1294,7 @@ int fast_indirect_run(const void* x, int P, int K, const int* ids, int npe, int 
                       int* counters, float* out, void* stream) {
   const bool bias = fb != nullptr || off != 0.f;
   IlArgs a{};
-  if (P < 1 || P > 65535 || npe < TR || npe % TR || n_exp < 1 || x == nullptr ||
+  if (P < 1 || P > 65535 || npe < 1 || n_exp < 1 || x == nullptr ||
       ids == nullptr || out == nullptr ||
       bad_planes(nibble, cm, K, G, bias, bias ? 1 : 0, xg_in) ||
       !il_geo(&a.g, K, G, nibble != 0))
@@ -1259,7 +1313,7 @@ int fast_indirect_run(const void* x, int P, int K, const int* ids, int npe, int 
   a.xstride = K;
   a.xg_mode = bias ? 1 : 0;
   a.ncols = npe;
-  a.ntiles = npe / TR;
+  a.ntiles = (npe + TR - 1) / TR;
   a.ks = ks;
   a.ns = ns;
   a.fb = fb != nullptr;

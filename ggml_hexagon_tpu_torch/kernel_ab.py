@@ -71,8 +71,7 @@ from .ops.basic import rope_freqs
 from .quant.formats import GGMLType
 
 HBM_BPS = 3.35e12
-BF16_OPS = 989e12
-F32_OPS = 67e12      # K6's GEMV, outside the tensor cores
+BF16_OPS = 989e12    # K3, K4 and K6/K8 (bf16 mma at every B)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: the parents' C entries: K3 and K4 of 3b0f551, K6-K8 of 1b81f9c (K6 and
 #: K8 with their pre-pass scratch xil and xg; K7 the same as this tree's)
@@ -296,7 +295,7 @@ class AB:
         byts = sum(t_.numel() * t_.element_size() for t_ in
                    (qt.fq, qt.fs, qt.fb, x, got, kw.get("wn"), kw.get("res"),
                     kw["xg"]) if t_ is not None)
-        bound = max(byts / HBM_BPS, ops / F32_OPS) * 1e3
+        bound = max(byts / HBM_BPS, ops / BF16_OPS) * 1e3
         plan = kernels._il_plan(qt, B, n2 // kernels.IL_ROWS, 1,
                                 2 if mode == "act" else 1 if mode == "normed"
                                 else 0, dev)

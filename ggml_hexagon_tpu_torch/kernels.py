@@ -454,14 +454,15 @@ class IlGeo(NamedTuple):
 def il_geo(K: int, G: int, packed: bool) -> IlGeo:
     """The stages of K6's (B <= 8) and K8's planes: residue blocks of 128
     groups from G = 128 up (the last one ragged where 128 does not divide
-    G, its columns past G read as zeros), else of the largest of 64, 32, 16
-    dividing G; ValueError where the kernel takes none (G not a multiple of
-    16, or gs not of 8, 16 on packed planes)."""
+    G, its columns past G read as zeros), else of 64 or 32 dividing G, else
+    of 16 (ragged where 16 does not divide G); ValueError where the kernel
+    takes none (G not a multiple of 8, or gs not of 8, 16 on packed
+    planes)."""
     gs = K // G if G >= 1 and K % G == 0 else 0
-    GW = 128 if G >= 128 else next((w for w in (64, 32, 16) if G % w == 0), 0)
-    if not gs or G % 16 or not GW or gs % (16 if packed else 8):
-        raise ValueError(f"K6/K8 take G a multiple of 16 and K/G a multiple "
+    if not gs or G % 8 or gs % (16 if packed else 8):
+        raise ValueError(f"K6/K8 take G a multiple of 8 and K/G a multiple "
                          f"of {16 if packed else 8}: K={K}, G={G}")
+    GW = 128 if G >= 128 else next((w for w in (64, 32) if G % w == 0), 16)
     nper = gs // 2 if packed else gs
     NP = min(256 // GW, nper)
     if nper % NP:
@@ -895,7 +896,8 @@ def fast_indirect(x, qt, ids, npe: int, xg=None):
     (read on the card), xg f32 [P, G] the group sums of x where the planes
     carry a bias -> y [P, npe] f32, row p against rows
     [ids[p]*npe, (ids[p]+1)*npe) of the stacked interleaved planes (byte
-    or nibble); an id outside [0, E) gives a NaN row."""
+    or nibble; npe rows in tiles of IL_ROWS, the last one ragged); an id
+    outside [0, E) gives a NaN row."""
     _need(x, torch.bfloat16, "x", 2)
     _need(ids, torch.int32, "ids", 1)
     n2, G, nib, off, cm = _il_plane_args(qt)
@@ -903,9 +905,8 @@ def fast_indirect(x, qt, ids, npe: int, xg=None):
     if K != qt.k or ids.shape[0] != P:
         raise ValueError(f"x {tuple(x.shape)} / ids {tuple(ids.shape)} vs "
                          f"weight K={qt.k}")
-    if npe < 1 or n2 % npe or npe % IL_ROWS:
-        raise ValueError(f"{npe} rows an expert do not tile {n2} rows in "
-                         f"blocks of {IL_ROWS}")
+    if npe < 1 or n2 % npe:
+        raise ValueError(f"{npe} rows an expert do not tile {n2} rows")
     bias = qt.fb is not None or off != 0.0
     if _xg_args(xg, P, G, bias) == 2:
         raise ValueError("K8 takes the group sums of planes with a bias as "
@@ -913,7 +914,8 @@ def fast_indirect(x, qt, ids, npe: int, xg=None):
     key = ("fast_indirect_coded" if cm else
            "fast_indirect_nibble" if nib else "fast_indirect")
     dev = x.device
-    plan = _il_plan(qt, 1, npe // IL_ROWS, P, 0, dev)
+    tiles = -(-npe // IL_ROWS)
+    plan = _il_plan(qt, 1, tiles, P, 0, dev)
     ws = (torch.empty((plan.ks, P, npe), dtype=torch.float32, device=dev)
           if plan.ks > 1 else None)
     out = torch.empty((P, npe), dtype=torch.float32, device=dev)
@@ -922,7 +924,7 @@ def fast_indirect(x, qt, ids, npe: int, xg=None):
                                _ptr(qt.fq), _ptr(qt.fs), _ptr(qt.fb), G,
                                int(nib), cm, off, _ptr(xg), plan.ks, plan.ns,
                                plan.nbx, _ptr(ws),
-                               _ptr(_gemv_counters(dev, P * npe // IL_ROWS)),
+                               _ptr(_gemv_counters(dev, P * tiles)),
                                _ptr(out), _stream(dev))
     _check(lib, rc, key)
     LAUNCHES[key] += 1

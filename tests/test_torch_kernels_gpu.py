@@ -1112,7 +1112,10 @@ def test_qp8_indirect_reads_expert_slices_in_place(dev):
 #: one plane set of each family and bias kind: byte planes without a bias
 #: (IQ4_XS), with the derived bias (Q6_K: off * fs) and with a stored one
 #: (Q5_K); nibble planes (Q4_K, stored; Q4_0, derived); coded planes of two
-#: code maps (IQ3_XXS, IQ2_S), ternary; nibble planes at K = 14336
+#: code maps (IQ3_XXS, IQ2_S), ternary; nibble planes at K = 14336; G a
+#: multiple of 8 but not of 16 (per-period boxes): byte planes and nibble
+#: ones with the derived bias at K = 11008 (G = 344), ternary at K = 14336
+#: (G = 56)
 _IL_EXACT = {"byte": (2048, 4096, GGMLType.IQ4_XS),
              "byte_derived": (2048, 4096, GGMLType.Q6_K),
              "byte_stored": (2048, 4096, GGMLType.Q5_K),
@@ -1122,7 +1125,10 @@ _IL_EXACT = {"byte": (2048, 4096, GGMLType.IQ4_XS),
              "coded_iq2s": (2048, 4096, GGMLType.IQ2_S),
              "tern": (1024, 4096, GGMLType.TQ2_0),
              # G = 448: a ragged last residue block (64 of 128 groups)
-             "nibble_g448": (1024, 14336, GGMLType.Q4_K)}
+             "nibble_g448": (1024, 14336, GGMLType.Q4_K),
+             "byte_g344": (1024, 11008, GGMLType.IQ4_XS),
+             "nibble_g344": (1024, 11008, GGMLType.Q4_0),
+             "tern_g56": (1024, 14336, GGMLType.TQ2_0)}
 _IL_MODES = ["plain", "pre_il", "normed", "act", "res"]
 
 
@@ -1246,9 +1252,32 @@ def test_fast_indirect_matches_plain_exactly(dev, stack, ids):
     assert _nmse(got[ok], want[ok]) <= NMSE_EXACT
 
 
+@pytest.mark.parametrize("stack,k,npe,ids", [
+    ("iq4xs", 4096, 96, [15, 2]), ("q4k", 4096, 160, [1, 15, 3]),
+    ("q4_0", 11008, 96, [15, 0])])
+def test_fast_indirect_on_experts_of_a_ragged_tile(dev, stack, k, npe, ids):
+    """npe not a multiple of the 64-row tile (16 experts, rows a multiple
+    of the planes' 512-row padding): the last tile of an expert reads the
+    next expert's rows (or zeros past the last) and stores only its own;
+    at K = 11008 the groups of 32 give G = 344 (the warp-copied stages)."""
+    qtype = {"iq4xs": GGMLType.IQ4_XS, "q4k": GGMLType.Q4_K,
+             "q4_0": GGMLType.Q4_0}[stack]
+    qt = _qt(dev, 16 * npe, k, qtype, "il")
+    assert qt.fq.shape[0] == 16 * npe
+    ids_t = torch.tensor(ids, dtype=torch.int32, device=dev)
+    x = _x(dev, len(ids), k, seed=npe).to(torch.bfloat16)
+    xg = (PF._sums_natural(x, qt.fs.shape[1])
+          if PF._needs_xg(qt.cfg, qt.fb) else None)
+    got = PF.fast_indirect(x, qt, ids_t, npe, xg)
+    want = PF.fast_indirect_plain(x, qt, ids_t, npe, xg)
+    torch.cuda.synchronize()
+    assert got.shape == (len(ids), npe) and torch.isfinite(got).all()
+    assert _nmse(got, want) <= NMSE_EXACT
+
+
 def test_fast_il_gemv_refuses_planes_it_cannot_stage(dev):
-    """Groups that do not come in blocks of 16 (ternary at K = 1024: G = 4)
-    raise on the card rather than fall back."""
+    """Groups that do not come in multiples of 8 (ternary at K = 1024:
+    G = 4) raise on the card rather than fall back."""
     qt = _qt(dev, 1024, 1024, GGMLType.TQ2_0, "il")
     x = _x(dev, 1, 1024).to(torch.bfloat16)
     with pytest.raises(ValueError):

@@ -402,16 +402,45 @@ def test_il_gemv_wide_shapes_keep_k_whole(name):
     assert plan.ks == 1 and plan.per_sm == 2
 
 
-@pytest.mark.parametrize("K,G,packed", [(14336, 56, True), (11008, 344, True),
-                                        (4096, 8, False)])
+@pytest.mark.parametrize("K,G,packed", [(1024, 4, True), (11008, 43, True),
+                                        (3072, 12, False), (2048, 256, True)])
 def test_il_gemv_refuses_shapes_it_cannot_stage(K, G, packed):
-    """No plan where the groups do not come in blocks of 16 or more: the
-    wrapper raises instead of falling back."""
+    """No plan where G is not a multiple of 8 (ternary at K = 1024 or
+    11008) or a packed row's periods do not pair up in 8s: the wrapper
+    raises instead of falling back."""
     with pytest.raises(ValueError):
         kernels.il_geo(K, G, packed)
     with pytest.raises(ValueError):
         kernels.pick_il_gemv(K, G, packed, False, False, 1, 16, 1, 0,
                              H100_SMS)
+
+
+@pytest.mark.parametrize("sm_count", [H100_SMS, 114], ids=["sxm", "pcie"])
+@pytest.mark.parametrize("K,G,packed,gw", [(14336, 56, True, 16),
+                                           (11008, 344, True, 128),
+                                           (11008, 344, False, 128),
+                                           (4096, 8, False, 16),
+                                           (3072, 24, False, 16)])
+def test_il_gemv_stages_groups_of_eight(K, G, packed, gw, sm_count):
+    """G a multiple of 8 but not of 16 (ternary at K = 14336, groups of 32
+    at K = 11008): residue blocks of gw with the last one ragged, whole
+    periods a stage, and a plan that fits at every row count and mode."""
+    geo = kernels.il_geo(K, G, packed)
+    assert geo.GW == gw and (geo.nrb - 1) * geo.GW < G <= geo.nrb * geo.GW
+    assert geo.nper % geo.NP == 0 and geo.spr * geo.NP == geo.nper
+    assert geo.nper * G * (2 if packed else 1) == K
+    # a stage's per-period boxes: GW bytes (a multiple of 16) x 64 rows,
+    # from rows of G * nper bytes (a multiple of 16)
+    assert geo.GW % 16 == 0 and geo.nper * G % 16 == 0
+    for nb in (1, 8):
+        for mode in range(3):
+            plan = kernels.pick_il_gemv(K, G, packed, False, True, nb, 64, 1,
+                                        mode, sm_count)
+            assert plan.smem <= kernels.SMEM_BLOCK
+            assert 1 <= plan.ks <= min(geo.nst, 32) and 1 <= plan.ns <= 8
+    plan = kernels.pick_il_gemv(K, G, packed, False, False, 1, 3, 16, 0,
+                                sm_count)
+    assert plan.nbx <= 3 and plan.smem <= kernels.SMEM_BLOCK
 
 
 @pytest.mark.parametrize("qtype", [_T.Q4_K, _T.Q6_K, _T.IQ4_XS, _T.IQ3_XXS,
