@@ -68,7 +68,12 @@
    decode step (Hkv=8, G=4, S=1024, bf16 cache, B=1 at pos 700 and B=4 at
    spread positions; plain, swa=256, logit_cap=30): driven once with the
    counters zeroed before and read after, each launch count exact, then
-   each output held against its plain twin and timed.
+   each output held against its plain twin and timed.  K10 at B <= 8 in
+   bf16 is the streaming GEMV of the twelfth slice, above it (and in f32)
+   the WMMA kernel; K11 is the TF32 tensor-core flash attention of the
+   twelfth slice.  K10 is reported as three units (the 8B's shapes at B =
+   1, 8 and 512), K11 as two (f32 and bf16 inputs), each with the launches
+   its cases made in the drive.
 
 K6 above 8 rows is its own kernel, the wgmma GEMM of csrc/fast_il_gemm.cu
 (the ninth slice): every configuration whose prefill chunk runs it holds
@@ -88,7 +93,8 @@ configurations also sum their 8-token bucket's K6 mix at B = 8.
 Any failure raises: the script exits non-zero and prints no result.  The
 last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their times and bounds.  Card rates for the bounds: the H100
-SXM data sheet (3.35 TB/s HBM3, 989 TFLOP/s bf16, 1979 TOP/s int8 dense).
+SXM data sheet (3.35 TB/s HBM3, 989 TFLOP/s bf16, 1979 TOP/s int8, 495
+TFLOP/s TF32 dense, 67 TFLOP/s f32).
 """
 import gc
 import json
@@ -104,7 +110,9 @@ import torch
 HBM_BPS = 3.35e12
 BF16_OPS = 989e12
 INT8_OPS = 1979e12
-F32_OPS = 67e12      # float32 outside the tensor cores (K7, K9, f32 K11)
+F32_OPS = 67e12      # float32 outside the tensor cores (K7, K9, f32 K10)
+TF32_OPS = 495e12    # TF32 tensor cores (K11: three products a multiply-add
+                     # for f32 inputs, two for bf16)
 NMSE_LOGITS = 5e-4   # logits, kernels vs plain versions, end to end
 NMSE_KERNEL = 1e-6   # K1-K3, K5, K6 vs plain: same integer/f32/bf16
                      # products, f32 sums in another order
@@ -255,6 +263,7 @@ class KernelReport:
                       plain_ms=0.0, bound_ms=0.0, bound_by="bytes",
                       library_ms=None, per=per)
         self.bytes_ms = self.ops_ms = 0.0
+        self.launches = None  # set where the unit counts its own launches
 
     def add(self, count, err, ms, plain, nbytes_, ops, peak, lib=None):
         d = self.d
@@ -1716,7 +1725,7 @@ def conformance_cases(dev, gen):
         if wq is None:
             wq = qt
         for B in batches:
-            k10(label, qt, B, "8b" if B == 1 else None)
+            k10(label, qt, B, f"b{B}")
     k10("wq", wq, 8, None, torch.float32)
     for qtype in sorted(QCONFIGS, key=int):
         qt = random_qtensor(gen, 4096, 4096, qtype, dev)
@@ -1742,9 +1751,10 @@ def conformance_cases(dev, gen):
         lib = partial(time_ms, lambda q=q, kk=kk, vv=vv, m_lib=m_lib:
                       torch.nn.functional.scaled_dot_product_attention(
                           q, kk, vv, attn_mask=m_lib, scale=D ** -0.5))
+        products = 2 if dtype == torch.bfloat16 else 3
         cases.append(("K11", f"B={B} H={H} T={T} S={S} D={D} "
-                      f"{str(dtype)[6:]}", "prefill" if dtype == torch.float32
-                      else None, entry, plain, (byts, ops, F32_OPS), lib))
+                      f"{str(dtype)[6:]}", str(dtype)[6:], entry, plain,
+                      (byts, ops * products, TF32_OPS), lib))
 
     Hkv, G = 8, 4
     for pos in ([700], [700, 3, 1023, 400]):
@@ -1796,7 +1806,12 @@ def run_conformance(dev):
     keys = {"K10": "qmm_wire", "K11": "flash_attn", "K12": "decode_attn_gqa"}
     sync(dev)
     kernels.reset_launches()
-    outs = [entry() for _, _, _, entry, _, _, _ in cases]
+    outs, unit_launches = [], {}
+    for kern, _, unit, entry, *_ in cases:
+        before = kernels.LAUNCHES[keys[kern]]
+        outs.append(entry())
+        unit_launches[kern, unit] = (unit_launches.get((kern, unit), 0)
+                                     + kernels.LAUNCHES[keys[kern]] - before)
     sync(dev)
     counts = dict(kernels.LAUNCHES)
     want = dict.fromkeys(kernels.LAUNCHES, 0)
@@ -1806,16 +1821,29 @@ def run_conformance(dev):
         raise AssertionError(f"conformance launches {counts} != {want}")
     log(f"main-path launches ({name}): "
         f"{ {k: v for k, v in counts.items() if v} }")
+    eight = "the 8B's Q4_K wq and gate, Q6_K down and head"
+    prefill = "one 512-token prefill attention (B=1, H=32, T=512, S=1024, D=128)"
     reps = {
-        "K10": KernelReport("qmm_wire", "cuda", SRC_WIRE, K10_WIRE,
-                            "the 8B's Q4_K wq and gate, Q6_K down and head "
-                            "at B=1, bf16 compute: one launch each"),
-        "K11": KernelReport("flash_attn", "cuda", SRC_ATTN, K11_FLASH,
-                            "one 512-token prefill attention (B=1, H=32, "
-                            "T=512, S=1024, D=128), f32: one launch"),
-        "K12": KernelReport("decode_attn_gqa", "cuda", SRC_ATTN, K12_GQA,
-                            "one decode-step attention at pos 700 (B=1, "
-                            "Hkv=8, G=4, S=1024, bf16 cache): one launch")}
+        ("K10", "b1"): KernelReport("qmm_wire_b1", "cuda", SRC_WIRE, K10_WIRE,
+                                    f"{eight} at B=1, bf16 compute (the "
+                                    "streaming GEMV): one launch each"),
+        ("K10", "b8"): KernelReport("qmm_wire_b8", "cuda", SRC_WIRE, K10_WIRE,
+                                    f"{eight} at B=8, bf16 compute (the "
+                                    "streaming GEMV): one launch each"),
+        ("K10", "b512"): KernelReport("qmm_wire_b512", "cuda", SRC_WIRE,
+                                      K10_WIRE, "the 8B's wq, gate and down "
+                                      "at B=512, bf16 compute (the WMMA "
+                                      "GEMM): one launch each"),
+        ("K11", "float32"): KernelReport("flash_attn_f32", "cuda", SRC_ATTN,
+                                         K11_FLASH, f"{prefill}, f32: one "
+                                         "launch"),
+        ("K11", "bfloat16"): KernelReport("flash_attn_bf16", "cuda", SRC_ATTN,
+                                          K11_FLASH, f"{prefill}, bf16 q, k, "
+                                          "v: one launch"),
+        ("K12", "step"): KernelReport("decode_attn_gqa", "cuda", SRC_ATTN,
+                                      K12_GQA, "one decode-step attention at "
+                                      "pos 700 (B=1, Hkv=8, G=4, S=1024, "
+                                      "bf16 cache): one launch")}
     log(f"K10 NMSE <= {NMSE_KERNEL}, K11/K12 max|d| <= {ATTN_MAX_ABS} against "
         "the plain twins; times are medians, L2 flushed")
     for (kern, label, unit, entry, plain, (byts, ops, peak), lib), got in zip(
@@ -1837,8 +1865,11 @@ def run_conformance(dev):
             f"kernel={ms:.4f}ms plain={pms:.3f}ms library="
             f"{'n/a' if lms is None else f'{lms:.4f}ms'} bound={bms:.4f}ms "
             f"({by}) {bms / ms:.0%} of bound")
-        if unit is not None:
-            reps[kern].add(1, err, ms, pms, byts, ops, peak, lms)
+        if (kern, unit) in reps:
+            reps[kern, unit].add(1, err, ms, pms, byts, ops, peak, lms)
+    for key, rep in reps.items():
+        # a unit's launches: those its cases made in the drive above
+        rep.launches = unit_launches[key]
     del cases, outs
     phase_end(name, dev, t_ph)
     gc.collect()
@@ -1954,7 +1985,8 @@ def main():
 
     reports += list(GEMM_REPORTS.values())
     for r in reports:
-        r.d["launches"] = sum(c.get(r.d["name"], 0) for c in runs)
+        r.d["launches"] = (r.launches if r.launches is not None
+                           else sum(c.get(r.d["name"], 0) for c in runs))
         if r.d["launches"] == 0:
             raise AssertionError(f"{r.d['name']} never launched on the main path")
     log(f"whole run {time.perf_counter() - t_all:.1f} s")

@@ -3,24 +3,30 @@
 //
 // K11 replaces ggml_hexagon_tpu/ops/attention.py `_flash_kernel`, launched
 // through `pallas_call` in `flash_attention_pallas`.  What bounds it:
-// operations.  Its contract is f32 arithmetic (f32 q, k, v products, f32
-// scores, softmax and output), 4*B*H*T*S*D flops against the card's f32
-// rate outside the tensor cores; the bytes (q, k, v, the mask as given,
+// operations.  Its contract is f32 attention (f32 q*scale, k and v
+// products, f32 scores, softmax and output; the finite -1e30 mask value),
+// 4*B*H*T*S*D multiply-add flops; the bytes (q, k, v, the mask as given,
 // the output) are a few MB.
 //
-// Design (simple and right first; tensor-core scores wait for later work):
-//  * One block per (batch*head, 32 query rows), 8 warps of 4 rows.  The
-//    block walks the keys in tiles of 32 slots staged in shared memory as
-//    f32 (k transposed and padded so a lane reads its slot's column free of
-//    bank conflicts, v row-major).  A lane owns one slot of the tile for
-//    the scores and 32-lane slices of the head dims for the output.
-//  * An online softmax per row over the tiles (f32 running max,
-//    denominator and accumulator), as the TPU kernel runs one per KV
-//    chunk: the results agree to f32 rounding.  NEG_INF is the finite
-//    -1e30 of the reference's additive mask, so a row whose slots are all
-//    masked averages v, as on the TPU.
-//  * The mask is read through its strides: a [1,1,T,S] mask (or any
-//    broadcast) is never materialised to [B,H,T,S].
+// Design (FlashAttention-2 on mma.sync):
+//  * One block per (batch*head, 128 query rows), 8 warps of 16 rows.  q *
+//    scale is staged once in shared memory (f32); k, v and the mask tile
+//    come in tiles of 32 slots, double-buffered by cp.async (zeros past S;
+//    the mask read through its strides, 16-byte copies where its rows are
+//    contiguous: a [1,1,T,S] mask is never materialised).
+//  * Scores and p.v are TF32 mma.sync m16n8k8 with f32 sums, each operand
+//    split into big = rna(x) and small = rna(x - big): three products
+//    (small*big, big*small, big*big), so each product is the f32 one to
+//    about 2^-22.  bf16 k and v are exact in TF32: two products.  The
+//    scores sum even and odd head-dim steps in two accumulators.
+//  * An online softmax per row in registers (f32 running max, this
+//    thread's part of the denominator, expf), as the TPU kernel runs one
+//    per KV chunk: the results agree to f32 rounding.  A row whose slots
+//    are all masked averages v (-1e30 is finite); slots past S take p = 0.
+//  * p.v takes the score accumulators as its A fragments with no shuffle:
+//    the mma's k index is permuted (k = t <-> slot 2t, k = t + 4 <-> slot
+//    2t + 1, which is where the accumulator layout holds them) and v's
+//    rows are read in the same order.
 //
 // K12 replaces ggml_hexagon_tpu/ops/attention.py `_decode_attn_kernel`,
 // launched through `pallas_call` in `decode_attention_pallas`.  What bounds
@@ -71,99 +77,312 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // ---------------------------------------------------------------- K11
 
-constexpr int FA_TQ = 32;            // query rows a block
-constexpr int FA_KT = 32;            // key slots a tile
-constexpr int FA_NW = 8;             // warps a block
-constexpr int FA_RW = FA_TQ / FA_NW; // rows a warp
-constexpr int FA_DMAX = 128;
+constexpr int FA_TQ = 128;            // query rows a block, 16 a warp
+constexpr int FA_KT = 32;             // key slots a tile
+constexpr int FA_NW = FA_TQ / 16;     // warps a block
+constexpr int FA_NT = FA_NW * 32;
+constexpr int FA_MP = FA_KT + 8;      // mask tile pitch (floats)
 
-constexpr int fa_smem(int D) {
-  return (FA_TQ * D + D * (FA_KT + 1) + FA_KT * D) * 4;
+// The block's shared memory: q * scale (FA_TQ rows of D f32, pitch D + 4),
+// then two stages, double-buffered by cp.async, each the k and v tiles
+// (FA_KT rows of D, pitch KP elements) and the mask tile (FA_TQ rows of
+// FA_KT), then (f32 inputs) the small TF32 parts of the current k and v
+// tiles, whose big parts replace the stage's values in place; the pitches
+// keep a fragment's loads off any bank twice.
+template <int D, bool BF16>
+struct FaTile {
+  static constexpr int ES = BF16 ? 2 : 4;
+  static constexpr int QP = D + 4;
+  static constexpr int Q = FA_TQ * QP * 4;
+  static constexpr int KP = BF16 ? D + 8 : D + 4;
+  static constexpr int KV = FA_KT * KP * ES;
+  static constexpr int MASK = FA_TQ * FA_MP * 4;
+  static constexpr int STAGE = 2 * KV + MASK;
+  static constexpr int SMALL = BF16 ? 0 : 2 * KV;
+  static constexpr int SMEM = Q + 2 * STAGE + SMALL;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small, both TF32 (round to nearest, ties away): x - big is
+// exact in f32, and what small drops is 2^-22 of x or less.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// d += A B, m16n8k8 TF32 (f32 sums): A 16 x 8 (a0: row g, k t; a1: row
+// g + 8, k t; a2: row g, k t + 4; a3: row g + 8, k t + 4), B 8 x 8 (b0: k
+// t, b1: k t + 4; column g).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 template <bool BF16>
-__global__ void __launch_bounds__(FA_NW * 32) flash_attn_kernel(
-    const void* __restrict__ q, const void* __restrict__ k,
-    const void* __restrict__ v, const float* __restrict__ mask,
-    long long msb, long long msh, long long mst, long long mss, int H, int T,
-    int S, int D, float scale, float* __restrict__ out) {
-  extern __shared__ float sm[];
-  float* qs = sm;                        // [TQ][D], q * scale
-  float* ks = qs + FA_TQ * D;            // [D][KT + 1], transposed
-  float* vs = ks + D * (FA_KT + 1);      // [KT][D]
+__device__ __forceinline__ float lds_el(const void* base, int i) {
+  if constexpr (BF16) {
+    return bf2f(reinterpret_cast<const uint16_t*>(base)[i]);
+  } else {
+    return reinterpret_cast<const float*>(base)[i];
+  }
+}
+
+// d += X Y with X (the A operand) split and Y (the B operand: elements e
+// and e + off of the tile at `big`, and of its small parts at `small`):
+// three TF32 products for f32 inputs (small terms first), two for bf16
+// ones (exact in TF32: no small part).
+template <bool BF16>
+__device__ __forceinline__ void mma_3x(float (&d)[4], const uint32_t (&ab)[4],
+                                       const uint32_t (&as)[4], const void* big,
+                                       const void* small, int e, int off) {
+  if constexpr (BF16) {
+    const uint32_t b0 = __float_as_uint(lds_el<true>(big, e));
+    const uint32_t b1 = __float_as_uint(lds_el<true>(big, e + off));
+    mma_tf32(d, as, b0, b1);
+    mma_tf32(d, ab, b0, b1);
+  } else {
+    const uint32_t* bb = reinterpret_cast<const uint32_t*>(big);
+    const uint32_t* bs = reinterpret_cast<const uint32_t*>(small);
+    mma_tf32(d, as, bb[e], bb[e + off]);
+    mma_tf32(d, ab, bs[e], bs[e + off]);
+    mma_tf32(d, ab, bb[e], bb[e + off]);
+  }
+}
+
+template <int D, bool BF16>
+__global__ void __launch_bounds__(FA_NT, 1) flash_attn_kernel(
+    const void* __restrict__ q, const void* __restrict__ k, const void* __restrict__ v,
+    const float* __restrict__ mask, long long msb, long long msh, long long mst, long long mss,
+    int mvec, int H, int T, int S, float scale, float* __restrict__ out) {
+  using Tl = FaTile<D, BF16>;
+  constexpr int KP = Tl::KP, QP = Tl::QP, ND = D / 8;
+  extern __shared__ __align__(16) unsigned char sm[];
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int t0 = blockIdx.x * FA_TQ;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nu = D / 32;
+  const int g = lane >> 2, tq = lane & 3;
   const size_t qbase = (size_t)bh * T * D, kvbase = (size_t)bh * S * D;
-  for (int e = tid; e < FA_TQ * D; e += FA_NW * 32) {
-    const int t = t0 + e / D;
-    qs[e] = t < T ? __fmul_rn(ld<BF16>(q, qbase + (size_t)t * D + e % D), scale)
-                  : 0.f;
-  }
   const float* mrow = mask + b * msb + h * msh;
-  float m[FA_RW], l[FA_RW], acc[FA_RW][4];
-#pragma unroll
-  for (int r = 0; r < FA_RW; ++r) {
-    m[r] = NEG_INF;
-    l[r] = 0.f;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) acc[r][u] = 0.f;
+
+  // q * scale (f32, as the reference rounds it); rows past T are zeros
+  float* qs = reinterpret_cast<float*>(sm);
+  for (int e = tid; e < FA_TQ * D; e += FA_NT) {
+    const int r = e / D, d = e - r * D, t = t0 + r;
+    qs[r * QP + d] = t < T ? __fmul_rn(ld<BF16>(q, qbase + (size_t)t * D + d), scale) : 0.f;
   }
-  for (int s0 = 0; s0 < S; s0 += FA_KT) {
-    __syncthreads();   // the previous tile is consumed (and qs written)
-    for (int e = tid; e < FA_KT * D; e += FA_NW * 32) {
-      const int j = e / D, d = e % D, slot = s0 + j;
-      const bool in = slot < S;
-      ks[d * (FA_KT + 1) + j] = in ? ld<BF16>(k, kvbase + (size_t)slot * D + d) : 0.f;
-      vs[e] = in ? ld<BF16>(v, kvbase + (size_t)slot * D + d) : 0.f;
+
+  // one stage's copies: k and v rows (zeros past S), the mask tile (rows
+  // past T repeat row T - 1; slots past S are not read)
+  auto load_tile = [&](int stage, int s0) {
+    unsigned char* st = sm + Tl::Q + stage * Tl::STAGE;
+    constexpr int CPR = D * Tl::ES / 16;  // 16-byte chunks a row
+    for (int c = tid; c < FA_KT * CPR; c += FA_NT) {
+      const int j = c / CPR, cc = c - j * CPR, slot = s0 + j;
+      const int bytes = slot < S ? 16 : 0;
+      const size_t el = kvbase + (size_t)min(slot, S - 1) * D;
+      const uint32_t dst = smem_addr(st) + j * KP * Tl::ES + cc * 16;
+      cp_async16(dst, reinterpret_cast<const unsigned char*>(k) + el * Tl::ES + cc * 16, bytes);
+      cp_async16(dst + Tl::KV, reinterpret_cast<const unsigned char*>(v) + el * Tl::ES + cc * 16,
+                 bytes);
     }
-    __syncthreads();
-    const int slot = s0 + lane;
-    float sc[FA_RW];
-#pragma unroll
-    for (int r = 0; r < FA_RW; ++r) sc[r] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float kd = ks[d * (FA_KT + 1) + lane];
-#pragma unroll
-      for (int r = 0; r < FA_RW; ++r)
-        sc[r] = fmaf(qs[(warp * FA_RW + r) * D + d], kd, sc[r]);
-    }
-    float p[FA_RW];
-#pragma unroll
-    for (int r = 0; r < FA_RW; ++r) {
-      const int t = min(t0 + warp * FA_RW + r, T - 1);
-      // slots past S take no part (p = 0); every tile holds one in range
-      const float s = slot < S ? sc[r] + mrow[t * mst + slot * mss] : -INFINITY;
-      const float m_new = fmaxf(m[r], warp_max(s));
-      const float alpha = expf(m[r] - m_new);
-      p[r] = expf(s - m_new);
-      l[r] = l[r] * alpha + warp_sum(p[r]);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc[r][u] *= alpha;
-      m[r] = m_new;
-    }
-    const int jmax = min(FA_KT, S - s0);
-    for (int j = 0; j < jmax; ++j) {
-      float vv[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) vv[u] = u < nu ? vs[j * D + lane + 32 * u] : 0.f;
-#pragma unroll
-      for (int r = 0; r < FA_RW; ++r) {
-        const float pj = __shfl_sync(0xffffffffu, p[r], j);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) acc[r][u] = fmaf(pj, vv[u], acc[r][u]);
+    const uint32_t ms = smem_addr(st + 2 * Tl::KV);
+    if (mvec) {
+      for (int c = tid; c < FA_TQ * FA_KT / 4; c += FA_NT) {
+        const int r = c / (FA_KT / 4), cc = c - r * (FA_KT / 4), slot = s0 + 4 * cc;
+        const int t = min(t0 + r, T - 1);
+        cp_async16(ms + (r * FA_MP + 4 * cc) * 4, mrow + t * mst + min(slot, S - 4),
+                   slot < S ? 16 : 0);
+      }
+    } else {
+      for (int c = tid; c < FA_TQ * FA_KT; c += FA_NT) {
+        const int r = c / FA_KT, j = c - r * FA_KT, slot = s0 + j;
+        if (slot < S) cp_async4(ms + (r * FA_MP + j) * 4, mrow + min(t0 + r, T - 1) * mst + slot * mss);
       }
     }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+  float o[ND][4];
+#pragma unroll
+  for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[dn][c] = 0.f;
+
+  const int ntiles = (S + FA_KT - 1) / FA_KT;
+  load_tile(0, 0);
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {
+      load_tile((it + 1) & 1, (it + 1) * FA_KT);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    unsigned char* st = sm + Tl::Q + (it & 1) * Tl::STAGE;
+    const void* ks = st;
+    const void* vs = st + Tl::KV;
+    const void* kss = sm + Tl::Q + 2 * Tl::STAGE;  // f32: the small parts
+    const void* vss = sm + Tl::Q + 2 * Tl::STAGE + Tl::KV;
+    const float* ms = reinterpret_cast<const float*>(st + 2 * Tl::KV);
+    const int s0 = it * FA_KT;
+    if constexpr (!BF16) {
+      // split the k and v tiles once for every warp: big in place, small
+      // beside
+      float4* kv = reinterpret_cast<float4*>(st);
+      float4* sp = reinterpret_cast<float4*>(sm + Tl::Q + 2 * Tl::STAGE);
+      for (int c = tid; c < 2 * FA_KT * KP / 4; c += FA_NT) {
+        const float4 x = kv[c];
+        uint32_t b[4], s_[4];
+        split_tf32(x.x, b[0], s_[0]);
+        split_tf32(x.y, b[1], s_[1]);
+        split_tf32(x.z, b[2], s_[2]);
+        split_tf32(x.w, b[3], s_[3]);
+        kv[c] = make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]),
+                            __uint_as_float(b[2]), __uint_as_float(b[3]));
+        sp[c] = make_float4(__uint_as_float(s_[0]), __uint_as_float(s_[1]),
+                            __uint_as_float(s_[2]), __uint_as_float(s_[3]));
+      }
+      __syncthreads();
+    }
+
+    // ---- scores: (q * scale) k^T, slots 8j + 2tq (+ 1) of rows g, g + 8;
+    // even and odd head-dim steps in two accumulators (two chains of mma) ----
+    float s[4][4], s2[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] = s2[j][c] = 0.f;
+    const float* qw = qs + (16 * warp + g) * QP + tq;
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      uint32_t ab[4], as[4];
+      split_tf32(qw[8 * kk], ab[0], as[0]);
+      split_tf32(qw[8 * QP + 8 * kk], ab[1], as[1]);
+      split_tf32(qw[8 * kk + 4], ab[2], as[2]);
+      split_tf32(qw[8 * QP + 8 * kk + 4], ab[3], as[3]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        mma_3x<BF16>(kk & 1 ? s2[j] : s[j], ab, as, ks, kss,
+                     (8 * j + g) * KP + 8 * kk + tq, 4);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] += s2[j][c];
+    // ---- the mask (slots past S take no part: p = 0), online softmax ----
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int rl = 16 * warp + g + 8 * rr;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 mv = *reinterpret_cast<const float2*>(ms + rl * FA_MP + 8 * j + 2 * tq);
+        const int slot = s0 + 8 * j + 2 * tq;
+        s[j][2 * rr] = slot < S ? s[j][2 * rr] + mv.x : -INFINITY;
+        s[j][2 * rr + 1] = slot + 1 < S ? s[j][2 * rr + 1] + mv.y : -INFINITY;
+        mx = fmaxf(mx, fmaxf(s[j][2 * rr], s[j][2 * rr + 1]));
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_r[rr], mx);
+      const float alpha = expf(m_r[rr] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[j][2 * rr] = expf(s[j][2 * rr] - m_new);
+        s[j][2 * rr + 1] = expf(s[j][2 * rr + 1] - m_new);
+        sum += s[j][2 * rr] + s[j][2 * rr + 1];
+      }
+      l_r[rr] = l_r[rr] * alpha + sum;  // this thread's slots; the quad's sum at the end
+#pragma unroll
+      for (int dn = 0; dn < ND; ++dn) {
+        o[dn][2 * rr] *= alpha;
+        o[dn][2 * rr + 1] *= alpha;
+      }
+      m_r[rr] = m_new;
+    }
+    // ---- o += p v: the score accumulators are the A fragments, with the
+    // k index permuted (k = tq <-> slot 8j + 2tq, k = tq + 4 <-> slot 8j +
+    // 2tq + 1) and v's rows read in the same order ----
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t pb[4], ps[4];
+      split_tf32(s[j][0], pb[0], ps[0]);
+      split_tf32(s[j][2], pb[1], ps[1]);
+      split_tf32(s[j][1], pb[2], ps[2]);
+      split_tf32(s[j][3], pb[3], ps[3]);
+      const int e = (8 * j + 2 * tq) * KP + g;
+#pragma unroll
+      for (int dn = 0; dn < ND; ++dn) mma_3x<BF16>(o[dn], pb, ps, vs, vss, e + 8 * dn, KP);
+    }
+    __syncthreads();  // the stage is consumed before the next copy refills it
   }
 #pragma unroll
-  for (int r = 0; r < FA_RW; ++r) {
-    const int t = t0 + warp * FA_RW + r;
+  for (int rr = 0; rr < 2; ++rr) {
+    float l = l_r[rr];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float den = fmaxf(l, 1e-30f);
+    const int t = t0 + 16 * warp + g + 8 * rr;
     if (t >= T) continue;
-    const float den = fmaxf(l[r], 1e-30f);
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
-      if (u < nu) out[qbase + (size_t)t * D + lane + 32 * u] = acc[r][u] / den;
+    for (int dn = 0; dn < ND; ++dn)
+      *reinterpret_cast<float2*>(out + qbase + (size_t)t * D + 8 * dn + 2 * tq) =
+          make_float2(o[dn][2 * rr] / den, o[dn][2 * rr + 1] / den);
+  }
+}
+
+template <int D, bool BF16>
+int flash_launch(const void* q, const void* k, const void* v, const float* mask, long long msb,
+                 long long msh, long long mst, long long mss, int mvec, int B, int H, int T,
+                 int S, float scale, float* out, cudaStream_t s) {
+  static bool attr_set = false;
+  auto kern = flash_attn_kernel<D, BF16>;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, FaTile<D, BF16>::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  dim3 grid((T + FA_TQ - 1) / FA_TQ, B * H);
+  kern<<<grid, FA_NT, FaTile<D, BF16>::SMEM, s>>>(q, k, v, mask, msb, msh, mst, mss, mvec, H, T,
+                                                   S, scale, out);
+  return (int)cudaGetLastError();
+}
+
+template <bool BF16>
+int flash_launch_d(int D, const void* q, const void* k, const void* v, const float* mask,
+                   long long msb, long long msh, long long mst, long long mss, int mvec, int B,
+                   int H, int T, int S, float scale, float* out, cudaStream_t s) {
+  switch (D) {
+    case 32: return flash_launch<32, BF16>(q, k, v, mask, msb, msh, mst, mss, mvec, B, H, T, S, scale, out, s);
+    case 64: return flash_launch<64, BF16>(q, k, v, mask, msb, msh, mst, mss, mvec, B, H, T, S, scale, out, s);
+    case 96: return flash_launch<96, BF16>(q, k, v, mask, msb, msh, mst, mss, mvec, B, H, T, S, scale, out, s);
+    default: return flash_launch<128, BF16>(q, k, v, mask, msb, msh, mst, mss, mvec, B, H, T, S, scale, out, s);
   }
 }
 
@@ -308,33 +527,24 @@ extern "C" {
 
 const char* ght_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
-// K11: q [B,H,T,D], k/v [B,H,S,D], all f32 (bf16 != 0: all bf16), D a
-// multiple of 32 up to 128; mask f32 read at b*msb + h*msh + t*mst + s*mss
+// K11: q [B,H,T,D], k/v [B,H,S,D], all f32 (bf16 != 0: all bf16), D 32,
+// 64, 96 or 128; mask f32 read at b*msb + h*msh + t*mst + s*mss
 // (elements); out f32 [B,H,T,D].
 int flash_attn_run(const void* q, const void* k, const void* v,
                    const float* mask, long long msb, long long msh,
                    long long mst, long long mss, int B, int H, int T, int S,
                    int D, float scale, int bf16, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (B < 1 || H < 1 || T < 1 || S < 1 || D % 32 || D > FA_DMAX)
+  if (B < 1 || H < 1 || T < 1 || S < 1 || D % 32 || D < 32 || D > 128)
     return (int)cudaErrorInvalidValue;
-  static bool attr_set[2] = {false, false};
-  if (!attr_set[bf16 != 0]) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bf16 ? (const void*)flash_attn_kernel<true> : (const void*)flash_attn_kernel<false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, fa_smem(FA_DMAX));
-    if (e != cudaSuccess) return (int)e;
-    attr_set[bf16 != 0] = true;
-  }
-  dim3 grid((T + FA_TQ - 1) / FA_TQ, B * H);
-  if (bf16) {
-    flash_attn_kernel<true><<<grid, FA_NW * 32, fa_smem(D), s>>>(
-        q, k, v, mask, msb, msh, mst, mss, H, T, S, D, scale, out);
-  } else {
-    flash_attn_kernel<false><<<grid, FA_NW * 32, fa_smem(D), s>>>(
-        q, k, v, mask, msb, msh, mst, mss, H, T, S, D, scale, out);
-  }
-  return (int)cudaGetLastError();
+  // the mask tile by 16-byte copies where its rows are contiguous and
+  // 16-byte aligned
+  const int mvec = mss == 1 && mst % 4 == 0 && msb % 4 == 0 && msh % 4 == 0 && S % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(mask) % 16 == 0;
+  return bf16 ? flash_launch_d<true>(D, q, k, v, mask, msb, msh, mst, mss, mvec, B, H, T, S,
+                                     scale, out, s)
+              : flash_launch_d<false>(D, q, k, v, mask, msb, msh, mst, mss, mvec, B, H, T, S,
+                                      scale, out, s);
 }
 
 // K12: qg f32 [B,Hkv,G,128]; caches [B,S,Hkv,128] bf16 (bf16 != 0) or f32;

@@ -468,8 +468,6 @@ constexpr uint32_t BF2_ONE = 0x3f803f80u;   // 1
 constexpr uint32_t BF2_M128 = 0xc300c300u;  // -128
 constexpr uint32_t BF2_M192 = 0xc340c340u;  // -192
 
-__host__ __device__ constexpr int align128(int v) { return (v + 127) & ~127; }
-
 // How a launch cuts its planes (kernels.il_geo mirrors it): GW residues a
 // residue block (128 from G = 128 up, the last block ragged where G is not
 // a multiple of 128; else 64 or 32 dividing G, else 16, the last block
@@ -591,17 +589,6 @@ __device__ __forceinline__ uint32_t bfma2(uint32_t a, uint32_t b, uint32_t c) {
   uint32_t d;
   asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
   return d;
-}
-
-// d += A B: A 16 x 16 (a0, a2: row gid; a1, a3: row gid + 8; a0, a1: k
-// 2t, 2t + 1; a2, a3: k 2t + 8, 2t + 9), B 16 x 8 (b0: k 2t, 2t + 1; b1:
-// k 2t + 8, 2t + 9; column gid), bf16 in, f32 sums.
-__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // NW words of shared memory

@@ -1,10 +1,10 @@
 // Hopper building blocks shared by the two wgmma GEMMs, qp8_gemm.cu (K3)
 // and fast_il_gemm.cu (K6's GEMM), and the TMA-ring GEMVs, qp8_gemv.cu (K1,
-// K2, K5) and fast_il.cu (K6 at B <= 8, K8): cp.async and TMA copies
-// counted on mbarriers (with an evict-first L2 policy for planes read once
-// a step), wgmma with A from registers and B from shared memory, the
-// operand descriptors, the sum of K-split partials and the 2-D and 3-D TMA
-// tensor maps.
+// K2, K5), fast_il.cu (K6 at B <= 8, K8) and qmm_wire.cu (K10 at B <= 8):
+// cp.async and TMA copies counted on mbarriers (with an evict-first L2
+// policy for planes read once a step), wgmma with A from registers and B
+// from shared memory, the operand descriptors, bf16 mma.sync, the sum of
+// K-split partials and the 2-D and 3-D TMA tensor maps.
 // A TMA box with the S-byte swizzle (S = 32, 64, 128) stores byte offset o
 // of its dense rows at o ^ (((o >> 7) & (S/16 - 1)) << 4) (swizzled()).
 #pragma once
@@ -17,6 +17,8 @@ namespace {
 
 __device__ __forceinline__ float bf2f(uint32_t v) { return __uint_as_float(v << 16); }
 
+__host__ __device__ constexpr int align128(int v) { return (v + 127) & ~127; }
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -25,6 +27,10 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int by
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(bytes)
                : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
 }
 
 // One arrival on bar that also expects `bytes` from TMA copies.
@@ -78,6 +84,17 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     if (ok) return;
     if (spin > (1ll << 26)) __trap();
   }
+}
+
+// d += A B: A 16 x 16 (a0, a2: row gid; a1, a3: row gid + 8; a0, a1: k
+// 2t, 2t + 1; a2, a3: k 2t + 8, 2t + 9), B 16 x 8 (b0: k 2t, 2t + 1; b1:
+// k 2t + 8, 2t + 9; column gid), bf16 in, f32 sums.
+__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -93,7 +93,6 @@ __host__ __device__ constexpr int cols_per_thread(int nb) { return nb <= 4 ? 8 :
 __host__ __device__ constexpr int padded_rows(int nb) {
   return nb <= 1 ? 1 : nb <= 2 ? 2 : nb <= 4 ? 4 : 8;
 }
-__host__ __device__ constexpr int align128(int v) { return (v + 127) & ~127; }
 
 struct Plane {
   const uint8_t* fq;

@@ -5,6 +5,8 @@ one card, in the order parent, change, change, parent.
     git show 3b0f551:ggml_hexagon_tpu_torch/csrc/qp8_gemm.cu > DIR/qp8_gemm.cu
     git show 3b0f551:ggml_hexagon_tpu_torch/csrc/decode_attn.cu > DIR/decode_attn.cu
     git show c8a736e:ggml_hexagon_tpu_torch/csrc/qp8_gemv.cu > DIR/qp8_gemv.cu
+    git show daae95e:ggml_hexagon_tpu_torch/csrc/qmm_wire.cu > DIR/qmm_wire.cu
+    git show daae95e:ggml_hexagon_tpu_torch/csrc/attention.cu > DIR/attention.cu
     python3 -m ggml_hexagon_tpu_torch.kernel_ab --parent DIR
 
 Each part runs when DIR holds its parent source; the parents are built
@@ -39,13 +41,24 @@ with this tree's nvcc flags and headers.
       IQ3_XXS at M = 512, one Mixtral-8x7B expert's lane slice of stacked
       Q5_K / Q6_K planes at M = 128 and 512; K4 at pos 0, 1, 700 and 1023,
       bf16 and int8 caches, B = 1 and 4.
+  qmm_wire.cu and attention.cu (daae95e, the last tree whose K10 ran one
+      WMMA block a 64 x 64 output tile at every B and whose K11 took its
+      scores on the CUDA cores): K10 on the Llama-3-8B wq, gate, down and
+      head (Q4_K, Q4_K, Q6_K, Q6_K) at B = 1 and at B = 8, one type of each
+      of the 12 plane families at 4096 x 4096, B = 1 and 8, and, level (the
+      same kernel), the 8B shapes at B = 512 and wq in f32 at B = 8; K11 at
+      the conformance prefill (B=1, H=32, T=512, S=1024, D=128, a causal
+      [1,1,T,S] mask with a dead tail), f32 and bf16; K12, level, at the
+      decode step at pos 700 (Hkv=8, G=4, S=1024, bf16 cache).
 
 Times are device times of a CUDA-graph replay after an L2 flush (median
 of iterations), as chip_smoke.py takes them (K1/K2/K5, K6 and K8 rows also
 the host microseconds a wrapper call takes to enqueue); each row also
 prints the bf16 `torch.matmul` (weight dequantized beforehand), `torch.bmm`
 (K5, K8: the selected experts dequantized beforehand) or SDPA (K4, bf16)
-yardstick and the bound, and each unit its sums.  Needs a card.
+yardstick and the bound, and each unit its sums (K10: the bf16 `torch.matmul` on the
+weight dequantized beforehand; K11 and K12: SDPA in the inputs' type).
+Needs a card.
 """
 from __future__ import annotations
 
@@ -65,13 +78,17 @@ from .models.llama import LlamaConfig
 from .models.synth import (MIXTRAL_8X7B, _policy, build_8b, build_8b_il,
                            build_8b_iq3xxs, build_8b_iq4xs, random_qtensor)
 from .ops import decode_attn as PD
+from .ops import attention as PA
+from .ops import qmatmul as PQ
 from .ops import qmm_fast as PF
 from .ops import qmm_qp8 as P
 from .ops.basic import rope_freqs
 from .quant.formats import GGMLType
 
 HBM_BPS = 3.35e12
-BF16_OPS = 989e12    # K3, K4 and K6/K8 (bf16 mma at every B)
+BF16_OPS = 989e12    # K3, K4, K6/K8 and K10 (bf16 mma at every B)
+F32_OPS = 67e12      # K10 in f32 (f32 FMAs)
+TF32_OPS = 495e12    # K11: TF32 mma, times its products a multiply-add
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: the parents' C entries: K3 and K4 of 3b0f551, K6-K8 of 1b81f9c (K6 and
 #: K8 with their pre-pass scratch xil and xg; K7 the same as this tree's)
@@ -90,10 +107,16 @@ _PARENT_ARGS = {
     + [_P, _P, _P, _I, _P, _P, _I, _P],
     "qp8_indirect_run": [_P, _I, _I, _P, _I, _I, _P, _P, _P] + [_I] * 4
     + [_F, _I, _P, _P, _P, _I, _P, _P],
+    # daae95e's K10, K11 and K12: the same C entries as this tree's
+    "qmm_wire_run": kernels._ARGTYPES["qmm_wire_run"],
+    "flash_attn_run": kernels._ARGTYPES["flash_attn_run"],
+    "decode_attn_gqa_run": kernels._ARGTYPES["decode_attn_gqa_run"],
 }
 _PARENT_FNS = {"qp8_gemm": ["qp8_gemm_run"], "decode_attn": ["decode_attn_run"],
                "fast_il": ["fast_il_run", "fast_dual_run", "fast_indirect_run"],
-               "qp8_gemv": ["qp8_gemv_run", "qp8_indirect_run"]}
+               "qp8_gemv": ["qp8_gemv_run", "qp8_indirect_run"],
+               "qmm_wire": ["qmm_wire_run"],
+               "attention": ["flash_attn_run", "decode_attn_gqa_run"]}
 _FLUSH = None
 
 
@@ -193,15 +216,16 @@ class AB:
         self.gen.manual_seed(1234)
         self.units: dict = {}
 
-    def _as_parent(self, fn):
-        """fn() with the fast_il library swapped for the parent's, whose K7
-        entry keeps its C signature."""
-        mine = kernels._LIBS["fast_il"]
-        kernels._LIBS["fast_il"] = self.par["lib:fast_il"]
+    def _as_parent(self, fn, name="fast_il"):
+        """fn() with this tree's library `name` swapped for the parent's,
+        whose entries fn reaches keep their C signatures (K7's; K11's and
+        K12's)."""
+        mine = kernels._LIBS[name]
+        kernels._LIBS[name] = self.par[f"lib:{name}"]
         try:
             return fn()
         finally:
-            kernels._LIBS["fast_il"] = mine
+            kernels._LIBS[name] = mine
 
     def parent_k6(self, x, qt, wn=None, eps=None, act="", res=None,
                   pre_il=False, xg=None):
@@ -549,6 +573,116 @@ class AB:
         self._unit(unit, count, t, lib, bound)
         return e_new
 
+    def parent_wire(self, x, qt, planes, cd):
+        """The parent's K10 (one WMMA block a 64 x 64 output tile) on the
+        arguments kernels.qmm_wire passes its old path."""
+        q = planes[0]
+        out = torch.empty((x.shape[0], q.shape[0]), dtype=torch.float32,
+                          device=self.dev)
+        rc = self.par["qmm_wire_run"](
+            kernels.wire_family(qt.cfg), int(cd == torch.float32),
+            x.data_ptr(), x.shape[0], qt.k,
+            *[kernels._ptr(t) for t in planes], q.shape[0], qt.cfg.gs,
+            float(qt.cfg.offset), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"parent qmm_wire_run: CUDA error {rc}")
+        return out
+
+    def k10(self, unit, name, qt, B, count, cd=torch.bfloat16):
+        """One K10 row: the GEMV (B <= 8, bf16) or the WMMA GEMM against
+        the parent's WMMA kernel, P C C P."""
+        x = torch.randn(B, qt.k, generator=self.gen, device=self.dev)
+        planes = PQ._wire_planes(qt)
+        new = lambda: kernels.qmm_wire(x, qt.cfg, planes, qt.k, cd)  # noqa: E731
+        old = lambda: self.parent_wire(x, qt, planes, cd)  # noqa: E731
+        want = PQ.qmm_wire_plain(x, qt, cd)
+        e_new, e_old = _nmse(new(), want), _nmse(old(), want)
+        del want
+        t = [_time_ms(old), _time_ms(new), _time_ms(new), _time_ms(old)]
+        deq = PQ.dequantize(qt, torch.bfloat16)
+        xb = x.to(torch.bfloat16)
+        lib = _time_ms(lambda: torch.matmul(xb, deq.t()))
+        del deq
+        n_pad = planes[0].shape[0]
+        byts = sum(t_.numel() * t_.element_size() for t_ in planes
+                   if t_ is not None) + x.numel() * 4 + B * n_pad * 4
+        ops = 2 * B * n_pad * qt.k
+        bound = max(byts / HBM_BPS, ops / (BF16_OPS if cd == torch.bfloat16
+                                           else F32_OPS)) * 1e3
+        plan = ""
+        if cd == torch.bfloat16 and B <= kernels.WIRE_GEMV_ROWS:
+            cfg = qt.cfg
+            plan = str(kernels.pick_wire_gemv(
+                qt.k, cfg.bits_lo, cfg.bits_hi, cfg.superblock, cfg.asym,
+                cfg.gs, n_pad // kernels.WIRE_ROWS, B,
+                kernels._sm_count(torch.cuda.current_device())))
+        print(f"K10 {unit} {name} {qt.cfg.qtype.name} {qt.n}x{qt.k} B={B} "
+              f"{str(cd)[6:]} {plan} nmse={e_new:.2e} (parent {e_old:.2e}) "
+              f"P={t[0]:.4f} C={t[1]:.4f} C={t[2]:.4f} P={t[3]:.4f} ms "
+              f"matmul={lib:.4f} bound={bound:.4f} x{count}", flush=True)
+        self._unit(unit, count, t, lib, bound)
+        return e_new
+
+    def k11(self, unit, dtype, B=1, H=32, T=512, S=1024, D=128, dead=64):
+        """K11 at the conformance prefill, P C C P; the bound at the TF32
+        peak times the products (three for f32 inputs, two for bf16)."""
+        g = self.gen
+        q, k, v = (torch.randn(B, H, n, D, generator=g, device=self.dev)
+                   .to(dtype) for n in (T, S, S))
+        t_ = torch.arange(T, device=self.dev)[:, None]
+        sl = torch.arange(S, device=self.dev)[None, :]
+        mask = torch.where(sl <= S - dead - T + t_, 0.0, -1e30)
+        mask[:, S - dead:] = -1e30
+        mask = mask[None, None].contiguous()
+        scale = D ** -0.5
+        new = lambda: kernels.flash_attn(q, k, v, mask, scale)  # noqa: E731
+        old = lambda: self._as_parent(new, "attention")  # noqa: E731
+        want = PA.flash_attn_plain(q, k, v, mask, scale)
+        e_new = float((new() - want).abs().max())
+        e_old = float((old() - want).abs().max())
+        t = [_time_ms(old), _time_ms(new), _time_ms(new), _time_ms(old)]
+        m_lib = mask.to(dtype)
+        lib = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=m_lib, scale=scale))
+        byts = sum(t_.numel() * t_.element_size() for t_ in (q, k, v, mask)) \
+            + B * H * T * D * 4
+        products = 2 if dtype == torch.bfloat16 else 3
+        ops = 4 * B * H * T * S * D * products
+        bound = max(byts / HBM_BPS, ops / TF32_OPS) * 1e3
+        print(f"K11 {unit} B={B} H={H} T={T} S={S} D={D} {str(dtype)[6:]} "
+              f"max|d|={e_new:.2e} (parent {e_old:.2e}) P={t[0]:.4f} "
+              f"C={t[1]:.4f} C={t[2]:.4f} P={t[3]:.4f} ms sdpa={lib:.4f} "
+              f"bound={bound:.4f}", flush=True)
+        self._unit(unit, 1, t, lib, bound)
+        return max(e_new, 0.0)
+
+    def k12(self, unit, pos=700, Hkv=8, G=4, S=1024, D=128):
+        """K12 (unchanged) at the decode step, P C C P: level."""
+        g = self.gen
+        qg = torch.randn(1, Hkv, G, 1, D, generator=g, device=self.dev)
+        kc, vc = (torch.randn(1, S, Hkv, D, generator=g, device=self.dev)
+                  .to(torch.bfloat16) for _ in range(2))
+        posb = torch.tensor([pos], dtype=torch.int32, device=self.dev)
+        scale = D ** -0.5
+        new = lambda: kernels.decode_attn_gqa(qg, kc, vc, posb, scale)  # noqa: E731
+        old = lambda: self._as_parent(new, "attention")  # noqa: E731
+        want = PA.decode_attn_gqa_plain(qg, kc, vc, posb, scale)
+        e_new = float((new() - want).abs().max())
+        t = [_time_ms(old), _time_ms(new), _time_ms(new), _time_ms(old)]
+        q4 = qg.reshape(1, Hkv * G, 1, D).to(torch.bfloat16)
+        k4, v4 = (c[:, :pos + 1].transpose(1, 2) for c in (kc, vc))
+        lib = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, scale=scale, enable_gqa=True))
+        byts = (qg.numel() * 4 + 4 + Hkv * G * D * 4
+                + 2 * (pos + 1) * Hkv * D * 2)
+        bound = max(byts / HBM_BPS, 4 * (pos + 1) * Hkv * G * D / BF16_OPS) * 1e3
+        print(f"K12 {unit} pos={pos} max|d|={e_new:.2e} P={t[0]:.5f} "
+              f"C={t[1]:.5f} C={t[2]:.5f} P={t[3]:.5f} ms sdpa={lib:.5f} "
+              f"bound={bound:.5f}", flush=True)
+        self._unit(unit, 1, t, lib, bound)
+        return e_new
+
     def k4(self, cfg, quant, B, pos, layers):
         """One K4 row at S=1024; a step is `layers` launches."""
         Hq, Hkv, D, S = cfg.n_head, cfg.n_head_kv, cfg.hd, 1024
@@ -832,12 +966,48 @@ def run_gemv(ab, dev) -> bool:
     return ok
 
 
+def run_conformance(ab, dev) -> bool:
+    """K10 on the 8B's shapes at B = 1, 8 (and, level, 512 and f32), on
+    the 12 plane families at 4096 x 4096; K11 f32 and bf16; K12 level."""
+    from .quant.pack import QCONFIGS
+
+    ok = True
+    g = torch.Generator(device=dev)
+    g.manual_seed(77)
+    shapes = (("wq", 4096, 4096, GGMLType.Q4_K), ("gate", 14336, 4096, GGMLType.Q4_K),
+              ("down", 4096, 14336, GGMLType.Q6_K), ("head", 128256, 4096, GGMLType.Q6_K))
+    qts = {name: random_qtensor(g, n, k, qtype, dev) for name, n, k, qtype in shapes}
+    for B in (1, 8):
+        for name in qts:
+            ok &= ab.k10(f"8B-K10-B{B}", name, qts[name], B, 1) <= 1e-6
+    for name in ("wq", "gate", "down"):
+        ok &= ab.k10("8B-K10-B512-level", name, qts[name], 512, 1) <= 1e-6
+    ok &= ab.k10("8B-K10-f32-B8-level", "wq", qts["wq"], 8, 1,
+                 torch.float32) <= 1e-6
+    del qts
+    torch.cuda.empty_cache()
+    seen = set()
+    for qtype in sorted(QCONFIGS, key=int):
+        fam = kernels.wire_family(QCONFIGS[qtype])
+        if fam in seen:
+            continue
+        seen.add(fam)
+        qt = random_qtensor(g, 4096, 4096, qtype, dev)
+        for B in (1, 8):
+            ok &= ab.k10(f"K10-{qtype.name}-4096-B{B}", "type", qt, B, 1) <= 1e-6
+        del qt
+    for dtype in (torch.float32, torch.bfloat16):
+        ok &= ab.k11(f"K11-{str(dtype)[6:]}", dtype) <= 1e-4
+    ok &= ab.k12("K12-pos700-level") <= 1e-4
+    return ok
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True,
                     help="directory holding the parent's fast_il.cu, "
-                         "qp8_gemm.cu and decode_attn.cu, or qp8_gemv.cu, "
-                         "or any of these")
+                         "qp8_gemm.cu and decode_attn.cu, qp8_gemv.cu, or "
+                         "qmm_wire.cu and attention.cu, or any of these")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -859,6 +1029,8 @@ def main(argv=None):
         ok &= run_k3k4(ab, dev)
     if "lib:qp8_gemv" in ab.par:
         ok &= run_gemv(ab, dev)
+    if "lib:qmm_wire" in ab.par and "lib:attention" in ab.par:
+        ok &= run_conformance(ab, dev)
     for unit, (p, c, lib, bound, n) in ab.units.items():
         vs = f" ({c / lib:.2f}x)" if lib else ""
         share = f", {bound / c:.0%} of it" if bound and c else ""

@@ -39,7 +39,9 @@ SOURCES = {
                                     # mode), K7 and K8
     "fast_il_gemm": "fast_il_gemm.cu",  # K6 above 8 rows (the prefill GEMM)
     "ffn_fused": "ffn_fused.cu",    # K9
-    "qmm_wire": "qmm_wire.cu",      # K10
+    "qmm_wire": "qmm_wire.cu",      # K10 (at B <= 8 in bf16 the
+                                    # streaming GEMV, above it the WMMA
+                                    # GEMM)
     "attention": "attention.cu",    # K11 and K12
 }
 
@@ -111,6 +113,8 @@ _ARGTYPES = {
                         _I, _F, _I, _I, _P, _P, _P, _P, _P],
     "qmm_wire_run": [_I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F,
                      _P, _P],
+    "qmm_wire_gemv_run": [_I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F,
+                          _I, _I, _I, _P, _P, _P, _P],
     "flash_attn_run": [_P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _I, _I, _I,
                        _F, _I, _P, _P],
     "decode_attn_gqa_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F,
@@ -504,48 +508,60 @@ class IlPlan(NamedTuple):
     per_sm: int
 
 
-@functools.lru_cache(maxsize=None)
-def pick_il_gemv(K: int, G: int, packed: bool, fb: bool, bias: bool, nb: int,
-                 tiles: int, rows_z: int, mode: int, sms: int) -> IlPlan:
-    """Splits, ring and blocks of a K6 (B <= 8, mode 0-3 as fast_il_run's)
-    or K8 launch (rows_z input rows, nb = 1) over `tiles` tiles of IL_ROWS
-    rows, from its shapes and the card's SM count.  One wave of persistent
-    blocks (two an SM where the ring and the activation fit, else one), each
-    building its split's activation once and taking every nbx-th tile; the
-    splits (whole stages, at most 32) that stream the fewest plane bytes
-    through the busiest SM (a block alone streams at about half an SM's
-    rate), counting a block's fixed cost, its activation and, when K is
-    split, each of its tiles' split sum; the deepest ring that fits, up to 8
-    stages or the block's stages."""
-    geo = il_geo(K, G, packed)
-    gs = K // G
+def _pick_persistent(nst: int, tiles: int, rows_z: int, sms: int, stage: int,
+                     smem_of, act_of):
+    """The plan search of K6 (B <= 8), K8 and K10 (B <= 8): for ks splits of
+    the nst stages of `tiles` tiles (whole stages, at most 32), the deepest
+    ring (up to 8 stages or the block's) whose smem_of(ns, ks) fits two
+    blocks an SM, else one; one wave of persistent blocks along the tiles
+    (times rows_z input rows); the cost, in plane bytes, of the busiest SM
+    (a block alone streams at about half an SM's rate): its stages of
+    `stage` bytes, a block's fixed cost, act_of(ks) activation bytes and,
+    when K is split, each of its tiles' split sum.  Returns (ks, ns, nbx,
+    smem, per_sm) of the cheapest, or None where no ring fits."""
     best = None
-    for ks in range(1, min(geo.nst, 32) + 1):
-        per = -(-geo.nst // ks)
+    for ks in range(1, min(nst, 32) + 1):
+        per = -(-nst // ks)
         for per_sm in (2, 1):
             budget = min(SMEM_BLOCK, SMEM_SM // per_sm - 1024)
             ns = min(8, per * tiles)
-            while ns > 1 and il_smem(geo, fb, bias, ns, ks, gs, nb) > budget:
+            while ns > 1 and smem_of(ns, ks) > budget:
                 ns -= 1
-            smem = il_smem(geo, fb, bias, ns, ks, gs, nb)
+            smem = smem_of(ns, ks)
             if smem <= budget and ns >= min(2, per * tiles):
                 break
         else:
             continue
         nbx = max(1, min(tiles, sms * per_sm // (ks * rows_z)))
         blocks, tpb = nbx * ks * rows_z, -(-tiles // nbx)
-        act = nb * 2 * (il_touched(geo, ks) * geo.GW * gs * (2 if mode == 2 else 1)
-                        + (K if mode == 1 else 0))
-        # a block alone streams at about half an SM's rate
         streams = max(-(-blocks // sms), 2)
-        cost = (streams * tpb * per * geo.wb + _IL_BLOCK_COST
-                + _IL_ACT_WEIGHT * act + (tpb * _IL_SPLIT_COST if ks > 1 else 0))
+        cost = (streams * tpb * per * stage + _IL_BLOCK_COST
+                + _IL_ACT_WEIGHT * act_of(ks)
+                + (tpb * _IL_SPLIT_COST if ks > 1 else 0))
         if best is None or cost < best[0]:
-            best = (cost, IlPlan(ks, ns, nbx, smem, per_sm))
-    if best is None:
+            best = (cost, (ks, ns, nbx, smem, per_sm))
+    return None if best is None else best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def pick_il_gemv(K: int, G: int, packed: bool, fb: bool, bias: bool, nb: int,
+                 tiles: int, rows_z: int, mode: int, sms: int) -> IlPlan:
+    """Splits, ring and blocks of a K6 (B <= 8, mode 0-3 as fast_il_run's)
+    or K8 launch (rows_z input rows, nb = 1) over `tiles` tiles of IL_ROWS
+    rows, from its shapes and the card's SM count (_pick_persistent):
+    each block builds its split's activation (the touched residue blocks'
+    columns, twice in act mode, and the whole row for the norm) once."""
+    geo = il_geo(K, G, packed)
+    gs = K // G
+    plan = _pick_persistent(
+        geo.nst, tiles, rows_z, sms, geo.wb,
+        lambda ns, ks: il_smem(geo, fb, bias, ns, ks, gs, nb),
+        lambda ks: nb * 2 * (il_touched(geo, ks) * geo.GW * gs
+                             * (2 if mode == 2 else 1) + (K if mode == 1 else 0)))
+    if plan is None:
         raise ValueError(f"no K6/K8 plan fits shared memory: K={K}, G={G}, "
                          f"{nb} rows")
-    return best[1]
+    return IlPlan(*plan)
 
 
 def _il_plan(qt, nb: int, tiles: int, rows_z: int, mode: int, dev) -> IlPlan:
@@ -1046,6 +1062,89 @@ def wire_family(cfg) -> int:
     return _WIRE_FAMILIES[key]
 
 
+#: K10 at B <= 8 in bf16 (csrc/qmm_wire.cu wire_gemv_kernel): weight rows a
+#: tile, and the activation rows it takes
+WIRE_ROWS = 64
+WIRE_GEMV_ROWS = 8
+
+
+class WireGeo(NamedTuple):
+    """A family's wire planes as K10's GEMV walks them (csrc/qmm_wire.cu
+    wire_geo): per values a low-plane byte, Kp low and Kph high bytes a
+    row (Kph = Kp without a high plane), R = Kp / Kph low bytes a high
+    byte serves, HW high positions a stage (128, 64 or 32, dividing Kph),
+    nst stages a tile; a run's scale record holds n groups in nrec words
+    (scw of them for sc, and for m); sb bytes a ring slot (R low boxes,
+    the high box, 64 rows of per*R records)."""
+    per: int
+    Kp: int
+    Kph: int
+    R: int
+    HW: int
+    nst: int
+    n: int
+    scw: int
+    nrec: int
+    sb: int
+
+
+def wire_geo(K: int, bl: int, bh: int, superblock: bool, asym: str,
+             gs: int) -> WireGeo:
+    per = 8 // bl
+    Kp = K // per
+    Kph = K * bh // 8 if bh else Kp
+    R = Kp // Kph
+    HW = 128 if Kph % 128 == 0 else 64 if Kph % 64 == 0 else 32
+    n = HW // gs if HW >= gs else 1
+    two = 1 + (asym != "none")
+    if superblock:
+        scw = (n + 3) // 4 + 1
+        nrec = (2 if asym == "minsb" else 1) + scw * two
+    else:
+        scw, nrec = 0, n * two
+    box = WIRE_ROWS * HW
+    sb = _a128((R + (bh > 0)) * box + WIRE_ROWS * per * R * nrec * 4)
+    return WireGeo(per, Kp, Kph, R, HW, Kph // HW, n, scw, nrec, sb)
+
+
+def wire_smem(geo: WireGeo, ns: int, ks: int, nb: int) -> int:
+    """Shared memory of a block (csrc/qmm_wire.cu wire_layout): ns ring
+    slots, the split's bf16 activation (nb rows of per*R runs of the widest
+    split's columns), the halves' partial sums, flag and mbarriers."""
+    lmax = -(-geo.nst // ks) * geo.HW
+    pitch = _a128(geo.per * geo.R * lmax * 2) + 16
+    red = ns * geo.sb + _a128(nb * pitch)
+    return _a128(red + 4 * 32 * 4 * 4 + 16) + 16 * ns
+
+
+class WirePlan(NamedTuple):
+    """A K10 launch at B <= 8: ks splits of the stages, ns ring slots, nbx
+    blocks along the tiles (each takes every nbx-th tile), smem bytes a
+    block, per_sm blocks an SM."""
+    ks: int
+    ns: int
+    nbx: int
+    smem: int
+    per_sm: int
+
+
+@functools.lru_cache(maxsize=None)
+def pick_wire_gemv(K: int, bl: int, bh: int, superblock: bool, asym: str,
+                   gs: int, tiles: int, nb: int, sms: int) -> WirePlan:
+    """Splits, ring and blocks of a K10 launch at B = nb <= 8 over `tiles`
+    tiles of WIRE_ROWS rows, from its shapes and the card's SM count
+    (_pick_persistent, as for K6): each block builds its split's f32 x
+    columns into bf16 once."""
+    geo = wire_geo(K, bl, bh, superblock, asym, gs)
+    plan = _pick_persistent(geo.nst, tiles, 1, sms, geo.sb,
+                            lambda ns, ks: wire_smem(geo, ns, ks, nb),
+                            lambda ks: nb * 4 * K // ks)
+    if plan is None:
+        raise ValueError(f"no K10 GEMV plan fits shared memory: K={K}, "
+                         f"{nb} rows")
+    return WirePlan(*plan)
+
+
 def qmm_wire(x, cfg, planes, K: int, compute_dtype=torch.bfloat16):
     """K10 on the card: x f32 [B, K] against the wire planes (q, qh, d, sc,
     dmin, m) of a QConfig, in the dtypes ops.qmatmul._wire_planes gives
@@ -1089,10 +1188,24 @@ def qmm_wire(x, cfg, planes, K: int, compute_dtype=torch.bfloat16):
     dev = x.device
     out = torch.empty((B, n_pad), dtype=torch.float32, device=dev)
     lib = _lib("qmm_wire")
-    rc = lib.qmm_wire_run(fam, int(compute_dtype == torch.float32), _ptr(x),
-                          B, K, _ptr(q), p("qh", qh), _ptr(d), p("sc", sc),
-                          p("dmin", dmin), p("m", m), n_pad, gs,
-                          float(cfg.offset), _ptr(out), _stream(dev))
+    if compute_dtype == torch.bfloat16 and B <= WIRE_GEMV_ROWS:
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        plan = pick_wire_gemv(K, cfg.bits_lo, cfg.bits_hi, cfg.superblock,
+                              cfg.asym, gs, n_pad // WIRE_ROWS, B,
+                              _sm_count(index))
+        counters = _gemv_counters(dev, n_pad // WIRE_ROWS)
+        ws = (torch.empty((plan.ks, B, n_pad), dtype=torch.float32,
+                          device=dev) if plan.ks > 1 else None)
+        rc = lib.qmm_wire_gemv_run(
+            fam, _ptr(x), B, K, _ptr(q), p("qh", qh), _ptr(d), p("sc", sc),
+            p("dmin", dmin), p("m", m), n_pad, gs, float(cfg.offset),
+            plan.ks, plan.ns, plan.nbx, _ptr(ws), _ptr(counters), _ptr(out),
+            _stream(dev))
+    else:
+        rc = lib.qmm_wire_run(fam, int(compute_dtype == torch.float32),
+                              _ptr(x), B, K, _ptr(q), p("qh", qh), _ptr(d),
+                              p("sc", sc), p("dmin", dmin), p("m", m), n_pad,
+                              gs, float(cfg.offset), _ptr(out), _stream(dev))
     _check(lib, rc, "qmm_wire")
     LAUNCHES["qmm_wire"] += 1
     return out

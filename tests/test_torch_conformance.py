@@ -25,6 +25,12 @@ against the JAX package, on the same numpy-seeded inputs.
                   interpret=True)` and `dense_attention` on
                   tests/test_attention.py's fixture (its dead tail
                   included), rtol = atol = 2e-5 (f32, another order);
+  K11 TF32 split   a torch emulation of the card kernel's arithmetic
+                  (q*scale, k, p and v rounded bit for bit to TF32 as big
+                  + small, three products, two for bf16 k and v, online
+                  softmax over 32-slot tiles) within 1e-5 of the plain
+                  twin on the same fixture: the split meets the f32
+                  contract without a card;
   K12             the plain twin against `decode_attention_pallas(
                   interpret=True)` for (swa, cap) = (0, 0), (64, 0),
                   (0, 30), rtol = atol = 2e-5;
@@ -226,6 +232,70 @@ def test_flash_attn_plain_dead_rows_average_v(attn_inputs):
                                     chunk=128).numpy()
     np.testing.assert_allclose(got, want, **ATTN_TOL)
     np.testing.assert_allclose(got[:, :, 3], v.mean(axis=2), **ATTN_TOL)
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32: keep 10 mantissa bits, round to nearest with
+    ties away from zero (on the magnitude), as f32."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def _tf32_products(a, b, b_exact):
+    """a @ b as the card kernel forms it: three TF32 products (big*big,
+    big*small, small*big; two when b is exact in TF32), each exact in f64
+    here, summed in f32."""
+    ab, as_ = _split(a)
+    bb, bs = (b, torch.zeros_like(b)) if b_exact else _split(b)
+    d = lambda u, v: (u.double() @ v.double())  # noqa: E731
+    return (d(as_, bb) + d(ab, bs) + d(ab, bb)).to(torch.float32)
+
+
+def _flash_tf32(q, k, v, mask, scale, bf16_kv, kt=32):
+    """K11's arithmetic on the card: online softmax over kt-slot tiles,
+    scores and p @ v through the TF32 split."""
+    qf = q.to(torch.float32) * scale
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    B, H, T, D = q.shape
+    S = k.shape[2]
+    m = torch.full((B, H, T), -1e30)
+    l = torch.zeros((B, H, T))
+    acc = torch.zeros((B, H, T, D))
+    for s0 in range(0, S, kt):
+        sl = slice(s0, s0 + kt)
+        s = _tf32_products(qf, kf[:, :, sl].transpose(-1, -2), bf16_kv)
+        s = s + mask[..., sl]
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + _tf32_products(p, vf[:, :, sl],
+                                                      bf16_kv)
+        m = m_new
+    return acc / torch.clamp_min(l, 1e-30)[..., None]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attn_tf32_split_meets_the_f32_contract(attn_inputs, dtype):
+    """The card's K11 rounds q*scale, k, p and v to TF32 big + small parts
+    (bf16 k and v are exact in TF32): emulated bit for bit, it lies within
+    1e-5 of the plain twin (f32), dead tail included; on f32 inputs,
+    dropping the small parts of q, k and v would not."""
+    q, k, v, mask, scale = attn_inputs
+    px = [torch.from_numpy(a) for a in (q, k, v, mask)]
+    qd, kd, vd = (t.to(dtype) for t in px[:3])
+    want = PA.flash_attn_plain(qd, kd, vd, px[3], scale, chunk=128)
+    got = _flash_tf32(qd, kd, vd, px[3], scale, dtype == torch.bfloat16)
+    assert float((got - want).abs().max()) <= 1e-5
+    if dtype == torch.float32:
+        one = _flash_tf32(_tf32(qd), _tf32(kd), _tf32(vd), px[3], scale, True)
+        assert float((one - want).abs().max()) > 1e-5
 
 
 @pytest.mark.parametrize("swa,cap", [(0, 0.0), (64, 0.0), (0, 30.0)])

@@ -47,8 +47,17 @@ Tolerances, per kernel, with their reasons:
       (about 1e-9 measured at Llama-3-8B widths with unit-scale inputs).
   K10 (wire-plane dequant x matmul): the same f32 weight from the same
       roundings, the same bf16 (or f32) operands, f32 sums in another
-      order.  NMSE <= 1e-6.
-  K11 (masked flash attention) and K12 (GQA cache attention): f32
+      order (at B <= 8 in bf16 the streaming GEMV: K split over blocks,
+      the splits summed in split order by each tile's last block).
+      NMSE <= 1e-6, at every family, at K = 256 and 11008 (the scale
+      planes' 4-, 172- and 344-byte row pitches), 64 rows and the
+      128256-row head, B = 1, 2, 8 and 9; repeated calls and a CUDA-graph
+      replay give the same bits.
+  K11 (masked flash attention): f32 scores and output; q*scale, k, p and
+      v split into two TF32 parts (bf16 k and v are exact in TF32), three
+      products (two for bf16 inputs) summed in f32, so each score and
+      output is an f32 result to about 2^-22 relative, in another order,
+      with expf: max|d| <= 1e-4.  K12 (GQA cache attention): f32
       throughout, another order and expf, as K4: max|d| <= 1e-4.
   K1/K2/K5 on inputs whose prologue is exact in any implementation (rows
       of mean square 4 - eps, whose rsqrt is 0.5; gates of magnitude 20 or
@@ -779,6 +788,104 @@ def test_flash_attn_kernel_matches_plain(dev, dtype, shape):
     assert kernels.LAUNCHES["flash_attn"] == before + 1
     assert got.dtype == torch.float32 and got.shape == (B, H, T, D)
     assert float((got - want).abs().max()) <= 1e-4
+
+
+#: one type of each K10 plane family (kernels._WIRE_FAMILIES)
+_K10_FAMILIES = _K10_TYPES[:12]
+
+
+@pytest.mark.parametrize("B", [1, 2, 8, 9])
+@pytest.mark.parametrize("K", [256, 11008])
+@pytest.mark.parametrize("qtype", _K10_FAMILIES, ids=lambda t: t.name)
+def test_qmm_wire_kernel_at_the_edges_of_its_domain(dev, qtype, K, B):
+    """K10 on 64 rows at K = 256 (d and dmin rows of 4 bytes, sc rows of
+    8 or 16) and K = 11008 (172-byte d rows, 344-byte sc rows at gs = 32,
+    high planes of 1376 bytes: 32-position stages), one launch a call;
+    B = 9 is the first row count past the GEMV."""
+    qt = _wire(dev, 64, K, qtype)
+    x = _x(dev, B, K, seed=B + 1)
+    before = kernels.LAUNCHES["qmm_wire"]
+    got = PQ.qmatmul(x, qt, backend="pallas")
+    want = PQ.qmatmul_pallas(x, qt, plain=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["qmm_wire"] == before + 1
+    assert got.shape == (B, 64) and torch.isfinite(got).all()
+    assert _nmse(got, want) <= NMSE_MAX
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_qmm_wire_kernel_on_the_8b_head(dev, B):
+    """The 128256-row Q6_K head: 2004 tiles, within the split counters."""
+    qt = _wire(dev, 128256, 4096, GGMLType.Q6_K)
+    x = _x(dev, B, 4096, seed=B + 2)
+    before = kernels.LAUNCHES["qmm_wire"]
+    got = PQ.qmatmul(x, qt, backend="pallas")
+    want = PQ.qmatmul_pallas(x, qt, plain=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["qmm_wire"] == before + 1
+    assert torch.isfinite(got).all() and _nmse(got, want) <= NMSE_MAX
+
+
+@pytest.mark.parametrize("shape", [(4096, 4096, GGMLType.Q4_K, 1),
+                                   (4096, 14336, GGMLType.Q6_K, 8),
+                                   (14336, 4096, GGMLType.Q5_K, 3)],
+                         ids=["wq_b1", "down_b8", "gate_q5k_b3"])
+def test_qmm_wire_kernel_repeats_and_replays_bit_equal(dev, shape):
+    """Two calls and a CUDA-graph replay of the same call give the same
+    bits: the split tiles' counters are left at zero and the splits are
+    summed in split order."""
+    n, k, qtype, B = shape
+    qt = _wire(dev, n, k, qtype)
+    x = _x(dev, B, k, seed=3)
+    first = PQ.qmatmul(x, qt, backend="pallas")
+    second = PQ.qmatmul(x, qt, backend="pallas")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        PQ.qmatmul(x, qt, backend="pallas")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = PQ.qmatmul(x, qt, backend="pallas")
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, replayed)
+    want = PQ.qmatmul_pallas(x, qt, plain=True)
+    assert _nmse(first, want) <= NMSE_MAX
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("mask_kind", ["full", "broadcast"])
+@pytest.mark.parametrize("S", [256, 1024])
+@pytest.mark.parametrize("D", [32, 64, 96, 128])
+def test_flash_attn_kernel_over_its_domain(dev, dtype, mask_kind, S, D):
+    """K11 at T = 100 (a ragged last row block) over every head width, on
+    a full [B,H,T,S] mask and a [1,1,T,S] broadcast one whose finite
+    values are random (so no two slots of a row weigh alike: p has no
+    symmetry for the accumulator-to-operand reuse to hide behind), a
+    causal -1e30 part, a dead tail and one dead row (it averages v)."""
+    B, H, T = 2, 3, 100
+    q = _x(dev, B, H, T, D, seed=D + 1).to(dtype)
+    k = _x(dev, B, H, S, D, seed=D + 2).to(dtype)
+    v = _x(dev, B, H, S, D, seed=D + 3).to(dtype)
+    lead = (B, H) if mask_kind == "full" else (1, 1)
+    mask = 2.0 * _x(dev, *lead, T, S, seed=S + D)
+    mask = mask + _causal_mask(dev, T, S, 32).expand(*lead, T, S)
+    mask[..., 7, :] = -1e30
+    mask = mask.contiguous()
+    before = kernels.LAUNCHES["flash_attn"]
+    got = PA.flash_attention_pallas(q, k, v, mask, D ** -0.5, chunk=128)
+    want = PA.flash_attention_pallas(q, k, v, mask, D ** -0.5, chunk=128,
+                                     plain=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attn"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (B, H, T, D)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-4
+    dead = v.float().mean(dim=2)
+    assert float((got[:, :, 7] - dead).abs().max()) <= 1e-4
 
 
 @pytest.mark.parametrize("cache", [torch.bfloat16, torch.float32],

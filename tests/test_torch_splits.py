@@ -1,13 +1,15 @@
 """The host's tile and split choices for the wgmma GEMMs, K3 and K6 above
 8 rows (token tile, K over blocks), and K4 (live cache slots over blocks):
 pure functions of the shapes, so they run here without a card.  The
-card's SM count is stubbed at the H100's 132."""
+card's SM count is stubbed at the H100's 132; K10's GEMV (its walk of the
+wire planes and its splits) too."""
 import pytest
 import torch
 
 from ggml_hexagon_tpu_torch import kernels
 from ggml_hexagon_tpu_torch.models.synth import random_qtensor
 from ggml_hexagon_tpu_torch.quant.formats import GGMLType
+from ggml_hexagon_tpu_torch.quant.pack import QCONFIGS as QCONFIGS_T
 
 H100_SMS = 132
 DEV = torch.device("cuda", 0)
@@ -457,3 +459,112 @@ def test_il_geometry_of_real_planes(qtype):
     geo = kernels.il_geo(qt.k, G, packed)
     assert qt.fq.shape[1] == geo.nper * G
     assert (qt.fb is not None) == fb
+
+
+# ---------------------------------------------------------------------------
+# K10 at B <= 8 (csrc/qmm_wire.cu wire_gemv_kernel): the picker of splits,
+# ring and persistent blocks over the wire planes
+# ---------------------------------------------------------------------------
+
+#: the conformance phase's K10 shapes (rows, K, types): the Llama-3-8B wq,
+#: gate, down and head, every type at 4096 x 4096, and the card tests'
+#: edges (64 rows at K = 256 and 11008)
+_WIRE_SHAPES = ([(4096, 4096, (_T.Q4_K,)), (14336, 4096, (_T.Q4_K,)),
+                 (4096, 14336, (_T.Q6_K,)), (128256, 4096, (_T.Q6_K,))]
+                + [(rows, K, tuple(sorted(QCONFIGS_T, key=int)))
+                   for rows, K in ((4096, 4096), (64, 256), (64, 11008))])
+
+
+def _wire_args(qtype, K):
+    cfg = QCONFIGS_T[qtype]
+    return (K, cfg.bits_lo, cfg.bits_hi, cfg.superblock, cfg.asym, cfg.gs)
+
+
+def _wire_split_stages(geo, ks):
+    """The stages [first, end) of each of ks splits, as the kernel cuts
+    them (csrc/qmm_wire.cu wire_gemv_kernel: st0 = split * nst / ks)."""
+    return [(y * geo.nst // ks, (y + 1) * geo.nst // ks) for y in range(ks)]
+
+
+def _wire_columns(geo, first, end):
+    """The columns a split of stages [first, end) takes: every run (s, r)
+    of its high positions."""
+    h = torch.arange(first * geo.HW, end * geo.HW)
+    return torch.cat([s * geo.Kp + r * geo.Kph + h for s in range(geo.per)
+                      for r in range(geo.R)])
+
+
+@pytest.mark.parametrize("sm_count", [H100_SMS, 114], ids=["sxm", "pcie"])
+@pytest.mark.parametrize("shape", range(len(_WIRE_SHAPES)),
+                         ids=lambda i: f"{_WIRE_SHAPES[i][0]}x{_WIRE_SHAPES[i][1]}")
+def test_wire_gemv_plans_fit_every_conformance_shape(shape, sm_count):
+    """Every K10 launch at B <= 8 of the conformance phase and the card
+    tests gets a legal plan at 132 and 114 SMs: shared memory within a
+    block's (and, two an SM, within half the SM's), whole stages a split,
+    at most one wave of persistent blocks, and tile counters within the
+    65536 of kernels._COUNTERS (the 128256-row head takes 2004)."""
+    rows, K, types = _WIRE_SHAPES[shape]
+    tiles = rows // kernels.WIRE_ROWS
+    assert tiles <= 1 << 16
+    for qtype in types:
+        geo = kernels.wire_geo(*_wire_args(qtype, K))
+        assert geo.nst * geo.HW == geo.Kph and geo.R * geo.Kph == geo.Kp
+        assert geo.HW in (32, 64, 128) and geo.HW % 16 == 0
+        for nb in (1, 2, 8):
+            plan = kernels.pick_wire_gemv(*_wire_args(qtype, K), tiles, nb,
+                                          sm_count)
+            assert plan.smem <= kernels.SMEM_BLOCK
+            assert plan.smem == kernels.wire_smem(geo, plan.ns, plan.ks, nb)
+            if plan.per_sm == 2:
+                assert plan.smem <= kernels.SMEM_SM // 2 - 1024
+            assert 1 <= plan.ks <= min(geo.nst, 32) and 1 <= plan.ns <= 8
+            assert 1 <= plan.nbx <= tiles
+            assert plan.nbx * plan.ks <= sm_count * plan.per_sm
+
+
+@pytest.mark.parametrize("qtype", [_T.Q5_K, _T.Q5_0, _T.Q6_K, _T.Q3_K,
+                                   _T.Q4_K, _T.Q2_K, _T.Q8_0],
+                         ids=lambda t: t.name)
+@pytest.mark.parametrize("K", [256, 4096, 11008, 14336])
+def test_wire_gemv_splits_hold_whole_high_plane_periods(qtype, K):
+    """A split's columns are every column of its high positions: the high
+    byte of column c is c % Kph (4 low-plane bytes a high byte for Q5_0,
+    Q5_1 and Q5_K, 2 for Q6_K and Q3_K), so no high byte is fetched by two
+    splits, and the splits partition K."""
+    cfg = QCONFIGS_T[qtype]
+    geo = kernels.wire_geo(*_wire_args(qtype, K))
+    if cfg.bits_hi:
+        assert geo.R == {(4, 1): 4, (4, 2): 2, (2, 1): 2}[
+            (cfg.bits_lo, cfg.bits_hi)]
+    for ks in sorted({1, 2, 3, min(geo.nst, 32)}):
+        if ks > geo.nst:
+            continue
+        seen = torch.zeros(K, dtype=torch.int64)
+        high = []
+        for first, end in _wire_split_stages(geo, ks):
+            assert end > first
+            cols = _wire_columns(geo, first, end)
+            seen[cols] += 1
+            high.append(set((cols % geo.Kph).tolist()))
+        assert bool((seen == 1).all())
+        assert sum(len(h) for h in high) == geo.Kph  # disjoint high bytes
+
+
+def test_wire_gemv_at_the_8b_shapes():
+    """The 8B's 4096-row shapes split K to cover the card; the head keeps
+    K whole (2004 tiles fill every block slot)."""
+    for rows, K, qtype in ((4096, 4096, _T.Q4_K), (4096, 14336, _T.Q6_K)):
+        plan = kernels.pick_wire_gemv(*_wire_args(qtype, K), rows // 64, 1,
+                                      H100_SMS)
+        assert plan.ks > 1
+    plan = kernels.pick_wire_gemv(*_wire_args(_T.Q6_K, 4096), 128256 // 64,
+                                  1, H100_SMS)
+    assert plan.ks == 1 and plan.nbx == H100_SMS * plan.per_sm
+
+
+def test_wire_gemv_picker_needs_no_card():
+    """The picker is pure Python: it runs here on the card's SM count."""
+    args = _wire_args(_T.Q4_K, 4096)
+    plan = kernels.pick_wire_gemv(*args, 64, 1, H100_SMS)
+    assert plan == kernels.pick_wire_gemv(*args, 64, 1, H100_SMS)
+    assert isinstance(plan, kernels.WirePlan)
