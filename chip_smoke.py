@@ -61,19 +61,24 @@
 13. the conformance entry points (the seventh slice's path; no model):
    qmatmul(backend="pallas") (K10, the wire-plane dequant x matmul) on the
    Llama-3-8B shapes (Q4_K wq and gate, Q6_K down and head; B = 1, 8, 512)
-   and on all 21 wire types at 4096 x 4096 (B = 1, 8; bf16 and f32
-   compute on one shape), flash_attention_pallas (K11) at the 512-token
+   and on all 21 wire types at 4096 x 4096 (B = 1, 8; the wq in f32
+   compute at B = 8 and 512), flash_attention_pallas (K11) at the 512-token
    prefill (B=1, H=32, T=512, S=1024, D=128, a causal [1,1,T,S] mask with
    a dead tail; f32 and bf16) and decode_attention_pallas (K12) at the
    decode step (Hkv=8, G=4, S=1024, bf16 cache, B=1 at pos 700 and B=4 at
    spread positions; plain, swa=256, logit_cap=30): driven once with the
    counters zeroed before and read after, each launch count exact, then
-   each output held against its plain twin and timed.  K10 at B <= 8 in
-   bf16 is the streaming GEMV of the twelfth slice, above it (and in f32)
-   the WMMA kernel; K11 is the TF32 tensor-core flash attention of the
-   twelfth slice.  K10 is reported as three units (the 8B's shapes at B =
-   1, 8 and 512), K11 as two (f32 and bf16 inputs), each with the launches
-   its cases made in the drive.
+   each output held against its plain twin and timed.  K10 at B <= 8 is
+   the streaming GEMV of the twelfth slice (bf16 mma, or f32 multiply-adds
+   since the thirteenth), above 8 rows the wgmma GEMM of the thirteenth
+   (csrc/qmm_wire_gemm.cu: weights decoded in registers, bf16, or f32 as
+   three TF32 products); K11 is the TF32 tensor-core flash attention of
+   the twelfth slice.  K10 in f32 is held to NMSE_K10_F32, and one- and
+   two-TF32-product controls on the same inputs must miss that limit.
+   K10 is reported as five units (the 8B's shapes at B
+   = 1, 8 and 512 in bf16, its wq in f32 at B = 8 and 512), K11 as two
+   (f32 and bf16 inputs), each with the launches its cases made in the
+   drive.
 
 K6 above 8 rows is its own kernel, the wgmma GEMM of csrc/fast_il_gemm.cu
 (the ninth slice): every configuration whose prefill chunk runs it holds
@@ -83,6 +88,14 @@ apart by family and bias (kernels.GEMM_LAUNCHES, exact per chunk:
 GEMM_TABLES), and one report each (fast_byte_gemm, ..._derived,
 ..._stored, fast_nibble_gemm_stored, fast_coded_gemm) sums one 512-token
 chunk of each configuration that runs it, logged per configuration too.
+
+Ternary planes whose group count is not a multiple of 8 (TQ1_0 and TQ2_0 at
+K = 1024, G = 4, and K = 11008, G = 43) run K6 and K8 on planes padded to 8
+groups (kernels.padded_il_planes, once a tensor): held against their plain
+versions at B = 1 and 512 and in K8 with the iq1 and ternary shapes (phase
+8).  Near the end, before the kernels line, one line a configuration sums
+its requests' TTFT and decode rate and its profiled prefill and decode
+step (host and device ms, the device's idle share).
 
 K6 at B <= 8 and K8 are one launch a call (csrc/fast_il.cu il_gemv_kernel,
 the eleventh slice): every configuration's profiled decode steps hold them
@@ -110,12 +123,17 @@ import torch
 HBM_BPS = 3.35e12
 BF16_OPS = 989e12
 INT8_OPS = 1979e12
-F32_OPS = 67e12      # float32 outside the tensor cores (K7, K9, f32 K10)
+F32_OPS = 67e12      # float32 outside the tensor cores (K7, K9, K10's f32
+                     # GEMV)
 TF32_OPS = 495e12    # TF32 tensor cores (K11: three products a multiply-add
-                     # for f32 inputs, two for bf16)
+                     # for f32 inputs, two for bf16; K10's f32 GEMM three)
 NMSE_LOGITS = 5e-4   # logits, kernels vs plain versions, end to end
 NMSE_KERNEL = 1e-6   # K1-K3, K5, K6 vs plain: same integer/f32/bf16
                      # products, f32 sums in another order
+NMSE_K10_F32 = 1e-10  # K10 in f32 vs plain: f32 products (the GEMV's
+                      # fmaf; the GEMM's three TF32 products, about 2^-21
+                      # relative), f32 sums in another order; a kernel of
+                      # one or two TF32 products misses it (tf32_controls)
 ATTN_MAX_ABS = 1e-4  # K4 vs plain: f32 throughout, another order and expf
 FLIP_MARGIN = 1e-3   # a routing flip between kernel and plain runs must be
                      # a near-tie: top-k-th minus next probability below this
@@ -132,6 +150,7 @@ K8_GATHER = "ggml_hexagon_tpu/ops/qmm_fast.py:1259"
 SRC_FFN = "ggml_hexagon_tpu_torch/csrc/ffn_fused.cu"
 K9_FFN = "ggml_hexagon_tpu/ops/ffn_fused.py:93"
 SRC_WIRE = "ggml_hexagon_tpu_torch/csrc/qmm_wire.cu"
+SRC_WIRE_GEMM = "ggml_hexagon_tpu_torch/csrc/qmm_wire_gemm.cu"
 SRC_ATTN = "ggml_hexagon_tpu_torch/csrc/attention.cu"
 K10_WIRE = "ggml_hexagon_tpu/ops/qmatmul.py:203"
 K11_FLASH = "ggml_hexagon_tpu/ops/attention.py:81"
@@ -231,12 +250,12 @@ def plane_bytes(qt):
     return nbytes(qt.fq, qt.fs, qt.fb)
 
 
-def held(what, got, want):
+def held(what, got, want, limit=NMSE_KERNEL):
     """Kernel against plain version: (max |d|, NMSE), or raise past
-    NMSE_KERNEL or on a non-finite output."""
+    limit or on a non-finite output."""
     torch.cuda.synchronize()
     err, e2 = float((got - want).abs().max()), nmse(got, want)
-    if not (e2 <= NMSE_KERNEL and torch.isfinite(got).all()):
+    if not (e2 <= limit and torch.isfinite(got).all()):
         raise AssertionError(f"{what}: nmse {e2}")
     return err, e2
 
@@ -634,6 +653,8 @@ def serve(dev, cfg, weights, name):
         if dec != want_dec:
             raise AssertionError(f"decode launches {dec} != {want_dec}")
         per = {k: v // steps for k, v in dec.items() if v}
+        SUMMARY.setdefault(name, {})[f"{kv} p{n_prompt}"] = (
+            f"TTFT {ttft * 1e3:.1f} ms, {steps / dt:.2f} tok/s")
         log(f"  request kv={kv} prompt={n_prompt} gen={n_gen}: "
             f"TTFT {ttft * 1e3:.1f} ms, decode {steps / dt:.2f} tok/s "
             f"({dt / steps * 1e3:.2f} ms/step), prefill launches "
@@ -718,11 +739,11 @@ def il_kernel_counts(avgs, table, n, prepass):
     return seen, (seen["il_gemv_kernel"] == il * n and pre == prepass * n), want
 
 
-def profile_path(dev, cfg, weights, table):
+def profile_path(dev, cfg, weights, table, name):
     """Where the time goes: host time vs device kernel time of a 512-token
     prefill and of decode steps at pos ~512 (torch.profiler, CUPTI), and
     the decode steps' K6/K8 kernels held to one launch a call (table: the
-    configuration's LAUNCH_TABLES entry)."""
+    configuration's LAUNCH_TABLES entry); both into SUMMARY[name]."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from ggml_hexagon_tpu_torch.runtime.engine import Engine
@@ -739,6 +760,8 @@ def profile_path(dev, cfg, weights, table):
             logits = eng.prefill(prompt[None])
             host = (time.perf_counter() - t0) * 1e3
         dev_ms, top = _device_ms(prof.key_averages(), 1)
+        pre_txt = (f"prefill 512 host/device {host:.2f}/"
+                   f"{'not measured' if dev_ms is None else f'{dev_ms:.2f}'} ms")
         log(f"  kv={kv} prefill 512: host {host:.2f} ms, device "
             f"{'not measured' if dev_ms is None else f'{dev_ms:.2f} ms'}")
         for ms, cnt, key in top[:5]:
@@ -782,6 +805,10 @@ def profile_path(dev, cfg, weights, table):
                 f"il_gemv_kernel (one a K6/K8 call), "
                 f"{sum(seen[k] for k in IL_PREPASS) // n} K7 pre-pass kernels")
         idle = "not measured" if dev_ms is None else f"{1 - dev_ms / host:.1%}"
+        SUMMARY.setdefault(name, {})[f"{kv} profile"] = (
+            f"{pre_txt}; decode step host/device {host:.3f}/"
+            f"{'not measured' if dev_ms is None else f'{dev_ms:.3f}'} ms, "
+            f"idle {idle}")
         log(f"  kv={kv} decode step at pos ~{eng.n_past}: host {host:.2f} ms, "
             f"device {'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'}, "
             f"device idle share {idle}")
@@ -1257,7 +1284,10 @@ def k3_row(dev, gen, rep, name, qt, count, M=512):
 def check_codes_alone(dev, cfg):
     """iq1 (IQ1_S) and ternary (TQ2_0), which no served configuration
     uses: one K1, one K3 and one K6 shape each against their plain
-    versions (4096 x 4096, B=1 / M=512 / B=1)."""
+    versions (4096 x 4096, B=1 / M=512 / B=1); and ternary planes whose
+    group count is not a multiple of 8 (TQ1_0 and TQ2_0 at K = 1024, G = 4,
+    and K = 11008, G = 43; 4096 rows), which K6 and K8 take padded to 8
+    groups: K6 at B = 1 and 512 and K8 (8 experts of 512 rows)."""
     from ggml_hexagon_tpu_torch.models.synth import random_qtensor
     from ggml_hexagon_tpu_torch.quant.formats import GGMLType
 
@@ -1271,6 +1301,16 @@ def check_codes_alone(dev, cfg):
         k1_row(dev, gen, cfg, None, "alone", t, "raw", 1, 0)
         k3_row(dev, gen, None, "alone", t, 0)
         k6_row(dev, gen, cfg, None, "alone", il, "plain", 1, 0)
+    for qtype in (GGMLType.TQ1_0, GGMLType.TQ2_0):
+        for K in (1024, 11008):
+            il = random_qtensor(gen, 4096, K, qtype, dev).with_fast_planes(
+                "il").without_wire()
+            if il.fl != "il" or il.fs.shape[1] % 8 == 0:
+                raise AssertionError(f"{qtype.name} K={K}: planes "
+                                     f"{il.fl} G={il.fs.shape[1]}")
+            for B in (1, 512):
+                k6_row(dev, gen, cfg, None, "G%8", il, "plain", B, 0)
+            gather_rows(dev, gen, None, "G%8", il, 512, 0, K)
 
 
 def check_kernels_coded(dev, weights, cfg):
@@ -1686,10 +1726,33 @@ def wire_bytes(qt):
     return nbytes(qt.q, qt.qh, qt.d, qt.sc, qt.dmin, qt.m)
 
 
+def tf32(v):
+    """v rounded to TF32 as cvt.rna.tf32.f32 does: 10 mantissa bits, ties
+    away from zero."""
+    b = v.contiguous().view(torch.int32)
+    r = torch.where((b & 0x7F800000) == 0x7F800000, b, (b + 0x1000) & ~0x1FFF)
+    return r.view(torch.float32)
+
+
+def tf32_controls(x, qt, want):
+    """NMSE against want (K10's plain f32 product of x and qt) of the same
+    product with fewer TF32 products than the kernel's three: one,
+    rna(x) . rna(w), and two, adding rna(x) . rna(w - rna(w)).  Each must
+    exceed NMSE_K10_F32, or that limit would pass such a kernel."""
+    from ggml_hexagon_tpu_torch.ops import qmatmul as PQ
+
+    w = PQ._dequant_expr(qt, torch.float32)[:want.shape[-1]]
+    xb, wb = tf32(x), tf32(w)
+    one = xb @ wb.t()
+    two = one + xb @ tf32(w - wb).t()
+    return nmse(one, want), nmse(two, want)
+
+
 def conformance_cases(dev, gen):
     """The inputs of the conformance phase, drawn on the card: a list of
     (kernel, label, report unit or None, entry, plain, bound (bytes, ops,
-    peak), yardstick or None)."""
+    peak), yardstick or None, NMSE limit (K10) or None, TF32 controls (K10
+    in f32) or None)."""
     from ggml_hexagon_tpu_torch.models.synth import random_qtensor
     from ggml_hexagon_tpu_torch.ops import attention as PA
     from ggml_hexagon_tpu_torch.ops import qmatmul as PQ
@@ -1704,16 +1767,28 @@ def conformance_cases(dev, gen):
         plain = partial(PQ.qmatmul_pallas, x, qt, compute_dtype=cd, plain=True)
         byts = wire_bytes(qt) + nbytes(x) + B * qt.n_pad * 4
         ops = 2 * B * qt.n_pad * qt.k
-        peak = BF16_OPS if cd == torch.bfloat16 else F32_OPS
+        # bf16 mma at every B; f32: FMAs at B <= 8, three TF32 products a
+        # multiply-add above
+        if cd == torch.bfloat16:
+            peak = BF16_OPS
+        elif B <= 8:
+            peak = F32_OPS
+        else:
+            ops, peak = 3 * ops, TF32_OPS
 
         def lib():
-            deq = PQ.dequantize(qt, torch.bfloat16)
-            xb = x.to(torch.bfloat16)
-            return time_ms(lambda: torch.matmul(xb, deq.t()), iters=10)
+            # one matmul in the compute type on the weight dequantized
+            # beforehand (f32 in full f32: TF32 is off)
+            deq = PQ.dequantize(qt, cd)
+            xc = x.to(cd)
+            return time_ms(lambda: torch.matmul(xc, deq.t()), iters=10)
 
+        f32 = cd == torch.float32
         cases.append(("K10", f"{label} {qt.cfg.qtype.name} {qt.n}x{qt.k} "
                       f"B={B} {str(cd)[6:]}", unit, entry, plain,
-                      (byts, ops, peak), lib))
+                      (byts, ops, peak), lib,
+                      NMSE_K10_F32 if f32 else NMSE_KERNEL,
+                      partial(tf32_controls, x, qt) if f32 else None))
 
     shapes = (("wq", 4096, 4096, GGMLType.Q4_K, (1, 8, 512)),
               ("gate", 14336, 4096, GGMLType.Q4_K, (1, 8, 512)),
@@ -1726,7 +1801,8 @@ def conformance_cases(dev, gen):
             wq = qt
         for B in batches:
             k10(label, qt, B, f"b{B}")
-    k10("wq", wq, 8, None, torch.float32)
+    k10("wq", wq, 8, "f32_b8", torch.float32)
+    k10("wq", wq, 512, "f32_b512", torch.float32)
     for qtype in sorted(QCONFIGS, key=int):
         qt = random_qtensor(gen, 4096, 4096, qtype, dev)
         for B in (1, 8):
@@ -1754,7 +1830,7 @@ def conformance_cases(dev, gen):
         products = 2 if dtype == torch.bfloat16 else 3
         cases.append(("K11", f"B={B} H={H} T={T} S={S} D={D} "
                       f"{str(dtype)[6:]}", str(dtype)[6:], entry, plain,
-                      (byts, ops * products, TF32_OPS), lib))
+                      (byts, ops * products, TF32_OPS), lib, None, None))
 
     Hkv, G = 8, 4
     for pos in ([700], [700, 3, 1023, 400]):
@@ -1786,7 +1862,8 @@ def conformance_cases(dev, gen):
                                   enable_gqa=True))
             cases.append(("K12", f"B={Bq} pos={pos} swa={swa} cap={cap}",
                           "step" if Bq == 1 and not swa and not cap else None,
-                          entry, plain, (byts, ops, BF16_OPS), lib))
+                          entry, plain, (byts, ops, BF16_OPS), lib, None,
+                          None))
     return cases
 
 
@@ -1830,10 +1907,19 @@ def run_conformance(dev):
         ("K10", "b8"): KernelReport("qmm_wire_b8", "cuda", SRC_WIRE, K10_WIRE,
                                     f"{eight} at B=8, bf16 compute (the "
                                     "streaming GEMV): one launch each"),
-        ("K10", "b512"): KernelReport("qmm_wire_b512", "cuda", SRC_WIRE,
+        ("K10", "b512"): KernelReport("qmm_wire_b512", "cuda", SRC_WIRE_GEMM,
                                       K10_WIRE, "the 8B's wq, gate and down "
-                                      "at B=512, bf16 compute (the WMMA "
+                                      "at B=512, bf16 compute (the wgmma "
                                       "GEMM): one launch each"),
+        ("K10", "f32_b8"): KernelReport("qmm_wire_f32_b8", "cuda", SRC_WIRE,
+                                        K10_WIRE, "the 8B's Q4_K wq at B=8, "
+                                        "f32 compute (the f32 GEMV): one "
+                                        "launch"),
+        ("K10", "f32_b512"): KernelReport("qmm_wire_f32_b512", "cuda",
+                                          SRC_WIRE_GEMM, K10_WIRE,
+                                          "the 8B's Q4_K wq at B=512, f32 "
+                                          "compute (the GEMM, three TF32 "
+                                          "products): one launch"),
         ("K11", "float32"): KernelReport("flash_attn_f32", "cuda", SRC_ATTN,
                                          K11_FLASH, f"{prefill}, f32: one "
                                          "launch"),
@@ -1844,13 +1930,21 @@ def run_conformance(dev):
                                       K12_GQA, "one decode-step attention at "
                                       "pos 700 (B=1, Hkv=8, G=4, S=1024, "
                                       "bf16 cache): one launch")}
-    log(f"K10 NMSE <= {NMSE_KERNEL}, K11/K12 max|d| <= {ATTN_MAX_ABS} against "
-        "the plain twins; times are medians, L2 flushed")
-    for (kern, label, unit, entry, plain, (byts, ops, peak), lib), got in zip(
-            cases, outs):
+    log(f"K10 NMSE <= {NMSE_KERNEL} (f32 compute: {NMSE_K10_F32}), K11/K12 "
+        f"max|d| <= {ATTN_MAX_ABS} against the plain twins; times are "
+        "medians, L2 flushed")
+    for (kern, label, unit, entry, plain, (byts, ops, peak), lib, limit,
+         control), got in zip(cases, outs):
         want_ = plain()
         if kern == "K10":
-            err, e2 = held(f"K10 {label}", got, want_)
+            err, e2 = held(f"K10 {label}", got, want_, limit)
+            if control is not None:
+                c1, c2 = control(want_)
+                log(f"  K10 {label}: TF32 controls nmse one product "
+                    f"{c1:.2e}, two {c2:.2e} (limit {limit})")
+                if not min(c1, c2) > limit:
+                    raise AssertionError(f"K10 {label}: a TF32 control "
+                                         f"passes the f32 limit {limit}")
         else:
             torch.cuda.synchronize()
             err, e2 = float((got - want_).abs().max()), nmse(got, want_)
@@ -1912,7 +2006,7 @@ def run_phase(name, builder, check, dev):
     counts = serve(dev, cfg, weights, name)
     log(f"main-path launches ({name}): {counts}")
     log("where the time goes (profiler; after the counts were read)")
-    profile_path(dev, cfg, weights, LAUNCH_TABLES[name])
+    profile_path(dev, cfg, weights, LAUNCH_TABLES[name], name)
     log(f"kernel vs plain versions, end to end (logits NMSE <= {NMSE_LOGITS}"
         + (f"; routing flips must have margin < {FLIP_MARGIN})" if cfg.n_expert
            else ")"))
@@ -1922,6 +2016,19 @@ def run_phase(name, builder, check, dev):
     gc.collect()
     torch.cuda.empty_cache()
     return reports, counts
+
+
+#: per configuration, its requests' TTFT and decode rate and its profiled
+#: prefill and decode step (host and device ms, the device's idle share),
+#: printed together near the end of the output
+SUMMARY: dict = {}
+
+
+def log_summary():
+    """The cells' end-to-end figures, one line each, late in the output."""
+    log("cells (host clock; device time from the profiler):")
+    for name, rows in SUMMARY.items():
+        log(f"  {name}: " + " | ".join(f"{k}: {v}" for k, v in rows.items()))
 
 
 def plane_gb(weights):
@@ -1990,6 +2097,7 @@ def main():
         if r.d["launches"] == 0:
             raise AssertionError(f"{r.d['name']} never launched on the main path")
     log(f"whole run {time.perf_counter() - t_all:.1f} s")
+    log_summary()
     log(json.dumps({"kernels": [r.d for r in reports]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -540,6 +540,8 @@ struct IlArgs {
   const int* ids;      // K8: the expert of each input row (grid.z), else null
   IlGeo g;
   int mode, NB, K, G, gs, xstride, xg_mode, n_res, ncols;
+  int kn;              // the normed mode's mean divides by kn (K, or the
+                       // unpadded K of planes whose groups were padded)
   int ntiles, ks, ns, sb, arb;  // tiles, splits, ring stages, scale-region bytes,
                                 // residue blocks a split touches
   int fb, bias, cm, npe, n_exp, rows_w;
@@ -757,7 +759,7 @@ __device__ __forceinline__ void row_norms(const IlArgs& a, int xrow, float* red,
   consumers_sync();
   if (tid < NB) {
     const float v = red[tid] + red[8 + tid] + red[16 + tid] + red[24 + tid];
-    inv[tid] = 1.f / sqrtf(v / (float)a.K + a.eps);
+    inv[tid] = 1.f / sqrtf(v / (float)a.kn + a.eps);
   }
   consumers_sync();
 }
@@ -1182,24 +1184,27 @@ const char* ght_error_string(int e) { return cudaGetErrorString((cudaError_t)e);
 // bf16 [n2, G], or off * fs (fb null, off != 0), or none; xg_mode 1 takes
 // the group sums xg_in f32 [B, G] (pre-norm in the normed mode), 2 takes
 // them from the activation, 0 when there is no bias; res f32 [B, n_res] or
-// null.  The plan (kernels.pick_il_gemv): ks splits of the stages (ws f32
+// null.  The normed mode's mean of x^2 divides by kn (K, or the true K of
+// planes whose groups the wrapper padded to a multiple of 8, x padded with
+// zeros).  The plan (kernels.pick_il_gemv): ks splits of the stages (ws f32
 // [ks, B, n2] when ks > 1), ns ring stages, nbx blocks along the tiles of
 // 64 rows (the last one ragged); counters int32, one a tile, zero (each
 // call leaves them so).
 // out f32 [B, n2].
 int fast_il_run(int mode, int nibble, int cm, const void* x, int B, int K, const void* fq,
                 const void* fs, const void* fb, int n2, int G, float off, const float* xg_in,
-                int xg_mode, const float* wn, float eps, const float* res, int n_res, int ks,
-                int ns, int nbx, float* ws, int* counters, float* out, void* stream) {
+                int xg_mode, const float* wn, float eps, int kn, const float* res, int n_res,
+                int ks, int ns, int nbx, float* ws, int* counters, float* out, void* stream) {
   const bool bias = fb != nullptr || off != 0.f;
   IlArgs a{};
   if (B < 1 || B > 8 || n2 < 1 || mode < MODE_PLAIN || mode > MODE_PRE_IL ||
       (mode == MODE_NORMED && wn == nullptr) || n_res > n2 || x == nullptr ||
       out == nullptr || bad_planes(nibble, cm, K, G, bias, xg_mode, xg_in) ||
-      !il_geo(&a.g, K, G, nibble != 0))
+      kn < 1 || kn > K || !il_geo(&a.g, K, G, nibble != 0))
     return (int)cudaErrorInvalidValue;
   a.x = (const uint16_t*)x;
   a.wn = wn;
+  a.kn = kn;
   a.xg_in = xg_in;
   a.res = res;
   a.out = out;

@@ -164,14 +164,14 @@ __device__ __forceinline__ int x_pos(int j, int K, bool packed) {
 // order, permuted (x_pos) into xp [M, K]; then, with a bias, the group sums
 // split into three bf16 parts in xgs [M, 3*Gp] (part p at p*Gp, groups
 // permuted like x, zero from G to Gp).  mode: plain (x natural [M, K]),
-// normed (the same, inv = 1/sqrt(mean(x^2) + eps), then bf16((x * inv) *
-// wn_il)), act (x [M, 2K] = gate ++ up, both interleaved: bf16(silu(g) *
+// normed (the same, inv = 1/sqrt(sum(x^2) / kn + eps), then bf16((x * inv)
+// * wn_il)), act (x [M, 2K] = gate ++ up, both interleaved: bf16(silu(g) *
 // u)), pre_il (x interleaved already).  xg_mode 2 sums the bf16 effective
 // activation; 1 takes the caller's xg_in [M, G] (times inv when normed).
 __global__ void __launch_bounds__(PRE_THREADS) prepass_kernel(
     int mode, bool packed, const uint16_t* __restrict__ x, int K, int G,
     const float* __restrict__ wn,
-    float eps, const float* __restrict__ xg_in, int xg_mode, int Gp,
+    float eps, int kn, const float* __restrict__ xg_in, int xg_mode, int Gp,
     uint16_t* __restrict__ xp, __nv_bfloat16* __restrict__ xgs) {
   __shared__ float red[PRE_THREADS / 32];
   __shared__ float bcast;
@@ -191,7 +191,7 @@ __global__ void __launch_bounds__(PRE_THREADS) prepass_kernel(
     if (t == 0) {
       float s = 0.f;
       for (int w = 0; w < PRE_THREADS / 32; ++w) s += red[w];
-      bcast = 1.f / sqrtf(s / (float)K + eps);
+      bcast = 1.f / sqrtf(s / (float)kn + eps);
     }
     __syncthreads();
     inv = bcast;
@@ -553,10 +553,12 @@ const char* ght_error_string(int e) { return cudaGetErrorString((cudaError_t)e);
 // from the activation, 0 when there is no bias; res f32 [M, n_res] or
 // null; scratch xp bf16 [M, K] and, with a bias, xgs bf16 [M, 3*Gp] (Gp =
 // G rounded up to 64); ks splits of K, with ws f32 [ks, M, n2] when ks >
-// 1; out f32 [M, n2].  K % 64 == 0 and G % 8 == 0.
+// 1; out f32 [M, n2].  K % 64 == 0 and G % 8 == 0.  The normed mode's mean
+// of x^2 divides by kn (K, or the true K of planes whose groups the wrapper
+// padded to a multiple of 8).
 int fast_il_gemm_run(int mode, int family, int cm, const void* x, int M, int K,
                      const void* fq, const void* fs, const void* fb, int n2, int G, float off,
-                     const float* xg_in, int xg_mode, const float* wn, float eps,
+                     const float* xg_in, int xg_mode, const float* wn, float eps, int kn,
                      const float* res, int n_res, void* xp, void* xgs, int ks, float* ws,
                      float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -568,11 +570,11 @@ int fast_il_gemm_run(int mode, int family, int cm, const void* x, int M, int K,
       (family == FAM_CODED) != (cm != CM_NONE) || cm < CM_NONE || cm > CM_TERN ||
       (cm && bias) || bias != (xg_mode != 0) || xg_mode < 0 || xg_mode > 2 ||
       (xg_mode == 1 && xg_in == nullptr) || (bias && xgs == nullptr) || xp == nullptr ||
-      ks < 1 || (ks > 1 && ws == nullptr))
+      ks < 1 || (ks > 1 && ws == nullptr) || kn < 1 || kn > K)
     return (int)cudaErrorInvalidValue;
   const int Gp = (G + KT - 1) / KT * KT;
   prepass_kernel<<<M, PRE_THREADS, 0, s>>>(mode, packed, (const uint16_t*)x, K, G, wn,
-                                           eps, xg_in,
+                                           eps, kn, xg_in,
                                            xg_mode, Gp, (uint16_t*)xp, (__nv_bfloat16*)xgs);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;

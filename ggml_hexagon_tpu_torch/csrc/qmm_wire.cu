@@ -1,24 +1,22 @@
-// K10: whole-K dequant x matmul over the wire planes of any QConfig, for
-// sm_90a.
+// K10 at B <= 8: the streaming, split-K GEMV over the wire planes of any
+// QConfig, bf16 or f32 compute, for sm_90a.  qmm_wire_gemm.cu holds K10
+// above 8 rows.
 //
 // Replaces ggml_hexagon_tpu/ops/qmatmul.py `_qmm_kernel`, launched through
-// `pallas_call` in `_qmatmul_pallas` (entry `qmatmul_pallas`).
+// `pallas_call` in `_qmatmul_pallas` (entry `qmatmul_pallas`), at B <= 8.
 //
-// What bounds it: bytes at the decode widths (B <= 8: the wire planes are
-// read once, ~2 flops a weight byte per row), operations at B = 512
-// (2*B*N*K bf16 flops against 2.4-8.5 bits a weight).
+// What bounds it: bytes (the wire planes are read once, ~2 flops a weight
+// byte per row) in bf16; in f32, at 8 rows, the f32 multiply-adds about as
+// much (16 a weight pair of rows on the CUDA cores).
 //
-// The contract, both kernels: the weight dequantized in f32 with the TPU
-// kernel's roundings (scale = d * sc, w = q * scale + bias, or (q +
-// offset) * scale; no fused multiply-add; the IQ4 types take their table's
-// values), rounded to the compute type (bf16, or f32), x rounded the same
-// way, the products summed in f32.  The dequantized weight never exists in
-// device memory.  One template instance per plane family (low/high bits,
-// signed, LUT, super-block, asymmetry), chosen at compile time: a run-time
-// branch in the inner loop cost K1/K3/K5 30-75%.
+// The contract (wire.cuh): the weight dequantized in f32 with the TPU
+// kernel's roundings, rounded to the compute type (bf16, or kept in f32), x
+// rounded the same way, the products summed in f32.  The dequantized weight
+// never exists in device memory.  One template instance per plane family
+// (low/high bits, signed, LUT, super-block, asymmetry) and compute type,
+// chosen at compile time: a run-time branch in the inner loop cost
+// K1/K3/K5 30-75%.
 //
-// B <= 8 in bf16 (wire_gemv_kernel, one launch a call): a streaming,
-// split-K GEMV.
 //  * Weight rows are the M of bf16 mma.sync m16n8k16 (swap-AB), 64 a tile;
 //    the <= 8 activation rows are its N (columns past B repeat the last
 //    row and are dropped).  Eight consumer warps: four row groups of 16,
@@ -34,243 +32,29 @@
 //    344), so the producer's 32 lanes copy each stage's scale words with
 //    4-byte cp.async into the same ring slot, arriving on its mbarrier.
 //  * A thread decodes 16 weights of each of its two rows from one 16-byte
-//    word of the stage at one shift: each code (with its high bits, or its
-//    IQ4 value by a byte permute) becomes the f32 2^23 + code by one prmt,
-//    then the exact subtraction, the scale and the bias in f32, one
-//    rounding to bf16; the mma's k index maps the thread's 16 columns, and
-//    the activation fragment is the same 16 columns, 32 contiguous bytes.
-//  * Each block builds its K split's activation once, as bf16 in the
-//    planes' run order, in shared memory; blocks are persistent (every
+//    word of the stage at one shift (wire.cuh decode4): each code becomes
+//    the f32 2^23 + code by one prmt, then the exact subtraction, the scale
+//    and the bias in f32.  bf16: one rounding to bf16; the mma's k index
+//    maps the thread's 16 columns, and the activation fragment is the same
+//    16 columns, 32 contiguous bytes.  f32: the weight stays unrounded and
+//    meets each activation row's 16 f32 columns in fused multiply-adds on
+//    the CUDA cores; the four threads of a row pair sum their units by
+//    shuffles at the tile's end, into the mma's output layout.
+//  * Each block builds its K split's activation once, in the planes' run
+//    order, in shared memory (bf16, or f32); blocks are persistent (every
 //    nbx-th tile of one split).  Splits are whole stages; the last block of
 //    a split tile sums the splits' partials in split order (an int32
 //    counter a tile, reset by that block): deterministic, no float atomics.
 //    kernels.pick_wire_gemv sizes splits, ring and blocks to the SM count.
-//
-// Above 8 rows, and in f32 (qmm_wire_kernel): one block per 64 weight rows
-// x 64 activation rows, 8 warps, K walked in steps of 64 columns: a thread
-// dequantizes 16 columns of one row into shared memory, x is rounded the
-// same way; bf16: WMMA 16x16x16 with f32 accumulators; f32: a 4x4 register
-// tile a thread, f32 FMA.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "codes.cuh"
 #include "hopper.cuh"
-
-using namespace nvcuda;
+#include "wire.cuh"
 
 namespace {
-
-constexpr int BN = 64;        // weight rows (outputs) a block
-constexpr int BB = 64;        // activation rows a block
-constexpr int KC = 64;        // logical columns a step
-constexpr int NT = 256;
-constexpr int LDH = KC + 8;   // bf16 tile pitch (elements)
-constexpr int LDF = KC + 1;   // f32 tile pitch
-constexpr int LDO = BN + 4;   // f32 output tile pitch
-
-__constant__ float c_iq4nl[16] = {-127.f, -104.f, -83.f, -65.f, -49.f, -35.f,
-                                  -22.f,  -10.f,  1.f,   13.f,  25.f,  38.f,
-                                  53.f,   69.f,   89.f,  113.f};
-
-enum Asym { A_NONE = 0, A_MIN = 1, A_MINSB = 2 };
-
-struct Planes {
-  const uint8_t* q;     // [n_pad, K*BL/8] (int8 [n_pad, K] when signed)
-  const uint8_t* qh;    // [n_pad, K*BH/8]
-  const float* d;       // [n_pad, K/256] (super-block) or [n_pad, K/gs]
-  const int8_t* sc;     // [n_pad, K/gs]
-  const float* dmin;    // [n_pad, K/256]
-  const uint8_t* m8;    // minsb: [n_pad, K/gs]
-  const float* mf;      // min:   [n_pad, K/gs]
-  int K, gs_shift;
-  float off;            // symmetric zero offset
-};
-
-// Dequantize this thread's 16 columns of row `row` for the step at low-plane
-// byte j0 into w (tile-column order s*JT + qq*NB + t).
-template <int BL, int BH, bool SIGNED, bool LUT, bool SUPER, int ASYM>
-__device__ __forceinline__ void dequant16(const Planes& P, int row, int j0,
-                                          int qq, float (&w)[16]) {
-  constexpr int PER = 8 / BL;
-  constexpr int JT = KC / PER;      // low-plane bytes a row a step
-  constexpr int NB = JT / 4;        // of which this thread's
-  constexpr int MASK = (1 << BL) - 1;
-  const int K = P.K;
-  const int Kp = K / PER;           // low-plane row pitch (bytes)
-  const int G = K >> P.gs_shift;
-  const uint32_t* src =
-      reinterpret_cast<const uint32_t*>(P.q + (size_t)row * Kp + j0 + qq * NB);
-  uint32_t words[NB / 4];
-#pragma unroll
-  for (int i = 0; i < NB / 4; ++i) words[i] = __ldg(src + i);
-#pragma unroll
-  for (int s = 0; s < PER; ++s) {
-    const int cb = s * Kp + j0 + qq * NB;   // first column of the run
-    const int g = cb >> P.gs_shift;
-    float scale;
-    if constexpr (SUPER) {
-      scale = __fmul_rn(__ldg(P.d + (size_t)row * (K >> 8) + (cb >> 8)),
-                        (float)__ldg(P.sc + (size_t)row * G + g));
-    } else {
-      scale = __ldg(P.d + (size_t)row * G + g);
-    }
-    float bias = 0.f;
-    if constexpr (ASYM == A_MINSB) {
-      bias = __fmul_rn(-__ldg(P.dmin + (size_t)row * (K >> 8) + (cb >> 8)),
-                       (float)__ldg(P.m8 + (size_t)row * G + g));
-    } else if constexpr (ASYM == A_MIN) {
-      bias = __ldg(P.mf + (size_t)row * G + g);
-    }
-#pragma unroll
-    for (int t = 0; t < NB; ++t) {
-      const uint32_t byte = (words[t >> 2] >> (8 * (t & 3))) & 0xffu;
-      float qf;
-      if constexpr (SIGNED) {
-        qf = (float)(int8_t)byte;
-      } else {
-        int v = (int)(byte >> (BL * s)) & MASK;
-        if constexpr (BH != 0) {
-          const int Kph = K * BH / 8;     // high-plane row pitch (bytes)
-          const int c = cb + t;
-          const int hb = __ldg(P.qh + (size_t)row * Kph + (c % Kph));
-          v += ((hb >> (BH * (c / Kph))) & ((1 << BH) - 1)) << BL;
-        }
-        qf = LUT ? c_iq4nl[v] : (float)v;
-      }
-      float wv;
-      if constexpr (ASYM == A_NONE) {
-        wv = __fmul_rn(__fadd_rn(qf, P.off), scale);
-      } else {
-        wv = __fadd_rn(__fmul_rn(qf, scale), bias);
-      }
-      w[s * NB + t] = wv;
-    }
-  }
-}
-
-template <int BL, int BH, bool SIGNED, bool LUT, bool SUPER, int ASYM, bool F32>
-__global__ void __launch_bounds__(NT) qmm_wire_kernel(
-    const float* __restrict__ x, int B, Planes P, int n_pad,
-    float* __restrict__ out) {
-  constexpr int PER = 8 / BL;
-  constexpr int JT = KC / PER;
-  constexpr int NB = JT / 4;
-  const int K = P.K;
-  const int Kp = K / PER;
-  const int n0 = blockIdx.x * BN, b0 = blockIdx.y * BB;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int rows = min(BB, B - b0);
-  const int drow = tid >> 2, qq = tid & 3;   // dequant: a row, a quarter
-
-  if constexpr (!F32) {
-    __shared__ __align__(32) __nv_bfloat16 xs[BB * LDH];
-    __shared__ __align__(32) __nv_bfloat16 ws[BN * LDH];
-    __shared__ __align__(32) float os[BB * LDO];
-    const int nf = warp & 3, mf0 = warp >> 2;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-    wmma::fill_fragment(acc[0], 0.f);
-    wmma::fill_fragment(acc[1], 0.f);
-    for (int j0 = 0; j0 < Kp; j0 += JT) {
-      float w[16];
-      dequant16<BL, BH, SIGNED, LUT, SUPER, ASYM>(P, n0 + drow, j0, qq, w);
-#pragma unroll
-      for (int s = 0; s < PER; ++s)
-#pragma unroll
-        for (int t = 0; t < NB; ++t)
-          ws[drow * LDH + s * JT + qq * NB + t] = __float2bfloat16_rn(w[s * NB + t]);
-#pragma unroll 4
-      for (int e = tid; e < BB * KC; e += NT) {
-        const int r = e / KC, i = e % KC;
-        const int c = (i / JT) * Kp + j0 + (i % JT);
-        const float xv = r < rows ? __ldg(x + (size_t)(b0 + r) * K + c) : 0.f;
-        xs[r * LDH + i] = __float2bfloat16_rn(xv);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bf;
-        wmma::load_matrix_sync(bf, ws + nf * 16 * LDH + kk, LDH);
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int mf = mf0 + 2 * u;
-          if (mf * 16 < rows) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-            wmma::load_matrix_sync(af, xs + mf * 16 * LDH + kk, LDH);
-            wmma::mma_sync(acc[u], af, bf, acc[u]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int mf = mf0 + 2 * u;
-      wmma::store_matrix_sync(os + mf * 16 * LDO + nf * 16, acc[u], LDO,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int e = tid; e < rows * BN; e += NT) {
-      const int r = e / BN, n = e % BN;
-      out[(size_t)(b0 + r) * n_pad + n0 + n] = os[r * LDO + n];
-    }
-  } else {
-    __shared__ float xs[BB * LDF];
-    __shared__ float ws[BN * LDF];
-    const int tb = tid >> 4, tn = tid & 15;   // 4x4 outputs a thread
-    float acc[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
-    for (int j0 = 0; j0 < Kp; j0 += JT) {
-      float w[16];
-      dequant16<BL, BH, SIGNED, LUT, SUPER, ASYM>(P, n0 + drow, j0, qq, w);
-#pragma unroll
-      for (int s = 0; s < PER; ++s)
-#pragma unroll
-        for (int t = 0; t < NB; ++t)
-          ws[drow * LDF + s * JT + qq * NB + t] = w[s * NB + t];
-#pragma unroll 4
-      for (int e = tid; e < BB * KC; e += NT) {
-        const int r = e / KC, i = e % KC;
-        const int c = (i / JT) * Kp + j0 + (i % JT);
-        xs[r * LDF + i] = r < rows ? __ldg(x + (size_t)(b0 + r) * K + c) : 0.f;
-      }
-      __syncthreads();
-      if (tb * 4 < rows) {
-#pragma unroll 8
-        for (int i = 0; i < KC; ++i) {
-          float av[4], bv[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) av[a] = xs[(tb * 4 + a) * LDF + i];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) bv[c] = ws[(tn * 4 + c) * LDF + i];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(av[a], bv[c], acc[a][c]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = tb * 4 + a;
-      if (r < rows) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          out[(size_t)(b0 + r) * n_pad + n0 + tn * 4 + c] = acc[a][c];
-      }
-    }
-  }
-}
-
-// ============================================================================
-// B <= 8, bf16 compute: wire_gemv_kernel
-// ============================================================================
 
 constexpr int GV_NCW = 8;           // consumer warps: 4 row groups, two halves each
 constexpr int GV_NCT = GV_NCW * 32;
@@ -279,21 +63,15 @@ constexpr int GV_TR = 64;            // weight rows a tile
 constexpr int GV_MAXB = 8;           // activation rows (the mma's N)
 constexpr int SMEM_MAX = 232448;     // shared memory a block may take
 
-// How the GEMV walks a family's planes (kernels.wire_geo mirrors it).  A
-// low-plane row of Kp = K/per bytes holds column b + s*Kp of byte b at
-// shift bl*s; a high-plane row of Kph = K*bh/8 bytes holds column c's high
-// bits in byte c % Kph at shift bh*(c / Kph).  So high byte h serves the R
-// = Kp/Kph low bytes h + r*Kph (r < R) at every shift: a stage takes HW
-// consecutive high positions h0.. (128, 64 or 32, dividing Kph) as R low
-// boxes of HW x 64 rows (at r*Kph + h0) and one high box (at h0), and with
-// them every column they hold: per*R runs (s, r) of HW columns, the run's
-// first column s*Kp + r*Kph + h0.  Families without a high plane take Kph
-// = Kp, R = 1.  nst stages a tile; a K split takes whole stages, so it
-// holds whole high bytes.  Each run's scales come as a record of nrec
-// words: super-block types d (and dmin), then the words of sc (and m)
-// covering its n = HW/gs groups (scw words); other types n words of d (and
-// of m, min types), n = 1 where a group outgrows the run (gs = 256).  sb:
-// the bytes of a ring slot (the boxes and 64 rows x per*R records).
+// How the GEMV walks a family's planes (kernels.wire_geo mirrors it): a
+// stage takes HW consecutive high positions h0.. (128, 64 or 32, dividing
+// Kph) as R low boxes of HW x 64 rows (at r*Kph + h0) and one high box (at
+// h0), and with them every column they hold: per*R runs (s, r) of HW
+// columns, the run's first column s*Kp + r*Kph + h0.  Families without a
+// high plane take Kph = Kp, R = 1.  nst stages a tile; a K split takes
+// whole stages, so it holds whole high bytes.  Each run's scales come as a
+// record of nrec words (wire.cuh).  sb: the bytes of a ring slot (the
+// boxes and 64 rows x per*R records).
 struct WireGeo {
   int per, Kp, Kph, R, HW, lhw, nst, n, scw, nrec, box, sb;
 };
@@ -313,21 +91,21 @@ __host__ __device__ inline void wire_geo(WireGeo* g, int bl, int bh, bool sup, i
   g->HW = g->Kph % 128 == 0 ? 128 : g->Kph % 64 == 0 ? 64 : 32;
   g->lhw = ilog2i(g->HW);
   g->nst = g->Kph / g->HW;
-  g->n = g->HW >= gs ? g->HW / gs : 1;
-  const int two = 1 + (asym != A_NONE);
-  if (sup) {
-    g->scw = (g->n + 3) / 4 + 1;
-    g->nrec = (asym == A_MINSB ? 2 : 1) + g->scw * two;
-  } else {
-    g->scw = 0;
-    g->nrec = g->n * two;
-  }
+  wire_record(g->HW, gs, sup, asym, &g->n, &g->scw, &g->nrec);
   g->box = GV_TR * g->HW;
   g->sb = align128((g->R + (bh > 0)) * g->box + GV_TR * g->per * g->R * g->nrec * 4);
 }
 
-// The block's shared memory: ns ring slots, then the split's bf16
-// activation (nb rows of per*R runs of lmax columns, pitch 16 more than a multiple of 128
+// The bytes of an activation run of lmax columns: bf16, or f32 with 16
+// bytes of skew after every 32 columns (the four threads of a row pair
+// read four neighbouring 16-column units at once: 64 bytes apart they
+// would meet the same banks two by two).
+__host__ __device__ inline int run_bytes(int lmax, int esz) {
+  return esz == 4 ? lmax * 4 + (lmax >> 5) * 16 : lmax * 2;
+}
+
+// The block's shared memory: ns ring slots, then the split's activation (nb
+// rows of per*R runs of lmax columns, pitch 16 more than a multiple of 128
 // bytes: a quarter-warp's 16-byte loads of two rows meet no bank twice),
 // the second halves' partial sums, the last-block flag and the mbarriers
 // full[ns], empty[ns].
@@ -335,10 +113,11 @@ struct WireLayout {
   int act, pitch, red, flag, bars, total;
 };
 
-__host__ __device__ inline WireLayout wire_layout(const WireGeo& g, int ns, int lmax, int nb) {
+__host__ __device__ inline WireLayout wire_layout(const WireGeo& g, int ns, int lmax, int nb,
+                                                  int esz) {
   WireLayout l;
   l.act = ns * g.sb;
-  l.pitch = align128(g.per * g.R * lmax * 2) + 16;
+  l.pitch = align128(g.per * g.R * run_bytes(lmax, esz)) + 16;
   l.red = l.act + align128(nb * l.pitch);
   l.flag = l.red + 4 * 32 * 4 * 4;
   l.bars = align128(l.flag + 16);
@@ -364,100 +143,52 @@ __device__ __forceinline__ void gv_consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(GV_NCT) : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The IQ4 table plus 128, as bytes (prmt tables): 1, 24, ..., 241.
-constexpr uint32_t IQ4T0 = 0x3f2d1801u, IQ4T1 = 0x766a5d4fu;
-constexpr uint32_t IQ4T2 = 0xa6998d81u, IQ4T3 = 0xf1d9c5b5u;
-
-// Four 4-bit codes (a byte each) -> their IQ4 values plus 128.
-__device__ __forceinline__ uint32_t lut4(uint32_t v) {
-  const uint32_t y = v | (v >> 4);  // bytes 0 and 2: two codes each
-  const uint32_t sel = ((y & 0xffu) | ((y >> 8) & 0xff00u)) & 0x7777u;
-  const uint32_t lo = prmt(IQ4T0, IQ4T1, sel), hi = prmt(IQ4T2, IQ4T3, sel);
-  const uint32_t m = ((v >> 3) & 0x01010101u) * 0xffu;  // codes 8-15
-  return (hi & m) | (lo & ~m);
-}
-
 // The 16 weights of one row's 16-byte unit at shift s (the high bits at
-// hs), dequantized in f32 as the TPU kernel does (q + off, then times the
-// scale; or q times the scale, plus the bias; no fused multiply-add) and
-// rounded to bf16: A[2i], A[2i + 1] the pairs (4i, 4i + 1), (4i + 2, 4i + 3).
-// Each code becomes the f32 2^23 + u (u its byte, biased by beta: 128 for
-// signed bytes and the IQ4 table) by one prmt under 0x4b; qoff takes the
-// 2^23 + beta off again (and adds off), exactly.
+// hs): w[4i + e] from byte e of word i.
 template <int BL, int BH, bool SIGNED, bool LUT, int ASYM>
 __device__ __forceinline__ void decode16(const uint4& Lw, const uint4& Hw, int s, int hs,
-                                         float scale, float bias, float qoff, uint32_t (&A)[8]) {
-  constexpr uint32_t LM = ((1u << BL) - 1) * 0x01010101u;
-  constexpr uint32_t HM = BH ? ((1u << BH) - 1) * 0x01010101u : 0u;
+                                         float scale, float bias, float qoff, float (&w)[16]) {
   const uint32_t Lv[4] = {Lw.x, Lw.y, Lw.z, Lw.w};
   const uint32_t Hv[4] = {Hw.x, Hw.y, Hw.z, Hw.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    uint32_t v;
-    if constexpr (SIGNED) {
-      v = Lv[i] ^ 0x80808080u;
-    } else {
-      v = (Lv[i] >> (BL * s)) & LM;
-      if constexpr (BH != 0) v |= ((Hv[i] >> hs) & HM) << BL;
-      if constexpr (LUT) v = lut4(v);
-    }
-    float w[4];
+    float q[4];
+    decode4<BL, BH, SIGNED, LUT, ASYM>(Lv[i], Hv[i], BL * s, hs, scale, bias, qoff, q);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float q = __fadd_rn(__uint_as_float(prmt(v, 0x4b00u, 0x5440u + e)), qoff);
-      if constexpr (ASYM == A_NONE) {
-        w[e] = __fmul_rn(q, scale);
-      } else {
-        w[e] = __fadd_rn(__fmul_rn(q, scale), bias);
-      }
-    }
-    A[2 * i] = pack_bf16(w[0], w[1]);
-    A[2 * i + 1] = pack_bf16(w[2], w[3]);
+    for (int e = 0; e < 4; ++e) w[4 * i + e] = q[e];
   }
 }
 
-// The scale (and bias) of a row's 16-column unit hu of the run whose first
-// column is cs, from the run's record.
-template <bool SUPER, int ASYM>
-__device__ __forceinline__ void scale_of(const uint32_t* rec, const WireGeo& g, int cs, int hu,
-                                         int lgs, float& scale, float& bias) {
-  const int gl = g.HW >= (1 << lgs) ? (16 * hu) >> lgs : 0;
-  if constexpr (SUPER) {
-    constexpr int OSC = ASYM == A_MINSB ? 2 : 1;
-    const int bi = ((cs >> lgs) & 3) + gl;
-    const int sc = reinterpret_cast<const int8_t*>(rec + OSC)[bi];
-    scale = __fmul_rn(__uint_as_float(rec[0]), (float)sc);
-    if constexpr (ASYM == A_MINSB) {
-      const int m = reinterpret_cast<const uint8_t*>(rec + OSC + g.scw)[bi];
-      bias = __fmul_rn(-__uint_as_float(rec[1]), (float)m);
-    }
-  } else {
-    scale = __uint_as_float(rec[gl]);
-    if constexpr (ASYM == A_MIN) bias = __uint_as_float(rec[g.n + gl]);
-  }
+// The same 16 weights rounded to bf16: A[2i], A[2i + 1] the pairs (4i, 4i
+// + 1), (4i + 2, 4i + 3).
+template <int BL, int BH, bool SIGNED, bool LUT, int ASYM>
+__device__ __forceinline__ void decode16_bf16(const uint4& Lw, const uint4& Hw, int s, int hs,
+                                              float scale, float bias, float qoff,
+                                              uint32_t (&A)[8]) {
+  float w[16];
+  decode16<BL, BH, SIGNED, LUT, ASYM>(Lw, Hw, s, hs, scale, bias, qoff, w);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) A[i] = pack_bf16(w[2 * i], w[2 * i + 1]);
 }
 
-template <int BL, int BH, bool SIGNED, bool LUT, bool SUPER, int ASYM>
+template <int BL, int BH, bool SIGNED, bool LUT, bool SUPER, int ASYM, bool F32>
 __global__ void __launch_bounds__(GV_NTH, 2)
     wire_gemv_kernel(const __grid_constant__ WireArgs a, const __grid_constant__ WireMaps maps) {
   constexpr int PER = 8 / BL;
   constexpr int HIGH = BH > 0;
+  constexpr int ESZ = F32 ? 4 : 2;
   extern __shared__ __align__(128) unsigned char smem[];
   const WireGeo g = a.g;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int ns = a.ns, split = blockIdx.y;
-  const int K = a.P.K, lgs = a.P.gs_shift;
+  const int lgs = a.P.gs_shift;
+  const int K = a.P.K;
   // this split's stages [st0, st0 + nps) of every tile
   const int st0 = (int)((long long)split * g.nst / a.ks);
   const int nps = (int)((long long)(split + 1) * g.nst / a.ks) - st0;
   const int h_lo = st0 * g.HW;
   const int ntile = (a.ntiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-  const WireLayout L = wire_layout(g, ns, a.lmax, a.NB);
+  const WireLayout L = wire_layout(g, ns, a.lmax, a.NB, ESZ);
   const uint32_t base = smem_u32(smem);
   const uint32_t bars = base + L.bars;  // full[ns], empty[ns]
   const int nruns = PER * g.R;
@@ -474,8 +205,8 @@ __global__ void __launch_bounds__(GV_NTH, 2)
 
   if (warp == GV_NCW) {
     // ---- producer: lane 0 brings the boxes by TMA, every lane its rows'
-    // scale records by 4-byte cp.async (their row pitches are no TMA
-    // pitch), each lane's copies arriving on the stage's mbarrier ----
+    // scale records by 4-byte cp.async, each lane's copies arriving on the
+    // stage's mbarrier ----
     const uint64_t pol = evict_first_policy();
     const int nst = ntile * nps;
     for (int i = 0, slot = 0, par = 0, ti = 0, j = 0; i < nst; ++i) {
@@ -493,31 +224,8 @@ __global__ void __launch_bounds__(GV_NTH, 2)
         const size_t row = (size_t)(wrow + rr);
         for (int run = 0; run < nruns; ++run) {
           const int s = run / g.R, r = run - s * g.R;
-          const int cs = s * g.Kp + r * g.Kph + h0;
-          const uint32_t dst = sbase + recoff + (rr * nruns + run) * g.nrec * 4;
-          const int g0 = cs >> lgs;
-          if constexpr (SUPER) {
-            const size_t db = row * (K >> 8) + (cs >> 8);
-            cp_async4(dst, a.P.d + db);
-            if constexpr (ASYM == A_MINSB) cp_async4(dst + 4, a.P.dmin + db);
-            constexpr int OSC = ASYM == A_MINSB ? 8 : 4;
-            const int w0 = g0 >> 2, w1 = (g0 + g.n - 1) >> 2;
-            const uint32_t* scw =
-                reinterpret_cast<const uint32_t*>(a.P.sc + row * (size_t)(K >> lgs));
-            for (int w = w0; w <= w1; ++w) cp_async4(dst + OSC + 4 * (w - w0), scw + w);
-            if constexpr (ASYM == A_MINSB) {
-              const uint32_t* mw =
-                  reinterpret_cast<const uint32_t*>(a.P.m8 + row * (size_t)(K >> lgs));
-              for (int w = w0; w <= w1; ++w)
-                cp_async4(dst + OSC + 4 * (g.scw + w - w0), mw + w);
-            }
-          } else {
-            const size_t gb = row * (size_t)(K >> lgs) + g0;
-            for (int e = 0; e < g.n; ++e) {
-              cp_async4(dst + 4 * e, a.P.d + gb + e);
-              if constexpr (ASYM == A_MIN) cp_async4(dst + 4 * (g.n + e), a.P.mf + gb + e);
-            }
-          }
+          copy_record<SUPER, ASYM>(a.P, row, s * g.Kp + r * g.Kph + h0, g.n, g.scw,
+                                   sbase + recoff + (rr * nruns + run) * g.nrec * 4);
         }
       }
       mbar_arrive_cp_async(full);
@@ -528,9 +236,10 @@ __global__ void __launch_bounds__(GV_NTH, 2)
     return;
   }
 
-  // ---- the split's activation, bf16 in run order: run (s, r) holds columns
+  // ---- the split's activation in run order: run (s, r) holds columns
   // s*Kp + r*Kph + h for h in [h_lo, h_lo + nps*HW) ----
   unsigned char* act = smem + L.act;
+  const int RB = run_bytes(a.lmax, ESZ);
   {
     const int q4 = nps * g.HW / 4, per_row = nruns * q4, nq = a.NB * per_row;
     constexpr int U = 8;  // loads in flight a thread
@@ -546,19 +255,23 @@ __global__ void __launch_bounds__(GV_NTH, 2)
           const int s = run / g.R, r = run - s * g.R;
           const int col = s * g.Kp + r * g.Kph + h_lo + 4 * hq;
           v[k] = __ldg(reinterpret_cast<const float4*>(a.x + (size_t)n * K + col));
-          off[k] = n * L.pitch + (run * a.lmax + 4 * hq) * 2;
+          off[k] = n * L.pitch + run * RB + 4 * hq * ESZ + (F32 ? (hq >> 3) * 16 : 0);
         }
       }
 #pragma unroll
       for (int k = 0; k < U; ++k)
-        if (off[k] >= 0)
-          *reinterpret_cast<uint2*>(act + off[k]) =
-              make_uint2(pack_bf16(v[k].x, v[k].y), pack_bf16(v[k].z, v[k].w));
+        if (off[k] >= 0) {
+          if constexpr (F32)
+            *reinterpret_cast<float4*>(act + off[k]) = v[k];
+          else
+            *reinterpret_cast<uint2*>(act + off[k]) =
+                make_uint2(pack_bf16(v[k].x, v[k].y), pack_bf16(v[k].z, v[k].w));
+        }
     }
   }
   gv_consumers_sync();
 
-  // ---- the mma over the ring, tile after tile: warp w takes rows
+  // ---- the products over the ring, tile after tile: warp w takes rows
   // 16*(w%4).. and the (unit, shift) items of parity w/4 ----
   const int gid = lane >> 2, tq = lane & 3;
   const int rg = warp & 3, half = warp >> 2;
@@ -566,14 +279,18 @@ __global__ void __launch_bounds__(GV_NTH, 2)
   const int nx = min(gid, a.NB - 1);  // columns past NB repeat the last row; dropped
   const int nhu = g.HW >> 4, lhu = g.lhw - 4;
   const int nitems = g.R * nhu / 4 * PER;  // (unit j, shift s) items of a thread
-  constexpr float BETA = (SIGNED || LUT) ? 128.f : 0.f;
-  const float qoff = ASYM == A_NONE ? __fsub_rn(a.P.off, 8388608.f + BETA) : -(8388608.f + BETA);
+  const float qoff = wire_qoff<SIGNED, LUT, ASYM>(a.P.off);
   float* red = reinterpret_cast<float*>(smem + L.red);
   int* flag = reinterpret_cast<int*>(smem + L.flag);
   int slot = 0, par = 0;
   for (int ti = 0; ti < ntile; ++ti) {
     const int tile = (int)blockIdx.x + ti * (int)gridDim.x;
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    // f32: rows r0 and r1 against every activation row, summed over this
+    // thread's units
+    float f0[GV_MAXB], f1[GV_MAXB];
+#pragma unroll
+    for (int n = 0; n < GV_MAXB; ++n) f0[n] = f1[n] = 0.f;
     for (int js = 0; js < nps; ++js) {
       const int h0 = (st0 + js) * g.HW;
       mbar_wait(bars + 8 * slot, par);
@@ -595,25 +312,72 @@ __global__ void __launch_bounds__(GV_NTH, 2)
         }
         const int cs = s * g.Kp + r * g.Kph + h0;
         float sc0, sc1, b0 = 0.f, b1 = 0.f;
-        scale_of<SUPER, ASYM>(rec + (r0 * nruns + run) * g.nrec, g, cs, hu, lgs, sc0, b0);
-        scale_of<SUPER, ASYM>(rec + (r1 * nruns + run) * g.nrec, g, cs, hu, lgs, sc1, b1);
-        uint32_t A0[8], A1[8];
-        decode16<BL, BH, SIGNED, LUT, ASYM>(L0, H0, s, BH * run, sc0, b0, qoff, A0);
-        decode16<BL, BH, SIGNED, LUT, ASYM>(L1, H1, s, BH * run, sc1, b1, qoff, A1);
-        const uint4* xp = reinterpret_cast<const uint4*>(
-            act + nx * L.pitch + (run * a.lmax + h0 - h_lo + 16 * hu) * 2);
-        const uint4 X0 = xp[0], X1 = xp[1];
-        mma16816(d0, A0[0], A1[0], A0[1], A1[1], X0.x, X0.y);
-        mma16816(d1, A0[2], A1[2], A0[3], A1[3], X0.z, X0.w);
-        mma16816(d0, A0[4], A1[4], A0[5], A1[5], X1.x, X1.y);
-        mma16816(d1, A0[6], A1[6], A0[7], A1[7], X1.z, X1.w);
+        scale_of<SUPER, ASYM>(rec + (r0 * nruns + run) * g.nrec, g.HW, g.n, g.scw, cs, hu, lgs,
+                              sc0, b0);
+        scale_of<SUPER, ASYM>(rec + (r1 * nruns + run) * g.nrec, g.HW, g.n, g.scw, cs, hu, lgs,
+                              sc1, b1);
+        if constexpr (F32) {
+          float w0[16], w1[16];
+          decode16<BL, BH, SIGNED, LUT, ASYM>(L0, H0, s, BH * run, sc0, b0, qoff, w0);
+          decode16<BL, BH, SIGNED, LUT, ASYM>(L1, H1, s, BH * run, sc1, b1, qoff, w1);
+          const int c0 = h0 - h_lo + 16 * hu;  // the unit's first column in its run
+          const unsigned char* xr = act + run * RB + c0 * 4 + (c0 >> 5) * 16;
+#pragma unroll
+          for (int n = 0; n < GV_MAXB; ++n) {
+            if (n < a.NB) {
+              const float4* xp = reinterpret_cast<const float4*>(xr + n * L.pitch);
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const float4 xv = xp[q];
+                const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  f0[n] = fmaf(w0[4 * q + e], xs[e], f0[n]);
+                  f1[n] = fmaf(w1[4 * q + e], xs[e], f1[n]);
+                }
+              }
+            }
+          }
+        } else {
+          uint32_t A0[8], A1[8];
+          decode16_bf16<BL, BH, SIGNED, LUT, ASYM>(L0, H0, s, BH * run, sc0, b0, qoff, A0);
+          decode16_bf16<BL, BH, SIGNED, LUT, ASYM>(L1, H1, s, BH * run, sc1, b1, qoff, A1);
+          const uint4* xp = reinterpret_cast<const uint4*>(
+              act + nx * L.pitch + (run * a.lmax + h0 - h_lo + 16 * hu) * 2);
+          const uint4 X0 = xp[0], X1 = xp[1];
+          mma16816(d0, A0[0], A1[0], A0[1], A1[1], X0.x, X0.y);
+          mma16816(d1, A0[2], A1[2], A0[3], A1[3], X0.z, X0.w);
+          mma16816(d0, A0[4], A1[4], A0[5], A1[5], X1.x, X1.y);
+          mma16816(d1, A0[6], A1[6], A0[7], A1[7], X1.z, X1.w);
+        }
       }
-      // the slot is free once every lane's values have fed its mma
+      // the slot is free once every lane's values have fed its products
       __syncwarp();
       if (lane == 0) mbar_arrive(bars + 8 * (ns + slot));
+      if constexpr (!F32) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) acc[k] += d0[k] + d1[k];
+        for (int k = 0; k < 4; ++k) acc[k] += d0[k] + d1[k];
+      }
       if (++slot == ns) slot = 0, par ^= 1;
+    }
+    if constexpr (F32) {
+      // the four threads of a row pair hold other units: their sums, then
+      // the mma's output layout (row r0 + 8(k >> 1), column 2tq + (k & 1))
+#pragma unroll
+      for (int n = 0; n < GV_MAXB; ++n) {
+        f0[n] += __shfl_xor_sync(0xffffffffu, f0[n], 1);
+        f0[n] += __shfl_xor_sync(0xffffffffu, f0[n], 2);
+        f1[n] += __shfl_xor_sync(0xffffffffu, f1[n], 1);
+        f1[n] += __shfl_xor_sync(0xffffffffu, f1[n], 2);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (tq == q) {
+          acc[0] = f0[2 * q];
+          acc[1] = f0[2 * q + 1];
+          acc[2] = f1[2 * q];
+          acc[3] = f1[2 * q + 1];
+        }
     }
 
     // ---- the two halves' sums, then y or the split's partial ----
@@ -655,10 +419,10 @@ __global__ void __launch_bounds__(GV_NTH, 2)
   }
 }
 
-template <int BL, int BH, bool SIGNED, bool LUT, bool SUPER, int ASYM>
+template <int BL, int BH, bool SIGNED, bool LUT, bool SUPER, int ASYM, bool F32>
 int gemv_launch(const WireArgs& a, const WireMaps& m, dim3 grid, int smem, cudaStream_t s) {
   static bool attr_set = false;
-  auto kern = wire_gemv_kernel<BL, BH, SIGNED, LUT, SUPER, ASYM>;
+  auto kern = wire_gemv_kernel<BL, BH, SIGNED, LUT, SUPER, ASYM, F32>;
   if (!attr_set) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
@@ -670,17 +434,10 @@ int gemv_launch(const WireArgs& a, const WireMaps& m, dim3 grid, int smem, cudaS
 }
 
 template <int BL, int BH, bool SIGNED, bool LUT, bool SUPER, int ASYM>
-cudaError_t launch(int f32, const float* x, int B, const Planes& P, int n_pad,
-                   float* out, cudaStream_t s) {
-  dim3 grid(n_pad / BN, (B + BB - 1) / BB);
-  if (f32) {
-    qmm_wire_kernel<BL, BH, SIGNED, LUT, SUPER, ASYM, true><<<grid, NT, 0, s>>>(
-        x, B, P, n_pad, out);
-  } else {
-    qmm_wire_kernel<BL, BH, SIGNED, LUT, SUPER, ASYM, false><<<grid, NT, 0, s>>>(
-        x, B, P, n_pad, out);
-  }
-  return cudaGetLastError();
+int gemv_launch_dt(bool f32, const WireArgs& a, const WireMaps& m, dim3 grid, int smem,
+                   cudaStream_t s) {
+  return f32 ? gemv_launch<BL, BH, SIGNED, LUT, SUPER, ASYM, true>(a, m, grid, smem, s)
+             : gemv_launch<BL, BH, SIGNED, LUT, SUPER, ASYM, false>(a, m, grid, smem, s);
 }
 
 }  // namespace
@@ -689,55 +446,23 @@ extern "C" {
 
 const char* ght_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
-// x f32 [B, K] (rounded to bf16 in the kernel unless f32 != 0); the wire
-// planes of one family (kernels._WIRE_FAMILIES): 0 signed int8 (Q8_0 and
-// the expanded i-quants and ternary), 1 IQ4_NL, 2 IQ4_XS, 3 Q4_0, 4 Q4_1,
-// 5 Q5_0, 6 Q5_1, 7 Q2_K, 8 Q3_K, 9 Q4_K, 10 Q5_K, 11 Q6_K; m is uint8
-// (minsb) or f32 (min); out f32 [B, n_pad].
-int qmm_wire_run(int fam, int f32, const float* x, int B, int K,
-                 const void* q, const void* qh, const float* d,
-                 const void* sc, const float* dmin, const void* m, int n_pad,
-                 int gs, float off, float* out, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (B < 1 || K % 256 || n_pad % BN || (gs != 16 && gs != 32 && gs != 256))
-    return (int)cudaErrorInvalidValue;
-  Planes P{(const uint8_t*)q, (const uint8_t*)qh, d, (const int8_t*)sc, dmin,
-           (const uint8_t*)m, (const float*)m, K, __builtin_ctz(gs), off};
-  switch (fam) {
-    case 0: return (int)launch<8, 0, true, false, false, A_NONE>(f32, x, B, P, n_pad, out, s);
-    case 1: return (int)launch<4, 0, false, true, false, A_NONE>(f32, x, B, P, n_pad, out, s);
-    case 2: return (int)launch<4, 0, false, true, true, A_NONE>(f32, x, B, P, n_pad, out, s);
-    case 3: return (int)launch<4, 0, false, false, false, A_NONE>(f32, x, B, P, n_pad, out, s);
-    case 4: return (int)launch<4, 0, false, false, false, A_MIN>(f32, x, B, P, n_pad, out, s);
-    case 5: return (int)launch<4, 1, false, false, false, A_NONE>(f32, x, B, P, n_pad, out, s);
-    case 6: return (int)launch<4, 1, false, false, false, A_MIN>(f32, x, B, P, n_pad, out, s);
-    case 7: return (int)launch<2, 0, false, false, true, A_MINSB>(f32, x, B, P, n_pad, out, s);
-    case 8: return (int)launch<2, 1, false, false, true, A_NONE>(f32, x, B, P, n_pad, out, s);
-    case 9: return (int)launch<4, 0, false, false, true, A_MINSB>(f32, x, B, P, n_pad, out, s);
-    case 10: return (int)launch<4, 1, false, false, true, A_MINSB>(f32, x, B, P, n_pad, out, s);
-    case 11: return (int)launch<4, 2, false, false, true, A_NONE>(f32, x, B, P, n_pad, out, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// K10 at B <= 8 in bf16: the arguments of qmm_wire_run (no f32 mode) and
-// the plan of kernels.pick_wire_gemv: ks splits of the stages, ns ring
-// slots, nbx persistent blocks along the tiles; ws f32 [ks, B, n_pad] (ks >
-// 1) and the int32 tile counters (zero, left zero).
-int qmm_wire_gemv_run(int fam, const float* x, int B, int K, const void* q, const void* qh,
-                      const float* d, const void* sc, const float* dmin, const void* m,
-                      int n_pad, int gs, float off, int ks, int ns, int nbx, float* ws,
-                      int* counters, float* out, void* stream) {
-  static const int fams[12][6] = {
-      {8, 0, 1, 0, 0, A_NONE}, {4, 0, 0, 1, 0, A_NONE}, {4, 0, 0, 1, 1, A_NONE},
-      {4, 0, 0, 0, 0, A_NONE}, {4, 0, 0, 0, 0, A_MIN},  {4, 1, 0, 0, 0, A_NONE},
-      {4, 1, 0, 0, 0, A_MIN},  {2, 0, 0, 0, 1, A_MINSB}, {2, 1, 0, 0, 1, A_NONE},
-      {4, 0, 0, 0, 1, A_MINSB}, {4, 1, 0, 0, 1, A_MINSB}, {4, 2, 0, 0, 1, A_NONE}};
+// K10 at B <= 8.  x f32 [B, K]; the wire planes of one family
+// (kernels._WIRE_FAMILIES): 0 signed int8 (Q8_0 and the expanded i-quants
+// and ternary), 1 IQ4_NL, 2 IQ4_XS, 3 Q4_0, 4 Q4_1, 5 Q5_0, 6 Q5_1, 7 Q2_K,
+// 8 Q3_K, 9 Q4_K, 10 Q5_K, 11 Q6_K; m is uint8 (minsb) or f32 (min); f32
+// != 0 computes in f32, else in bf16; the plan of kernels.pick_wire_gemv:
+// ks splits of the stages, ns ring slots, nbx persistent blocks along the
+// tiles; ws f32 [ks, B, n_pad] (ks > 1) and the int32 tile counters (zero,
+// left zero); out f32 [B, n_pad].
+int qmm_wire_gemv_run(int fam, int f32, const float* x, int B, int K, const void* q,
+                      const void* qh, const float* d, const void* sc, const float* dmin,
+                      const void* m, int n_pad, int gs, float off, int ks, int ns, int nbx,
+                      float* ws, int* counters, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (fam < 0 || fam > 11 || B < 1 || B > GV_MAXB || K < 256 || K % 256 || n_pad < GV_TR ||
       n_pad % GV_TR || (gs != 16 && gs != 32 && gs != 256) || ns < 1 || ks < 1 || nbx < 1)
     return (int)cudaErrorInvalidValue;
-  const int* f = fams[fam];
+  const int* f = WIRE_FAMS[fam];
   WireArgs a{};
   wire_geo(&a.g, f[0], f[1], f[4] != 0, f[5], K, gs);
   if (ks > a.g.nst || (ks > 1 && (ws == nullptr || counters == nullptr)))
@@ -754,7 +479,7 @@ int qmm_wire_gemv_run(int fam, const float* x, int B, int K, const void* q, cons
   a.ks = ks;
   a.ns = ns;
   a.lmax = (a.g.nst + ks - 1) / ks * a.g.HW;
-  const WireLayout L = wire_layout(a.g, ns, a.lmax, B);
+  const WireLayout L = wire_layout(a.g, ns, a.lmax, B, f32 ? 4 : 2);
   if (L.total > SMEM_MAX) return (int)cudaErrorInvalidValue;
   WireMaps maps{};
   if (!encode_map_2d(&maps.lo, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, a.g.Kp, n_pad, a.g.Kp, a.g.HW,
@@ -764,21 +489,22 @@ int qmm_wire_gemv_run(int fam, const float* x, int B, int K, const void* q, cons
                              a.g.Kph, a.g.HW, GV_TR, CU_TENSOR_MAP_SWIZZLE_NONE))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(nbx < a.ntiles ? nbx : a.ntiles, ks);
+  const bool f3 = f32 != 0;
+  const int sm = L.total;
   switch (fam) {
-    case 0: return gemv_launch<8, 0, true, false, false, A_NONE>(a, maps, grid, L.total, s);
-    case 1: return gemv_launch<4, 0, false, true, false, A_NONE>(a, maps, grid, L.total, s);
-    case 2: return gemv_launch<4, 0, false, true, true, A_NONE>(a, maps, grid, L.total, s);
-    case 3: return gemv_launch<4, 0, false, false, false, A_NONE>(a, maps, grid, L.total, s);
-    case 4: return gemv_launch<4, 0, false, false, false, A_MIN>(a, maps, grid, L.total, s);
-    case 5: return gemv_launch<4, 1, false, false, false, A_NONE>(a, maps, grid, L.total, s);
-    case 6: return gemv_launch<4, 1, false, false, false, A_MIN>(a, maps, grid, L.total, s);
-    case 7: return gemv_launch<2, 0, false, false, true, A_MINSB>(a, maps, grid, L.total, s);
-    case 8: return gemv_launch<2, 1, false, false, true, A_NONE>(a, maps, grid, L.total, s);
-    case 9: return gemv_launch<4, 0, false, false, true, A_MINSB>(a, maps, grid, L.total, s);
-    case 10: return gemv_launch<4, 1, false, false, true, A_MINSB>(a, maps, grid, L.total, s);
-    default: return gemv_launch<4, 2, false, false, true, A_NONE>(a, maps, grid, L.total, s);
+    case 0: return gemv_launch_dt<8, 0, true, false, false, A_NONE>(f3, a, maps, grid, sm, s);
+    case 1: return gemv_launch_dt<4, 0, false, true, false, A_NONE>(f3, a, maps, grid, sm, s);
+    case 2: return gemv_launch_dt<4, 0, false, true, true, A_NONE>(f3, a, maps, grid, sm, s);
+    case 3: return gemv_launch_dt<4, 0, false, false, false, A_NONE>(f3, a, maps, grid, sm, s);
+    case 4: return gemv_launch_dt<4, 0, false, false, false, A_MIN>(f3, a, maps, grid, sm, s);
+    case 5: return gemv_launch_dt<4, 1, false, false, false, A_NONE>(f3, a, maps, grid, sm, s);
+    case 6: return gemv_launch_dt<4, 1, false, false, false, A_MIN>(f3, a, maps, grid, sm, s);
+    case 7: return gemv_launch_dt<2, 0, false, false, true, A_MINSB>(f3, a, maps, grid, sm, s);
+    case 8: return gemv_launch_dt<2, 1, false, false, true, A_NONE>(f3, a, maps, grid, sm, s);
+    case 9: return gemv_launch_dt<4, 0, false, false, true, A_MINSB>(f3, a, maps, grid, sm, s);
+    case 10: return gemv_launch_dt<4, 1, false, false, true, A_MINSB>(f3, a, maps, grid, sm, s);
+    default: return gemv_launch_dt<4, 2, false, false, true, A_NONE>(f3, a, maps, grid, sm, s);
   }
 }
-
 
 }  // extern "C"

@@ -5,7 +5,7 @@ one card, in the order parent, change, change, parent.
     git show 3b0f551:ggml_hexagon_tpu_torch/csrc/qp8_gemm.cu > DIR/qp8_gemm.cu
     git show 3b0f551:ggml_hexagon_tpu_torch/csrc/decode_attn.cu > DIR/decode_attn.cu
     git show c8a736e:ggml_hexagon_tpu_torch/csrc/qp8_gemv.cu > DIR/qp8_gemv.cu
-    git show daae95e:ggml_hexagon_tpu_torch/csrc/qmm_wire.cu > DIR/qmm_wire.cu
+    git show 3d188dc:ggml_hexagon_tpu_torch/csrc/qmm_wire.cu > DIR/qmm_wire.cu
     git show daae95e:ggml_hexagon_tpu_torch/csrc/attention.cu > DIR/attention.cu
     python3 -m ggml_hexagon_tpu_torch.kernel_ab --parent DIR
 
@@ -41,23 +41,27 @@ with this tree's nvcc flags and headers.
       IQ3_XXS at M = 512, one Mixtral-8x7B expert's lane slice of stacked
       Q5_K / Q6_K planes at M = 128 and 512; K4 at pos 0, 1, 700 and 1023,
       bf16 and int8 caches, B = 1 and 4.
-  qmm_wire.cu and attention.cu (daae95e, the last tree whose K10 ran one
-      WMMA block a 64 x 64 output tile at every B and whose K11 took its
-      scores on the CUDA cores): K10 on the Llama-3-8B wq, gate, down and
-      head (Q4_K, Q4_K, Q6_K, Q6_K) at B = 1 and at B = 8, one type of each
-      of the 12 plane families at 4096 x 4096, B = 1 and 8, and, level (the
-      same kernel), the 8B shapes at B = 512 and wq in f32 at B = 8; K11 at
-      the conformance prefill (B=1, H=32, T=512, S=1024, D=128, a causal
-      [1,1,T,S] mask with a dead tail), f32 and bf16; K12, level, at the
-      decode step at pos 700 (Hkv=8, G=4, S=1024, bf16 cache).
+  qmm_wire.cu (3d188dc, the last tree whose K10 ran one WMMA block a 64 x
+      64 output tile above 8 rows and in f32, and whose bf16 GEMV at B <= 8
+      is this tree's): K10 on the Llama-3-8B wq, gate and down (Q4_K, Q4_K,
+      Q6_K) at B = 512 (the b512 unit), one type of each of the 12 plane
+      families at 4096 x 4096 and B = 512, the wq in f32 at B = 8 and 512
+      (against the WMMA kernel), and, level, the 8B's wq, gate, down and
+      head at B = 1 and 8 (the bf16 GEMV against the parent's GEMV).
+  attention.cu (daae95e, the last tree whose K11 took its scores on the
+      CUDA cores): K11 at the conformance prefill (B=1, H=32, T=512,
+      S=1024, D=128, a causal [1,1,T,S] mask with a dead tail), f32 and
+      bf16; K12, level, at the decode step at pos 700 (Hkv=8, G=4, S=1024,
+      bf16 cache).
 
 Times are device times of a CUDA-graph replay after an L2 flush (median
 of iterations), as chip_smoke.py takes them (K1/K2/K5, K6 and K8 rows also
 the host microseconds a wrapper call takes to enqueue); each row also
 prints the bf16 `torch.matmul` (weight dequantized beforehand), `torch.bmm`
 (K5, K8: the selected experts dequantized beforehand) or SDPA (K4, bf16)
-yardstick and the bound, and each unit its sums (K10: the bf16 `torch.matmul` on the
-weight dequantized beforehand; K11 and K12: SDPA in the inputs' type).
+yardstick and the bound, and each unit its sums (K10: `torch.matmul` on the
+weight dequantized beforehand, bf16, or f32 for f32 compute; K11 and K12:
+SDPA in the inputs' type).
 Needs a card.
 """
 from __future__ import annotations
@@ -87,8 +91,11 @@ from .quant.formats import GGMLType
 
 HBM_BPS = 3.35e12
 BF16_OPS = 989e12    # K3, K4, K6/K8 and K10 (bf16 mma at every B)
-F32_OPS = 67e12      # K10 in f32 (f32 FMAs)
-TF32_OPS = 495e12    # K11: TF32 mma, times its products a multiply-add
+F32_OPS = 67e12      # K10's f32 GEMV (f32 FMAs)
+TF32_OPS = 495e12    # K11 and K10's f32 GEMM: TF32 mma, times its products
+                     # a multiply-add
+NMSE_F32 = 1e-10     # K10 in f32 against its plain twin (chip_smoke.py's
+                     # NMSE_K10_F32)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: the parents' C entries: K3 and K4 of 3b0f551, K6-K8 of 1b81f9c (K6 and
 #: K8 with their pre-pass scratch xil and xg; K7 the same as this tree's)
@@ -107,15 +114,20 @@ _PARENT_ARGS = {
     + [_P, _P, _P, _I, _P, _P, _I, _P],
     "qp8_indirect_run": [_P, _I, _I, _P, _I, _I, _P, _P, _P] + [_I] * 4
     + [_F, _I, _P, _P, _P, _I, _P, _P],
-    # daae95e's K10, K11 and K12: the same C entries as this tree's
-    "qmm_wire_run": kernels._ARGTYPES["qmm_wire_run"],
+    # the WMMA K10 of 3d188dc (above 8 rows and in f32); K11 and K12 of
+    # daae95e: the same C entries as this tree's
+    "qmm_wire_run": [_I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F,
+                     _P, _P],
+    # 3d188dc's bf16 GEMV at B <= 8 (no compute-type argument)
+    "qmm_wire_gemv_run": [_I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F,
+                          _I, _I, _I, _P, _P, _P, _P],
     "flash_attn_run": kernels._ARGTYPES["flash_attn_run"],
     "decode_attn_gqa_run": kernels._ARGTYPES["decode_attn_gqa_run"],
 }
 _PARENT_FNS = {"qp8_gemm": ["qp8_gemm_run"], "decode_attn": ["decode_attn_run"],
                "fast_il": ["fast_il_run", "fast_dual_run", "fast_indirect_run"],
                "qp8_gemv": ["qp8_gemv_run", "qp8_indirect_run"],
-               "qmm_wire": ["qmm_wire_run"],
+               "qmm_wire": ["qmm_wire_run", "qmm_wire_gemv_run"],
                "attention": ["flash_attn_run", "decode_attn_gqa_run"]}
 _FLUSH = None
 
@@ -185,6 +197,9 @@ def _build_parent(directory: str) -> dict:
         lib.ght_error_string.argtypes = [ctypes.c_int]
         lib.ght_error_string.restype = ctypes.c_char_p
         for entry in _PARENT_FNS[name]:
+            if not hasattr(lib, entry):
+                raise RuntimeError(f"the parent {name}.cu has no {entry}: "
+                                   "not the tree this part is held against")
             fn = getattr(lib, entry)
             fn.argtypes = _PARENT_ARGS[entry]
             fn.restype = ctypes.c_int
@@ -574,24 +589,39 @@ class AB:
         return e_new
 
     def parent_wire(self, x, qt, planes, cd):
-        """The parent's K10 (one WMMA block a 64 x 64 output tile) on the
-        arguments kernels.qmm_wire passes its old path."""
+        """The parent's K10 on the arguments kernels.qmm_wire takes: its
+        bf16 GEMV at B <= 8, else its WMMA kernel (one block a 64 x 64
+        output tile)."""
         q = planes[0]
-        out = torch.empty((x.shape[0], q.shape[0]), dtype=torch.float32,
-                          device=self.dev)
-        rc = self.par["qmm_wire_run"](
-            kernels.wire_family(qt.cfg), int(cd == torch.float32),
-            x.data_ptr(), x.shape[0], qt.k,
-            *[kernels._ptr(t) for t in planes], q.shape[0], qt.cfg.gs,
-            float(qt.cfg.offset), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+        B, n_pad = x.shape[0], q.shape[0]
+        out = torch.empty((B, n_pad), dtype=torch.float32, device=self.dev)
+        cfg = qt.cfg
+        args = [kernels.wire_family(cfg)]
+        tail = [x.data_ptr(), B, qt.k, *[kernels._ptr(t) for t in planes],
+                n_pad, cfg.gs, float(cfg.offset)]
+        stream = torch.cuda.current_stream().cuda_stream
+        if cd == torch.bfloat16 and B <= kernels.WIRE_GEMV_ROWS:
+            plan = kernels.pick_wire_gemv(
+                qt.k, cfg.bits_lo, cfg.bits_hi, cfg.superblock, cfg.asym,
+                cfg.gs, n_pad // kernels.WIRE_ROWS, B,
+                kernels._sm_count(torch.cuda.current_device()))
+            ws = (torch.empty((plan.ks, B, n_pad), dtype=torch.float32,
+                              device=self.dev) if plan.ks > 1 else None)
+            counters = kernels._gemv_counters(self.dev,
+                                              n_pad // kernels.WIRE_ROWS)
+            rc = self.par["qmm_wire_gemv_run"](
+                *args, *tail, plan.ks, plan.ns, plan.nbx, kernels._ptr(ws),
+                counters.data_ptr(), out.data_ptr(), stream)
+        else:
+            rc = self.par["qmm_wire_run"](*args, int(cd == torch.float32),
+                                          *tail, out.data_ptr(), stream)
         if rc:
-            raise RuntimeError(f"parent qmm_wire_run: CUDA error {rc}")
+            raise RuntimeError(f"parent K10: CUDA error {rc}")
         return out
 
     def k10(self, unit, name, qt, B, count, cd=torch.bfloat16):
-        """One K10 row: the GEMV (B <= 8, bf16) or the WMMA GEMM against
-        the parent's WMMA kernel, P C C P."""
+        """One K10 row, P C C P: the GEMV (B <= 8) or the wgmma GEMM
+        against the parent's K10 on the same arguments."""
         x = torch.randn(B, qt.k, generator=self.gen, device=self.dev)
         planes = PQ._wire_planes(qt)
         new = lambda: kernels.qmm_wire(x, qt.cfg, planes, qt.k, cd)  # noqa: E731
@@ -600,23 +630,25 @@ class AB:
         e_new, e_old = _nmse(new(), want), _nmse(old(), want)
         del want
         t = [_time_ms(old), _time_ms(new), _time_ms(new), _time_ms(old)]
-        deq = PQ.dequantize(qt, torch.bfloat16)
-        xb = x.to(torch.bfloat16)
-        lib = _time_ms(lambda: torch.matmul(xb, deq.t()))
+        deq = PQ.dequantize(qt, cd)
+        xc = x.to(cd)
+        lib = _time_ms(lambda: torch.matmul(xc, deq.t()))
         del deq
         n_pad = planes[0].shape[0]
         byts = sum(t_.numel() * t_.element_size() for t_ in planes
                    if t_ is not None) + x.numel() * 4 + B * n_pad * 4
         ops = 2 * B * n_pad * qt.k
-        bound = max(byts / HBM_BPS, ops / (BF16_OPS if cd == torch.bfloat16
-                                           else F32_OPS)) * 1e3
-        plan = ""
-        if cd == torch.bfloat16 and B <= kernels.WIRE_GEMV_ROWS:
-            cfg = qt.cfg
-            plan = str(kernels.pick_wire_gemv(
-                qt.k, cfg.bits_lo, cfg.bits_hi, cfg.superblock, cfg.asym,
-                cfg.gs, n_pad // kernels.WIRE_ROWS, B,
-                kernels._sm_count(torch.cuda.current_device())))
+        f32 = cd == torch.float32
+        gemv = B <= kernels.WIRE_GEMV_ROWS
+        peak = (BF16_OPS if not f32 else F32_OPS if gemv else TF32_OPS / 3)
+        bound = max(byts / HBM_BPS, ops / peak) * 1e3
+        cfg = qt.cfg
+        geo = (qt.k, cfg.bits_lo, cfg.bits_hi, cfg.superblock, cfg.asym,
+               cfg.gs)
+        sms = kernels._sm_count(torch.cuda.current_device())
+        plan = (kernels.pick_wire_gemv(*geo, n_pad // kernels.WIRE_ROWS, B,
+                                       sms, f32) if gemv
+                else kernels.pick_wire_gemm(*geo, n_pad, B, sms, f32))
         print(f"K10 {unit} {name} {qt.cfg.qtype.name} {qt.n}x{qt.k} B={B} "
               f"{str(cd)[6:]} {plan} nmse={e_new:.2e} (parent {e_old:.2e}) "
               f"P={t[0]:.4f} C={t[1]:.4f} C={t[2]:.4f} P={t[3]:.4f} ms "
@@ -966,9 +998,11 @@ def run_gemv(ab, dev) -> bool:
     return ok
 
 
-def run_conformance(ab, dev) -> bool:
-    """K10 on the 8B's shapes at B = 1, 8 (and, level, 512 and f32), on
-    the 12 plane families at 4096 x 4096; K11 f32 and bf16; K12 level."""
+def run_wire(ab, dev) -> bool:
+    """K10: the 8B's wq, gate and down at B = 512 (the b512 unit), one type
+    of each of the 12 plane families at 4096 x 4096 and B = 512, the wq in
+    f32 at B = 8 and 512; level, the 8B's shapes at B = 1 and 8 (the bf16
+    GEMV)."""
     from .quant.pack import QCONFIGS
 
     ok = True
@@ -977,13 +1011,15 @@ def run_conformance(ab, dev) -> bool:
     shapes = (("wq", 4096, 4096, GGMLType.Q4_K), ("gate", 14336, 4096, GGMLType.Q4_K),
               ("down", 4096, 14336, GGMLType.Q6_K), ("head", 128256, 4096, GGMLType.Q6_K))
     qts = {name: random_qtensor(g, n, k, qtype, dev) for name, n, k, qtype in shapes}
+    for name in ("wq", "gate", "down"):
+        ok &= ab.k10("8B-K10-B512", name, qts[name], 512, 1) <= 1e-6
+    ok &= ab.k10("K10-f32-B8", "wq", qts["wq"], 8, 1,
+                 torch.float32) <= NMSE_F32
+    ok &= ab.k10("K10-f32-B512", "wq", qts["wq"], 512, 1,
+                 torch.float32) <= NMSE_F32
     for B in (1, 8):
         for name in qts:
-            ok &= ab.k10(f"8B-K10-B{B}", name, qts[name], B, 1) <= 1e-6
-    for name in ("wq", "gate", "down"):
-        ok &= ab.k10("8B-K10-B512-level", name, qts[name], 512, 1) <= 1e-6
-    ok &= ab.k10("8B-K10-f32-B8-level", "wq", qts["wq"], 8, 1,
-                 torch.float32) <= 1e-6
+            ok &= ab.k10(f"8B-K10-B{B}-level", name, qts[name], B, 1) <= 1e-6
     del qts
     torch.cuda.empty_cache()
     seen = set()
@@ -993,9 +1029,14 @@ def run_conformance(ab, dev) -> bool:
             continue
         seen.add(fam)
         qt = random_qtensor(g, 4096, 4096, qtype, dev)
-        for B in (1, 8):
-            ok &= ab.k10(f"K10-{qtype.name}-4096-B{B}", "type", qt, B, 1) <= 1e-6
+        ok &= ab.k10(f"K10-{qtype.name}-4096-B512", "type", qt, 512, 1) <= 1e-6
         del qt
+    return ok
+
+
+def run_attention(ab, dev) -> bool:
+    """K11 f32 and bf16; K12 level."""
+    ok = True
     for dtype in (torch.float32, torch.bfloat16):
         ok &= ab.k11(f"K11-{str(dtype)[6:]}", dtype) <= 1e-4
     ok &= ab.k12("K12-pos700-level") <= 1e-4
@@ -1029,13 +1070,15 @@ def main(argv=None):
         ok &= run_k3k4(ab, dev)
     if "lib:qp8_gemv" in ab.par:
         ok &= run_gemv(ab, dev)
-    if "lib:qmm_wire" in ab.par and "lib:attention" in ab.par:
-        ok &= run_conformance(ab, dev)
+    if "lib:qmm_wire" in ab.par:
+        ok &= run_wire(ab, dev)
+    if "lib:attention" in ab.par:
+        ok &= run_attention(ab, dev)
     for unit, (p, c, lib, bound, n) in ab.units.items():
         vs = f" ({c / lib:.2f}x)" if lib else ""
         share = f", {bound / c:.0%} of it" if bound and c else ""
         print(f"UNIT {unit}: {n} launches, parent {p:.3f} ms, change "
-              f"{c:.3f} ms ({p / c:.2f}x faster), bf16 yardstick {lib:.3f} "
+              f"{c:.3f} ms ({p / c:.2f}x faster), yardstick {lib:.3f} "
               f"ms{vs}, bound {bound:.4f} ms{share}", flush=True)
     print("ALL HELD" if ok else "FAILURES", flush=True)
     return 0 if ok else 1

@@ -15,6 +15,7 @@ after, to show the run went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -39,9 +40,8 @@ SOURCES = {
                                     # mode), K7 and K8
     "fast_il_gemm": "fast_il_gemm.cu",  # K6 above 8 rows (the prefill GEMM)
     "ffn_fused": "ffn_fused.cu",    # K9
-    "qmm_wire": "qmm_wire.cu",      # K10 (at B <= 8 in bf16 the
-                                    # streaming GEMV, above it the WMMA
-                                    # GEMM)
+    "qmm_wire": "qmm_wire.cu",      # K10 at B <= 8 (the streaming GEMV)
+    "qmm_wire_gemm": "qmm_wire_gemm.cu",  # K10 above 8 rows (the wgmma GEMM)
     "attention": "attention.cu",    # K11 and K12
 }
 
@@ -100,9 +100,9 @@ _ARGTYPES = {
     "qp8_gemm_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I,
                      _P, _I, _P, _P, _P],
     "fast_il_run": [_I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _P, _I,
-                    _P, _F, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+                    _P, _F, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "fast_il_gemm_run": [_I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _P,
-                         _I, _P, _F, _P, _I, _P, _P, _I, _P, _P, _P],
+                         _I, _P, _F, _I, _P, _I, _P, _P, _I, _P, _P, _P],
     "fast_dual_run": [_P, _I, _I, _F] + [_P, _P, _P, _P, _I, _I, _I, _I, _F,
                                          _P, _I, _P, _P] * 2 + [_P, _P],
     "fast_indirect_run": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F,
@@ -111,10 +111,10 @@ _ARGTYPES = {
     + [_I, _I, _F, _P, _P, _P, _P, _P, _P],
     "decode_attn_run": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                         _I, _F, _I, _I, _P, _P, _P, _P, _P],
-    "qmm_wire_run": [_I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F,
-                     _P, _P],
-    "qmm_wire_gemv_run": [_I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F,
-                          _I, _I, _I, _P, _P, _P, _P],
+    "qmm_wire_gemv_run": [_I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _F, _I, _I, _I, _P, _P, _P, _P],
+    "qmm_wire_gemm_run": [_I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _F, _I, _I, _P, _P, _P, _P, _P],
     "flash_attn_run": [_P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _I, _I, _I,
                        _F, _I, _P, _P],
     "decode_attn_gqa_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F,
@@ -400,8 +400,8 @@ def pick_gemv(geos: tuple, n2s: tuple, nb: int, rows_z: int,
     return best[1]
 
 
-#: per device, the int32 tile counters of the split sums of K1/K2/K5 and
-#: of K6 (B <= 8) and K8: zero between calls (each call's last blocks reset
+#: per device, the int32 tile counters of the split sums of K1/K2/K5, K6
+#: (B <= 8), K8 and K10: zero between calls (each call's last blocks reset
 #: theirs), so one buffer a device serves every call on its stream, as the
 #: built libraries do.
 #: Made at the device's first call, which must come before any CUDA-graph
@@ -474,6 +474,53 @@ def il_geo(K: int, G: int, packed: bool) -> IlGeo:
     nrb, spr = -(-G // GW), nper // NP
     return IlGeo(GW, NP, nper, spr, nrb, nrb * spr, GW * IL_ROWS * NP,
                  GW * IL_ROWS * 2)
+
+
+def il_pad(K: int, G: int) -> tuple[int, int]:
+    """(K', G') of interleaved planes whose G groups are padded to G' =
+    8*ceil(G/8), as K6 and K8 take planes with G % 8 != 0 (ternary at K =
+    1024, G = 4, and K = 11008, G = 43): zero-code, zero-scale groups G..G'
+    of every period, x with zero columns there; (K, G) when G % 8 == 0."""
+    Gp = -(-G // 8) * 8
+    return K // G * Gp, Gp
+
+
+def _pad_il_cols(t, G: int, Gp: int):
+    """[..., gs*G] in the interleaved order (column p*G + g) -> [...,
+    gs*Gp], zeros at g >= G."""
+    lead = t.shape[:-1]
+    v = t.reshape(*lead, t.shape[-1] // G, G)
+    return torch.nn.functional.pad(v, (0, Gp - G)).reshape(*lead, -1)
+
+
+def padded_il_planes(qt):
+    """qt's interleaved planes with every period's groups padded to G' =
+    8*ceil(G/8) (il_pad): codes or values 0 and scales (and bias) 0 in the
+    new groups, so they add nothing.  Made once a tensor and kept on it
+    (qt.fpad): QTensors with interleaved planes are built in several places
+    (with_fast_planes, take_rows, the converter, the fuser), and the first
+    launch is where they all meet."""
+    from .ops.qmm_fast import _is_packed
+
+    G = qt.fs.shape[1]
+    Kp, Gp = il_pad(qt.k, G)
+    if Gp == G:
+        return qt
+    if qt.fpad is not None:
+        return qt.fpad
+    if _is_packed(qt.cfg):
+        p = qt.fq
+        v = _pad_il_cols(torch.cat([p & 15, p >> 4], dim=1), G, Gp)
+        fq = (v[:, :Kp // 2] | (v[:, Kp // 2:] << 4)).contiguous()
+    else:
+        fq = _pad_il_cols(qt.fq, G, Gp).contiguous()
+
+    def pad_g(t):
+        return None if t is None else torch.nn.functional.pad(t, (0, Gp - G)).contiguous()
+
+    qt.fpad = dataclasses.replace(qt, k=Kp, fq=fq, fs=pad_g(qt.fs),
+                                  fb=pad_g(qt.fb))
+    return qt.fpad
 
 
 def il_touched(geo: IlGeo, ks: int) -> int:
@@ -777,22 +824,47 @@ def _fast_launch(family: str, x, qt, wn, eps, act, res, pre_il, xg):
     out = torch.empty((B, n2), dtype=torch.float32, device=dev)
     n_res = 0 if res is None else res.shape[1]
     eps = 0.0 if eps is None else float(eps)
+    kn = K  # the normed mode's mean divides by the true K
+    if il_pad(K, G)[1] != G:
+        qt, x, wn, xg = _pad_call(qt, x, wn, xg, mode)
+        K, G = qt.k, qt.fs.shape[1]
     if B > 8:
         return _fast_gemm(mode, key, x, qt, G, cm, off, xg, xg_mode, wn, eps,
-                          res, n_res, out)
+                          kn, res, n_res, out)
     plan = _il_plan(qt, B, n2 // IL_ROWS, 1, mode, dev)
     ws = (torch.empty((plan.ks, B, n2), dtype=torch.float32, device=dev)
           if plan.ks > 1 else None)
     lib = _lib("fast_il")
     rc = lib.fast_il_run(mode, int(nib), cm, _ptr(x), B, K, _ptr(qt.fq),
                          _ptr(qt.fs), _ptr(qt.fb), n2, G, off, _ptr(xg),
-                         xg_mode, _ptr(wn), eps, _ptr(res), n_res, plan.ks,
+                         xg_mode, _ptr(wn), eps, kn, _ptr(res), n_res, plan.ks,
                          plan.ns, plan.nbx, _ptr(ws),
                          _ptr(_gemv_counters(dev, n2 // IL_ROWS)), _ptr(out),
                          _stream(dev))
     _check(lib, rc, key)
     LAUNCHES[key] += 1
     return out
+
+
+def _pad_call(qt, x, wn, xg, mode: int):
+    """A K6 call on planes with G % 8 != 0 as one on their padded planes
+    (padded_il_planes): x gets zero columns in the new groups (at the end
+    of a natural-order row; in every period of an interleaved one, each
+    half of act's gate ++ up), so does the normed mode's wn, and the group
+    sums xg zero groups."""
+    pq = padded_il_planes(qt)
+    G, Gp = qt.fs.shape[1], pq.fs.shape[1]
+    if mode == 2:
+        x = torch.cat([_pad_il_cols(h, G, Gp) for h in x.chunk(2, dim=1)], 1)
+    elif mode == 3:
+        x = _pad_il_cols(x, G, Gp)
+    else:
+        x = torch.nn.functional.pad(x, (0, pq.k - qt.k))
+    if wn is not None:
+        wn = _pad_il_cols(wn, G, Gp)
+    if xg is not None:
+        xg = torch.nn.functional.pad(xg, (0, Gp - G))
+    return pq, x.contiguous(), wn, xg
 
 
 def gemm_key(qt) -> str:
@@ -805,7 +877,7 @@ def gemm_key(qt) -> str:
     return key + ("_derived" if _offset_bias(qt.cfg, qt.fb) else "")
 
 
-def _fast_gemm(mode, key, x, qt, G, cm, off, xg, xg_mode, wn, eps, res,
+def _fast_gemm(mode, key, x, qt, G, cm, off, xg, xg_mode, wn, eps, kn, res,
                n_res, out):
     """K6 above 8 rows: the wgmma GEMM of fast_il_gemm.cu, its scratch (x
     permuted for the A fragments, the group sums in three bf16 parts, the
@@ -829,7 +901,7 @@ def _fast_gemm(mode, key, x, qt, G, cm, off, xg, xg_mode, wn, eps, res,
     rc = lib.fast_il_gemm_run(
         mode, _FAMILY_ID[_family(qt.cfg)], cm, _ptr(x), B, K, _ptr(qt.fq),
         _ptr(qt.fs), _ptr(qt.fb), n2, G, off, _ptr(xg), xg_mode, _ptr(wn),
-        eps, _ptr(res), n_res, _ptr(xp), _ptr(xgs), ks, _ptr(ws), _ptr(out),
+        eps, kn, _ptr(res), n_res, _ptr(xp), _ptr(xgs), ks, _ptr(ws), _ptr(out),
         _stream(dev))
     _check(lib, rc, key)
     LAUNCHES[key] += 1
@@ -929,6 +1001,9 @@ def fast_indirect(x, qt, ids, npe: int, xg=None):
                          "an input")
     key = ("fast_indirect_coded" if cm else
            "fast_indirect_nibble" if nib else "fast_indirect")
+    if il_pad(K, G)[1] != G:
+        qt, x, _, xg = _pad_call(qt, x, None, xg, 0)
+        K, G = qt.k, qt.fs.shape[1]
     dev = x.device
     tiles = -(-npe // IL_ROWS)
     plan = _il_plan(qt, 1, tiles, P, 0, dev)
@@ -1062,10 +1137,21 @@ def wire_family(cfg) -> int:
     return _WIRE_FAMILIES[key]
 
 
-#: K10 at B <= 8 in bf16 (csrc/qmm_wire.cu wire_gemv_kernel): weight rows a
-#: tile, and the activation rows it takes
+#: K10 at B <= 8 (csrc/qmm_wire.cu wire_gemv_kernel): weight rows a tile,
+#: and the activation rows it takes
 WIRE_ROWS = 64
 WIRE_GEMV_ROWS = 8
+
+
+def _wire_record(HW: int, gs: int, superblock: bool, asym: str):
+    """(n, scw, nrec) of a run of HW columns' scale record (csrc/wire.cuh
+    wire_record): its groups, sc words and words."""
+    n = HW // gs if HW >= gs else 1
+    two = 1 + (asym != "none")
+    if superblock:
+        scw = (n + 3) // 4 + 1
+        return n, scw, (2 if asym == "minsb" else 1) + scw * two
+    return n, 0, n * two
 
 
 class WireGeo(NamedTuple):
@@ -1095,24 +1181,21 @@ def wire_geo(K: int, bl: int, bh: int, superblock: bool, asym: str,
     Kph = K * bh // 8 if bh else Kp
     R = Kp // Kph
     HW = 128 if Kph % 128 == 0 else 64 if Kph % 64 == 0 else 32
-    n = HW // gs if HW >= gs else 1
-    two = 1 + (asym != "none")
-    if superblock:
-        scw = (n + 3) // 4 + 1
-        nrec = (2 if asym == "minsb" else 1) + scw * two
-    else:
-        scw, nrec = 0, n * two
+    n, scw, nrec = _wire_record(HW, gs, superblock, asym)
     box = WIRE_ROWS * HW
     sb = _a128((R + (bh > 0)) * box + WIRE_ROWS * per * R * nrec * 4)
     return WireGeo(per, Kp, Kph, R, HW, Kph // HW, n, scw, nrec, sb)
 
 
-def wire_smem(geo: WireGeo, ns: int, ks: int, nb: int) -> int:
+def wire_smem(geo: WireGeo, ns: int, ks: int, nb: int,
+              f32: bool = False) -> int:
     """Shared memory of a block (csrc/qmm_wire.cu wire_layout): ns ring
-    slots, the split's bf16 activation (nb rows of per*R runs of the widest
-    split's columns), the halves' partial sums, flag and mbarriers."""
+    slots, the split's activation (nb rows of per*R runs of the widest
+    split's columns, bf16, or f32 with 16 bytes of skew every 32 columns),
+    the halves' partial sums, flag and mbarriers."""
     lmax = -(-geo.nst // ks) * geo.HW
-    pitch = _a128(geo.per * geo.R * lmax * 2) + 16
+    run = lmax * 4 + lmax // 32 * 16 if f32 else lmax * 2
+    pitch = _a128(geo.per * geo.R * run) + 16
     red = ns * geo.sb + _a128(nb * pitch)
     return _a128(red + 4 * 32 * 4 * 4 + 16) + 16 * ns
 
@@ -1130,14 +1213,15 @@ class WirePlan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def pick_wire_gemv(K: int, bl: int, bh: int, superblock: bool, asym: str,
-                   gs: int, tiles: int, nb: int, sms: int) -> WirePlan:
+                   gs: int, tiles: int, nb: int, sms: int,
+                   f32: bool = False) -> WirePlan:
     """Splits, ring and blocks of a K10 launch at B = nb <= 8 over `tiles`
     tiles of WIRE_ROWS rows, from its shapes and the card's SM count
     (_pick_persistent, as for K6): each block builds its split's f32 x
-    columns into bf16 once."""
+    columns (into bf16, or kept in f32) once."""
     geo = wire_geo(K, bl, bh, superblock, asym, gs)
     plan = _pick_persistent(geo.nst, tiles, 1, sms, geo.sb,
-                            lambda ns, ks: wire_smem(geo, ns, ks, nb),
+                            lambda ns, ks: wire_smem(geo, ns, ks, nb, f32),
                             lambda ks: nb * 4 * K // ks)
     if plan is None:
         raise ValueError(f"no K10 GEMV plan fits shared memory: K={K}, "
@@ -1145,11 +1229,121 @@ def pick_wire_gemv(K: int, bl: int, bh: int, superblock: bool, asym: str,
     return WirePlan(*plan)
 
 
+#: K10 above 8 rows (csrc/qmm_wire_gemm.cu wire_gemm_kernel): weight rows
+#: a block, K columns a stage, the token tile of f32 compute
+WIRE_GEMM_ROWS = 128
+_WG_KT = 64
+_WG_F32_N = 64
+
+
+def wire_gemm_tile(B: int, f32: bool) -> int:
+    """The GEMM's token tile (wgmma's N) at B rows (csrc token_tile): 32,
+    128 and 256 for B <= 32, <= 128 and above in bf16; 64 in f32."""
+    if f32:
+        return _WG_F32_N
+    return 32 if B <= 32 else 128 if B <= 128 else 256
+
+
+class WireGemmGeo(NamedTuple):
+    """A family's stages in K10's GEMM (csrc/qmm_wire_gemm.cu gemm_geo):
+    hw = 64/per high positions a stage (one low box r of R), nst = K/64
+    stages, a run's record of nrec words; rtma: the scales come as npl TMA
+    boxes a run ([128][16 bytes] each) where every scale plane's row pitch
+    allows, else as records; sb bytes a ring slot (the x tile, the low and
+    high boxes of 128 rows, the scales, each 1024-aligned)."""
+    per: int
+    Kp: int
+    Kph: int
+    R: int
+    hw: int
+    nst: int
+    nrec: int
+    rtma: bool
+    npl: int
+    sb: int
+
+
+def _wire_tma_scales(K: int, gs: int, superblock: bool) -> bool:
+    """Whether every scale plane's row pitch is whole 16-byte units, as
+    TMA needs (csrc tma_scales): d and dmin f32 [K/256] (super-block) or
+    [K/gs], sc and m uint8 [K/gs]."""
+    if superblock:
+        return K % 1024 == 0 and (K // gs) % 16 == 0
+    return (K // gs) % 4 == 0
+
+
+def wire_gemm_geo(K: int, bl: int, bh: int, superblock: bool, asym: str,
+                  gs: int, N: int, f32: bool) -> WireGemmGeo:
+    per = 8 // bl
+    Kp = K // per
+    Kph = K * bh // 8 if bh else Kp
+    hw = _WG_KT // per
+    _, _, nrec = _wire_record(hw, gs, superblock, asym)
+    rtma = _wire_tma_scales(K, gs, superblock)
+    npl = (2 if superblock else 1) * (2 if asym != "none" else 1)
+    lo = N * _WG_KT * (8 if f32 else 2)
+    rec = lo + WIRE_GEMM_ROWS * hw * (2 if bh else 1)
+    scales = (per * npl * WIRE_GEMM_ROWS * 16 if rtma
+              else WIRE_GEMM_ROWS * per * nrec * 4)
+    sb = -(-(rec + scales) // 1024) * 1024
+    return WireGemmGeo(per, Kp, Kph, Kp // Kph, hw, K // _WG_KT, nrec, rtma,
+                       npl, sb)
+
+
+def wire_gemm_smem(geo: WireGemmGeo, ns: int) -> int:
+    """Shared memory of a GEMM block (csrc gemm_smem): alignment slack, ns
+    ring slots, mbarriers and flag."""
+    return 1024 + ns * geo.sb + 16 * ns + 16
+
+
+class WireGemmPlan(NamedTuple):
+    """A K10 launch above 8 rows: N tokens a tile, ks splits of the
+    stages, ns ring slots, smem bytes a block, tiles (row tiles x token
+    tiles)."""
+    N: int
+    ks: int
+    ns: int
+    smem: int
+    tiles: int
+
+
+@functools.lru_cache(maxsize=None)
+def pick_wire_gemm(K: int, bl: int, bh: int, superblock: bool, asym: str,
+                   gs: int, n_pad: int, B: int, sms: int,
+                   f32: bool = False) -> WireGemmPlan:
+    """Token tile, K splits and ring of a K10 GEMM launch (B > 8) from its
+    shapes and the card's SM count: splits (whole stages, at least 8 a
+    split, at most 8 splits) where the tiles alone leave SMs idle, taken
+    only where they cut the waves of blocks by at least 15% (as K3's and
+    K6's GEMMs take theirs: the 8B's 4096-row wq and down give 32 row tiles
+    a token tile); then the deepest ring, up to 8 stages or the split's,
+    that fits a block's shared memory."""
+    N = wire_gemm_tile(B, f32)
+    geo = wire_gemm_geo(K, bl, bh, superblock, asym, gs, N, f32)
+    tiles = -(-n_pad // WIRE_GEMM_ROWS) * -(-B // N)
+
+    def waves(ks):
+        return -(-tiles * ks // sms) / ks
+
+    ks = 1
+    for k in range(2, 9):
+        if geo.nst // k >= 8 and waves(k) < 0.85 * waves(ks):
+            ks = k
+    ns = min(8, -(-geo.nst // ks))
+    while ns > 1 and wire_gemm_smem(geo, ns) > SMEM_BLOCK:
+        ns -= 1
+    if wire_gemm_smem(geo, ns) > SMEM_BLOCK:
+        raise ValueError(f"no K10 GEMM ring fits shared memory: K={K}, "
+                         f"N={N}")
+    return WireGemmPlan(N, ks, ns, wire_gemm_smem(geo, ns), tiles)
+
+
 def qmm_wire(x, cfg, planes, K: int, compute_dtype=torch.bfloat16):
     """K10 on the card: x f32 [B, K] against the wire planes (q, qh, d, sc,
     dmin, m) of a QConfig, in the dtypes ops.qmatmul._wire_planes gives
     them -> [B, n_pad] f32, the products of x and w rounded to
-    compute_dtype (bf16 or f32) summed in f32."""
+    compute_dtype (bf16 or f32) summed in f32: the streaming GEMV at B <=
+    8, the wgmma GEMM above."""
     q, qh, d, sc, dmin, m = planes
     fam = wire_family(cfg)
     _need(x, torch.float32, "x", 2)
@@ -1181,31 +1375,41 @@ def qmm_wire(x, cfg, planes, K: int, compute_dtype=torch.bfloat16):
         raise ValueError(f"x {tuple(x.shape)} vs K={K}, n_pad={n_pad}")
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"compute dtype {compute_dtype}")
+    f32 = compute_dtype == torch.float32
 
     def p(what, t):
         return _ptr(t) if used[what] else None
 
     dev = x.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    args = (fam, int(f32), _ptr(x), B, K, _ptr(q), p("qh", qh), _ptr(d),
+            p("sc", sc), p("dmin", dmin), p("m", m), n_pad, gs,
+            float(cfg.offset))
     out = torch.empty((B, n_pad), dtype=torch.float32, device=dev)
-    lib = _lib("qmm_wire")
-    if compute_dtype == torch.bfloat16 and B <= WIRE_GEMV_ROWS:
-        index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if B <= WIRE_GEMV_ROWS:
         plan = pick_wire_gemv(K, cfg.bits_lo, cfg.bits_hi, cfg.superblock,
                               cfg.asym, gs, n_pad // WIRE_ROWS, B,
-                              _sm_count(index))
+                              _sm_count(index), f32)
         counters = _gemv_counters(dev, n_pad // WIRE_ROWS)
         ws = (torch.empty((plan.ks, B, n_pad), dtype=torch.float32,
                           device=dev) if plan.ks > 1 else None)
-        rc = lib.qmm_wire_gemv_run(
-            fam, _ptr(x), B, K, _ptr(q), p("qh", qh), _ptr(d), p("sc", sc),
-            p("dmin", dmin), p("m", m), n_pad, gs, float(cfg.offset),
-            plan.ks, plan.ns, plan.nbx, _ptr(ws), _ptr(counters), _ptr(out),
-            _stream(dev))
+        lib = _lib("qmm_wire")
+        rc = lib.qmm_wire_gemv_run(*args, plan.ks, plan.ns, plan.nbx,
+                                   _ptr(ws), _ptr(counters), _ptr(out),
+                                   _stream(dev))
     else:
-        rc = lib.qmm_wire_run(fam, int(compute_dtype == torch.float32),
-                              _ptr(x), B, K, _ptr(q), p("qh", qh), _ptr(d),
-                              p("sc", sc), p("dmin", dmin), p("m", m), n_pad,
-                              gs, float(cfg.offset), _ptr(out), _stream(dev))
+        plan = pick_wire_gemm(K, cfg.bits_lo, cfg.bits_hi, cfg.superblock,
+                              cfg.asym, gs, n_pad, B, _sm_count(index), f32)
+        counters = _gemv_counters(dev, plan.tiles)
+        # x in the stages' order: bf16, or f32 TF32 big and small parts
+        xp = (torch.empty((2, B, K), dtype=torch.float32, device=dev) if f32
+              else torch.empty((B, K), dtype=torch.bfloat16, device=dev))
+        ws = (torch.empty((plan.ks, B, n_pad), dtype=torch.float32,
+                          device=dev) if plan.ks > 1 else None)
+        lib = _lib("qmm_wire_gemm")
+        rc = lib.qmm_wire_gemm_run(*args, plan.ks, plan.ns, _ptr(xp),
+                                   _ptr(ws), _ptr(counters), _ptr(out),
+                                   _stream(dev))
     _check(lib, rc, "qmm_wire")
     LAUNCHES["qmm_wire"] += 1
     return out

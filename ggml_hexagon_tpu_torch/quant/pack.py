@@ -35,7 +35,7 @@ picks between them as the JAX package does, GHT_QP8 included.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import torch
@@ -102,6 +102,11 @@ class QTensor:
     fs: Any = None
     fb: Any = None
     fl: str = "t"
+    # the interleaved planes padded to a multiple of 8 groups (a QTensor),
+    # made by the first K6/K8 launch on planes whose group count is not one
+    # (kernels.padded_il_planes); no constructor argument, so copies and
+    # dataclasses.replace start without it
+    fpad: Any = field(default=None, init=False, repr=False, compare=False)
 
     @property
     def n_pad(self) -> int:

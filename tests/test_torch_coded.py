@@ -291,6 +291,60 @@ def test_k8_plain_matches_pallas(qtype, ids):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def _tern_1024(qtype, n, seed):
+    """Ternary planes at K = 1024: G = 4 groups of 256, which the card's K6
+    and K8 take padded to 8 (kernels.padded_il_planes)."""
+    key = (qtype, n, "il1024", seed)
+    if key not in _QT:
+        jq = _planes(coded_qtensor(qtype, n, 1024, seed), "il")
+        assert jq.fs.shape[1] == 4
+        _QT[key] = (jq, port_qt(jq))
+    return _QT[key]
+
+
+@pytest.mark.parametrize("qtype", [GGMLType.TQ1_0, GGMLType.TQ2_0],
+                         ids=lambda t: t.name)
+@pytest.mark.parametrize("mode,B", [(m, b) for b in (1, 16)
+                                    for m in ("plain", "normed")],
+                         ids=lambda c: str(c))
+def test_k6_ternary_g4_plain_matches_pallas(qtype, mode, B):
+    """K6 on ternary planes at K = 1024 (G = 4) at a decode row and a
+    16-row prefill, plain and normed."""
+    jq, pq = _tern_1024(qtype, 256, 6)
+    K = jq.k
+    x, eps = _rand(B * 11 + K, B, K) * 1.5, 1e-5
+    if mode == "normed":
+        x, eps = normed_input(B * 11 + K, B, K)
+    wn = np.random.default_rng(K + 1).random(K).astype(np.float32) + 0.5
+    wn_il = wn[JF.interleave_perm(K, jq.cfg.gs)]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("GHT_QP8", "0")
+        want = _mode_call(JF, mode, jnp.asarray(x), jq, jnp.asarray(wn_il),
+                          None, eps, interpret=True)
+    got = _mode_call(PF, mode, torch.from_numpy(x), pq,
+                     torch.from_numpy(wn_il), None, eps)
+    assert got.shape == (B, jq.n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("qtype", [GGMLType.TQ1_0, GGMLType.TQ2_0],
+                         ids=lambda t: t.name)
+@pytest.mark.parametrize("ids", [[1], [2, 0, 3, 1] * 4], ids=["P1", "P16"])
+def test_k8_ternary_g4_plain_matches_pallas(qtype, ids):
+    """K8 on stacked ternary planes at K = 1024 (G = 4), one and 16 rows."""
+    npe = 256
+    jq, pq = _tern_1024(qtype, 4 * npe, 7)
+    assert PF.supports_indirect(pq, npe) and JF.supports_indirect(jq, npe)
+    x = _rand(len(ids) + 50, len(ids), jq.k) * 1.5
+    ids = np.asarray(ids, np.int32)
+    want = JF.qmatmul_fast_indirect(jnp.asarray(x), jq, jnp.asarray(ids), npe,
+                                    interpret=True)
+    got = PF.qmatmul_fast_indirect(torch.from_numpy(x), pq,
+                                   torch.from_numpy(ids), npe)
+    assert got.shape == (len(ids), npe)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 def test_coded_wrappers_take_plain_only_on_cpu():
     """On CPU tensors the coded K6 wrapper is its plain version, bit for
     bit, and the uncoded family wrappers refuse coded planes."""

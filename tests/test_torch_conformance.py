@@ -132,6 +132,23 @@ def test_qmm_wire_plain_f32_matches_jax(qtype):
     assert nmse(got.numpy(), want) <= NMSE_MAX
 
 
+@pytest.mark.parametrize("B", [9, 512])
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K,
+                                   GGMLType.Q8_0], ids=lambda t: t.name)
+def test_qmm_wire_plain_f32_above_eight_rows_matches_jax(qtype, B):
+    """The rows K10's GEMM takes in f32 (B = 9 and 512): the plain twin
+    against the JAX kernel in interpret mode."""
+    jq, pq = _qt(qtype, 128)
+    x = _x(B, seed=3)
+    want = np.asarray(JQ.qmatmul_pallas(jnp.asarray(x), jq,
+                                        compute_dtype=jnp.float32,
+                                        interpret=True))
+    got = PQ.qmatmul_pallas(torch.from_numpy(x), pq,
+                            compute_dtype=torch.float32)
+    assert got.shape == (B, 128)
+    assert nmse(got.numpy(), want) <= NMSE_MAX
+
+
 def test_q8_act_kind_matches_jax():
     for qtype in TYPES:
         assert PQ.q8_act_kind(QCONFIGS[qtype]) == JQ.q8_act_kind(

@@ -52,7 +52,23 @@ Tolerances, per kernel, with their reasons:
       NMSE <= 1e-6, at every family, at K = 256 and 11008 (the scale
       planes' 4-, 172- and 344-byte row pitches), 64 rows and the
       128256-row head, B = 1, 2, 8 and 9; repeated calls and a CUDA-graph
-      replay give the same bits.
+      replay give the same bits.  Above 8 rows the wgmma GEMM: the same
+      bf16 products (f32: each f32 operand split into two TF32 parts,
+      three products, about 2^-21 relative), f32 sums in another order and
+      K split over blocks (the last block of a tile sums the splits in
+      split order).  NMSE <= 1e-6 at every family, B = 9, 64, 512 and 513,
+      on 192 rows (a ragged 64-row tile), and for all 21 types at B = 9
+      and 512.  In f32 (the GEMV's fmaf products at B <= 8, the GEMM's
+      three TF32 products above, their tensor-core sums added into f32
+      registers every 8 chunks) NMSE <= 1e-10 at every family, B = 1, 8,
+      9, 100 and 512 (at most 3.8e-12 measured on an H100), where a
+      kernel of one or two TF32 products (NMSE 3.8e-8 or more) fails: the
+      tests check that their controls do.
+  K6 and K8 on ternary planes whose group count is not a multiple of 8
+      (G = 4 at K = 1024, G = 43 at K = 11008): the wrapper pads the
+      groups to 8*ceil(G/8) with zero codes at zero scale and x with zero
+      columns (the normed mode's mean over the true K), so every product
+      is K6's or K8's.  NMSE <= 1e-6, every mode, B = 1, 8 and 512.
   K11 (masked flash attention): f32 scores and output; q*scale, k, p and
       v split into two TF32 parts (bf16 k and v are exact in TF32), three
       products (two for bf16 inputs) summed in f32, so each score and
@@ -89,11 +105,13 @@ from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
 from ggml_hexagon_tpu_torch.ops import qmm_qp8 as P
 from ggml_hexagon_tpu_torch.ops import qmatmul as PQ
 from ggml_hexagon_tpu_torch.quant.formats import GGMLType
+from ggml_hexagon_tpu_torch.quant.pack import QCONFIGS
 
 pytestmark = pytest.mark.gpu
 
 NMSE_MAX = 1e-6
 NMSE_EXACT = 1e-9  # K1/K2/K5 on inputs with an exact prologue
+NMSE_F32 = 1e-10   # K10 in f32 (the f32 GEMV; the GEMM's TF32 x3)
 
 
 @pytest.fixture(scope="module")
@@ -756,7 +774,171 @@ def test_qmm_wire_kernel_f32_matches_plain(dev, qtype, B):
     got = PQ.qmatmul_pallas(x, qt, compute_dtype=torch.float32)
     want = PQ.qmatmul_pallas(x, qt, compute_dtype=torch.float32, plain=True)
     torch.cuda.synchronize()
+    assert _nmse(got, want) <= NMSE_F32
+
+
+def _tf32(v):
+    """cvt.rna.tf32.f32: 10 mantissa bits, ties away from zero."""
+    b = v.contiguous().view(torch.int32)
+    r = torch.where((b & 0x7F800000) == 0x7F800000, b, (b + 0x1000) & ~0x1FFF)
+    return r.view(torch.float32)
+
+
+def _tf32_controls(x, qt, want):
+    """NMSE against want of x . w with one TF32 product, rna(x) . rna(w),
+    and with two, adding rna(x) . rna(w - rna(w)): what a K10 f32 kernel
+    that kept fewer than three products would give."""
+    w = PQ._dequant_expr(qt, torch.float32)[:want.shape[-1]]
+    xb, wb = _tf32(x), _tf32(w)
+    one = xb @ wb.t()
+    return _nmse(one, want), _nmse(one + xb @ _tf32(w - wb).t(), want)
+
+
+def _wire_rows(qt, rows):
+    """qt's wire planes cut to their first `rows` rows (a multiple of 64:
+    a ragged last tile of K10's 128-row GEMM blocks)."""
+    import dataclasses
+
+    def cut(t):
+        return None if t is None else t[:rows].contiguous()
+
+    return dataclasses.replace(qt, n=rows, q=cut(qt.q), qh=cut(qt.qh),
+                               d=cut(qt.d), sc=cut(qt.sc), dmin=cut(qt.dmin),
+                               m=cut(qt.m))
+
+
+@pytest.mark.parametrize("B", [9, 64, 512, 513])
+@pytest.mark.parametrize("qtype", _K10_TYPES[:12], ids=lambda t: t.name)
+def test_qmm_wire_gemm_kernel_matches_plain(dev, qtype, B):
+    """K10 above 8 rows (the wgmma GEMM) on every plane family at 1000 x
+    4096 (1024 rows: 8 row tiles) and 192 x 11008 (a ragged 64-row tile;
+    high planes of 1376 bytes), one launch a call."""
+    for n, k in ((1000, 4096), (192, 11008)):
+        qt = _wire(dev, n, k, qtype)
+        if n == 192:
+            qt = _wire_rows(qt, 192)
+        x = _x(dev, B, k, seed=B + 5)
+        before = kernels.LAUNCHES["qmm_wire"]
+        got = PQ.qmatmul(x, qt, backend="pallas")
+        want = PQ.qmatmul_pallas(x, qt, plain=True)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["qmm_wire"] == before + 1
+        assert got.shape == (B, n) and torch.isfinite(got).all()
+        assert _nmse(got, want) <= NMSE_MAX, (n, k)
+
+
+@pytest.mark.parametrize("B", [9, 512])
+@pytest.mark.parametrize("qtype", sorted(QCONFIGS, key=int), ids=lambda t: t.name)
+def test_qmm_wire_kernel_every_type_above_eight_rows(dev, qtype, B):
+    """All 21 wire types through the GEMM at 4096 x 4096, B = 9 and 512
+    (chip_smoke.py holds them at B = 1 and 8)."""
+    qt = _wire(dev, 4096, 4096, qtype)
+    x = _x(dev, B, 4096, seed=B + 21)
+    got = PQ.qmatmul(x, qt, backend="pallas")
+    want = PQ.qmatmul_pallas(x, qt, plain=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and _nmse(got, want) <= NMSE_MAX
+
+
+@pytest.mark.parametrize("B", [1, 8, 9, 512])
+@pytest.mark.parametrize("qtype", _K10_TYPES, ids=lambda t: t.name)
+def test_qmm_wire_kernel_f32_every_family(dev, qtype, B):
+    """K10 in f32: the f32 GEMV at B <= 8, the TF32-split GEMM above,
+    within a limit that one or two TF32 products miss on the same
+    inputs."""
+    qt = _wire(dev, 1000, 4096, qtype)
+    x = _x(dev, B, 4096, seed=B + 7)
+    before = kernels.LAUNCHES["qmm_wire"]
+    got = PQ.qmatmul_pallas(x, qt, compute_dtype=torch.float32)
+    want = PQ.qmatmul_pallas(x, qt, compute_dtype=torch.float32, plain=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["qmm_wire"] == before + 1
+    assert torch.isfinite(got).all() and _nmse(got, want) <= NMSE_F32
+    assert min(_tf32_controls(x, qt, want)) > NMSE_F32
+
+
+@pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_qmm_wire_gemm_repeats_and_replays_bit_equal(dev, cd):
+    """The 8B's wq at B = 512 splits K in two: two calls and a CUDA-graph
+    replay give the same bits."""
+    qt = _wire(dev, 4096, 4096, GGMLType.Q4_K)
+    x = _x(dev, 512, 4096, seed=4)
+    first = PQ.qmatmul_pallas(x, qt, compute_dtype=cd)
+    second = PQ.qmatmul_pallas(x, qt, compute_dtype=cd)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        PQ.qmatmul_pallas(x, qt, compute_dtype=cd)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = PQ.qmatmul_pallas(x, qt, compute_dtype=cd)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, replayed)
+    want = PQ.qmatmul_pallas(x, qt, compute_dtype=cd, plain=True)
+    assert _nmse(first, want) <= (NMSE_F32 if cd == torch.float32
+                                  else NMSE_MAX)
+
+
+#: (mode, rows): every mode at decode rows, the prefill's modes at 512
+_TERN_CASES = [(m, b) for b in (1, 8)
+               for m in ("plain", "pre_il", "normed", "res", "act")] + [
+    (m, 512) for m in ("plain", "pre_il", "normed")]
+
+
+@pytest.mark.parametrize("mode,B", _TERN_CASES, ids=lambda c: str(c))
+@pytest.mark.parametrize("shape", [(4096, 1024, GGMLType.TQ1_0),
+                                   (4096, 11008, GGMLType.TQ2_0)],
+                         ids=["tq1_g4", "tq2_g43"])
+def test_fast_coded_kernel_on_ternary_groups_not_of_eight(dev, shape, mode, B):
+    """K6 on ternary planes with G = 4 and G = 43, every mode (the residual
+    and act modes at decode rows): the wrapper pads the groups to 8."""
+    n, k, qtype = shape
+    qt = _qt(dev, n, k, qtype, "il")
+    assert qt.fl == "il" and qt.fs.shape[1] % 8
+    x = _x(dev, B, 2 * k if mode == "act" else k, seed=B + 11)
+    x = (x * (2 if mode == "act" else 1)).to(torch.bfloat16)
+    kw = {}
+    if mode == "normed":
+        kw = dict(wn=torch.rand(k, device=dev) + 0.5, eps=1e-5)
+    elif mode == "pre_il":
+        kw = dict(pre_il=True)
+    elif mode == "act":
+        kw = dict(act="silu")
+    if mode == "res":
+        kw["res"] = _x(dev, B, n, seed=12)
+    key = "fast_coded" + {"normed": "_normed", "act": "_act",
+                          "res": "_res"}.get(mode, "")
+    before = kernels.LAUNCHES[key]
+    got = PF.fast_coded(x, qt, **kw)
+    want = PF.fast_coded_plain(x, qt, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[key] == before + 1
+    assert got.shape == (B, qt.fq.shape[0]) and torch.isfinite(got).all()
     assert _nmse(got, want) <= NMSE_MAX
+
+
+@pytest.mark.parametrize("ids", [[2, 0], list(range(4)) * 4], ids=["P2", "P16"])
+@pytest.mark.parametrize("shape", [(1024, GGMLType.TQ1_0),
+                                   (11008, GGMLType.TQ2_0)],
+                         ids=["tq1_g4", "tq2_g43"])
+def test_fast_indirect_kernel_on_ternary_groups_not_of_eight(dev, shape, ids):
+    """K8 on stacked ternary planes with G = 4 and G = 43 (4 experts of
+    512 rows)."""
+    k, qtype = shape
+    npe = 512
+    qt = _qt(dev, 4 * npe, k, qtype, "il")
+    assert qt.fs.shape[1] % 8
+    x = _x(dev, len(ids), k, seed=13).to(torch.bfloat16)
+    idt = torch.tensor(ids, dtype=torch.int32, device=dev)
+    before = kernels.LAUNCHES["fast_indirect_coded"]
+    got = PF.fast_indirect(x, qt, idt, npe)
+    want = PF.fast_indirect_plain(x, qt, idt, npe)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fast_indirect_coded"] == before + 1
+    assert torch.isfinite(got).all() and _nmse(got, want) <= NMSE_MAX
 
 
 def _causal_mask(dev, T, S, dead):
@@ -1384,8 +1566,14 @@ def test_fast_indirect_on_experts_of_a_ragged_tile(dev, stack, k, npe, ids):
 
 def test_fast_il_gemv_refuses_planes_it_cannot_stage(dev):
     """Groups that do not come in multiples of 8 (ternary at K = 1024:
-    G = 4) raise on the card rather than fall back."""
+    G = 4) are no geometry the kernel stages (il_geo raises); the wrapper
+    pads them to 8 groups and launches the kernel, never the plain twin."""
     qt = _qt(dev, 1024, 1024, GGMLType.TQ2_0, "il")
-    x = _x(dev, 1, 1024).to(torch.bfloat16)
     with pytest.raises(ValueError):
-        PF.fast_coded(x, qt)
+        kernels.il_geo(qt.k, qt.fs.shape[1], True)
+    x = _x(dev, 1, 1024).to(torch.bfloat16)
+    before = kernels.LAUNCHES["fast_coded"]
+    got = PF.fast_coded(x, qt)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fast_coded"] == before + 1
+    assert _nmse(got, PF.fast_coded_plain(x, qt)) <= NMSE_MAX

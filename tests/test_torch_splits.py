@@ -404,17 +404,74 @@ def test_il_gemv_wide_shapes_keep_k_whole(name):
     assert plan.ks == 1 and plan.per_sm == 2
 
 
-@pytest.mark.parametrize("K,G,packed", [(1024, 4, True), (11008, 43, True),
-                                        (3072, 12, False), (2048, 256, True)])
+@pytest.mark.parametrize("K,G,packed", [(3072, 12, False), (2048, 256, True)])
 def test_il_gemv_refuses_shapes_it_cannot_stage(K, G, packed):
-    """No plan where G is not a multiple of 8 (ternary at K = 1024 or
-    11008) or a packed row's periods do not pair up in 8s: the wrapper
-    raises instead of falling back."""
+    """No plan where G is not a multiple of 8 and the wrapper does not pad
+    (byte planes of 12 groups) or a packed row's periods do not pair up in
+    8s: the wrapper raises instead of falling back."""
     with pytest.raises(ValueError):
         kernels.il_geo(K, G, packed)
     with pytest.raises(ValueError):
         kernels.pick_il_gemv(K, G, packed, False, False, 1, 16, 1, 0,
                              H100_SMS)
+
+
+@pytest.mark.parametrize("K,G,want", [(1024, 4, (2048, 8)),
+                                      (11008, 43, (12288, 48))])
+def test_il_gemv_pads_ternary_groups_to_eights(K, G, want):
+    """Ternary at K = 1024 (G = 4) and K = 11008 (G = 43), groups of 256 on
+    packed planes: the wrapper pads each period's groups to G' =
+    8*ceil(G/8), whose geometry stages and plans at every row count and
+    mode, as the GEMM's K % 64 and G' % 8 hold."""
+    Kp, Gp = kernels.il_pad(K, G)
+    assert (Kp, Gp) == want and Kp // Gp == K // G == 256
+    with pytest.raises(ValueError):
+        kernels.il_geo(K, G, True)
+    geo = kernels.il_geo(Kp, Gp, True)
+    assert geo.nper * Gp * 2 == Kp and geo.GW % 16 == 0
+    assert Kp % 64 == 0 and Gp % 8 == 0
+    for nb in (1, 8):
+        for mode in range(4):
+            plan = kernels.pick_il_gemv(Kp, Gp, True, False, False, nb, 64,
+                                        1, mode, H100_SMS)
+            assert plan.smem <= kernels.SMEM_BLOCK
+    plan = kernels.pick_il_gemv(Kp, Gp, True, False, False, 1, 64, 16, 0,
+                                H100_SMS)
+    assert plan.smem <= kernels.SMEM_BLOCK
+
+
+@pytest.mark.parametrize("qtype", [_T.TQ1_0, _T.TQ2_0], ids=lambda t: t.name)
+@pytest.mark.parametrize("K", [1024, 11008])
+def test_padded_ternary_planes_give_the_same_products(qtype, K):
+    """The padded planes (zero codes' groups at zero scale) and the padded
+    activations give K6's plain, pre-interleaved and act products and K8's
+    gathered rows of the unpadded planes: the plain twins on both agree up
+    to the f32 sums' order (every added product is an exact zero), and the
+    padding is made once a tensor."""
+    from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
+
+    g = torch.Generator()
+    g.manual_seed(K + int(qtype))
+    qt = random_qtensor(g, 128, K, qtype, "cpu").with_fast_planes("il")
+    G = qt.fs.shape[1]
+    assert qt.fl == "il" and G % 8
+    pq = kernels.padded_il_planes(qt)
+    assert kernels.padded_il_planes(qt) is pq
+    assert (pq.k, pq.fs.shape[1]) == kernels.il_pad(K, G)
+    assert pq.fq.shape == (qt.fq.shape[0], pq.k // 2)
+    xs = torch.randn(3, 2 * K, generator=g).to(torch.bfloat16)
+    for mode, x in ((0, xs[:, :K]), (3, xs[:, :K]), (2, xs)):
+        kw = dict(act="silu") if mode == 2 else dict(pre_il=mode == 3)
+        want = PF.fast_coded_plain(x, qt, **kw)
+        _, xp, _, _ = kernels._pad_call(qt, x, None, None, mode)
+        assert xp.shape[1] == (2 if mode == 2 else 1) * pq.k
+        torch.testing.assert_close(PF.fast_coded_plain(xp, pq, **kw), want,
+                                   rtol=1e-5, atol=1e-6)
+    ids = torch.tensor([1, 0], dtype=torch.int32)
+    want = PF.fast_indirect_plain(xs[:2, :K], qt, ids, 64)
+    _, xp, _, _ = kernels._pad_call(qt, xs[:2, :K], None, None, 0)
+    torch.testing.assert_close(PF.fast_indirect_plain(xp, pq, ids, 64), want,
+                               rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("sm_count", [H100_SMS, 114], ids=["sxm", "pcie"])
