@@ -58,7 +58,11 @@
    main path's shapes (Q4_K and Q6_K down, B = 1 and 3) and at one
    full-width shape of each other down branch (Q5_K, Q4_0, IQ3_XXS), timed
    beside the three K6 launches of the split path on the same layer;
-13. the conformance entry points (the seventh slice's path; no model):
+13. the conformance entry points (the seventh slice's path; no model; run
+   first, right after the build: late in a process that has run the
+   cells' long profiles the tracer was seen to record none of the K12
+   kernels of its short window, which a fresh process records, and short
+   launches there time slow):
    qmatmul(backend="pallas") (K10, the wire-plane dequant x matmul) on the
    Llama-3-8B shapes (Q4_K wq and gate, Q6_K down and head; B = 1, 8, 512)
    and on all 21 wire types at 4096 x 4096 (B = 1, 8; the wq in f32
@@ -98,10 +102,14 @@ its requests' TTFT and decode rate and its profiled prefill and decode
 step (host and device ms, the device's idle share).
 
 K6 at B <= 8 and K8 are one launch a call (csrc/fast_il.cu il_gemv_kernel,
-the eleventh slice): every configuration's profiled decode steps hold them
-to one il_gemv_kernel a K6/K8 call of the step's table, K7's pre-pass
-kernels appearing only where the step runs K7; the 8B IQ4_XS and Q4_K_M il
-configurations also sum their 8-token bucket's K6 mix at B = 8.
+the eleventh slice), and so is K7 (csrc/fast_dual.cu il_dual_kernel, the
+same body over two plane sets): every configuration's profiled decode
+steps hold them to exactly one il_gemv_kernel a K6/K8 call and one
+il_dual_kernel a K7 call of the step's table, with no pre-pass kernel; the
+8B IQ4_XS and Q4_K_M il configurations also sum their 8-token bucket's K6
+mix at B = 8.  K12 is one launch a call too (a cluster a row and KV head,
+merged through distributed shared memory): the conformance phase profiles
+its cases once more and holds them to exactly one K12 kernel each.
 
 Any failure raises: the script exits non-zero and prints no result.  The
 last line is {"ok": true, "device": {...}}; the line before it lists the
@@ -123,8 +131,7 @@ import torch
 HBM_BPS = 3.35e12
 BF16_OPS = 989e12
 INT8_OPS = 1979e12
-F32_OPS = 67e12      # float32 outside the tensor cores (K7, K9, K10's f32
-                     # GEMV)
+F32_OPS = 67e12      # float32 outside the tensor cores (K9, K10's f32 GEMV)
 TF32_OPS = 495e12    # TF32 tensor cores (K11: three products a multiply-add
                      # for f32 inputs, two for bf16; K10's f32 GEMM three)
 NMSE_LOGITS = 5e-4   # logits, kernels vs plain versions, end to end
@@ -142,6 +149,7 @@ FLIP_MARGIN = 1e-3   # a routing flip between kernel and plain runs must be
 SRC_GEMV = "ggml_hexagon_tpu_torch/csrc/qp8_gemv.cu"
 SRC_GEMM = "ggml_hexagon_tpu_torch/csrc/qp8_gemm.cu"
 SRC_IL = "ggml_hexagon_tpu_torch/csrc/fast_il.cu"
+SRC_DUAL = "ggml_hexagon_tpu_torch/csrc/fast_dual.cu"
 SRC_IL_GEMM = "ggml_hexagon_tpu_torch/csrc/fast_il_gemm.cu"
 K6_BYTE = "ggml_hexagon_tpu/ops/qmm_fast.py:510"
 K6_NIBBLE = "ggml_hexagon_tpu/ops/qmm_fast.py:497"
@@ -689,54 +697,54 @@ def _device_ms(avgs, n):
     return sum(r[0] for r in rows), rows[:8]
 
 
-#: K7's pre-pass kernels (csrc/fast_il.cu): for each part the interleave
-#: or the norm, then the group sums where the kernel takes its own; K6 at B
-#: <= 8 and K8 launch one il_gemv_kernel a call and none of them
+#: the pre-pass kernels K7 launched before its one-launch redesign (the
+#: interleave or the norm, and the group sums): none may appear
 IL_PREPASS = ("interleave_kernel", "normed_kernel", "group_sums_kernel")
 
 
-def k7_prepass(weights, table):
-    """K7's pre-pass launches a decode step: one a part (the norm), and one
-    more for a part whose bias sums the kernel takes itself (xg_mode 2),
-    over the layers whose QKV is an interleaved pair on K7 (as
-    models/llama.py dispatches it; their count must be the table's)."""
-    from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
-
-    k7 = table["step"].get("fast_dual", 0) + table["step"].get("fast_dual_coded", 0)
-    pairs = [(lw["wqk"], lw["wv"]) for lw in weights["layers"]
-             if "wqk" in lw and "wq" not in lw and "wqkv" not in lw
-             and lw["wqk"].fl == "il" and lw["wv"].fl == "il"
-             and PF.supports_dual(lw["wqk"], lw["wv"])]
-    if len(pairs) != k7:
-        raise AssertionError(f"{len(pairs)} interleaved QKV pairs, {k7} K7 "
-                             f"launches a step")
-    return sum(2 + (PF._xg_mode(a) == 2) + (PF._xg_mode(b) == 2)
-               for a, b in pairs)
-
-
-def il_kernel_counts(avgs, table, n, prepass):
-    """In a profiler window of n decode steps (its key_averages, after a
-    warm-up step traced and dropped): the il_gemv_kernel and K7 pre-pass
-    records, and whether they are exactly one il_gemv_kernel a K6 (B <= 8)
-    or K8 call of the step's table and K7's pre-pass kernels (prepass a
-    step, k7_prepass).  More raises at once: a launch the path should not
-    make shows in every window.  Fewer is a window whose tracer lost
-    records (CUPTI drops a few of a long window now and then), to be
-    traced again."""
-    il = sum(v for k, v in table["step"].items()
-             if k.startswith("fast_") and not k.startswith("fast_dual"))
-    seen = dict.fromkeys(("il_gemv_kernel",) + IL_PREPASS, 0)
-    for e in avgs:
-        if getattr(e, "device_type", None) is not None and "CUDA" not in str(e.device_type):
+def window_kernels(events, names, n):
+    """Device records of the kernels `names` (substrings of their names)
+    in the last n ProfilerStep ranges of a profiler window (its events()):
+    a kernel counts where it starts inside one of those steps, each of
+    which waits for its kernels (the logits come back to the host), so a
+    record of the warm-up step traced before them is left out."""
+    steps = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name.startswith("ProfilerStep") and "CPU" in str(e.device_type))[-n:]
+    if len(steps) != n:
+        raise AssertionError(f"the profiler window holds {len(steps)} steps, not {n}")
+    seen = dict.fromkeys(names, 0)
+    for e in events:
+        if "CUDA" not in str(getattr(e, "device_type", "")):
             continue
-        for name in seen:
-            if name in e.key:
-                seen[name] += e.count
+        t = e.time_range.start
+        if not any(lo <= t <= hi for lo, hi in steps):
+            continue
+        for name in names:
+            if name in e.name:
+                seen[name] += 1
+    return seen
+
+
+def il_kernel_counts(events, table, n):
+    """In a profiler window of n decode steps (its events(), after a
+    warm-up step traced and dropped): the il_gemv_kernel and il_dual_kernel
+    records inside the steps (window_kernels), and whether they are exactly
+    one a K6 (B <= 8) or K8 call and one a K7 call of the step's table
+    (`fast_*`, `fast_dual*` keys), with no pre-pass kernel.  More raises at
+    once: a launch the path should not make shows in every window.  Fewer
+    is a window whose tracer lost records (CUPTI drops a few of a long
+    window now and then), to be traced again."""
+    step = table["step"]
+    k7 = sum(v for k, v in step.items() if k.startswith("fast_dual"))
+    il = sum(v for k, v in step.items() if k.startswith("fast_")) - k7
+    seen = window_kernels(events, ("il_gemv_kernel", "il_dual_kernel") + IL_PREPASS, n)
     pre = sum(seen[k] for k in IL_PREPASS)
-    want = f"want {il * n} il_gemv_kernel and {prepass * n} K7 pre-pass kernels"
-    if seen["il_gemv_kernel"] > il * n or pre > prepass * n:
+    want = (f"want {il * n} il_gemv_kernel, {k7 * n} il_dual_kernel and no "
+            "pre-pass kernel")
+    if seen["il_gemv_kernel"] > il * n or seen["il_dual_kernel"] > k7 * n or pre:
         raise AssertionError(f"{n} decode steps: kernels {seen}, {want}")
-    return seen, (seen["il_gemv_kernel"] == il * n and pre == prepass * n), want
+    return seen, (seen["il_gemv_kernel"] == il * n
+                  and seen["il_dual_kernel"] == k7 * n), want
 
 
 def profile_path(dev, cfg, weights, table, name):
@@ -772,12 +780,13 @@ def profile_path(dev, cfg, weights, table, name):
         # each window traces one more step first and drops it (the tracer
         # can lose a window's first records); the counts must be exact in
         # one of three windows
-        n, prepass = 5, k7_prepass(weights, table)
+        n = 5
         for attempt in range(3):
             got = []
             torch.cuda.synchronize()
             with profile(activities=acts, schedule=schedule(wait=0, warmup=1, active=n),
-                         on_trace_ready=lambda p: got.append(p.key_averages())) as prof:
+                         on_trace_ready=lambda p: got.append((p.key_averages(),
+                                                           p.events()))) as prof:
                 tok = int(np.argmax(eng.decode_one(np.array([tok]))[0]))
                 torch.cuda.synchronize()
                 prof.step()
@@ -789,10 +798,10 @@ def profile_path(dev, cfg, weights, table, name):
                     prof.step()
             if len(got) != 1:
                 raise AssertionError(f"the decode profile gave {len(got)} windows")
-            dev_ms, top = _device_ms(got[0], n)
+            dev_ms, top = _device_ms(got[0][0], n)
             if dev_ms is None:
                 break
-            seen, exact, want = il_kernel_counts(got[0], table, n, prepass)
+            seen, exact, want = il_kernel_counts(got[0][1], table, n)
             if exact:
                 break
             log(f"  kv={kv} decode window {attempt + 1}: tracer lost records "
@@ -803,7 +812,8 @@ def profile_path(dev, cfg, weights, table, name):
         if dev_ms is not None:
             log(f"  kv={kv} decode, per step: {seen['il_gemv_kernel'] // n} "
                 f"il_gemv_kernel (one a K6/K8 call), "
-                f"{sum(seen[k] for k in IL_PREPASS) // n} K7 pre-pass kernels")
+                f"{seen['il_dual_kernel'] // n} il_dual_kernel (one a K7 "
+                "call), no pre-pass kernel")
         idle = "not measured" if dev_ms is None else f"{1 - dev_ms / host:.1%}"
         SUMMARY.setdefault(name, {})[f"{kv} profile"] = (
             f"{pre_txt}; decode step host/device {host:.3f}/"
@@ -1200,7 +1210,7 @@ def dual_row(dev, gen, cfg, rep, qa, qb, B, count):
                   eps=cfg.rms_eps)
         kw["xg_a"] = PF.group_sums(qa, x, "normed", kw["wn_a"])
         kw["xg_b"] = PF.group_sums(qb, x, "normed", kw["wn_b"])
-        kern, plain, peak, what = PF.fast_dual, PF.fast_dual_plain, F32_OPS, "K7"
+        kern, plain, peak, what = PF.fast_dual, PF.fast_dual_plain, BF16_OPS, "K7"
     got = kern(x, qa, qb, **kw)
     err, e2 = held(f"{what} B={B}", got, plain(x, qa, qb, **kw))
     ms = time_ms(lambda: kern(x, qa, qb, **kw))
@@ -1359,7 +1369,7 @@ def check_kernels_coded(dev, weights, cfg):
 
     if not E:
         unit = "one 8B IQ3_XXS il decode step (B=1)"
-        KD = report("fast_dual_coded", SRC_IL, K7_DUAL,
+        KD = report("fast_dual_coded", SRC_DUAL, K7_DUAL,
                     f"{unit}: {n_l} launches (coded wqk + Q4_K nibble wv)")
         KN = report("fast_coded_normed", SRC_IL, K6_NIBBLE, f"{unit}: {n_l} launches")
         KR = report("fast_coded_res", SRC_IL, K6_NIBBLE, f"{unit}: {n_l} launches")
@@ -1549,7 +1559,8 @@ def check_kernels_nibble(dev, weights, cfg):
         BA = report("fast_byte_act", K6_BYTE,
                     f"{unit}: {n6} launches (Q6_K, derived bias)")
         BP = report("fast_byte", K6_BYTE, f"{unit}: 1 launch (Q6_K head, derived bias)")
-        KD = report("fast_dual", K7_DUAL, f"{unit}: {n_mixed} launches")
+        KD = KernelReport("fast_dual", "cuda", SRC_DUAL, K7_DUAL,
+                          f"{unit}: {n_mixed} launches")
         log(f"K6 on the 8B Q4_K_M il shapes (kernel vs plain, NMSE <= {NMSE_KERNEL})")
         for B in (1, 8):
             row(KN if B == 1 else None, "wqkv", full["wqkv"], "normed", B, n_full, n_full)
@@ -1753,6 +1764,7 @@ def conformance_cases(dev, gen):
     (kernel, label, report unit or None, entry, plain, bound (bytes, ops,
     peak), yardstick or None, NMSE limit (K10) or None, TF32 controls (K10
     in f32) or None)."""
+    from ggml_hexagon_tpu_torch.kernel_ab import k12_sdpa
     from ggml_hexagon_tpu_torch.models.synth import random_qtensor
     from ggml_hexagon_tpu_torch.ops import attention as PA
     from ggml_hexagon_tpu_torch.ops import qmatmul as PQ
@@ -1851,20 +1863,49 @@ def conformance_cases(dev, gen):
             ops = 4 * sum(live) * Hkv * G * D
             lib = None
             if Bq == 1:
-                p0 = pos[0]
-                lo = max(0, p0 - swa + 1) if swa else 0
-                q4 = qg.reshape(1, Hkv * G, 1, D).to(torch.bfloat16)
-                k4 = kc[:, lo:p0 + 1].transpose(1, 2)
-                v4 = vc[:, lo:p0 + 1].transpose(1, 2)
-                lib = partial(time_ms, lambda q4=q4, k4=k4, v4=v4:
-                              torch.nn.functional.scaled_dot_product_attention(
-                                  q4, k4, v4, scale=D ** -0.5,
-                                  enable_gqa=True))
+                # the yardstick kernel_ab times too: SDPA on bf16 q and the
+                # live slice
+                lib = partial(time_ms, k12_sdpa(qg, kc, vc, pos[0], swa,
+                                                D ** -0.5))
             cases.append(("K12", f"B={Bq} pos={pos} swa={swa} cap={cap}",
                           "step" if Bq == 1 and not swa and not cap else None,
                           entry, plain, (byts, ops, BF16_OPS), lib, None,
                           None))
     return cases
+
+
+def k12_kernel_counts(entries):
+    """The K12 kernels (csrc/attention.cu decode_gqa*) the profiler sees
+    over one call of each entry: exactly one a call.  As in profile_path,
+    each window traces a warm-up round of the calls first and counts only
+    kernels inside the window's own step (window_kernels): a fresh
+    tracer can miss the first records of a window, all of them in a round
+    this short.  More raises at once (a merge kernel, or any second
+    launch); fewer is a window whose tracer lost records, traced again,
+    up to three windows."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(3):
+        got = []
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: got.append(p.events())) as prof:
+            for _round in range(2):
+                for entry in entries:
+                    entry()
+                torch.cuda.synchronize()
+                prof.step()
+        if len(got) != 1:
+            raise AssertionError(f"the K12 profile gave {len(got)} windows")
+        seen = window_kernels(got[0], ("decode_gqa",), 1)["decode_gqa"]
+        if seen > len(entries):
+            raise AssertionError(f"{seen} K12 kernels for {len(entries)} "
+                                 "calls: one a call wanted")
+        if seen == len(entries):
+            return seen
+    raise AssertionError(f"{seen} K12 kernels for {len(entries)} calls, "
+                         "three windows")
 
 
 def run_conformance(dev):
@@ -1898,6 +1939,9 @@ def run_conformance(dev):
         raise AssertionError(f"conformance launches {counts} != {want}")
     log(f"main-path launches ({name}): "
         f"{ {k: v for k, v in counts.items() if v} }")
+    k12 = [entry for kern, _, _, entry, *_ in cases if kern == "K12"]
+    log(f"  K12: {k12_kernel_counts(k12)} decode_gqa kernels in the profiler "
+        f"for {len(k12)} calls (one a call, no merge kernel)")
     eight = "the 8B's Q4_K wq and gate, Q6_K down and head"
     prefill = "one 512-token prefill attention (B=1, H=32, T=512, S=1024, D=128)"
     reps = {
@@ -2064,7 +2108,9 @@ def main():
     log(f"kernel build: {compiling:.1f} s compiling, "
         f"{time.perf_counter() - t0:.1f} s to loaded")
 
-    reports, runs = [], []
+    # the conformance phase first (see the module's docstring, 13.)
+    reports, counts = run_conformance(dev)
+    runs = [counts]
     for name, builder, check in (
             ("Llama-3-8B Q4_K_M", build_8b, check_kernels),
             ("Mixtral-8x7B Q5_K_M", build_mixtral, check_kernels_moe),
@@ -2086,9 +2132,6 @@ def main():
         reps, counts = run_phase(name, builder, check, dev)
         reports += reps
         runs.append(counts)
-    reps, counts = run_conformance(dev)
-    reports += reps
-    runs.append(counts)
 
     reports += list(GEMM_REPORTS.values())
     for r in reports:

@@ -34,19 +34,34 @@
 // idx <= pos, and pos - idx < swa), at ~2 flops a byte per query head.
 //
 // Design: the TPU cell takes one batch row and unrolls the KV heads; here
-// the live slots of each (row, KV head) are split over enough blocks to
-// cover the card (flash-decoding), each block's 8 warps walk their slots
-// with a per-warp online softmax (a lane holds 4 of the 128 head dims, one
-// coalesced row read a slot, a warp reduction per query head), merge in
-// shared memory and write a partial (max, denominator, accumulator) per
-// query head; a second small kernel merges the partials.  The G query
-// heads of a group share each K and V row read.  Masked slots are skipped,
-// which equals the TPU's softmax over every slot (exp(-1e30 - max) is 0),
-// unless no slot is live: then every slot takes the -1e30 score and the
-// result is the mean of v, as on the TPU.
+// one launch gives each (row, KV head) a thread-block cluster of nsplit
+// blocks (kernels.pick_gqa_splits: one wave of clusters on the card, at
+// most 8, from the shapes alone), and each block an equal share of the
+// row's live slots, found on the card from pos (the position never reaches
+// the host).  A block stages its share's k rows, then its v rows, in
+// chunks of 128 slots through a ring of cp.async stages (all of a short
+// share in flight at once: one DRAM round trip, not one a slot); it scores
+// every staged slot (f32 q * scale against the f32 of the cache, four
+// lanes a slot, each a quarter of the dims of every query head, summed by
+// two shuffles), takes the max once a head, then p = exp(s - max), its sum,
+// and p.v in one pass (a thread two head dims of every head over a quarter
+// of the rows, the quarters summed at the end); a share above 512 slots
+// runs in passes of 512, each rescaling the running sums once.  The block writes its record
+// (max, denominator, accumulator a query head) into rank 0's shared memory
+// through distributed shared memory; after one cluster barrier rank 0
+// merges the records in rank order and writes the output, and the other
+// blocks are done: no partials in device memory, no second launch, no
+// counter.  The G query heads of a
+// group share each staged row.  Masked slots are skipped, which equals the
+// TPU's softmax over every slot (exp(-1e30 - max) is 0), unless no slot is
+// live: then every slot takes the -1e30 score and the result is the mean of
+// v, as on the TPU.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -389,12 +404,43 @@ int flash_launch_d(int D, const void* q, const void* k, const void* v, const flo
 // ---------------------------------------------------------------- K12
 
 constexpr int DA_D = 128;
-constexpr int DA_NW = 8;      // warps a block
-constexpr int DA_MAXG = 8;    // query heads a KV head
-constexpr int DA_PW = DA_D + 2;  // partial record: max, denominator, acc[D]
+constexpr int DA_NT = 256;     // threads a block (8 warps)
+constexpr int DA_MAXG = 8;     // query heads a KV head
+constexpr int DA_MAXC = 8;     // blocks a cluster (the portable limit): a
+                               // (row, KV head)'s slot splits
+constexpr int DA_CH = 128;     // cache slots a ring stage
+constexpr int DA_SC = 512;     // slots a score pass
+
+// A split's record: acc [MAXG][D], then its max m and denominator l a
+// query head.
+constexpr int DA_RECW = DA_MAXG * DA_D + 2 * DA_MAXG;
+
+// The block's shared memory: q * scale [MAXG][D]; a pass's scores, then
+// its p, [SC][MAXG] (a slot's heads together; after the last pass, the
+// four row quarters' p.v partials [4][MAXG][D]); the running max m,
+// denominator l and the pass's rescale alpha [MAXG] each; the cluster's
+// records [MAXC][RECW] (rank 0's are the ones written, by every rank); then
+// a ring of NS stages, each DA_CH cache rows (k or v) at a pitch of the row
+// plus 64 bytes (bf16) or 16 (f32), which puts the 16-byte loads of a
+// score step (two rows, four lanes each, a row's 64 or 128 contiguous
+// bytes) on distinct banks.
+template <bool BF16>
+struct DaTile {
+  static constexpr int ES = BF16 ? 2 : 4;
+  static constexpr int UPR = DA_D * ES / 16;  // 16-byte units a row
+  static constexpr int PITCH = DA_D * ES + (BF16 ? 64 : 16);
+  static constexpr int STAGE = DA_CH * PITCH;
+  static constexpr int NS = BF16 ? 3 : 2;
+  static constexpr int Q = DA_MAXG * DA_D * 4;
+  static constexpr int SC = DA_MAXG * DA_SC * 4;
+  static constexpr int RUN = 4 * DA_MAXG * 4;
+  static constexpr int RECS = DA_MAXC * DA_RECW * 4;
+  static constexpr int RING = Q + SC + RUN + RECS;
+  static constexpr int SMEM = RING + NS * STAGE;  // 176768 (bf16), 189056 (f32)
+};
 
 // The live slot range [lo, hi] of a row at pos; dead (no slot live): every
-// slot, each with the score NEG_INF.
+// slot, each with the score NEG_INF.  tests/test_torch_dual_k12.py mirrors it.
 __device__ __forceinline__ void live_range(int p, int S, int swa, int& lo,
                                            int& hi, bool& dead) {
   hi = min(p, S - 1);
@@ -406,119 +452,309 @@ __device__ __forceinline__ void live_range(int p, int S, int swa, int& lo,
   }
 }
 
+// Eight consecutive values of a staged row, as f32.
 template <bool BF16>
-__global__ void __launch_bounds__(DA_NW * 32) decode_gqa_kernel(
-    const float* __restrict__ qg, const void* __restrict__ kc,
-    const void* __restrict__ vc, const int* __restrict__ pos, int Hkv, int G,
-    int S, int nsplit, float scale, int swa, float logit_cap,
-    float* __restrict__ part) {
-  const int b = blockIdx.x, h = blockIdx.y, sp = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  __shared__ float qs[DA_MAXG][DA_D];
-  __shared__ float wm[DA_NW][DA_MAXG], wl[DA_NW][DA_MAXG];
-  __shared__ float wacc[DA_NW][DA_MAXG][DA_D];
-
-  for (int e = tid; e < G * DA_D; e += DA_NW * 32)
-    qs[e / DA_D][e % DA_D] =
-        __fmul_rn(qg[((size_t)b * Hkv + h) * G * DA_D + e], scale);
-  __syncthreads();
-
-  int lo, hi;
-  bool dead;
-  live_range(pos[b], S, swa, lo, hi, dead);
-  const int len = (hi - lo + nsplit) / nsplit;   // slots a split
-  const int a0 = lo + sp * len, a1 = min(hi + 1, a0 + len);
-
-  float m[DA_MAXG], l[DA_MAXG], acc[DA_MAXG][4];
+__device__ __forceinline__ void lds_row8(const unsigned char* p, float (&v)[8]) {
+  if constexpr (BF16) {
+    const uint4 w = *reinterpret_cast<const uint4*>(p);
+    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-  for (int g = 0; g < DA_MAXG; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[g][e] = 0.f;
-  }
-  const size_t HD = (size_t)Hkv * DA_D;
-  for (int t = a0 + warp; t < a1; t += DA_NW) {
-    const size_t off = ((size_t)b * S + t) * HD + (size_t)h * DA_D + lane * 4;
-    float kv4[4], vv4[4];
-    if constexpr (BF16) {
-      const uint2 kw = __ldg(reinterpret_cast<const uint2*>((const uint16_t*)kc + off));
-      const uint2 vw = __ldg(reinterpret_cast<const uint2*>((const uint16_t*)vc + off));
-      kv4[0] = bf2f(kw.x & 0xffff); kv4[1] = bf2f(kw.x >> 16);
-      kv4[2] = bf2f(kw.y & 0xffff); kv4[3] = bf2f(kw.y >> 16);
-      vv4[0] = bf2f(vw.x & 0xffff); vv4[1] = bf2f(vw.x >> 16);
-      vv4[2] = bf2f(vw.y & 0xffff); vv4[3] = bf2f(vw.y >> 16);
-    } else {
-      const float4 kw = __ldg(reinterpret_cast<const float4*>((const float*)kc + off));
-      const float4 vw = __ldg(reinterpret_cast<const float4*>((const float*)vc + off));
-      kv4[0] = kw.x; kv4[1] = kw.y; kv4[2] = kw.z; kv4[3] = kw.w;
-      vv4[0] = vw.x; vv4[1] = vw.y; vv4[2] = vw.z; vv4[3] = vw.w;
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = bf2f(u[i] & 0xffffu);
+      v[2 * i + 1] = bf2f(u[i] >> 16);
     }
-#pragma unroll
-    for (int g = 0; g < DA_MAXG; ++g) {
-      if (g >= G) break;
-      float part_ = 0.f;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part_ += qs[g][lane * 4 + e] * kv4[e];
-      float s = warp_sum(part_);
-      if (logit_cap != 0.f) s = tanhf(s / logit_cap) * logit_cap;
-      if (dead) s = NEG_INF;
-      const float m_new = fmaxf(m[g], s);
-      const float alpha = expf(m[g] - m_new);
-      const float pr = expf(s - m_new);
-      l[g] = l[g] * alpha + pr;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[g][e] = acc[g][e] * alpha + pr * vv4[e];
-      m[g] = m_new;
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < DA_MAXG; ++g) {
-    if (g >= G) break;
-    if (lane == 0) {
-      wm[warp][g] = m[g];
-      wl[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) wacc[warp][g][lane * 4 + e] = acc[g][e];
-  }
-  __syncthreads();
-
-  // the block's partial per query head: (max, denominator, acc[D])
-  float* rec = part + (((size_t)b * Hkv + h) * nsplit + sp) * G * DA_PW;
-  for (int e = tid; e < G * DA_D; e += DA_NW * 32) {
-    const int g = e / DA_D, d = e % DA_D;
-    float M = NEG_INF;
-    for (int w = 0; w < DA_NW; ++w) M = fmaxf(M, wm[w][g]);
-    float L = 0.f, A = 0.f;
-    for (int w = 0; w < DA_NW; ++w) {
-      const float f = expf(wm[w][g] - M);
-      L += wl[w][g] * f;
-      A += wacc[w][g][d] * f;
-    }
-    rec[g * DA_PW + 2 + d] = A;
-    if (d == 0) {
-      rec[g * DA_PW] = M;
-      rec[g * DA_PW + 1] = L;
-    }
+  } else {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    const float4 b = *reinterpret_cast<const float4*>(p + 16);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
   }
 }
 
-__global__ void __launch_bounds__(DA_D) decode_gqa_merge(
-    const float* __restrict__ part, int Hkv, int G, int nsplit,
-    float* __restrict__ out) {
-  const int bh = blockIdx.x, g = blockIdx.y, d = threadIdx.x;
-  const float* rec = part + (size_t)bh * nsplit * G * DA_PW + g * DA_PW;
-  float M = NEG_INF;
-  for (int sp = 0; sp < nsplit; ++sp) M = fmaxf(M, rec[(size_t)sp * G * DA_PW]);
-  float L = 0.f, A = 0.f;
-  for (int sp = 0; sp < nsplit; ++sp) {
-    const float* r = rec + (size_t)sp * G * DA_PW;
-    const float f = expf(r[0] - M);
-    L += r[1] * f;
-    A += r[2 + d] * f;
+// Where chunk c of a split of n slots lies: per score pass of up to DA_SC
+// slots, its k chunks, then its v chunks, DA_CH slots each (the last one
+// ragged).  pass0: the pass's first slot (relative); pn: its slots; nk: its
+// k chunks; v: a v chunk; idx: the chunk's index among its kind; rows.
+struct DaChunk {
+  int pass0, pn, nk, v, idx, rows;
+};
+
+__device__ __forceinline__ DaChunk da_chunk(int c, int n) {
+  constexpr int FULL = 2 * DA_SC / DA_CH;
+  DaChunk k;
+  const int pass = c / FULL, r = c - pass * FULL;
+  k.pass0 = pass * DA_SC;
+  k.pn = min(DA_SC, n - k.pass0);
+  k.nk = (k.pn + DA_CH - 1) / DA_CH;
+  k.v = r >= k.nk;
+  k.idx = r - (k.v ? k.nk : 0);
+  k.rows = min(DA_CH, k.pn - k.idx * DA_CH);
+  return k;
+}
+
+// grid (nsplit, Hkv, B), one cluster of nsplit blocks a (row, KV head):
+// block sp takes its share [a0, a1) of the row's live slots, stages them
+// by cp.async, scores them, takes the pass's max once and accumulates
+// p.v, and writes its record into rank 0's; rank 0 merges the cluster's
+// records in rank order and writes the output.
+template <bool BF16>
+__global__ void __launch_bounds__(DA_NT) decode_gqa_kernel(
+    const float* __restrict__ qg, const void* __restrict__ kc,
+    const void* __restrict__ vc, const int* __restrict__ pos, int Hkv, int G,
+    int S, float scale, int swa, float logit_cap, float* __restrict__ out) {
+  using Tl = DaTile<BF16>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  float* sc = reinterpret_cast<float*>(smem + Tl::Q);
+  float* rm = reinterpret_cast<float*>(smem + Tl::Q + Tl::SC);
+  float* rl = rm + DA_MAXG;
+  float* ralpha = rl + DA_MAXG;
+  float* recs = reinterpret_cast<float*>(smem + Tl::Q + Tl::SC + Tl::RUN);
+  const uint32_t ring = smem_addr(smem + Tl::RING);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nsplit = (int)cluster.num_blocks(), sp = (int)cluster.block_rank();
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // scores: four lanes a slot (row tid / 4), each a quarter of the dims
+  // (8 of every 32, lane qd's), every query head; p.v: thread (dims 2*dp,
+  // 2*dp + 1) every head over the rows rq, rq + 4, ...
+  const int qd = tid & 3, dp = tid & 63, rq = tid >> 6;
+  // every block of the cluster has started once this barrier completes
+  // (waited on before the records are written into rank 0's memory)
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  // q first: its loads fly while pos and the cache rows are fetched
+  constexpr int QPT = DA_MAXG * DA_D / DA_NT;  // q values a thread
+  float qv[QPT];
+#pragma unroll
+  for (int i = 0; i < QPT; ++i) {
+    const int e = tid + i * DA_NT;
+    qv[i] = e < G * DA_D ? qg[((size_t)b * Hkv + h) * G * DA_D + e] : 0.f;
   }
-  out[((size_t)bh * G + g) * DA_D + d] = A / fmaxf(L, 1e-30f);
+
+  // the share first, so that its copies are in flight before anything
+  // else waits
+  int lo, hi;
+  bool dead;
+  live_range(__ldg(pos + b), S, swa, lo, hi, dead);
+  const int len = (hi - lo + nsplit) / nsplit;  // slots a split
+  const int a0 = lo + sp * len, n = max(0, min(hi + 1, a0 + len) - a0);
+  const int npass = (n + DA_SC - 1) / DA_SC;
+  const int last = n - (npass - 1) * DA_SC;
+  const int total = npass ? (npass - 1) * (2 * DA_SC / DA_CH) + 2 * ((last + DA_CH - 1) / DA_CH)
+                          : 0;
+
+  // the k or v rows of chunk c into its ring slot
+  auto issue = [&](int c) {
+    const DaChunk k = da_chunk(c, n);
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(k.v ? vc : kc);
+    const uint32_t dst = ring + (c % Tl::NS) * Tl::STAGE;
+    const int s0 = a0 + k.pass0 + k.idx * DA_CH;
+    for (int e = tid; e < k.rows * Tl::UPR; e += DA_NT) {
+      const int r = e / Tl::UPR, u = e - r * Tl::UPR;
+      const size_t off = ((((size_t)b * S + s0 + r) * Hkv + h) * DA_D) * Tl::ES + u * 16;
+      cp_async16(dst + r * Tl::PITCH + u * 16, src + off, 16);
+    }
+  };
+  // the ring: chunk c in group c (NS - 1 groups always ahead, empty past
+  // the last chunk), so every chunk of a short split is in flight at once
+  for (int c = 0; c < Tl::NS - 1; ++c) {
+    if (c < total) issue(c);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+#pragma unroll
+  for (int i = 0; i < QPT; ++i) qs[tid + i * DA_NT] = __fmul_rn(qv[i], scale);
+  if (tid < DA_MAXG) {
+    rm[tid] = NEG_INF;
+    rl[tid] = 0.f;
+  }
+  __syncthreads();  // qs, rm, rl
+
+  float acc[DA_MAXG][2];
+#pragma unroll
+  for (int g = 0; g < DA_MAXG; ++g) acc[g][0] = acc[g][1] = 0.f;
+  for (int c = 0; c < total; ++c) {
+    if (c + Tl::NS - 1 < total) issue(c + Tl::NS - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(Tl::NS - 1) : "memory");
+    __syncthreads();
+    const DaChunk k = da_chunk(c, n);
+    const unsigned char* st = smem + Tl::RING + (c % Tl::NS) * Tl::STAGE;
+    if (!k.v) {
+      // 64 slots at a time, four lanes a slot
+      for (int r0 = 0; r0 < k.rows; r0 += DA_NT / 4) {
+        const int r = r0 + (tid >> 2);
+        float s4[DA_MAXG];
+#pragma unroll
+        for (int g = 0; g < DA_MAXG; ++g) s4[g] = 0.f;
+        if (r < k.rows) {
+          // lane qd's dims 8*(4*j + qd) ... + 8, j = 0..3: a row's four lanes
+          // read 32 (bf16) or 64 (f32) contiguous bytes a step
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int d = 8 * (4 * j + qd);
+            float kv[8];
+            lds_row8<BF16>(st + r * Tl::PITCH + d * Tl::ES, kv);
+#pragma unroll
+            for (int g = 0; g < DA_MAXG; ++g) {
+              if (g < G) {
+                const float4 qa = *reinterpret_cast<const float4*>(qs + g * DA_D + d);
+                const float4 qb = *reinterpret_cast<const float4*>(qs + g * DA_D + d + 4);
+                s4[g] = fmaf(qa.x, kv[0], s4[g]);
+                s4[g] = fmaf(qa.y, kv[1], s4[g]);
+                s4[g] = fmaf(qa.z, kv[2], s4[g]);
+                s4[g] = fmaf(qa.w, kv[3], s4[g]);
+                s4[g] = fmaf(qb.x, kv[4], s4[g]);
+                s4[g] = fmaf(qb.y, kv[5], s4[g]);
+                s4[g] = fmaf(qb.z, kv[6], s4[g]);
+                s4[g] = fmaf(qb.w, kv[7], s4[g]);
+              }
+            }
+          }
+        }
+        // the four lanes' sums (every lane of the warp takes part)
+#pragma unroll
+        for (int g = 0; g < DA_MAXG; ++g) {
+          if (g < G) {
+            float v = s4[g] + __shfl_xor_sync(0xffffffffu, s4[g], 1);
+            v += __shfl_xor_sync(0xffffffffu, v, 2);
+            if (logit_cap != 0.f) v = tanhf(v / logit_cap) * logit_cap;
+            if (r < k.rows && qd == 0) sc[(k.idx * DA_CH + r) * DA_MAXG + g] = dead ? NEG_INF : v;
+          }
+        }
+      }
+      if (k.idx == k.nk - 1) {
+        // the pass is scored: its max once a head, then p and its sum
+        __syncthreads();
+        if (warp < G) {
+          float mx = NEG_INF;
+          for (int t = lane; t < k.pn; t += 32) mx = fmaxf(mx, sc[t * DA_MAXG + warp]);
+          mx = warp_max(mx);
+          const float m_old = rm[warp], m_new = fmaxf(m_old, mx);
+          float sum = 0.f;
+          for (int t = lane; t < k.pn; t += 32) {
+            const float p = expf(sc[t * DA_MAXG + warp] - m_new);
+            sc[t * DA_MAXG + warp] = p;
+            sum += p;
+          }
+          sum = warp_sum(sum);
+          if (lane == 0) {
+            const float alpha = expf(m_old - m_new);
+            ralpha[warp] = alpha;
+            rl[warp] = rl[warp] * alpha + sum;
+            rm[warp] = m_new;
+          }
+        }
+      }
+    } else {
+      if (k.idx == 0) {
+        // the pass's rescale of the running sums
+#pragma unroll
+        for (int g = 0; g < DA_MAXG; ++g) {
+          if (g < G) {
+            acc[g][0] *= ralpha[g];
+            acc[g][1] *= ralpha[g];
+          }
+        }
+      }
+      const float* pc = sc + k.idx * DA_CH * DA_MAXG;
+      const unsigned char* vcol = st + dp * 2 * Tl::ES;
+      for (int r = rq; r < k.rows; r += 4) {
+        float v0, v1;
+        if constexpr (BF16) {
+          const uint32_t w = *reinterpret_cast<const uint32_t*>(vcol + r * Tl::PITCH);
+          v0 = bf2f(w & 0xffffu);
+          v1 = bf2f(w >> 16);
+        } else {
+          const float2 w = *reinterpret_cast<const float2*>(vcol + r * Tl::PITCH);
+          v0 = w.x;
+          v1 = w.y;
+        }
+        const float4 pa = *reinterpret_cast<const float4*>(pc + r * DA_MAXG);
+        const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          acc[g][0] = fmaf(pv[g], v0, acc[g][0]);
+          acc[g][1] = fmaf(pv[g], v1, acc[g][1]);
+        }
+        if (G > 4) {
+          const float4 pb = *reinterpret_cast<const float4*>(pc + r * DA_MAXG + 4);
+          const float pw[4] = {pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            acc[4 + g][0] = fmaf(pw[g], v0, acc[4 + g][0]);
+            acc[4 + g][1] = fmaf(pw[g], v1, acc[4 + g][1]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the slot and the pass's p are read before refilled
+  }
+  // the four row quarters' partials, summed in quarter order
+  float* part = sc;
+#pragma unroll
+  for (int g = 0; g < DA_MAXG; ++g) {
+    if (g < G) {
+      part[(rq * DA_MAXG + g) * DA_D + 2 * dp] = acc[g][0];
+      part[(rq * DA_MAXG + g) * DA_D + 2 * dp + 1] = acc[g][1];
+    }
+  }
+  __syncthreads();
+  // this split's record into rank 0's records, slot sp
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  float* rec = cluster.map_shared_rank(recs, 0) + sp * DA_RECW;
+  for (int e = tid; e < G * DA_D; e += DA_NT)
+    rec[e] = ((part[e] + part[DA_MAXG * DA_D + e]) + part[2 * DA_MAXG * DA_D + e]) +
+             part[3 * DA_MAXG * DA_D + e];
+  if (tid < G) {
+    rec[DA_MAXG * DA_D + tid] = rm[tid];
+    rec[DA_MAXG * DA_D + DA_MAXG + tid] = rl[tid];
+  }
+  cluster.sync();  // every record is in rank 0's memory
+  if (sp != 0) return;
+  for (int e = tid; e < G * DA_D; e += DA_NT) {
+    const int g = e / DA_D;
+    float M = NEG_INF;
+    for (int r = 0; r < nsplit; ++r) M = fmaxf(M, recs[r * DA_RECW + DA_MAXG * DA_D + g]);
+    float L = 0.f, A = 0.f;
+    for (int r = 0; r < nsplit; ++r) {
+      const float* rc = recs + r * DA_RECW;
+      const float f = expf(rc[DA_MAXG * DA_D + g] - M);
+      L += rc[DA_MAXG * DA_D + DA_MAXG + g] * f;
+      A += rc[e] * f;
+    }
+    out[((size_t)b * Hkv + h) * G * DA_D + e] = A / fmaxf(L, 1e-30f);
+  }
+}
+
+template <bool BF16>
+int gqa_launch(const float* qg, const void* kc, const void* vc, const int* pos,
+               int B, int Hkv, int G, int S, int nsplit, float scale, int swa,
+               float logit_cap, float* out, cudaStream_t s) {
+  using Tl = DaTile<BF16>;
+  static bool attr_set = false;
+  auto kern = decode_gqa_kernel<BF16>;
+  if (!attr_set) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nsplit, Hkv, B);
+  cfg.blockDim = dim3(DA_NT);
+  cfg.dynamicSmemBytes = Tl::SMEM;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nsplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, qg, kc, vc, pos, Hkv, G, S, scale, swa,
+                                           logit_cap, out);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -547,28 +783,21 @@ int flash_attn_run(const void* q, const void* k, const void* v,
                                       scale, out, s);
 }
 
-// K12: qg f32 [B,Hkv,G,128]; caches [B,S,Hkv,128] bf16 (bf16 != 0) or f32;
-// pos int32 [B]; part f32 scratch [B,Hkv,nsplit,G,130]; out f32
-// [B,Hkv,G,128].
+// K12, one launch: qg f32 [B,Hkv,G,128]; caches [B,S,Hkv,128] bf16
+// (bf16 != 0) or f32; pos int32 [B] on the card; nsplit blocks a cluster
+// (kernels.pick_gqa_splits, 1-8); out f32 [B,Hkv,G,128].
 int decode_attn_gqa_run(const float* qg, const void* kc, const void* vc,
                         const int* pos, int B, int Hkv, int G, int S,
                         int nsplit, float scale, int swa, float logit_cap,
-                        int bf16, float* part, float* out, void* stream) {
+                        int bf16, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (B < 1 || Hkv < 1 || G < 1 || G > DA_MAXG || S < 1 || nsplit < 1)
+  if (B < 1 || B > 65535 || Hkv < 1 || Hkv > 65535 || G < 1 || G > DA_MAXG || S < 1 ||
+      nsplit < 1 || nsplit > DA_MAXC)
     return (int)cudaErrorInvalidValue;
-  dim3 grid(B, Hkv, nsplit);
-  if (bf16) {
-    decode_gqa_kernel<true><<<grid, DA_NW * 32, 0, s>>>(
-        qg, kc, vc, pos, Hkv, G, S, nsplit, scale, swa, logit_cap, part);
-  } else {
-    decode_gqa_kernel<false><<<grid, DA_NW * 32, 0, s>>>(
-        qg, kc, vc, pos, Hkv, G, S, nsplit, scale, swa, logit_cap, part);
-  }
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  decode_gqa_merge<<<dim3(B * Hkv, G), DA_D, 0, s>>>(part, Hkv, G, nsplit, out);
-  return (int)cudaGetLastError();
+  return bf16 ? gqa_launch<true>(qg, kc, vc, pos, B, Hkv, G, S, nsplit, scale, swa,
+                                 logit_cap, out, s)
+              : gqa_launch<false>(qg, kc, vc, pos, B, Hkv, G, S, nsplit, scale, swa,
+                                  logit_cap, out, s);
 }
 
 }  // extern "C"

@@ -1,31 +1,34 @@
 """In-call A/B of the port's kernels against an earlier tree's sources, on
 one card, in the order parent, change, change, parent.
 
-    git show 1b81f9c:ggml_hexagon_tpu_torch/csrc/fast_il.cu > DIR/fast_il.cu
+    git show e176e56:ggml_hexagon_tpu_torch/csrc/fast_il.cu > DIR/fast_il.cu
     git show 3b0f551:ggml_hexagon_tpu_torch/csrc/qp8_gemm.cu > DIR/qp8_gemm.cu
     git show 3b0f551:ggml_hexagon_tpu_torch/csrc/decode_attn.cu > DIR/decode_attn.cu
     git show c8a736e:ggml_hexagon_tpu_torch/csrc/qp8_gemv.cu > DIR/qp8_gemv.cu
     git show 3d188dc:ggml_hexagon_tpu_torch/csrc/qmm_wire.cu > DIR/qmm_wire.cu
-    git show daae95e:ggml_hexagon_tpu_torch/csrc/attention.cu > DIR/attention.cu
+    git show e176e56:ggml_hexagon_tpu_torch/csrc/attention.cu > DIR/attention.cu
     python3 -m ggml_hexagon_tpu_torch.kernel_ab --parent DIR
 
 Each part runs when DIR holds its parent source; the parents are built
 with this tree's nvcc flags and headers.
 
-  fast_il.cu (1b81f9c, the last tree whose K6 at B <= 8 and K8 ran a
-      pre-pass (interleave, norm or act, and the group sums) and then one
-      warp a weight row, two or three launches a call): K6 on the launch
-      mixes of the decode steps of Llama-3-8B IQ4_XS (byte planes: normed,
-      res, act), Q4_K_M il (nibble planes normed, res, act; Q6_K byte planes
-      with the derived bias, act and the head) and IQ3_XXS il (coded
-      planes: normed, res, act), and of Mixtral-8x7B Q4_K_M il (nibble wq,
-      Q5_K wo with a stored bias, res) and IQ3_XXS il (coded wq); K6 on the
-      8-token prefill bucket's mixes (B = 8) of Llama-3-8B Q4_K_M il and
-      IQ4_XS; K8 at P = 2 on the Mixtral-8x7B IQ4_XS (byte), Q4_K_M il
-      (nibble, and Q6_K byte with the derived bias) and IQ3_XXS il (coded)
-      steps (one random expert stack a type, launches counted per layer
-      type); K7 on the Q4_K_M il and IQ3_XXS il steps, which keeps its
-      kernel and must stay level.
+  fast_il.cu (e176e56, the last tree whose K7 ran a pre-pass a part (the
+      interleave or the norm, and the group sums) and then one warp a
+      weight row, up to five launches a call): K7 on the Llama-3-8B Q4_K_M
+      il step's pair (Q4_K wqk + Q6_K wv) and the IQ3_XXS il step's (IQ2_S
+      wqk, coded, + Q4_K wv); and, level, K6 on the launch mixes of the
+      decode steps of Llama-3-8B IQ4_XS (byte planes: normed, res, act), Q4_K_M
+      il (nibble planes normed, res, act; Q6_K byte planes with the derived
+      bias, act and the head) and IQ3_XXS il (coded planes: normed, res,
+      act), and of Mixtral-8x7B Q4_K_M il (nibble wq, Q5_K wo with a stored
+      bias, res) and IQ3_XXS il (coded wq); K6 on the 8-token prefill
+      bucket's mixes (B = 8) of Llama-3-8B Q4_K_M il and IQ4_XS; K8 at P = 2
+      on the Mixtral-8x7B IQ4_XS (byte), Q4_K_M il (nibble, and Q6_K byte
+      with the derived bias) and IQ3_XXS il (coded) steps (one random expert
+      stack a type, launches counted per layer type).  K6 and K8 keep their
+      C entries and their kernel's text.  Then the floor for identical code:
+      K6 nibble res and plain at 4096 x 4096, B = 1, through a second build
+      of each source (P, C, P2, C2 in rotation).
   qp8_gemv.cu (c8a736e, the last tree whose K1, K2 and K5 ran a
       one-block activation pre-pass, a GEMV reading the planes with 4-byte
       loads and a finalize pass for K splits, three launches a call):
@@ -48,11 +51,12 @@ with this tree's nvcc flags and headers.
       families at 4096 x 4096 and B = 512, the wq in f32 at B = 8 and 512
       (against the WMMA kernel), and, level, the 8B's wq, gate, down and
       head at B = 1 and 8 (the bf16 GEMV against the parent's GEMV).
-  attention.cu (daae95e, the last tree whose K11 took its scores on the
-      CUDA cores): K11 at the conformance prefill (B=1, H=32, T=512,
-      S=1024, D=128, a causal [1,1,T,S] mask with a dead tail), f32 and
-      bf16; K12, level, at the decode step at pos 700 (Hkv=8, G=4, S=1024,
-      bf16 cache).
+  attention.cu (e176e56, the last tree whose K12 ran a kernel and a merge
+      kernel, its partials in device memory): K12 at the decode step at pos
+      700 (B=1, Hkv=8, G=4, S=1024, bf16 cache) and at pos 8191 of an
+      8192-slot cache; and, level, K11 at the conformance prefill (B=1,
+      H=32, T=512, S=1024, D=128, a causal [1,1,T,S] mask with a dead tail),
+      f32 and bf16.
 
 Times are device times of a CUDA-graph replay after an L2 flush (median
 of iterations), as chip_smoke.py takes them (K1/K2/K5, K6 and K8 rows also
@@ -97,16 +101,16 @@ TF32_OPS = 495e12    # K11 and K10's f32 GEMM: TF32 mma, times its products
 NMSE_F32 = 1e-10     # K10 in f32 against its plain twin (chip_smoke.py's
                      # NMSE_K10_F32)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: the parents' C entries: K3 and K4 of 3b0f551, K6-K8 of 1b81f9c (K6 and
-#: K8 with their pre-pass scratch xil and xg; K7 the same as this tree's)
+#: the parents' C entries: K3 and K4 of 3b0f551; K6-K8 of e176e56 (K6's
+#: and K8's the same as this tree's; K7 with its pre-pass scratch xil and
+#: xg a part)
 _PARENT_ARGS = {
     "qp8_gemm_run": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _I] + [_P] * 3,
     "decode_attn_run": [_P] * 7 + [_I] * 5 + [_F, _I, _F, _I] + [_P] * 4,
-    "fast_il_run": [_I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _P, _I,
-                    _P, _F, _P, _I, _P, _P, _P, _P],
-    "fast_dual_run": kernels._ARGTYPES["fast_dual_run"],
-    "fast_indirect_run": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F,
-                          _P, _P, _P, _P, _P],
+    "fast_il_run": kernels._ARGTYPES["fast_il_run"],
+    "fast_dual_run": [_P, _I, _I, _F] + [_P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                         _P, _I, _P, _P] * 2 + [_P, _P],
+    "fast_indirect_run": kernels._ARGTYPES["fast_indirect_run"],
     # c8a736e's K1/K2 and K5: the pre-pass scratch x8, xs and the partials
     # of its K splits
     "qp8_gemv_run": [_P, _P, _I, _F, _I, _I] + [_P, _P, _P] + [_I] * 5
@@ -114,15 +118,17 @@ _PARENT_ARGS = {
     + [_P, _P, _P, _I, _P, _P, _I, _P],
     "qp8_indirect_run": [_P, _I, _I, _P, _I, _I, _P, _P, _P] + [_I] * 4
     + [_F, _I, _P, _P, _P, _I, _P, _P],
-    # the WMMA K10 of 3d188dc (above 8 rows and in f32); K11 and K12 of
-    # daae95e: the same C entries as this tree's
+    # the WMMA K10 of 3d188dc (above 8 rows and in f32)
     "qmm_wire_run": [_I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F,
                      _P, _P],
     # 3d188dc's bf16 GEMV at B <= 8 (no compute-type argument)
     "qmm_wire_gemv_run": [_I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F,
                           _I, _I, _I, _P, _P, _P, _P],
+    # K11 of e176e56: this tree's C entry; its K12 with the partials
+    # scratch of its merge kernel
     "flash_attn_run": kernels._ARGTYPES["flash_attn_run"],
-    "decode_attn_gqa_run": kernels._ARGTYPES["decode_attn_gqa_run"],
+    "decode_attn_gqa_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F,
+                            _I, _P, _P, _P],
 }
 _PARENT_FNS = {"qp8_gemm": ["qp8_gemm_run"], "decode_attn": ["decode_attn_run"],
                "fast_il": ["fast_il_run", "fast_dual_run", "fast_indirect_run"],
@@ -223,9 +229,23 @@ def _nmse(got, want):
     return float(((got - want) ** 2).mean() / (want ** 2).mean())
 
 
+def k12_sdpa(qg, kc, vc, pos: int, swa: int, scale: float):
+    """K12's one-call PyTorch yardstick on a row at position pos (B = 1):
+    SDPA on bf16 q and the live slice of the cache, the G query heads of a
+    KV head as enable_gqa groups them; chip_smoke.py and kernel_ab time
+    this same call on their inputs."""
+    B, Hkv, G, _, D = qg.shape
+    lo = max(0, pos - swa + 1) if swa else 0
+    q4 = qg.reshape(B, Hkv * G, 1, D).to(torch.bfloat16)
+    k4, v4 = (c[:, lo:pos + 1].transpose(1, 2) for c in (kc, vc))
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, scale=scale, enable_gqa=True)
+
+
 class AB:
     def __init__(self, parent_dir: str, dev):
         self.dev = dev
+        self.parent_dir = parent_dir
         self.par = _build_parent(parent_dir)
         self.gen = torch.Generator(device=dev)
         self.gen.manual_seed(1234)
@@ -233,8 +253,8 @@ class AB:
 
     def _as_parent(self, fn, name="fast_il"):
         """fn() with this tree's library `name` swapped for the parent's,
-        whose entries fn reaches keep their C signatures (K7's; K11's and
-        K12's)."""
+        whose entries fn reaches keep their C signatures (K6's and K8's;
+        K11's)."""
         mine = kernels._LIBS[name]
         kernels._LIBS[name] = self.par[f"lib:{name}"]
         try:
@@ -242,52 +262,52 @@ class AB:
         finally:
             kernels._LIBS[name] = mine
 
-    def parent_k6(self, x, qt, wn=None, eps=None, act="", res=None,
-                  pre_il=False, xg=None):
-        """The parent's K6 at B <= 8 (its pre-pass and one-warp-a-row
-        GEMV), on the arguments kernels._fast_launch would pass, with its
-        scratch."""
-        n2, G, nib, off, cm = kernels._il_plane_args(qt)
-        B, K = x.shape[0], qt.k
-        bias = qt.fb is not None or off != 0.0
-        xg_mode = kernels._xg_args(xg, B, G, bias)
-        mode = 2 if act else 1 if eps is not None else 3 if pre_il else 0
+    def parent_k7(self, x, qa, qb, wn_a=None, wn_b=None, eps=None,
+                  xg_a=None, xg_b=None):
+        """e176e56's K7 (a pre-pass a part, then one warp a weight row) on
+        the arguments kernels.fast_dual would pass, with its scratch."""
+        B, K = x.shape
         dev = self.dev
-        xil = (None if pre_il
-               else torch.empty((B, K), dtype=torch.bfloat16, device=dev))
-        xgs = (torch.empty((B, G), dtype=torch.float32, device=dev)
-               if bias else None)
-        out = torch.empty((B, n2), dtype=torch.float32, device=dev)
-        rc = self.par["fast_il_run"](
-            mode, int(nib), cm, x.data_ptr(), B, K, qt.fq.data_ptr(),
-            qt.fs.data_ptr(), kernels._ptr(qt.fb), n2, G, off,
-            kernels._ptr(xg), xg_mode, kernels._ptr(wn),
-            0.0 if eps is None else float(eps), kernels._ptr(res),
-            0 if res is None else res.shape[1], kernels._ptr(xil),
-            kernels._ptr(xgs), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+        parts, scratch = [], []
+        for qt, wn, xg in ((qa, wn_a, xg_a), (qb, wn_b, xg_b)):
+            n2, G, nib, off, cm = kernels._il_plane_args(qt)
+            bias = qt.fb is not None or off != 0.0
+            xil = torch.empty((B, K), dtype=torch.bfloat16, device=dev)
+            xgs = (torch.empty((B, G), dtype=torch.float32, device=dev)
+                   if bias else None)
+            parts += [kernels._ptr(wn), qt.fq.data_ptr(), qt.fs.data_ptr(),
+                      kernels._ptr(qt.fb), n2, G, int(nib), cm, off,
+                      kernels._ptr(xg), kernels._xg_args(xg, B, G, bias),
+                      xil.data_ptr(), kernels._ptr(xgs)]
+            scratch += [xil, xgs]
+        out = torch.empty((B, qa.fq.shape[0] + qb.fq.shape[0]),
+                          dtype=torch.float32, device=dev)
+        rc = self.par["fast_dual_run"](
+            x.data_ptr(), B, K, 0.0 if eps is None else float(eps), *parts,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        del scratch
         if rc:
-            raise RuntimeError(f"parent fast_il_run: CUDA error {rc}")
+            raise RuntimeError(f"parent fast_dual_run: CUDA error {rc}")
         return out
 
-    def parent_k8(self, x, qt, ids, npe, xg=None):
-        """The parent's K8 (its interleave pre-pass and one warp a row)."""
-        n2, G, nib, off, cm = kernels._il_plane_args(qt)
-        Pn, K = x.shape
-        bias = qt.fb is not None or off != 0.0
+    def parent_k12(self, qg, kc, vc, pos, scale):
+        """e176e56's K12 (a kernel over the splits, their partials in
+        device memory, and a merge kernel), its splits _pick_nsplit's at
+        its 64 slots a split."""
+        B, Hkv, G, _, D = qg.shape
+        S = kc.shape[1]
+        ns = kernels._pick_nsplit(B * Hkv, S, min_slots=64)
         dev = self.dev
-        xil = torch.empty((Pn, K), dtype=torch.bfloat16, device=dev)
-        xgs = (torch.empty((Pn, G), dtype=torch.float32, device=dev)
-               if bias else None)
-        out = torch.empty((Pn, npe), dtype=torch.float32, device=dev)
-        rc = self.par["fast_indirect_run"](
-            x.data_ptr(), Pn, K, ids.data_ptr(), npe, n2 // npe,
-            qt.fq.data_ptr(), qt.fs.data_ptr(), kernels._ptr(qt.fb), G,
-            int(nib), cm, off, kernels._ptr(xg), xil.data_ptr(),
-            kernels._ptr(xgs), out.data_ptr(),
+        part = torch.empty((B, Hkv, ns, G, D + 2), dtype=torch.float32,
+                           device=dev)
+        out = torch.empty((B, Hkv, G, 1, D), dtype=torch.float32, device=dev)
+        rc = self.par["decode_attn_gqa_run"](
+            qg.data_ptr(), kc.data_ptr(), vc.data_ptr(), pos.data_ptr(), B,
+            Hkv, G, S, ns, float(scale), 0, 0.0,
+            int(kc.dtype == torch.bfloat16), part.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
         if rc:
-            raise RuntimeError(f"parent fast_indirect_run: CUDA error {rc}")
+            raise RuntimeError(f"parent decode_attn_gqa_run: CUDA error {rc}")
         return out
 
     def _unit(self, unit, count, t, lib, bound):
@@ -320,7 +340,7 @@ class AB:
         kw["xg"] = PF.group_sums(qt, x, mode, kw.get("wn"), nkj)
         kern = PF._k6(qt, False)
         new = lambda: kern(x, qt, **kw)  # noqa: E731
-        old = lambda: self.parent_k6(x, qt, **kw)  # noqa: E731
+        old = lambda: self._as_parent(new)  # noqa: E731
         want = PF._k6(qt, True)(x, qt, **kw)
         got = new()
         e_new, e_old = _nmse(got, want), _nmse(old(), want)
@@ -348,7 +368,11 @@ class AB:
         return e_new
 
     def k7(self, unit, qa, qb, B, count):
-        """One K7 row (normed, each part its own weight), P C C P."""
+        """One K7 row (normed, each part its own weight), P C C P, against
+        the bf16 matmul on both weights dequantized beforehand, and its
+        bound (both plane sets, x, the norm weights and group sums read
+        once, the output written once; the products and the bias dots at
+        the bf16 peak)."""
         K, dev, gen = qa.k, self.dev, self.gen
         x = torch.randn(B, K, generator=gen, device=dev).to(torch.bfloat16)
         kw = dict(wn_a=torch.rand(K, device=dev, generator=gen) + 0.5,
@@ -357,18 +381,34 @@ class AB:
         kw["xg_a"] = PF.group_sums(qa, x, "normed", kw["wn_a"])
         kw["xg_b"] = PF.group_sums(qb, x, "normed", kw["wn_b"])
         new = lambda: PF.fast_dual(x, qa, qb, **kw)  # noqa: E731
-        old = lambda: self._as_parent(new)  # noqa: E731
+        old = lambda: self.parent_k7(x, qa, qb, **kw)  # noqa: E731
         want = PF.fast_dual_plain(x, qa, qb, **kw)
-        e_new = _nmse(new(), want)
+        got = new()
+        e_new, e_old = _nmse(got, want), _nmse(old(), want)
         t = [_time_ms(old), _time_ms(new), _time_ms(new), _time_ms(old)]
         deq = torch.cat([PF.dequantize_fast(q, torch.bfloat16).t()
                          for q in (qa, qb)], 1).contiguous()
         lib = _time_ms(lambda: torch.matmul(x, deq))
         del deq
+        # K6 on each part alone, two launches: what the one launch saves
+        alone = _time_ms(lambda: [
+            PF._k6(q, False)(x, q, wn=kw[f"wn_{p}"], eps=kw["eps"],
+                             xg=kw[f"xg_{p}"]) for q, p in ((qa, "a"), (qb, "b"))])
+        byts = sum(t_.numel() * t_.element_size() for t_ in
+                   (qa.fq, qa.fs, qa.fb, qb.fq, qb.fs, qb.fb, x, got)
+                   if t_ is not None)
+        byts += sum(v.numel() * v.element_size() for v in kw.values()
+                    if isinstance(v, torch.Tensor))
+        ops = sum(2 * B * K * q.fq.shape[0]
+                  + (2 * B * q.fs.shape[1] * q.fq.shape[0]
+                     if PF._needs_xg(q.cfg, q.fb) else 0) for q in (qa, qb))
+        bound = max(byts / HBM_BPS, ops / BF16_OPS) * 1e3
         print(f"K7 {unit} B={B} {qa.cfg.qtype.name}+{qb.cfg.qtype.name} "
-              f"nmse={e_new:.2e} P={t[0]:.4f} C={t[1]:.4f} C={t[2]:.4f} "
-              f"P={t[3]:.4f} ms matmul={lib:.4f} x{count}", flush=True)
-        self._unit(unit, count, t, lib, 0.0)
+              f"nmse={e_new:.2e} (parent {e_old:.2e}) P={t[0]:.4f} "
+              f"C={t[1]:.4f} C={t[2]:.4f} P={t[3]:.4f} ms matmul={lib:.4f} "
+              f"K6 a+b={alone:.4f} bound={bound:.4f} x{count} host us/call "
+              f"P={_host_us(old):.1f} C={_host_us(new):.1f}", flush=True)
+        self._unit(unit, count, t, lib, bound)
         return e_new
 
     def k8(self, unit, name, stack, npe, count):
@@ -380,7 +420,7 @@ class AB:
         xg = (PF._sums_natural(x, stack.fs.shape[1])
               if PF._needs_xg(stack.cfg, stack.fb) else None)
         new = lambda: PF.fast_indirect(x, stack, ids, npe, xg)  # noqa: E731
-        old = lambda: self.parent_k8(x, stack, ids, npe, xg)  # noqa: E731
+        old = lambda: self._as_parent(new)  # noqa: E731
         want = PF.fast_indirect_plain(x, stack, ids, npe, xg)
         got = new()
         e_new, e_old = _nmse(got, want), _nmse(old(), want)
@@ -690,7 +730,8 @@ class AB:
         return max(e_new, 0.0)
 
     def k12(self, unit, pos=700, Hkv=8, G=4, S=1024, D=128):
-        """K12 (unchanged) at the decode step, P C C P: level."""
+        """K12 at a decode step (B = 1, bf16 cache), P C C P, against SDPA
+        on the same inputs (k12_sdpa, as chip_smoke.py times it)."""
         g = self.gen
         qg = torch.randn(1, Hkv, G, 1, D, generator=g, device=self.dev)
         kc, vc = (torch.randn(1, S, Hkv, D, generator=g, device=self.dev)
@@ -698,22 +739,23 @@ class AB:
         posb = torch.tensor([pos], dtype=torch.int32, device=self.dev)
         scale = D ** -0.5
         new = lambda: kernels.decode_attn_gqa(qg, kc, vc, posb, scale)  # noqa: E731
-        old = lambda: self._as_parent(new, "attention")  # noqa: E731
+        old = lambda: self.parent_k12(qg, kc, vc, posb, scale)  # noqa: E731
         want = PA.decode_attn_gqa_plain(qg, kc, vc, posb, scale)
         e_new = float((new() - want).abs().max())
+        e_old = float((old() - want).abs().max())
         t = [_time_ms(old), _time_ms(new), _time_ms(new), _time_ms(old)]
-        q4 = qg.reshape(1, Hkv * G, 1, D).to(torch.bfloat16)
-        k4, v4 = (c[:, :pos + 1].transpose(1, 2) for c in (kc, vc))
-        lib = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q4, k4, v4, scale=scale, enable_gqa=True))
+        lib = _time_ms(k12_sdpa(qg, kc, vc, pos, 0, scale))
         byts = (qg.numel() * 4 + 4 + Hkv * G * D * 4
                 + 2 * (pos + 1) * Hkv * D * 2)
         bound = max(byts / HBM_BPS, 4 * (pos + 1) * Hkv * G * D / BF16_OPS) * 1e3
-        print(f"K12 {unit} pos={pos} max|d|={e_new:.2e} P={t[0]:.5f} "
-              f"C={t[1]:.5f} C={t[2]:.5f} P={t[3]:.5f} ms sdpa={lib:.5f} "
-              f"bound={bound:.5f}", flush=True)
+        old_ns = kernels._pick_nsplit(Hkv, S, min_slots=64)
+        print(f"K12 {unit} pos={pos} S={S} max|d|={e_new:.2e} (parent "
+              f"{e_old:.2e}) splits={old_ns} -> "
+              f"{kernels.pick_gqa_splits(1, Hkv, S, kernels._sm_count(0))} "
+              f"P={t[0]:.5f} C={t[1]:.5f} C={t[2]:.5f} P={t[3]:.5f} ms "
+              f"sdpa={lib:.5f} bound={bound:.5f}", flush=True)
         self._unit(unit, 1, t, lib, bound)
-        return e_new
+        return max(e_new, e_old)
 
     def k4(self, cfg, quant, B, pos, layers):
         """One K4 row at S=1024; a step is `layers` launches."""
@@ -772,10 +814,64 @@ class AB:
         return err
 
 
+def builds_control(ab, dev):
+    """K6 nibble res and plain at 4096 x 4096 (B = 1) through the parent's
+    fast_il.cu and this tree's, each built twice (P, P2, C, C2), in
+    rotation over three turns: two builds of one source, loaded apart, can
+    time a few % apart, the floor of a K6 A/B's verdict."""
+    srcs = {"P2": f"{ab.parent_dir}/fast_il.cu",
+            "C2": str(kernels.CSRC / "fast_il.cu")}
+    procs = {k: subprocess.Popen(
+        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-o",
+         str(kernels.BUILD_DIR / f"again_{k}_fast_il.so"), src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for k, src in srcs.items()}
+    libs = {"P": ab.par["lib:fast_il"], "C": kernels._LIBS["fast_il"]}
+    for k, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {srcs[k]}:\n{log}")
+        lib = ctypes.CDLL(str(kernels.BUILD_DIR / f"again_{k}_fast_il.so"))
+        lib.fast_il_run.argtypes = kernels._ARGTYPES["fast_il_run"]
+        lib.fast_il_run.restype = ctypes.c_int
+        lib.ght_error_string.argtypes = [ctypes.c_int]
+        lib.ght_error_string.restype = ctypes.c_char_p
+        libs[k] = lib
+    mine = kernels._LIBS["fast_il"]
+    qt = random_qtensor(ab.gen, 4096, 4096, GGMLType.Q4_K, dev).with_fast_planes(
+        "il").without_wire()
+    x = torch.randn(1, 4096, generator=ab.gen, device=dev).to(torch.bfloat16)
+    try:
+        for mode in ("res", "plain"):
+            kw = ({"res": torch.randn(1, 4096, generator=ab.gen, device=dev)}
+                  if mode == "res" else {})
+            kw["xg"] = PF.group_sums(qt, x, mode)
+            kern = PF._k6(qt, False)
+
+            def run(k):
+                kernels._LIBS["fast_il"] = libs[k]
+                return kern(x, qt, **kw)
+
+            want = run("P")
+            if any(not torch.equal(run(k), want) for k in libs):
+                raise AssertionError("two builds of K6 disagree")
+            times = {k: [] for k in ("P", "P2", "C", "C2")}
+            for turn in range(3):
+                for k in (("P", "C", "P2", "C2") if turn % 2 == 0
+                          else ("C2", "P2", "C", "P")):
+                    times[k].append(_time_ms(lambda k=k: run(k), 50))
+            print(f"K6 builds control Q4_K {mode} 4096x4096 B=1 ms: " + " ".join(
+                f"{k}=" + "/".join(f"{t:.4f}" for t in v)
+                for k, v in times.items()), flush=True)
+    finally:
+        kernels._LIBS["fast_il"] = mine
+
+
 def run_il(ab, dev) -> bool:
-    """K6 (B <= 8) on the decode steps of the interleaved Llama-3-8B cells
-    and on two 8-token buckets, K6 and K8 on the interleaved Mixtral-8x7B
-    steps (random stacks of each policy type), K7 level."""
+    """K7 on the interleaved Llama-3-8B steps' pairs; level, K6 (B <= 8)
+    on the decode steps of the interleaved Llama-3-8B cells and on two
+    8-token buckets, K6 and K8 on the interleaved Mixtral-8x7B steps
+    (random stacks of each policy type)."""
     ok = True
 
     def k6(unit, rows):
@@ -1035,11 +1131,12 @@ def run_wire(ab, dev) -> bool:
 
 
 def run_attention(ab, dev) -> bool:
-    """K11 f32 and bf16; K12 level."""
-    ok = True
+    """K12 at pos 700 and at the end of an 8192-slot cache; K11 f32 and
+    bf16, level."""
+    ok = ab.k12("K12-pos700") <= 1e-4
+    ok &= ab.k12("K12-S8192-pos8191", pos=8191, S=8192) <= 1e-4
     for dtype in (torch.float32, torch.bfloat16):
-        ok &= ab.k11(f"K11-{str(dtype)[6:]}", dtype) <= 1e-4
-    ok &= ab.k12("K12-pos700-level") <= 1e-4
+        ok &= ab.k11(f"K11-{str(dtype)[6:]}-level", dtype) <= 1e-4
     return ok
 
 
@@ -1066,6 +1163,7 @@ def main(argv=None):
     ok = True
     if "lib:fast_il" in ab.par:
         ok &= run_il(ab, dev)
+        builds_control(ab, dev)
     if "lib:qp8_gemm" in ab.par and "lib:decode_attn" in ab.par:
         ok &= run_k3k4(ab, dev)
     if "lib:qp8_gemv" in ab.par:

@@ -37,7 +37,8 @@ SOURCES = {
     "qp8_gemm": "qp8_gemm.cu",      # K3
     "decode_attn": "decode_attn.cu",  # K4
     "fast_il": "fast_il.cu",        # K6 at B <= 8 (every family and
-                                    # mode), K7 and K8
+                                    # mode) and K8
+    "fast_dual": "fast_dual.cu",    # K7
     "fast_il_gemm": "fast_il_gemm.cu",  # K6 above 8 rows (the prefill GEMM)
     "ffn_fused": "ffn_fused.cu",    # K9
     "qmm_wire": "qmm_wire.cu",      # K10 at B <= 8 (the streaming GEMV)
@@ -103,8 +104,9 @@ _ARGTYPES = {
                     _P, _F, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "fast_il_gemm_run": [_I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _P,
                          _I, _P, _F, _I, _P, _I, _P, _P, _I, _P, _P, _P],
-    "fast_dual_run": [_P, _I, _I, _F] + [_P, _P, _P, _P, _I, _I, _I, _I, _F,
-                                         _P, _I, _P, _P] * 2 + [_P, _P],
+    "fast_dual_run": [_I, _F, _I] + [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                                     _F, _P, _I, _I, _I, _I, _P] * 2
+    + [_P, _P, _P],
     "fast_indirect_run": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F,
                           _P, _I, _I, _I, _P, _P, _P, _P],
     "ffn_fused_run": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I] + [_P] * 9
@@ -118,7 +120,7 @@ _ARGTYPES = {
     "flash_attn_run": [_P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _I, _I, _I,
                        _F, _I, _P, _P],
     "decode_attn_gqa_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F,
-                            _I, _P, _P, _P],
+                            _I, _P, _P],
 }
 
 
@@ -455,18 +457,19 @@ class IlGeo(NamedTuple):
     fsb: int
 
 
-def il_geo(K: int, G: int, packed: bool) -> IlGeo:
-    """The stages of K6's (B <= 8) and K8's planes: residue blocks of 128
-    groups from G = 128 up (the last one ragged where 128 does not divide
-    G, its columns past G read as zeros), else of 64 or 32 dividing G, else
-    of 16 (ragged where 16 does not divide G); ValueError where the kernel
-    takes none (G not a multiple of 8, or gs not of 8, 16 on packed
-    planes)."""
+def il_geo(K: int, G: int, packed: bool, gw_max: int = 128) -> IlGeo:
+    """The stages of K6's (B <= 8), K7's and K8's planes: residue blocks of
+    128 groups from G = 128 up (the last one ragged where 128 does not
+    divide G, its columns past G read as zeros), else of 64 or 32 dividing
+    G, else of 16 (ragged where 16 does not divide G), at most gw_max (K7's
+    common width, dual_width); ValueError where the kernel takes none (G
+    not a multiple of 8, or gs not of 8, 16 on packed planes)."""
     gs = K // G if G >= 1 and K % G == 0 else 0
     if not gs or G % 8 or gs % (16 if packed else 8):
         raise ValueError(f"K6/K8 take G a multiple of 8 and K/G a multiple "
                          f"of {16 if packed else 8}: K={K}, G={G}")
-    GW = 128 if G >= 128 else next((w for w in (64, 32) if G % w == 0), 16)
+    GW = min(gw_max,
+             128 if G >= 128 else next((w for w in (64, 32) if G % w == 0), 16))
     nper = gs // 2 if packed else gs
     NP = min(256 // GW, nper)
     if nper % NP:
@@ -556,11 +559,12 @@ class IlPlan(NamedTuple):
 
 
 def _pick_persistent(nst: int, tiles: int, rows_z: int, sms: int, stage: int,
-                     smem_of, act_of):
-    """The plan search of K6 (B <= 8), K8 and K10 (B <= 8): for ks splits of
-    the nst stages of `tiles` tiles (whole stages, at most 32), the deepest
-    ring (up to 8 stages or the block's) whose smem_of(ns, ks) fits two
-    blocks an SM, else one; one wave of persistent blocks along the tiles
+                     smem_of, act_of, per_sms=(2, 1)):
+    """The plan search of K6 (B <= 8), K7, K8 and K10 (B <= 8): for ks
+    splits of the nst stages of `tiles` tiles (whole stages, at most 32),
+    the deepest ring (up to 8 stages or the block's) whose smem_of(ns, ks)
+    fits two blocks an SM, else one (per_sms: the counts tried, in order);
+    one wave of persistent blocks along the tiles
     (times rows_z input rows); the cost, in plane bytes, of the busiest SM
     (a block alone streams at about half an SM's rate): its stages of
     `stage` bytes, a block's fixed cost, act_of(ks) activation bytes and,
@@ -569,7 +573,7 @@ def _pick_persistent(nst: int, tiles: int, rows_z: int, sms: int, stage: int,
     best = None
     for ks in range(1, min(nst, 32) + 1):
         per = -(-nst // ks)
-        for per_sm in (2, 1):
+        for per_sm in per_sms:
             budget = min(SMEM_BLOCK, SMEM_SM // per_sm - 1024)
             ns = min(8, per * tiles)
             while ns > 1 and smem_of(ns, ks) > budget:
@@ -619,6 +623,60 @@ def _il_plan(qt, nb: int, tiles: int, rows_z: int, mode: int, dev) -> IlPlan:
     return pick_il_gemv(qt.k, qt.fs.shape[1], _is_packed(qt.cfg),
                         qt.fb is not None, _needs_xg(qt.cfg, qt.fb), nb,
                         tiles, rows_z, mode, sms)
+
+
+class DualPlan(NamedTuple):
+    """A K7 launch: each part's IlPlan (its splits, ring, blocks along its
+    tiles), the launch's shared memory a block (the larger part's) and
+    blocks an SM."""
+    a: IlPlan
+    b: IlPlan
+    smem: int
+    per_sm: int
+
+
+def dual_width(part_a: tuple, part_b: tuple) -> int:
+    """K7's residue block width, one for both parts (csrc/fast_dual.cu: a
+    kernel instance a width): 128 where both parts' G is 128 or more,
+    else 16."""
+    return 128 if part_a[1] >= 128 and part_b[1] >= 128 else 16
+
+
+@functools.lru_cache(maxsize=None)
+def pick_il_dual(part_a: tuple, part_b: tuple, nb: int, mode: int,
+                 sms: int) -> DualPlan:
+    """Splits, ring and blocks of a K7 launch (nb rows, mode 0 plain or 1
+    normed) over two parts, each (K, G, packed, fb, bias, tiles) of its
+    (padded) planes, from the shapes and the card's SM count: the SMs are
+    shared between the parts in proportion to their plane bytes (stages x
+    tiles x a stage's bytes), and each part takes _pick_persistent's plan
+    on its share, both parts at two blocks an SM, else at one; both parts'
+    stages at dual_width's residue block width."""
+    parts = (part_a, part_b)
+    gw = dual_width(part_a, part_b)
+    geos = [il_geo(K, G, packed, gw) for K, G, packed, *_ in parts]
+    work = [g.nst * g.wb * p[5] for g, p in zip(geos, parts)]
+    share_a = min(sms - 1, max(1, round(sms * work[0] / sum(work))))
+    for per_sm in (2, 1):
+        plans = []
+        for (K, G, packed, fb, bias, tiles), geo, share in zip(
+                parts, geos, (share_a, sms - share_a)):
+            gs = K // G
+            plan = _pick_persistent(
+                geo.nst, tiles, 1, share, geo.wb,
+                lambda ns, ks, geo=geo, fb=fb, bias=bias, gs=gs:
+                    il_smem(geo, fb, bias, ns, ks, gs, nb),
+                lambda ks, geo=geo, gs=gs, K=K: nb * 2 * (
+                    il_touched(geo, ks) * geo.GW * gs + (K if mode == 1 else 0)),
+                per_sms=(per_sm,))
+            if plan is None:
+                break
+            plans.append(IlPlan(*plan))
+        else:
+            return DualPlan(plans[0], plans[1],
+                            max(p.smem for p in plans), per_sm)
+    raise ValueError(f"no K7 plan fits shared memory: parts {parts}, {nb} "
+                     "rows")
 
 
 def _gemv_launch(kind: str, x, qts, wn, eps, act, res):
@@ -938,10 +996,15 @@ def fast_coded(x, qt, wn=None, eps=None, act: str = "", res=None,
 def fast_dual(x, qt_a, qt_b, wn_a=None, wn_b=None, eps=None, xg_a=None,
               xg_b=None):
     """K7 on the card: x bf16 [B <= 8, K] in natural column order against
-    two interleaved plane sets of either family -> [B, n2_a + n2_b] f32,
+    two interleaved plane sets of any family -> [B, n2_a + n2_b] f32,
     each part normed with its own wn_* (f32 [K], interleaved like its
     planes) when eps is given and biased with its own group sums (xg_*
-    f32 [B, G_*], or None: taken in the kernel)."""
+    f32 [B, G_*], or None: taken in the kernel).  One il_dual_kernel
+    launch (csrc/fast_dual.cu), its plan from pick_il_dual; a part whose G
+    is not a multiple of 8 runs on its padded planes (padded_il_planes), as
+    K6 does."""
+    from .ops.qmm_fast import _is_packed
+
     _need(x, torch.bfloat16, "x", 2)
     B, K = x.shape
     if not 1 <= B <= 8 or K != qt_a.k or K != qt_b.k:
@@ -949,29 +1012,41 @@ def fast_dual(x, qt_a, qt_b, wn_a=None, wn_b=None, eps=None, xg_a=None,
                          f"for K={qt_a.k}/{qt_b.k}")
     if (eps is None) != (wn_a is None) or (wn_a is None) != (wn_b is None):
         raise ValueError("the normed mode takes wn_a, wn_b and eps together")
+    mode = 0 if eps is None else 1
     dev = x.device
-    # scratch stays referenced until the launch: a tensor freed earlier
-    # could be handed to `out` by the caching allocator
-    parts, n2s, scratch = [], [], []
+    parts, shapes = [], []
     for qt, wn, xg in ((qt_a, wn_a, xg_a), (qt_b, wn_b, xg_b)):
         n2, G, nib, off, cm = _il_plane_args(qt)
         _need(wn, torch.float32, "wn", 1)
         if wn is not None and wn.shape[0] != K:
             raise ValueError(f"wn {tuple(wn.shape)} vs K={K}")
-        bias = qt.fb is not None or off != 0.0
-        xg_mode = _xg_args(xg, B, G, bias)
-        xil = torch.empty((B, K), dtype=torch.bfloat16, device=dev)
-        xgs = (torch.empty((B, G), dtype=torch.float32, device=dev)
-               if bias else None)
-        parts += [_ptr(wn), _ptr(qt.fq), _ptr(qt.fs), _ptr(qt.fb), n2, G,
-                  int(nib), cm, off, _ptr(xg), xg_mode, _ptr(xil), _ptr(xgs)]
-        n2s.append(n2)
-        scratch += [xil, xgs]
-    out = torch.empty((B, sum(n2s)), dtype=torch.float32, device=dev)
-    lib = _lib("fast_il")
-    rc = lib.fast_dual_run(_ptr(x), B, K, 0.0 if eps is None else float(eps),
-                           *parts, _ptr(out), _stream(dev))
-    del scratch
+        xg_mode = _xg_args(xg, B, G, qt.fb is not None or off != 0.0)
+        xp = x
+        if il_pad(K, G)[1] != G:
+            qt, xp, wn, xg = _pad_call(qt, x, wn, xg, mode)
+        parts.append((qt, xp, wn, xg, n2, nib, off, cm, xg_mode))
+        shapes.append((qt.k, qt.fs.shape[1], _is_packed(qt.cfg),
+                       qt.fb is not None, xg_mode != 0, -(-n2 // IL_ROWS)))
+    sms = _sm_count(dev.index if dev.index is not None else
+                    torch.cuda.current_device())
+    plan = pick_il_dual(shapes[0], shapes[1], B, mode, sms)
+    # the partials of split parts stay referenced until the launch: a
+    # tensor freed earlier could be handed to `out` by the caching allocator
+    args, ws = [], []
+    for (qt, xp, wn, xg, n2, nib, off, cm, xg_mode), pp in zip(
+            parts, (plan.a, plan.b)):
+        ws.append(torch.empty((pp.ks, B, n2), dtype=torch.float32, device=dev)
+                  if pp.ks > 1 else None)
+        args += [_ptr(xp), qt.k, _ptr(wn), _ptr(qt.fq), _ptr(qt.fs),
+                 _ptr(qt.fb), n2, qt.fs.shape[1], int(nib), cm, off,
+                 _ptr(xg), xg_mode, pp.ks, pp.ns, pp.nbx, _ptr(ws[-1])]
+    out = torch.empty((B, parts[0][4] + parts[1][4]), dtype=torch.float32,
+                      device=dev)
+    counters = _gemv_counters(dev, shapes[0][5] + shapes[1][5])
+    lib = _lib("fast_dual")
+    rc = lib.fast_dual_run(B, 0.0 if eps is None else float(eps), K, *args,
+                           _ptr(counters), _ptr(out), _stream(dev))
+    del ws
     key = ("fast_dual_coded" if qt_a.cfg.code_map or qt_b.cfg.code_map
            else "fast_dual")
     _check(lib, rc, key)
@@ -1444,11 +1519,26 @@ def flash_attn(q, k, v, mask, scale: float):
     return out
 
 
-def _pick_nsplit(rows: int, S: int, min_slots: int = 64) -> int:
-    """K12's (and, with min_slots=32, K4's) slot splits, from the shapes
-    alone: enough blocks to cover the card twice, each split at least
-    min_slots slots of the whole cache."""
+def _pick_nsplit(rows: int, S: int, min_slots: int) -> int:
+    """Flash-decoding slot splits from the shapes alone (K4: min_slots=32):
+    enough blocks to cover the card twice, each split at least min_slots
+    slots of the whole cache."""
     return max(1, min(-(-264 // rows), -(-S // min_slots)))
+
+
+#: K12 (csrc/attention.cu decode_gqa_kernel): blocks a cluster at most (the
+#: portable limit), cache slots a split at least
+GQA_MAX_SPLITS = 8
+GQA_MIN_SLOTS = 32
+
+
+@functools.lru_cache(maxsize=None)
+def pick_gqa_splits(B: int, Hkv: int, S: int, sms: int) -> int:
+    """K12's slot splits, the blocks of one (row, KV head)'s cluster, from
+    the shapes and the SM count alone (pos stays on the card): one wave of
+    clusters on the card's SMs, at most GQA_MAX_SPLITS, each split at least
+    GQA_MIN_SLOTS slots of the cache."""
+    return max(1, min(GQA_MAX_SPLITS, sms // (B * Hkv), S // GQA_MIN_SLOTS))
 
 
 def decode_attn_gqa(qg, k, v, pos, scale: float, swa: int = 0,
@@ -1474,17 +1564,16 @@ def decode_attn_gqa(qg, k, v, pos, scale: float, swa: int = 0,
     if not qg.is_cuda:
         raise ValueError(f"qg: expected a CUDA tensor, got {qg.device}")
     q32 = qg.to(torch.float32).contiguous()
-    nsplit = _pick_nsplit(B * Hkv, S)
     dev = qg.device
-    part = torch.empty((B, Hkv, nsplit, G, D + 2), dtype=torch.float32,
-                       device=dev)
+    nsplit = pick_gqa_splits(B, Hkv, S, _sm_count(
+        dev.index if dev.index is not None else torch.cuda.current_device()))
     out = torch.empty((B, Hkv, G, 1, D), dtype=torch.float32, device=dev)
     lib = _lib("attention")
     rc = lib.decode_attn_gqa_run(_ptr(q32), _ptr(k), _ptr(v), _ptr(pos), B,
                                  Hkv, G, S, nsplit, float(scale), int(swa),
                                  float(logit_cap),
-                                 int(cdt == torch.bfloat16), _ptr(part),
-                                 _ptr(out), _stream(dev))
+                                 int(cdt == torch.bfloat16), _ptr(out),
+                                 _stream(dev))
     _check(lib, rc, "decode_attn_gqa")
     LAUNCHES["decode_attn_gqa"] += 1
     return out

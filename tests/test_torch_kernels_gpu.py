@@ -34,7 +34,11 @@ Tolerances, per kernel, with their reasons:
       tiles leave SMs idle); the group bias is the f32 group sums, split
       exactly into three bf16 parts, times fb (or bf16(off*fs), exact),
       each product exact, folded into the same accumulators.  NMSE <= 1e-6.
-  K7 (dual projection): K6's B <= 8 arithmetic of each part.  NMSE <= 1e-6.
+  K7 (dual projection): K6's B <= 8 kernel over two plane sets, each
+      part's arithmetic K6's.  NMSE <= 1e-6; on rows whose prologue rounds
+      alike everywhere NMSE <= 1e-9 against the plain twin and against K6
+      on each part alone, the configurations' pairs and ternary parts
+      (padded to 8 groups) in either position, at 1, 4 and 8 rows.
   K8 (gathered experts on interleaved planes): K6's B <= 8 arithmetic on
       the selected rows.  NMSE <= 1e-6.
   The coded i-quants and ternary on both layouts (K1, K2, K3, K5 on
@@ -74,7 +78,9 @@ Tolerances, per kernel, with their reasons:
       products (two for bf16 inputs) summed in f32, so each score and
       output is an f32 result to about 2^-22 relative, in another order,
       with expf: max|d| <= 1e-4.  K12 (GQA cache attention): f32
-      throughout, another order and expf, as K4: max|d| <= 1e-4.
+      throughout, another order (a split's slots scored and summed in
+      passes of up to 512, the cluster's splits merged in rank order) and
+      expf, as K4: max|d| <= 1e-4, at S = 1024 and 8192.
   K1/K2/K5 on inputs whose prologue is exact in any implementation (rows
       of mean square 4 - eps, whose rsqrt is 0.5; gates of magnitude 20 or
       more, whose silu is the gate or quantizes to 0): the same int8
@@ -1577,3 +1583,76 @@ def test_fast_il_gemv_refuses_planes_it_cannot_stage(dev):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["fast_coded"] == before + 1
     assert _nmse(got, PF.fast_coded_plain(x, qt)) <= NMSE_MAX
+
+
+#: K7's pairs (part a, part b): the configurations' (8B Q4_K_M il: Q4_K wqk,
+#: nibble with a stored bias, + Q6_K wv, byte with the derived one; 8B
+#: IQ3_XXS il: IQ2_S wqk, coded, + Q4_K wv), and ternary parts whose G is
+#: not a multiple of 8 (G = 4 at K = 1024, G = 43 at K = 11008, padded to 8
+#: and 48 groups) beside a Q4_K or Q8_0 part, in either position
+_DUAL = {"q4k_q6k": ((5120, 4096, GGMLType.Q4_K), (1024, 4096, GGMLType.Q6_K)),
+         "iq2s_q4k": ((5120, 4096, GGMLType.IQ2_S),
+                      (1024, 4096, GGMLType.Q4_K)),
+         "tq1g4_q4k": ((1024, 1024, GGMLType.TQ1_0),
+                       (512, 1024, GGMLType.Q4_K)),
+         "q8_0_tq1g4": ((512, 1024, GGMLType.Q8_0),
+                        (1024, 1024, GGMLType.TQ1_0)),
+         "tq2g43_q4k": ((1024, 11008, GGMLType.TQ2_0),
+                        (512, 11008, GGMLType.Q4_K)),
+         "q4k_tq2g43": ((512, 11008, GGMLType.Q4_K),
+                        (1024, 11008, GGMLType.TQ2_0))}
+
+
+@pytest.mark.parametrize("pair", list(_DUAL))
+@pytest.mark.parametrize("B", [1, 4, 8])
+@pytest.mark.parametrize("normed", [True, False], ids=["normed", "raw"])
+def test_fast_dual_matches_plain_exactly(dev, pair, B, normed):
+    """K7, one il_gemv_kernel launch a call, on rows whose prologue rounds
+    alike everywhere (_exact_bf16): the output against fast_dual_plain,
+    and each part's columns against K6 on that part alone in the same
+    mode."""
+    a, b = (_qt(dev, *shape, "il") for shape in _DUAL[pair])
+    assert PF.supports_dual(a, b)
+    x, kw = _exact_bf16(dev, B, a.k, "normed" if normed else "plain", B)
+    mode = "normed" if normed else "plain"
+    wns = ((kw["wn"], torch.rand(a.k, device=dev) + 0.5) if normed
+           else (None, None))
+    xgs = [PF.group_sums(q, x, mode, wn) for q, wn in zip((a, b), wns)]
+    dkw = dict(wn_a=wns[0], wn_b=wns[1], eps=kw.get("eps"), xg_a=xgs[0],
+               xg_b=xgs[1])
+    key = ("fast_dual_coded" if a.cfg.code_map or b.cfg.code_map
+           else "fast_dual")
+    before = kernels.LAUNCHES[key]
+    got = PF.fast_dual(x, a, b, **dkw)
+    want = PF.fast_dual_plain(x, a, b, **dkw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[key] == before + 1
+    assert got.shape == (B, a.n + b.n) and torch.isfinite(got).all()
+    assert _nmse(got, want) <= NMSE_EXACT
+    for q, cols, wn, xg in ((a, slice(0, a.n), wns[0], xgs[0]),
+                            (b, slice(a.n, a.n + b.n), wns[1], xgs[1])):
+        alone = PF._k6(q, False)(x, q, wn=wn, eps=kw.get("eps"), xg=xg)
+        assert _nmse(got[:, cols], alone) <= NMSE_EXACT
+
+
+@pytest.mark.parametrize("cache", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("pos", [[8191], [5000, 100], [-1]],
+                         ids=["last", "spread", "dead"])
+@pytest.mark.parametrize("G", [1, 8])
+def test_decode_attn_gqa_kernel_on_a_long_cache(dev, cache, pos, G):
+    """K12 at S = 8192: a split's share (1024 slots) runs in two score
+    passes, the second rescaling the first's sums, through more chunks
+    than its ring holds; G = 8 gives a thread two query heads."""
+    B, Hkv, S, D = len(pos), 8, 8192, 128
+    qg = _x(dev, B, Hkv, G, 1, D, seed=7)
+    k = _x(dev, B, S, Hkv, D, seed=8).to(cache)
+    v = _x(dev, B, S, Hkv, D, seed=9).to(cache)
+    posb = torch.tensor(pos, dtype=torch.int32, device=dev)
+    before = kernels.LAUNCHES["decode_attn_gqa"]
+    got = PA.decode_attention_pallas(qg, k, v, posb, D ** -0.5)
+    want = PA.decode_attention_pallas(qg, k, v, posb, D ** -0.5, plain=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["decode_attn_gqa"] == before + 1
+    assert got.shape == qg.shape and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-4
