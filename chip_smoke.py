@@ -57,7 +57,12 @@
    down + residual as one K9 launch, held against its plain version at the
    main path's shapes (Q4_K and Q6_K down, B = 1 and 3) and at one
    full-width shape of each other down branch (Q5_K, Q4_0, IQ3_XXS), timed
-   beside the three K6 launches of the split path on the same layer;
+   beside the three K6 launches of the split path on the same layer; K9
+   is one cooperative launch of persistent blocks (csrc/ffn_fused.cu, the
+   fifteenth slice: K6's streaming block over the three phases, one ring
+   whose producer streams the next phase's weights across each boundary,
+   the phases meeting at device counters), and the profiled decode steps
+   hold it to exactly one ffn_kernel a K9 call, with no memset kernel;
 13. the conformance entry points (the seventh slice's path; no model; run
    first, right after the build: late in a process that has run the
    cells' long profiles the tracer was seen to record none of the K12
@@ -131,7 +136,7 @@ import torch
 HBM_BPS = 3.35e12
 BF16_OPS = 989e12
 INT8_OPS = 1979e12
-F32_OPS = 67e12      # float32 outside the tensor cores (K9, K10's f32 GEMV)
+F32_OPS = 67e12      # float32 outside the tensor cores (K10's f32 GEMV)
 TF32_OPS = 495e12    # TF32 tensor cores (K11: three products a multiply-add
                      # for f32 inputs, two for bf16; K10's f32 GEMM three)
 NMSE_LOGITS = 5e-4   # logits, kernels vs plain versions, end to end
@@ -727,24 +732,31 @@ def window_kernels(events, names, n):
 
 def il_kernel_counts(events, table, n):
     """In a profiler window of n decode steps (its events(), after a
-    warm-up step traced and dropped): the il_gemv_kernel and il_dual_kernel
-    records inside the steps (window_kernels), and whether they are exactly
-    one a K6 (B <= 8) or K8 call and one a K7 call of the step's table
-    (`fast_*`, `fast_dual*` keys), with no pre-pass kernel.  More raises at
-    once: a launch the path should not make shows in every window.  Fewer
-    is a window whose tracer lost records (CUPTI drops a few of a long
-    window now and then), to be traced again."""
+    warm-up step traced and dropped): the il_gemv_kernel, il_dual_kernel
+    and ffn_kernel records inside the steps (window_kernels), and whether
+    they are exactly one a K6 (B <= 8) or K8 call, one a K7 call and one a
+    K9 call of the step's table (`fast_*`, `fast_dual*`, `ffn_fused_*`
+    keys), with no pre-pass kernel and, in a step that runs K9, no memset
+    (K9 resets its counters on the card).  More raises at once: a launch
+    the path should not make shows in every window.  Fewer is a window
+    whose tracer lost records (CUPTI drops a few of a long window now and
+    then), to be traced again."""
     step = table["step"]
     k7 = sum(v for k, v in step.items() if k.startswith("fast_dual"))
     il = sum(v for k, v in step.items() if k.startswith("fast_")) - k7
-    seen = window_kernels(events, ("il_gemv_kernel", "il_dual_kernel") + IL_PREPASS, n)
-    pre = sum(seen[k] for k in IL_PREPASS)
-    want = (f"want {il * n} il_gemv_kernel, {k7 * n} il_dual_kernel and no "
-            "pre-pass kernel")
-    if seen["il_gemv_kernel"] > il * n or seen["il_dual_kernel"] > k7 * n or pre:
+    k9 = sum(v for k, v in step.items() if k.startswith("ffn_fused"))
+    seen = window_kernels(events, ("il_gemv_kernel", "il_dual_kernel", "ffn_kernel",
+                                   "Memset") + IL_PREPASS, n)
+    pre = sum(seen[k] for k in IL_PREPASS) + (seen["Memset"] if k9 else 0)
+    want = (f"want {il * n} il_gemv_kernel, {k7 * n} il_dual_kernel, "
+            f"{k9 * n} ffn_kernel and no pre-pass kernel"
+            + (" or memset" if k9 else ""))
+    if (seen["il_gemv_kernel"] > il * n or seen["il_dual_kernel"] > k7 * n
+            or seen["ffn_kernel"] > k9 * n or pre):
         raise AssertionError(f"{n} decode steps: kernels {seen}, {want}")
     return seen, (seen["il_gemv_kernel"] == il * n
-                  and seen["il_dual_kernel"] == k7 * n), want
+                  and seen["il_dual_kernel"] == k7 * n
+                  and seen["ffn_kernel"] == k9 * n), want
 
 
 def profile_path(dev, cfg, weights, table, name):
@@ -813,7 +825,8 @@ def profile_path(dev, cfg, weights, table, name):
             log(f"  kv={kv} decode, per step: {seen['il_gemv_kernel'] // n} "
                 f"il_gemv_kernel (one a K6/K8 call), "
                 f"{seen['il_dual_kernel'] // n} il_dual_kernel (one a K7 "
-                "call), no pre-pass kernel")
+                f"call), {seen['ffn_kernel'] // n} ffn_kernel (one a K9 "
+                f"call), no pre-pass kernel, {seen['Memset'] // n} memsets")
         idle = "not measured" if dev_ms is None else f"{1 - dev_ms / host:.1%}"
         SUMMARY.setdefault(name, {})[f"{kv} profile"] = (
             f"{pre_txt}; decode step host/device {host:.3f}/"
@@ -1652,7 +1665,7 @@ def k9_row(dev, gen, cfg, rep, name, lw, dn, B, count):
     byts = planes + nbytes(x_a, xg_a, h_il, wn, got)
     ops = (2 * B * (d * d + 2 * n_ff * d + n_ff * d) + bias_ops(wo, B)
            + bias_ops(gu, B) + bias_ops(dn, B))
-    bms, by = bound_ms(byts, ops, F32_OPS)
+    bms, by = bound_ms(byts, ops, BF16_OPS)
     line = (f"  K9 {name:9s} down {dn.cfg.qtype.name} {PF._family(dn.cfg)} "
             f"B={B} max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms "
             f"plain={pms:.3f}ms bound={bms:.4f}ms ({by}) {bms / ms:.0%} of "
@@ -1678,7 +1691,7 @@ def k9_row(dev, gen, cfg, rep, name, lw, dn, B, count):
 
     sms = time_ms(split)
     log(f"{line}; split path (K6 res + normed + act) {sms:.4f}ms")
-    rep.add(count, err, ms, pms, byts, ops, F32_OPS)
+    rep.add(count, err, ms, pms, byts, ops, BF16_OPS)
     rep.d["split_ms"] += count * sms
 
 

@@ -7,6 +7,7 @@ one card, in the order parent, change, change, parent.
     git show c8a736e:ggml_hexagon_tpu_torch/csrc/qp8_gemv.cu > DIR/qp8_gemv.cu
     git show 3d188dc:ggml_hexagon_tpu_torch/csrc/qmm_wire.cu > DIR/qmm_wire.cu
     git show e176e56:ggml_hexagon_tpu_torch/csrc/attention.cu > DIR/attention.cu
+    git show 1c6f8f0:ggml_hexagon_tpu_torch/csrc/ffn_fused.cu > DIR/ffn_fused.cu
     python3 -m ggml_hexagon_tpu_torch.kernel_ab --parent DIR
 
 Each part runs when DIR holds its parent source; the parents are built
@@ -57,13 +58,21 @@ with this tree's nvcc flags and headers.
       8192-slot cache; and, level, K11 at the conformance prefill (B=1,
       H=32, T=512, S=1024, D=128, a causal [1,1,T,S] mask with a dead tail),
       f32 and bf16.
+  ffn_fused.cu (1c6f8f0, the last tree whose K9 ran one warp a weight row
+      between three grid barriers, a template instance a row count): K9 on
+      a Llama-3-8B Q4_K_M il ffn layer (d = 4096, n_ff = 14336) with its
+      Q4_K down and with its Q6_K down, at B = 1 and 8, the parent called
+      through its own C entry with its scratch; beside each row, in the
+      same process, the split path's three K6 launches on the same planes
+      un-permuted (wo residual mode, gate_up normed, down act mode, as
+      chip_smoke.k9_row times them), the unit's yardstick.
 
 Times are device times of a CUDA-graph replay after an L2 flush (median
 of iterations), as chip_smoke.py takes them (K1/K2/K5, K6 and K8 rows also
 the host microseconds a wrapper call takes to enqueue); each row also
 prints the bf16 `torch.matmul` (weight dequantized beforehand), `torch.bmm`
-(K5, K8: the selected experts dequantized beforehand) or SDPA (K4, bf16)
-yardstick and the bound, and each unit its sums (K10: `torch.matmul` on the
+(K5, K8: the selected experts dequantized beforehand), SDPA (K4, bf16) or
+the split path (K9) yardstick and the bound, and each unit its sums (K10: `torch.matmul` on the
 weight dequantized beforehand, bf16, or f32 for f32 compute; K11 and K12:
 SDPA in the inputs' type).
 Needs a card.
@@ -129,12 +138,16 @@ _PARENT_ARGS = {
     "flash_attn_run": kernels._ARGTYPES["flash_attn_run"],
     "decode_attn_gqa_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F,
                             _I, _P, _P, _P],
+    # K9 of 1c6f8f0 (its scratch h2, gu, xd and the down bias's sums xsg)
+    "ffn_fused_run": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I] + [_P] * 9
+    + [_I, _I, _F, _P, _P, _P, _P, _P, _P],
 }
 _PARENT_FNS = {"qp8_gemm": ["qp8_gemm_run"], "decode_attn": ["decode_attn_run"],
                "fast_il": ["fast_il_run", "fast_dual_run", "fast_indirect_run"],
                "qp8_gemv": ["qp8_gemv_run", "qp8_indirect_run"],
                "qmm_wire": ["qmm_wire_run", "qmm_wire_gemv_run"],
-               "attention": ["flash_attn_run", "decode_attn_gqa_run"]}
+               "attention": ["flash_attn_run", "decode_attn_gqa_run"],
+               "ffn_fused": ["ffn_fused_run"]}
 _FLUSH = None
 
 
@@ -309,6 +322,86 @@ class AB:
         if rc:
             raise RuntimeError(f"parent decode_attn_gqa_run: CUDA error {rc}")
         return out
+
+    def parent_k9(self, x_a, xg_a, h_il, wn, wo, gu, dn, eps):
+        """1c6f8f0's K9 (one warp a weight row, three grid barriers) on the
+        arguments kernels.ffn_fused takes, with its scratch."""
+        B, d = x_a.shape
+        n_ff, dev = dn.k, self.dev
+        _, G, _, _, _ = kernels._il_plane_args(wo)
+        _, Gc, _, off, cm = kernels._il_plane_args(dn)
+        bias = dn.fb is not None or off != 0.0
+        h2 = torch.empty((B, d), dtype=torch.float32, device=dev)
+        gus = torch.empty((B, 2 * n_ff), dtype=torch.float32, device=dev)
+        xd = torch.empty((B, n_ff), dtype=torch.bfloat16, device=dev)
+        xsg = (torch.empty((B, Gc), dtype=torch.float32, device=dev) if bias
+               else None)
+        out = torch.empty((B, d), dtype=torch.float32, device=dev)
+        p = kernels._ptr
+        rc = self.par["ffn_fused_run"](
+            p(x_a), p(xg_a), p(h_il), p(wn), float(eps), B, d, n_ff, G, Gc,
+            p(wo.fq), p(wo.fs), p(wo.fb), p(gu.fq), p(gu.fs), p(gu.fb),
+            p(dn.fq), p(dn.fs), p(dn.fb), kernels._FAMILY_ID[PF._family(dn.cfg)],
+            cm, off, p(h2), p(gus), p(xd), p(xsg), p(out),
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"parent ffn_fused_run: CUDA error {rc}")
+        return out
+
+    def k9(self, unit, cfg, lw, B, count):
+        """One K9 row on a layer of the 8B Q4_K_M il ffn model, P C C P
+        against 1c6f8f0's K9, beside the split path's three K6 launches on
+        the same planes un-permuted (the unit's yardstick), and its bound
+        (the three plane sets and the inputs read once, the output written
+        once; the products and bias dots at the bf16 peak)."""
+        from .ops import ffn_fused as PFF
+
+        dev, gen = self.dev, self.gen
+        d, wo, gu, wn, dn = (cfg.n_embd, lw["wo"], lw["w_gateup_il"],
+                             lw["ffn_norm_il"], lw["ffn_down"])
+        G, gs, n_ff = wo.fs.shape[1], wo.cfg.gs, dn.k
+        attn = torch.randn(B, d, generator=gen, device=dev).to(torch.bfloat16).float()
+        h = torch.randn(B, d, generator=gen, device=dev).to(torch.bfloat16).float()
+        x_a = PF._interleave_x(attn, G, gs).to(torch.bfloat16).contiguous()
+        xg_a = PF._sums_natural(attn, G).contiguous()
+        h_il = PF._interleave_x(h, G, gs).contiguous()
+        args = (x_a, xg_a, h_il, wn, wo, gu, dn, cfg.rms_eps)
+        new = lambda: kernels.ffn_fused(*args)  # noqa: E731
+        old = lambda: self.parent_k9(*args)  # noqa: E731
+        want = PFF.ffn_fused_plain(*args)
+        got = new()
+        e_new, e_old = _nmse(got, want), _nmse(old(), want)
+        t = [_time_ms(old), _time_ms(new), _time_ms(new), _time_ms(old)]
+        # the split path: the same rows of the same planes, un-permuted
+        inv = torch.argsort(PF.interleave_perm(d, 32))
+        wo_n, dn_n = wo.take_rows(inv), dn.take_rows(inv)
+        k6_wo, k6_gu, k6_dn = (PF._k6(q, False) for q in (wo_n, gu, dn_n))
+        x = attn.to(torch.bfloat16)
+        h1 = k6_wo(x, wo_n, res=h)
+        gu2 = k6_gu(h1.to(torch.bfloat16), gu, wn=wn, eps=cfg.rms_eps)
+        x1, x2 = h1.to(torch.bfloat16), gu2.to(torch.bfloat16)
+        xg = PF.group_sums(dn_n, gu2, "act")
+        split = _time_ms(lambda: (k6_wo(x, wo_n, res=h),
+                                  k6_gu(x1, gu, wn=wn, eps=cfg.rms_eps),
+                                  k6_dn(x2, dn_n, act="silu", res=h1, xg=xg)))
+        byts = sum(t_.numel() * t_.element_size() for q in (wo, gu, dn)
+                   for t_ in (q.fq, q.fs, q.fb) if t_ is not None)
+        byts += sum(t_.numel() * t_.element_size() for t_ in (x_a, xg_a, h_il, wn, got))
+        ops = sum(2 * B * q.k * q.fq.shape[0]
+                  + (2 * B * q.fs.shape[1] * q.fq.shape[0]
+                     if PF._needs_xg(q.cfg, q.fb) else 0) for q in (wo, gu, dn))
+        bound = max(byts / HBM_BPS, ops / BF16_OPS) * 1e3
+        Kd, Gc = dn.k, dn.fs.shape[1]
+        plan = kernels.pick_ffn(d, G, n_ff, Kd, Gc, PF._is_packed(dn.cfg),
+                                dn.fb is not None, PF._needs_xg(dn.cfg, dn.fb), B,
+                                torch.cuda.get_device_properties(dev).multi_processor_count)
+        print(f"K9 {unit} B={B} down {dn.cfg.qtype.name} {plan} nmse={e_new:.2e} "
+              f"(parent {e_old:.2e}) P={t[0]:.4f} C={t[1]:.4f} C={t[2]:.4f} "
+              f"P={t[3]:.4f} ms split={split:.4f} bound={bound:.4f} x{count} "
+              f"host us/call P={_host_us(old):.1f} C={_host_us(new):.1f}",
+              flush=True)
+        self._unit(unit, count, t, split, bound)
+        return e_new
 
     def _unit(self, unit, count, t, lib, bound):
         u = self.units.setdefault(unit, [0.0, 0.0, 0.0, 0.0, 0])
@@ -1140,12 +1233,29 @@ def run_attention(ab, dev) -> bool:
     return ok
 
 
+def run_k9(ab, dev) -> bool:
+    """K9 on the 8B Q4_K_M il ffn layers (a Q4_K-down and a Q6_K-down
+    layer, each unit counted over its layers of the step), B = 1 and 8."""
+    ok = True
+    cfg, w = build_8b_il(seed=0, device=dev, ffn_fused=True)
+    layers = w["layers"]
+    for q in ("Q4_K", "Q6_K"):
+        lws = [lw for lw in layers if lw["ffn_down"].cfg.qtype.name == q]
+        for B in (1, 8):
+            ok &= ab.k9(f"8B-Q4_K_M-il-ffn-K9-{q}-down-B{B}", cfg, lws[0], B,
+                        len(lws)) <= 1e-6
+    del w, layers
+    torch.cuda.empty_cache()
+    return ok
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True,
                     help="directory holding the parent's fast_il.cu, "
-                         "qp8_gemm.cu and decode_attn.cu, qp8_gemv.cu, or "
-                         "qmm_wire.cu and attention.cu, or any of these")
+                         "qp8_gemm.cu and decode_attn.cu, qp8_gemv.cu, "
+                         "qmm_wire.cu, attention.cu, or ffn_fused.cu, or "
+                         "any of these")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -1172,6 +1282,8 @@ def main(argv=None):
         ok &= run_wire(ab, dev)
     if "lib:attention" in ab.par:
         ok &= run_attention(ab, dev)
+    if "lib:ffn_fused" in ab.par:
+        ok &= run_k9(ab, dev)
     for unit, (p, c, lib, bound, n) in ab.units.items():
         vs = f" ({c / lib:.2f}x)" if lib else ""
         share = f", {bound / c:.0%} of it" if bound and c else ""

@@ -109,8 +109,8 @@ _ARGTYPES = {
     + [_P, _P, _P],
     "fast_indirect_run": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F,
                           _P, _I, _I, _I, _P, _P, _P, _P],
-    "ffn_fused_run": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I] + [_P] * 9
-    + [_I, _I, _F, _P, _P, _P, _P, _P, _P],
+    "ffn_fused_run": [_I, _I, _I, _F] + [_P] * 4 + [_I] + [_P] * 9 + [_I] * 5
+    + [_F] + [_I] * 7 + [_P] * 8,
     "decode_attn_run": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                         _I, _F, _I, _I, _P, _P, _P, _P, _P],
     "qmm_wire_gemv_run": [_I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -403,9 +403,9 @@ def pick_gemv(geos: tuple, n2s: tuple, nb: int, rows_z: int,
 
 
 #: per device, the int32 tile counters of the split sums of K1/K2/K5, K6
-#: (B <= 8), K8 and K10: zero between calls (each call's last blocks reset
-#: theirs), so one buffer a device serves every call on its stream, as the
-#: built libraries do.
+#: (B <= 8), K8, K9 (and its phase counters) and K10: zero between calls
+#: (each call's last blocks reset theirs), so one buffer a device serves
+#: every call on its stream, as the built libraries do.
 #: Made at the device's first call, which must come before any CUDA-graph
 #: capture (a capture's allocations belong to the graph's pool).
 _COUNTERS: dict[int, torch.Tensor] = {}
@@ -677,6 +677,115 @@ def pick_il_dual(part_a: tuple, part_b: tuple, nb: int, mode: int,
                             max(p.smem for p in plans), per_sm)
     raise ValueError(f"no K7 plan fits shared memory: parts {parts}, {nb} "
                      "rows")
+
+
+class FfnPlan(NamedTuple):
+    """A K9 launch: each phase's splits and blocks along its tiles (A: wo,
+    C: down; a phase's blocks are the first nbx x ks of the grid; B:
+    gate_up, never split, nbx blocks along its pairs of a gate tile and the
+    up tile of the same columns), the ring's stages, the persistent blocks
+    (all resident at once, per_sm an SM) and the shared memory a block."""
+    ks_a: int
+    nbx_a: int
+    ks_b: int
+    nbx_b: int
+    ks_c: int
+    nbx_c: int
+    ns: int
+    blocks: int
+    per_sm: int
+    smem: int
+
+
+def ffn_geos(d: int, G: int, K_dn: int, Gc: int, packed: bool):
+    """The stages of K9's phases (csrc/ffn_fused.cu): wo and gate_up at
+    residue blocks of 128 groups (G % 128 == 0, G <= 512), the down planes
+    (K_dn columns in Gc groups, padded to a multiple of 8) at 128 where Gc
+    >= 128, else 16; ValueError where the kernel takes none."""
+    ga = il_geo(d, G, True)
+    if ga.GW != 128 or G > 512:
+        raise ValueError(f"K9 takes wo and gate_up planes of G % 128 == 0 "
+                         f"and G <= 512, got G={G}")
+    return ga, il_geo(K_dn, Gc, packed, 128 if Gc >= 128 else 16)
+
+
+def ffn_act(geo: IlGeo, gs: int, nb: int, ks: int, bias: bool,
+            partials: bool) -> int:
+    """Bytes of one phase's activation region (csrc/ffn_fused.cu
+    act_region): the bf16 slabs of the residue blocks the widest of ks
+    splits touches, their group sums' three parts (with a bias) and, in
+    phase B, the partial sums of four period groups."""
+    arb = il_touched(geo, ks)
+    slab = nb * geo.GW * 2
+    end = _a128(arb * gs * slab) + (_a128(arb * 3 * slab) if bias else 0)
+    return end + (4 * nb * arb * geo.GW * 4 if partials else 0)
+
+
+def ffn_smem(ns: int, slotb: int, sb: int, actx: int, d: int) -> int:
+    """K9's shared memory a block: ns ring slots of slotb bytes (weight
+    boxes, and the fb boxes of planes with a stored bias), two scale
+    regions of sb (fs boxes), the largest phase's activation region, a
+    tile's outputs or phase A's tiles' sums of squares (f32 [max(d/64,
+    64), 8]), the norm's factors, the last-block flag, the mbarriers."""
+    tv = 4 * max(d // IL_ROWS, IL_ROWS) * 8
+    return _a128(ns * slotb + 2 * sb + actx + tv + 4 * 8 + 16) + 8 * (2 * ns + 3)
+
+
+@functools.lru_cache(maxsize=None)
+def pick_ffn(d: int, G: int, n_ff: int, K_dn: int, Gc: int, packed: bool,
+             fb: bool, bias: bool, nb: int, sms: int) -> FfnPlan:
+    """Splits, ring and blocks of a K9 launch (nb <= 8 rows; wo [d, d] and
+    gate_up [2 n_ff, d] nibble planes of G groups with a stored fb; down
+    planes [d, K_dn] of Gc groups, packed or byte, with a stored fb, a bias,
+    or none) from the shapes and the card's SM count: each phase takes
+    _pick_persistent's plan (its splits of whole stages and its blocks along
+    its tiles) on the whole card, every phase at two blocks an SM, else at
+    one; phase B is never split (each block takes pairs of a gate and an up
+    tile: 14336 / 64 = 224 pairs at the 8B widths, more than half the
+    slots), its blocks one a pair up to the grid; the ring is the
+    shallowest phase's, the activation region the largest phase's, and the
+    grid every block slot of the card (a cooperative launch: all resident
+    at once)."""
+    ga, gc = ffn_geos(d, G, K_dn, Gc, packed)
+    gs_a, gs_c = d // G, K_dn // Gc
+    slotb = max(ga.wb, gc.wb)
+    sb = max(ga.fsb, gc.fsb)  # fs boxes (fb boxes go through the ring)
+    rows = (d, 2 * n_ff, d)
+    if any(r % IL_ROWS for r in rows):
+        raise ValueError(f"K9 takes rows in tiles of {IL_ROWS}: d={d}, "
+                         f"n_ff={n_ff}")
+    # phases A and C: geometry, the activation region at ks splits, and the
+    # bytes its build reads (the bf16 x_a, the bf16 xd)
+    phases = (
+        (ga, lambda ks: ffn_act(ga, gs_a, nb, ks, True, False),
+         lambda ks: nb * 2 * il_touched(ga, ks) * ga.GW * gs_a),
+        (gc, lambda ks: ffn_act(gc, gs_c, nb, ks, bias, False),
+         lambda ks: nb * 2 * il_touched(gc, ks) * gc.GW * gs_c))
+    act_b = ffn_act(ga, gs_a, nb, 1, True, True)
+    pairs = n_ff // IL_ROWS
+    for per_sm in (2, 1):
+        budget = min(SMEM_BLOCK, SMEM_SM // per_sm - 1024)
+        plans = []
+        for (geo, act, act_bytes), r in zip(phases, rows[::2]):
+            plan = _pick_persistent(
+                geo.nst, r // IL_ROWS, 1, sms, geo.wb,
+                lambda ns, ks, act=act: ffn_smem(ns, slotb, sb, act(ks), d),
+                act_bytes, per_sms=(per_sm,))
+            if plan is None:
+                break
+            plans.append(plan)
+        else:
+            ns_b = max((ns for ns in range(1, 9)
+                        if ffn_smem(ns, slotb, sb, act_b, d) <= budget), default=0)
+            if not ns_b:
+                continue
+            ns = min(ns_b, *(p[1] for p in plans))
+            actx = max(act_b, *(act(p[0]) for (_, act, _), p in zip(phases, plans)))
+            (ka, _, xa, *_), (kc, _, xc, *_) = plans
+            return FfnPlan(ka, xa, 1, min(pairs, sms * per_sm), kc, xc, ns,
+                           sms * per_sm, per_sm, ffn_smem(ns, slotb, sb, actx, d))
+    raise ValueError(f"no K9 plan fits shared memory: d={d}, n_ff={n_ff}, "
+                     f"down K={K_dn}, Gc={Gc}, {nb} rows")
 
 
 def _gemv_launch(kind: str, x, qts, wn, eps, act, res):
@@ -1103,10 +1212,18 @@ def ffn_fused(x_a, xg_a, h_il, wn, wo, gu, dn, eps: float, act: str = "silu"):
     [B, d] (the residual, interleaved), wn f32 [d] (the ffn norm weight,
     interleaved); wo [d, d] and gate_up [2 n_ff, d] on nibble planes with a
     stored fb, down [d, n_ff] on nibble, byte or coded planes (rows of wo and
-    down in the il32 order) -> the layer output f32 [B, d] in that order."""
+    down in the il32 order) -> the layer output f32 [B, d] in that order.
+
+    One cooperative launch of csrc/ffn_fused.cu (K6's streaming block over
+    three phases, wo, gate_up and down, one ring whose producer streams
+    the next phase's weights across each boundary; the phases meet at
+    device counters), its plan from pick_ffn; down planes whose groups are
+    not a multiple of 8 run padded (padded_il_planes), as K6's do.  What
+    bounds it is bytes: every weight byte is read once and feeds B
+    multiply-adds (2B on packed planes)."""
     if act != "silu":
         raise NotImplementedError(f"act {act!r}: K9 takes silu only")
-    from .ops.qmm_fast import _family
+    from .ops.qmm_fast import _family, _is_packed
 
     _need(x_a, torch.bfloat16, "x_a", 2)
     _need(xg_a, torch.float32, "xg_a", 2)
@@ -1129,21 +1246,31 @@ def ffn_fused(x_a, xg_a, h_il, wn, wo, gu, dn, eps: float, act: str = "silu"):
     family = _family(dn.cfg)
     key = "ffn_fused_" + family
     bias = dn.fb is not None or off != 0.0
+    dnp = padded_il_planes(dn) if il_pad(n_ff, Gc)[1] != Gc else dn
+    Gp = dnp.fs.shape[1]
     dev = x_a.device
+    plan = pick_ffn(d, G, n_ff, dnp.k, Gp, _is_packed(dn.cfg),
+                    dn.fb is not None, bias, B,
+                    _sm_count(dev.index if dev.index is not None
+                              else torch.cuda.current_device()))
+    counters = _gemv_counters(dev, 2 * d // IL_ROWS + 3)
     # scratch stays referenced until the launch is enqueued
     h2 = torch.empty((B, d), dtype=torch.float32, device=dev)
-    gus = torch.empty((B, 2 * n_ff), dtype=torch.float32, device=dev)
+    ssq = torch.empty((d // IL_ROWS, 8), dtype=torch.float32, device=dev)
     xd = torch.empty((B, n_ff), dtype=torch.bfloat16, device=dev)
-    xsg = (torch.empty((B, Gc), dtype=torch.float32, device=dev) if bias
-           else None)
+    ws = [torch.empty((ks, B, d), dtype=torch.float32, device=dev)
+          if ks > 1 else None for ks in (plan.ks_a, plan.ks_c)]
     out = torch.empty((B, d), dtype=torch.float32, device=dev)
     lib = _lib("ffn_fused")
     rc = lib.ffn_fused_run(
-        _ptr(x_a), _ptr(xg_a), _ptr(h_il), _ptr(wn), float(eps), B, d, n_ff,
-        G, Gc, _ptr(wo.fq), _ptr(wo.fs), _ptr(wo.fb), _ptr(gu.fq),
-        _ptr(gu.fs), _ptr(gu.fb), _ptr(dn.fq), _ptr(dn.fs), _ptr(dn.fb),
-        _FAMILY_ID[family], cm, off, _ptr(h2), _ptr(gus), _ptr(xd), _ptr(xsg),
-        _ptr(out), _stream(dev))
+        B, d, n_ff, float(eps), _ptr(x_a), _ptr(xg_a), _ptr(h_il), _ptr(wn), G,
+        _ptr(wo.fq), _ptr(wo.fs), _ptr(wo.fb), _ptr(gu.fq), _ptr(gu.fs),
+        _ptr(gu.fb), _ptr(dnp.fq), _ptr(dnp.fs), _ptr(dnp.fb), dnp.k, Gp, Gc,
+        _FAMILY_ID[family], cm, off, plan.ks_a, plan.nbx_a, plan.nbx_b,
+        plan.ks_c, plan.nbx_c, plan.ns, plan.blocks, _ptr(h2), _ptr(ssq),
+        _ptr(xd), *(_ptr(w) for w in ws), _ptr(counters), _ptr(out),
+        _stream(dev))
+    del ws
     _check(lib, rc, key)
     LAUNCHES[key] += 1
     return out

@@ -45,10 +45,15 @@ Tolerances, per kernel, with their reasons:
       t-planes; K6, K7, K8 on coded nibble planes): the codes decode to the
       same integers on both sides, so each kernel keeps its tolerance and
       counts its launches under its *_coded key.  NMSE <= 1e-6.
-  K9 (the whole-FFN megakernel): K6's B <= 8 arithmetic in each phase;
-      f32 sums in another order can move xb and xd across a bf16 rounding
-      step, and 1/sqrt and expf can differ in their last ulp.  NMSE <= 1e-6
-      (about 1e-9 measured at Llama-3-8B widths with unit-scale inputs).
+  K9 (the whole-FFN megakernel): K6's B <= 8 arithmetic in each phase
+      (bf16 mma, byte weights as two exact bf16 parts, the group sums as
+      three exact bf16 parts, split sums in split order); f32 sums in
+      another order can move xb and xd across a bf16 rounding step, and
+      1/sqrt and expf can differ in their last ulp.  NMSE <= 1e-6, at d =
+      4096 and n_ff = 2048 (every down branch), 14336 (Q4_K, Q6_K and
+      ternary downs) and 1536 (ternary, padded to 8 groups); repeated
+      launches, a launch after a K6 call that split K, and a CUDA-graph
+      replay give the same bits.
   K10 (wire-plane dequant x matmul): the same f32 weight from the same
       roundings, the same bf16 (or f32) operands, f32 sums in another
       order (at B <= 8 in bf16 the streaming GEMV: K split over blocks,
@@ -709,21 +714,23 @@ _K9_DOWN = {"q4k": GGMLType.Q4_K, "q6k": GGMLType.Q6_K, "q5k": GGMLType.Q5_K,
             "q4_0": GGMLType.Q4_0, "iq3xxs": GGMLType.IQ3_XXS}
 
 
-@pytest.mark.parametrize("down", list(_K9_DOWN))
-@pytest.mark.parametrize("B", [1, 3, 8])
-def test_ffn_fused_kernel_matches_plain(dev, down, B):
-    """K9 at d = 4096, n_ff = 2048 on each down branch: the wrapper's
-    kernel against its plain version, one launch under the down family's
-    key."""
-    d, n_ff = 4096, 2048
+def _k9_layer(dev, d, n_ff, down):
+    """wo, gate_up and down planes in the megakernel layout: wo's and
+    down's rows permuted to the il32 order, gate_up's rows in down's
+    interleaved column order (models/fuse.attach_ffn_fused_layout)."""
     perm = PF.interleave_perm(d, 32)
     wo = _qt(dev, d, d, GGMLType.Q4_K, "il").take_rows(perm)
-    dn = _qt(dev, d, n_ff, _K9_DOWN[down], "il")
+    dn = _qt(dev, d, n_ff, down, "il")
     pc = PF.interleave_perm(n_ff, dn.cfg.gs).to(dev)
     gu = _qt(dev, 2 * n_ff, d, GGMLType.Q4_K, "il").take_rows(
         torch.cat([pc, n_ff + pc]))
     dn = dn.take_rows(perm)
     assert PFF.supports_ffn_fused(wo, gu, dn, d, n_ff)
+    return wo, gu, dn
+
+
+def _k9_matches_plain(dev, d, n_ff, down, B):
+    wo, gu, dn = _k9_layer(dev, d, n_ff, down)
     wn = torch.rand(d, device=dev) + 0.5
     attn, h = _x(dev, B, d, seed=B), _x(dev, B, d, seed=B + 1)
     key = "ffn_fused_" + PF._family(dn.cfg)
@@ -735,6 +742,89 @@ def test_ffn_fused_kernel_matches_plain(dev, down, B):
     assert kernels.LAUNCHES[key] == before + 1
     assert got.shape == (B, d) and torch.isfinite(got).all()
     assert _nmse(got, want) <= NMSE_MAX
+
+
+@pytest.mark.parametrize("down", list(_K9_DOWN))
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_ffn_fused_kernel_matches_plain(dev, down, B):
+    """K9 at d = 4096, n_ff = 2048 on each down branch: the wrapper's
+    kernel against its plain version, one launch under the down family's
+    key."""
+    _k9_matches_plain(dev, 4096, 2048, _K9_DOWN[down], B)
+
+
+@pytest.mark.parametrize("down", ["q4k", "q6k"])
+@pytest.mark.parametrize("B", [1, 8])
+def test_ffn_fused_full_width_matches_plain(dev, down, B):
+    """K9 at the Llama-3-8B widths (d = 4096, n_ff = 14336: phases A and C
+    split K, the Q4_K down's last residue block ragged, 448 = 3 x 128 +
+    64 groups) on the two down types of the 8B Q4_K_M layers."""
+    _k9_matches_plain(dev, 4096, 14336, _K9_DOWN[down], B)
+
+
+@pytest.mark.parametrize("n_ff", [1536, 2048, 14336])
+@pytest.mark.parametrize("B", [1, 3])
+def test_ffn_fused_ternary_down_matches_plain(dev, n_ff, B):
+    """K9 on a ternary down (TQ2_0, 256 columns a group): G = 6 groups at
+    n_ff = 1536 (padded to 8, kernels.padded_il_planes), 8 at 2048 and 56
+    at 14336 (G % 16 == 8: the producer warp copies the weights)."""
+    _k9_matches_plain(dev, 4096, n_ff, GGMLType.TQ2_0, B)
+
+
+def _k9_args(dev, down=GGMLType.Q4_K, B=1, n_ff=14336):
+    """kernels.ffn_fused's arguments at the 8B widths (d = 4096)."""
+    d = 4096
+    wo, gu, dn = _k9_layer(dev, d, n_ff, down)
+    attn = _x(dev, B, d, seed=7).to(torch.bfloat16).float()
+    h = _x(dev, B, d, seed=8)
+    G, gs = wo.fs.shape[1], wo.cfg.gs
+    x_a = PF._interleave_x(attn, G, gs).to(torch.bfloat16).contiguous()
+    xg_a = PF._sums_natural(attn, G).contiguous()
+    h_il = PF._interleave_x(h, G, gs).contiguous()
+    wn = torch.rand(d, device=dev) + 0.5
+    return (x_a, xg_a, h_il, wn, wo, gu, dn, 1e-5)
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_ffn_fused_repeats_bits(dev, B):
+    """K9 is deterministic and leaves its counters as it found them: two
+    launches back to back (no host step between them), a third right
+    after a K6 call whose plan splits K (it uses the same tile counters)
+    give the same bits, and equal the plain version within NMSE_MAX."""
+    args = _k9_args(dev, B=B)
+    first = kernels.ffn_fused(*args)
+    second = kernels.ffn_fused(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    qt = _qt(dev, 4096, 14336, GGMLType.Q4_K, "il")
+    x = _x(dev, 1, 14336, seed=3).to(torch.bfloat16)
+    assert kernels._il_plan(qt, 1, 4096 // kernels.IL_ROWS, 1, 0, dev).ks > 1
+    kernels.fast_nibble(x, qt, xg=PF.group_sums(qt, x, "plain"))
+    third = kernels.ffn_fused(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, third)
+    assert _nmse(first, PFF.ffn_fused_plain(*args)) <= NMSE_MAX
+
+
+@pytest.mark.parametrize("down", ["q4k", "q6k"])
+def test_ffn_fused_graph_replay_matches_eager(dev, down):
+    """A CUDA graph holding one K9 launch, replayed three times, gives the
+    eager launch's bits each time (the counters reset on the card)."""
+    args = _k9_args(dev, _K9_DOWN[down])
+    want = kernels.ffn_fused(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernels.ffn_fused(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kernels.ffn_fused(*args)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
 
 
 #: one type of each K10 plane family, and two expanded (signed) types
