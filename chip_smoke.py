@@ -89,6 +89,25 @@
    (f32 and bf16 inputs), each with the launches its cases made in the
    drive.
 
+14. Llama-3-8B Q4_K_M from a GGUF file (the loading and text-serving
+   path; right after the conformance phase): write_gguf writes the
+   full-size model (random centred Q4_K/Q6_K blocks, the 8B's llama.*
+   metadata and a synthetic llama-bpe vocabulary of 128256 tokens,
+   models/synth.py) into
+   a temporary directory (or a bytearray when it lacks room), removed
+   after; Engine.from_gguf(fuse=True) loads it (the raw bytes unpacked on
+   the card by pack_tensor, held byte-equal to the CPU's on a Q4_K and a
+   Q6_K tensor; the token embedding's planes equal to the draw); requests
+   from text (prompts of 512, 128 and 7 tokens that round-trip through the
+   tokenizer) through generate with the greedy chain under bf16, q8_0 and
+   q4_0 KV, each prefill and decode step held to the 8B's launch table
+   (under q4_0 one decode_attn_q4 launch a layer a step); generate_ondevice
+   held to the host greedy tokens at temp 0 and to its seed at temp 0.8,
+   top-k 40, top-p 0.95, with no device-to-host copy added by its decode
+   steps (profiler); K4 over a q4_0 cache held against its plain twin at
+   pos 700, B = 1 and 8, timed beside SDPA on the cache dequantized to
+   bf16.
+
 K6 above 8 rows is its own kernel, the wgmma GEMM of csrc/fast_il_gemm.cu
 (the ninth slice): every configuration whose prefill chunk runs it holds
 it against its plain version at M = 32, 128 and 512 on the chunk's shapes,
@@ -759,18 +778,19 @@ def il_kernel_counts(events, table, n):
                   and seen["ffn_kernel"] == k9 * n), want
 
 
-def profile_path(dev, cfg, weights, table, name):
+def profile_path(dev, cfg, weights, table, name, kvs=("bf16", "q8_0")):
     """Where the time goes: host time vs device kernel time of a 512-token
     prefill and of decode steps at pos ~512 (torch.profiler, CUPTI), and
     the decode steps' K6/K8 kernels held to one launch a call (table: the
-    configuration's LAUNCH_TABLES entry); both into SUMMARY[name]."""
+    configuration's LAUNCH_TABLES entry), for each KV type of kvs; both
+    into SUMMARY[name]."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from ggml_hexagon_tpu_torch.runtime.engine import Engine
 
     prompt = np.random.default_rng(2).integers(0, cfg.n_vocab, 512)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    for kv in ("bf16", "q8_0"):
+    for kv in kvs:
         eng = Engine(cfg, weights, max_seq=1024, kv_dtype=kv, device=dev)
         eng.prefill(prompt[None])          # warm
         eng.reset()
@@ -2028,6 +2048,302 @@ def run_conformance(dev):
     return list(reps.values()), counts
 
 
+#: the load phase's requests from text: (KV type, prompt tokens, tokens
+#: generated), on one loaded model
+LOAD_REQUESTS = [("bf16", 512, 32), ("q8_0", 512, 32), ("q4_0", 512, 32),
+                 ("q4_0", 128, 32), ("q4_0", 7, 16)]
+SRC_K4 = "ggml_hexagon_tpu_torch/csrc/decode_attn.cu"
+K4_ATTN = "ggml_hexagon_tpu/ops/decode_attn.py:177"
+
+
+def load_prompts(tok, words):
+    """Texts whose encodings are 512, 128 and 7 tokens (the BOS and one
+    token a word of the synthetic vocabulary), each checked to round-trip
+    through the tokenizer; -> {tokens: (text, ids)}."""
+    out = {}
+    for n in (512, 128, 7):
+        text = " ".join(words[(7 * i) % len(words)] for i in range(n - 1))
+        ids = tok.encode(text)
+        if len(ids) != n or tok.decode(ids) != text:
+            raise AssertionError(f"prompt of {n} tokens: {len(ids)} tokens, "
+                                 f"round trip {tok.decode(ids) == text}")
+        out[n] = (text, ids)
+    return out
+
+
+def held_pack(dev, reader, name):
+    """pack_tensor on the card byte-equal to the plain CPU call on one
+    tensor of the file; -> its type's name."""
+    from ggml_hexagon_tpu_torch.quant.pack import pack_tensor
+
+    t = reader.tensors[name]
+    raw = reader.tensor_bytes(name).copy()
+    want = pack_tensor(raw, t.ggml_type, t.shape)
+    got = pack_tensor(torch.from_numpy(raw).to(dev), t.ggml_type, t.shape)
+    for f in ("q", "qh", "d", "sc", "dmin", "m"):
+        a, b = getattr(got, f), getattr(want, f)
+        if (a is None) != (b is None) or (a is not None and not (
+                a.is_cuda and a.dtype == b.dtype and torch.equal(a.cpu(), b))):
+            raise AssertionError(f"pack_tensor {name} {f}: card != CPU")
+    return t.ggml_type.name
+
+
+def d2h_copies(fn):
+    """Device-to-host memcpy records in a profiler run of fn, or None when
+    the trace holds no device record at all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if "CUDA" in str(getattr(e, "device_type", ""))]
+    if not dev_events:
+        return None
+    return sum("Memcpy DtoH" in e.name for e in dev_events)
+
+
+def k4_q4_rows(dev, cfg, rep):
+    """K4 over a q4_0 cache against its plain twin at the 8B's shapes (S =
+    1024, pos 700, B = 1 and 8), timed beside SDPA on the cache
+    dequantized to bf16 beforehand; B = 1 goes into `rep` (32 launches a
+    step)."""
+    from ggml_hexagon_tpu_torch.ops import decode_attn as PD
+    from ggml_hexagon_tpu_torch.ops.basic import rope_freqs
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    Hq, Hkv, D, S, pos = cfg.n_head, cfg.n_head_kv, cfg.hd, 1024, 700
+    for B in (1, 8):
+        qkv = torch.randn(B, (Hq + 2 * Hkv) * D, generator=gen, device=dev)
+        kq, vq = (torch.randint(-7, 8, (B, S, Hkv * D), device=dev,
+                                dtype=torch.int8, generator=gen)
+                  for _ in range(2))
+        kc, vc = PD.pack_int4(kq), PD.pack_int4(vq)
+        ks = torch.rand(B, S, device=dev, generator=gen) * 0.02
+        vs = torch.rand(B, S, device=dev, generator=gen) * 0.02
+        posb = torch.full((B,), pos, dtype=torch.int32, device=dev)
+        inv, ms_ = rope_freqs(cfg.rope_params, dev)
+        ang = posb[:, None].float() * inv[None]
+        cs = (torch.cat([torch.cos(ang), torch.sin(ang)], 1) * ms_).contiguous()
+        kw = dict(Hq=Hq, Hkv=Hkv, D=D, scale=D ** -0.5, k_scale=ks,
+                  v_scale=vs, kv_bits=4)
+        got = PD.decode_attn(qkv, kc, vc, posb, cs, **kw)
+        want = PD.decode_attn_plain(qkv, kc, vc, posb, cs, **kw)
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        e2 = nmse(torch.cat(got, 1), torch.cat(want, 1))
+        if not (err <= ATTN_MAX_ABS and all(torch.isfinite(g).all() for g in got)):
+            raise AssertionError(f"K4 q4_0 B={B} pos={pos}: {err}")
+        ms = time_ms(lambda: PD.decode_attn(qkv, kc, vc, posb, cs, **kw))
+        pms = time_plain_ms(
+            lambda: PD.decode_attn_plain(qkv, kc, vc, posb, cs, **kw))
+        # the yardstick: SDPA on the live cache dequantized to bf16 beforehand
+        q4 = qkv[:, :Hq * D].reshape(B, Hq, 1, D).to(torch.bfloat16)
+        k4 = (kq[:, :pos + 1].float() * ks[:, :pos + 1, None]).to(
+            torch.bfloat16).reshape(B, pos + 1, Hkv, D).transpose(1, 2)
+        v4 = (vq[:, :pos + 1].float() * vs[:, :pos + 1, None]).to(
+            torch.bfloat16).reshape(B, pos + 1, Hkv, D).transpose(1, 2)
+        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, enable_gqa=True))
+        byts = (nbytes(qkv, cs, *got) + 2 * B * pos * Hkv * D // 2
+                + 2 * B * pos * 4)
+        ops = 4 * B * (pos + 1) * Hq * D
+        bms, by = bound_ms(byts, ops, BF16_OPS)
+        log(f"  q4_0 B={B} pos={pos}: max|d|={err:.3e} nmse={e2:.2e} "
+            f"kernel={ms:.4f}ms plain={pms:.3f}ms sdpa(bf16 dequantized "
+            f"cache)={lib:.4f}ms bound={bms:.5f}ms ({by})")
+        if B == 1:
+            rep.add(cfg.n_layer, err, ms, pms, byts, ops, BF16_OPS, lib)
+
+
+def run_load(dev):
+    """Llama-3-8B Q4_K_M from a GGUF file, served from text: the file
+    (random centred blocks of the Q4_K_M mixture, the 8B's llama.*
+    metadata, a synthetic llama-bpe vocabulary of 128256 tokens) written
+    into a temporary directory, or into a bytearray when its filesystem
+    lacks room, loaded through Engine.from_gguf(fuse=True), pack_tensor
+    held on the card against the CPU, requests from text under bf16, q8_0
+    and q4_0 KV held to the 8B's launch table (one decode_attn_q4 a layer
+    a step under q4_0), generate_ondevice held to the host's greedy
+    tokens and to its seed with no device-to-host copy in its decode loop,
+    and K4 over a q4_0 cache held against its plain twin.  Returns (kernel
+    reports, the requests' launch counts)."""
+    import shutil
+    import tempfile
+
+    from ggml_hexagon_tpu_torch import kernels
+    from ggml_hexagon_tpu_torch.gguf.reader import GGUFReader
+    from ggml_hexagon_tpu_torch.models.llama import LlamaConfig
+    from ggml_hexagon_tpu_torch.models.synth import (LLAMA3_8B,
+                                                     draw_gguf_tensors,
+                                                     gguf_data_bytes,
+                                                     llama_bpe_vocab,
+                                                     write_gguf)
+    from ggml_hexagon_tpu_torch.runtime.device_sampling import DeviceSamplerParams
+    from ggml_hexagon_tpu_torch.runtime.engine import PREFILL_BUCKETS, Engine
+    from ggml_hexagon_tpu_torch.runtime.sampling import greedy_chain
+
+    name = "Llama-3-8B Q4_K_M from a GGUF file"
+    t_ph = phase(name, dev)
+    cfg = LlamaConfig(**LLAMA3_8B)
+    fields, words = llama_bpe_vocab()
+    need = gguf_data_bytes(cfg, "Q4_K_M")
+    tmp = tempfile.mkdtemp(prefix="ght_gguf_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        if free > need + 2 ** 30:
+            src = os.path.join(tmp, "llama-3-8b-q4_k_m-synthetic.gguf")
+            where = f"a file in {tmp}"
+        else:
+            src = bytearray()
+            where = "a bytearray (GGUFReader.from_buffer)"
+        info = write_gguf(src, cfg, "Q4_K_M", seed=0, vocab_fields=fields,
+                          device=dev)
+        log(f"wrote {info['bytes']} bytes ({info['bytes'] / 1e9:.3f} GB) into "
+            f"{where} in {info['seconds']:.1f} s; the temporary filesystem "
+            f"had {free} bytes free")
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats(dev)
+        eng = Engine.from_gguf(src, fuse=True, max_seq=1024, device=dev)
+        log(f"Engine.from_gguf(fuse=True): t_load {eng.perf.t_load:.2f} s, "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+            f"{eng.cfg.n_layer} layers, rope {eng.cfg.rope_mode}, vocab "
+            f"{eng.vocab.n_tokens} ({eng.vocab.model}/{eng.vocab.pre}, bos "
+            f"{eng.vocab.bos_id}, eos {eng.vocab.eos_id})")
+        reader = (GGUFReader.open(src) if isinstance(src, str)
+                  else GGUFReader.from_buffer(src))
+        with reader:
+            packed = [held_pack(dev, reader, n) for n in
+                      ("blk.0.attn_q.weight", "blk.0.attn_v.weight")]
+        log(f"pack_tensor on the card byte-equal to the CPU on {packed}")
+        _, drawn = next(draw_gguf_tensors(cfg, "Q4_K_M", 0, dev))
+        te = eng.weights["tok_embd"]
+        for f in ("q", "d", "sc", "dmin", "m"):
+            if not torch.equal(getattr(te, f)[:te.n].to(torch.float32),
+                               getattr(drawn, f)[:te.n].to(torch.float32)):
+                raise AssertionError(f"tok_embd {f}: loaded != drawn")
+        log("the loaded tok_embd wire planes equal the draw")
+        del drawn, te
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        log(f"removed {tmp}")
+    del src
+    gc.collect()
+    tok = eng.tokenizer
+    prompts = load_prompts(tok, words)
+    log(f"prompts of {sorted(prompts)} tokens round-trip through the "
+        "tokenizer")
+    table = LAUNCH_TABLES["Llama-3-8B Q4_K_M"]
+    engines = {kv: Engine(eng.cfg, eng.weights, eng.vocab, max_seq=1024,
+                          kv_dtype=kv, device=dev)
+               for kv in ("bf16", "q8_0", "q4_0")}
+    del eng
+
+    def want(kv, rows, step):
+        c = want_launches(table, rows, step)
+        if kv == "q4_0":
+            c["decode_attn_q4"], c["decode_attn"] = c["decode_attn"], 0
+        return c
+
+    kernels.reset_launches()
+    greedy = {}
+    for kv, n_prompt, n_gen in LOAD_REQUESTS:
+        e = engines[kv]
+        e.reset()
+        text, ids = prompts[n_prompt]
+        before = dict(kernels.LAUNCHES)
+        sync(dev)
+        t0 = time.perf_counter()
+        it = e.generate(ids, n_gen, sampler=greedy_chain())
+        toks = [next(it)]
+        ttft = time.perf_counter() - t0
+        pre = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        bucket = next(b for b in PREFILL_BUCKETS if b >= n_prompt)
+        if pre != want(kv, bucket, False):
+            raise AssertionError(f"prefill launches {pre} != "
+                                 f"{want(kv, bucket, False)}")
+        mid, n0 = dict(kernels.LAUNCHES), e.perf.n_decode
+        t0 = time.perf_counter()
+        toks += list(it)
+        dt = time.perf_counter() - t0
+        steps = e.perf.n_decode - n0
+        dec = {k: kernels.LAUNCHES[k] - mid[k] for k in mid}
+        want_dec = {k: v * steps for k, v in want(kv, 1, True).items()}
+        if dec != want_dec or steps < 1:
+            raise AssertionError(f"decode launches {dec} != {want_dec}")
+        out = tok.decode(toks)
+        greedy.setdefault((kv, n_prompt), toks)
+        per = {k: v // steps for k, v in dec.items() if v}
+        SUMMARY.setdefault(name, {})[f"{kv} p{n_prompt}"] = (
+            f"TTFT {ttft * 1e3:.1f} ms, {steps / dt:.2f} tok/s")
+        log(f"  request kv={kv} prompt={n_prompt} gen={n_gen}: TTFT "
+            f"{ttft * 1e3:.1f} ms, decode {steps / dt:.2f} tok/s "
+            f"({dt / steps * 1e3:.2f} ms/step), {len(toks)} tokens, launches "
+            f"per decode step {per}, text {out[:60]!r}")
+    counts = dict(kernels.LAUNCHES)
+    missing = [k for k in ("qp8_gemv", "qp8_dual", "qp8_gemm", "decode_attn",
+                           "decode_attn_q4") if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    log(f"main-path launches ({name}): { {k: v for k, v in counts.items() if v} }")
+
+    # generate_ondevice: greedy equals the host chain; a seeded draw repeats
+    e = engines["bf16"]
+    _, ids = prompts[512]
+    e.reset()
+    dev_greedy = list(e.generate_ondevice(ids, 32))
+    if dev_greedy != greedy[("bf16", 512)]:
+        raise AssertionError(f"generate_ondevice(temp=0) {dev_greedy} != host "
+                             f"greedy {greedy[('bf16', 512)]}")
+    p = DeviceSamplerParams(temp=0.8, top_k=40, top_p=0.95)
+    runs = []
+    for _ in range(2):
+        e.reset()
+        sync(dev)
+        t0 = time.perf_counter()
+        runs.append(list(e.generate_ondevice(ids, 32, p, seed=1234)))
+        dt = time.perf_counter() - t0
+    if len(runs[0]) != 32 or runs[0] != runs[1]:
+        raise AssertionError(f"seeded generate_ondevice: {runs}")
+    log(f"generate_ondevice: temp=0 gives the host greedy tokens; temp=0.8 "
+        f"top_k=40 top_p=0.95 seed 1234 runs to 32 tokens and repeats "
+        f"({dt * 1e3:.1f} ms for prefill + 31 steps): "
+        f"{[int(t) for t in runs[0][:8]]}...")
+    for attempt in range(3):
+        e.reset()
+        c1 = d2h_copies(lambda: e.generate_ondevice(ids[:7], 1, p, seed=1))
+        e.reset()
+        c8 = d2h_copies(lambda: e.generate_ondevice(ids[:7], 8, p, seed=1))
+        if c1 and c8:
+            break
+        log(f"  the profiler recorded no device-to-host copy (window "
+            f"{attempt + 1}: {c1}, {c8}); tracing again")
+    else:
+        raise AssertionError("the profiler saw no device record in three windows")
+    if c8 != c1:
+        raise AssertionError(f"generate_ondevice: {c8} device-to-host copies "
+                             f"over 7 decode steps against {c1} with none")
+    log(f"generate_ondevice: {c1} device-to-host copy with no decode step, "
+        f"{c8} with 7 (the tokens read once at the end; none in the loop)")
+    log("where the time goes under q4_0 KV (profiler; after the counts were "
+        "read)")
+    profile_path(dev, e.cfg, e.weights, table, name, kvs=("q4_0",))
+    del engines, e
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"K4 decode_attn over a q4_0 cache (S=1024, max|d| <= {ATTN_MAX_ABS})")
+    rep = KernelReport("decode_attn_q4", "cuda", SRC_K4, K4_ATTN,
+                       "one decode step at pos 700 of 1024 (B=1), q4_0 KV: "
+                       "32 launches")
+    k4_q4_rows(dev, cfg, rep)
+    phase_end(name, dev, t_ph)
+    return [rep], counts
+
+
 def build_phase(name, builder, dev):
     """Build a configuration on the card and print its layout."""
     t0 = time.perf_counter()
@@ -2124,6 +2440,9 @@ def main():
     # the conformance phase first (see the module's docstring, 13.)
     reports, counts = run_conformance(dev)
     runs = [counts]
+    reps, counts = run_load(dev)
+    reports += reps
+    runs.append(counts)
     for name, builder, check in (
             ("Llama-3-8B Q4_K_M", build_8b, check_kernels),
             ("Mixtral-8x7B Q5_K_M", build_mixtral, check_kernels_moe),

@@ -34,6 +34,11 @@
 //    V scale the probability (after the denominator took it), as the TPU
 //    kernel does, so no dequantized cache exists.  -1e30 stays the finite
 //    "minus infinity".
+//  * int4 KV (the q4_0 cache; the TPU kernel takes jnp.int4 caches): the
+//    same math on 4-bit values packed two a byte, dim 2i in the low nibble
+//    of byte i (models/llama.init_kv_cache): a row is 64 bytes, four
+//    16-byte cp.async chunks, and each nibble is sign-extended in
+//    registers by a shift pair.  Half the int8 cache's bytes.
 //  * Each block writes a partial (max, denominator, acc[128]) per head; a
 //    second small kernel in the same entry merges the nsplit + 1 partials
 //    of each (row, KV head) and divides, one block per query head.  It is
@@ -51,8 +56,11 @@ constexpr int NW = 4;      // warps a block
 constexpr int TS = 32;     // cache slots a tile
 constexpr int MAXG = 8;    // query heads per KV head
 constexpr int PW = D + 2;  // partial record: max, denominator, acc[D]
-constexpr int KPB = 2 * D + 16;   // K row pitch in shared memory, bf16 cache
-constexpr int KPI = D + 16;       // the same, int8 cache
+// K row pitch in shared memory: the row's bytes plus 16, so the 16-byte
+// reads of 8 neighbouring lanes (rows) fall in 8 distinct bank groups
+constexpr int KPB = 2 * D + 16;   // bf16 cache
+constexpr int KPI = D + 16;       // int8 cache
+constexpr int KP4 = D / 2 + 16;   // int4 cache (80: 0, 80, 32, 112, ... mod 128)
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float bf2f(uint32_t v) { return __uint_as_float(v << 16); }
@@ -67,6 +75,11 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// nibble k (bits 4k..4k+3) of w as a two's-complement value
+__device__ __forceinline__ float nib(uint32_t w, int k) {
+  return (float)((int32_t)(w << (28 - 4 * k)) >> 28);
+}
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
@@ -74,7 +87,9 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
-template <bool QUANT>
+// BITS: 16 (bf16 cache), 8 (int8) or 4 (packed int4), each with its
+// row scales kd/vd when below 16
+template <int BITS>
 __global__ void __launch_bounds__(NW * 32) decode_attn_split_kernel(
     const float* __restrict__ qkv, const void* __restrict__ kc,
     const void* __restrict__ vc, const float* __restrict__ kd,
@@ -83,10 +98,11 @@ __global__ void __launch_bounds__(NW * 32) decode_attn_split_kernel(
     float scale, int swa, float logit_cap, int nsplit,
     float* __restrict__ part, float* __restrict__ k_out,
     float* __restrict__ v_out) {
-  constexpr int EB = QUANT ? 1 : 2;           // bytes a cache element
-  constexpr int KP = QUANT ? KPI : KPB;
-  constexpr int VP = D * EB;
-  constexpr int CH = D * EB / 16;             // 16-byte chunks a row
+  constexpr bool QUANT = BITS < 16;
+  constexpr int RB = D * BITS / 8;            // bytes a cache row
+  constexpr int KP = BITS == 16 ? KPB : BITS == 8 ? KPI : KP4;
+  constexpr int VP = RB;
+  constexpr int CH = RB / 16;                 // 16-byte chunks a row
   // the merge kernel's blocks may start now; they wait for this grid
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -113,7 +129,8 @@ __global__ void __launch_bounds__(NW * 32) decode_attn_split_kernel(
     const int rows = min(TS, a1 - t0);
     for (int e = tid; e < rows * CH; e += NW * 32) {
       const int r = e / CH, c = e % CH;
-      const size_t off = (((size_t)b * S + t0 + r) * HD + (size_t)h * D) * EB + 16 * c;
+      const size_t e0 = ((size_t)b * S + t0 + r) * HD + (size_t)h * D;
+      const size_t off = (BITS == 4 ? e0 / 2 : e0 * (BITS / 8)) + 16 * c;
       cp_async16(&ks[buf][r * KP + 16 * c], (const unsigned char*)kc + off);
       cp_async16(&vs[buf][r * VP + 16 * c], (const unsigned char*)vc + off);
     }
@@ -205,7 +222,18 @@ __global__ void __launch_bounds__(NW * 32) decode_attn_split_kernel(
         for (int c = 0; c < CH; ++c) {
           const uint4 w = k16[c];
           const uint32_t ww[4] = {w.x, w.y, w.z, w.w};
-          if constexpr (QUANT) {
+          if constexpr (BITS == 4) {
+            // word u of chunk c: dims 32c + 8u .. 32c + 8u + 7
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const float4 qa = q4[c * 8 + u * 2];
+              const float4 qb = q4[c * 8 + u * 2 + 1];
+              sv[u] += qa.x * nib(ww[u], 0) + qa.y * nib(ww[u], 1) +
+                       qa.z * nib(ww[u], 2) + qa.w * nib(ww[u], 3) +
+                       qb.x * nib(ww[u], 4) + qb.y * nib(ww[u], 5) +
+                       qb.z * nib(ww[u], 6) + qb.w * nib(ww[u], 7);
+            }
+          } else if constexpr (BITS == 8) {
 #pragma unroll
             for (int u = 0; u < 4; ++u) {
               const float4 qv = q4[c * 4 + u];
@@ -248,7 +276,8 @@ __global__ void __launch_bounds__(NW * 32) decode_attn_split_kernel(
         float a = acc[g] * alpha_s[g];
         for (int r = 0; r < rows; ++r) {
           float v;
-          if constexpr (QUANT) v = (float)(int8_t)vs[buf][r * VP + d];
+          if constexpr (BITS == 4) v = nib(vs[buf][r * VP + (d >> 1)], d & 1);
+          else if constexpr (BITS == 8) v = (float)(int8_t)vs[buf][r * VP + d];
           else v = bf2f(*reinterpret_cast<const uint16_t*>(&vs[buf][r * VP + 2 * d]));
           a += ps[g][r] * v;
         }
@@ -322,8 +351,9 @@ extern "C" {
 
 const char* ght_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
-// qkv f32 [B, (Hq+2Hkv)*128]; caches [B, S, Hkv*128] bf16 (quant == 0) or
-// int8 with f32 row scales kd/vd [B, S]; pos int32 [B]; cos_sin f32
+// qkv f32 [B, (Hq+2Hkv)*128]; caches [B, S, Hkv*128] bf16 (bits == 16) or
+// int8 (bits == 8) with f32 row scales kd/vd [B, S], or [B, S, Hkv*64]
+// bytes of packed int4 (bits == 4) with the same scales; pos int32 [B]; cos_sin f32
 // [B, n_dims] (cos ++ sin) or null for no rope; part f32 scratch
 // [B, Hkv, nsplit + 1, G, 130].  Outputs f32: out [B, Hq*128], k_out/v_out
 // [B, Hkv*128].
@@ -331,20 +361,24 @@ int decode_attn_run(const float* qkv, const void* kc, const void* vc,
                     const float* kd, const float* vd, const int* pos,
                     const float* cos_sin, int B, int Hq, int Hkv, int S,
                     int n_dims, float scale, int swa, float logit_cap,
-                    int quant, int nsplit, float* part, float* out,
+                    int bits, int nsplit, float* part, float* out,
                     float* k_out, float* v_out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (B < 1 || Hkv < 1 || Hq % Hkv || Hq / Hkv > MAXG || n_dims > D ||
-      n_dims % 2 || nsplit < 1)
+      n_dims % 2 || nsplit < 1 || (bits != 16 && bits != 8 && bits != 4))
     return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
   dim3 grid(nsplit, Hkv, B);
-  if (quant) {
-    decode_attn_split_kernel<true><<<grid, NW * 32, 0, s>>>(
+  if (bits == 4) {
+    decode_attn_split_kernel<4><<<grid, NW * 32, 0, s>>>(
+        qkv, kc, vc, kd, vd, pos, cos_sin, Hq, Hkv, S, n_dims, scale, swa,
+        logit_cap, nsplit, part, k_out, v_out);
+  } else if (bits == 8) {
+    decode_attn_split_kernel<8><<<grid, NW * 32, 0, s>>>(
         qkv, kc, vc, kd, vd, pos, cos_sin, Hq, Hkv, S, n_dims, scale, swa,
         logit_cap, nsplit, part, k_out, v_out);
   } else {
-    decode_attn_split_kernel<false><<<grid, NW * 32, 0, s>>>(
+    decode_attn_split_kernel<16><<<grid, NW * 32, 0, s>>>(
         qkv, kc, vc, kd, vd, pos, cos_sin, Hq, Hkv, S, n_dims, scale, swa,
         logit_cap, nsplit, part, k_out, v_out);
   }

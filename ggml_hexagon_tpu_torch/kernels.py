@@ -50,8 +50,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: launches per kernel (K1 qp8_gemv, K2 qp8_dual, K3 qp8_gemm, K4
-#: decode_attn, K5 qp8_indirect, each with a *_coded key for launches on
-#: coded planes (K2: either part coded); K6 by family, byte, nibble or
+#: decode_attn, and decode_attn_q4 over a q4_0 cache, K5 qp8_indirect, each
+#: of K1-K3 and K5 with a *_coded key for launches on coded planes (K2:
+#: either part coded); K6 by family, byte, nibble or
 #: coded planes, and mode: fast_byte / fast_nibble / fast_coded (plain,
 #: natural or pre-interleaved input), *_normed, *_res, *_act (with or
 #: without a residual), a launch on planes with a group bias under the same
@@ -60,6 +61,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: the family of its down planes: ffn_fused_byte, ffn_fused_nibble,
 #: ffn_fused_coded; K10 qmm_wire, K11 flash_attn, K12 decode_attn_gqa)
 LAUNCHES = {"qp8_gemv": 0, "qp8_dual": 0, "qp8_gemm": 0, "decode_attn": 0,
+            "decode_attn_q4": 0,
             "qp8_indirect": 0, "qp8_gemv_coded": 0, "qp8_dual_coded": 0,
             "qp8_gemm_coded": 0, "qp8_indirect_coded": 0,
             "fast_byte": 0, "fast_byte_normed": 0,
@@ -1277,13 +1279,20 @@ def ffn_fused(x_a, xg_a, h_il, wn, wo, gu, dn, eps: float, act: str = "silu"):
 
 
 def decode_attn(qkv, k_cache, v_cache, pos, cos_sin, *, Hq, Hkv, D, scale,
-                swa=0, logit_cap=0.0, n_dims=0, k_scale=None, v_scale=None):
-    """K4 on the card -> (attn [B, Hq*D], k_row [B, Hkv*D], v_row) f32."""
+                swa=0, logit_cap=0.0, n_dims=0, k_scale=None, v_scale=None,
+                kv_bits=0):
+    """K4 on the card -> (attn [B, Hq*D], k_row [B, Hkv*D], v_row) f32.
+    Caches bf16 [B, S, Hkv*D]; int8 with f32 row scales (k_scale given);
+    or, with kv_bits=4, uint8 [B, S, Hkv*D/2] of packed 4-bit values
+    (ops/decode_attn.pack_int4) with the same scales, counted apart under
+    "decode_attn_q4"."""
     if D != 128:
         raise ValueError(f"head_dim {D}: the kernel takes 128")
     quant = k_scale is not None
+    if kv_bits not in (0, 4) or (kv_bits == 4 and not quant):
+        raise ValueError(f"kv_bits {kv_bits}: 4 (with row scales) or 0")
     _need(qkv, torch.float32, "qkv", 2)
-    cdt = torch.int8 if quant else torch.bfloat16
+    cdt = (torch.uint8 if kv_bits == 4 else torch.int8) if quant else torch.bfloat16
     _need(k_cache, cdt, "k_cache", 3)
     _need(v_cache, cdt, "v_cache", 3)
     _need(k_scale, torch.float32, "k_scale", 2)
@@ -1291,8 +1300,13 @@ def decode_attn(qkv, k_cache, v_cache, pos, cos_sin, *, Hq, Hkv, D, scale,
     _need(pos, torch.int32, "pos", 1)
     _need(cos_sin, torch.float32, "cos_sin", 2)
     B, S = k_cache.shape[:2]
-    if k_cache.shape[2] != Hkv * D or qkv.shape != (B, (Hq + 2 * Hkv) * D):
+    row = Hkv * D // 2 if kv_bits == 4 else Hkv * D
+    if (k_cache.shape[2] != row or v_cache.shape != k_cache.shape
+            or qkv.shape != (B, (Hq + 2 * Hkv) * D)):
         raise ValueError("qkv / cache shapes do not match the head counts")
+    if quant and (k_scale.shape != (B, S) or v_scale.shape != (B, S)):
+        raise ValueError(f"row scales {tuple(k_scale.shape)}: expected "
+                         f"[{B}, {S}]")
     dev = qkv.device
     nsplit = _pick_nsplit(B * Hkv, S, min_slots=32)
     # one partial a split and a head, and the fresh row's self-term
@@ -1305,10 +1319,12 @@ def decode_attn(qkv, k_cache, v_cache, pos, cos_sin, *, Hq, Hkv, D, scale,
     rc = lib.decode_attn_run(
         _ptr(qkv), _ptr(k_cache), _ptr(v_cache), _ptr(k_scale),
         _ptr(v_scale), _ptr(pos), _ptr(cos_sin), B, Hq, Hkv, S,
-        n_dims or D, float(scale), int(swa), float(logit_cap), int(quant),
+        n_dims or D, float(scale), int(swa), float(logit_cap),
+        (4 if kv_bits == 4 else 8) if quant else 16,
         nsplit, _ptr(part), _ptr(out), _ptr(k_r), _ptr(v_r), _stream(dev))
-    _check(lib, rc, "decode_attn")
-    LAUNCHES["decode_attn"] += 1
+    key = "decode_attn_q4" if kv_bits == 4 else "decode_attn"
+    _check(lib, rc, key)
+    LAUNCHES[key] += 1
     return out, k_r, v_r
 
 

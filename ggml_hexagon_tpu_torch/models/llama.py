@@ -36,7 +36,7 @@ from .. import resolve_device
 from ..ops.attention import flash_attention_cache
 from ..ops.basic import (RopeParams, apply_rope, rms_norm, rope_freqs, silu,
                          softmax_ext)
-from ..ops.decode_attn import fused_decode_attention
+from ..ops.decode_attn import fused_decode_attention, pack_int4, unpack_int4
 from ..ops.ffn_fused import ffn_fused
 from ..ops.qmatmul import dequantize, qmatmul, qmatmul_normed, take_rows_wire
 from ..ops.qmm_fast import (qmatmul_fast, qmatmul_fast_act,
@@ -171,6 +171,153 @@ def check_supported(cfg: LlamaConfig):
             "JAX forward that the port does not have yet")
 
 
+def load_llama_weights(reader, device="cuda", dtype=torch.bfloat16):
+    """(cfg, weights) of any registry architecture from a GGUFReader, on
+    `device` (ggml_hexagon_tpu/models/llama.py:176-324).
+
+    Tensor names follow the GGUF convention.  Optional per-arch tensors
+    (QKV biases, post-norms, QK norms, stacked MoE experts) load when
+    present, the stacked experts [E, n, k] as one [(E*n), k] tensor; the
+    output head falls back to the tied token embedding.  A quantized
+    tensor's raw bytes go to the device once and unpack there
+    (quant.pack.pack_tensor), then take matmul planes on the layout
+    `use_qp8_layout` picks, as QTensor.with_fast_planes builds them; norms
+    and vectors become f32 tensors, other dense tensors `dtype`.  The
+    forward runs the llama subset of the configs this returns
+    (check_supported)."""
+    import numpy as np
+
+    from ..quant.formats import GGMLType
+    from ..quant.pack import QCONFIGS, pack_tensor
+    from .registry import config_from_gguf
+
+    device = resolve_device(device)
+    cfg = config_from_gguf(reader.metadata)
+    # longrope / llama3 frequency factors (stored on blk.0 in GGUF)
+    ff = {}
+    for fld, tn in (("rope_ff", "blk.0.rope_freqs.weight"),
+                    ("rope_ff", "blk.0.rope_factors_short.weight"),
+                    ("rope_ff_long", "blk.0.rope_factors_long.weight")):
+        if tn in reader.tensors and not ff.get(fld):
+            ff[fld] = tuple(float(x) for x in reader.tensor_f32(tn))
+    if ff:
+        cfg = replace(cfg, **ff)
+    dense = (GGMLType.F32, GGMLType.F16, GGMLType.BF16)
+
+    def get(name, as_vec=False):
+        t = reader.tensors[name]
+        if as_vec or (t.ggml_type in dense and len(t.ne) == 1):
+            return torch.from_numpy(np.asarray(reader.tensor_f32(name),
+                                               np.float32)).to(device)
+        if t.ggml_type in QCONFIGS and t.ne[0] % 256 == 0:
+            shape = t.shape
+            if len(shape) == 3:  # stacked experts [E, n, k] -> [(E*n), k]
+                shape = (shape[0] * shape[1], shape[2])
+            if len(shape) == 2:
+                raw = torch.from_numpy(reader.tensor_bytes(name).copy())
+                qt = pack_tensor(raw.to(device), t.ggml_type, shape)
+                return qt.with_fast_planes()
+        # dense fallback (f16/f32 2-D/3-D, or K not chunk-aligned)
+        arr = reader.tensor_f32(name)
+        if arr.ndim == 3:
+            arr = arr.reshape(arr.shape[0] * arr.shape[1], arr.shape[2])
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device=device,
+                                                              dtype=dtype)
+
+    def opt(name, as_vec=False):
+        return get(name, as_vec) if name in reader.tensors else None
+
+    layers = []
+    for i in range(cfg.n_layer):
+        p = f"blk.{i}."
+        lw = {}
+        if p + "attn_output.weight" in reader.tensors:
+            lw["wo"] = get(p + "attn_output.weight")
+        if p + "attn_norm.weight" in reader.tensors:
+            lw["attn_norm"] = get(p + "attn_norm.weight", as_vec=True)
+        if p + "attn_qkv.weight" in reader.tensors:  # fused QKV
+            lw["wqkv"] = get(p + "attn_qkv.weight")
+        elif p + "attn_q.weight" in reader.tensors:
+            lw["wq"] = get(p + "attn_q.weight")
+            lw["wk"] = get(p + "attn_k.weight")
+            lw["wv"] = get(p + "attn_v.weight")
+        # else: an attention-free layer (deci)
+        if p + "ffn_norm.weight" in reader.tensors:
+            lw["ffn_norm"] = get(p + "ffn_norm.weight", as_vec=True)
+        for key, name in _OPTIONAL_LAYER_VECTORS:
+            a = opt(p + name, as_vec=True)
+            if a is not None:
+                lw[key] = a
+        if cfg.n_expert and p + "ffn_gate_inp.weight" in reader.tensors:
+            # an MoE layer (leading dense layers of deepseek-class models
+            # fall through to the dense branch)
+            for key in ("ffn_gate_inp", "ffn_gate_exps", "ffn_up_exps",
+                        "ffn_down_exps"):
+                lw[key] = get(p + key + ".weight")
+            for sh in ("ffn_gate_inp_shexp", "ffn_gate_shexp",
+                       "ffn_up_shexp", "ffn_down_shexp"):
+                a = opt(p + sh + ".weight")
+                if a is not None:
+                    lw[sh] = a
+        if p + "ffn_up.weight" in reader.tensors:
+            # a dense FFN (also beside MoE for arctic)
+            g = opt(p + "ffn_gate.weight")
+            up = get(p + "ffn_up.weight")
+            if g is not None:  # gated (SwiGLU-class)
+                lw["ffn_gate"] = g
+                lw["ffn_up"] = up
+            else:
+                rows = up.n if isinstance(up, QTensor) else up.shape[0]
+                if cfg.n_ff and rows == 2 * cfg.n_ff:
+                    lw["w_gateup"] = up  # fused SWIGLU gate_up
+                else:
+                    lw["ffn_up"] = up
+            lw["ffn_down"] = get(p + "ffn_down.weight")
+        layers.append(lw)
+    weights = {
+        "tok_embd": get("token_embd.weight"),
+        "output_norm": opt("output_norm.weight", as_vec=True),
+        "output": get("output.weight") if "output.weight" in reader.tensors
+        else get("token_embd.weight"),
+        "layers": layers,
+    }
+    for key, name in (("output_norm_b", "output_norm.bias"),
+                      ("output_b", "output.bias"),
+                      ("pos_embd", "position_embd.weight"),
+                      ("tok_norm", "token_embd_norm.weight"),
+                      ("tok_norm_b", "token_embd_norm.bias")):
+        a = opt(name, as_vec=(key != "pos_embd"))
+        if a is not None:
+            weights[key] = a
+    return cfg, weights
+
+
+#: the optional per-layer vectors of load_llama_weights: (key, GGUF name)
+_OPTIONAL_LAYER_VECTORS = (
+    ("bqkv", "attn_qkv.bias"), ("bq", "attn_q.bias"), ("bk", "attn_k.bias"),
+    ("bv", "attn_v.bias"),
+    ("attn_q_norm", "attn_q_norm.weight"),
+    ("attn_k_norm", "attn_k_norm.weight"),
+    ("attn_q_norm_b", "attn_q_norm.bias"),
+    ("attn_k_norm_b", "attn_k_norm.bias"),
+    ("post_attn_norm", "post_attention_norm.weight"),
+    ("post_ffn_norm", "post_ffw_norm.weight"),
+    # grok names its pre-residual norms differently
+    ("post_attn_norm", "attn_output_norm.weight"),
+    ("post_ffn_norm", "layer_output_norm.weight"),
+    ("ffn_norm_exps", "ffn_norm_exps.weight"),  # arctic MoE-branch norm
+    ("attn_norm_b", "attn_norm.bias"), ("ffn_norm_b", "ffn_norm.bias"),
+    ("bo", "attn_output.bias"), ("ffn_up_b", "ffn_up.bias"),
+    ("ffn_down_b", "ffn_down.bias"),
+    # bitnet: pre-projection RMS sub-norms + per-tensor quant scales
+    ("attn_sub_norm", "attn_sub_norm.weight"),
+    ("ffn_sub_norm", "ffn_sub_norm.weight"),
+    ("wq_scale", "attn_q.scale"), ("wk_scale", "attn_k.scale"),
+    ("wv_scale", "attn_v.scale"), ("wo_scale", "attn_output.scale"),
+    ("ffn_gate_scale", "ffn_gate.scale"), ("ffn_up_scale", "ffn_up.scale"),
+    ("ffn_down_scale", "ffn_down.scale"))
+
+
 def matmul(x, w, plain=False):
     """QTensor -> the quantized-matmul dispatcher; a dense array (the MoE
     router) -> a plain f32 product x @ w.T."""
@@ -188,30 +335,47 @@ def embed(tok_embd: QTensor, ids, dtype=torch.bfloat16):
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_seq: int,
                   dtype="bf16", device="cuda"):
-    """KV cache stored flat as [L, B, S, Hkv*hd]: bf16, or "q8_0" (int8
-    values + f32 per-row scales [L, B, S])."""
+    """KV cache stored flat as [L, B, S, Hkv*hd]: bf16; "q8_0": int8 values
+    with f32 per-row scales k_d / v_d [L, B, S]; "q4_0": 4-bit values packed
+    two a byte, uint8 [L, B, S, Hkv*hd/2], with the same f32 per-row scales
+    (half of q8_0's bytes).  The q4_0 nibble order: dim 2i sits in the low
+    nibble of byte i and dim 2i+1 in the high nibble, each a two's-complement
+    value in [-7, 7] (ops/decode_attn.pack_int4); K4's plain twin, its CUDA
+    kernel (csrc/decode_attn.cu) and the cache writes of `forward` keep it."""
     device = resolve_device(device)
     shape = (cfg.n_layer, batch, max_seq, max(cfg.n_head_kv_max, 1) * cfg.hd)
-    if dtype == "q8_0":
-        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+    if dtype in ("q8_0", "q4_0"):
+        vshape = shape if dtype == "q8_0" else shape[:-1] + (shape[-1] // 2,)
+        vdt = torch.int8 if dtype == "q8_0" else torch.uint8
+        return {"k": torch.zeros(vshape, dtype=vdt, device=device),
                 "k_d": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
-                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(vshape, dtype=vdt, device=device),
                 "v_d": torch.zeros(shape[:-1], dtype=torch.float32, device=device)}
     if dtype in ("bf16", torch.bfloat16):
         return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
                 "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
-    raise ValueError(f"kv dtype {dtype!r}: expected 'bf16' or 'q8_0'")
+    raise ValueError(f"kv dtype {dtype!r}: expected 'bf16', 'q8_0' or 'q4_0'")
 
 
-def _kv_quantize(x):
-    """[..., W] -> (int8 values, f32 per-row scales [...])."""
+def kv_bits(kv_cache: dict) -> int:
+    """16 for a bf16 cache, 8 for q8_0, 4 for q4_0 (packed uint8 values)."""
+    if "k_d" not in kv_cache:
+        return 16
+    return 4 if kv_cache["k"].dtype == torch.uint8 else 8
+
+
+def _kv_quantize(x, bits: int = 8):
+    """[..., W] -> (int8 values in [-qmax, qmax], f32 per-row scales
+    [...]); qmax 127, or 7 for bits=4 (the values then go through
+    pack_int4 into the cache)."""
     xf = x.to(torch.float32)
     amax = xf.abs().amax(dim=-1)
-    d = amax / 127.0
+    qmax = 7.0 if bits == 4 else 127.0
+    d = amax / qmax
     one = torch.ones_like(d)
     inv = torch.where(d > 0, one / torch.where(d == 0, one, d),
                       torch.zeros_like(d))
-    q = torch.clamp(torch.round(xf * inv[..., None]), -127.0, 127.0)
+    q = torch.clamp(torch.round(xf * inv[..., None]), -qmax, qmax)
     return q.to(torch.int8), d
 
 
@@ -424,6 +588,7 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
     h = embed(weights["tok_embd"], tokens, cd)
     scale = cfg.attn_scale or 1.0 / float(math.sqrt(cfg.hd))
     quant_kv = "k_d" in kv_cache
+    bits = kv_bits(kv_cache)
     fused_kv = []
     for il, lw in enumerate(weights["layers"]):
         _check_fused(lw)
@@ -479,8 +644,10 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
             sl = slice(pos_start, pos_start + T)
             S = kv_cache["k"].shape[2]
             if quant_kv:
-                kq, kd = _kv_quantize(k.reshape(B, T, -1))
-                vq, vd = _kv_quantize(v.reshape(B, T, -1))
+                kq, kd = _kv_quantize(k.reshape(B, T, -1), bits)
+                vq, vd = _kv_quantize(v.reshape(B, T, -1), bits)
+                if bits == 4:
+                    kq, vq = pack_int4(kq), pack_int4(vq)
                 kv_cache["k"][il, :, sl] = kq
                 kv_cache["v"][il, :, sl] = vq
                 kv_cache["k_d"][il, :, sl] = kd
@@ -492,8 +659,11 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
                 kv_cache["v"][il, :, sl] = v.reshape(B, T, -1).to(
                     kv_cache["v"].dtype)
                 k_sc = v_sc = None
-            k_full = kv_cache["k"][il].reshape(B, S, nhkv, cfg.hd)
-            v_full = kv_cache["v"][il].reshape(B, S, nhkv, cfg.hd)
+            k_full, v_full = kv_cache["k"][il], kv_cache["v"][il]
+            if bits == 4:  # the int8 path's values
+                k_full, v_full = unpack_int4(k_full), unpack_int4(v_full)
+            k_full = k_full.reshape(B, S, nhkv, cfg.hd)
+            v_full = v_full.reshape(B, S, nhkv, cfg.hd)
             attn = _attention(cfg, q, k_full, v_full, pos_start, T, scale,
                               k_scale=k_sc, v_scale=v_sc).to(cd)
         ffp = "ffp" in lw
@@ -523,8 +693,10 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
         vs = torch.stack([vr for _, _, vr in fused_kv])
         planes = [("k", ks), ("v", vs)]
         if quant_kv:
-            kq, kd = _kv_quantize(ks)
-            vq, vd = _kv_quantize(vs)
+            kq, kd = _kv_quantize(ks, bits)
+            vq, vd = _kv_quantize(vs, bits)
+            if bits == 4:
+                kq, vq = pack_int4(kq), pack_int4(vq)
             planes = [("k", kq), ("v", vq), ("k_d", kd), ("v_d", vd)]
         for name, rows in planes:
             dst = kv_cache[name]

@@ -14,14 +14,24 @@ takes seconds where the host
 build of the reference takes minutes.  No real checkpoint is involved: the
 bytes and the compute profile are those of a real file of that mixture.
 The per-tensor types come from `QuantPolicy`, as the JAX loader takes them.
+
+`write_gguf` writes such a model as a GGUF file (wire blocks, the
+`llama.*` metadata and a tokenizer's fields), and `llama_bpe_vocab` makes
+the deterministic llama-bpe vocabulary of Llama-3's size that it carries,
+so the loader, the tokenizer and the serving path run from a file without
+a real checkpoint.
 """
 from __future__ import annotations
 
+import os
+import time
+
+import numpy as np
 import torch
 
 from .. import resolve_device
 from ..quant.formats import GGMLType
-from ..quant.pack import QCONFIGS, QTensor, drop_wire_planes
+from ..quant.pack import QCONFIGS, QTensor, drop_wire_planes, unpack_bits
 from ..quant.policy import QuantPolicy
 from .fuse import fuse_weights, permute_rope_neox
 from ..ops.qmm_qp8 import _CODE_ALPHABETS, KVALUES_IQ4NL, decode_codes
@@ -324,3 +334,251 @@ def build_mixtral_q4km_il(seed: int = 0, device="cuda"):
     layout everywhere."""
     return build_moe_model(LlamaConfig(**MIXTRAL_8X7B), seed=seed,
                            device=device, ftype="Q4_K_M", layout="il")
+
+
+# ---------------------------------------------------------------------------
+# a GGUF file of a random model (the loader's and the tokenizer's input)
+# ---------------------------------------------------------------------------
+
+#: llama.cpp's general.file_type of the mixtures write_gguf writes
+FILE_TYPES = {"Q4_K_M": 15}
+
+
+def _f16_bytes(d):
+    """f16-exact f32 values [...] -> their little-endian f16 bytes [n, 2]."""
+    return d.reshape(-1, 1).to(torch.float16).view(torch.uint8)
+
+
+def pack_k4_scales(ls, lm):
+    """Eight 6-bit (scale, min) pairs a super-block, [nb, 8] each -> the 12
+    bytes of block_q4_K.scales [nb, 12] (the inverse of
+    quant.pack._unpack_k4_scales)."""
+    ls, lm = ls.to(torch.int32), lm.to(torch.int32)
+    sc = torch.zeros((ls.shape[0], 12), dtype=torch.int32, device=ls.device)
+    sc[:, 0:4] = ls[:, 0:4]
+    sc[:, 4:8] = lm[:, 0:4]
+    for j in range(4, 8):
+        sc[:, j + 4] = (ls[:, j] & 0xF) | ((lm[:, j] & 0xF) << 4)
+        sc[:, j - 4] |= (ls[:, j] >> 4) << 6
+        sc[:, j] |= (lm[:, j] >> 4) << 6
+    return sc.to(torch.uint8)
+
+
+def wire_blocks(qt: QTensor):
+    """The GGUF wire bytes (uint8, flat) of a Q4_K or Q6_K wire-plane
+    QTensor's n true rows: the inverse of quant.pack._wire_to_planes for
+    the two types a Q4_K_M file holds (block_q4_K: d, dmin, 12 scale bytes,
+    128 nibble bytes; block_q6_K: 128 low-nibble bytes, 64 high-bit bytes,
+    16 int8 scales, d)."""
+    cfg, N, K = qt.cfg, qt.n, qt.k
+    nb = N * K // 256
+    q = unpack_bits(qt.q[:N], cfg.bits_lo, K).to(torch.int32)
+    if cfg.bits_hi:
+        q |= unpack_bits(qt.qh[:N], cfg.bits_hi, K).to(torch.int32) << cfg.bits_lo
+    if cfg.qtype == GGMLType.Q4_K:
+        l2 = q.reshape(nb, 4, 2, 32)
+        qs = (l2[:, :, 0] | (l2[:, :, 1] << 4)).reshape(nb, 128)
+        parts = [_f16_bytes(qt.d[:N]), _f16_bytes(qt.dmin[:N]),
+                 pack_k4_scales(qt.sc[:N].reshape(nb, 8),
+                                qt.m[:N].reshape(nb, 8)), qs.to(torch.uint8)]
+    elif cfg.qtype == GGMLType.Q6_K:
+        q6 = q.reshape(nb, 2, 4, 32)
+        lo, hi = q6 & 0xF, q6 >> 4
+        ql = torch.stack([lo[:, :, 0] | (lo[:, :, 2] << 4),
+                          lo[:, :, 1] | (lo[:, :, 3] << 4)], dim=2)
+        qh = (hi[:, :, 0] | (hi[:, :, 1] << 2) | (hi[:, :, 2] << 4)
+              | (hi[:, :, 3] << 6))
+        parts = [ql.reshape(nb, 128).to(torch.uint8),
+                 qh.reshape(nb, 64).to(torch.uint8),
+                 qt.sc[:N].reshape(nb, 16).to(torch.int8).view(torch.uint8),
+                 _f16_bytes(qt.d[:N])]
+    else:
+        raise NotImplementedError(f"wire_blocks: {cfg.qtype.name}")
+    return torch.cat(parts, dim=1).reshape(-1)
+
+
+#: the pieces of the synthetic vocabulary's words: consonant-vowel syllables
+_CONSONANTS = "bcdfghjklmnprstvwz"
+_VOWELS = "aeiou"
+_WORDS_EN = ("the of and to in is it that was for on are as with his they "
+             "at be this have from or one had by word but not what all were "
+             "we when your can said there use an each which she do how their "
+             "if will up other about out many then them these so some her "
+             "would make like him into time has look two more write go see "
+             "number no way could people my than first water been call who "
+             "oil its now find long down day did get come made may part "
+             "hello world model token text file card").split()
+
+
+def llama_bpe_vocab(n_vocab: int = 128256, n_words: int = 1500,
+                    seed: int = 0) -> tuple[dict, list[str]]:
+    """(GGUF tokenizer fields, words) of a deterministic byte-level BPE
+    vocabulary of Llama-3's size and special ids, for the llama-bpe
+    pre-tokenizer: the 256 byte tokens (GPT-2's byte-to-unicode map),
+    merges that build every prefix of each word and of its space-led form
+    ("Ġ" + word; `words`: a few English words and n_words pseudo-words of
+    2-3 syllables drawn from `seed`) and of the 2- and 3-digit numbers,
+    <|begin_of_text|> = 128000, <|end_of_text|> = 128001 (the EOS, as in
+    the base model's file), <|start_header_id|> / <|end_header_id|> =
+    128006 / 128007, <|eot_id|> = 128009, and CONTROL tokens named
+    <|reserved_special_token_i|> filling every other id.  Each word and
+    space-led word is one token, so a text of k words separated by single
+    spaces encodes to k + 1 tokens (with the BOS)."""
+    from ..tokenizer.bpe import bytes_to_unicode
+    from ..tokenizer.vocab import TokenType
+
+    b2u = bytes_to_unicode()
+    rng = np.random.default_rng(seed)
+    words = list(dict.fromkeys(_WORDS_EN))
+    seen = set(words)
+    while len(words) < len(_WORDS_EN) + n_words:
+        n_syl = int(rng.integers(2, 4))
+        w = "".join(_CONSONANTS[rng.integers(len(_CONSONANTS))]
+                    + _VOWELS[rng.integers(len(_VOWELS))]
+                    for _ in range(n_syl))
+        if w not in seen:
+            seen.add(w)
+            words.append(w)
+    tokens = [b2u[b] for b in range(256)]
+    have = set(tokens)
+    merges = []
+
+    def chain(piece: str):
+        for i in range(2, len(piece) + 1):
+            if piece[:i] not in have:
+                merges.append(f"{piece[:i - 1]} {piece[i - 1]}")
+                tokens.append(piece[:i])
+                have.add(piece[:i])
+
+    for n in range(10, 1000):
+        chain(str(n))
+    for w in words:
+        chain(w)
+        chain(b2u[ord(" ")] + w)
+    specials = {128000: "<|begin_of_text|>", 128001: "<|end_of_text|>",
+                128006: "<|start_header_id|>", 128007: "<|end_header_id|>",
+                128009: "<|eot_id|>"}
+    if len(tokens) >= min(specials):
+        raise ValueError(f"{len(tokens)} normal tokens reach the special ids")
+    types = [int(TokenType.NORMAL)] * len(tokens)
+    k = 0
+    for i in range(len(tokens), n_vocab):
+        if i in specials:
+            tokens.append(specials[i])
+        else:
+            tokens.append(f"<|reserved_special_token_{k}|>")
+            k += 1
+        types.append(int(TokenType.CONTROL))
+    fields = {"tokenizer.ggml.model": "gpt2", "tokenizer.ggml.pre": "llama-bpe",
+              "tokenizer.ggml.tokens": tokens,
+              "tokenizer.ggml.token_type": types,
+              "tokenizer.ggml.merges": merges,
+              "tokenizer.ggml.bos_token_id": 128000,
+              "tokenizer.ggml.eos_token_id": 128001}
+    return fields, words
+
+
+def gguf_tensor_names(cfg: LlamaConfig) -> list[tuple[str, tuple[int, ...]]]:
+    """(GGUF name, numpy shape) of every tensor of a dense llama model, in
+    the order write_gguf draws and writes them (token_embd first)."""
+    d, nq, nkv = cfg.n_embd, cfg.n_head * cfg.hd, cfg.n_head_kv * cfg.hd
+    out = [("token_embd.weight", (cfg.n_vocab, d)),
+           ("output_norm.weight", (d,)), ("output.weight", (cfg.n_vocab, d))]
+    for il in range(cfg.n_layer):
+        p = f"blk.{il}."
+        out += [(p + "attn_norm.weight", (d,)), (p + "attn_q.weight", (nq, d)),
+                (p + "attn_k.weight", (nkv, d)), (p + "attn_v.weight", (nkv, d)),
+                (p + "attn_output.weight", (d, nq)),
+                (p + "ffn_norm.weight", (d,)),
+                (p + "ffn_gate.weight", (cfg.n_ff, d)),
+                (p + "ffn_up.weight", (cfg.n_ff, d)),
+                (p + "ffn_down.weight", (d, cfg.n_ff))]
+    return out
+
+
+def gguf_data_bytes(cfg: LlamaConfig, ftype: str = "Q4_K_M") -> int:
+    """The tensor bytes of write_gguf's file (its header and alignment
+    padding come on top)."""
+    from ..quant.formats import row_size
+
+    policy = _policy(cfg, ftype)
+    return sum(row_size(policy.tensor_type(n, sh), sh[-1])
+               * (int(np.prod(sh)) // sh[-1])
+               for n, sh in gguf_tensor_names(cfg))
+
+
+def draw_gguf_tensors(cfg: LlamaConfig, ftype: str = "Q4_K_M", seed: int = 0,
+                      device="cuda"):
+    """Yield (GGUF name, wire QTensor or f32 vector) for each tensor of a
+    random dense model, in gguf_tensor_names' order, drawn on `device` from
+    one generator seeded with `seed` (random_qtensor under the ftype's
+    QuantPolicy; norms all ones): the first item is the token embedding,
+    so a caller re-draws it alone by taking one item."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    policy = _policy(cfg, ftype)
+    for name, shape in gguf_tensor_names(cfg):
+        if len(shape) == 1:
+            yield name, torch.ones(shape, dtype=torch.float32, device=device)
+        else:
+            yield name, random_qtensor(gen, shape[0], shape[1],
+                                       policy.tensor_type(name, shape), device)
+
+
+class _Appender:
+    """A file-like sink that appends to a bytearray."""
+
+    def __init__(self, buf: bytearray):
+        self.write = buf.extend
+
+
+def write_gguf(target, cfg: LlamaConfig, ftype: str = "Q4_K_M",
+               seed: int = 0, vocab_fields: dict | None = None,
+               device="cuda") -> dict:
+    """Write a random dense llama model as a GGUF file: `target` is a path
+    or a bytearray the file's bytes are appended to.  The tensors are
+    draw_gguf_tensors' (the planes build_model draws, under the GGUF names
+    and the ftype's per-tensor types), encoded on `device` into wire blocks
+    (wire_blocks: Q4_K and Q6_K, the types of Q4_K_M) and written in the
+    file's "norm" rope order as drawn (the loader's fuse=True pipeline
+    permutes them to NEOX); the metadata is general.* and llama.* of cfg,
+    and vocab_fields the tokenizer's (llama_bpe_vocab's fields, or none).
+    Returns {"bytes", "seconds"} of the write."""
+    from ..gguf.writer import GGUFWriter
+
+    if cfg.n_expert:
+        raise NotImplementedError("write_gguf writes dense models")
+    t0 = time.perf_counter()
+    w = GGUFWriter()
+    w.add("general.architecture", "llama")
+    w.add("general.name", f"synthetic {cfg.n_layer}-layer llama, seed {seed}")
+    w.add("general.file_type", FILE_TYPES[ftype])
+    for key, val in (("vocab_size", cfg.n_vocab),
+                     ("context_length", cfg.n_ctx_train),
+                     ("embedding_length", cfg.n_embd),
+                     ("block_count", cfg.n_layer),
+                     ("feed_forward_length", cfg.n_ff),
+                     ("rope.dimension_count", cfg.hd),
+                     ("attention.head_count", cfg.n_head),
+                     ("attention.head_count_kv", cfg.n_head_kv)):
+        w.add(f"llama.{key}", int(val))
+    w.add("llama.rope.freq_base", float(cfg.rope_theta))
+    w.add("llama.attention.layer_norm_rms_epsilon", float(cfg.rms_eps))
+    for key, val in (vocab_fields or {}).items():
+        w.add(key, val)
+    for name, t in draw_gguf_tensors(cfg, ftype, seed, device):
+        if isinstance(t, QTensor):
+            raw = wire_blocks(t).cpu().numpy()
+            w.add_tensor(name, raw, t.cfg.qtype, raw_ne=(t.k, t.n))
+        else:
+            w.add_tensor(name, t.cpu().numpy())
+        del t
+    if isinstance(target, bytearray):
+        start = len(target)
+        w.write(_Appender(target))
+        n = len(target) - start
+    else:
+        w.write_file(os.fspath(target))
+        n = os.path.getsize(target)
+    return {"bytes": n, "seconds": time.perf_counter() - t0}

@@ -2,9 +2,12 @@
 launch (K4), beside its plain PyTorch version.
 
 Counterpart of ggml_hexagon_tpu/ops/decode_attn.py.  The caches keep a
-flat head dim [B, S, Hkv*D]; the kernel reads only slots < pos, adds the
-fresh token's self-term, and returns the roped k row and the v row for the
-caller to write into the cache (once per step for all layers).
+flat head dim [B, S, Hkv*D]: bf16, int8 with f32 per-row scales, or 4-bit
+values packed two a byte (uint8 [B, S, Hkv*D/2], `pack_int4`'s order) with
+the same scales, where the JAX package keeps jnp.int4.  The kernel reads
+only slots < pos, adds the fresh token's self-term, and returns the roped k
+row and the v row for the caller to write into the cache (once per step
+for all layers).
 """
 from __future__ import annotations
 
@@ -13,6 +16,22 @@ import torch
 from .. import kernels
 
 NEG_INF = -1e30
+
+
+def pack_int4(q):
+    """int8 values in [-8, 7], [..., W] (W even) -> uint8 [..., W/2]: dim 2i
+    in the low nibble of byte i, dim 2i+1 in the high nibble, two's
+    complement (the q4_0 KV cache's order, models/llama.init_kv_cache)."""
+    lo = q[..., 0::2].to(torch.uint8) & 0xF
+    hi = q[..., 1::2].to(torch.uint8) & 0xF
+    return lo | (hi << 4)
+
+
+def unpack_int4(p):
+    """Inverse of pack_int4: uint8 [..., W/2] -> int8 [..., W]."""
+    nib = torch.stack([p & 0xF, p >> 4], dim=-1).to(torch.int8)
+    nib = torch.where(nib >= 8, nib - 16, nib)
+    return nib.reshape(*p.shape[:-1], 2 * p.shape[-1])
 
 
 def _rope_neox(x, cos, sin, n_dims: int):
@@ -29,10 +48,13 @@ def _rope_neox(x, cos, sin, n_dims: int):
 
 def decode_attn_plain(qkv, k_cache, v_cache, pos, cos_sin, *, Hq, Hkv, D,
                       scale, swa=0, logit_cap=0.0, n_dims=0, k_scale=None,
-                      v_scale=None):
+                      v_scale=None, kv_bits=0):
     """Plain K4 (the `_kernel_single` math): direct softmax over slots
     < pos plus the fresh row's self-term.  pos int32 [B]; cos_sin [B,
-    n_dims] f32 (cos ++ sin, mscale folded) or None for no rope."""
+    n_dims] f32 (cos ++ sin, mscale folded) or None for no rope; kv_bits 4:
+    packed 4-bit caches, unpacked to the int8 path's values."""
+    if kv_bits == 4:
+        k_cache, v_cache = unpack_int4(k_cache), unpack_int4(v_cache)
     B, S = k_cache.shape[:2]
     G = Hq // Hkv
     n_dims = n_dims or D
@@ -88,7 +110,8 @@ def fused_decode_attention(qkv, k_cache, v_cache, pos, inv_freq, *,
                            plain: bool = False):
     """qkv [B, (Hq+2*Hkv)*D] f32 projection output (pre-rope); k_cache /
     v_cache [B, S, Hkv*D] holding slots < pos (bf16, or int8 with per-row
-    f32 scales k_scale/v_scale [B, S]); pos scalar or [B]; inv_freq
+    f32 scales k_scale/v_scale [B, S], or uint8 [B, S, Hkv*D/2] of 4-bit
+    values with them); pos scalar or [B]; inv_freq
     [n_dims/2] (None: no rope) from which cos_sin [B, n_dims] is derived
     when not given.  Returns (attn [B, Hq*D], k_roped [B, Hkv*D], v
     [B, Hkv*D]), all f32; the caller stores k_roped / v at slot pos."""
@@ -105,4 +128,5 @@ def fused_decode_attention(qkv, k_cache, v_cache, pos, inv_freq, *,
     return fn(qkv.to(torch.float32).contiguous(), k_cache, v_cache, pos_b,
               cos_sin, Hq=Hq, Hkv=Hkv, D=D, scale=scale, swa=swa,
               logit_cap=logit_cap, n_dims=n_dims, k_scale=k_scale,
-              v_scale=v_scale)
+              v_scale=v_scale,
+              kv_bits=4 if k_cache.dtype == torch.uint8 else 0)

@@ -1,6 +1,6 @@
-"""The port stands alone: it imports neither jax, ml_dtypes nor anything of
-ggml_hexagon_tpu, and its entry points run on the card unless the caller
-asks for the CPU.
+"""The port stands alone: it imports neither jax, ml_dtypes, regex (which
+the card's machine lacks) nor anything of ggml_hexagon_tpu, and its entry
+points run on the card unless the caller asks for the CPU.
 
 The import check runs in a subprocess whose import system refuses the
 blocked packages; the entry-point checks run in one with no visible card
@@ -24,7 +24,7 @@ from ggml_hexagon_tpu_torch.runtime.engine import Engine
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "ggml_hexagon_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "ml_dtypes", "ggml_hexagon_tpu")
+BLOCKED = ("jax", "jaxlib", "ml_dtypes", "regex", "ggml_hexagon_tpu")
 
 _BLOCKER = f"""
 import importlib.abc, sys
@@ -104,7 +104,10 @@ def test_port_imports_without_jax_or_the_jax_package():
     got = json.loads(r.stdout.strip().splitlines()[-1])
     assert got["leaked"] == []
     for mod in ("kernels", "convert", "ops.qmm_qp8", "ops.decode_attn",
-                "models.llama", "models.synth", "runtime.engine"):
+                "models.llama", "models.synth", "models.registry",
+                "runtime.engine", "runtime.sampling",
+                "runtime.device_sampling", "gguf.reader", "gguf.writer",
+                "tokenizer.pretok", "tokenizer.bpe"):
         assert f"ggml_hexagon_tpu_torch.{mod}" in got["modules"]
 
 

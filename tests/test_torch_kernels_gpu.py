@@ -19,7 +19,12 @@ Tolerances, per kernel, with their reasons:
       idle); the group bias is the f32 group sums, split exactly into
       three bf16 parts, times fb, each product exact.  NMSE <= 1e-6.
   K4 (attention): f32 throughout, another order and expf (the live slots
-      split over blocks, their partials merged): max|d| <= 1e-4.
+      split over blocks, their partials merged): max|d| <= 1e-4.  Over a
+      q4_0 cache (4-bit values packed two a byte) the int8 path's math on
+      the sign-extended nibbles, the same bound; a CUDA-graph replay gives
+      the eager launch's bits.
+  pack_tensor on the card (the GGUF wire bytes unpacked by torch integer
+      ops): byte-equal to the same call on the CPU.
   K5 (gathered-expert GEMV): K1's arithmetic on the selected lanes.
       NMSE <= 1e-6.
   K6 (interleaved byte planes), every mode: identical f32 (B <= 8) or
@@ -1746,3 +1751,85 @@ def test_decode_attn_gqa_kernel_on_a_long_cache(dev, cache, pos, G):
     assert kernels.LAUNCHES["decode_attn_gqa"] == before + 1
     assert got.shape == qg.shape and torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("pos", [0, 31, 700])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("swa,cap", [(0, 0.0), (100, 2.0)],
+                         ids=["plain", "swa_cap"])
+def test_decode_attn_q4_kernel_matches_plain(dev, pos, B, swa, cap):
+    """K4 over a q4_0 cache (the 8B's heads): the kernel against its plain
+    twin (which unpacks the nibbles and runs the int8 path), counted under
+    decode_attn_q4; then a CUDA graph of the launch, replayed, gives the
+    eager launch's bits."""
+    Hq, Hkv, D, S = 32, 8, 128, 1024
+    g = torch.Generator(device=dev)
+    g.manual_seed(pos * 10 + B)
+    qkv = _x(dev, B, (Hq + 2 * Hkv) * D, seed=pos + 11)
+    kc, vc = (PD.pack_int4(torch.randint(-7, 8, (B, S, Hkv * D), device=dev,
+                                         dtype=torch.int8, generator=g))
+              for _ in range(2))
+    ks = torch.rand(B, S, device=dev, generator=g) * 0.02
+    vs = torch.rand(B, S, device=dev, generator=g) * 0.02
+    rows = [pos, max(0, pos - 3), pos // 2, min(S - 1, pos + 5)] * 2
+    posb = torch.tensor(rows[:B], dtype=torch.int32, device=dev)
+    inv = 500000.0 ** (-torch.arange(0, D, 2, device=dev).float() / D)
+    ang = posb[:, None].float() * inv[None]
+    cs = torch.cat([torch.cos(ang), torch.sin(ang)], dim=1).contiguous()
+    kw = dict(Hq=Hq, Hkv=Hkv, D=D, scale=D ** -0.5, k_scale=ks, v_scale=vs,
+              swa=swa, logit_cap=cap, kv_bits=4)
+    before = dict(kernels.LAUNCHES)
+    got = PD.decode_attn(qkv, kc, vc, posb, cs, **kw)
+    want = PD.decode_attn_plain(qkv, kc, vc, posb, cs, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["decode_attn_q4"] == before["decode_attn_q4"] + 1
+    assert kernels.LAUNCHES["decode_attn"] == before["decode_attn"]
+    for gt, w in zip(got, want):
+        assert torch.isfinite(gt).all()
+        assert float((gt - w).abs().max()) <= 1e-4
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        PD.decode_attn(qkv, kc, vc, posb, cs, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = PD.decode_attn(qkv, kc, vc, posb, cs, **kw)
+    for _ in range(2):
+        for o in out:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, e in zip(out, got):
+            assert torch.equal(o, e)
+
+
+def test_decode_attn_q4_kernel_refuses_int8_caches_as_int4(dev):
+    B, Hkv, D, S = 1, 8, 128, 64
+    qkv = _x(dev, B, (32 + 2 * Hkv) * D)
+    kc = torch.zeros(B, S, Hkv * D, dtype=torch.int8, device=dev)
+    sc = torch.ones(B, S, device=dev)
+    pos = torch.zeros(B, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        kernels.decode_attn(qkv, kc, kc, pos, None, Hq=32, Hkv=Hkv, D=D,
+                            scale=0.1, k_scale=sc, v_scale=sc, kv_bits=4)
+
+
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K])
+def test_pack_tensor_on_the_card_matches_cpu(dev, qtype):
+    """GGUF wire bytes of a 4096-wide tensor (synth.wire_blocks of a random
+    draw) unpack on the card to the CPU's planes, byte for byte."""
+    from ggml_hexagon_tpu_torch.models.synth import wire_blocks
+    from ggml_hexagon_tpu_torch.quant.pack import pack_tensor
+
+    g = torch.Generator()
+    g.manual_seed(int(qtype))
+    raw = wire_blocks(random_qtensor(g, 1000, 4096, qtype, "cpu"))
+    want = pack_tensor(raw, qtype, (1000, 4096))
+    got = pack_tensor(raw.to(dev), qtype, (1000, 4096))
+    torch.cuda.synchronize()
+    for f in ("q", "qh", "d", "sc", "dmin", "m"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            assert a.is_cuda and a.dtype == b.dtype and torch.equal(a.cpu(), b), f
