@@ -107,6 +107,31 @@
    steps (profiler); K4 over a q4_0 cache held against its plain twin at
    pos 700, B = 1 and 8, timed beside SDPA on the cache dequantized to
    bf16.
+15. the continuous-batching server on the same file (run_serve, right
+   after the load phase; the file is written once for both):
+   BatchEngine.from_gguf (4 slots, max_seq 2048, bf16 KV) serves six
+   requests at once, prompts of 7 to 1000 tokens, 32 greedy tokens each:
+   every prompt tick (K3 on 4 x 128 rows; the head K1 on the slots'
+   picked rows) and decode tick (K1/K2 at 4 rows, K4 with a position a
+   row, idle rows parked at the last slot) held to its exact launches;
+   each request alone on a fresh engine of the same shape, bit for bit;
+   each request against Engine alone (B=1, the prompt in the server's
+   128-token chunks): prefill logits within NMSE_LOGITS, every step's
+   logits within ROUTE_NMSE, greedy tokens equal up to the first step
+   whose top-2 gap is under GREEDY_GAP in either run (a token that differs
+   before it must be a near-tie within twice the step's max |difference|);
+   a seventh request extending a served one reuses all but one resident
+   token and gives a cold run's tokens; four requests under q8_0 and q4_0
+   KV, every tick held; speculative decoding with a draft sharing the
+   target's weights (n_draft 4, p_min 0) against the non-speculative
+   tokens, its acceptance at least SPEC_ACCEPT_MIN; the context shift (a
+   200-token prompt and 100 tokens in 256 slots); a q4_0 slot saved,
+   erased and restored into another slot; the HTTP server on loopback
+   (four concurrent /completion, one as SSE, and /v1/chat/completions;
+   /health, /slots, /metrics), its texts equal to engine.complete; K4 at
+   the tick's shape (rows at 0, 31, 700 and one parked at 2047) against
+   its plain twin; two decode ticks profiled (four live slots; one live
+   and three parked).
 
 K6 above 8 rows is its own kernel, the wgmma GEMM of csrc/fast_il_gemm.cu
 (the ninth slice): every configuration whose prefill chunk runs it holds
@@ -144,6 +169,7 @@ TFLOP/s TF32 dense, 67 TFLOP/s f32).
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2158,29 +2184,58 @@ def k4_q4_rows(dev, cfg, rep):
             rep.add(cfg.n_layer, err, ms, pms, byts, ops, BF16_OPS, lib)
 
 
-def run_load(dev):
-    """Llama-3-8B Q4_K_M from a GGUF file, served from text: the file
-    (random centred blocks of the Q4_K_M mixture, the 8B's llama.*
-    metadata, a synthetic llama-bpe vocabulary of 128256 tokens) written
-    into a temporary directory, or into a bytearray when its filesystem
-    lacks room, loaded through Engine.from_gguf(fuse=True), pack_tensor
+def write_8b_gguf(dev):
+    """The full-size Llama-3-8B Q4_K_M file that the load and serving phases
+    read (random centred blocks of the Q4_K_M mixture, the 8B's llama.*
+    metadata, a synthetic llama-bpe vocabulary of 128256 tokens), written
+    once into a temporary directory, or into a bytearray when its
+    filesystem lacks room.  Returns (the path or the buffer, the directory
+    to remove after, the vocabulary's words)."""
+    import shutil
+    import tempfile
+
+    from ggml_hexagon_tpu_torch.models.llama import LlamaConfig
+    from ggml_hexagon_tpu_torch.models.synth import (LLAMA3_8B,
+                                                     gguf_data_bytes,
+                                                     llama_bpe_vocab,
+                                                     write_gguf)
+
+    cfg = LlamaConfig(**LLAMA3_8B)
+    fields, words = llama_bpe_vocab()
+    need = gguf_data_bytes(cfg, "Q4_K_M")
+    tmp = tempfile.mkdtemp(prefix="ght_gguf_")
+    free = shutil.disk_usage(tmp).free
+    if free > need + 2 ** 30:
+        src = os.path.join(tmp, "llama-3-8b-q4_k_m-synthetic.gguf")
+        where = f"a file in {tmp}"
+    else:
+        src = bytearray()
+        where = "a bytearray (GGUFReader.from_buffer)"
+    try:
+        info = write_gguf(src, cfg, "Q4_K_M", seed=0, vocab_fields=fields,
+                          device=dev)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    log(f"wrote {info['bytes']} bytes ({info['bytes'] / 1e9:.3f} GB) into "
+        f"{where} in {info['seconds']:.1f} s; the temporary filesystem "
+        f"had {free} bytes free")
+    return src, tmp, words
+
+
+def run_load(dev, src, words):
+    """Llama-3-8B Q4_K_M from a GGUF file (write_8b_gguf's), served from
+    text: loaded through Engine.from_gguf(fuse=True), pack_tensor
     held on the card against the CPU, requests from text under bf16, q8_0
     and q4_0 KV held to the 8B's launch table (one decode_attn_q4 a layer
     a step under q4_0), generate_ondevice held to the host's greedy
     tokens and to its seed with no device-to-host copy in its decode loop,
     and K4 over a q4_0 cache held against its plain twin.  Returns (kernel
     reports, the requests' launch counts)."""
-    import shutil
-    import tempfile
-
     from ggml_hexagon_tpu_torch import kernels
     from ggml_hexagon_tpu_torch.gguf.reader import GGUFReader
     from ggml_hexagon_tpu_torch.models.llama import LlamaConfig
-    from ggml_hexagon_tpu_torch.models.synth import (LLAMA3_8B,
-                                                     draw_gguf_tensors,
-                                                     gguf_data_bytes,
-                                                     llama_bpe_vocab,
-                                                     write_gguf)
+    from ggml_hexagon_tpu_torch.models.synth import LLAMA3_8B, draw_gguf_tensors
     from ggml_hexagon_tpu_torch.runtime.device_sampling import DeviceSamplerParams
     from ggml_hexagon_tpu_torch.runtime.engine import PREFILL_BUCKETS, Engine
     from ggml_hexagon_tpu_torch.runtime.sampling import greedy_chain
@@ -2188,49 +2243,29 @@ def run_load(dev):
     name = "Llama-3-8B Q4_K_M from a GGUF file"
     t_ph = phase(name, dev)
     cfg = LlamaConfig(**LLAMA3_8B)
-    fields, words = llama_bpe_vocab()
-    need = gguf_data_bytes(cfg, "Q4_K_M")
-    tmp = tempfile.mkdtemp(prefix="ght_gguf_")
-    try:
-        free = shutil.disk_usage(tmp).free
-        if free > need + 2 ** 30:
-            src = os.path.join(tmp, "llama-3-8b-q4_k_m-synthetic.gguf")
-            where = f"a file in {tmp}"
-        else:
-            src = bytearray()
-            where = "a bytearray (GGUFReader.from_buffer)"
-        info = write_gguf(src, cfg, "Q4_K_M", seed=0, vocab_fields=fields,
-                          device=dev)
-        log(f"wrote {info['bytes']} bytes ({info['bytes'] / 1e9:.3f} GB) into "
-            f"{where} in {info['seconds']:.1f} s; the temporary filesystem "
-            f"had {free} bytes free")
-        gc.collect()
-        torch.cuda.reset_peak_memory_stats(dev)
-        eng = Engine.from_gguf(src, fuse=True, max_seq=1024, device=dev)
-        log(f"Engine.from_gguf(fuse=True): t_load {eng.perf.t_load:.2f} s, "
-            f"peak device memory "
-            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
-            f"{eng.cfg.n_layer} layers, rope {eng.cfg.rope_mode}, vocab "
-            f"{eng.vocab.n_tokens} ({eng.vocab.model}/{eng.vocab.pre}, bos "
-            f"{eng.vocab.bos_id}, eos {eng.vocab.eos_id})")
-        reader = (GGUFReader.open(src) if isinstance(src, str)
-                  else GGUFReader.from_buffer(src))
-        with reader:
-            packed = [held_pack(dev, reader, n) for n in
-                      ("blk.0.attn_q.weight", "blk.0.attn_v.weight")]
-        log(f"pack_tensor on the card byte-equal to the CPU on {packed}")
-        _, drawn = next(draw_gguf_tensors(cfg, "Q4_K_M", 0, dev))
-        te = eng.weights["tok_embd"]
-        for f in ("q", "d", "sc", "dmin", "m"):
-            if not torch.equal(getattr(te, f)[:te.n].to(torch.float32),
-                               getattr(drawn, f)[:te.n].to(torch.float32)):
-                raise AssertionError(f"tok_embd {f}: loaded != drawn")
-        log("the loaded tok_embd wire planes equal the draw")
-        del drawn, te
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-        log(f"removed {tmp}")
-    del src
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = Engine.from_gguf(src, fuse=True, max_seq=1024, device=dev)
+    log(f"Engine.from_gguf(fuse=True): t_load {eng.perf.t_load:.2f} s, "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+        f"{eng.cfg.n_layer} layers, rope {eng.cfg.rope_mode}, vocab "
+        f"{eng.vocab.n_tokens} ({eng.vocab.model}/{eng.vocab.pre}, bos "
+        f"{eng.vocab.bos_id}, eos {eng.vocab.eos_id})")
+    reader = (GGUFReader.open(src) if isinstance(src, str)
+              else GGUFReader.from_buffer(src))
+    with reader:
+        packed = [held_pack(dev, reader, n) for n in
+                  ("blk.0.attn_q.weight", "blk.0.attn_v.weight")]
+    log(f"pack_tensor on the card byte-equal to the CPU on {packed}")
+    _, drawn = next(draw_gguf_tensors(cfg, "Q4_K_M", 0, dev))
+    te = eng.weights["tok_embd"]
+    for f in ("q", "d", "sc", "dmin", "m"):
+        if not torch.equal(getattr(te, f)[:te.n].to(torch.float32),
+                           getattr(drawn, f)[:te.n].to(torch.float32)):
+            raise AssertionError(f"tok_embd {f}: loaded != drawn")
+    log("the loaded tok_embd wire planes equal the draw")
+    del drawn, te
     gc.collect()
     tok = eng.tokenizer
     prompts = load_prompts(tok, words)
@@ -2344,6 +2379,552 @@ def run_load(dev):
     return [rep], counts
 
 
+#: the serving phase's traffic: prompt lengths (random ids below the
+#: vocabulary's specials) submitted at once, more than the slots, each
+#: SERVE_GEN greedy tokens with no stop id
+SERVE_PROMPTS = (7, 64, 128, 300, 512, 1000)
+SERVE_GEN = 32
+SERVE_SLOTS = 4
+SERVE_SEQ = 2048
+#: greedy comparisons between two routes run up to the first step whose
+#: top-2 logit gap is under this in either run
+GREEDY_GAP = 1e-2
+#: logits of two routes of one request (the server's B = 4 ticks and the
+#: Engine's B = 1 steps, a speculative verify and a decode tick, a reused
+#: prefix and a cold prompt): other kernels at other shapes, NMSE ~1.2e-3
+#: at the first decode step on the 8B; a wrong route (a position, a slot,
+#: an accepted draft token) is far above it
+ROUTE_NMSE = 1e-2
+#: the 8B's speculative acceptance with a draft that shares the target's
+#: weights (greedy, n_draft 4, p_min 0): 35.2% measured; a floor well above
+#: a draft whose tokens the verify no longer takes
+SPEC_ACCEPT_MIN = 0.20
+
+
+class RecSampler:
+    """Greedy (or `inner`), recording the logits of every sample and the
+    time of each: what the server's slot sampled from."""
+
+    def __init__(self, inner=None):
+        from ggml_hexagon_tpu_torch.runtime.sampling import greedy_chain
+
+        self.inner = inner or greedy_chain()
+        self.logits, self.times = [], []
+
+    def sample(self, logits):
+        self.logits.append(np.array(logits, np.float32))
+        self.times.append(time.perf_counter())
+        return self.inner.sample(logits)
+
+
+def _gap(row):
+    top = np.partition(row, -2)[-2:]
+    return float(abs(top[1] - top[0]))
+
+
+def greedy_held(what, got, want):
+    """Two greedy runs of one request, (tokens, sampled logits) each, over
+    two routes: every step's logits within ROUTE_NMSE, and the same tokens
+    up to the first step whose top-2 gap is under GREEDY_GAP in either run;
+    a token that differs before it must be a near-tie that the measured
+    difference explains (a top-2 gap of either run within twice the step's
+    max |difference|), and ends the comparison.  Returns (steps compared,
+    the largest NMSE over them, why it stopped: "" when it ran to the end,
+    else "near-tie at step i (gap g)" or "tokens differ at step i, a
+    near-tie (gap g, max|d| d)")."""
+    (gt, gl), (wt, wl) = got, want
+    n = min(len(gt), len(wt))
+    worst = 0.0
+    for i in range(n):
+        a, b = torch.from_numpy(gl[i]), torch.from_numpy(wl[i])
+        e = nmse(a, b)
+        if not e <= ROUTE_NMSE:
+            raise AssertionError(f"{what}: step {i} logits NMSE {e:.2e} > "
+                                 f"{ROUTE_NMSE}")
+        worst = max(worst, e)
+        gap = min(_gap(gl[i]), _gap(wl[i]))
+        if gap < GREEDY_GAP:
+            return i, worst, f"near-tie at step {i} (gap {gap:.4f})"
+        if gt[i] != wt[i]:
+            d = float((a - b).abs().max())
+            if gap > 2 * d:
+                raise AssertionError(
+                    f"{what}: token {i} {gt[i]} != {wt[i]} (gaps "
+                    f"{_gap(gl[i]):.4f} / {_gap(wl[i]):.4f}, max|d| {d:.4f}, "
+                    f"logits NMSE {e:.2e})")
+            return i, worst, (f"tokens differ at step {i}, a near-tie (gap "
+                              f"{gap:.4f}, max|d| {d:.4f})")
+    if len(gt) != len(wt):
+        raise AssertionError(f"{what}: {len(gt)} tokens != {len(wt)}")
+    return n, worst, ""
+
+
+def serve_want(kv, step, n_fwd=1):
+    """Exact launches of n_fwd server forwards of the 8B Q4_K_M: a decode
+    tick is the table's step at B = n_slots rows; a prompt tick its chunk
+    at SERVE_SLOTS x 128 = 512 rows, except the head, which logits_idx
+    runs on the slots' picked rows only (K1 at 4 rows where the Engine's
+    chunk runs K3 on every row)."""
+    c = want_launches(LAUNCH_TABLES["Llama-3-8B Q4_K_M"],
+                      1 if step else SERVE_SLOTS * 128, step)
+    if not step:
+        c["qp8_gemm"] -= 1
+        c["qp8_gemv"] += 1
+    if kv == "q4_0":
+        c["decode_attn_q4"], c["decode_attn"] = c["decode_attn"], 0
+    return {k: v * n_fwd for k, v in c.items()}
+
+
+def held_ticks(be, kv, log_ticks):
+    """Wrap be's ticks so that each is held to its exact launches
+    (serve_want times the forwards the tick ran); log_ticks collects
+    (kind, forwards, seconds)."""
+    from ggml_hexagon_tpu_torch import kernels
+
+    fwd = be._fwd
+    n = [0]
+
+    def counting(*a, **k):
+        n[0] += 1
+        return fwd(*a, **k)
+
+    be._fwd = counting
+
+    def wrap(tick, step):
+        def run(slots):
+            before = dict(kernels.LAUNCHES)
+            n[0] = 0
+            t0 = time.perf_counter()
+            tick(slots)
+            dt = time.perf_counter() - t0
+            got = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+            want = serve_want(kv, step, n[0])
+            if got != want:
+                raise AssertionError(
+                    f"{'decode' if step else 'prompt'} tick launches "
+                    f"{ {k: v for k, v in got.items() if v} } != "
+                    f"{ {k: v for k, v in want.items() if v} }")
+            log_ticks.append(("decode" if step else "prompt", n[0], dt))
+        return run
+
+    be._prompt_tick = wrap(be._prompt_tick, False)
+    be._decode_tick = wrap(be._decode_tick, True)
+
+
+def engine_alone(eng, prompt, n):
+    """The request through Engine alone (B=1), its prompt in the server's
+    128-token chunks (the Engine's 8-token bucket runs the decode GEMVs,
+    whose int8 activations the server's prompt ticks never see):
+    (tokens, sampled logits)."""
+    from ggml_hexagon_tpu_torch.server.batch_engine import PROMPT_CHUNK
+
+    eng.reset()
+    c = PROMPT_CHUNK
+    eng._chunks = lambda t: [(min(c, t - i), c) for i in range(0, t, c)]
+    rec = RecSampler()
+    toks = list(eng.generate(prompt, n, sampler=rec, stop_ids=set()))
+    return toks, rec.logits
+
+
+def k4_serving_rows(dev, cfg):
+    """K4 at the serving tick's shape against its plain twin: B = 4 rows at
+    positions 0, 31 and 700 and one parked at S-1 = 2047 (which reads the
+    whole prefix), bf16, int8 and int4 caches of S = 2048; -> ms a launch
+    by cache type."""
+    from ggml_hexagon_tpu_torch.ops import decode_attn as PD
+    from ggml_hexagon_tpu_torch.ops.basic import rope_freqs
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(77)
+    Hq, Hkv, D, S, B = cfg.n_head, cfg.n_head_kv, cfg.hd, SERVE_SEQ, 4
+    posb = torch.tensor([0, 31, 700, S - 1], dtype=torch.int32, device=dev)
+    inv, ms_ = rope_freqs(cfg.rope_params, dev)
+    ang = posb[:, None].float() * inv[None]
+    cs = (torch.cat([torch.cos(ang), torch.sin(ang)], 1) * ms_).contiguous()
+    qkv = torch.randn(B, (Hq + 2 * Hkv) * D, generator=gen, device=dev)
+    out = {}
+    for kind in ("bf16", "int8", "int4"):
+        kw = dict(Hq=Hq, Hkv=Hkv, D=D, scale=D ** -0.5)
+        if kind == "bf16":
+            kc, vc = (torch.randn(B, S, Hkv * D, generator=gen, device=dev)
+                      .to(torch.bfloat16) for _ in range(2))
+        else:
+            qmax = 127 if kind == "int8" else 7
+            kq, vq = (torch.randint(-qmax, qmax + 1, (B, S, Hkv * D),
+                                    device=dev, dtype=torch.int8,
+                                    generator=gen) for _ in range(2))
+            kc, vc = ((kq, vq) if kind == "int8"
+                      else (PD.pack_int4(kq), PD.pack_int4(vq)))
+            kw.update(k_scale=torch.rand(B, S, device=dev, generator=gen) * 0.02,
+                      v_scale=torch.rand(B, S, device=dev, generator=gen) * 0.02,
+                      kv_bits=4 if kind == "int4" else 0)
+        got = PD.decode_attn(qkv, kc, vc, posb, cs, **kw)
+        want = PD.decode_attn_plain(qkv, kc, vc, posb, cs, **kw)
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        if not (err <= ATTN_MAX_ABS and all(torch.isfinite(g).all() for g in got)):
+            raise AssertionError(f"K4 {kind} B=4 S={S} pos {posb.tolist()}: "
+                                 f"max|d| {err}")
+        out[kind] = time_ms(lambda: PD.decode_attn(qkv, kc, vc, posb, cs, **kw))
+        log(f"  K4 {kind} B=4 S={S} pos {posb.tolist()} (row 3 parked): "
+            f"max|d|={err:.3e} kernel={out[kind]:.4f} ms a launch")
+    return out
+
+
+def profile_tick(dev, be, label):
+    """One decode tick of be (its slots already generating) under the
+    profiler: host ms, device ms, idle share, top device items and K4's
+    device time a launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        be.step()
+        host = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    dev_ms, top = _device_ms(avgs, 1)
+    _, k4 = _device_ms([e for e in avgs if "decode_attn" in e.key], 1)
+    n_k4 = sum(cnt for _, cnt, _ in k4)
+    k4_txt = ("not measured" if not n_k4 else
+              f"{sum(ms for ms, _, _ in k4) / n_k4:.4f} ms a launch over "
+              f"{n_k4} launches")
+    idle = "not measured" if dev_ms is None else f"{1 - dev_ms / host:.1%}"
+    log(f"  decode tick, {label}: host {host:.2f} ms, device "
+        f"{'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'}, idle "
+        f"share {idle}; K4 {k4_txt}")
+    for ms, cnt, key in top[:6]:
+        log(f"      {ms:8.4f} ms  x{cnt:<4d} {key[:90]}")
+    return host, dev_ms, idle
+
+
+def run_serve(dev, src, smi):
+    """The continuous-batching server on the full-size 8B Q4_K_M from
+    write_8b_gguf's file: BatchEngine.from_gguf (n_slots 4, max_seq 2048,
+    bf16 KV) serves six requests at once (prompts of 7 to 1000 tokens, 32
+    greedy tokens each), every prompt tick (K3 on 4 x 128 rows, K1 on the
+    head's picked rows) and decode tick (K1/K2 at 4 rows, K4 with a
+    position a row, idle rows parked at the last slot) held to its exact
+    launches; each request alone on a fresh engine of that shape (bit for
+    bit) and against Engine alone (prefill logits NMSE <= NMSE_LOGITS,
+    greedy_held); prefix reuse; four requests under q8_0 and q4_0 KV;
+    speculative decoding with a draft sharing the weights; the context
+    shift; a q4_0 slot saved, erased and
+    restored into another slot; the HTTP server over loopback; K4 at the
+    tick's shape against its plain twin; two decode ticks profiled.  smi:
+    the card's name and power limit, logged beside the numbers.  Returns
+    the bf16 traffic's launch counts (zeroed before, read
+    after)."""
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from ggml_hexagon_tpu_torch import kernels
+    from ggml_hexagon_tpu_torch.runtime.engine import Engine
+    from ggml_hexagon_tpu_torch.server.batch_engine import (BatchEngine,
+                                                            DraftModel)
+    from ggml_hexagon_tpu_torch.server.http_server import (InferenceServer,
+                                                           make_handler)
+
+    name = "Llama-3-8B Q4_K_M served (BatchEngine, 4 slots)"
+    t_ph = phase(name, dev)
+    t0 = time.perf_counter()
+    be = BatchEngine.from_gguf(src, n_slots=SERVE_SLOTS, max_seq=SERVE_SEQ,
+                               kv_dtype="bf16", device=dev)
+    torch.cuda.synchronize()
+    log(f"BatchEngine.from_gguf: {time.perf_counter() - t0:.2f} s, "
+        f"{be.cfg.n_layer} layers, {be.n_slots} slots of {be.max_seq}; "
+        f"card {smi}")
+    cfg, weights, vocab = be.cfg, be.weights, be.vocab
+
+    def fresh(kv="bf16", max_seq=SERVE_SEQ, **kw):
+        return BatchEngine(cfg, weights, vocab, n_slots=SERVE_SLOTS,
+                           max_seq=max_seq, kv_dtype=kv, device=dev, **kw)
+
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, 128000, n).tolist() for n in SERVE_PROMPTS]
+
+    def submit_all(e, ps, n, recs):
+        return [e.submit(p, n_predict=n, sampler=r, stop_ids=set())
+                for p, r in zip(ps, recs)]
+
+    def drain(q):
+        out = []
+        while True:
+            tok, fin = q.get_nowait()
+            if tok is None:
+                return out, fin
+            out.append(tok)
+
+    # 1-2. the traffic, every tick held to its launches
+    ticks = []
+    held_ticks(be, "bf16", ticks)
+    recs = [RecSampler() for _ in prompts]
+    kernels.reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    queues = submit_all(be, prompts, SERVE_GEN, recs)
+    be.run_until_idle()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    outs = [drain(q) for q in queues]
+    for (toks, fin), r in zip(outs, recs):
+        if len(toks) != SERVE_GEN or fin != "length":
+            raise AssertionError(f"request ended {fin} after {len(toks)}")
+        if not all(np.isfinite(lg).all() for lg in r.logits):
+            raise AssertionError("logits not finite")
+    for k in ("qp8_gemv", "qp8_dual", "qp8_gemm", "decode_attn"):
+        if counts[k] == 0:
+            raise AssertionError(f"{k} never launched on the serving path")
+    m = be.metrics
+    n_pt = sum(1 for k, _, _ in ticks if k == "prompt")
+    n_dt = sum(1 for k, _, _ in ticks if k == "decode")
+    ttft = sorted(be.ttft_samples)
+    p50 = ttft[len(ttft) // 2] * 1e3
+    agg = m["n_tokens_generated"] / m["t_decode"]
+    per_req = [(SERVE_GEN - 1) / (r.times[-1] - r.times[0]) for r in recs]
+    pt_ms = np.median([dt for k, _, dt in ticks if k == "prompt"]) * 1e3
+    dt_ms = np.median([dt for k, _, dt in ticks if k == "decode"]) * 1e3
+    log(f"six requests on {SERVE_SLOTS} slots: {n_pt} prompt ticks (median "
+        f"{pt_ms:.1f} ms), {n_dt} decode ticks (median {dt_ms:.2f} ms), every "
+        f"tick's launches exact; wall {wall:.2f} s; TTFT p50 {p50:.1f} ms "
+        f"(samples {[round(t * 1e3, 1) for t in be.ttft_samples]}); decode "
+        f"{agg:.2f} tok/s aggregate (n_tokens_generated / t_decode); per "
+        f"request {[round(x, 2) for x in per_req]} tok/s; card {smi}")
+    log(f"  serving launches: { {k: v for k, v in counts.items() if v} }")
+    SUMMARY.setdefault(name, {})["bf16 6 requests"] = (
+        f"TTFT p50 {p50:.1f} ms, decode {agg:.2f} tok/s aggregate, prompt "
+        f"tick {pt_ms:.1f} ms, decode tick {dt_ms:.2f} ms")
+
+    # 3. each request alone on a fresh engine of the same shape (the same
+    #    kernels at the same shapes: bit for bit), and against Engine alone
+    for i, (p, (toks, _), r) in enumerate(zip(prompts, outs, recs)):
+        solo, rs = fresh(), RecSampler()
+        if (solo.complete(p, n_predict=SERVE_GEN, sampler=rs, stop_ids=set())
+                != toks or not all(np.array_equal(a, b)
+                                   for a, b in zip(rs.logits, r.logits))):
+            raise AssertionError(f"request {i}: batched != alone")
+        del solo
+    log(f"  each request alone on a fresh {SERVE_SLOTS}-slot engine: the "
+        f"same tokens and logits, bit for bit")
+    eng = Engine(cfg, weights, vocab, max_seq=SERVE_SEQ, kv_dtype="bf16",
+                 device=dev)
+    for i, (p, (toks, _), r) in enumerate(zip(prompts, outs, recs)):
+        want = engine_alone(eng, p, SERVE_GEN)
+        e = nmse(torch.from_numpy(r.logits[0]), torch.from_numpy(want[1][0]))
+        if e > NMSE_LOGITS:
+            raise AssertionError(f"request {i}: prefill logits NMSE {e:.2e}")
+        n, worst, tie = greedy_held(f"request {i} vs Engine",
+                                    (toks, r.logits), want)
+        log(f"  request {i} (prompt {len(p)}): prefill logits NMSE {e:.2e} "
+            f"against Engine alone; greedy tokens equal over {n} steps, "
+            f"logits NMSE <= {worst:.2e}" + (f" ({tie})" if tie else ""))
+    del eng
+
+    # 4. prefix reuse: a seventh request extends a served request's prompt
+    #    and output (the first whose rows are still resident: the six
+    #    requests took the slots in turn)
+    idx = next(i for i, p in enumerate(prompts) if any(
+        s.settled[:len(p)] == p and s.n_past >= len(p) for s in be.slots))
+    p7 = prompts[idx] + outs[idx][0] + rng.integers(0, 128000, 5).tolist()
+    cached0 = be.metrics["n_prompt_tokens_cached"]
+    r7 = RecSampler()
+    q7 = be.submit(p7, n_predict=16, sampler=r7, stop_ids=set())
+    be.run_until_idle()
+    t7, _ = drain(q7)
+    reused = be.metrics["n_prompt_tokens_cached"] - cached0
+    resident = len(prompts[idx]) + SERVE_GEN
+    if reused != resident - 1:
+        raise AssertionError(f"prefix reuse {reused} != {resident - 1}")
+    cold = fresh()
+    rc = RecSampler()
+    tc = cold.complete(p7, n_predict=16, sampler=rc, stop_ids=set())
+    n, worst, tie = greedy_held("prefix reuse vs cold", (t7, r7.logits),
+                                (tc, rc.logits))
+    log(f"  prefix reuse: a request extending request {idx}'s prompt and "
+        f"output reused {reused} of {resident} resident tokens; its tokens "
+        f"equal a cold run's over {n} steps, logits NMSE <= {worst:.2e}"
+        + (f" ({tie})" if tie else ""))
+    del cold
+
+    # 5. q8_0 and q4_0 KV: four requests each, every tick held
+    for kv in ("q8_0", "q4_0"):
+        e = fresh(kv)
+        tk = []
+        held_ticks(e, kv, tk)
+        rs = [RecSampler() for _ in range(4)]
+        qs = submit_all(e, prompts[:4], 16, rs)
+        e.run_until_idle()
+        got = [drain(q) for q in qs]
+        if any(len(t) != 16 for t, _ in got) or not all(
+                np.isfinite(lg).all() for r in rs for lg in r.logits):
+            raise AssertionError(f"{kv}: {[len(t) for t, _ in got]} tokens")
+        log(f"  {kv} KV: four requests, {len(tk)} ticks with exact launches, "
+            f"decode {e.metrics['n_tokens_generated'] / e.metrics['t_decode']:.2f}"
+            f" tok/s aggregate")
+        del e
+
+    # 6. speculative decoding, the draft sharing the target's weights
+    draft = DraftModel(cfg, weights, SERVE_SLOTS, SERVE_SEQ, device=dev)
+    e = fresh(draft=draft, n_draft=4, draft_p_min=0.0)
+    rs = [RecSampler() for _ in range(4)]
+    qs = submit_all(e, prompts[:4], SERVE_GEN, rs)
+    e.run_until_idle()
+    for i, (q, r) in enumerate(zip(qs, rs)):
+        toks, _ = drain(q)
+        n, worst, tie = greedy_held(f"speculative request {i}",
+                                    (toks, r.logits),
+                                    (outs[i][0], recs[i].logits))
+        log(f"  speculative request {i}: tokens equal the non-speculative "
+            f"run's over {n} steps, logits NMSE <= {worst:.2e}"
+            + (f" ({tie})" if tie else ""))
+    sm = e.metrics
+    rate = sm["n_draft_accepted"] / max(1, sm["n_draft_proposed"])
+    log(f"  speculative: {sm['n_draft_proposed']} proposed, "
+        f"{sm['n_draft_accepted']} accepted ({rate:.1%}), "
+        f"{sm['n_draft_rounds_decoupled']} rounds decoupled, "
+        f"{sm['n_tokens_generated'] / sm['t_decode']:.2f} tok/s aggregate")
+    if not rate >= SPEC_ACCEPT_MIN:
+        raise AssertionError(f"speculative acceptance {rate:.1%} < "
+                             f"{SPEC_ACCEPT_MIN:.0%}")
+    del e, draft
+
+    # 7. the context shift
+    e = fresh(max_seq=256, ctx_shift=True, n_keep=16)
+    r = RecSampler()
+    q = e.submit(prompts[4][:200], n_predict=100, sampler=r, stop_ids=set())
+    e.run_until_idle()
+    toks, fin = drain(q)
+    if not (e.metrics["n_ctx_shifts"] >= 1 and fin == "length"
+            and len(toks) == 100
+            and all(np.isfinite(lg).all() for lg in r.logits)):
+        raise AssertionError(f"context shift: {e.metrics['n_ctx_shifts']} "
+                             f"shifts, {fin} after {len(toks)}")
+    log(f"  context shift: a 200-token prompt and 100 tokens in a 256-slot "
+        f"window, {e.metrics['n_ctx_shifts']} shifts, finish {fin}, every "
+        f"logit finite")
+    del e
+
+    # 8. a q4_0 slot saved, erased and restored into another slot
+    tmp = tempfile.mkdtemp(prefix="ght_slot_")
+    try:
+        e = fresh("q4_0")
+        p = prompts[1]
+        out1 = e.complete(p, n_predict=8, stop_ids=set())
+        sid = next(s.id for s in e.slots if s.n_past > 0)
+        path = os.path.join(tmp, "slot.npz")
+        e.save_slot(sid, path)
+        saved = {n: a[:, sid].clone() for n, a in e.kv.items()}
+        p2 = p + out1 + [11, 12, 13]
+        want = e.complete(p2, n_predict=8, stop_ids=set())
+        e.erase_slot(sid)
+        other = (sid + 2) % SERVE_SLOTS
+        e.restore_slot(other, path)
+        for n, a in saved.items():
+            if not torch.equal(e.kv[n][:, other], a):
+                raise AssertionError(f"restored plane {n} != saved")
+        got = e.complete(p2, n_predict=8, stop_ids=set())
+        if got != want or e.slots[other].n_past == 0:
+            raise AssertionError(f"restored slot: {got} != {want}")
+        log(f"  q4_0 slot {sid} saved ({os.path.getsize(path)} bytes), erased "
+            f"and restored into slot {other}: every plane equal, the next "
+            f"request continues as on the unsaved slot ({got})")
+        del e
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 9. the HTTP server over loopback
+    e = fresh()
+    srv = InferenceServer(e, model_path="llama-3-8b-q4_k_m-synthetic.gguf")
+    srv.start()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(srv))
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    bodies = [{"prompt": prompts[i][:64], "n_predict": 16, "temperature": 0,
+               "cache_prompt": False, "stream": i == 0} for i in range(4)]
+    results = {}
+
+    def post(i, path, body):
+        req = urllib.request.Request(url + path, json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            raw = resp.read().decode()
+        if body.get("stream"):
+            ev = [ln[6:] for ln in raw.split("\n\n") if ln.startswith("data: ")]
+            if ev[-1] != "[DONE]":
+                raise AssertionError("SSE stream without [DONE]")
+            results[i] = "".join(json.loads(x)["content"] for x in ev[:-1])
+        else:
+            results[i] = json.loads(raw)
+
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(i, "/completion", b))
+                   for i, b in enumerate(bodies)]
+        threads.append(threading.Thread(target=post, args=(
+            4, "/v1/chat/completions",
+            {"messages": [{"role": "user", "content": "hello"}],
+             "max_tokens": 8, "temperature": 0})))
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        http_s = time.perf_counter() - t0
+        gets = {pth: urllib.request.urlopen(url + pth, timeout=30).read().decode()
+                for pth in ("/health", "/slots", "/metrics")}
+    finally:
+        httpd.shutdown()
+        srv.stop()
+    if len(results) != 5:
+        raise AssertionError(f"HTTP: {len(results)} of 5 answers")
+    tok = srv.tokenizer
+    for i, b in enumerate(bodies):
+        with e.lock:
+            ids = e.complete(b["prompt"], n_predict=16, cache_prompt=False)
+        want = "".join(tok.decode([t], skip_special=False) for t in ids)
+        text = results[i] if b["stream"] else results[i]["content"]
+        if text != want:
+            raise AssertionError(f"HTTP request {i}: {text!r} != {want!r}")
+    chat = results[4]
+    if chat["object"] != "chat.completion":
+        raise AssertionError(f"chat: {chat}")
+    if (json.loads(gets["/health"]) != {"status": "ok"}
+            or len(json.loads(gets["/slots"])) != SERVE_SLOTS
+            or "ghtpu_ttft_p50_ms" not in gets["/metrics"]):
+        raise AssertionError(f"GET endpoints: {gets}")
+    log(f"  HTTP on {url}: four concurrent /completion (one SSE) and one "
+        f"/v1/chat/completions in {http_s:.2f} s, texts equal "
+        f"engine.complete; /health, /slots, /metrics answered "
+        f"({gets['/metrics'].splitlines()[4]})")
+    del e, srv
+
+    # 10. K4 at the tick's shape, two decode ticks profiled
+    k4_serving_rows(dev, cfg)
+    for label, n_live in (("four live slots", 4), ("one live, three parked", 1)):
+        e = fresh()
+        for p in prompts[:n_live]:
+            e.submit(p[:300], n_predict=8, stop_ids=set())
+        while any(s.state.name != "GENERATING" for s in e.slots[:n_live]):
+            e.step()
+        e.step()  # warm
+        host, dev_ms, idle = profile_tick(dev, e, label)
+        SUMMARY[name][f"tick {label}"] = (
+            f"host {host:.2f} ms, device "
+            f"{'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'}, "
+            f"idle {idle}")
+        e.run_until_idle()
+        del e
+    del be
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_end(name, dev, t_ph)
+    return counts
+
+
 def build_phase(name, builder, dev):
     """Build a configuration on the card and print its layout."""
     t0 = time.perf_counter()
@@ -2440,9 +3021,16 @@ def main():
     # the conformance phase first (see the module's docstring, 13.)
     reports, counts = run_conformance(dev)
     runs = [counts]
-    reps, counts = run_load(dev)
-    reports += reps
-    runs.append(counts)
+    src, tmp, words = write_8b_gguf(dev)
+    try:
+        reps, counts = run_load(dev, src, words)
+        reports += reps
+        runs.append(counts)
+        runs.append(run_serve(dev, src, smi))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        log(f"removed {tmp}")
+    del src
     for name, builder, check in (
             ("Llama-3-8B Q4_K_M", build_8b, check_kernels),
             ("Mixtral-8x7B Q5_K_M", build_mixtral, check_kernels_moe),

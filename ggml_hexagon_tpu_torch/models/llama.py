@@ -383,10 +383,12 @@ FLASH_THRESHOLD = 512  # cache sizes from here up take the flash path
 FLASH_CHUNK = 128
 
 
-def _attention(cfg, q, k_all, v_all, pos_start: int, T: int, scale: float,
+def _attention(cfg, q, k_all, v_all, pos_start, T: int, scale: float,
                k_scale=None, v_scale=None):
     """Causal GQA attention over the cache: q [B, T, nh, hd]; k_all/v_all
-    [B, S, Hkv, hd] (int8 with per-slot scales [B, S] when quantized)."""
+    [B, S, Hkv, hd] (int8 with per-slot scales [B, S] when quantized);
+    pos_start [B] per-row offsets (a device tensor): token t of row b
+    attends slot s iff s <= pos_b + t."""
     B, _, n_head, hd = q.shape
     S, n_kv = k_all.shape[1], k_all.shape[2]
     group = n_head // n_kv
@@ -407,7 +409,8 @@ def _attention(cfg, q, k_all, v_all, pos_start: int, T: int, scale: float,
     dev = q.device
     s_idx = torch.arange(S, device=dev)[None, :]
     t_idx = torch.arange(T, device=dev)[:, None]
-    allowed = s_idx <= pos_start + t_idx
+    allowed = s_idx[None] <= pos_start[:, None, None] + t_idx[None]
+    allowed = allowed[:, None, None]  # [B, 1, 1, T, S]
     mask = torch.where(allowed, 0.0, -math.inf).to(torch.float32)
     probs = softmax_ext(scores, mask, scale=scale).to(v.dtype)
     out = torch.einsum("bhgts,bhsd->bhgtd", probs.to(torch.float32),
@@ -570,21 +573,41 @@ def _ffn_out(cfg, lw, h, cd, plain=False):
     return _ffn(cfg, lw, h, cd, plain)
 
 
+def _row_positions(pos_start, B: int, dev):
+    """The cache offset of every row as an int64 tensor [B] on dev: an int
+    (every row at it) or per-row offsets (a [B] sequence, array or
+    tensor)."""
+    if isinstance(pos_start, int) or (
+            hasattr(pos_start, "ndim") and pos_start.ndim == 0):
+        return torch.full((B,), int(pos_start), dtype=torch.int64,
+                          device=dev)
+    pos = torch.as_tensor(pos_start, device=dev).to(torch.int64).reshape(-1)
+    if pos.shape[0] != B:
+        raise ValueError(f"{pos.shape[0]} row offsets for a batch of {B}")
+    return pos
+
+
 def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
-            pos_start: int, logits_all: bool = False,
-            compute_dtype=torch.bfloat16, plain: bool = False):
-    """One decoder step over T new tokens [B, T] at cache offset pos_start.
-    Returns (logits, kv_cache): logits [B, T, n_vocab] if logits_all else
-    [B, n_vocab] (last position), f32.  The cache is updated IN PLACE (the
-    returned dict is the one passed in)."""
+            pos_start, logits_all: bool = False,
+            compute_dtype=torch.bfloat16, plain: bool = False,
+            logits_idx=None):
+    """One decoder step over T new tokens [B, T] at cache offset pos_start:
+    an int, or [B] per-row offsets (continuous batching,
+    ggml_hexagon_tpu/models/llama.py:940-942).  Per-row writes clip into
+    [0, S-1], so a "parked" row (pos S-1) funnels its writes into the
+    reserved last slot, which no live row attends.  Returns (logits,
+    kv_cache): logits [B, T, n_vocab] if logits_all else [B, n_vocab] (at
+    row b's position logits_idx[b] when given, else the last), f32.  The
+    cache is updated IN PLACE (the returned dict is the one passed in)."""
     check_supported(cfg)
     B, T = tokens.shape
     cd = compute_dtype
     dev = tokens.device
-    pos_start = int(pos_start)
+    pos = _row_positions(pos_start, B, dev)
+    positions = pos[:, None] + torch.arange(T, device=dev)[None, :]
+    rows = torch.arange(B, device=dev)
     eps = cfg.rms_eps
     rope = cfg.rope_params
-    positions = pos_start + torch.arange(T, device=dev)[None, :]
     h = embed(weights["tok_embd"], tokens, cd)
     scale = cfg.attn_scale or 1.0 / float(math.sqrt(cfg.hd))
     quant_kv = "k_d" in kv_cache
@@ -626,7 +649,7 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
             if cfg.rope_mode != "none":
                 invf, ms = rope_freqs(rope, dev)
             attn, k_r, v_r = fused_decode_attention(
-                flat_qkv, kv_cache["k"][il], kv_cache["v"][il], pos_start,
+                flat_qkv, kv_cache["k"][il], kv_cache["v"][il], pos,
                 invf, k_scale=kv_cache["k_d"][il] if quant_kv else None,
                 v_scale=kv_cache["v_d"][il] if quant_kv else None,
                 Hq=nh, Hkv=nhkv, D=cfg.hd, scale=float(scale),
@@ -641,22 +664,23 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
             if cfg.rope_mode != "none":
                 qk = apply_rope(torch.cat([q, k], dim=2), positions, rope)
                 q, k = qk[:, :, :nh], qk[:, :, nh:]
-            sl = slice(pos_start, pos_start + T)
             S = kv_cache["k"].shape[2]
+            # per-row columns, clipped (the JAX _kv_write)
+            sl = (rows[:, None], torch.clamp(positions, 0, S - 1))
             if quant_kv:
                 kq, kd = _kv_quantize(k.reshape(B, T, -1), bits)
                 vq, vd = _kv_quantize(v.reshape(B, T, -1), bits)
                 if bits == 4:
                     kq, vq = pack_int4(kq), pack_int4(vq)
-                kv_cache["k"][il, :, sl] = kq
-                kv_cache["v"][il, :, sl] = vq
-                kv_cache["k_d"][il, :, sl] = kd
-                kv_cache["v_d"][il, :, sl] = vd
+                kv_cache["k"][il][sl] = kq
+                kv_cache["v"][il][sl] = vq
+                kv_cache["k_d"][il][sl] = kd
+                kv_cache["v_d"][il][sl] = vd
                 k_sc, v_sc = kv_cache["k_d"][il], kv_cache["v_d"][il]
             else:
-                kv_cache["k"][il, :, sl] = k.reshape(B, T, -1).to(
+                kv_cache["k"][il][sl] = k.reshape(B, T, -1).to(
                     kv_cache["k"].dtype)
-                kv_cache["v"][il, :, sl] = v.reshape(B, T, -1).to(
+                kv_cache["v"][il][sl] = v.reshape(B, T, -1).to(
                     kv_cache["v"].dtype)
                 k_sc = v_sc = None
             k_full, v_full = kv_cache["k"][il], kv_cache["v"][il]
@@ -664,7 +688,7 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
                 k_full, v_full = unpack_int4(k_full), unpack_int4(v_full)
             k_full = k_full.reshape(B, S, nhkv, cfg.hd)
             v_full = v_full.reshape(B, S, nhkv, cfg.hd)
-            attn = _attention(cfg, q, k_full, v_full, pos_start, T, scale,
+            attn = _attention(cfg, q, k_full, v_full, pos, T, scale,
                               k_scale=k_sc, v_scale=v_sc).to(cd)
         ffp = "ffp" in lw
         if ffp and T == 1 and B <= QP8_MAX_DECODE:
@@ -698,11 +722,18 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
             if bits == 4:
                 kq, vq = pack_int4(kq), pack_int4(vq)
             planes = [("k", kq), ("v", vq), ("k_d", kd), ("v_d", vd)]
-        for name, rows in planes:
+        for name, vals in planes:
             dst = kv_cache[name]
-            dst[ils, :, pos_start] = rows.to(dst.dtype)
+            # per-row columns, parked rows clipped into slot S-1
+            cols = torch.clamp(pos, 0, dst.shape[2] - 1)
+            dst[ils[:, None], rows[None, :], cols[None, :]] = vals.to(
+                dst.dtype)
     h = rms_norm(h, weights["output_norm"], eps)
     if not logits_all:
-        h = h[:, -1, :]
+        if logits_idx is not None:
+            idx = torch.as_tensor(logits_idx, device=dev).to(torch.int64)
+            h = h[rows, idx.reshape(B)]
+        else:
+            h = h[:, -1, :]
     logits = matmul(h, weights["output"], plain)
     return logits.to(torch.float32), kv_cache

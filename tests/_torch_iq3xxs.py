@@ -1,5 +1,6 @@
 """The 2-layer IQ3_XXS models shared by tests/test_torch_iq3xxs.py (Llama-
-shaped) and tests/test_torch_iq3xxs_moe.py (Mixtral-shaped): the JAX
+shaped) and tests/test_torch_iq3xxs_moe_t.py and _il.py (Mixtral-shaped,
+one file a layout): the JAX
 reference built once per model and layout, and the checks both files run.
 
 The per-tensor types come from the JAX `QuantPolicy("IQ3_XXS", 8, ...,

@@ -4,8 +4,21 @@ ggml_hexagon_tpu_torch.convert takes, and tiny quantized fixtures."""
 import dataclasses
 
 import numpy as np
+import torch
 
 from ggml_hexagon_tpu.quant.pack import QTensor as JQTensor
+
+#: One intra-op torch thread in every test process that imports these
+#: helpers (a pytest-xdist worker imports every test module when it
+#: collects, so the whole worker).  The suite runs several workers on the
+#: machine's cores, and torch's OpenMP pool, one thread a core in each
+#: worker, oversubscribes them: its threads spin at every parallel
+#: region's barrier, so beside five busy workers a port check that takes
+#: 0.3 s alone took 50-68 s, and the JAX workers beside it lost their
+#: cores too (six of the heaviest files on six workers: 6 min 16 s with
+#: the default pool, 2 min 18 s with one thread).  One thread also fixes
+#: the order of the CPU's f32 sums from run to run.
+torch.set_num_threads(1)
 
 PLANES = ("q", "d", "qh", "sc", "dmin", "m", "fq", "fs", "fb")
 

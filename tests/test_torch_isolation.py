@@ -62,7 +62,15 @@ from ggml_hexagon_tpu_torch.ops.qmm_qp8 import build_t_planes
 from ggml_hexagon_tpu_torch.quant.pack import QCONFIGS, QTensor
 from ggml_hexagon_tpu_torch.quant.formats import GGMLType
 from ggml_hexagon_tpu_torch.runtime.engine import Engine
+from ggml_hexagon_tpu_torch.server.batch_engine import BatchEngine
+from ggml_hexagon_tpu_torch.server.http_server import build_server
+from ggml_hexagon_tpu_torch.gguf.writer import GGUFWriter
+import os, tempfile
 
+gguf = os.path.join(tempfile.mkdtemp(), "empty-llama.gguf")
+w = GGUFWriter()
+w.add("general.architecture", "llama")
+w.write_file(gguf)
 cfg = LlamaConfig(n_vocab=64, n_embd=256, n_layer=1, n_head=2, n_head_kv=1,
                   n_ff=512)
 qt = QTensor(QCONFIGS[GGMLType.Q4_K], 128, 256,
@@ -73,6 +81,8 @@ fq, fs, fb = build_t_planes(qt)
 qt = QTensor(qt.cfg, 128, 256, fq=fq, fs=fs, fb=fb)
 cases = {
     "engine": lambda: Engine(cfg, {}),
+    "batch_engine": lambda: BatchEngine(cfg, {}),
+    "build_server": lambda: build_server(gguf),
     "build_8b": lambda: build_8b(),
     "init_kv_cache": lambda: init_kv_cache(cfg, 1, 8),
     "convert": lambda: convert(dataclasses.asdict(cfg),
@@ -107,13 +117,16 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "models.llama", "models.synth", "models.registry",
                 "runtime.engine", "runtime.sampling",
                 "runtime.device_sampling", "gguf.reader", "gguf.writer",
-                "tokenizer.pretok", "tokenizer.bpe"):
+                "tokenizer.pretok", "tokenizer.bpe", "runtime.kv_ops",
+                "runtime.chat", "runtime.grammar", "runtime.json_schema",
+                "runtime.toolcall", "runtime.infill", "server.batch_engine",
+                "server.http_server", "server.webui"):
         assert f"ggml_hexagon_tpu_torch.{mod}" in got["modules"]
 
 
 @pytest.mark.parametrize(
     "path", sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py"))
-    + ["chip_smoke.py"])
+    + ["chip_smoke.py", "tools/torch_decode_step_ab.py"])
 def test_source_names_no_blocked_import(path):
     """Also the imports inside functions, which an import run never meets."""
     tree = ast.parse((ROOT / path).read_text())
@@ -136,7 +149,8 @@ def no_card():
 
 
 @pytest.mark.parametrize("entry,raised", [
-    ("engine", "RuntimeError"), ("build_8b", "RuntimeError"),
+    ("engine", "RuntimeError"), ("batch_engine", "RuntimeError"),
+    ("build_server", "RuntimeError"), ("build_8b", "RuntimeError"),
     ("init_kv_cache", "RuntimeError"), ("convert", "RuntimeError"),
     ("qp8_gemv_kernel", "ValueError"), ("qp8_gemm_kernel", "ValueError")])
 def test_entry_points_refuse_without_a_card(no_card, entry, raised):

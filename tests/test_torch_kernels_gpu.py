@@ -1833,3 +1833,126 @@ def test_pack_tensor_on_the_card_matches_cpu(dev, qtype):
         assert (a is None) == (b is None), f
         if a is not None:
             assert a.is_cuda and a.dtype == b.dtype and torch.equal(a.cpu(), b), f
+
+
+# -- the continuous-batching server's shapes: rows at their own positions, a
+# -- row parked at the last slot (server/batch_engine.py)
+
+_SERVE_POS = [0, 31, 700]  # and one row parked at S - 1
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_decode_attn_parked_row_at_the_server_shape(dev, kind):
+    """K4 at B = 4, S = 2048, the 8B's heads, rows at 0, 31 and 700 and one
+    parked at S - 1 (which reads the whole prefix): each row within 1e-4
+    of the plain twin."""
+    Hq, Hkv, D, S = 32, 8, 128, 2048
+    posb = torch.tensor(_SERVE_POS + [S - 1], dtype=torch.int32, device=dev)
+    B = posb.shape[0]
+    qkv = _x(dev, B, (Hq + 2 * Hkv) * D, seed=41)
+    kw = dict(Hq=Hq, Hkv=Hkv, D=D, scale=D ** -0.5)
+    if kind == "bf16":
+        kc = _x(dev, B, S, Hkv * D, seed=42).to(torch.bfloat16)
+        vc = _x(dev, B, S, Hkv * D, seed=43).to(torch.bfloat16)
+    else:
+        qmax = 127 if kind == "int8" else 7
+        g = torch.Generator(device=dev)
+        g.manual_seed(44)
+        kc, vc = (torch.randint(-qmax, qmax + 1, (B, S, Hkv * D), device=dev,
+                                dtype=torch.int8, generator=g)
+                  for _ in range(2))
+        if kind == "int4":
+            kc, vc = PD.pack_int4(kc), PD.pack_int4(vc)
+        kw.update(k_scale=torch.rand(B, S, device=dev, generator=g) * 0.02,
+                  v_scale=torch.rand(B, S, device=dev, generator=g) * 0.02,
+                  kv_bits=4 if kind == "int4" else 0)
+    inv = 500000.0 ** (-torch.arange(0, D, 2, device=dev).float() / D)
+    ang = posb[:, None].float() * inv[None]
+    cs = torch.cat([torch.cos(ang), torch.sin(ang)], dim=1).contiguous()
+    key = "decode_attn_q4" if kind == "int4" else "decode_attn"
+    before = kernels.LAUNCHES[key]
+    got = PD.decode_attn(qkv, kc, vc, posb, cs, **kw)
+    want = PD.decode_attn_plain(qkv, kc, vc, posb, cs, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[key] == before + 1
+    for g_, w in zip(got, want):
+        assert torch.isfinite(g_).all()
+        assert float((g_ - w).abs().max()) <= 1e-4
+
+
+_SERVE_MODEL = {}
+
+
+def _serve_model(dev):
+    """A 2-layer Q4_K_M model at the 8B's head geometry (8 query / 2 KV
+    heads of 128), built once."""
+    from ggml_hexagon_tpu_torch.models.llama import LlamaConfig
+    from ggml_hexagon_tpu_torch.models.synth import build_model
+
+    if "m" not in _SERVE_MODEL:
+        cfg = LlamaConfig(n_vocab=512, n_embd=1024, n_layer=2, n_head=8,
+                          n_head_kv=2, n_ff=2048, rope_theta=500000.0)
+        _SERVE_MODEL["m"] = build_model(cfg, seed=5, device=dev)
+    return _SERVE_MODEL["m"]
+
+
+def _serve_tick(dev, kv, plain):
+    """One B = 4 decode tick at rows 0, 31 and 700 and one parked at S-1 =
+    2047, on a cache of random content (the same for both routes)."""
+    from ggml_hexagon_tpu_torch.models.llama import forward, init_kv_cache
+
+    cfg, w = _serve_model(dev)
+    S = 2048
+    cache = init_kv_cache(cfg, 4, S, kv, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    for n, a in cache.items():
+        if a.dtype == torch.bfloat16:
+            a.copy_(torch.randn(a.shape, generator=g, device=dev) * 0.5)
+        elif a.dtype == torch.int8:
+            a.copy_(torch.randint(-127, 128, a.shape, generator=g,
+                                  device=dev, dtype=torch.int8))
+        else:
+            a.copy_(torch.rand(a.shape, generator=g, device=dev) * 0.01)
+    toks = torch.tensor([[5], [77], [300], [0]], device=dev)
+    pos = torch.tensor(_SERVE_POS + [S - 1], device=dev)
+    logits, cache = forward(cfg, w, toks, cache, pos, plain=plain)
+    torch.cuda.synchronize()
+    return logits, cache
+
+
+@pytest.mark.parametrize("kv", ["bf16", "q8_0"])
+def test_decode_tick_with_row_positions_matches_plain(dev, kv):
+    """A B = 4 decode tick, rows at their own positions and one parked:
+    the kernels' logits within NMSE 5e-4 of the plain forward's on the
+    live rows (K1/K2 at 4 rows, K4 with a position a row)."""
+    kernels.reset_launches()
+    got, _ = _serve_tick(dev, kv, plain=False)
+    assert kernels.LAUNCHES["decode_attn"] == 2
+    assert kernels.LAUNCHES["qp8_gemv"] + kernels.LAUNCHES["qp8_dual"] > 0
+    want, _ = _serve_tick(dev, kv, plain=True)
+    assert torch.isfinite(got).all()
+    assert _nmse(got[:3], want[:3]) <= 5e-4
+
+
+@pytest.mark.parametrize("kv", ["bf16", "q8_0"])
+def test_bulk_kv_write_at_row_positions_matches_plain(dev, kv):
+    """The tick's one bulk KV write puts each row's fresh k and v at the
+    row's own slot (the parked row's into S-1, nowhere else): the caches
+    of the kernel and plain forwards agree everywhere below S-1 (NMSE <=
+    5e-4 on the written slots, bit-equal on the others)."""
+    _, got = _serve_tick(dev, kv, plain=False)
+    _, want = _serve_tick(dev, kv, plain=True)
+    S = got["k"].shape[2]
+    for n in got:
+        a, b = got[n][:, :, :S - 1], want[n][:, :, :S - 1]
+        written = torch.zeros(a.shape[:3], dtype=torch.bool, device=dev)
+        for row, p in enumerate(_SERVE_POS):
+            written[:, row, p] = True
+        assert torch.equal(a[~written], b[~written]), n
+        if n in ("k", "v"):
+            fa, fb = a[written].float(), b[written].float()
+            if kv == "q8_0":
+                fa = fa * got[n + "_d"][:, :, :S - 1][written][:, None]
+                fb = fb * want[n + "_d"][:, :, :S - 1][written][:, None]
+            assert _nmse(fa, fb) <= 5e-4, n

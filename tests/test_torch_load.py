@@ -42,12 +42,12 @@ import numpy as np
 import pytest
 import torch
 
-from ggml_hexagon_tpu.gguf.writer import GGUFWriter
 from ggml_hexagon_tpu.models import llama as JL
 from ggml_hexagon_tpu.ops.decode_attn import fused_decode_attention as j_fda
 from ggml_hexagon_tpu.quant.formats import GGMLType
 from ggml_hexagon_tpu.runtime.engine import Engine as JEngine
 
+from _torch_gguf_model import jax_cache, port_cache, write_model
 from _torch_port import jax_tree_to_numpy, nmse
 from ggml_hexagon_tpu_torch.models.llama import _kv_quantize
 from ggml_hexagon_tpu_torch.ops.decode_attn import (decode_attn_plain,
@@ -64,94 +64,6 @@ PROMPT = "hello world the model"
 PROMPT2 = "hello world the card"   # shares a prefix with PROMPT
 
 
-def _vocab_fields(V):
-    """An SPM vocabulary of V tokens: <unk>, <s>, </s>, 256 byte tokens,
-    then whole words and their prefixes."""
-    toks = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
-    types = [2, 3, 3] + [6] * 256
-    pieces = []
-    for w in ("hello", "world", "the", "model", "card", "token", "text"):
-        for i in range(1, len(w) + 1):
-            for p in (w[:i], "▁" + w[:i]):
-                if p not in pieces:
-                    pieces.append(p)
-    pieces = (["▁"] + pieces)[:V - len(toks)]
-    scores = [0.0] * len(toks) + [-float(i % 13) for i in range(len(pieces))]
-    toks += pieces
-    types += [1] * len(pieces)
-    assert len(toks) == V
-    return {"tokenizer.ggml.model": "llama", "tokenizer.ggml.tokens": toks,
-            "tokenizer.ggml.scores": scores,
-            "tokenizer.ggml.token_type": types}
-
-
-def _write_model(path, seed=0, nh=8, nkv=4, hd=128, n_layer=2, V=300,
-                 n_ff=512):
-    rng = np.random.default_rng(seed)
-    d = nh * hd
-    w = GGUFWriter()
-    w.add("general.architecture", "llama")
-    for k, v in (("embedding_length", d), ("block_count", n_layer),
-                 ("feed_forward_length", n_ff), ("attention.head_count", nh),
-                 ("attention.head_count_kv", nkv), ("context_length", 8192),
-                 ("rope.dimension_count", hd)):
-        w.add(f"llama.{k}", v)
-    w.add("llama.rope.freq_base", 500000.0)
-    w.add("llama.attention.layer_norm_rms_epsilon", 1e-5)
-    for k, v in _vocab_fields(V).items():
-        w.add(k, v)
-
-    def q(name, n, k, t=GGMLType.Q4_K):
-        w.add_tensor(name, (rng.normal(size=(n, k)) * 0.05).astype(np.float32),
-                     t)
-
-    def norm(name):
-        w.add_tensor(name, (rng.random(d) + 0.5).astype(np.float32))
-
-    q("token_embd.weight", V, d)
-    norm("output_norm.weight")
-    q("output.weight", V, d, GGMLType.Q6_K)
-    for il in range(n_layer):
-        hi = GGMLType.Q6_K if il else GGMLType.Q4_K
-        p = f"blk.{il}."
-        norm(p + "attn_norm.weight")
-        q(p + "attn_q.weight", nh * hd, d)
-        q(p + "attn_k.weight", nkv * hd, d)
-        q(p + "attn_v.weight", nkv * hd, d, hi)
-        q(p + "attn_output.weight", d, nh * hd)
-        norm(p + "ffn_norm.weight")
-        q(p + "ffn_gate.weight", n_ff, d)
-        q(p + "ffn_up.weight", n_ff, d)
-        q(p + "ffn_down.weight", d, n_ff, hi)
-    w.write_file(str(path))
-
-
-def _jax_cache(kv: dict) -> dict:
-    """A JAX engine's KV cache as numpy: bf16 as int16 bits, int4 as int8."""
-    out = {}
-    for k, v in kv.items():
-        a = np.asarray(v)
-        if a.dtype.name == "bfloat16":
-            a = a.view(np.int16)
-        elif a.dtype.name == "int4":
-            a = a.astype(np.int8)
-        out[k] = np.array(a)
-    return out
-
-
-def _port_cache(c: dict, kv: str) -> dict:
-    """_jax_cache's arrays in the port's cache layout for KV type kv."""
-    out = {}
-    for k, a in c.items():
-        t = torch.from_numpy(a.copy())
-        if kv == "bf16":
-            t = t.view(torch.bfloat16)
-        elif kv == "q4_0" and k in ("k", "v"):
-            t = pack_int4(t)
-        out[k] = t
-    return out
-
-
 def _recorded(eng, states=None, kv=None):
     """Wrap eng.prefill / decode_one to record each step's logits, the
     tokens fed to decode and (JAX) the cache each step starts from; with
@@ -162,9 +74,9 @@ def _recorded(eng, states=None, kv=None):
 
     def start():
         if states is None:
-            rec["states"].append(_jax_cache(eng.kv))
+            rec["states"].append(jax_cache(eng.kv))
         else:
-            eng.kv = _port_cache(states[len(rec["logits"])], kv)
+            eng.kv = port_cache(states[len(rec["logits"])], kv)
 
     def p(*a, **k):
         start()
@@ -200,7 +112,7 @@ def _serve(eng, states=None, kv=None):
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
     path = tmp_path_factory.mktemp("load") / "tiny-q4_k_m.gguf"
-    _write_model(path)
+    write_model(path)
     out = {"path": path}
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("GHT_FAST_INTERPRET", "1")
