@@ -132,6 +132,23 @@
    the tick's shape (rows at 0, 31, 700 and one parked at 2047) against
    its plain twin; two decode ticks profiled (four live slots; one live
    and three parked).
+16. the command-line tools on the same file (run_cli, right after the
+   serving phase; the model loaded once and handed to the CLI with
+   cli.preload, every subcommand through cli.main in-process): perplexity
+   over three 512-token chunks of the synthetic vocabulary's words (145 K3
+   launches a chunk, the head's among them, no K1), one chunk against the
+   plain forward (logits NMSE <= NMSE_LOGITS, |d ln PPL| <= 1e-2) and
+   profiled; K3 on the head (Q6_K 128256 x 4096) at M = 512 against its
+   plain twin, its own row of the kernels line; imatrix on one chunk (the
+   forward's tap route, 145 K3; 225 entries against the plain tap route);
+   generate greedy with a prompt cache written and reused, save-load-state
+   bit-equal, the draft model (the same file), lookup and lookahead, each
+   the decoder's text and held to the Engine's greedy tokens by
+   greedy_held, speculation with p_min 0 accepting at least
+   SPEC_ACCEPT_MIN, q8_0 and q4_0 caches; embedding of three prompts and
+   POST /v1/embeddings over loopback equal to extract_embeddings;
+   eval-callback on 7 tokens (the tap route at K1's shapes: 145 K1, every
+   tensor in the JAX forward's tap order); bench -p 512 -n 128.
 
 K6 above 8 rows is its own kernel, the wgmma GEMM of csrc/fast_il_gemm.cu
 (the ninth slice): every configuration whose prefill chunk runs it holds
@@ -225,9 +242,13 @@ def sync(dev):
 
 
 def phase(name, dev):
-    """Start a phase: reset the peak-memory counter."""
+    """Start a phase: log the device memory still in use (what an earlier
+    phase left alive counts in this one's peak), reset the peak counter."""
     log(f"== {name}")
     if dev.type == "cuda":
+        gc.collect()
+        log(f"   device memory in use at the start: "
+            f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
         torch.cuda.reset_peak_memory_stats(dev)
     return time.perf_counter()
 
@@ -237,6 +258,13 @@ def phase_end(name, dev, t0):
             if dev.type == "cuda" else "not measured (CPU)")
     log(f"   {name}: {time.perf_counter() - t0:.1f} s, peak device memory "
         f"{peak}")
+
+
+def mem_mark(dev, what):
+    """Log the device memory in use and the phase's peak so far."""
+    log(f"   device memory after {what}: "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB in use, peak "
+        f"so far {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
 
 
 def bound_ms(nbytes, ops, peak):
@@ -1179,7 +1207,7 @@ def k6_row(dev, gen, cfg, rep, name, qt, mode, B, count, bucket=0):
     peak = BF16_OPS  # bf16 mma at any B (il_gemv_kernel, fast_il_gemm.cu)
     byts = plane_bytes(qt) + nbytes(x, got, kw.get("wn"), kw.get("res"),
                                     kw["xg"])
-    ops = 2 * B * K * qt.fq.shape[0] + bias_ops(qt, B)
+    ops = 2 * B * K * qt.n + bias_ops(qt, B)
     bms, by = bound_ms(byts, ops, peak)
     xg_mode = PF._xg_mode(qt, nkj)
     log(f"  {mode:6s} {name:10s} {qt.cfg.qtype.name} {qt.n}x{K} B={B:3d} "
@@ -1316,7 +1344,7 @@ def k1_row(dev, gen, cfg, rep, name, qt, mode, B, count):
     lib = time_ms(lambda: torch.matmul(xl, deq))
     del deq
     byts = plane_bytes(qt) + nbytes(x, got, kw.get("wn"), kw.get("res"))
-    ops = 2 * B * qt.k * qt.fq.shape[1]
+    ops = 2 * B * qt.k * qt.n
     bms, by = bound_ms(byts, ops, INT8_OPS)
     log(f"  K1 {mode:6s} {name:9s} {qt.cfg.qtype.name} {qt.n}x{qt.k} B={B} "
         f"max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms plain={pms:.3f}ms "
@@ -1340,7 +1368,7 @@ def k3_row(dev, gen, rep, name, qt, count, M=512):
     lib = time_ms(lambda: torch.matmul(x, deq), iters=5)
     del deq
     byts = plane_bytes(qt) + nbytes(x, got)
-    ops = 2 * M * qt.k * qt.fq.shape[1]
+    ops = 2 * M * qt.k * qt.n
     bms, by = bound_ms(byts, ops, BF16_OPS)
     log(f"  K3 {name:10s} {qt.cfg.qtype.name} {qt.n}x{qt.k} M={M} "
         f"max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms plain={pms:.3f}ms "
@@ -2459,6 +2487,44 @@ def greedy_held(what, got, want):
     return n, worst, ""
 
 
+def forced_held(what, cfg, weights, dev, prompt, got):
+    """A greedy decoder's run, (tokens, sampled logits), held against one
+    teacher-forced forward of the prompt and its own tokens (chunk_logits:
+    every row's logits, K3 and _attention): each step's logits within
+    ROUTE_NMSE of that forward's row, and each token that row's argmax
+    wherever the row's top-2 gap exceeds twice the step's max |difference|.
+    The reference follows the decoder's tokens, so every step is checked,
+    past a near-tie too.  Returns (steps, the largest NMSE, the steps whose
+    token was a near-tie of the reference)."""
+    from ggml_hexagon_tpu_torch.runtime import evaluate as PE
+
+    toks, lg = got
+    if len(lg) < len(toks):
+        raise AssertionError(f"{what}: {len(lg)} logits for {len(toks)} "
+                             "tokens")
+    seq = list(prompt) + list(toks[:-1])
+    ref = PE.chunk_logits(cfg, weights, seq, device=dev)[len(prompt) - 1:]
+    ref = ref.float().cpu()
+    worst, ties = 0.0, []
+    for i, t in enumerate(toks):
+        a, b = torch.from_numpy(lg[i]), ref[i]
+        e = nmse(a, b)
+        if not e <= ROUTE_NMSE:
+            raise AssertionError(f"{what}: step {i} logits NMSE {e:.2e} > "
+                                 f"{ROUTE_NMSE} against the forced forward")
+        worst = max(worst, e)
+        want = int(torch.argmax(b))
+        if t != want:
+            d = float((a - b).abs().max())
+            gap = _gap(b.numpy())
+            if gap > 2 * d:
+                raise AssertionError(
+                    f"{what}: token {i} {t} != {want}, the forced forward's "
+                    f"argmax (gap {gap:.4f}, max|d| {d:.4f})")
+            ties.append(i)
+    return len(toks), worst, ties
+
+
 def serve_want(kv, step, n_fwd=1):
     """Exact launches of n_fwd server forwards of the 8B Q4_K_M: a decode
     tick is the table's step at B = n_slots rows; a prompt tick its chunk
@@ -2925,6 +2991,411 @@ def run_serve(dev, src, smi):
     return counts
 
 
+#: the CLI phase: perplexity chunks of CLI_CTX tokens, the CLI_CHUNKS of
+#: them, and the tap route's names a layer (then the head's input)
+CLI_CTX = 512
+CLI_CHUNKS = 3
+CLI_MODEL = "llama-3-8b-q4_k_m-synthetic.gguf"
+TAP_NAMES = ("attn_q.weight", "attn_k.weight", "attn_v.weight",
+             "attn_output.weight", "ffn_gate.weight", "ffn_up.weight",
+             "ffn_down.weight", "l_out")
+K3_HEAD = "ggml_hexagon_tpu/ops/qmm_qp8.py:529"
+
+
+def cli_call(argv, want_rc=0):
+    """cli.main(argv) in-process: (stdout, stderr, seconds); raises unless
+    it returns want_rc."""
+    import contextlib
+    import io
+
+    from ggml_hexagon_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    dt = time.perf_counter() - t0
+    if rc != want_rc:
+        raise AssertionError(f"cli {argv[:1]} returned {rc}: "
+                             f"{err.getvalue()[-2000:]}")
+    return out.getvalue(), err.getvalue(), dt
+
+
+def launches_held(what, fn, want, shapes=None):
+    """fn(), its kernel launches (the counters zeroed just before, read
+    just after) held to want (name -> count, every other kernel 0) and,
+    given shapes, K3's launches by weight (kernels.GEMM_SHAPES) to it."""
+    from ggml_hexagon_tpu_torch import kernels
+
+    kernels.reset_launches()
+    sync(torch.device("cuda"))
+    out = fn()
+    sync(torch.device("cuda"))
+    got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if got != want:
+        raise AssertionError(f"{what} launches {got} != {want}")
+    if shapes is not None and kernels.GEMM_SHAPES != shapes:
+        raise AssertionError(f"{what}: K3 launches by weight "
+                             f"{kernels.GEMM_SHAPES} != {shapes}")
+    return out
+
+
+def k3_shapes(weights, n):
+    """K3's launches by weight ("NxK", kernels.GEMM_SHAPES) of n forwards
+    above 8 rows with every row's logits: each layer's projections and the
+    head, once a forward."""
+    want = {}
+    for qt in [lw[w] for lw in weights["layers"]
+               for w in ("wqkv", "wqk", "wq", "wk", "wv", "wo",
+                         "w_gateup_il", "ffn_down") if w in lw] + [
+                   weights["output"]]:
+        key = f"{qt.n}x{qt.k}"
+        want[key] = want.get(key, 0) + n
+    return want
+
+
+def run_cli(dev, src, smi, words, tmp):
+    """The command-line tools on the full-size 8B Q4_K_M of write_8b_gguf
+    (its path, or its buffer: the model is loaded once and handed to the
+    CLI with cli.preload either way, and every subcommand runs in-process
+    through cli.main): perplexity over CLI_CHUNKS chunks of 512 tokens (K3
+    on every projection and on the head, launches exact), one chunk held
+    against the plain forward; imatrix on one chunk (the tap route, 225
+    entries held against the plain tap route); generate greedy with a
+    prompt cache written and reused, save-load-state, the draft model (the
+    same file), lookup and lookahead held to the Engine's greedy tokens,
+    q8_0 and q4_0 caches; embedding and POST /v1/embeddings against
+    extract_embeddings; eval-callback on 7 tokens (the tap route at K1's
+    shapes); bench -p 512 -n 128.  Returns (the K3-head report, the
+    perplexity run's launches)."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from ggml_hexagon_tpu_torch import cli, kernels
+    from ggml_hexagon_tpu_torch.runtime import evaluate as PE
+    from ggml_hexagon_tpu_torch.runtime.embedding import extract_embeddings
+    from ggml_hexagon_tpu_torch.runtime.engine import Engine
+    from ggml_hexagon_tpu_torch.runtime.lookahead import LookaheadDecoder
+    from ggml_hexagon_tpu_torch.runtime.lookup import LookupDecoder
+    from ggml_hexagon_tpu_torch.runtime.speculative import SpeculativeDecoder
+    from ggml_hexagon_tpu_torch.server.batch_engine import (BatchEngine,
+                                                            load_fused)
+    from ggml_hexagon_tpu_torch.server.http_server import (InferenceServer,
+                                                           make_handler)
+    from ggml_hexagon_tpu_torch.tokenizer import build_tokenizer
+
+    name = "Llama-3-8B Q4_K_M command-line tools"
+    t_ph = phase(name, dev)
+    t0 = time.perf_counter()
+    cfg, weights, vocab, md = load_fused(src, dev)
+    sync(dev)
+    cli.preload(CLI_MODEL, cfg, weights, vocab, md)
+    log(f"loaded once ({time.perf_counter() - t0:.2f} s) from "
+        f"{'a file' if isinstance(src, str) else 'a bytearray'} and handed "
+        f"to the CLI as -m {CLI_MODEL} (cli.preload); card {smi}")
+    tok = build_tokenizer(vocab)
+    m = ["-m", CLI_MODEL, "--device", dev.type]
+    rng = np.random.default_rng(23)
+
+    def text(n):
+        return " ".join(words[i] for i in rng.integers(0, len(words), n))
+
+    def path(name_):
+        return os.path.join(tmp, name_)
+
+    # 1. perplexity: CLI_CHUNKS chunks, each held to 145 K3 launches
+    corpus = text(CLI_CHUNKS * CLI_CTX)
+    with open(path("corpus.txt"), "w") as fh:
+        fh.write(corpus)
+    ids = tok.encode(corpus, add_bos=False)
+    if len(ids) != CLI_CHUNKS * CLI_CTX:
+        raise AssertionError(f"corpus: {len(ids)} tokens")
+    ppl_launches = {"qp8_gemm": 145 * CLI_CHUNKS}
+    ppl_shapes = k3_shapes(weights, CLI_CHUNKS)
+    head = f"{cfg.n_vocab}x{cfg.n_embd}"
+    out, err, dt = launches_held("perplexity", lambda: cli_call(
+        ["perplexity", *m, "-f", path("corpus.txt"), "-c", str(CLI_CTX)]),
+        ppl_launches, ppl_shapes)
+    head_launches = kernels.GEMM_SHAPES[head]
+    res = json.loads(out)
+    if not (np.isfinite(res["ppl"]) and res["tokens"]
+            == CLI_CHUNKS * (CLI_CTX - 1 - CLI_CTX // 2)):
+        raise AssertionError(f"perplexity: {res}")
+    log(f"  perplexity, {CLI_CHUNKS} chunks of {CLI_CTX}: {res} in "
+        f"{dt:.2f} s; launches exact ({ppl_launches}: 145 K3 a chunk, no "
+        f"K1), by weight {kernels.GEMM_SHAPES} ({head_launches} on the head "
+        f"{head} at M = {CLI_CTX}); card {smi}")
+    stream = [vocab.bos_id] + ids
+    chunk = [vocab.bos_id] + stream[1:CLI_CTX]
+    lk = PE.chunk_logits(cfg, weights, chunk, device=dev)
+    lp_ = PE.chunk_logits(cfg, weights, chunk, device=dev, plain=True)
+    e2 = nmse(lk, lp_)
+    nxt = torch.tensor(chunk[1:], device=dev)
+
+    def ln_ppl(lg):
+        lsm = torch.log_softmax(lg, dim=-1)[:-1].gather(1, nxt[:, None])[:, 0]
+        return float(-lsm[CLI_CTX // 2:].double().mean())
+
+    d_ln = abs(ln_ppl(lk) - ln_ppl(lp_))
+    if not (e2 <= NMSE_LOGITS and d_ln <= 1e-2
+            and torch.isfinite(lk).all()):
+        raise AssertionError(f"perplexity chunk vs plain: logits NMSE {e2}, "
+                             f"|d ln PPL| {d_ln}")
+    del lp_
+    from torch.profiler import ProfilerActivity, profile
+
+    PE.chunk_logits(cfg, weights, chunk, device=dev)  # warm
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        PE.chunk_logits(cfg, weights, chunk, device=dev)
+        sync(dev)
+        host = (time.perf_counter() - t0) * 1e3
+    dev_ms, top = _device_ms(prof.key_averages(), 1)
+    dtxt = "not measured" if dev_ms is None else f"{dev_ms:.3f} ms"
+    idle = "not measured" if dev_ms is None else f"{1 - dev_ms / host:.1%}"
+    # the same forward unprofiled (the profiler's tracing costs host time):
+    # wall on the host and the span of CUDA events around it, median of 3
+    walls, spans = [], []
+    for _ in range(3):
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        sync(dev)
+        t0 = time.perf_counter()
+        ev0.record()
+        PE.chunk_logits(cfg, weights, chunk, device=dev)
+        ev1.record()
+        sync(dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        spans.append(ev0.elapsed_time(ev1))
+    wall, span = float(np.median(walls)), float(np.median(spans))
+    # bench pp512's call on the same tokens: Engine.prefill (every row's
+    # logits too) into a cache of 512 + 128 + 8 slots, which takes the
+    # dense attention where the chunk's 512 slots take the flash-chunked one
+    pe = Engine(cfg, weights, vocab, max_seq=CLI_CTX + 136, device=dev)
+    pwalls = []
+    for _ in range(4):
+        pe.reset()
+        sync(dev)
+        t0 = time.perf_counter()
+        pe.prefill(np.asarray(chunk, np.int64)[None])
+        sync(dev)
+        pwalls.append((time.perf_counter() - t0) * 1e3)
+    pwall = float(np.median(pwalls[1:]))
+    del pe
+    log(f"  one chunk against the plain forward: logits NMSE {e2:.2e} (<= "
+        f"{NMSE_LOGITS}), |d ln PPL| {d_ln:.2e} (<= 1e-2); the chunk's "
+        f"forward under the profiler: host {host:.2f} ms, device busy "
+        f"{dtxt}, idle share {idle}; unprofiled: wall {wall:.2f} ms, event "
+        f"span {span:.2f} ms (median of 3); bench's Engine.prefill on the "
+        f"same {CLI_CTX} tokens {pwall:.2f} ms (median of 3 after a warm-up); "
+        f"card {smi}")
+    for ms, cnt, key in top[:4]:
+        log(f"      {ms:8.4f} ms  x{cnt:<4d} {key[:90]}")
+    SUMMARY.setdefault(name, {})["perplexity chunk (512 tokens)"] = (
+        f"profiled: host {host:.2f} ms, device busy {dtxt}, idle {idle}; "
+        f"unprofiled: wall {wall:.2f} ms, event span {span:.2f} ms, "
+        f"Engine.prefill {pwall:.2f} ms; "
+        f"{CLI_CHUNKS} chunks through the CLI {dt:.2f} s")
+    rep = KernelReport("qp8_gemm_head", "cuda", SRC_GEMM, K3_HEAD,
+                       f"the head (Q6_K 128256 x 4096) of one {CLI_CTX}-token "
+                       "perplexity chunk under logits_all: 1 launch")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    log(f"K3 on the head at M = {CLI_CTX} (NMSE <= {NMSE_KERNEL})")
+    k3_row(dev, gen, rep, "head", weights["output"], 1, M=CLI_CTX)
+    rep.launches = head_launches
+
+    mem_mark(dev, "perplexity")
+
+    # 2. imatrix on one chunk: 225 entries against the plain tap route
+    with open(path("chunk.txt"), "w") as fh:
+        fh.write(" ".join(corpus.split(" ")[:CLI_CTX]))
+    out, err, dt = launches_held("imatrix", lambda: cli_call(
+        ["imatrix", *m, "-f", path("chunk.txt"), "-o", path("imatrix.npz"),
+         "-c", str(CLI_CTX)]), {"qp8_gemm": 145}, k3_shapes(weights, 1))
+    z = np.load(path("imatrix.npz"))
+    col = PE.IMatrixCollector(cfg, weights, device=dev, plain=True)
+    col.process_chunk(ids[:CLI_CTX])
+    plain = col.result()
+    worst = 0.0
+    for k, v in plain.items():
+        e = nmse(torch.from_numpy(z[k]), torch.from_numpy(v))
+        worst = max(worst, e)
+        if not (e <= NMSE_LOGITS and int(z[f"__count__{k}"]) == CLI_CTX):
+            raise AssertionError(f"imatrix {k}: NMSE {e}")
+    if sorted(plain) != sorted(n for n in z.files
+                               if not n.startswith("__count__")) \
+            or len(plain) != 7 * cfg.n_layer + 1:
+        raise AssertionError(f"imatrix: {len(plain)} entries")
+    log(f"  imatrix, one chunk (the tap route: 145 K3, by weight as in "
+        f"perplexity): {len(plain)} entries "
+        f"in {dt:.2f} s, each within NMSE {worst:.2e} of the plain tap route "
+        f"(<= {NMSE_LOGITS}), counts exact")
+
+    mem_mark(dev, "imatrix")
+
+    # 3. generate
+    prompt = text(23)
+    pids = tok.encode(prompt)
+    n_gen = 24
+    g = ["generate", *m, "-p", prompt, "-n", str(n_gen), "--temp", "0",
+         "-c", "1024"]
+    def eng(**kw):
+        return Engine(cfg, weights, vocab, max_seq=1024, device=dev, **kw)
+
+    first, err1, dt1 = cli_call(g + ["--prompt-cache", path("session.bin")])
+    e = eng()
+    e.load_state(path("session.bin"))
+    n_cached = e.n_past
+    # the reused run prefills the last prompt token alone (K1) where the
+    # first prefilled the prompt (K3): its tokens are the library's
+    # reuse_cache run's, not the first run's
+    want_txt = tok.decode(list(e.generate(pids, n_gen,
+                                          reuse_cache=True))) + "\n"
+    again, err2, dt2 = cli_call(g + ["--prompt-cache", path("session.bin")])
+    if (again != want_txt or f"restored prompt cache ({n_cached} tokens)"
+            not in err2 or "prefill 1 tok" not in err2):
+        raise AssertionError(f"prompt cache: {again!r} vs {want_txt!r}")
+    log(f"  generate greedy, {len(pids)}-token prompt, {n_gen} tokens: "
+        f"{dt1:.2f} s; with the prompt cache reused {dt2:.2f} s "
+        f"({err2.splitlines()[1]}; {err2.splitlines()[-1]}), the text of "
+        f"Engine.load_state + generate(reuse_cache=True)")
+    out, _, dt = cli_call(["save-load-state", *m, "-p", prompt, "-n", "16",
+                           "-c", "1024", "-o", path("state.bin")])
+    if not out.endswith("state round-trip OK\n"):
+        raise AssertionError(f"save-load-state: {out}")
+    log(f"  save-load-state: 16 greedy tokens after a reload, bit-equal "
+        f"({dt:.2f} s, {os.path.getsize(path('state.bin'))} bytes)")
+
+    base = eng()
+    rec = RecSampler()
+    btoks = list(base.generate(pids, n_gen, sampler=rec))
+    want_run = (btoks, rec.logits)
+    for flag, mk in (
+            ("-md", lambda: SpeculativeDecoder(eng(), eng())),
+            ("--lookup", lambda: LookupDecoder(eng())),
+            ("--lookahead", lambda: LookaheadDecoder(eng()))):
+        argv = g + ([flag, CLI_MODEL] if flag == "-md" else [flag])
+        out, err, dt = cli_call(argv)
+        dec = mk()
+        rec = RecSampler()
+        toks = dec.generate(pids, n_gen, sampler=rec)
+        if out != tok.decode(toks) + "\n":
+            raise AssertionError(f"generate {flag}: the CLI printed another "
+                                 "text than the decoder's")
+        steps, worst, why = greedy_held(f"generate {flag}",
+                                        (toks, rec.logits[:len(toks)]),
+                                        want_run)
+        n_f, w_f, ties = forced_held(f"generate {flag}", cfg, weights, dev,
+                                     pids, (toks, rec.logits))
+        log(f"  generate {flag}: {err.splitlines()[1]}; {dt:.2f} s; the "
+            f"Engine's greedy tokens held for {steps} steps (logits NMSE <= "
+            f"{worst:.2e}){'; ' + why if why else ''}; teacher-forced: all "
+            f"{n_f} tokens held (logits NMSE <= {w_f:.2e}, near-ties at "
+            f"steps {ties})")
+    spec = SpeculativeDecoder(eng(), eng(), n_draft=4, p_min=0.0)
+    rec = RecSampler()
+    toks = spec.generate(pids, n_gen, sampler=rec)
+    steps, worst, why = greedy_held("speculative (n_draft 4, p_min 0)",
+                                    (toks, rec.logits[:len(toks)]), want_run)
+    n_f, w_f, ties = forced_held("speculative (n_draft 4, p_min 0)", cfg,
+                                 weights, dev, pids, (toks, rec.logits))
+    rate = spec.stats.accept_rate
+    if rate < SPEC_ACCEPT_MIN:
+        raise AssertionError(f"speculative acceptance {rate:.1%}")
+    log(f"  speculative, the same model as draft (n_draft 4, p_min 0): "
+        f"{spec.stats.n_accepted}/{spec.stats.n_drafted} accepted "
+        f"({rate:.1%}, >= {SPEC_ACCEPT_MIN:.0%}) in {spec.stats.n_rounds} "
+        f"verify rounds; held for {steps} steps (NMSE <= {worst:.2e})"
+        f"{'; ' + why if why else ''}; teacher-forced: all {n_f} tokens "
+        f"held (logits NMSE <= {w_f:.2e}, near-ties at steps {ties})")
+    for kv in ("q8_0", "q4_0"):
+        out, _, dt = cli_call(g + ["--cache-type", kv])
+        e = eng(kv_dtype=kv)
+        want_txt = tok.decode(list(e.generate(pids, n_gen))) + "\n"
+        if out != want_txt:
+            raise AssertionError(f"generate --cache-type {kv}")
+        log(f"  generate --cache-type {kv}: {dt:.2f} s, the Engine's text")
+    del base, e
+
+    mem_mark(dev, "generate")
+
+    # 4. embedding: the CLI and POST /v1/embeddings against the function
+    texts = [text(n) for n in (9, 30, 100)]
+    out, _, dt = cli_call(["embedding", *m, *sum((["-p", t] for t in texts),
+                                                 []), "--n-print", "8"])
+    emb = extract_embeddings(cfg, weights, [tok.encode(t) for t in texts],
+                             device=dev)
+    if out != "".join(" ".join(f"{v:.6f}" for v in row[:8]) + " ...\n"
+                      for row in emb):
+        raise AssertionError("embedding: the CLI printed other rows")
+    be = BatchEngine(cfg, weights, vocab, n_slots=1, max_seq=256, device=dev)
+    be.metadata = md
+    srv = InferenceServer(be, model_path=CLI_MODEL)
+    srv.start()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(srv))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        req = urllib.request.Request(
+            url + "/v1/embeddings", json.dumps({"input": texts}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            body = json.loads(resp.read())
+    finally:
+        httpd.shutdown()
+        srv.stop()
+    rows = np.asarray([d["embedding"] for d in body["data"]], np.float32)
+    want_rows = extract_embeddings(
+        cfg, weights, [srv.tokenizer.encode(t, parse_special=True)
+                       for t in texts], device=dev)
+    if not np.array_equal(rows, want_rows):
+        raise AssertionError("POST /v1/embeddings != extract_embeddings")
+    log(f"  embedding of three prompts ({[len(tok.encode(t)) for t in texts]} "
+        f"tokens): the CLI's rows ({dt:.2f} s) and POST /v1/embeddings over "
+        f"{url} equal extract_embeddings")
+    del be, srv
+
+    mem_mark(dev, "embedding")
+
+    # 5. eval-callback on 7 tokens: the tap route at K1's shapes
+    p7 = text(6)
+    if len(tok.encode(p7)) != 7:
+        raise AssertionError("eval-callback prompt")
+    out, _, dt = launches_held("eval-callback", lambda: cli_call(
+        ["eval-callback", *m, "-p", p7]), {"qp8_gemv": 145})
+    names = [ln.split()[0] for ln in out.splitlines()[:-1]]
+    want_names = [f"blk.{il}.{n}" for il in range(cfg.n_layer)
+                  for n in TAP_NAMES] + ["output.weight"]
+    if names != want_names:
+        raise AssertionError(f"eval-callback: {len(names)} names")
+    log(f"  eval-callback, 7 tokens: {len(names)} tensors in the JAX "
+        f"forward's tap order ({dt:.2f} s); launches exact (145 K1: every "
+        "projection raw, no K2, no K4)")
+
+    mem_mark(dev, "eval-callback")
+
+    # 6. bench
+    out, _, dt = cli_call(["bench", *m, "-p", "512", "-n", "128"])
+    rows = [[c.strip() for c in r.strip("|").split("|")]
+            for r in out.splitlines() if r.startswith(f"| {CLI_MODEL} |")]
+    if [r[1] for r in rows] != ["pp512", "tg128"]:
+        raise AssertionError(f"bench: {out}")
+    for _, test, rate in rows:
+        log(f"  bench {test}: {rate} t/s ({dt:.1f} s for the sweep); card "
+            f"{smi}")
+    SUMMARY[name]["bench"] = ", ".join(f"{t} {r} t/s" for _, t, r in rows)
+    mem_mark(dev, "bench")
+    del weights
+    cli._MODELS.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_end(name, dev, t_ph)
+    return [rep], ppl_launches
+
+
 def build_phase(name, builder, dev):
     """Build a configuration on the card and print its layout."""
     t0 = time.perf_counter()
@@ -3027,6 +3498,9 @@ def main():
         reports += reps
         runs.append(counts)
         runs.append(run_serve(dev, src, smi))
+        reps, counts = run_cli(dev, src, smi, words, tmp)
+        reports += reps
+        runs.append(counts)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         log(f"removed {tmp}")

@@ -81,6 +81,11 @@ GEMM_LAUNCHES = {"fast_byte_gemm": 0, "fast_byte_gemm_derived": 0,
                  "fast_byte_gemm_stored": 0, "fast_nibble_gemm_derived": 0,
                  "fast_nibble_gemm_stored": 0, "fast_coded_gemm": 0}
 
+#: K3's launches by the weight they ran on, "NxK" (rows x columns), beside
+#: LAUNCHES's count of them: which projection of a forward each launch was
+#: (the head's rows are the vocabulary's)
+GEMM_SHAPES: dict = {}
+
 #: the C entries' code-map ids (0: uncoded planes); csrc/codes.cuh
 CODE_MAPS = {"": 0, "iq2": 1, "iq3xxs": 2, "iq3s": 3, "iq1": 4, "tern": 5}
 
@@ -130,6 +135,7 @@ def reset_launches():
     for counts in (LAUNCHES, GEMM_LAUNCHES):
         for k in counts:
             counts[k] = 0
+    GEMM_SHAPES.clear()
 
 
 def _nvcc() -> str:
@@ -889,6 +895,8 @@ def qp8_gemm(x, qt):
     key = "qp8_gemm_coded" if cm else "qp8_gemm"
     _check(lib, rc, key)
     LAUNCHES[key] += 1
+    shape = f"{qt.n}x{K}"
+    GEMM_SHAPES[shape] = GEMM_SHAPES.get(shape, 0) + 1
     return out
 
 

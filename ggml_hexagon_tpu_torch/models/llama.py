@@ -24,6 +24,10 @@ plain versions everywhere.
 
 The residual stream is kept in compute_dtype (bf16) at the same places as
 the reference, so the int8 activation rounding sees the same inputs.
+With a tap (forward's `tap`, the eval-callback hook that imatrix and the
+decoder embeddings read) every layer takes the JAX tap route instead: the
+norms in torch and each projection raw through `matmul`, with no fused
+kernel but the plain GEMV/GEMM (K1/K3, K6).
 """
 from __future__ import annotations
 
@@ -483,11 +487,12 @@ def _moe_indirect(cfg, lw, f, topv, topi, cd, plain=False):
                      * topv[..., None].to(torch.float32), dim=2)
 
 
-def _moe_ffn(cfg, lw, f, cd, plain=False):
+def _moe_ffn(cfg, lw, f, cd, plain=False, tap=None, il=0):
     """Mixture-of-experts FFN on the normed input f [B, T, d]: router
-    softmax -> top-k -> renorm; the gathered path (K5/K8) at <= 8 rows, else
-    the dense all-experts evaluation (every expert computed, unselected
-    ones weighted 0), as the JAX package does."""
+    softmax -> top-k -> renorm; the gathered path (K5/K8) at <= 8 rows
+    without a tap, else the dense all-experts evaluation (every expert
+    computed, unselected ones weighted 0), as the JAX package does.  A tap
+    sees each expert's inputs with expert=(e, E, the rows routed to e)."""
     if cfg.moe_gating != "softmax":
         raise NotImplementedError(f"moe_gating {cfg.moe_gating!r}")
     E, K = cfg.n_expert, cfg.n_expert_used
@@ -499,7 +504,7 @@ def _moe_ffn(cfg, lw, f, cd, plain=False):
         MOE_ROUTING.append((probs, topi))
     if cfg.norm_topk_prob:
         topv = topv / torch.sum(topv, dim=-1, keepdim=True)
-    if (math.prod(f.shape[:-1]) <= QP8_MAX_DECODE
+    if (tap is None and math.prod(f.shape[:-1]) <= QP8_MAX_DECODE
             and _supports_moe_indirect(cfg, lw)):
         out = _moe_indirect(cfg, lw, f, topv, topi, cd, plain)
         return out.to(cd) + _shared_expert_out(cfg, lw, f, cd, plain)
@@ -511,9 +516,16 @@ def _moe_ffn(cfg, lw, f, cd, plain=False):
         gate_e = qtensor_rows(lw["ffn_gate_exps"], e * n_ff, n_ff)
         up_e = qtensor_rows(lw["ffn_up_exps"], e * n_ff, n_ff)
         down_e = qtensor_rows(lw["ffn_down_exps"], e * d, d)
+        if tap is not None:
+            sel = (e, E, w_tok[..., e] > 0)
+            tap(f"blk.{il}.ffn_gate_exps.weight", f, expert=sel)
+            tap(f"blk.{il}.ffn_up_exps.weight", f, expert=sel)
         g = silu(matmul(f, gate_e, plain).to(cd))
         u = matmul(f, up_e, plain).to(cd)
-        dly = matmul(g * u, down_e, plain).to(torch.float32)
+        gu = g * u
+        if tap is not None:
+            tap(f"blk.{il}.ffn_down_exps.weight", gu, expert=sel)
+        dly = matmul(gu, down_e, plain).to(torch.float32)
         out = out + dly * w_tok[..., e:e + 1]
     out = out + _shared_expert_out(cfg, lw, f, cd, plain)
     return out.to(cd)
@@ -541,7 +553,7 @@ def _supports_moe_indirect(cfg, lw) -> bool:
             and supports_indirect(lw.get("ffn_down_exps"), cfg.n_embd))
 
 
-def _ffn(cfg, lw, h, cd, plain=False):
+def _ffn(cfg, lw, h, cd, plain=False, tap=None, il=0):
     """Gated FFN on the residual h, RMSNorm folded into the gate_up matmul
     (the reference's `w_gateup_il` branch).  Returns the new residual: on
     the decode path the act+down kernel adds h itself.  The gate_up output
@@ -549,28 +561,44 @@ def _ffn(cfg, lw, h, cd, plain=False):
     the interleaved layout): the act-mul at prefill runs on it as it is
     and the down projection takes it pre-interleaved.  A megakernel-layout
     layer ("ffp") never takes the act mode: its down output comes in the
-    il32 row order and is un-permuted before the residual is added."""
-    gu2 = qmatmul_normed(h, lw["w_gateup_il"], lw["ffn_norm_il"],
-                         cfg.rms_eps, plain=plain)
+    il32 row order and is un-permuted before the residual is added.  With
+    a tap, the JAX tap route: the norm in torch, gate_up raw, and the down
+    projection raw on the act-mul in natural column order, which the tap
+    sees."""
     dn = lw["ffn_down"]
     ffp = "ffp" in lw
-    if not ffp and math.prod(gu2.shape[:-1]) <= QP8_MAX_DECODE:
-        return qmatmul_fast_act(gu2, dn, cfg.act, res=h, plain=plain).to(cd)
+    if tap is None:
+        gu2 = qmatmul_normed(h, lw["w_gateup_il"], lw["ffn_norm_il"],
+                             cfg.rms_eps, plain=plain)
+        if not ffp and math.prod(gu2.shape[:-1]) <= QP8_MAX_DECODE:
+            return qmatmul_fast_act(gu2, dn, cfg.act, res=h,
+                                    plain=plain).to(cd)
+    else:
+        f = rms_norm(h, lw["ffn_norm"], cfg.rms_eps)
+        tap(f"blk.{il}.ffn_gate.weight", f)
+        tap(f"blk.{il}.ffn_up.weight", f)
+        gu2 = matmul(f, lw["w_gateup_il"], plain)
     ng = dn.k
     gu = silu(gu2[..., :ng].to(cd)) * gu2[..., ng:].to(cd)
-    y = qmatmul_fast(gu, dn, plain=plain, pre_interleaved=True)
+    if tap is None:
+        y = qmatmul_fast(gu, dn, plain=plain, pre_interleaved=True)
+    else:
+        if dn.fl != "t":  # interleaved planes: back to natural column order
+            gu = uninterleave_cols(gu, dn.cfg.gs)
+        tap(f"blk.{il}.ffn_down.weight", gu)
+        y = matmul(gu, dn, plain)
     if ffp:
         y = uninterleave_cols(y, 32)
     return h + y.to(cd)
 
 
-def _ffn_out(cfg, lw, h, cd, plain=False):
+def _ffn_out(cfg, lw, h, cd, plain=False, tap=None, il=0):
     """FFN dispatch (MoE or dense) on the residual h; returns the new
     residual."""
     if "ffn_gate_inp" in lw:
         f = rms_norm(h, lw["ffn_norm"], cfg.rms_eps)
-        return h + _moe_ffn(cfg, lw, f, cd, plain)
-    return _ffn(cfg, lw, h, cd, plain)
+        return h + _moe_ffn(cfg, lw, f, cd, plain, tap=tap, il=il)
+    return _ffn(cfg, lw, h, cd, plain, tap=tap, il=il)
 
 
 def _row_positions(pos_start, B: int, dev):
@@ -587,10 +615,62 @@ def _row_positions(pos_start, B: int, dev):
     return pos
 
 
+def _cache_attention(cfg, il: int, q, k, v, kv_cache: dict, pos, positions,
+                     scale: float):
+    """The attention of layer il outside the fused decode kernel: RoPE on
+    q and k, k and v written into the cache at each row's positions
+    (clipped into [0, S-1], the JAX _kv_write), then _attention over the
+    cache.  q, k, v: the projections' flat outputs [B, T, heads*hd]."""
+    B, T = q.shape[:2]
+    nh, nhkv = cfg.nh(il), cfg.nhkv(il)
+    quant_kv = "k_d" in kv_cache
+    bits = kv_bits(kv_cache)
+    q = q.reshape(B, T, nh, cfg.hd)
+    k = k.reshape(B, T, nhkv, cfg.hd)
+    v = v.reshape(B, T, nhkv, cfg.hd)
+    if cfg.rope_mode != "none":
+        qk = apply_rope(torch.cat([q, k], dim=2), positions, cfg.rope_params)
+        q, k = qk[:, :, :nh], qk[:, :, nh:]
+    S = kv_cache["k"].shape[2]
+    rows = torch.arange(B, device=q.device)
+    # per-row columns, clipped (the JAX _kv_write)
+    sl = (rows[:, None], torch.clamp(positions, 0, S - 1))
+    if quant_kv:
+        kq, kd = _kv_quantize(k.reshape(B, T, -1), bits)
+        vq, vd = _kv_quantize(v.reshape(B, T, -1), bits)
+        if bits == 4:
+            kq, vq = pack_int4(kq), pack_int4(vq)
+        kv_cache["k"][il][sl] = kq
+        kv_cache["v"][il][sl] = vq
+        kv_cache["k_d"][il][sl] = kd
+        kv_cache["v_d"][il][sl] = vd
+        k_sc, v_sc = kv_cache["k_d"][il], kv_cache["v_d"][il]
+    else:
+        kv_cache["k"][il][sl] = k.reshape(B, T, -1).to(kv_cache["k"].dtype)
+        kv_cache["v"][il][sl] = v.reshape(B, T, -1).to(kv_cache["v"].dtype)
+        k_sc = v_sc = None
+    k_full, v_full = kv_cache["k"][il], kv_cache["v"][il]
+    if bits == 4:  # the int8 path's values
+        k_full, v_full = unpack_int4(k_full), unpack_int4(v_full)
+    k_full = k_full.reshape(B, S, nhkv, cfg.hd)
+    v_full = v_full.reshape(B, S, nhkv, cfg.hd)
+    return _attention(cfg, q, k_full, v_full, pos, T, scale,
+                      k_scale=k_sc, v_scale=v_sc)
+
+
+def _proj(h, a, w, wn, eps: float, plain: bool):
+    """A projection of the residual h: raw on the normed a where the norm
+    ran apart (the tap route, unfused attention), else with the norm in
+    the call (wn the norm weight in w's column order)."""
+    if a is not None:
+        return matmul(a, w, plain)
+    return qmatmul_normed(h, w, wn, eps, plain=plain)
+
+
 def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
             pos_start, logits_all: bool = False,
             compute_dtype=torch.bfloat16, plain: bool = False,
-            logits_idx=None):
+            logits_idx=None, tap=None):
     """One decoder step over T new tokens [B, T] at cache offset pos_start:
     an int, or [B] per-row offsets (continuous batching,
     ggml_hexagon_tpu/models/llama.py:940-942).  Per-row writes clip into
@@ -598,7 +678,17 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
     reserved last slot, which no live row attends.  Returns (logits,
     kv_cache): logits [B, T, n_vocab] if logits_all else [B, n_vocab] (at
     row b's position logits_idx[b] when given, else the last), f32.  The
-    cache is updated IN PLACE (the returned dict is the one passed in)."""
+    cache is updated IN PLACE (the returned dict is the one passed in).
+
+    tap (the JAX forward's hook, the reference's eval-callback): called as
+    tap(name, x) with the input of every quantized matmul under its GGUF
+    weight name, tap("blk.N.l_out", h) with each layer's output and
+    tap("output.weight", h) with the final normed state.  With a tap every
+    layer takes the JAX tap route (ggml_hexagon_tpu/models/llama.py:
+    994-1021, 1171, 754-794): the norms in torch and every projection raw
+    (K1 at <= 8 rows, K3 above on t-planes; K6 on interleaved ones), the
+    attention through _attention, no dual projection, no K4, no K9 and no
+    fused epilogue."""
     check_supported(cfg)
     B, T = tokens.shape
     cd = compute_dtype
@@ -612,6 +702,8 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
     scale = cfg.attn_scale or 1.0 / float(math.sqrt(cfg.hd))
     quant_kv = "k_d" in kv_cache
     bits = kv_bits(kv_cache)
+    # the decode shape of the fused kernels (never under a tap)
+    decode = tap is None and T == 1 and B <= QP8_MAX_DECODE
     fused_kv = []
     for il, lw in enumerate(weights["layers"]):
         _check_fused(lw)
@@ -619,16 +711,19 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
         nh, nhkv = cfg.nh(il), cfg.nhkv(il)
         nq, nk = nh * cfg.hd, nhkv * cfg.hd
         wn = lw.get("attn_norm_il")
-        use_fused = (T == 1 and cfg.rope_mode in ("neox", "none")
+        use_fused = (tap is None and T == 1
+                     and cfg.rope_mode in ("neox", "none")
                      and nh % nhkv == 0 and cfg.hd % 128 == 0)
-        flat_qkv = q = k = v = None
-        if "wq" in lw:  # unfused: mixed layouts (Mixtral's Q8_0 wk/wv)
+        flat_qkv = q = k = v = a = None
+        if tap is not None or "wq" in lw:
             a = rms_norm(h, lw["attn_norm"], eps)
-            q = matmul(a, lw["wq"], plain)
-            k = matmul(a, lw["wk"], plain)
-            v = matmul(a, lw["wv"], plain)
+        if tap is not None:
+            for w in ("attn_q", "attn_k", "attn_v"):
+                tap(f"blk.{il}.{w}.weight", a)
+        if "wq" in lw:  # unfused: mixed layouts (Mixtral's Q8_0 wk/wv)
+            q, k, v = (matmul(a, lw[w], plain) for w in ("wq", "wk", "wv"))
         elif "wqkv" in lw:
-            qkv = qmatmul_normed(h, lw["wqkv"], wn, eps, plain=plain)
+            qkv = _proj(h, a, lw["wqkv"], wn, eps, plain)
             q, k, v = qkv[..., :nq], qkv[..., nq:nq + nk], qkv[..., nq + nk:]
         elif (use_fused and B <= QP8_MAX_DECODE
               and supports_dual(lw["wqk"], lw["wv"])):
@@ -636,10 +731,9 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
             flat_qkv = qmatmul_fast_dual(h[:, 0], lw["wqk"], lw["wv"], wn,
                                          lw["attn_norm_il_v"], eps,
                                          plain=plain)
-        else:  # mixed layouts (IQ4_XS wqk, Q5_K wv): one normed call each
-            qk = qmatmul_normed(h, lw["wqk"], wn, eps, plain=plain)
-            v = qmatmul_normed(h, lw["wv"], lw["attn_norm_il_v"], eps,
-                               plain=plain)
+        else:  # mixed layouts (IQ4_XS wqk, Q5_K wv): one call each
+            qk = _proj(h, a, lw["wqk"], wn, eps, plain)
+            v = _proj(h, a, lw["wv"], lw["attn_norm_il_v"], eps, plain)
             q, k = qk[..., :nq], qk[..., nq:]
         if use_fused:
             if flat_qkv is None:
@@ -658,56 +752,29 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
             fused_kv.append((il, k_r, v_r))
             attn = attn[:, None, :].to(cd)
         else:
-            q = q.reshape(B, T, nh, cfg.hd)
-            k = k.reshape(B, T, nhkv, cfg.hd)
-            v = v.reshape(B, T, nhkv, cfg.hd)
-            if cfg.rope_mode != "none":
-                qk = apply_rope(torch.cat([q, k], dim=2), positions, rope)
-                q, k = qk[:, :, :nh], qk[:, :, nh:]
-            S = kv_cache["k"].shape[2]
-            # per-row columns, clipped (the JAX _kv_write)
-            sl = (rows[:, None], torch.clamp(positions, 0, S - 1))
-            if quant_kv:
-                kq, kd = _kv_quantize(k.reshape(B, T, -1), bits)
-                vq, vd = _kv_quantize(v.reshape(B, T, -1), bits)
-                if bits == 4:
-                    kq, vq = pack_int4(kq), pack_int4(vq)
-                kv_cache["k"][il][sl] = kq
-                kv_cache["v"][il][sl] = vq
-                kv_cache["k_d"][il][sl] = kd
-                kv_cache["v_d"][il][sl] = vd
-                k_sc, v_sc = kv_cache["k_d"][il], kv_cache["v_d"][il]
-            else:
-                kv_cache["k"][il][sl] = k.reshape(B, T, -1).to(
-                    kv_cache["k"].dtype)
-                kv_cache["v"][il][sl] = v.reshape(B, T, -1).to(
-                    kv_cache["v"].dtype)
-                k_sc = v_sc = None
-            k_full, v_full = kv_cache["k"][il], kv_cache["v"][il]
-            if bits == 4:  # the int8 path's values
-                k_full, v_full = unpack_int4(k_full), unpack_int4(v_full)
-            k_full = k_full.reshape(B, S, nhkv, cfg.hd)
-            v_full = v_full.reshape(B, S, nhkv, cfg.hd)
-            attn = _attention(cfg, q, k_full, v_full, pos, T, scale,
-                              k_scale=k_sc, v_scale=v_sc).to(cd)
+            attn = _cache_attention(cfg, il, q, k, v, kv_cache, pos,
+                                    positions, scale).to(cd)
+        if tap is not None:
+            tap(f"blk.{il}.attn_output.weight", attn)
         ffp = "ffp" in lw
-        if ffp and T == 1 and B <= QP8_MAX_DECODE:
+        if ffp and decode:
             # the whole FFN with both residuals in one launch (K9)
             h = ffn_fused(attn[:, 0], h[:, 0], lw["wo"], lw["w_gateup_il"],
                           lw["ffn_down"], lw["ffn_norm_il"], eps, act=cfg.act,
                           out_dtype=cd, plain=plain)[:, None]
         else:
-            if (T == 1 and B <= QP8_MAX_DECODE and not ffp
-                    and supports_fused_epilogue(lw["wo"])):
+            if decode and not ffp and supports_fused_epilogue(lw["wo"]):
                 h = qmatmul_fast_res(attn, lw["wo"], h, plain=plain).to(cd)
             else:
                 y = matmul(attn, lw["wo"], plain)
                 if ffp:  # wo's rows in the il32 order
                     y = uninterleave_cols(y, 32)
                 h = h + y.to(cd)
-            h = _ffn_out(cfg, lw, h, cd, plain)
+            h = _ffn_out(cfg, lw, h, cd, plain, tap=tap, il=il)
         if LAYER_HOOK is not None:
             h = LAYER_HOOK(il, h_in, h)
+        if tap is not None:
+            tap(f"blk.{il}.l_out", h)
 
     if fused_kv:
         # one cache write for all fused layers (the rows never touched the
@@ -735,5 +802,7 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
             h = h[rows, idx.reshape(B)]
         else:
             h = h[:, -1, :]
+    if tap is not None:
+        tap("output.weight", h)
     logits = matmul(h, weights["output"], plain)
     return logits.to(torch.float32), kv_cache

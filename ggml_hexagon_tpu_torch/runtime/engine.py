@@ -1,16 +1,18 @@
 """Inference engine: GGUF loading, bucketed prefill, host-sampled and
 on-device-sampled decode over the port's Llama forward.
 
-Counterpart of ggml_hexagon_tpu/runtime/engine.py:25-120, 223-289,
-338-446: it loads a GGUF file (`from_gguf`: the weights, the config from
+Counterpart of ggml_hexagon_tpu/runtime/engine.py:25-157, 223-289,
+317-446: it loads a GGUF file (`from_gguf`: the weights, the config from
 the architecture registry and the vocabulary), owns the KV cache, feeds
 prompts in bucket-sized chunks (8/32/128/512) with longest-prefix reuse of
-the cached tokens, decodes one token per step, and generates from token
-ids (`generate`, the host sampler chain), from text (`generate_text`,
-through the tokenizer) or with the sampling on the device
-(`generate_ondevice`, one device-to-host copy of the tokens at the end).
-Context shifting, state save/load, self-extend, LoRA, embedding input and
-whole-block scoring (`eval_tokens`) wait for later slices.
+the cached tokens, decodes one token per step, scores a whole block at
+every position (`eval_tokens`, the speculative verify), and generates from
+token ids (`generate`, the host sampler chain), from text
+(`generate_text`, through the tokenizer) or with the sampling on the
+device (`generate_ondevice`, one device-to-host copy of the tokens at the
+end); `shift_context` drops a span of the cache, and `save_state` /
+`load_state` write and read the JAX package's state files.  Self-extend,
+LoRA and embedding input wait for later slices.
 """
 from __future__ import annotations
 
@@ -128,6 +130,32 @@ class Engine:
         self.n_past = n
         self.cached_tokens = self.cached_tokens[:n]
 
+    def shift_context(self, n_keep: int, n_discard: int):
+        """Context shift (llama-cli / server style): drop positions
+        [n_keep, n_keep+n_discard) and slide the rest down, K re-rotated
+        (kv_ops.kv_shift, in place)."""
+        from .kv_ops import kv_shift
+
+        if not (0 <= n_keep and 0 <= n_discard
+                and n_keep + n_discard <= self.n_past):
+            raise ValueError(f"shift {n_keep}+{n_discard} of {self.n_past} "
+                             "positions")
+        kv_shift(self.cfg, self.kv, n_keep, n_discard, self.n_past)
+        self.n_past -= n_discard
+        self.cached_tokens = (self.cached_tokens[:n_keep]
+                              + self.cached_tokens[n_keep + n_discard:])
+
+    def save_state(self, path):
+        from .kv_ops import save_state
+
+        self._sync()
+        save_state(self, path)
+
+    def load_state(self, path):
+        from .kv_ops import load_state
+
+        load_state(self, path)
+
     # -- decoding ------------------------------------------------------------
 
     def _fwd(self, tokens, logits_all: bool):
@@ -205,6 +233,36 @@ class Engine:
         logits = self._prefill(ids, reuse_cache).cpu().numpy()
         self._sync()
         self.perf.t_prefill += time.perf_counter() - t0
+        return logits
+
+    def eval_tokens(self, tokens) -> np.ndarray:
+        """Consume tokens (batch 1) and return the logits at every position
+        [T, V] (the speculative verifier's one-pass scoring of a draft
+        block).  The block is padded to a power of two (K1 at <= 8 rows, K3
+        above), as the JAX engine pads it, and the padded rows are written
+        past n_past, where masking hides them; where the power of two
+        would run past the window the block pads only to the window's end
+        (the JAX engine's scalar cache write would move the whole block
+        down over cached rows there)."""
+        if self.batch != 1:
+            raise ValueError(f"eval_tokens runs batch 1, the engine has "
+                             f"{self.batch}")
+        ids = np.asarray(tokens, dtype=np.int64).reshape(-1)
+        T = ids.size
+        if self.n_past + T > self.max_seq:
+            raise ContextOverflowError(
+                f"prompt needs {self.n_past + T} slots, window {self.max_seq}")
+        bucket = 1
+        while bucket < T:
+            bucket *= 2
+        bucket = min(bucket, self.max_seq - self.n_past)
+        chunk = np.pad(ids, (0, bucket - T))[None, :]
+        out, self.kv = self._fwd(torch.from_numpy(chunk).to(self.device),
+                                 logits_all=True)
+        logits = out[0, :T].cpu().numpy()
+        self.n_past += T
+        self.cached_tokens = (self.cached_tokens[:self.n_past - T]
+                              + ids.tolist())
         return logits
 
     def _decode(self, tok):

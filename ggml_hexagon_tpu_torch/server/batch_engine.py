@@ -94,7 +94,7 @@ class Slot:
         self.settled, self.n_past = settled, n_past
 
 
-def _load_fused(path, device):
+def load_fused(path, device):
     """(cfg, weights, vocab, metadata) of a GGUF file (a path, or a buffer
     holding its bytes) through the load pipeline the port's forward takes:
     the NEOX rope permutation, the projection fusion, the wire planes
@@ -134,7 +134,7 @@ class DraftModel:
 
     @classmethod
     def from_gguf(cls, path, n_slots: int, max_seq: int, **kw):
-        cfg, weights, _, _ = _load_fused(
+        cfg, weights, _, _ = load_fused(
             path, resolve_device(kw.get("device", "cuda")))
         return cls(cfg, weights, n_slots, max_seq, **kw)
 
@@ -189,7 +189,7 @@ class BatchEngine:
         """Load a GGUF file (a path, or a buffer holding its bytes) through
         the fused load pipeline; kw go to BatchEngine (n_slots, max_seq,
         kv_dtype, device, draft, ...)."""
-        cfg, weights, vocab, md = _load_fused(
+        cfg, weights, vocab, md = load_fused(
             path, resolve_device(kw.get("device", "cuda")))
         eng = cls(cfg, weights, vocab, **kw)
         eng.metadata = md

@@ -6,6 +6,7 @@ continuous-batching engine (server/batch_engine.py).  Endpoints:
   POST /v1/completions       OpenAI completions
   POST /v1/chat/completions  OpenAI chat (chat template applied, tools) (+ SSE)
   POST /infill               fill-in-middle (FIM-token prompt assembly)
+  POST /embedding(s) /v1/embeddings  pooled decoder embeddings
   POST /tokenize /detokenize /apply-template
   POST /slots/{id}?action=save|restore|erase
   GET  /health /v1/health /metrics /slots /props /models /v1/models
@@ -18,10 +19,9 @@ constraints (also lazily triggered) come in the "grammar" / "json_schema"
 request fields.  Optional API-key auth: requests must carry
 "Authorization: Bearer <key>" (/health and /models stay open).
 
-What needs modules the port has not yet: pooled embeddings of a decoder
-(/embedding(s), /v1/embeddings: runtime/embedding), the bert-family
-encoders' embedding/rerank mode (/rerank: models/bert) and LoRA adapters
-(POST /lora-adapters: models/lora) answer HTTP 501 with an error naming the
+What needs modules the port has not yet: the bert-family encoders'
+embedding/rerank mode (/rerank: models/bert) and LoRA adapters (POST
+/lora-adapters: models/lora) answer HTTP 501 with an error naming the
 missing module; `--lora` and a bert-family GGUF are refused at start-up.
 """
 from __future__ import annotations
@@ -43,10 +43,12 @@ from .batch_engine import BatchEngine, SlotState
 
 BERT_ARCHS = ("bert", "nomic-bert", "jina-bert-v2")
 
+#: the GGUF pooling_type values (llama.h enum llama_pooling_type)
+_POOLING_NAMES = {0: "none", 1: "mean", 2: "cls", 3: "last", 4: "rank"}
+
 #: the JAX package's server features that need modules the port lacks:
 #: feature -> the missing module
 UNPORTED = {
-    "embeddings": "runtime/embedding (pooled decoder embeddings)",
     "rerank": "models/bert (the encoder's embedding/rerank mode)",
     "lora": "models/lora (LoRA adapters)",
 }
@@ -223,6 +225,40 @@ class InferenceServer:
         sub["prompt"] = ids
         return self.completion(sub)
 
+    def _tokenize_inputs(self, prompt) -> list:
+        """'input'/'content' shapes: str | [str] | [ids] | [[ids]]
+        (tokenize_input_prompts, examples/server/utils.hpp)."""
+        if isinstance(prompt, str):
+            return [self.tokenizer.encode(prompt, parse_special=True)]
+        if isinstance(prompt, list) and prompt and isinstance(prompt[0], int):
+            return [[int(t) for t in prompt]]
+        out = []
+        for p in prompt:
+            out.append(self.tokenizer.encode(p, parse_special=True)
+                       if isinstance(p, str)
+                       else [int(t) for t in p])
+        return out
+
+    def embeddings(self, prompt, pooling: str | None = None):
+        """Pooled decoder embeddings for each input (runtime/embedding,
+        under the engine's lock) -> (rows [[f32] | [[f32]]], tokens)."""
+        from ..runtime.embedding import extract_embeddings
+
+        token_lists = self._tokenize_inputs(prompt)
+        if any(not t for t in token_lists):
+            raise ValueError("input content cannot be empty")
+        md = getattr(self.engine, "metadata", {})
+        arch = md.get("general.architecture", "llama")
+        if pooling is None:
+            pooling = _POOLING_NAMES.get(
+                int(md.get(f"{arch}.pooling_type", 1)), "mean")
+        with self.engine.lock:
+            e = extract_embeddings(self.engine.cfg, self.engine.weights,
+                                   token_lists, pooling=pooling,
+                                   device=self.engine.device)
+        rows = [row.tolist() for row in e]
+        return rows, sum(map(len, token_lists))
+
     def apply_template(self, body: dict) -> str:
         return apply_chat_template(
             list(body.get("messages", [])), self.template,
@@ -380,9 +416,10 @@ def make_handler(server: InferenceServer):
                     self._chat(body)
                 elif self.path == "/infill":
                     self._infill(body)
-                elif self.path in ("/embedding", "/embeddings",
-                                   "/v1/embeddings"):
-                    raise NotPortedError("embeddings")
+                elif self.path in ("/embedding", "/embeddings"):
+                    self._embeddings(body, openai=False)
+                elif self.path == "/v1/embeddings":
+                    self._embeddings(body, openai=True)
                 elif self.path in ("/rerank", "/reranking",
                                    "/v1/rerank", "/v1/reranking"):
                     raise NotPortedError("rerank")
@@ -413,6 +450,27 @@ def make_handler(server: InferenceServer):
                 if isinstance(e, NotPortedError):
                     code = 501
                 self._json(code, {"error": f"{type(e).__name__}: {e}"})
+
+        def _embeddings(self, body, openai: bool):
+            prompt = body.get("input", body.get("content"))
+            if prompt is None:
+                self._json(400, {"error":
+                                 '"input" or "content" must be provided'})
+                return
+            rows, n_tokens = server.embeddings(prompt)
+            if openai:
+                self._json(200, {
+                    "object": "list",
+                    "data": [{"object": "embedding", "index": i,
+                              "embedding": row}
+                             for i, row in enumerate(rows)],
+                    "model": server.models_json()["data"][0]["id"],
+                    "usage": {"prompt_tokens": n_tokens,
+                              "total_tokens": n_tokens},
+                })
+            else:
+                self._json(200, [{"index": i, "embedding": row}
+                                 for i, row in enumerate(rows)])
 
         def _infill(self, body):
             pieces = server.infill(body)

@@ -36,7 +36,11 @@ def vocab_fields(V):
 
 
 def write_model(path, seed=0, nh=8, nkv=4, hd=128, n_layer=2, V=300,
-                n_ff=512, extra_metadata=None):
+                n_ff=512, extra_metadata=None, n_expert=0, n_expert_used=2):
+    """The 2-layer Llama of the module docstring; n_expert > 0 makes it
+    Mixtral-shaped: each layer's FFN an f32 router and stacked Q4_K gate /
+    up experts and Q4_K (layer 0) or Q6_K (layer 1) down experts, top
+    n_expert_used."""
     rng = np.random.default_rng(seed)
     d = nh * hd
     w = GGUFWriter()
@@ -48,13 +52,17 @@ def write_model(path, seed=0, nh=8, nkv=4, hd=128, n_layer=2, V=300,
         w.add(f"llama.{k}", v)
     w.add("llama.rope.freq_base", 500000.0)
     w.add("llama.attention.layer_norm_rms_epsilon", 1e-5)
+    if n_expert:
+        w.add("llama.expert_count", n_expert)
+        w.add("llama.expert_used_count", n_expert_used)
     for k, v in vocab_fields(V).items():
         w.add(k, v)
     for k, v in (extra_metadata or {}).items():
         w.add(k, v)
 
-    def q(name, n, k, t=GGMLType.Q4_K):
-        w.add_tensor(name, (rng.normal(size=(n, k)) * 0.05).astype(np.float32),
+    def q(name, n, k, t=GGMLType.Q4_K, e=0):
+        shape = (e, n, k) if e else (n, k)
+        w.add_tensor(name, (rng.normal(size=shape) * 0.05).astype(np.float32),
                      t)
 
     def norm(name):
@@ -72,10 +80,48 @@ def write_model(path, seed=0, nh=8, nkv=4, hd=128, n_layer=2, V=300,
         q(p + "attn_v.weight", nkv * hd, d, hi)
         q(p + "attn_output.weight", d, nh * hd)
         norm(p + "ffn_norm.weight")
+        if n_expert:
+            w.add_tensor(p + "ffn_gate_inp.weight",
+                         rng.normal(size=(n_expert, d)).astype(np.float32))
+            q(p + "ffn_gate_exps.weight", n_ff, d, e=n_expert)
+            q(p + "ffn_up_exps.weight", n_ff, d, e=n_expert)
+            q(p + "ffn_down_exps.weight", d, n_ff, hi, e=n_expert)
+            continue
         q(p + "ffn_gate.weight", n_ff, d)
         q(p + "ffn_up.weight", n_ff, d)
         q(p + "ffn_down.weight", d, n_ff, hi)
     w.write_file(str(path))
+
+
+class _EagerJax:
+    """The jax module with jit as the identity."""
+
+    def __getattr__(self, name):
+        import jax
+
+        return getattr(jax, name)
+
+    @staticmethod
+    def jit(f, **_kw):
+        return f
+
+
+def jax_matching_mode(mp, eager=()):
+    """The JAX package in the mode of the port's kernel contract, as
+    test_torch_load.py sets it: GHT_FAST_INTERPRET=1 and the llama
+    interpret flags; eager: JAX package modules (runtime/evaluate,
+    runtime/engine, ...) whose own jax.jit calls become the identity, so
+    that the forward they jit runs op by op (jit lets XLA reorder the f32
+    sums of the RMSNorm prologues, whose last-ulp changes flip int8
+    activation roundings; see test_torch_load.py), while the Pallas
+    kernels' interpret mode keeps its own jit."""
+    from ggml_hexagon_tpu.models import llama as JL
+
+    mp.setenv("GHT_FAST_INTERPRET", "1")
+    mp.setattr(JL, "FUSED_ATTN_INTERPRET", True)
+    mp.setattr(JL, "FUSED_EPILOGUE_INTERPRET", True)
+    for mod in eager:
+        mp.setattr(mod, "jax", _EagerJax())
 
 
 def jax_cache(kv: dict) -> dict:

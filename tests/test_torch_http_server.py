@@ -8,10 +8,11 @@ serves with, copied from the JAX package.
     the CPU plain versions;
   - the greedy text of /completion (plain and SSE) equal to the same
     request through a fresh engine's complete;
-  - the routes that need modules the port lacks (runtime/embedding,
-    models/bert, models/lora) answer 501 naming the module; a bert-family
-    GGUF and LoRA adapters are refused at start-up; GET /lora-adapters is
-    [];
+  - the routes that need modules the port lacks (models/bert,
+    models/lora) answer 501 naming the module, and the decoder embedding
+    routes, which runtime/embedding now serves, answer 200 (held to
+    extract_embeddings in test_torch_embedding.py); a bert-family GGUF and
+    LoRA adapters are refused at start-up; GET /lora-adapters is [];
   - the copies (runtime/chat, grammar, json_schema, toolcall, infill)
     against the JAX modules on the same inputs: every chat template and
     the template detection, json_schema_to_gbnf, the grammar sampler's
@@ -389,9 +390,16 @@ def test_format_infill_requires_fim_tokens():
     ("/v1/rerank", "models/bert"), ("/reranking", "models/bert"),
     ("/lora-adapters", "models/lora")])
 def test_unported_routes_answer_501(decoder_server, path, missing):
-    code, body = _status(lambda: post(decoder_server, path,
-                                      {"input": "hello", "query": "hello",
-                                       "documents": ["world"]},
+    """Each route the JAX server has: 501 naming the missing module, but
+    the embedding routes, which runtime/embedding serves since it was
+    ported: one row of n_embd floats for the one input."""
+    payload = {"input": "hello", "query": "hello", "documents": ["world"]}
+    if missing == "runtime/embedding":
+        got = post(decoder_server, path, payload, headers=AUTH)
+        rows = got["data"] if path == "/v1/embeddings" else got
+        assert len(rows) == 1 and len(rows[0]["embedding"]) == 256
+        return
+    code, body = _status(lambda: post(decoder_server, path, payload,
                                       headers=AUTH))
     assert code == 501 and missing in body["error"]
 

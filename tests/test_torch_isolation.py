@@ -65,6 +65,8 @@ from ggml_hexagon_tpu_torch.runtime.engine import Engine
 from ggml_hexagon_tpu_torch.server.batch_engine import BatchEngine
 from ggml_hexagon_tpu_torch.server.http_server import build_server
 from ggml_hexagon_tpu_torch.gguf.writer import GGUFWriter
+from ggml_hexagon_tpu_torch.runtime import evaluate
+from ggml_hexagon_tpu_torch.runtime.embedding import extract_embeddings
 import os, tempfile
 
 gguf = os.path.join(tempfile.mkdtemp(), "empty-llama.gguf")
@@ -90,6 +92,9 @@ cases = {
     "qp8_gemv_kernel": lambda: kernels.qp8_gemv(torch.zeros(1, 256), qt),
     "qp8_gemm_kernel": lambda: kernels.qp8_gemm(
         torch.zeros(16, 256, dtype=torch.bfloat16), qt),
+    "perplexity": lambda: evaluate.perplexity(cfg, {}, [3] * 16, n_ctx=8),
+    "imatrix": lambda: evaluate.IMatrixCollector(cfg, {}),
+    "embeddings": lambda: extract_embeddings(cfg, {}, [[1, 2]]),
 }
 out = {}
 for name, fn in cases.items():
@@ -120,13 +125,18 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "tokenizer.pretok", "tokenizer.bpe", "runtime.kv_ops",
                 "runtime.chat", "runtime.grammar", "runtime.json_schema",
                 "runtime.toolcall", "runtime.infill", "server.batch_engine",
-                "server.http_server", "server.webui"):
+                "server.http_server", "server.webui", "cli",
+                "runtime.evaluate", "runtime.embedding",
+                "runtime.speculative", "runtime.lookup",
+                "runtime.lookahead", "gguf.ghash", "gguf.split",
+                "gguf.llama2c", "gguf.legacy"):
         assert f"ggml_hexagon_tpu_torch.{mod}" in got["modules"]
 
 
 @pytest.mark.parametrize(
     "path", sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py"))
-    + ["chip_smoke.py", "tools/torch_decode_step_ab.py"])
+    + ["chip_smoke.py", "tools/torch_decode_step_ab.py",
+       "tools/torch_mem_census.py"])
 def test_source_names_no_blocked_import(path):
     """Also the imports inside functions, which an import run never meets."""
     tree = ast.parse((ROOT / path).read_text())
@@ -152,11 +162,30 @@ def no_card():
     ("engine", "RuntimeError"), ("batch_engine", "RuntimeError"),
     ("build_server", "RuntimeError"), ("build_8b", "RuntimeError"),
     ("init_kv_cache", "RuntimeError"), ("convert", "RuntimeError"),
-    ("qp8_gemv_kernel", "ValueError"), ("qp8_gemm_kernel", "ValueError")])
+    ("qp8_gemv_kernel", "ValueError"), ("qp8_gemm_kernel", "ValueError"),
+    ("perplexity", "RuntimeError"), ("imatrix", "RuntimeError"),
+    ("embeddings", "RuntimeError")])
 def test_entry_points_refuse_without_a_card(no_card, entry, raised):
     """Entry points default to the card; the kernels' bindings refuse CPU
     tensors (the wrappers, not the bindings, take the plain versions)."""
     assert no_card[entry] == raised
+
+
+@pytest.mark.parametrize("argv", [
+    ["generate", "-p", "hello"], ["perplexity", "-f", "corpus.txt"],
+    ["imatrix", "-f", "corpus.txt"], ["embedding", "-p", "hello"],
+    ["eval-callback"], ["bench"]])
+def test_cli_refuses_without_a_card(argv, tmp_path):
+    """`python -m ggml_hexagon_tpu_torch.cli` without --device cpu and no
+    visible card exits non-zero naming the card before it reads the model
+    (an empty GGUF here: a load would fail otherwise)."""
+    gguf = tmp_path / "empty.gguf"
+    gguf.write_bytes(b"GGUF")
+    r = _run(["-m", "ggml_hexagon_tpu_torch.cli", argv[0], "-m", str(gguf),
+              *argv[1:]], cwd=tmp_path)
+    assert r.returncode == 1, r.stderr
+    assert "no CUDA card" in r.stderr and "--device cpu" in r.stderr
+    assert r.stdout == ""
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -250,6 +250,18 @@ def test_qp8_gemm_and_gemv_kernels_take_expert_lane_slices(dev, M):
     assert _nmse(P.qp8_gemv(x1, e2), P.qp8_gemv_plain(x1, copy)) <= NMSE_MAX
 
 
+def test_qp8_gemm_kernel_on_the_head(dev):
+    """K3 on the Llama-3-8B head (Q6_K, 128256 x 4096) at M = 512, the
+    shape of a perplexity chunk under logits_all: one launch, against the
+    plain twin, counted under the head's weight in kernels.GEMM_SHAPES."""
+    qt = _qt(dev, 128256, 4096, GGMLType.Q6_K)
+    x = _x(dev, 512, qt.k, seed=11).to(torch.bfloat16)
+    kernels.reset_launches()
+    _counted("qp8_gemm", lambda: P.qp8_gemm(x, qt),
+             lambda: P.qp8_gemm_plain(x, qt))
+    assert kernels.GEMM_SHAPES == {"128256x4096": 1}
+
+
 _MOE = {"gate_q5k": (14336, 4096, GGMLType.Q5_K),
         "down_q5k": (4096, 14336, GGMLType.Q5_K),
         "down_q6k": (4096, 14336, GGMLType.Q6_K)}
