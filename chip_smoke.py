@@ -1,6 +1,14 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--depth N]
+
+Phases 2-12 run their configuration's first PHASE_DEPTH (8) layers, at
+full width, the types those layers have in the full-depth file (--depth
+0: every layer); each phase's launches are held to the table
+models/launches.launch_table derives from its built layers (cell_table;
+at full depth the tables these phases were held to by hand, which
+tests/test_torch_launch_tables.py keeps).  Phases 13-17 run at full
+depth.
 
 1. builds the port's CUDA kernels from ggml_hexagon_tpu_torch/csrc;
 2. Llama-3-8B Q4_K_M (the first slice's path): holds K1 (qp8 decode GEMV),
@@ -10,13 +18,13 @@
    merged; at pos 0, 1, 700 and 1023) against their plain PyTorch
    versions at the main path's shapes, timing kernel, plain version and a
    one-call PyTorch yardstick
-   with CUDA events; builds the random model at full width and depth on
+   with CUDA events; builds the random model at full width on
    the card and serves greedy requests through Engine (bf16 and q8_0 KV),
    the launch counters zeroed just before and read just after; profiles a
    prefill and decode steps; compares kernels and plain versions end to
    end;
 3. Mixtral-8x7B Q5_K_M (the second slice's path), after the 8B model is
-   freed: the same phases at full width and depth, with K5 (gathered-expert
+   freed: the same phases at full width, with K5 (gathered-expert
    GEMV), K6 (interleaved Q8_0 matmul) and K1/K3 on Q5_K held against
    their plain versions, exact launch counts per decode step and prefill
    chunk, and the end-to-end comparison checking the expert routing of
@@ -24,7 +32,7 @@
 4. Llama-3-8B IQ4_XS (the third slice's path), after Mixtral is freed: the
    same phases, with K6's normed, residual and act modes (and its plain
    mode at prefill) held against their plain versions and the launch
-   counts held to LAUNCH_TABLES;
+   counts held to its table;
 5. Mixtral-8x7B IQ4_XS, after the 8B IQ4_XS is freed: the same phases,
    with K8 (gathered experts on interleaved stacks) and K6's plain mode on
    IQ4_XS held against their plain versions; its decode steps run K8 on
@@ -149,13 +157,29 @@
    POST /v1/embeddings over loopback equal to extract_embeddings;
    eval-callback on 7 tokens (the tap route at K1's shapes: 145 K1, every
    tensor in the JAX forward's tap order); bench -p 512 -n 128.
+17. Gemma-2-9B Q4_K_M (the nineteenth slice's path; right after the CLI
+   phase, at full width and depth, 42 layers; models/synth.build_gemma2_9b
+   with the file's Q4_K_M types, the head tied to the Q6_K embedding,
+   256000 x 3584): K1 with the downs in its gelu act mode without a
+   residual (the sandwich post-norms keep it out; wo raw), K2 on the Q4_K
+   wqk + Q6_K wv pair at hd 256, K3 (the head at M = 512 among them) and
+   K4 at a head width of 256 with the window and the logit cap 50 held
+   against their plain versions; K4 at D = 256 under bf16, q8_0 and q4_0
+   KV at pos 700 beside SDPA, and the window masking at pos 4700 of an
+   8192-slot cache (the slots below it overwritten, no bit moving); the
+   branches no served configuration launches driven alone with the
+   counters zeroed, then held and timed: K6's gelu act mode at the down
+   shape on interleaved planes, K1's and K6's relu (and, in phase 12,
+   K9's gelu and relu at the 8B widths: no Gemma width takes K9).  The
+   requests' launches, the gelu and D = 256 branch counts among them,
+   exact; the end-to-end comparison at 42 layers.
 
 K6 above 8 rows is its own kernel, the wgmma GEMM of csrc/fast_il_gemm.cu
 (the ninth slice): every configuration whose prefill chunk runs it holds
 it against its plain version at M = 32, 128 and 512 on the chunk's shapes,
 and once at M = 1024 (outside the served path); its launches are counted
 apart by family and bias (kernels.GEMM_LAUNCHES, exact per chunk:
-GEMM_TABLES), and one report each (fast_byte_gemm, ..._derived,
+its table's "gemm"), and one report each (fast_byte_gemm, ..._derived,
 ..._stored, fast_nibble_gemm_stored, fast_coded_gemm) sums one 512-token
 chunk of each configuration that runs it, logged per configuration too.
 
@@ -183,6 +207,7 @@ kernels with their times and bounds.  Card rates for the bounds: the H100
 SXM data sheet (3.35 TB/s HBM3, 989 TFLOP/s bf16, 1979 TOP/s int8, 495
 TFLOP/s TF32 dense, 67 TFLOP/s f32).
 """
+import argparse
 import gc
 import json
 import os
@@ -214,6 +239,7 @@ FLIP_MARGIN = 1e-3   # a routing flip between kernel and plain runs must be
 
 #: the port's kernel sources and the TPU kernels they replace
 SRC_GEMV = "ggml_hexagon_tpu_torch/csrc/qp8_gemv.cu"
+SRC_K4 = "ggml_hexagon_tpu_torch/csrc/decode_attn.cu"
 SRC_GEMM = "ggml_hexagon_tpu_torch/csrc/qp8_gemm.cu"
 SRC_IL = "ggml_hexagon_tpu_torch/csrc/fast_il.cu"
 SRC_DUAL = "ggml_hexagon_tpu_torch/csrc/fast_dual.cu"
@@ -405,18 +431,21 @@ def check_kernels(dev, weights, cfg):
                  if lw["ffn_down"].cfg.qtype.name == "Q6_K")
     n_dn_q6 = sum(lw["ffn_down"].cfg.qtype.name == "Q6_K" for lw in layers)
     head = weights["output"]
+    t = cell_table(cfg, weights)
     K1 = KernelReport("qp8_gemv", "cuda", SRC_GEMV,
                       "ggml_hexagon_tpu/ops/qmm_qp8.py:426",
-                      "one decode step (B=1): 113 launches")
+                      f"one decode step (B=1): {t['step']['qp8_gemv']} launches")
     K2 = KernelReport("qp8_dual", "cuda", SRC_GEMV,
                       "ggml_hexagon_tpu/ops/qmm_qp8.py:475",
-                      "one decode step (B=1): 16 launches")
+                      f"one decode step (B=1): {t['step']['qp8_dual']} launches")
     K3 = KernelReport("qp8_gemm", "cuda", SRC_GEMM,
                       "ggml_hexagon_tpu/ops/qmm_qp8.py:529",
-                      "one 512-token prefill chunk: 145 launches")
-    K4 = KernelReport("decode_attn", "cuda", "ggml_hexagon_tpu_torch/csrc/decode_attn.cu",
+                      f"one 512-token prefill chunk: {t['chunk']['qp8_gemm']} "
+                      "launches")
+    K4 = KernelReport("decode_attn", "cuda", SRC_K4,
                       "ggml_hexagon_tpu/ops/decode_attn.py:177",
-                      "one decode step at pos 700 of 1024 (B=1): 32 launches")
+                      f"one decode step at pos 700 of 1024 (B=1): "
+                      f"{t['step']['decode_attn']} launches")
 
     log(f"K1 qp8_gemv (kernel vs plain, NMSE <= {NMSE_KERNEL}; times are "
         "medians, L2 flushed)")
@@ -507,174 +536,21 @@ REQUESTS = [("bf16", 512, 32), ("bf16", 128, 32), ("bf16", 7, 16),
             ("q8_0", 512, 32)]
 
 
-#: exact launches of each configuration per unit: "step" a decode step,
-#: "bucket8" the 8-token prefill chunk, "chunk" a 128- or 512-token chunk.
-#: Derived from the JAX dispatch (llama.py:620-799, 1022-1068, 1196-1213;
-#: qmm_fast.py supports_dual, supports_fused_epilogue, supports_indirect)
-#: under each configuration's QuantPolicy.
-LAUNCH_TABLES = {
-    # wqkv (16 layers) or wqk + wv through K2 (16), wo+res, gate_up, act +
-    # down, the head: all t-planes (K1 at <= 8 rows, K3 above)
-    "Llama-3-8B Q4_K_M": {
-        "step": dict(qp8_gemv=113, qp8_dual=16, decode_attn=32),
-        "bucket8": dict(qp8_gemv=145),
-        "chunk": dict(qp8_gemm=145),
-    },
-    # wq, wo and the head on Q5_K/Q6_K t-planes; wk, wv on Q8_0 interleaved
-    # planes (K6); the experts gathered at <= 8 rows (K5: gate, up, down),
-    # else every expert's gate, up and down through K3
-    "Mixtral-8x7B Q5_K_M": {
-        "step": dict(qp8_gemv=65, qp8_indirect=96, fast_byte=64,
-                     decode_attn=32),
-        "bucket8": dict(qp8_gemv=65, qp8_indirect=96, fast_byte=64),
-        "chunk": dict(qp8_gemm=833, fast_byte=64),
-    },
-    # wqk IQ4_XS il + wv Q5_K t (no dual on mixed layouts): 32 K6 normed +
-    # 32 K1 normed; wo IQ4_XS il: 32 K6 res; gate_up IQ4_XS il: 32 K6
-    # normed; down Q5_K t in layers 0-3 (K1 act) and IQ4_XS il in 4-31 (K6
-    # act); the Q6_K head on K1
-    "Llama-3-8B IQ4_XS": {
-        "step": dict(fast_byte_normed=64, fast_byte_res=32, fast_byte_act=28,
-                     qp8_gemv=37, decode_attn=32),
-        "bucket8": dict(fast_byte_normed=64, fast_byte=32, fast_byte_act=28,
-                        qp8_gemv=37),
-        "chunk": dict(fast_byte_normed=64, fast_byte=60, qp8_gemm=37),
-    },
-    # wq IQ4_XS, wk/wv Q8_0, all il and unfused: 96 K6; wo Q5_K and the
-    # head on K1/K3; gate/up IQ4_XS stacks (K8) and down stacks Q5_K in
-    # layers 0-3 (K5) and IQ4_XS in 4-31 (K8) gathered at <= 8 rows, every
-    # expert's gate, up and down through K6 / K3 above
-    "Mixtral-8x7B IQ4_XS": {
-        "step": dict(fast_byte=96, fast_indirect=92, qp8_indirect=4,
-                     qp8_gemv=33, decode_attn=32),
-        "bucket8": dict(fast_byte=96, fast_indirect=92, qp8_indirect=4,
-                        qp8_gemv=33),
-        "chunk": dict(fast_byte=832, qp8_gemm=65),
-    },
-    # the interleaved layout everywhere: wqkv (16 layers, Q4_K) and gate_up
-    # through K6 nibble normed, wqk Q4_K + wv Q6_K through K7 (16), wo
-    # through K6 nibble res; down Q4_K (16) K6 nibble act, Q6_K (16) K6
-    # byte act with the derived bias; the Q6_K head K6 byte.  At prefill no
-    # dual: wqk K6 nibble normed and wv K6 byte normed, wo K6 nibble; at the
-    # 8-bucket the act modes, above it down pre-interleaved through K6
-    "Llama-3-8B Q4_K_M il": {
-        "step": dict(fast_nibble_normed=48, fast_nibble_res=32,
-                     fast_nibble_act=16, fast_byte_act=16, fast_byte=1,
-                     fast_dual=16, decode_attn=32),
-        "bucket8": dict(fast_nibble_normed=64, fast_byte_normed=16,
-                        fast_nibble=32, fast_nibble_act=16, fast_byte_act=16,
-                        fast_byte=1),
-        "chunk": dict(fast_nibble_normed=64, fast_byte_normed=16,
-                      fast_nibble=48, fast_byte=17),
-    },
-    # wq Q4_K K6 nibble, wk/wv Q8_0 and the Q6_K head K6 byte, wo Q5_K K6
-    # byte res (stored bias; plain mode above one token); gate/up Q4_K
-    # stacks and down stacks Q4_K (16 layers) through K8 nibble, Q6_K (16)
-    # through K8 byte, at <= 8 rows; every expert's gate, up and down through
-    # K6 above
-    "Mixtral-8x7B Q4_K_M il": {
-        "step": dict(fast_nibble=32, fast_byte=65, fast_byte_res=32,
-                     fast_indirect_nibble=80, fast_indirect=16,
-                     decode_attn=32),
-        "bucket8": dict(fast_nibble=32, fast_byte=97,
-                        fast_indirect_nibble=80, fast_indirect=16),
-        "chunk": dict(fast_nibble=672, fast_byte=225),
-    },
-    # the coded i-quants (IQ3_XXS with an imatrix) on t-planes: IQ2_S wqk +
-    # Q4_K wv through K2 at decode (at prefill one normed K1/K3 each), IQ3_S
-    # wo (K1 res), IQ3_XXS gate_up (normed) and down (act), all coded; the
-    # Q5_K head on K1 (K3 above the 8-bucket)
-    "Llama-3-8B IQ3_XXS": {
-        "step": dict(qp8_dual_coded=32, qp8_gemv_coded=96, qp8_gemv=1,
-                     decode_attn=32),
-        "bucket8": dict(qp8_gemv_coded=128, qp8_gemv=33),
-        "chunk": dict(qp8_gemm_coded=128, qp8_gemm=33),
-    },
-    # the same on interleaved planes: K7 on the coded wqk + the Q4_K nibble
-    # wv, K6 coded res / normed / act; at prefill wqk K6 coded normed, wv K6
-    # nibble normed, wo K6 coded, down K6 coded act (8-bucket) or
-    # pre-interleaved (chunk); the Q5_K head K6 byte with its stored bias
-    "Llama-3-8B IQ3_XXS il": {
-        "step": dict(fast_dual_coded=32, fast_coded_res=32,
-                     fast_coded_normed=32, fast_coded_act=32, fast_byte=1,
-                     decode_attn=32),
-        "bucket8": dict(fast_coded_normed=64, fast_nibble_normed=32,
-                        fast_coded=32, fast_coded_act=32, fast_byte=1),
-        "chunk": dict(fast_coded_normed=64, fast_nibble_normed=32,
-                      fast_coded=64, fast_byte=1),
-    },
-    # IQ2_S wq K6 coded, Q8_0 wk/wv and the Q5_K head K6 byte, Q5_K wo K6
-    # byte res (plain mode above one token); the IQ3_XXS stacks through K8
-    # coded at <= 8 rows, every expert's gate, up and down through K6 coded
-    # above
-    "Mixtral-8x7B IQ3_XXS il": {
-        "step": dict(fast_coded=32, fast_byte=65, fast_byte_res=32,
-                     fast_indirect_coded=96, decode_attn=32),
-        "bucket8": dict(fast_coded=32, fast_byte=97, fast_indirect_coded=96),
-        "chunk": dict(fast_coded=800, fast_byte=97),
-    },
-    # IQ2_S wq on coded t-planes (K1 / K3), Q8_0 wk/wv K6 byte, Q5_K wo and
-    # head K1 / K3; the IQ3_XXS stacks through K5 coded at <= 8 rows, every
-    # expert through K3 coded above
-    "Mixtral-8x7B IQ3_XXS": {
-        "step": dict(qp8_gemv_coded=32, qp8_gemv=33, fast_byte=64,
-                     qp8_indirect_coded=96, decode_attn=32),
-        "bucket8": dict(qp8_gemv_coded=32, qp8_gemv=33, fast_byte=64,
-                        qp8_indirect_coded=96),
-        "chunk": dict(qp8_gemm_coded=800, qp8_gemm=33, fast_byte=64),
-    },
-    # the interleaved layout with the megakernel layout on every layer: at
-    # decode one K9 a layer (down Q4_K in 16 layers, Q6_K in 16) after wqkv
-    # (K6 nibble normed, 16) or wqk + wv (K7, 16) and K4; the Q6_K head K6
-    # byte.  At prefill no K9 and no act mode, at any bucket: wo K6 nibble
-    # (its output un-permuted), gate_up K6 nibble normed, down K6
-    # pre-interleaved (nibble 16, byte 16)
-    "Llama-3-8B Q4_K_M il ffn": {
-        "step": dict(ffn_fused_nibble=16, ffn_fused_byte=16,
-                     fast_nibble_normed=16, fast_dual=16, fast_byte=1,
-                     decode_attn=32),
-        "bucket8": dict(fast_nibble_normed=64, fast_byte_normed=16,
-                        fast_nibble=48, fast_byte=17),
-        "chunk": dict(fast_nibble_normed=64, fast_byte_normed=16,
-                      fast_nibble=48, fast_byte=17),
-    },
-}
+def cell_table(cfg, weights, kv_bits=16):
+    """The exact launches of a configuration's units, derived from its
+    built layers (models/launches.launch_table: "step", "bucket8" and
+    "chunk" under LAUNCHES keys, the chunk's K6 GEMM launches under
+    GEMM_LAUNCHES keys, "branch" the units' BRANCH_LAUNCHES); at full
+    depth the tables these cells were held to by hand before (the CPU
+    test tests/test_torch_launch_tables.py holds them equal)."""
+    from ggml_hexagon_tpu_torch.models.launches import launch_table
 
-
-#: exact K6 GEMM launches (kernels.GEMM_LAUNCHES) of each configuration's
-#: 128- or 512-token prefill chunk, from its "chunk" entry above: the K6
-#: launches of more than 8 rows by family and bias (the prefill takes the
-#: head's logits on every row of the chunk); none at decode or the
-#: 8-bucket
-GEMM_TABLES = {
-    "Mixtral-8x7B Q5_K_M": dict(fast_byte_gemm=64),            # wk, wv Q8_0
-    "Llama-3-8B IQ4_XS": dict(fast_byte_gemm=124),             # IQ4_XS
-    "Mixtral-8x7B IQ4_XS": dict(fast_byte_gemm=832),           # and Q8_0
-    # wqkv, wqk, gate_up, wo, down Q4_K; wv, down and the head Q6_K
-    "Llama-3-8B Q4_K_M il": dict(fast_nibble_gemm_stored=112,
-                                 fast_byte_gemm_derived=33),
-    # wq and the Q4_K experts; wk, wv Q8_0; wo Q5_K; the Q6_K down experts
-    # and head
-    "Mixtral-8x7B Q4_K_M il": dict(fast_nibble_gemm_stored=672,
-                                   fast_byte_gemm=64,
-                                   fast_byte_gemm_stored=32,
-                                   fast_byte_gemm_derived=129),
-    # wqk, gate_up, wo, down; wv Q4_K; the Q5_K head
-    "Llama-3-8B IQ3_XXS il": dict(fast_coded_gemm=128,
-                                  fast_nibble_gemm_stored=32,
-                                  fast_byte_gemm_stored=1),
-    # wq and the experts; wk, wv Q8_0; wo and the head Q5_K
-    "Mixtral-8x7B IQ3_XXS il": dict(fast_coded_gemm=800, fast_byte_gemm=64,
-                                    fast_byte_gemm_stored=33),
-    "Mixtral-8x7B IQ3_XXS": dict(fast_byte_gemm=64),           # wk, wv Q8_0
-    "Llama-3-8B Q4_K_M il ffn": dict(fast_nibble_gemm_stored=112,
-                                     fast_byte_gemm_derived=33),
-}
+    return launch_table(cfg, weights, kv_bits)
 
 
 def want_launches(table, rows, step):
     """The exact launches of one forward over `rows` tokens (a decode step
-    when `step`), all kernels, from a LAUNCH_TABLES entry."""
+    when `step`), all kernels, from a cell_table."""
     from ggml_hexagon_tpu_torch import kernels
 
     unit = "step" if step else ("bucket8" if rows <= 8 else "chunk")
@@ -683,25 +559,38 @@ def want_launches(table, rows, step):
     return c
 
 
+def want_branches(table, rows, step, n=1):
+    """BRANCH_LAUNCHES of n forwards over `rows` tokens, from a
+    cell_table."""
+    from ggml_hexagon_tpu_torch import kernels
+
+    unit = "step" if step else ("bucket8" if rows <= 8 else "chunk")
+    c = dict.fromkeys(kernels.BRANCH_LAUNCHES, 0)
+    c.update({k: v * n for k, v in table["branch"][unit].items()})
+    return c
+
+
 def serve(dev, cfg, weights, name):
     """The main path: greedy requests through Engine, each prefill chunk
-    and decode step held to its exact launch counts (the LAUNCH_TABLES
-    entry of configuration `name`, and its GEMM_TABLES entry for K6's GEMM);
-    returns the launch counts of the whole run (K6's GEMM under its
-    GEMM_LAUNCHES keys), zeroed just before it, after checking that every
-    kernel of the tables ran."""
-    table = LAUNCH_TABLES[name]
+    and decode step held to its exact launch counts (the configuration's
+    cell_table: the units' LAUNCHES, the chunk's K6 GEMM launches and the
+    units' gelu/relu and D = 256 branch launches); returns the launch
+    counts of the whole run (K6's GEMM under its GEMM_LAUNCHES keys, the
+    branches under BRANCH_LAUNCHES keys), zeroed just before it, after
+    checking that every kernel of the table ran."""
+    table = cell_table(cfg, weights)
     from ggml_hexagon_tpu_torch import kernels
     from ggml_hexagon_tpu_torch.runtime.engine import PREFILL_BUCKETS, Engine
 
     rng = np.random.default_rng(0)
-    gemm_table = GEMM_TABLES.get(name, {})
+    gemm_table = table["gemm"]
     kernels.reset_launches()
     for kv, n_prompt, n_gen in REQUESTS:
         eng = Engine(cfg, weights, max_seq=1024, kv_dtype=kv, device=dev)
         prompt = rng.integers(0, cfg.n_vocab, n_prompt)
         before = dict(kernels.LAUNCHES)
         gemm_before = dict(kernels.GEMM_LAUNCHES)
+        branch_before = dict(kernels.BRANCH_LAUNCHES)
         sync(dev)
         t0 = time.perf_counter()
         logits = eng.prefill(prompt[None])
@@ -719,8 +608,13 @@ def serve(dev, cfg, weights, name):
             want_gemm.update(gemm_table)
         if gemm != want_gemm:
             raise AssertionError(f"prefill K6 GEMM launches {gemm} != {want_gemm}")
+        branch = {k: v - branch_before[k]
+                  for k, v in kernels.BRANCH_LAUNCHES.items()}
+        if branch != want_branches(table, bucket, step=False):
+            raise AssertionError(f"prefill branch launches {branch}")
         toks = [int(np.argmax(logits[0]))]
         mid = dict(kernels.LAUNCHES)
+        branch_mid = dict(kernels.BRANCH_LAUNCHES)
         sync(dev)
         t0 = time.perf_counter()
         for _ in range(n_gen - 1):
@@ -738,6 +632,10 @@ def serve(dev, cfg, weights, name):
                     want_launches(table, 1, step=True).items()}
         if dec != want_dec:
             raise AssertionError(f"decode launches {dec} != {want_dec}")
+        branch = {k: v - branch_mid[k]
+                  for k, v in kernels.BRANCH_LAUNCHES.items()}
+        if branch != want_branches(table, 1, step=True, n=steps):
+            raise AssertionError(f"decode branch launches {branch}")
         per = {k: v // steps for k, v in dec.items() if v}
         SUMMARY.setdefault(name, {})[f"{kv} p{n_prompt}"] = (
             f"TTFT {ttft * 1e3:.1f} ms, {steps / dt:.2f} tok/s")
@@ -747,9 +645,11 @@ def serve(dev, cfg, weights, name):
             f"{ {k: v for k, v in pre.items() if v} }, launches per decode "
             f"step {per}, tokens {toks[:8]}...")
         del eng
-    counts = {**kernels.LAUNCHES, **kernels.GEMM_LAUNCHES}
-    missing = [k for unit in (*table.values(), gemm_table) for k in unit
-               if counts[k] == 0]
+    counts = {**kernels.LAUNCHES, **kernels.GEMM_LAUNCHES,
+              **kernels.BRANCH_LAUNCHES}
+    missing = [k for unit in (table["step"], table["bucket8"], table["chunk"],
+                              gemm_table, *table["branch"].values())
+               for k in unit if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     return counts
@@ -836,7 +736,7 @@ def profile_path(dev, cfg, weights, table, name, kvs=("bf16", "q8_0")):
     """Where the time goes: host time vs device kernel time of a 512-token
     prefill and of decode steps at pos ~512 (torch.profiler, CUPTI), and
     the decode steps' K6/K8 kernels held to one launch a call (table: the
-    configuration's LAUNCH_TABLES entry), for each KV type of kvs; both
+    configuration's cell_table), for each KV type of kvs; both
     into SUMMARY[name]."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1168,10 +1068,21 @@ def log_bucket8_cell(name):
     BUCKET8_CELL[:] = [0, 0.0, 0.0, 0.0]
 
 
+def act_mode(mode):
+    """(act, with a residual) of a row's act mode: "act" silu with the
+    residual (the llama down), "act_gelu" gelu without it (Gemma-2's),
+    "act_gelu_res", "act_relu"; (None, ...) for the other modes."""
+    if not mode.startswith("act"):
+        return None, mode == "res"
+    parts = mode.split("_")
+    return (parts[1] if len(parts) > 1 else "silu"), (
+        mode == "act" or parts[-1] == "res")
+
+
 def k6_row(dev, gen, cfg, rep, name, qt, mode, B, count, bucket=0):
     """One K6 call on interleaved planes of any family (byte, nibble or
     coded), with or without a group bias (mode: plain, pre_il, normed, res,
-    act with a residual): kernel vs plain version on the group sums the
+    or an act mode, act_mode's): kernel vs plain version on the group sums the
     entry would hand it, kernel / plain / yardstick times and the bound;
     added to rep (when given) count times, at B = 512 (K6's GEMM on the
     512-token chunk) to its family's GEMM report count times, and at B = 8
@@ -1180,20 +1091,22 @@ def k6_row(dev, gen, cfg, rep, name, qt, mode, B, count, bucket=0):
 
     K = qt.k
     kw = {}
-    x = torch.randn(B, 2 * K if mode == "act" else K, generator=gen,
+    act, with_res = act_mode(mode)
+    x = torch.randn(B, 2 * K if act else K, generator=gen,
                     device=dev).to(torch.bfloat16)
     if mode == "normed":
         kw = dict(wn=torch.rand(K, device=dev, generator=gen) + 0.5,
                   eps=cfg.rms_eps)
-    elif mode in ("res", "act"):
+    elif with_res:
         kw = dict(res=torch.randn(B, qt.n, generator=gen, device=dev))
-    if mode == "act":
-        kw["act"] = "silu"
+    if act:
+        kw["act"] = act
     elif mode == "pre_il":
         kw = dict(pre_il=True)
     _, nkj = PF._pick_blocks(PF._padded_rows(B), K, PF._is_packed(qt.cfg),
                              qt.cfg.gs)
-    kw["xg"] = PF.group_sums(qt, x, mode, kw.get("wn"), nkj)
+    kw["xg"] = PF.group_sums(qt, x, "act" if act else mode, kw.get("wn"), nkj,
+                             act=act or "silu")
     kern, plain = PF._k6(qt, False), PF._k6(qt, True)
     got = kern(x, qt, **kw)
     err, e2 = held(f"K6 {mode} {name} B={B}", got, plain(x, qt, **kw))
@@ -1320,21 +1233,21 @@ def dual_row(dev, gen, cfg, rep, qa, qb, B, count):
 
 
 def k1_row(dev, gen, cfg, rep, name, qt, mode, B, count):
-    """One K1 call on t-planes (mode raw, normed, res, or act with a
-    residual): kernel vs plain version, kernel / plain / yardstick times and
-    the bound; added to rep (when given) count times."""
+    """One K1 call on t-planes (mode raw, normed, res, or an act mode,
+    act_mode's): kernel vs plain version, kernel / plain / yardstick times
+    and the bound; added to rep (when given) count times."""
     from ggml_hexagon_tpu_torch.ops import qmm_qp8 as P
 
-    x = torch.randn(B, 2 * qt.k if mode == "act" else qt.k, generator=gen,
-                    device=dev)
+    act, with_res = act_mode(mode)
+    x = torch.randn(B, 2 * qt.k if act else qt.k, generator=gen, device=dev)
     kw = {}
     if mode == "normed":
         kw = dict(wn=torch.rand(qt.k, device=dev, generator=gen) + 0.5,
                   eps=cfg.rms_eps)
-    elif mode in ("res", "act"):
+    elif with_res:
         kw = dict(res=torch.randn(B, qt.n, generator=gen, device=dev))
-    if mode == "act":
-        kw["act"] = "silu"
+    if act:
+        kw["act"] = act
     got = P.qp8_gemv(x, qt, **kw)
     err, e2 = held(f"K1 {mode} {name} B={B}", got, P.qp8_gemv_plain(x, qt, **kw))
     ms = time_ms(lambda: P.qp8_gemv(x, qt, **kw))
@@ -1712,27 +1625,58 @@ def check_kernels_nibble(dev, weights, cfg):
     return [KP, KR, I4, I6]
 
 
-def k9_row(dev, gen, cfg, rep, name, lw, dn, B, count):
-    """One K9 call on a layer's planes in the megakernel layout (dn: the
-    layer's own down planes, or another type's drawn at the same shape):
-    kernel vs plain version on the same inputs, kernel and plain times and
-    the bound; with `rep`, the three K6 launches of the split path on the
-    same planes un-permuted (wo residual mode, gate_up normed, down act),
-    timed in the same way, and count times into rep."""
-    from ggml_hexagon_tpu_torch import kernels
-    from ggml_hexagon_tpu_torch.ops import ffn_fused as PFF
+def k9_inputs(dev, gen, cfg, lw, dn, B):
+    """(attn, h, the kernel's arguments but the act) of a K9 call at B rows
+    on a layer's planes in the megakernel layout."""
     from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
 
-    d, wo, gu, wn = cfg.n_embd, lw["wo"], lw["w_gateup_il"], lw["ffn_norm_il"]
-    G, gs, n_ff = wo.fs.shape[1], wo.cfg.gs, dn.k
+    wo = lw["wo"]
+    G, gs, d = wo.fs.shape[1], wo.cfg.gs, cfg.n_embd
     attn = torch.randn(B, d, generator=gen, device=dev).to(torch.bfloat16).float()
     h = torch.randn(B, d, generator=gen, device=dev).to(torch.bfloat16).float()
     x_a = PF._interleave_x(attn, G, gs).to(torch.bfloat16).contiguous()
     xg_a = PF._sums_natural(attn, G).contiguous()
     h_il = PF._interleave_x(h, G, gs).contiguous()
-    args = (x_a, xg_a, h_il, wn, wo, gu, dn, cfg.rms_eps)
+    return attn, h, (x_a, xg_a, h_il, lw["ffn_norm_il"], wo, lw["w_gateup_il"],
+                     dn, cfg.rms_eps)
+
+
+def drive_branches(what, calls, want):
+    """Kernel branches that no served configuration launches, driven alone
+    (the conformance phase's way): the counters zeroed, each call once,
+    then BRANCH_LAUNCHES read and held to `want` ({key: launches})."""
+    from ggml_hexagon_tpu_torch import kernels
+
+    kernels.reset_launches()
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in kernels.BRANCH_LAUNCHES.items() if v}
+    if got != want:
+        raise AssertionError(f"{what}: branch launches {got} != {want}")
+    log(f"{what}: driven alone with the counters zeroed: {got}")
+    return got
+
+
+def k9_row(dev, gen, cfg, rep, name, lw, dn, B, count, act="silu"):
+    """One K9 call on a layer's planes in the megakernel layout (dn: the
+    layer's own down planes, or another type's drawn at the same shape),
+    phase B's act `act`: kernel vs plain version on the same inputs,
+    kernel and plain times and the bound; with `rep`, count times into rep,
+    and for silu the three K6 launches of the split path on the same
+    planes un-permuted (wo residual mode, gate_up normed, down act), timed
+    in the same way."""
+    from ggml_hexagon_tpu_torch import kernels
+    from ggml_hexagon_tpu_torch.ops import ffn_fused as PFF
+    from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
+
+    d, wo, gu, wn = cfg.n_embd, lw["wo"], lw["w_gateup_il"], lw["ffn_norm_il"]
+    n_ff = dn.k
+    attn, h, args = k9_inputs(dev, gen, cfg, lw, dn, B)
+    x_a, xg_a, h_il = args[:3]
+    args = args + (act,)
     got = kernels.ffn_fused(*args)
-    err, e2 = held(f"K9 {name} B={B}", got, PFF.ffn_fused_plain(*args))
+    err, e2 = held(f"K9 {act} {name} B={B}", got, PFF.ffn_fused_plain(*args))
     ms = time_ms(lambda: kernels.ffn_fused(*args))
     pms = time_plain_ms(lambda: PFF.ffn_fused_plain(*args))
     planes = plane_bytes(wo) + plane_bytes(gu) + plane_bytes(dn)
@@ -1740,12 +1684,14 @@ def k9_row(dev, gen, cfg, rep, name, lw, dn, B, count):
     ops = (2 * B * (d * d + 2 * n_ff * d + n_ff * d) + bias_ops(wo, B)
            + bias_ops(gu, B) + bias_ops(dn, B))
     bms, by = bound_ms(byts, ops, BF16_OPS)
-    line = (f"  K9 {name:9s} down {dn.cfg.qtype.name} {PF._family(dn.cfg)} "
+    line = (f"  K9 {act} {name:9s} down {dn.cfg.qtype.name} {PF._family(dn.cfg)} "
             f"B={B} max|d|={err:.3e} nmse={e2:.2e} kernel={ms:.4f}ms "
             f"plain={pms:.3f}ms bound={bms:.4f}ms ({by}) {bms / ms:.0%} of "
             f"bound; planes {planes / 1e6:.2f} MB")
-    if rep is None:
+    if rep is None or act != "silu":
         log(line)
+        if rep is not None:
+            rep.add(count, err, ms, pms, byts, ops, BF16_OPS)
         return
     # the split path: the same rows of the same planes, un-permuted
     inv = torch.argsort(PF.interleave_perm(d, 32))
@@ -1817,7 +1763,30 @@ def check_kernels_ffn(dev, weights, cfg):
         for B in (1, 3):
             k9_row(dev, gen, cfg, None, qtype.name.lower(), lw4, dn, B, 0)
         del dn
-    return [KN, KB]
+    # phase B's gelu and relu instances: no configuration runs K9 with
+    # them (Gemma-2's post-norms and G = 3584 / 32 = 112 keep it off K9,
+    # in both packages), so they are driven alone at the 8B widths
+    from ggml_hexagon_tpu_torch import kernels
+
+    KG = KernelReport("ffn_fused_gelu", "cuda", SRC_FFN, K9_FFN,
+                      "its drive at the 8B il widths (B=1): a Q4_K and a "
+                      "Q6_K down, gelu")
+    KR = KernelReport("ffn_fused_relu", "cuda", SRC_FFN, K9_FFN,
+                      "its drive at the 8B il widths (B=1): a Q4_K down, relu")
+    cases = (("gelu", "down_q4k", lw4, KG), ("gelu", "down_q6k", lw6, KG),
+             ("relu", "down_q4k", lw4, KR))
+    got = drive_branches(
+        "K9 gelu and relu", [partial(kernels.ffn_fused, *k9_inputs(
+            dev, gen, cfg, lw, lw["ffn_down"], 1)[2], act)
+            for act, _, lw, _ in cases],
+        {"ffn_fused_gelu": 2, "ffn_fused_relu": 1})
+    KG.launches, KR.launches = got["ffn_fused_gelu"], got["ffn_fused_relu"]
+    log(f"K9 gelu and relu (kernel vs plain, NMSE <= {NMSE_KERNEL})")
+    for act, name, lw, rep in cases:
+        for B in (1, 8):
+            k9_row(dev, gen, cfg, rep if B == 1 else None, name, lw,
+                   lw["ffn_down"], B, 1, act=act)
+    return [KN, KB, KG, KR]
 
 
 def wire_bytes(qt):
@@ -2212,6 +2181,197 @@ def k4_q4_rows(dev, cfg, rep):
             rep.add(cfg.n_layer, err, ms, pms, byts, ops, BF16_OPS, lib)
 
 
+def k4_d256_rows(dev, cfg, rep):
+    """K4 at Gemma-2's head width (D = 256, 16 query and 8 KV heads) with
+    its logit cap 50 and the even layers' window 4096, against its plain
+    twin: bf16, q8_0 and q4_0 caches at pos 700 of 1024 (B = 1 and 4),
+    timed beside SDPA at hd 256 (no cap: SDPA has none) on the live cache,
+    dequantized to bf16 beforehand where quantized; then the window
+    masking, at pos 4700 of an 8192-slot bf16 cache: 4095 live slots (the
+    bytes counted), and the slots below them overwritten without a bit
+    moving.  B = 1 at pos 700, bf16, goes into `rep` (a launch a layer a
+    step)."""
+    from ggml_hexagon_tpu_torch.ops import decode_attn as PD
+    from ggml_hexagon_tpu_torch.ops.basic import rope_freqs
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2560)
+    Hq, Hkv, D = cfg.n_head, cfg.n_head_kv, cfg.hd
+    swa, cap = cfg.swa_window, cfg.attn_logit_softcap
+    cases = [(kv, B, 1024, 700) for kv in ("bf16", "q8_0", "q4_0")
+             for B in (1, 4)] + [("bf16", 1, 8192, 4700)]
+    for kv, B, S, pos in cases:
+        qkv = torch.randn(B, (Hq + 2 * Hkv) * D, generator=gen, device=dev)
+        kw = dict(Hq=Hq, Hkv=Hkv, D=D, scale=cfg.attn_scale or D ** -0.5,
+                  swa=swa, logit_cap=cap)
+        if kv == "bf16":
+            kc, vc = (torch.randn(B, S, Hkv * D, generator=gen, device=dev)
+                      .to(torch.bfloat16) for _ in range(2))
+            kd = vd = None
+        else:
+            qmax = 127 if kv == "q8_0" else 7
+            kq, vq = (torch.randint(-qmax, qmax + 1, (B, S, Hkv * D),
+                                    device=dev, dtype=torch.int8,
+                                    generator=gen) for _ in range(2))
+            kd, vd = (torch.rand(B, S, device=dev, generator=gen) * 2.0 / qmax
+                      for _ in range(2))
+            kc, vc = ((PD.pack_int4(kq), PD.pack_int4(vq)) if kv == "q4_0"
+                      else (kq, vq))
+            kw.update(k_scale=kd, v_scale=vd,
+                      kv_bits=4 if kv == "q4_0" else 0)
+        posb = torch.full((B,), pos, dtype=torch.int32, device=dev)
+        inv, ms_ = rope_freqs(cfg.rope_params, dev)
+        ang = posb[:, None].float() * inv[None]
+        cs = (torch.cat([torch.cos(ang), torch.sin(ang)], 1) * ms_).contiguous()
+        got = PD.decode_attn(qkv, kc, vc, posb, cs, **kw)
+        want = PD.decode_attn_plain(qkv, kc, vc, posb, cs, **kw)
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        e2 = nmse(torch.cat(got, 1), torch.cat(want, 1))
+        if not (err <= ATTN_MAX_ABS and all(torch.isfinite(g).all() for g in got)):
+            raise AssertionError(f"K4 D=256 {kv} B={B} pos={pos}: {err}")
+        lo = max(0, pos - swa + 1)
+        if lo:  # the window masks: what lies below it moves no bit
+            kc2, vc2 = kc.clone(), vc.clone()
+            kc2[:, :lo] = kc[:, lo:2 * lo].flip(1)
+            vc2[:, :lo] = vc[:, lo:2 * lo].flip(1)
+            again = PD.decode_attn(qkv, kc2, vc2, posb, cs, **kw)
+            if not torch.equal(again[0], got[0]):
+                raise AssertionError(f"K4 D=256 pos={pos}: slots below the "
+                                     "window moved the output")
+            del kc2, vc2
+        ms = time_ms(lambda: PD.decode_attn(qkv, kc, vc, posb, cs, **kw))
+        pms = time_plain_ms(
+            lambda: PD.decode_attn_plain(qkv, kc, vc, posb, cs, **kw))
+        live = pos - lo
+        q4 = qkv[:, :Hq * D].reshape(B, Hq, 1, D).to(torch.bfloat16)
+        if kv == "bf16":
+            k4, v4 = kc[:, lo:pos + 1], vc[:, lo:pos + 1]
+        else:
+            k4 = (kq[:, lo:pos + 1].float() * kd[:, lo:pos + 1, None]).to(
+                torch.bfloat16)
+            v4 = (vq[:, lo:pos + 1].float() * vd[:, lo:pos + 1, None]).to(
+                torch.bfloat16)
+        k4 = k4.reshape(B, live + 1, Hkv, D).transpose(1, 2)
+        v4 = v4.reshape(B, live + 1, Hkv, D).transpose(1, 2)
+        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, enable_gqa=True))
+        elt = {"bf16": 2.0, "q8_0": 1.0, "q4_0": 0.5}[kv]
+        byts = (nbytes(qkv, cs, *got) + int(2 * B * live * Hkv * D * elt)
+                + (2 * B * live * 4 if kv != "bf16" else 0))
+        ops = 4 * B * (live + 1) * Hq * D
+        bms, by = bound_ms(byts, ops, BF16_OPS)
+        log(f"  D=256 {kv} B={B} pos={pos} of {S} (live {live}, window "
+            f"{swa}, cap {cap}): max|d|={err:.3e} nmse={e2:.2e} "
+            f"kernel={ms:.4f}ms plain={pms:.3f}ms sdpa={lib:.4f}ms "
+            f"bound={bms:.5f}ms ({by})")
+        if kv == "bf16" and B == 1 and pos == 700:
+            rep.add(cfg.n_layer, err, ms, pms, byts, ops, BF16_OPS, lib)
+        del kc, vc, got, want
+
+
+def check_kernels_gemma2(dev, weights, cfg):
+    """The Gemma-2-9B Q4_K_M main path's kernels against their plain
+    versions at its shapes: K1 (wqkv and gate_up normed, wo raw, the
+    post-norms keeping the residual out; the downs in the gelu act mode
+    without a residual; the tied Q6_K head, 256000 x 3584), K2 (Q4_K wqk +
+    Q6_K wv at hd 256), K3 at M = 512, K4 at D = 256 (k4_d256_rows); then
+    the branches its t-planes do not take, driven alone: K6's gelu act mode
+    at its down shape on interleaved planes (a Q4_K nibble and a Q6_K byte
+    down, drawn on the card), and relu on K1 and K6."""
+    from ggml_hexagon_tpu_torch.models.synth import random_qtensor
+    from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
+    from ggml_hexagon_tpu_torch.ops import qmm_qp8 as P
+    from ggml_hexagon_tpu_torch.quant.formats import GGMLType
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1919)
+    layers = weights["layers"]
+    L = len(layers)
+    full = next(lw for lw in layers if "wqkv" in lw)
+    mixed = next(lw for lw in layers if "wqk" in lw)
+    n_full = sum("wqkv" in lw for lw in layers)
+    n_mixed = L - n_full
+
+    def down(t):
+        return next(lw["ffn_down"] for lw in layers
+                    if lw["ffn_down"].cfg.qtype.name == t)
+
+    dn_q4, dn_q6 = down("Q4_K"), down("Q6_K")
+    n6 = sum(lw["ffn_down"].cfg.qtype.name == "Q6_K" for lw in layers)
+    head = weights["output"]
+    t = cell_table(cfg, weights)
+    unit = "one Gemma-2-9B decode step (B=1)"
+    KG = KernelReport("qp8_gemv_gelu", "cuda", SRC_GEMV,
+                      "ggml_hexagon_tpu/ops/qmm_qp8.py:426",
+                      f"{unit}: {t['branch']['step']['qp8_gemv_gelu']} "
+                      "launches (the downs, act gelu, no residual)")
+    K4 = KernelReport("decode_attn_d256", "cuda", SRC_K4,
+                      "ggml_hexagon_tpu/ops/decode_attn.py:177",
+                      f"{unit} at pos 700 of 1024: {L} launches (D = 256, "
+                      f"window {cfg.swa_window} on the even layers, cap "
+                      f"{cfg.attn_logit_softcap})")
+    log(f"K1 qp8_gemv on the Gemma-2-9B shapes (kernel vs plain, NMSE <= "
+        f"{NMSE_KERNEL}; times are medians, L2 flushed)")
+    for name, qt, mode, per_step, rep in (
+            ("wqkv", full["wqkv"], "normed", n_full, None),
+            ("wo", full["wo"], "raw", L, None),
+            ("gate_up", full["w_gateup_il"], "normed", L, None),
+            ("down_q4k", dn_q4, "act_gelu", L - n6, KG),
+            ("down_q6k", dn_q6, "act_gelu", n6, KG),
+            ("head_q6k", head, "raw", 1, None)):
+        for B in (1, 8):
+            k1_row(dev, gen, cfg, rep if B == 1 else None, name, qt, mode, B,
+                   per_step)
+    log(f"K2 qp8_dual at hd 256 (NMSE <= {NMSE_KERNEL})")
+    for B in (1, 4):
+        dual_row(dev, gen, cfg, None, mixed["wqk"], mixed["wv"], B, n_mixed)
+    log(f"K3 qp8_gemm (M=512, NMSE <= {NMSE_KERNEL})")
+    for name, qt in (("wqkv", full["wqkv"]), ("wqk", mixed["wqk"]),
+                     ("wv", mixed["wv"]), ("wo", full["wo"]),
+                     ("gate_up", full["w_gateup_il"]), ("down_q4k", dn_q4),
+                     ("down_q6k", dn_q6), ("head_q6k", head)):
+        k3_row(dev, gen, None, name, qt, 0)
+    log(f"K4 decode_attn at D = 256 (max|d| <= {ATTN_MAX_ABS})")
+    k4_d256_rows(dev, cfg, K4)
+    # the branches the t-planes do not take
+    il = {name: random_qtensor(gen, cfg.n_embd, cfg.n_ff, qtype, dev)
+          .with_fast_planes("il").without_wire()
+          for name, qtype in (("down_q4k", GGMLType.Q4_K),
+                              ("down_q6k", GGMLType.Q6_K))}
+    KF = KernelReport("fast_gelu", "cuda", SRC_IL, K6_NIBBLE,
+                      "its drive at Gemma-2-9B's down shape on interleaved "
+                      "planes (B=1): a Q4_K nibble and a Q6_K byte down, "
+                      "gelu, no residual")
+    K1R = KernelReport("qp8_gemv_relu", "cuda", SRC_GEMV,
+                       "ggml_hexagon_tpu/ops/qmm_qp8.py:426",
+                       "its drive at Gemma-2-9B's Q4_K down shape (B=1): relu")
+    K6R = KernelReport("fast_relu", "cuda", SRC_IL, K6_NIBBLE,
+                       "its drive at Gemma-2-9B's Q4_K down shape on "
+                       "interleaved planes (B=1): relu")
+    x2 = torch.randn(1, 2 * cfg.n_ff, generator=gen, device=dev)
+    got = drive_branches(
+        "K1 relu, K6 gelu and relu",
+        [partial(PF.qmatmul_fast_act, x2, il["down_q4k"], "gelu"),
+         partial(PF.qmatmul_fast_act, x2, il["down_q6k"], "gelu"),
+         partial(P.qp8_matmul_act, x2, dn_q4, "relu"),
+         partial(PF.qmatmul_fast_act, x2, il["down_q4k"], "relu")],
+        {"fast_gelu": 2, "qp8_gemv_relu": 1, "fast_relu": 1})
+    KF.launches, K1R.launches = got["fast_gelu"], got["qp8_gemv_relu"]
+    K6R.launches = got["fast_relu"]
+    log(f"K6 gelu and relu at the down shape, interleaved planes (NMSE <= "
+        f"{NMSE_KERNEL})")
+    for name, qt in il.items():
+        for B in (1, 8):
+            k6_row(dev, gen, cfg, KF if B == 1 else None, name, qt,
+                   "act_gelu", B, 1)
+    k6_row(dev, gen, cfg, K6R, "down_q4k", il["down_q4k"], "act_relu", 1, 1)
+    log(f"K1 relu (NMSE <= {NMSE_KERNEL})")
+    k1_row(dev, gen, cfg, K1R, "down_q4k", dn_q4, "act_relu", 1, 1)
+    del il
+    return [KG, K4, KF, K1R, K6R]
+
+
 def write_8b_gguf(dev):
     """The full-size Llama-3-8B Q4_K_M file that the load and serving phases
     read (random centred blocks of the Q4_K_M mixture, the 8B's llama.*
@@ -2299,7 +2459,7 @@ def run_load(dev, src, words):
     prompts = load_prompts(tok, words)
     log(f"prompts of {sorted(prompts)} tokens round-trip through the "
         "tokenizer")
-    table = LAUNCH_TABLES["Llama-3-8B Q4_K_M"]
+    table = cell_table(eng.cfg, eng.weights)
     engines = {kv: Engine(eng.cfg, eng.weights, eng.vocab, max_seq=1024,
                           kv_dtype=kv, device=dev)
                for kv in ("bf16", "q8_0", "q4_0")}
@@ -2525,14 +2685,13 @@ def forced_held(what, cfg, weights, dev, prompt, got):
     return len(toks), worst, ties
 
 
-def serve_want(kv, step, n_fwd=1):
-    """Exact launches of n_fwd server forwards of the 8B Q4_K_M: a decode
-    tick is the table's step at B = n_slots rows; a prompt tick its chunk
-    at SERVE_SLOTS x 128 = 512 rows, except the head, which logits_idx
-    runs on the slots' picked rows only (K1 at 4 rows where the Engine's
-    chunk runs K3 on every row)."""
-    c = want_launches(LAUNCH_TABLES["Llama-3-8B Q4_K_M"],
-                      1 if step else SERVE_SLOTS * 128, step)
+def serve_want(table, kv, step, n_fwd=1):
+    """Exact launches of n_fwd server forwards of the 8B Q4_K_M (table: its
+    cell_table): a decode tick is the table's step at B = n_slots rows; a
+    prompt tick its chunk at SERVE_SLOTS x 128 = 512 rows, except the
+    head, which logits_idx runs on the slots' picked rows only (K1 at 4
+    rows where the Engine's chunk runs K3 on every row)."""
+    c = want_launches(table, 1 if step else SERVE_SLOTS * 128, step)
     if not step:
         c["qp8_gemm"] -= 1
         c["qp8_gemv"] += 1
@@ -2549,6 +2708,7 @@ def held_ticks(be, kv, log_ticks):
 
     fwd = be._fwd
     n = [0]
+    table = cell_table(be.cfg, be.weights)
 
     def counting(*a, **k):
         n[0] += 1
@@ -2564,7 +2724,7 @@ def held_ticks(be, kv, log_ticks):
             tick(slots)
             dt = time.perf_counter() - t0
             got = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-            want = serve_want(kv, step, n[0])
+            want = serve_want(table, kv, step, n[0])
             if got != want:
                 raise AssertionError(
                     f"{'decode' if step else 'prompt'} tick launches "
@@ -3424,6 +3584,9 @@ def run_phase(name, builder, check, dev):
     after.  Returns (kernel reports, the main path's launch counts)."""
     t_ph = phase(name, dev)
     cfg, weights = build_phase(name, builder, dev)
+    table = cell_table(cfg, weights)
+    log(f"launch table ({cfg.n_layer} layers, derived from the built "
+        f"layers): {table}")
     reports = check(dev, weights, cfg)
     log_gemm_cell(name)
     log_bucket8_cell(name)
@@ -3431,7 +3594,7 @@ def run_phase(name, builder, check, dev):
     counts = serve(dev, cfg, weights, name)
     log(f"main-path launches ({name}): {counts}")
     log("where the time goes (profiler; after the counts were read)")
-    profile_path(dev, cfg, weights, LAUNCH_TABLES[name], name)
+    profile_path(dev, cfg, weights, table, name)
     log(f"kernel vs plain versions, end to end (logits NMSE <= {NMSE_LOGITS}"
         + (f"; routing flips must have margin < {FLIP_MARGIN})" if cfg.n_expert
            else ")"))
@@ -3461,7 +3624,18 @@ def plane_gb(weights):
     return sum(plane_bytes(v) for v in qts + [weights["output"]]) / 1e9
 
 
+#: the depth of the synthetic configurations' phases (phases 2-12): their
+#: first layers, the types those layers have in the full-depth file; their
+#: launch tables are derived from the built layers (cell_table).  The
+#: loading, serving and CLI phases and Gemma-2-9B run at full depth.
+PHASE_DEPTH = 8
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--depth", type=int, default=PHASE_DEPTH,
+                        help="layers of phases 2-12 (0: every layer)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
@@ -3470,6 +3644,7 @@ def main():
     from ggml_hexagon_tpu_torch.models.synth import (build_8b, build_8b_il,
                                                      build_8b_iq3xxs,
                                                      build_8b_iq4xs,
+                                                     build_gemma2_9b,
                                                      build_mixtral,
                                                      build_mixtral_iq3xxs,
                                                      build_mixtral_iq4xs,
@@ -3505,7 +3680,14 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
         log(f"removed {tmp}")
     del src
-    for name, builder, check in (
+    # Gemma-2-9B at full width and depth (42 layers)
+    reps, counts = run_phase("Gemma-2-9B Q4_K_M", build_gemma2_9b,
+                             check_kernels_gemma2, dev)
+    reports += reps
+    runs.append(counts)
+    depth = args.depth or None
+    log(f"phases 2-12 at depth {depth or 'full'}")
+    for name, build, check in (
             ("Llama-3-8B Q4_K_M", build_8b, check_kernels),
             ("Mixtral-8x7B Q5_K_M", build_mixtral, check_kernels_moe),
             ("Llama-3-8B IQ4_XS", build_8b_iq4xs, check_kernels_il),
@@ -3523,7 +3705,8 @@ def main():
              check_kernels_coded),
             ("Llama-3-8B Q4_K_M il ffn", partial(build_8b_il, ffn_fused=True),
              check_kernels_ffn)):
-        reps, counts = run_phase(name, builder, check, dev)
+        reps, counts = run_phase(name, partial(build, depth=depth), check,
+                                 dev)
         reports += reps
         runs.append(counts)
 

@@ -5,6 +5,8 @@ mirroring the JAX weights tree, given as numpy.  Each QTensor leaf is a
 dict {"qtype", "n", "k", "fl", "q", "d", "qh", "sc", "dmin", "m", "fq",
 "fs", "fb"} (planes may be None); bf16 planes (fs, fb) cross as np.uint16
 bit patterns.  Every other array leaf becomes a tensor of its own dtype.
+A leaf that the tree holds under two keys (a head tied to the token
+embedding) is carried across once, and the two keys share it.
 """
 from __future__ import annotations
 
@@ -47,17 +49,20 @@ def qtensor_from_numpy(leaf: dict, device="cuda") -> QTensor:
                    fl=leaf.get("fl", "t"), **planes)
 
 
-def convert_weights(tree, device="cuda"):
+def convert_weights(tree, device="cuda", _seen=None):
     """Nested dict / list of numpy leaves -> the port's weights tree."""
+    seen = {} if _seen is None else _seen
     if tree is None:
         return None
-    if isinstance(tree, dict):
-        if "qtype" in tree:
-            return qtensor_from_numpy(tree, device)
-        return {k: convert_weights(v, device) for k, v in tree.items()}
+    if isinstance(tree, dict) and "qtype" not in tree:
+        return {k: convert_weights(v, device, seen) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [convert_weights(v, device) for v in tree]
-    return _tensor(np.asarray(tree), device)
+        return [convert_weights(v, device, seen) for v in tree]
+    if id(tree) not in seen:  # a leaf, once however often the tree holds it
+        seen[id(tree)] = (tree, qtensor_from_numpy(tree, device)
+                          if isinstance(tree, dict)
+                          else _tensor(np.asarray(tree), device))
+    return seen[id(tree)][1]
 
 
 def config_from_dict(d: dict) -> LlamaConfig:

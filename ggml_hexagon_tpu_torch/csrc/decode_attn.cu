@@ -5,17 +5,25 @@
 // `pallas_call` in `fused_decode_attention`.
 //
 // What bounds it: bytes.  Each (row, KV head) reads its live cache rows of
-// K and V once (2 x live x 128 x 2 bytes for a bf16 cache, half that for
+// K and V once (2 x live x D x 2 bytes for a bf16 cache, half that for
 // int8) and does ~4 flops per byte read.  At decode sizes the bytes are
 // few (a step at pos 700 reads 2.9 MB in all), so what the card can reach
 // is set by how many SMs take part and how little each waits (at the
 // first positions of a cache the fixed cost of two launches dominates).
 //
 // Design (flash-decoding: split the live slots, merge the partials):
-//  * Grid (nsplit, Hkv, B), 4 warps a block.  The host picks nsplit from
-//    the shapes alone (kernels._pick_nsplit: two blocks an SM at B=1 for
-//    the 8B's 8 KV heads); each block divides row b's live range
-//    [lo, pos[b]) on the card, so the host never reads pos.
+//  * A template instance a head width D (128, or 256 for Gemma-class
+//    models) and cache type; a block has D threads (D / 32 warps), thread
+//    d owning head dim d in the rope and in P.V.  Everything sized by the
+//    row follows D: the K-row pitch, the partials' records, the merge.  A
+//    bf16 cache at D = 256 takes 77 KB of shared memory a block (two
+//    double-buffered 32-slot tiles of 512-byte K and V rows), past the 48
+//    KB of static shared memory: that instance takes it as dynamic shared
+//    memory, two blocks an SM; the others keep static arrays.
+//  * Grid (nsplit, Hkv, B).  The host picks nsplit from the shapes alone
+//    (kernels._pick_nsplit: two blocks an SM at B=1 for the 8B's 8 KV
+//    heads); each block divides row b's live range [lo, pos[b]) (lo > 0
+//    under a sliding window) on the card, so the host never reads pos.
 //  * Every block ropes its group's fresh q heads (NEOX pairing, cos/sin
 //    computed outside, as on the TPU) into shared memory and scales them.
 //    Split 0 also ropes the fresh k row and writes k and v out (the caller
@@ -25,21 +33,22 @@
 //  * The block walks its slots in tiles of 32, double-buffered: the K and
 //    V rows of the next tile arrive by 16-byte cp.async while the current
 //    one is used (the first tile's copies go out before the rope).
-//    Scores: warp w takes query heads w and w+4, lane t slot t, a
-//    128-long dot over shared memory (K rows padded so 16-byte reads do
-//    not conflict).  One online-softmax update per tile and head (one
-//    warp max and one warp sum), then P.V with thread d owning head dim d
-//    of every head.
+//    Scores: warp w takes query heads w and w + D/32, lane t slot t, a
+//    D-long dot over shared memory (K rows pitched 16 bytes past their
+//    length, 16 or 80 mod 128, so the 16-byte reads of 8 neighbouring
+//    lanes fall in 8 distinct bank groups at every row width).  One
+//    online-softmax update per tile and head (one warp max and one warp
+//    sum), then P.V with thread d owning head dim d of every head.
 //  * int8 KV: the per-row K scale multiplies the raw score and the per-row
 //    V scale the probability (after the denominator took it), as the TPU
 //    kernel does, so no dequantized cache exists.  -1e30 stays the finite
 //    "minus infinity".
 //  * int4 KV (the q4_0 cache; the TPU kernel takes jnp.int4 caches): the
 //    same math on 4-bit values packed two a byte, dim 2i in the low nibble
-//    of byte i (models/llama.init_kv_cache): a row is 64 bytes, four
+//    of byte i (models/llama.init_kv_cache): a row is D/2 bytes, D/32
 //    16-byte cp.async chunks, and each nibble is sign-extended in
 //    registers by a shift pair.  Half the int8 cache's bytes.
-//  * Each block writes a partial (max, denominator, acc[128]) per head; a
+//  * Each block writes a partial (max, denominator, acc[D]) per head; a
 //    second small kernel in the same entry merges the nsplit + 1 partials
 //    of each (row, KV head) and divides, one block per query head.  It is
 //    launched as a programmatic dependent (PDL), so its launch overlaps
@@ -51,17 +60,33 @@
 
 namespace {
 
-constexpr int D = 128;
-constexpr int NW = 4;      // warps a block
 constexpr int TS = 32;     // cache slots a tile
 constexpr int MAXG = 8;    // query heads per KV head
-constexpr int PW = D + 2;  // partial record: max, denominator, acc[D]
-// K row pitch in shared memory: the row's bytes plus 16, so the 16-byte
-// reads of 8 neighbouring lanes (rows) fall in 8 distinct bank groups
-constexpr int KPB = 2 * D + 16;   // bf16 cache
-constexpr int KPI = D + 16;       // int8 cache
-constexpr int KP4 = D / 2 + 16;   // int4 cache (80: 0, 80, 32, 112, ... mod 128)
 constexpr float NEG_INF = -1e30f;
+
+// partial record: max, denominator, acc[D]
+__host__ __device__ constexpr int rec_width(int D) { return D + 2; }
+
+// A split block's shared memory at head width D and cache BITS: K rows
+// pitched RB + 16 bytes (RB the row's bytes), V rows RB, both double
+// buffered; the group's scaled q heads, the fresh k row, a tile's
+// probabilities and each head's rescale factor.
+template <int D, int BITS>
+struct SplitSmem {
+  static constexpr int RB = D * BITS / 8;
+  static constexpr int KP = RB + 16;
+  alignas(16) unsigned char ks[2][TS * KP];
+  alignas(16) unsigned char vs[2][TS * RB];
+  alignas(16) float qs[MAXG][D];
+  float kf[D];
+  float ps[MAXG][TS];
+  float alpha_s[MAXG];
+};
+
+template <int D, int BITS>
+__host__ __device__ constexpr bool dynamic_smem() {
+  return sizeof(SplitSmem<D, BITS>) > 48 * 1024;
+}
 
 __device__ __forceinline__ float bf2f(uint32_t v) { return __uint_as_float(v << 16); }
 
@@ -87,10 +112,10 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
-// BITS: 16 (bf16 cache), 8 (int8) or 4 (packed int4), each with its
-// row scales kd/vd when below 16
-template <int BITS>
-__global__ void __launch_bounds__(NW * 32) decode_attn_split_kernel(
+// D: the head width (128 or 256); BITS: 16 (bf16 cache), 8 (int8) or 4
+// (packed int4), each with its row scales kd/vd when below 16
+template <int D, int BITS>
+__global__ void __launch_bounds__(D) decode_attn_split_kernel(
     const float* __restrict__ qkv, const void* __restrict__ kc,
     const void* __restrict__ vc, const float* __restrict__ kd,
     const float* __restrict__ vd, const int* __restrict__ pos,
@@ -98,22 +123,33 @@ __global__ void __launch_bounds__(NW * 32) decode_attn_split_kernel(
     float scale, int swa, float logit_cap, int nsplit,
     float* __restrict__ part, float* __restrict__ k_out,
     float* __restrict__ v_out) {
+  constexpr int NW = D / 32;                  // warps a block
+  constexpr int PW = rec_width(D);
   constexpr bool QUANT = BITS < 16;
-  constexpr int RB = D * BITS / 8;            // bytes a cache row
-  constexpr int KP = BITS == 16 ? KPB : BITS == 8 ? KPI : KP4;
+  using Sm = SplitSmem<D, BITS>;
+  constexpr int RB = Sm::RB;                  // bytes a cache row
+  constexpr int KP = Sm::KP;
   constexpr int VP = RB;
   constexpr int CH = RB / 16;                 // 16-byte chunks a row
   // the merge kernel's blocks may start now; they wait for this grid
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  Sm* sm;
+  if constexpr (dynamic_smem<D, BITS>()) {
+    extern __shared__ __align__(16) unsigned char dyn_smem[];
+    sm = reinterpret_cast<Sm*>(dyn_smem);
+  } else {
+    __shared__ Sm st;
+    sm = &st;
+  }
+  auto& ks = sm->ks;
+  auto& vs = sm->vs;
+  auto& qs = sm->qs;
+  auto& kf = sm->kf;
+  auto& ps = sm->ps;
+  auto& alpha_s = sm->alpha_s;
   const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  __shared__ __align__(16) unsigned char ks[2][TS * KP];
-  __shared__ __align__(16) unsigned char vs[2][TS * VP];
-  __shared__ __align__(16) float qs[MAXG][D];
-  __shared__ float kf[D];
-  __shared__ float ps[MAXG][TS];
-  __shared__ float alpha_s[MAXG];
 
   // this split's slots [a0, a1) of the live range [lo, p)
   const int p = min(pos[b], S);
@@ -174,10 +210,11 @@ __global__ void __launch_bounds__(NW * 32) decode_attn_split_kernel(
 
   float* rec = part + ((size_t)b * Hkv + h) * (nsplit + 1) * G * PW;
   if (sp == 0) {  // the fresh row's self-term, as partial nsplit
+    constexpr int DL = D / 32;  // dims a lane
     for (int g = warp; g < G; g += NW) {
       float s = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s += qs[g][lane * 4 + e] * kf[lane * 4 + e];
+      for (int e = 0; e < DL; ++e) s += qs[g][lane * DL + e] * kf[lane * DL + e];
       s = warp_sum(s);
       if (logit_cap != 0.f) s = tanhf(s / logit_cap) * logit_cap;
       if (lane == 0) {
@@ -190,7 +227,8 @@ __global__ void __launch_bounds__(NW * 32) decode_attn_split_kernel(
           row[(size_t)(Hq + Hkv + h) * D + e % D];
   }
 
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // heads warp, warp+4
+  // warp w scores heads w and w + NW (NW >= 4, so two cover MAXG)
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   float acc[MAXG];
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) acc[g] = 0.f;
@@ -309,9 +347,11 @@ __global__ void __launch_bounds__(NW * 32) decode_attn_split_kernel(
 // then every thread sums its dim over the records.  Launched as a
 // programmatic dependent of the split kernel: its blocks start while the
 // splits run and wait here until their partials are complete and visible.
+template <int D>
 __global__ void __launch_bounds__(D) decode_attn_merge(
     const float* __restrict__ part, int G, int nrec, float* __restrict__ out) {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  constexpr int PW = rec_width(D);
   const int bh = blockIdx.x, g = blockIdx.y, d = threadIdx.x;
   const int warp = d >> 5, lane = d & 31;
   extern __shared__ float wrec[];  // [nrec] weights of the records
@@ -345,45 +385,46 @@ __global__ void __launch_bounds__(D) decode_attn_merge(
   out[((size_t)bh * G + g) * D + d] = A / fmaxf(L, 1e-30f);
 }
 
-}  // namespace
-
-extern "C" {
-
-const char* ght_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
-
-// qkv f32 [B, (Hq+2Hkv)*128]; caches [B, S, Hkv*128] bf16 (bits == 16) or
-// int8 (bits == 8) with f32 row scales kd/vd [B, S], or [B, S, Hkv*64]
-// bytes of packed int4 (bits == 4) with the same scales; pos int32 [B]; cos_sin f32
-// [B, n_dims] (cos ++ sin) or null for no rope; part f32 scratch
-// [B, Hkv, nsplit + 1, G, 130].  Outputs f32: out [B, Hq*128], k_out/v_out
-// [B, Hkv*128].
-int decode_attn_run(const float* qkv, const void* kc, const void* vc,
-                    const float* kd, const float* vd, const int* pos,
-                    const float* cos_sin, int B, int Hq, int Hkv, int S,
-                    int n_dims, float scale, int swa, float logit_cap,
-                    int bits, int nsplit, float* part, float* out,
-                    float* k_out, float* v_out, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (B < 1 || Hkv < 1 || Hq % Hkv || Hq / Hkv > MAXG || n_dims > D ||
-      n_dims % 2 || nsplit < 1 || (bits != 16 && bits != 8 && bits != 4))
-    return (int)cudaErrorInvalidValue;
-  const int G = Hq / Hkv;
-  dim3 grid(nsplit, Hkv, B);
-  if (bits == 4) {
-    decode_attn_split_kernel<4><<<grid, NW * 32, 0, s>>>(
-        qkv, kc, vc, kd, vd, pos, cos_sin, Hq, Hkv, S, n_dims, scale, swa,
-        logit_cap, nsplit, part, k_out, v_out);
-  } else if (bits == 8) {
-    decode_attn_split_kernel<8><<<grid, NW * 32, 0, s>>>(
-        qkv, kc, vc, kd, vd, pos, cos_sin, Hq, Hkv, S, n_dims, scale, swa,
-        logit_cap, nsplit, part, k_out, v_out);
-  } else {
-    decode_attn_split_kernel<16><<<grid, NW * 32, 0, s>>>(
-        qkv, kc, vc, kd, vd, pos, cos_sin, Hq, Hkv, S, n_dims, scale, swa,
-        logit_cap, nsplit, part, k_out, v_out);
+template <int D, int BITS>
+int launch_split(dim3 grid, cudaStream_t s, const float* qkv, const void* kc, const void* vc,
+                 const float* kd, const float* vd, const int* pos, const float* cos_sin, int Hq,
+                 int Hkv, int S, int n_dims, float scale, int swa, float logit_cap, int nsplit,
+                 float* part, float* k_out, float* v_out) {
+  auto kern = decode_attn_split_kernel<D, BITS>;
+  size_t smem = 0;
+  if constexpr (dynamic_smem<D, BITS>()) {
+    static bool attr_set = false;
+    smem = sizeof(SplitSmem<D, BITS>);
+    if (!attr_set) {
+      const cudaError_t e =
+          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+      attr_set = true;
+    }
   }
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  kern<<<grid, D, smem, s>>>(qkv, kc, vc, kd, vd, pos, cos_sin, Hq, Hkv, S, n_dims, scale, swa,
+                             logit_cap, nsplit, part, k_out, v_out);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int run(int B, int Hq, int Hkv, int bits, int nsplit, cudaStream_t s, const float* qkv,
+        const void* kc, const void* vc, const float* kd, const float* vd, const int* pos,
+        const float* cos_sin, int S, int n_dims, float scale, int swa, float logit_cap,
+        float* part, float* out, float* k_out, float* v_out) {
+  const int G = Hq / Hkv;
+  const dim3 grid(nsplit, Hkv, B);
+  int e;
+  if (bits == 4)
+    e = launch_split<D, 4>(grid, s, qkv, kc, vc, kd, vd, pos, cos_sin, Hq, Hkv, S, n_dims, scale,
+                           swa, logit_cap, nsplit, part, k_out, v_out);
+  else if (bits == 8)
+    e = launch_split<D, 8>(grid, s, qkv, kc, vc, kd, vd, pos, cos_sin, Hq, Hkv, S, n_dims, scale,
+                           swa, logit_cap, nsplit, part, k_out, v_out);
+  else
+    e = launch_split<D, 16>(grid, s, qkv, kc, vc, kd, vd, pos, cos_sin, Hq, Hkv, S, n_dims,
+                            scale, swa, logit_cap, nsplit, part, k_out, v_out);
+  if (e != 0) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * Hkv, G);
   cfg.blockDim = dim3(D);
@@ -394,9 +435,39 @@ int decode_attn_run(const float* qkv, const void* kc, const void* vc,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, decode_attn_merge, (const float*)part, G, nsplit + 1, out);
-  if (e != cudaSuccess) return (int)e;
+  const cudaError_t ce =
+      cudaLaunchKernelEx(&cfg, decode_attn_merge<D>, (const float*)part, G, nsplit + 1, out);
+  if (ce != cudaSuccess) return (int)ce;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* ght_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
+
+// qkv f32 [B, (Hq+2Hkv)*D], D the head width (128 or 256); caches [B, S,
+// Hkv*D] bf16 (bits == 16) or int8 (bits == 8) with f32 row scales kd/vd
+// [B, S], or [B, S, Hkv*D/2] bytes of packed int4 (bits == 4) with the same
+// scales; pos int32 [B]; cos_sin f32 [B, n_dims] (cos ++ sin) or null for
+// no rope; part f32 scratch [B, Hkv, nsplit + 1, G, D + 2].  Outputs f32:
+// out [B, Hq*D], k_out/v_out [B, Hkv*D].
+int decode_attn_run(const float* qkv, const void* kc, const void* vc,
+                    const float* kd, const float* vd, const int* pos,
+                    const float* cos_sin, int B, int Hq, int Hkv, int S, int D,
+                    int n_dims, float scale, int swa, float logit_cap,
+                    int bits, int nsplit, float* part, float* out,
+                    float* k_out, float* v_out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B < 1 || Hkv < 1 || Hq % Hkv || Hq / Hkv > MAXG || (D != 128 && D != 256) ||
+      n_dims > D || n_dims % 2 || nsplit < 1 || (bits != 16 && bits != 8 && bits != 4))
+    return (int)cudaErrorInvalidValue;
+  if (D == 256)
+    return run<256>(B, Hq, Hkv, bits, nsplit, s, qkv, kc, vc, kd, vd, pos, cos_sin, S, n_dims,
+                    scale, swa, logit_cap, part, out, k_out, v_out);
+  return run<128>(B, Hq, Hkv, bits, nsplit, s, qkv, kc, vc, kd, vd, pos, cos_sin, S, n_dims,
+                  scale, swa, logit_cap, part, out, k_out, v_out);
 }
 
 }  // extern "C"

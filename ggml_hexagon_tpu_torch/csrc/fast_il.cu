@@ -104,7 +104,12 @@ __global__ void __launch_bounds__(NTH, 2)
   const int slab = NB * GW;                   // elements of a slab
   if (valid) {
     if (a.mode == MODE_NORMED) row_norms(a, xrow, red, inv, tid);
-    build_act<GW>(a, xrow, rb_lo, nrbt, act, xgp, inv, tid);
+    if (a.mode == MODE_ACT && a.act == ACT_GELU)
+      build_act<GW, ACT_GELU>(a, xrow, rb_lo, nrbt, act, xgp, inv, tid);
+    else if (a.mode == MODE_ACT && a.act == ACT_RELU)
+      build_act<GW, ACT_RELU>(a, xrow, rb_lo, nrbt, act, xgp, inv, tid);
+    else
+      build_act<GW>(a, xrow, rb_lo, nrbt, act, xgp, inv, tid);
   }
   consumers_sync();
   if (tid == 0) mbar_arrive(ready);
@@ -273,10 +278,11 @@ const char* ght_error_string(int e) { return cudaGetErrorString((cudaError_t)e);
 
 // K6 at B <= 8, one launch.  mode: 0 plain (x bf16 [B, K] in natural column
 // order), 1 normed (the same x; wn f32 [K] interleaved, eps), 2 act (x bf16
-// [B, 2K], gate ++ up, both interleaved), 3 plain with x interleaved
-// already.  nibble: fq uint8 [n2, K/2] packed, else int8 [n2, K]; cm: the
-// code map of coded packed planes (0: none); fs bf16 [n2, G]; the bias: fb
-// bf16 [n2, G], or off * fs (fb null, off != 0), or none; xg_mode 1 takes
+// [B, 2K], gate ++ up, both interleaved; act(gate) * up with act an ACT_*
+// id), 3 plain with x interleaved already.  nibble: fq uint8 [n2, K/2]
+// packed, else int8 [n2, K]; cm: the code map of coded packed planes (0:
+// none); fs bf16 [n2, G]; the bias: fb bf16 [n2, G], or off * fs (fb
+// null, off != 0), or none; xg_mode 1 takes
 // the group sums xg_in f32 [B, G] (pre-norm in the normed mode), 2 takes
 // them from the activation, 0 when there is no bias; res f32 [B, n_res] or
 // null.  The normed mode's mean of x^2 divides by kn (K, or the true K of
@@ -286,13 +292,15 @@ const char* ght_error_string(int e) { return cudaGetErrorString((cudaError_t)e);
 // 64 rows (the last one ragged); counters int32, one a tile, zero (each
 // call leaves them so).
 // out f32 [B, n2].
-int fast_il_run(int mode, int nibble, int cm, const void* x, int B, int K, const void* fq,
-                const void* fs, const void* fb, int n2, int G, float off, const float* xg_in,
-                int xg_mode, const float* wn, float eps, int kn, const float* res, int n_res,
+int fast_il_run(int mode, int act, int nibble, int cm, const void* x, int B, int K,
+                const void* fq, const void* fs, const void* fb, int n2, int G, float off,
+                const float* xg_in, int xg_mode, const float* wn, float eps, int kn,
+                const float* res, int n_res,
                 int ks, int ns, int nbx, float* ws, int* counters, float* out, void* stream) {
   const bool bias = fb != nullptr || off != 0.f;
   IlArgs a{};
   if (B < 1 || B > 8 || n2 < 1 || mode < MODE_PLAIN || mode > MODE_PRE_IL ||
+      act < ACT_SILU || act > ACT_RELU ||
       (mode == MODE_NORMED && wn == nullptr) || n_res > n2 || x == nullptr ||
       out == nullptr || bad_planes(nibble, cm, K, G, bias, xg_mode, xg_in) ||
       kn < 1 || kn > K || !il_geo(&a.g, K, G, nibble != 0))
@@ -306,6 +314,7 @@ int fast_il_run(int mode, int nibble, int cm, const void* x, int B, int K, const
   a.ws = ws;
   a.counters = counters;
   a.mode = mode;
+  a.act = act;
   a.NB = B;
   a.K = K;
   a.G = G;

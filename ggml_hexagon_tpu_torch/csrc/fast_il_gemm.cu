@@ -89,6 +89,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "act.cuh"
 #include "codes.cuh"
 #include "hopper.cuh"
 
@@ -165,11 +166,11 @@ __device__ __forceinline__ int x_pos(int j, int K, bool packed) {
 // split into three bf16 parts in xgs [M, 3*Gp] (part p at p*Gp, groups
 // permuted like x, zero from G to Gp).  mode: plain (x natural [M, K]),
 // normed (the same, inv = 1/sqrt(sum(x^2) / kn + eps), then bf16((x * inv)
-// * wn_il)), act (x [M, 2K] = gate ++ up, both interleaved: bf16(silu(g) *
-// u)), pre_il (x interleaved already).  xg_mode 2 sums the bf16 effective
+// * wn_il)), act (x [M, 2K] = gate ++ up, both interleaved: bf16(act(g) *
+// u), act the ACT_* id `act`), pre_il (x interleaved already).  xg_mode 2 sums the bf16 effective
 // activation; 1 takes the caller's xg_in [M, G] (times inv when normed).
 __global__ void __launch_bounds__(PRE_THREADS) prepass_kernel(
-    int mode, bool packed, const uint16_t* __restrict__ x, int K, int G,
+    int mode, int act, bool packed, const uint16_t* __restrict__ x, int K, int G,
     const float* __restrict__ wn,
     float eps, int kn, const float* __restrict__ xg_in, int xg_mode, int Gp,
     uint16_t* __restrict__ xp, __nv_bfloat16* __restrict__ xgs) {
@@ -200,7 +201,9 @@ __global__ void __launch_bounds__(PRE_THREADS) prepass_kernel(
     if (mode == MODE_PRE_IL) return xr[j];
     if (mode == MODE_ACT) {
       const float g = bf2f(xr[j]), u = bf2f(xr[K + j]);
-      return f2bf(g * (1.f / (1.f + expf(-g))) * u);
+      if (act == ACT_GELU) return f2bf(act_mul<ACT_GELU>(g, u));
+      if (act == ACT_RELU) return f2bf(act_mul<ACT_RELU>(g, u));
+      return f2bf(act_mul<ACT_SILU>(g, u));
     }
     const uint16_t v = xr[(size_t)(j % G) * gs + j / G];
     return mode == MODE_NORMED ? f2bf(bf2f(v) * inv * wn[j]) : v;
@@ -545,7 +548,8 @@ const char* ght_error_string(int e) { return cudaGetErrorString((cudaError_t)e);
 
 // K6's GEMM.  mode: 0 plain (x bf16 [M, K] in natural column order), 1
 // normed (the same x; wn f32 [K] interleaved, eps), 2 act (x bf16 [M, 2K],
-// gate ++ up, both interleaved), 3 plain with x interleaved already.
+// gate ++ up, both interleaved; act(gate) * up with act an ACT_* id), 3
+// plain with x interleaved already.
 // family: 0 byte (fq int8 [n2, K]), 1 nibble, 2 coded (fq uint8 [n2, K/2];
 // cm the code map of coded planes); fs bf16 [n2, G]; the bias: fb bf16
 // [n2, G], or off * fs (fb null, off != 0), or none; xg_mode 1 takes the
@@ -556,7 +560,7 @@ const char* ght_error_string(int e) { return cudaGetErrorString((cudaError_t)e);
 // 1; out f32 [M, n2].  K % 64 == 0 and G % 8 == 0.  The normed mode's mean
 // of x^2 divides by kn (K, or the true K of planes whose groups the wrapper
 // padded to a multiple of 8).
-int fast_il_gemm_run(int mode, int family, int cm, const void* x, int M, int K,
+int fast_il_gemm_run(int mode, int act, int family, int cm, const void* x, int M, int K,
                      const void* fq, const void* fs, const void* fb, int n2, int G, float off,
                      const float* xg_in, int xg_mode, const float* wn, float eps, int kn,
                      const float* res, int n_res, void* xp, void* xgs, int ks, float* ws,
@@ -566,6 +570,7 @@ int fast_il_gemm_run(int mode, int family, int cm, const void* x, int M, int K,
   const bool packed = family != FAM_BYTE;
   if (M < 1 || K % KT || G < 8 || G % 8 || K % G || (packed && (K / 2) % G) ||
       n2 % BNL || n_res < 0 || n_res > n2 || mode < MODE_PLAIN || mode > MODE_PRE_IL ||
+      act < ACT_SILU || act > ACT_RELU ||
       (mode == MODE_NORMED && wn == nullptr) || family < FAM_BYTE || family > FAM_CODED ||
       (family == FAM_CODED) != (cm != CM_NONE) || cm < CM_NONE || cm > CM_TERN ||
       (cm && bias) || bias != (xg_mode != 0) || xg_mode < 0 || xg_mode > 2 ||
@@ -573,7 +578,7 @@ int fast_il_gemm_run(int mode, int family, int cm, const void* x, int M, int K,
       ks < 1 || (ks > 1 && ws == nullptr) || kn < 1 || kn > K)
     return (int)cudaErrorInvalidValue;
   const int Gp = (G + KT - 1) / KT * KT;
-  prepass_kernel<<<M, PRE_THREADS, 0, s>>>(mode, packed, (const uint16_t*)x, K, G, wn,
+  prepass_kernel<<<M, PRE_THREADS, 0, s>>>(mode, act, packed, (const uint16_t*)x, K, G, wn,
                                            eps, kn, xg_in,
                                            xg_mode, Gp, (uint16_t*)xp, (__nv_bfloat16*)xgs);
   cudaError_t e = cudaGetLastError();

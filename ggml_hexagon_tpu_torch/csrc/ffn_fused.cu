@@ -10,7 +10,8 @@
 //   phase B  inv = 1/sqrt(mean(h2^2) + eps); xb = bf16(h2 * inv * wn),
 //            xg_b the group sums of the f32 xb before its rounding;
 //            gu = xb @ gate_up'^T + xg_b @ fb_gu^T                       f32
-//   phase C  xd = bf16(silu(gate) * up), in f32;
+//   phase C  xd = bf16(act(gate) * up), in f32 (act silu, gelu or relu:
+//            act.cuh's instance picked once a launch);
 //            out = (xd @ down'^T + bias) + h2                           f32
 // wo and gate_up are nibble planes (Q4_K-class) with a stored fb; down is
 // nibble (Q4_K stored fb, Q4_0 derived -8), byte (Q6_K derived -32, Q5_K
@@ -63,7 +64,7 @@
 //    phase C's residual) and each tile's sums of squares of its rows, which
 //    phase B adds in tile order (every block gets the same inv); phase B
 //    takes gate tile p and up tile p + n_ff/64 in one block, the same
-//    columns, and stores xd = bf16(silu(gate) * up) itself (its rows are
+//    columns, and stores xd = bf16(act(gate) * up) itself (its rows are
 //    never split).  The builds (each block only its split's residue blocks,
 //    in K6's slab layout): phase A the interleaved bf16 x_a and the caller's
 //    group sums; phase B xb = bf16((h2 * inv) * wn) and the group sums of
@@ -86,7 +87,8 @@ struct FfnLaunch {
                             // first of the grid
   const float* wn;          // f32 [d] the ffn norm weight, interleaved
   float* ssq;               // f32 [d / 64, 8]: phase A's tiles' sums of h2^2
-  uint16_t* xd;             // bf16 [B, n_ff]: phase B's silu(gate) * up
+  uint16_t* xd;             // bf16 [B, n_ff]: phase B's act(gate) * up (its
+                            // ACT_* id pb.act)
   int* phase;               // int32 [3]: phase A's finished tiles, B's
                             // finished pairs, finished blocks
   int n_ff, gx;             // xd's width and groups (down's unpadded G)
@@ -184,10 +186,6 @@ __device__ __forceinline__ void store_parts(uint16_t* dst, int slab, float s) {
   dst[0] = (uint16_t)(p1 >> 16);
   dst[slab] = (uint16_t)(p2 >> 16);
   dst[2 * slab] = (uint16_t)(__float_as_uint(r2) >> 16);
-}
-
-__device__ __forceinline__ uint16_t silu_mul(float g, float u) {
-  return f2bf(g * (1.f / (1.f + expf(-g))) * u);
 }
 
 // One tile's stages [s0, s0 + nps) for one warp, over the ring (K6's mma
@@ -371,8 +369,10 @@ __device__ __forceinline__ int phase_tiles(const IlArgs& a, int nbx, const FfnLa
 }
 
 // Phase B's pairs of this block: gate tile p and up tile p + npairs (rows
-// of the gate and the up of the same down columns), then xd = bf16(silu(gate)
-// * up) of those columns.  Returns the pairs finished.
+// of the gate and the up of the same down columns), then xd = bf16(act(gate)
+// * up) of those columns (the kernel picks ACT's instance once).  Returns
+// the pairs finished.
+template <int ACT>
 __device__ __forceinline__ int phase_pairs(const IlArgs& a, int nbx, const FfnLaunch& L,
                                            const uint16_t* act, const uint16_t* xgp, Ring& rg) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, NB = a.NB;
@@ -392,7 +392,7 @@ __device__ __forceinline__ int phase_pairs(const IlArgs& a, int nbx, const FfnLa
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int n = 2 * tq + (k & 1), c = p * TR + r0 + 8 * (k >> 1);
-        if (n < NB) L.xd[(size_t)n * L.n_ff + c] = silu_mul(gate[k], acc[k] + cb[k]);
+        if (n < NB) L.xd[(size_t)n * L.n_ff + c] = f2bf(act_mul<ACT>(gate[k], acc[k] + cb[k]));
       }
     }
     ++done;
@@ -666,13 +666,19 @@ __global__ void __launch_bounds__(NTH, 2) ffn_kernel(const __grid_constant__ Ffn
     done = phase_tiles<FAM_NIB, 128>(L.pa, L.nbx_a, L, act,
                                      reinterpret_cast<uint16_t*>(ar + L.xgp_a), rg, L.ssq);
   release_tiles(L.phase, done, tid);
-  // ---- phase B: the norm of h2, gate_up row pairs -> silu(gate) * up ----
+  // ---- phase B: the norm of h2, gate_up row pairs -> act(gate) * up ----
   if (in_b) {
     acquire_tiles(L.phase, L.pa.ntiles, tid);
     build_b(L.pb, L, L.pa.out, act, reinterpret_cast<uint16_t*>(ar + L.xgp_b),
             reinterpret_cast<float*>(ar + L.part_b), tid);
     consumers_sync();
-    done = phase_pairs(L.pb, L.nbx_b, L, act, reinterpret_cast<uint16_t*>(ar + L.xgp_b), rg);
+    uint16_t* xgp_b = reinterpret_cast<uint16_t*>(ar + L.xgp_b);
+    if (L.pb.act == ACT_GELU)
+      done = phase_pairs<ACT_GELU>(L.pb, L.nbx_b, L, act, xgp_b, rg);
+    else if (L.pb.act == ACT_RELU)
+      done = phase_pairs<ACT_RELU>(L.pb, L.nbx_b, L, act, xgp_b, rg);
+    else
+      done = phase_pairs<ACT_SILU>(L.pb, L.nbx_b, L, act, xgp_b, rg);
     release_tiles(L.phase + 1, done, tid);
   }
   // ---- phase C: down rows + bias + h2 -> out ----
@@ -752,8 +758,9 @@ const char* ght_error_string(int e) { return cudaGetErrorString((cudaError_t)e);
 // ns ring stages, `blocks` persistent blocks (the card must hold them at
 // once).  Scratch: h2 f32 [B, d], ssq f32 [d / 64, 8], xd bf16 [B, n_ff];
 // counters int32, zero (each call leaves them so): phase A's tiles, C's,
-// then 3.  out f32 [B, d], in the il32 order of the permuted rows.
-int ffn_fused_run(int B, int d, int n_ff, float eps, const void* x_a, const float* xg_a,
+// then 3.  out f32 [B, d], in the il32 order of the permuted rows.  act:
+// phase B's activation, an ACT_* id.
+int ffn_fused_run(int B, int d, int n_ff, int act, float eps, const void* x_a, const float* xg_a,
                   const float* h_il, const float* wn, int G, const void* wo_q, const void* wo_s,
                   const void* wo_b, const void* gu_q, const void* gu_s, const void* gu_b,
                   const void* dn_q, const void* dn_s, const void* dn_b, int K_dn, int Gc, int gx,
@@ -763,6 +770,7 @@ int ffn_fused_run(int B, int d, int n_ff, float eps, const void* x_a, const floa
   const bool packed = dn_fam != 0;
   const bool bias = dn_b != nullptr || dn_off != 0.f;
   if (B < 1 || B > 8 || d < 64 || d % 64 || n_ff < 1 || n_ff % TR || gx < 1 || Gc < gx ||
+      act < ACT_SILU || act > ACT_RELU ||
       K_dn % Gc || n_ff != K_dn / Gc * gx || dn_fam < 0 || dn_fam > 2 ||
       (dn_fam == 2) != (cm != CM_NONE) || x_a == nullptr || xg_a == nullptr ||
       h_il == nullptr || wn == nullptr || wo_b == nullptr || gu_b == nullptr ||
@@ -806,6 +814,7 @@ int ffn_fused_run(int B, int d, int n_ff, float eps, const void* x_a, const floa
   A.counters = counters;
   // phase B: the normed gate_up, its gate and up tiles in pairs
   Bp.eps = eps;
+  Bp.act = act;
   Bp.kn = d;
   Bp.ncols = 2 * n_ff;
   Bp.ntiles = nt_b;

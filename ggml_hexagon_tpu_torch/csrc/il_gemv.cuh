@@ -10,8 +10,8 @@
 //    :432, `_byte_y` :464), launched through `pallas_call` in `_fast_call`
 //    (:663), with `_kernel_x`, `_kernel_xg` and `_epilogue` (:376-411), in
 //    all four modes: plain, normed (a fused RMSNorm), act (a fused
-//    silu(gate)*up over a doubled input) and res (a residual added last),
-//    on planes with or without a group bias;
+//    act(gate)*up over a doubled input, act silu, gelu or relu) and res (a
+//    residual added last), on planes with or without a group bias;
 //  * K7: `_dual_kernel` (:872, launched at :998): two interleaved
 //    projections of one activation, each of either family, with its own
 //    norm weight and its own bias, in one launch;
@@ -33,14 +33,15 @@
 // Numerics, the TPU kernels' contract (qmm_fast.py:319-521, 757-767): x is
 // rounded to bf16 and interleaved; normed: inv = 1/sqrt(mean(x^2) + eps)
 // over the f32 of that bf16 x, then bf16((x*inv)*wn_il); act: the input is
-// the bf16 gate ++ up, both halves interleaved already, and silu(g)*u is
-// computed in f32 and rounded to bf16.  Byte planes multiply the f32 x by
-// the f32 weight q*scale; nibble and coded planes round q*scale to bf16 (q
-// the decoded value on coded planes, exact in bf16); every product is
-// summed in f32.  The bias is xg @ fb^T, or off * (xg @ fs^T), in f32,
-// xg [B, G] being the activation's group sums: summed here from the bf16
-// effective activation (xg_mode 2), or the caller's (xg_mode 1: in the
-// normed mode the pre-norm sums, scaled here by inv).  The output is
+// the bf16 gate ++ up, both halves interleaved already, and act(g)*u (act
+// silu, gelu or relu, act.cuh) is computed in f32 and rounded to bf16.
+// Byte planes multiply the f32 x by the f32 weight q*scale; nibble and
+// coded planes round q*scale to bf16 (q the decoded value on coded planes,
+// exact in bf16); every product is summed in f32.  The bias is xg @ fb^T,
+// or off * (xg @ fs^T), in f32, xg [B, G] being the activation's group
+// sums: summed here from the bf16 effective activation (xg_mode 2), or the
+// caller's (xg_mode 1: in the normed mode the pre-norm sums, scaled here by
+// inv).  The output is
 // y + (bias + res), res an optional f32 row [B, n_res].
 //
 // K6 at B <= 8, K7 and K8 (il_gemv_kernel): what bounds them is bytes (each
@@ -67,7 +68,7 @@
 //    in shared memory, straight from x: the natural columns of its groups
 //    (copied, then normed with the sum of squares over the whole row taken
 //    by every block in one fixed order, so every block gets the same inv)
-//    or the interleaved ones (pre-interleaved, act: silu(gate)*up); then the
+//    or the interleaved ones (pre-interleaved, act: act(gate)*up); then the
 //    group sums of its groups (in the kernel, or the caller's times inv),
 //    each split exactly into three bf16 parts.  The producer keeps one stage
 //    in flight until the activation is built.  K splits are whole stages
@@ -111,6 +112,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "act.cuh"
 #include "codes.cuh"
 #include "hopper.cuh"
 
@@ -229,6 +231,7 @@ struct IlArgs {
   const int* ids;      // K8: the expert of each input row (grid.z), else null
   IlGeo g;
   int mode, NB, K, G, gs, xstride, xg_mode, n_res, ncols;
+  int act;             // the act mode's ACT_* id
   int kn;              // the normed mode's mean divides by kn (K, or the
                        // unpadded K of planes whose groups were padded)
   int ntiles, ks, ns, sb, arb;  // tiles, splits, ring stages, scale-region bytes,
@@ -454,8 +457,9 @@ __device__ __forceinline__ void row_norms(const IlArgs& a, int xrow, float* red,
 }
 
 // The effective bf16 activation of residue blocks [rb_lo, rb_lo + nrbt) into
-// its slabs, and with a bias their group sums' three exact bf16 parts.
-template <int GW>
+// its slabs, and with a bias their group sums' three exact bf16 parts.  ACT:
+// the act mode's activation (a caller picks the instance once a block).
+template <int GW, int ACT = ACT_SILU>
 __device__ __forceinline__ void build_act(const IlArgs& a, int xrow, int rb_lo, int nrbt,
                                           uint16_t* act, uint16_t* xgp, const float* inv,
                                           int tid) {
@@ -542,7 +546,7 @@ __device__ __forceinline__ void build_act(const IlArgs& a, int xrow, int rb_lo, 
           uint16_t e = (uint16_t)(w[i >> 1] >> (16 * (i & 1)));
           if (a.mode == MODE_ACT) {
             const float gv = bf2f(e), uv = bf2f((wu[i >> 1] >> (16 * (i & 1))) & 0xffffu);
-            e = f2bf(gv * (1.f / (1.f + expf(-gv))) * uv);
+            e = f2bf(act_mul<ACT>(gv, uv));
           }
           dst[frag_off<GW>(NB, b, r0 + i)] = e;
         }

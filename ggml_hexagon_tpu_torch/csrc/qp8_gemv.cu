@@ -32,7 +32,9 @@
 //    ids[p] on the device and the routing never reaches the host.
 //  * The activation prologue runs in every block, over the 256-lane
 //    segments its K range touches, while the ring fills: the effective
-//    activation (raw, RMSNorm*wn, or silu(gate)*up), its int8 quantization
+//    activation (raw, RMSNorm*wn, or act(gate)*up with act silu, gelu or
+//    relu: act.cuh's template instances, one picked a prologue task by a
+//    uniform branch, none in the GEMV loop), its int8 quantization
 //    with the true division 127/amax, the segment scales and the integer
 //    group sums of the bias dot, into shared memory.  The RMSNorm sum of
 //    squares is taken again by every block from L2, by 256 virtual threads
@@ -76,6 +78,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "act.cuh"
 #include "codes.cuh"
 #include "hopper.cuh"
 
@@ -163,7 +166,8 @@ __host__ __device__ inline int max_slots(const Plane& p, int ks) {
 struct Args {
   Plane A, B;
   int nblk_a;            // column tiles of plane A (plane B's follow)
-  int K, mode;           // mode: 0 raw, 1 rmsnorm * wn, 2 silu(gate)*up
+  int K, mode;           // mode: 0 raw, 1 rmsnorm * wn, 2 act(gate)*up
+  int act;               // mode 2's act: ACT_SILU, ACT_GELU or ACT_RELU
   float eps;
   const float* x;
   const float* wn;
@@ -505,6 +509,13 @@ __device__ __forceinline__ void gemv_loop40(const Args& a, const Plane& P, const
   }
 }
 
+// v[i] = act(v[i]) * u[i], the act prologue's eight values of a lane.
+template <int ACT>
+__device__ __forceinline__ void act_mul8(float v[8], const float u[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = act_mul<ACT>(v[i], u[i]);
+}
+
 // grid.x: column tiles of plane A then plane B; grid.y: K splits; grid.z:
 // row groups of NB rows (K5: one row each, ids non-null).
 template <int NB>
@@ -637,7 +648,7 @@ __global__ void __launch_bounds__(NTH, 2)
       const float4 p1 = *reinterpret_cast<const float4*>(xr + k + 4);
       v[q][0] = p0.x; v[q][1] = p0.y; v[q][2] = p0.z; v[q][3] = p0.w;
       v[q][4] = p1.x; v[q][5] = p1.y; v[q][6] = p1.z; v[q][7] = p1.w;
-      if (a.mode != 0) {  // up (silu) or the norm weight
+      if (a.mode != 0) {  // up (act) or the norm weight
         const float* w = a.mode == 2 ? xr + K + k : a.wn + k;
         const float4 w0 = *reinterpret_cast<const float4*>(w);
         const float4 w1 = *reinterpret_cast<const float4*>(w + 4);
@@ -650,11 +661,10 @@ __global__ void __launch_bounds__(NTH, 2)
       if (t0 + q * NCW >= ntask) break;
       const int slot = slots[q], b = rows_b[q];
       if (a.mode == 2) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float g = v[q][i];
-          v[q][i] = g * (1.f / (1.f + expf(-g))) * u[q][i];
-        }
+        // the act's template instance, picked by a uniform branch a task
+        if (a.act == ACT_GELU) act_mul8<ACT_GELU>(v[q], u[q]);
+        else if (a.act == ACT_RELU) act_mul8<ACT_RELU>(v[q], u[q]);
+        else act_mul8<ACT_SILU>(v[q], u[q]);
       } else if (a.mode == 1) {
         const float ib = inv[b];
 #pragma unroll
@@ -850,13 +860,13 @@ extern "C" {
 const char* ght_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
 // K1 / K2: one launch a call.  x f32 [NB, K] ([NB, 2K] gate ++ up in mode
-// 2), wn f32 [K] (mode 1); plane B is used when n2_b > 0 (K2, the dual
+// 2, act(gate) * up with act an ACT_* id), wn f32 [K] (mode 1); plane B is used when n2_b > 0 (K2, the dual
 // projection), its columns after A's.  The plan (kernels.pick_gemv): cols
 // lanes a tile (128 or 256), ks splits of K (ws f32 [ks, NB, n2_a + n2_b]
 // when ks > 1), ns ring stages, nteam teams at work; counters int32, one a
 // column tile, zero (each call leaves them so).  out f32 [NB, n2_a + n2_b]
 // (+ res f32 [NB, n_res] on columns < n_res).
-int qp8_gemv_run(const float* x, const float* wn, int mode, float eps, int NB, int K,
+int qp8_gemv_run(const float* x, const float* wn, int mode, int act, float eps, int NB, int K,
                  const void* fq_a, const void* fs_a, const void* fb_a, int n2_a, int ld_a,
                  int bl_a, int bh_a, int gs_a, float off_a, int cm_a, const void* fq_b,
                  const void* fs_b, const void* fb_b, int n2_b, int ld_b, int bl_b, int bh_b,
@@ -864,6 +874,7 @@ int qp8_gemv_run(const float* x, const float* wn, int mode, float eps, int NB, i
                  int* counters, float* out, const float* res, int n_res, void* stream) {
   Args a{};
   if (NB < 1 || NB > 8 || mode < 0 || mode > 2 || (mode == 1 && wn == nullptr) || x == nullptr ||
+      act < ACT_SILU || act > ACT_RELU ||
       out == nullptr || counters == nullptr || (ks > 1 && ws == nullptr) ||
       !make_plane(&a.A, fq_a, fs_a, fb_a, n2_a, ld_a, bl_a, bh_a, gs_a, off_a, cm_a, n2_a, K))
     return (int)cudaErrorInvalidValue;
@@ -876,6 +887,7 @@ int qp8_gemv_run(const float* x, const float* wn, int mode, float eps, int NB, i
   a.nblk_a = n2_a / cols;
   a.K = K;
   a.mode = mode;
+  a.act = act;
   a.eps = eps;
   a.x = x;
   a.wn = wn;

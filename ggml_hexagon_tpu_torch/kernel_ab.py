@@ -110,9 +110,10 @@ TF32_OPS = 495e12    # K11 and K10's f32 GEMM: TF32 mma, times its products
 NMSE_F32 = 1e-10     # K10 in f32 against its plain twin (chip_smoke.py's
                      # NMSE_K10_F32)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: the parents' C entries: K3 and K4 of 3b0f551; K6-K8 of e176e56 (K6's
-#: and K8's the same as this tree's; K7 with its pre-pass scratch xil and
-#: xg a part)
+#: the parents' C entries: K3 and K4 of 3b0f551; K6-K8 of e176e56 (K8's
+#: the same as this tree's; K7 with its pre-pass scratch xil and xg a
+#: part; K6's binds as this tree's, which takes the act id after `mode`,
+#: so a K6 parent must be a tree that has it)
 _PARENT_ARGS = {
     "qp8_gemm_run": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _I] + [_P] * 3,
     "decode_attn_run": [_P] * 7 + [_I] * 5 + [_F, _I, _F, _I] + [_P] * 4,

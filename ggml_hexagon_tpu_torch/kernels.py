@@ -81,6 +81,13 @@ GEMM_LAUNCHES = {"fast_byte_gemm": 0, "fast_byte_gemm_derived": 0,
                  "fast_byte_gemm_stored": 0, "fast_nibble_gemm_derived": 0,
                  "fast_nibble_gemm_stored": 0, "fast_coded_gemm": 0}
 
+#: the launches of the kernel branches of a gated FFN's gelu and relu (K1,
+#: K6 and K9's act(gate) * up) and of K4 at a head width of 256, apart from
+#: LAUNCHES, which counts each of them under its kernel's key as well
+BRANCH_LAUNCHES = {"qp8_gemv_gelu": 0, "qp8_gemv_relu": 0, "fast_gelu": 0,
+                   "fast_relu": 0, "ffn_fused_gelu": 0, "ffn_fused_relu": 0,
+                   "decode_attn_d256": 0}
+
 #: K3's launches by the weight they ran on, "NxK" (rows x columns), beside
 #: LAUNCHES's count of them: which projection of a forward each launch was
 #: (the head's rows are the vocabulary's)
@@ -88,6 +95,9 @@ GEMM_SHAPES: dict = {}
 
 #: the C entries' code-map ids (0: uncoded planes); csrc/codes.cuh
 CODE_MAPS = {"": 0, "iq2": 1, "iq3xxs": 2, "iq3s": 3, "iq1": 4, "tern": 5}
+
+#: the C entries' act ids of K1's, K6's and K9's act(gate) * up; csrc/act.cuh
+ACT_IDS = {"silu": 0, "gelu": 1, "relu": 2}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -98,7 +108,7 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 
 _ARGTYPES = {
-    "qp8_gemv_run": [_P, _P, _I, _F, _I, _I,
+    "qp8_gemv_run": [_P, _P, _I, _I, _F, _I, _I,
                      _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                      _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                      _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
@@ -107,19 +117,19 @@ _ARGTYPES = {
                          _I, _I, _I, _I, _P, _P, _P, _P],
     "qp8_gemm_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I,
                      _P, _I, _P, _P, _P],
-    "fast_il_run": [_I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _P, _I,
-                    _P, _F, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "fast_il_gemm_run": [_I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _P,
-                         _I, _P, _F, _I, _P, _I, _P, _P, _I, _P, _P, _P],
+    "fast_il_run": [_I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _P,
+                    _I, _P, _F, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "fast_il_gemm_run": [_I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F,
+                         _P, _I, _P, _F, _I, _P, _I, _P, _P, _I, _P, _P, _P],
     "fast_dual_run": [_I, _F, _I] + [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _F, _P, _I, _I, _I, _I, _P] * 2
     + [_P, _P, _P],
     "fast_indirect_run": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F,
                           _P, _I, _I, _I, _P, _P, _P, _P],
-    "ffn_fused_run": [_I, _I, _I, _F] + [_P] * 4 + [_I] + [_P] * 9 + [_I] * 5
-    + [_F] + [_I] * 7 + [_P] * 8,
-    "decode_attn_run": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                        _I, _F, _I, _I, _P, _P, _P, _P, _P],
+    "ffn_fused_run": [_I, _I, _I, _I, _F] + [_P] * 4 + [_I] + [_P] * 9
+    + [_I] * 5 + [_F] + [_I] * 7 + [_P] * 8,
+    "decode_attn_run": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _F, _I, _F, _I, _I, _P, _P, _P, _P, _P],
     "qmm_wire_gemv_run": [_I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                           _F, _I, _I, _I, _P, _P, _P, _P],
     "qmm_wire_gemm_run": [_I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -132,7 +142,7 @@ _ARGTYPES = {
 
 
 def reset_launches():
-    for counts in (LAUNCHES, GEMM_LAUNCHES):
+    for counts in (LAUNCHES, GEMM_LAUNCHES, BRANCH_LAUNCHES):
         for k in counts:
             counts[k] = 0
     GEMM_SHAPES.clear()
@@ -796,9 +806,15 @@ def pick_ffn(d: int, G: int, n_ff: int, K_dn: int, Gc: int, packed: bool,
                      f"down K={K_dn}, Gc={Gc}, {nb} rows")
 
 
+def _act_id(act: str, what: str) -> int:
+    if act not in ACT_IDS:
+        raise NotImplementedError(f"act {act!r}: {what} takes "
+                                  f"{tuple(ACT_IDS)}")
+    return ACT_IDS[act]
+
+
 def _gemv_launch(kind: str, x, qts, wn, eps, act, res):
-    if act not in ("", "silu"):
-        raise NotImplementedError(f"act {act!r}: K1 takes silu only")
+    act_id = _act_id(act, "K1") if act else 0
     K = qts[0].k
     B = x.shape[0]
     width = 2 * K if act else K
@@ -821,14 +837,21 @@ def _gemv_launch(kind: str, x, qts, wn, eps, act, res):
     n_res = 0 if res is None else res.shape[1]
     lib = _lib("qp8_gemv")
     rc = lib.qp8_gemv_run(
-        _ptr(x), _ptr(wn), mode, 0.0 if eps is None else float(eps), B, K,
-        *a, *b, plan.cols, plan.ks, plan.ns, plan.nteam, _ptr(ws),
+        _ptr(x), _ptr(wn), mode, act_id, 0.0 if eps is None else float(eps),
+        B, K, *a, *b, plan.cols, plan.ks, plan.ns, plan.nteam, _ptr(ws),
         _ptr(counters), _ptr(out), _ptr(res), n_res, _stream(dev))
     if any(qt.cfg.code_map for qt in qts):
         kind += "_coded"
     _check(lib, rc, kind)
     LAUNCHES[kind] += 1
+    _count_branch(kind, act)
     return out
+
+
+def _count_branch(kind: str, act: str):
+    """One more launch of `kind`'s gelu or relu branch (BRANCH_LAUNCHES)."""
+    if act in ("gelu", "relu"):
+        BRANCH_LAUNCHES[f"{kind.replace('_coded', '')}_{act}"] += 1
 
 
 def qp8_gemv(x, qt, wn=None, eps=None, act: str = "", res=None):
@@ -968,8 +991,7 @@ def _xg_args(xg, rows: int, G: int, bias: bool):
 
 
 def _fast_launch(family: str, x, qt, wn, eps, act, res, pre_il, xg):
-    if act not in ("", "silu"):
-        raise NotImplementedError(f"act {act!r}: K6 takes silu only")
+    act_id = _act_id(act, "K6") if act else 0
     if bool(act) + (eps is not None) + pre_il > 1:
         raise ValueError("K6 takes one mode: pre_il, normed or act")
     _need(x, torch.bfloat16, "x", 2)
@@ -1006,20 +1028,23 @@ def _fast_launch(family: str, x, qt, wn, eps, act, res, pre_il, xg):
         qt, x, wn, xg = _pad_call(qt, x, wn, xg, mode)
         K, G = qt.k, qt.fs.shape[1]
     if B > 8:
-        return _fast_gemm(mode, key, x, qt, G, cm, off, xg, xg_mode, wn, eps,
-                          kn, res, n_res, out)
+        out = _fast_gemm(mode, act_id, key, x, qt, G, cm, off, xg, xg_mode,
+                         wn, eps, kn, res, n_res, out)
+        _count_branch("fast", act)
+        return out
     plan = _il_plan(qt, B, n2 // IL_ROWS, 1, mode, dev)
     ws = (torch.empty((plan.ks, B, n2), dtype=torch.float32, device=dev)
           if plan.ks > 1 else None)
     lib = _lib("fast_il")
-    rc = lib.fast_il_run(mode, int(nib), cm, _ptr(x), B, K, _ptr(qt.fq),
-                         _ptr(qt.fs), _ptr(qt.fb), n2, G, off, _ptr(xg),
-                         xg_mode, _ptr(wn), eps, kn, _ptr(res), n_res, plan.ks,
-                         plan.ns, plan.nbx, _ptr(ws),
+    rc = lib.fast_il_run(mode, act_id, int(nib), cm, _ptr(x), B, K,
+                         _ptr(qt.fq), _ptr(qt.fs), _ptr(qt.fb), n2, G, off,
+                         _ptr(xg), xg_mode, _ptr(wn), eps, kn, _ptr(res),
+                         n_res, plan.ks, plan.ns, plan.nbx, _ptr(ws),
                          _ptr(_gemv_counters(dev, n2 // IL_ROWS)), _ptr(out),
                          _stream(dev))
     _check(lib, rc, key)
     LAUNCHES[key] += 1
+    _count_branch("fast", act)
     return out
 
 
@@ -1054,8 +1079,8 @@ def gemm_key(qt) -> str:
     return key + ("_derived" if _offset_bias(qt.cfg, qt.fb) else "")
 
 
-def _fast_gemm(mode, key, x, qt, G, cm, off, xg, xg_mode, wn, eps, kn, res,
-               n_res, out):
+def _fast_gemm(mode, act_id, key, x, qt, G, cm, off, xg, xg_mode, wn, eps, kn,
+               res, n_res, out):
     """K6 above 8 rows: the wgmma GEMM of fast_il_gemm.cu, its scratch (x
     permuted for the A fragments, the group sums in three bf16 parts, the
     partials of a K split) allocated here."""
@@ -1076,7 +1101,7 @@ def _fast_gemm(mode, key, x, qt, G, cm, off, xg, xg_mode, wn, eps, kn, res,
           if ks > 1 else None)
     lib = _lib("fast_il_gemm")
     rc = lib.fast_il_gemm_run(
-        mode, _FAMILY_ID[_family(qt.cfg)], cm, _ptr(x), B, K, _ptr(qt.fq),
+        mode, act_id, _FAMILY_ID[_family(qt.cfg)], cm, _ptr(x), B, K, _ptr(qt.fq),
         _ptr(qt.fs), _ptr(qt.fb), n2, G, off, _ptr(xg), xg_mode, _ptr(wn),
         eps, kn, _ptr(res), n_res, _ptr(xp), _ptr(xgs), ks, _ptr(ws), _ptr(out),
         _stream(dev))
@@ -1092,7 +1117,8 @@ def fast_byte(x, qt, wn=None, eps=None, act: str = "", res=None,
     [n2, G], fb bf16 [n2, G] or a bias derived as off * fs, or none) ->
     [B, n2] f32.  x bf16 [B, K] in natural column order; normed with wn
     (f32 [K], interleaved) and eps; interleaved already with pre_il; [B, 2K]
-    gate ++ up (interleaved) with act="silu".  xg f32 [B, G]: the caller's
+    gate ++ up (interleaved) with act (silu, gelu or relu).  xg f32 [B, G]:
+    the caller's
     group sums of planes with a bias (None: the kernel sums its own
     activation).  res (f32 [B, n <= n2]) is added last."""
     return _fast_launch("fast_byte", x, qt, wn, eps, act, res, pre_il, xg)
@@ -1230,9 +1256,9 @@ def ffn_fused(x_a, xg_a, h_il, wn, wo, gu, dn, eps: float, act: str = "silu"):
     device counters), its plan from pick_ffn; down planes whose groups are
     not a multiple of 8 run padded (padded_il_planes), as K6's do.  What
     bounds it is bytes: every weight byte is read once and feeds B
-    multiply-adds (2B on packed planes)."""
-    if act != "silu":
-        raise NotImplementedError(f"act {act!r}: K9 takes silu only")
+    multiply-adds (2B on packed planes).  act: phase B's activation of the
+    gate, silu, gelu or relu."""
+    act_id = _act_id(act, "K9")
     from .ops.qmm_fast import _family, _is_packed
 
     _need(x_a, torch.bfloat16, "x_a", 2)
@@ -1273,7 +1299,7 @@ def ffn_fused(x_a, xg_a, h_il, wn, wo, gu, dn, eps: float, act: str = "silu"):
     out = torch.empty((B, d), dtype=torch.float32, device=dev)
     lib = _lib("ffn_fused")
     rc = lib.ffn_fused_run(
-        B, d, n_ff, float(eps), _ptr(x_a), _ptr(xg_a), _ptr(h_il), _ptr(wn), G,
+        B, d, n_ff, act_id, float(eps), _ptr(x_a), _ptr(xg_a), _ptr(h_il), _ptr(wn), G,
         _ptr(wo.fq), _ptr(wo.fs), _ptr(wo.fb), _ptr(gu.fq), _ptr(gu.fs),
         _ptr(gu.fb), _ptr(dnp.fq), _ptr(dnp.fs), _ptr(dnp.fb), dnp.k, Gp, Gc,
         _FAMILY_ID[family], cm, off, plan.ks_a, plan.nbx_a, plan.nbx_b,
@@ -1283,19 +1309,23 @@ def ffn_fused(x_a, xg_a, h_il, wn, wo, gu, dn, eps: float, act: str = "silu"):
     del ws
     _check(lib, rc, key)
     LAUNCHES[key] += 1
+    _count_branch("ffn_fused", act)
     return out
 
 
 def decode_attn(qkv, k_cache, v_cache, pos, cos_sin, *, Hq, Hkv, D, scale,
                 swa=0, logit_cap=0.0, n_dims=0, k_scale=None, v_scale=None,
                 kv_bits=0):
-    """K4 on the card -> (attn [B, Hq*D], k_row [B, Hkv*D], v_row) f32.
-    Caches bf16 [B, S, Hkv*D]; int8 with f32 row scales (k_scale given);
-    or, with kv_bits=4, uint8 [B, S, Hkv*D/2] of packed 4-bit values
-    (ops/decode_attn.pack_int4) with the same scales, counted apart under
-    "decode_attn_q4"."""
-    if D != 128:
-        raise ValueError(f"head_dim {D}: the kernel takes 128")
+    """K4 on the card -> (attn [B, Hq*D], k_row [B, Hkv*D], v_row) f32, at
+    a head width D of 128 or 256 (counted also as BRANCH_LAUNCHES
+    "decode_attn_d256").  Caches bf16 [B, S, Hkv*D]; int8 with f32 row
+    scales (k_scale given); or, with kv_bits=4, uint8 [B, S, Hkv*D/2] of
+    packed 4-bit values (ops/decode_attn.pack_int4) with the same scales,
+    counted apart under "decode_attn_q4".  swa > 0 attends the slots
+    within swa of pos only; logit_cap != 0 caps the scores by
+    cap * tanh(s / cap)."""
+    if D not in (128, 256):
+        raise ValueError(f"head_dim {D}: the kernel takes 128 or 256")
     quant = k_scale is not None
     if kv_bits not in (0, 4) or (kv_bits == 4 and not quant):
         raise ValueError(f"kv_bits {kv_bits}: 4 (with row scales) or 0")
@@ -1326,13 +1356,15 @@ def decode_attn(qkv, k_cache, v_cache, pos, cos_sin, *, Hq, Hkv, D, scale,
     lib = _lib("decode_attn")
     rc = lib.decode_attn_run(
         _ptr(qkv), _ptr(k_cache), _ptr(v_cache), _ptr(k_scale),
-        _ptr(v_scale), _ptr(pos), _ptr(cos_sin), B, Hq, Hkv, S,
+        _ptr(v_scale), _ptr(pos), _ptr(cos_sin), B, Hq, Hkv, S, D,
         n_dims or D, float(scale), int(swa), float(logit_cap),
         (4 if kv_bits == 4 else 8) if quant else 16,
         nsplit, _ptr(part), _ptr(out), _ptr(k_r), _ptr(v_r), _stream(dev))
     key = "decode_attn_q4" if kv_bits == 4 else "decode_attn"
     _check(lib, rc, key)
     LAUNCHES[key] += 1
+    if D == 256:
+        BRANCH_LAUNCHES["decode_attn_d256"] += 1
     return out, k_r, v_r
 
 

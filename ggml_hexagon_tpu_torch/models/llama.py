@@ -10,9 +10,17 @@ the fused decode attention (K4) with one bulk KV write after the layer
 loop; wo with the residual added in the kernel (K1, or K6's residual
 mode); and the fused act+down with residual (K1, or K6's act mode).  A
 layer carrying the megakernel layout ("ffp", models/fuse.py) runs wo, the
-ffn norm, gate_up, silu(gate)*up and down with both residuals as one K9
+ffn norm, gate_up, act(gate)*up and down with both residuals as one K9
 launch at decode (ops/ffn_fused.py); elsewhere it runs the split path with
 its wo and down outputs un-permuted from the il32 row order.
+Gemma and Gemma-2 (the JAX forward's branches for them): the embedding
+scaled by sqrt(n_embd) in f32, a gelu FFN (K1's and K6's act mode in its
+gelu instance), sandwich post-norms (gemma2: wo and the act+down without
+the in-kernel residual, their outputs normed before the add), a sliding
+window on the even layers and the attention logit cap (K4 at a head width
+of 256, and the flash and dense cache attentions), the final logit cap
+after the head, and a head tied to the token embedding (its t-planes or
+interleaved planes beside the embedding's wire planes).
 Layers whose Q and K types differ (Mixtral: Q5_K or IQ4_XS wq, Q8_0 wk/wv)
 run the unfused branch: the RMSNorm in torch, then each projection through
 `matmul` (K1/K3 on t-planes, K6 on interleaved planes).  MoE layers route
@@ -38,7 +46,7 @@ import torch
 
 from .. import resolve_device
 from ..ops.attention import flash_attention_cache
-from ..ops.basic import (RopeParams, apply_rope, rms_norm, rope_freqs, silu,
+from ..ops.basic import (RopeParams, act, apply_rope, rms_norm, rope_freqs,
                          softmax_ext)
 from ..ops.decode_attn import fused_decode_attention, pack_int4, unpack_int4
 from ..ops.ffn_fused import ffn_fused
@@ -155,18 +163,26 @@ class LlamaConfig:
 
 
 #: config fields whose non-default values take branches the port's forward
-#: does not have yet (other architectures)
+#: does not have yet (other architectures).  The forward runs llama and
+#: mixtral, and the fields that gemma and gemma2 set: a gelu FFN, the
+#: embedding scale, sandwich post-norms, the attention and final logit
+#: soft-caps, and a sliding window on every swa_pattern-th layer but the
+#: last of each period.
 _LLAMA_ONLY = dict(
-    act="silu", attn_bias=False, embd_scale=1.0, norm_plus_one=False, post_norms=False,
-    attn_logit_softcap=0.0, final_logit_softcap=0.0, swa_window=0,
-    norm_type="rms", pos_embd=False, parallel_residual=False,
-    logit_scale=1.0, pre_norms=True, alibi_max_bias=0.0, clamp_qkv=0.0,
-    residual_scale=1.0, swin_norm=False, n_head_arr=(), n_head_kv_arr=(),
-    rope_sections=())
+    attn_bias=False, norm_plus_one=False, norm_type="rms", pos_embd=False,
+    parallel_residual=False, logit_scale=1.0, pre_norms=True,
+    alibi_max_bias=0.0, clamp_qkv=0.0, residual_scale=1.0, swin_norm=False,
+    n_head_arr=(), n_head_kv_arr=(), rope_sections=(), rope_theta_swa=0.0,
+    rope_swa_only=False, norm_qk_type="")
+
+#: the gated FFN's activations the forward runs (silu: llama; gelu: gemma)
+ACTS = ("silu", "gelu")
 
 
 def check_supported(cfg: LlamaConfig):
     bad = [k for k, v in _LLAMA_ONLY.items() if getattr(cfg, k) != v]
+    if cfg.act not in ACTS:
+        bad.append("act")
     if cfg.n_expert and cfg.moe_gating != "softmax":
         bad.append("moe_gating")
     if bad or cfg.rope_mode not in ("norm", "neox", "none"):
@@ -278,11 +294,14 @@ def load_llama_weights(reader, device="cuda", dtype=torch.bfloat16):
                     lw["ffn_up"] = up
             lw["ffn_down"] = get(p + "ffn_down.weight")
         layers.append(lw)
+    tok_embd = get("token_embd.weight")
     weights = {
-        "tok_embd": get("token_embd.weight"),
+        "tok_embd": tok_embd,
         "output_norm": opt("output_norm.weight", as_vec=True),
+        # a tied head (gemma) is the embedding's tensor itself: its wire
+        # planes serve the gather and its matmul planes the head
         "output": get("output.weight") if "output.weight" in reader.tensors
-        else get("token_embd.weight"),
+        else tok_embd,
         "layers": layers,
     }
     for key, name in (("output_norm_b", "output_norm.bias"),
@@ -388,11 +407,13 @@ FLASH_CHUNK = 128
 
 
 def _attention(cfg, q, k_all, v_all, pos_start, T: int, scale: float,
-               k_scale=None, v_scale=None):
+               k_scale=None, v_scale=None, swa: int = 0,
+               logit_cap: float = 0.0):
     """Causal GQA attention over the cache: q [B, T, nh, hd]; k_all/v_all
     [B, S, Hkv, hd] (int8 with per-slot scales [B, S] when quantized);
     pos_start [B] per-row offsets (a device tensor): token t of row b
-    attends slot s iff s <= pos_b + t."""
+    attends slot s iff s <= pos_b + t (and, with a sliding window swa > 0,
+    pos_b + t - s < swa); logit_cap != 0 soft-caps the scaled scores."""
     B, _, n_head, hd = q.shape
     S, n_kv = k_all.shape[1], k_all.shape[2]
     group = n_head // n_kv
@@ -401,6 +422,7 @@ def _attention(cfg, q, k_all, v_all, pos_start, T: int, scale: float,
     v = v_all.permute(0, 2, 1, 3)
     if S >= FLASH_THRESHOLD and S % FLASH_CHUNK == 0:
         out = flash_attention_cache(qg, k, v, pos_start, T, scale,
+                                    swa=swa, logit_cap=logit_cap,
                                     chunk=FLASH_CHUNK, k_scale=k_scale,
                                     v_scale=v_scale)
         return (out.reshape(B, n_head, T, hd).permute(0, 2, 1, 3)
@@ -413,10 +435,14 @@ def _attention(cfg, q, k_all, v_all, pos_start, T: int, scale: float,
     dev = q.device
     s_idx = torch.arange(S, device=dev)[None, :]
     t_idx = torch.arange(T, device=dev)[:, None]
-    allowed = s_idx[None] <= pos_start[:, None, None] + t_idx[None]
+    q_pos = pos_start[:, None, None] + t_idx[None]
+    allowed = s_idx[None] <= q_pos
+    if swa:
+        allowed = allowed & (q_pos - s_idx[None] < swa)
     allowed = allowed[:, None, None]  # [B, 1, 1, T, S]
     mask = torch.where(allowed, 0.0, -math.inf).to(torch.float32)
-    probs = softmax_ext(scores, mask, scale=scale).to(v.dtype)
+    probs = softmax_ext(scores, mask, scale=scale,
+                        logit_cap=logit_cap).to(v.dtype)
     out = torch.einsum("bhgts,bhsd->bhgtd", probs.to(torch.float32),
                        v.to(torch.float32))
     return (out.reshape(B, n_head, T, hd).permute(0, 2, 1, 3)
@@ -480,7 +506,7 @@ def _moe_indirect(cfg, lw, f, topv, topi, cd, plain=False):
     g = qmatmul_fast_indirect(xp, lw["ffn_gate_exps"], ids, n_ff_e,
                               plain=plain)
     u = qmatmul_fast_indirect(xp, lw["ffn_up_exps"], ids, n_ff_e, plain=plain)
-    gu = silu(g.to(cd)) * u.to(cd)
+    gu = act(cfg.act, g.to(cd)) * u.to(cd)
     dly = qmatmul_fast_indirect(gu.to(torch.float32), lw["ffn_down_exps"],
                                 ids, d, plain=plain)
     return torch.sum(dly.reshape(B, T, Kc, d)
@@ -520,7 +546,7 @@ def _moe_ffn(cfg, lw, f, cd, plain=False, tap=None, il=0):
             sel = (e, E, w_tok[..., e] > 0)
             tap(f"blk.{il}.ffn_gate_exps.weight", f, expert=sel)
             tap(f"blk.{il}.ffn_up_exps.weight", f, expert=sel)
-        g = silu(matmul(f, gate_e, plain).to(cd))
+        g = act(cfg.act, matmul(f, gate_e, plain).to(cd))
         u = matmul(f, up_e, plain).to(cd)
         gu = g * u
         if tap is not None:
@@ -535,7 +561,7 @@ def _shared_expert_out(cfg, lw, f, cd, plain=False):
     """Shared-expert branch (deepseek/qwen2moe), added to the routed sum."""
     if "ffn_gate_shexp" not in lw:
         return torch.zeros((), dtype=cd, device=f.device)
-    g = silu(matmul(f, lw["ffn_gate_shexp"], plain).to(cd))
+    g = act(cfg.act, matmul(f, lw["ffn_gate_shexp"], plain).to(cd))
     u = matmul(f, lw["ffn_up_shexp"], plain).to(cd)
     sh = matmul(g * u, lw["ffn_down_shexp"], plain).to(torch.float32)
     if "ffn_gate_inp_shexp" in lw:  # qwen2moe: sigmoid-gated shared expert
@@ -556,8 +582,10 @@ def _supports_moe_indirect(cfg, lw) -> bool:
 def _ffn(cfg, lw, h, cd, plain=False, tap=None, il=0):
     """Gated FFN on the residual h, RMSNorm folded into the gate_up matmul
     (the reference's `w_gateup_il` branch).  Returns the new residual: on
-    the decode path the act+down kernel adds h itself.  The gate_up output
-    is in ffn_down's column order (natural for t-planes, interleaved for
+    the decode path the act+down kernel adds h itself, unless sandwich
+    post-norms (gemma2) norm the FFN's output before the residual add (the
+    kernel then runs without a residual).  The gate_up output is in
+    ffn_down's column order (natural for t-planes, interleaved for
     the interleaved layout): the act-mul at prefill runs on it as it is
     and the down projection takes it pre-interleaved.  A megakernel-layout
     layer ("ffp") never takes the act mode: its down output comes in the
@@ -571,15 +599,18 @@ def _ffn(cfg, lw, h, cd, plain=False, tap=None, il=0):
         gu2 = qmatmul_normed(h, lw["w_gateup_il"], lw["ffn_norm_il"],
                              cfg.rms_eps, plain=plain)
         if not ffp and math.prod(gu2.shape[:-1]) <= QP8_MAX_DECODE:
-            return qmatmul_fast_act(gu2, dn, cfg.act, res=h,
-                                    plain=plain).to(cd)
+            if not cfg.post_norms:
+                return qmatmul_fast_act(gu2, dn, cfg.act, res=h,
+                                        plain=plain).to(cd)
+            y = qmatmul_fast_act(gu2, dn, cfg.act, plain=plain).to(cd)
+            return h + rms_norm(y, lw["post_ffn_norm"], cfg.rms_eps)
     else:
         f = rms_norm(h, lw["ffn_norm"], cfg.rms_eps)
         tap(f"blk.{il}.ffn_gate.weight", f)
         tap(f"blk.{il}.ffn_up.weight", f)
         gu2 = matmul(f, lw["w_gateup_il"], plain)
     ng = dn.k
-    gu = silu(gu2[..., :ng].to(cd)) * gu2[..., ng:].to(cd)
+    gu = act(cfg.act, gu2[..., :ng].to(cd)) * gu2[..., ng:].to(cd)
     if tap is None:
         y = qmatmul_fast(gu, dn, plain=plain, pre_interleaved=True)
     else:
@@ -589,7 +620,10 @@ def _ffn(cfg, lw, h, cd, plain=False, tap=None, il=0):
         y = matmul(gu, dn, plain)
     if ffp:
         y = uninterleave_cols(y, 32)
-    return h + y.to(cd)
+    y = y.to(cd)
+    if cfg.post_norms:
+        y = rms_norm(y, lw["post_ffn_norm"], cfg.rms_eps)
+    return h + y
 
 
 def _ffn_out(cfg, lw, h, cd, plain=False, tap=None, il=0):
@@ -597,7 +631,10 @@ def _ffn_out(cfg, lw, h, cd, plain=False, tap=None, il=0):
     residual."""
     if "ffn_gate_inp" in lw:
         f = rms_norm(h, lw["ffn_norm"], cfg.rms_eps)
-        return h + _moe_ffn(cfg, lw, f, cd, plain, tap=tap, il=il)
+        y = _moe_ffn(cfg, lw, f, cd, plain, tap=tap, il=il)
+        if cfg.post_norms:
+            y = rms_norm(y, lw["post_ffn_norm"], cfg.rms_eps)
+        return h + y
     return _ffn(cfg, lw, h, cd, plain, tap=tap, il=il)
 
 
@@ -620,7 +657,8 @@ def _cache_attention(cfg, il: int, q, k, v, kv_cache: dict, pos, positions,
     """The attention of layer il outside the fused decode kernel: RoPE on
     q and k, k and v written into the cache at each row's positions
     (clipped into [0, S-1], the JAX _kv_write), then _attention over the
-    cache.  q, k, v: the projections' flat outputs [B, T, heads*hd]."""
+    cache with the layer's window and the logit cap.  q, k, v: the
+    projections' flat outputs [B, T, heads*hd]."""
     B, T = q.shape[:2]
     nh, nhkv = cfg.nh(il), cfg.nhkv(il)
     quant_kv = "k_d" in kv_cache
@@ -655,7 +693,17 @@ def _cache_attention(cfg, il: int, q, k, v, kv_cache: dict, pos, positions,
     k_full = k_full.reshape(B, S, nhkv, cfg.hd)
     v_full = v_full.reshape(B, S, nhkv, cfg.hd)
     return _attention(cfg, q, k_full, v_full, pos, T, scale,
-                      k_scale=k_sc, v_scale=v_sc)
+                      k_scale=k_sc, v_scale=v_sc, swa=swa_of(cfg, il),
+                      logit_cap=cfg.attn_logit_softcap)
+
+
+def swa_of(cfg, il: int) -> int:
+    """Layer il's sliding window (0: none): every layer but the last of
+    each period of swa_pattern (gemma2: the even layers), as the JAX
+    forward picks them (ggml_hexagon_tpu/models/llama.py:1003-1005)."""
+    if cfg.swa_window and il % cfg.swa_pattern != cfg.swa_pattern - 1:
+        return cfg.swa_window
+    return 0
 
 
 def _proj(h, a, w, wn, eps: float, plain: bool):
@@ -699,6 +747,8 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
     eps = cfg.rms_eps
     rope = cfg.rope_params
     h = embed(weights["tok_embd"], tokens, cd)
+    if cfg.embd_scale != 1.0:  # gemma: in f32, then cast back
+        h = (h.to(torch.float32) * cfg.embd_scale).to(cd)
     scale = cfg.attn_scale or 1.0 / float(math.sqrt(cfg.hd))
     quant_kv = "k_d" in kv_cache
     bits = kv_bits(kv_cache)
@@ -747,8 +797,9 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
                 invf, k_scale=kv_cache["k_d"][il] if quant_kv else None,
                 v_scale=kv_cache["v_d"][il] if quant_kv else None,
                 Hq=nh, Hkv=nhkv, D=cfg.hd, scale=float(scale),
-                mscale=float(ms), n_dims=cfg.rope_n_dims or cfg.hd,
-                plain=plain)
+                mscale=float(ms), swa=swa_of(cfg, il),
+                logit_cap=float(cfg.attn_logit_softcap),
+                n_dims=cfg.rope_n_dims or cfg.hd, plain=plain)
             fused_kv.append((il, k_r, v_r))
             attn = attn[:, None, :].to(cd)
         else:
@@ -763,13 +814,17 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
                           lw["ffn_down"], lw["ffn_norm_il"], eps, act=cfg.act,
                           out_dtype=cd, plain=plain)[:, None]
         else:
-            if decode and not ffp and supports_fused_epilogue(lw["wo"]):
+            if (decode and not ffp and not cfg.post_norms
+                    and supports_fused_epilogue(lw["wo"])):
                 h = qmatmul_fast_res(attn, lw["wo"], h, plain=plain).to(cd)
             else:
                 y = matmul(attn, lw["wo"], plain)
                 if ffp:  # wo's rows in the il32 order
                     y = uninterleave_cols(y, 32)
-                h = h + y.to(cd)
+                y = y.to(cd)
+                if cfg.post_norms:  # the output normed before the add
+                    y = rms_norm(y, lw["post_attn_norm"], eps)
+                h = h + y
             h = _ffn_out(cfg, lw, h, cd, plain, tap=tap, il=il)
         if LAYER_HOOK is not None:
             h = LAYER_HOOK(il, h_in, h)
@@ -804,5 +859,8 @@ def forward(cfg: LlamaConfig, weights: dict, tokens, kv_cache: dict,
             h = h[:, -1, :]
     if tap is not None:
         tap("output.weight", h)
-    logits = matmul(h, weights["output"], plain)
-    return logits.to(torch.float32), kv_cache
+    logits = matmul(h, weights["output"], plain).to(torch.float32)
+    if cfg.final_logit_softcap:
+        cap = cfg.final_logit_softcap
+        logits = torch.tanh(logits / cap) * cap
+    return logits, kv_cache

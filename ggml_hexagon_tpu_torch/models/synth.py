@@ -1,5 +1,5 @@
-"""Random Llama-3-8B and Mixtral-8x7B models with the exact plane layout of
-a GGUF file of a given llama.cpp mixture (Q4_K_M, Q5_K_M, IQ4_XS, IQ3_XXS
+"""Random Llama-3-8B, Mixtral-8x7B and Gemma-2-9B models with the exact
+plane layout of a GGUF file of a given llama.cpp mixture (Q4_K_M, Q5_K_M, IQ4_XS, IQ3_XXS
 made with an imatrix), drawn on
 the device from a seeded torch.Generator, on the JAX package's default
 plane layouts (layout "t") or on the interleaved layout everywhere (layout
@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import os
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -41,11 +42,33 @@ LLAMA3_8B = dict(n_vocab=128256, n_embd=4096, n_layer=32, n_head=32,
                  n_head_kv=8, n_ff=14336, rope_theta=500000.0,
                  n_ctx_train=8192)
 
+#: google/gemma-2-9b config.json: 16 query and 8 KV heads of 256, a gelu
+#: (tanh) FFN, sandwich norms, a 4096-token window on the even layers,
+#: logit soft-caps 50 (attention) and 30 (final), the embedding scaled by
+#: sqrt(3584) and tied to the head (the registry's gemma2 entry)
+GEMMA2_9B = dict(n_vocab=256000, n_embd=3584, n_layer=42, n_head=16,
+                 n_head_kv=8, head_dim=256, n_ff=14336, rms_eps=1e-6,
+                 rope_theta=10000.0, n_ctx_train=8192, arch="gemma2",
+                 rope_mode="neox", act="gelu", post_norms=True,
+                 attn_logit_softcap=50.0, final_logit_softcap=30.0,
+                 swa_window=4096, swa_pattern=2,
+                 embd_scale=3584 ** 0.5)
+
 #: mistralai/Mixtral-8x7B-v0.1 config.json (rope "norm", which
 #: permute_rope_neox turns into neox)
 MIXTRAL_8X7B = dict(n_vocab=32000, n_embd=4096, n_layer=32, n_head=32,
                     n_head_kv=8, n_ff=14336, n_expert=8, n_expert_used=2,
                     rope_theta=1e6, rms_eps=1e-5, n_ctx_train=32768)
+
+
+def _generator(device, seed: int):
+    """A seeded generator on `device`, or None on the meta device, where
+    tensors have shapes and no values (launches.launch_table's models)."""
+    if torch.device(device).type == "meta":
+        return None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
 
 
 def random_qtensor(gen: torch.Generator, n: int, k: int, qtype: GGMLType,
@@ -148,15 +171,17 @@ def concat_wire(parts: list) -> QTensor:
                    cat("qh"), cat("sc"), cat("dmin"), cat("m"))
 
 
-def _policy(cfg: LlamaConfig, ftype: str,
-            has_imatrix: bool = False) -> QuantPolicy:
+def _policy(cfg: LlamaConfig, ftype: str, has_imatrix: bool = False,
+            tied: bool = False) -> QuantPolicy:
     return QuantPolicy(ftype, cfg.n_layer, n_gqa=cfg.n_head // cfg.n_head_kv,
-                       n_expert=max(cfg.n_expert, 1), has_imatrix=has_imatrix)
+                       n_expert=max(cfg.n_expert, 1), has_imatrix=has_imatrix,
+                       has_output=not tied)
 
 
 def build_model(cfg: LlamaConfig, seed: int = 0, device="cuda",
                 ftype: str = "Q4_K_M", layout: str = "t",
-                has_imatrix: bool = False, ffn_fused: bool = False):
+                has_imatrix: bool = False, ffn_fused: bool = False,
+                tied: bool = False, depth: int | None = None):
     """(cfg', weights) of a random dense model under llama.cpp's `ftype`
     per-tensor policy, every type taken from QuantPolicy, through the
     production load pipeline: NEOX rope permutation, projection fusion,
@@ -170,11 +195,16 @@ def build_model(cfg: LlamaConfig, seed: int = 0, device="cuda",
     package's default, independent of GHT_QP8); "il": interleaved planes
     for every tensor.  has_imatrix: the mixture llama-quantize writes when
     given an importance matrix.  ffn_fused: the whole-FFN megakernel layout
-    (fuse_weights(ffn_fused=True)) on the layers that take it."""
+    (fuse_weights(ffn_fused=True)) on the layers that take it.  tied: the
+    head is the token embedding (gemma), its type the head's (Q4_K_M: Q6_K)
+    and its matmul planes built beside the wire planes the gather reads.
+    A post_norms config (gemma2) gets its post-attention and post-FFN norm
+    weights.  depth: the first `depth` layers of the full-depth model only
+    (their types those of the full model's file); the config returned
+    says that many layers.  device "meta": shapes without values."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    policy = _policy(cfg, ftype, has_imatrix)
+    gen = _generator(device, seed)
+    policy = _policy(cfg, ftype, has_imatrix, tied)
     d = cfg.n_embd
 
     def draw(name, n, k):
@@ -186,7 +216,7 @@ def build_model(cfg: LlamaConfig, seed: int = 0, device="cuda",
 
     nq, nkv = cfg.n_head * cfg.hd, cfg.n_head_kv * cfg.hd
     layers = []
-    for il in range(cfg.n_layer):
+    for il in range(depth or cfg.n_layer):
         p = f"blk.{il}."
         gate = draw(p + "ffn_gate.weight", cfg.n_ff, d)
         up = draw(p + "ffn_up.weight", cfg.n_ff, d)
@@ -200,6 +230,11 @@ def build_model(cfg: LlamaConfig, seed: int = 0, device="cuda",
             "ffn_down": t(draw(p + "ffn_down.weight", d, cfg.n_ff)),
             "w_gateup": t(concat_wire([gate, up])),
         }
+        if cfg.post_norms:
+            lw["post_attn_norm"] = torch.ones(d, dtype=torch.float32,
+                                              device=device)
+            lw["post_ffn_norm"] = torch.ones(d, dtype=torch.float32,
+                                             device=device)
         if all(w.cfg == qkv[0].cfg for w in qkv):
             lw["wqkv"] = t(concat_wire(qkv))
         else:
@@ -209,47 +244,64 @@ def build_model(cfg: LlamaConfig, seed: int = 0, device="cuda",
                 lw[key] = w.with_fast_planes(layout)
         layers.append(lw)
         del gate, up, qkv
+    # embeddings are gather-only: wire planes, no matmul planes
+    tok_embd = draw("token_embd.weight", cfg.n_vocab, d)
     weights = {
-        # embeddings are gather-only: wire planes, no matmul planes
-        "tok_embd": draw("token_embd.weight", cfg.n_vocab, d),
+        "tok_embd": tok_embd,
         "output_norm": torch.ones(d, dtype=torch.float32, device=device),
-        "output": t(draw("output.weight", cfg.n_vocab, d)),
+        "output": t(tok_embd if tied else draw("output.weight", cfg.n_vocab,
+                                               d)),
         "layers": layers,
     }
+    cfg = replace(cfg, n_layer=len(layers))
     weights, cfg = permute_rope_neox(weights, cfg)
     weights = drop_wire_planes(fuse_weights(weights, cfg, ffn_fused=ffn_fused))
     return cfg, weights
 
 
-def build_8b(seed: int = 0, device="cuda"):
-    """Llama-3-8B Q4_K_M, all 32 layers at full width (bench.py:76-79)."""
-    return build_model(LlamaConfig(**LLAMA3_8B), seed=seed, device=device)
+def build_8b(seed: int = 0, device="cuda", depth: int | None = None):
+    """Llama-3-8B Q4_K_M, all 32 layers at full width (bench.py:76-79);
+    depth, as for every build function here: the first `depth` layers
+    only."""
+    return build_model(LlamaConfig(**LLAMA3_8B), seed=seed, device=device,
+                       depth=depth)
 
 
-def build_8b_il(seed: int = 0, device="cuda", ffn_fused: bool = False):
+def build_8b_il(seed: int = 0, device="cuda", ffn_fused: bool = False,
+                depth: int | None = None):
     """Llama-3-8B Q4_K_M, all 32 layers at full width, on the interleaved
     layout everywhere; with ffn_fused, every layer in the whole-FFN
     megakernel layout (K9 at decode)."""
     return build_model(LlamaConfig(**LLAMA3_8B), seed=seed, device=device,
-                       layout="il", ffn_fused=ffn_fused)
+                       layout="il", ffn_fused=ffn_fused, depth=depth)
 
 
-def build_8b_iq4xs(seed: int = 0, device="cuda"):
+def build_gemma2_9b(layout: str = "t", seed: int = 0, device="cuda"):
+    """Gemma-2-9B Q4_K_M, all 42 layers at full width, the head tied to
+    the Q6_K embedding, on the default layouts ("t") or interleaved
+    everywhere ("il")."""
+    return build_model(LlamaConfig(**GEMMA2_9B), seed=seed, device=device,
+                       layout=layout, tied=True)
+
+
+def build_8b_iq4xs(seed: int = 0, device="cuda", depth: int | None = None):
     """Llama-3-8B IQ4_XS, all 32 layers at full width."""
     return build_model(LlamaConfig(**LLAMA3_8B), seed=seed, device=device,
-                       ftype="IQ4_XS")
+                       ftype="IQ4_XS", depth=depth)
 
 
-def build_8b_iq3xxs(layout: str = "t", seed: int = 0, device="cuda"):
+def build_8b_iq3xxs(layout: str = "t", seed: int = 0, device="cuda",
+                    depth: int | None = None):
     """Llama-3-8B IQ3_XXS (made with an imatrix), all 32 layers at full
     width, on the default layouts ("t") or interleaved everywhere ("il")."""
     return build_model(LlamaConfig(**LLAMA3_8B), seed=seed, device=device,
-                       ftype="IQ3_XXS", layout=layout, has_imatrix=True)
+                       ftype="IQ3_XXS", layout=layout, has_imatrix=True,
+                       depth=depth)
 
 
 def build_moe_model(cfg: LlamaConfig, seed: int = 0, device="cuda",
                     ftype: str = "Q5_K_M", layout: str = "t",
-                    has_imatrix: bool = False):
+                    has_imatrix: bool = False, depth: int | None = None):
     """(cfg', weights) of a random MoE model under llama.cpp's `ftype`
     per-tensor policy, through the production load pipeline.  At
     n_expert=8, Q5_K_M is Mixtral's mixture of the second slice (Q5_K
@@ -267,10 +319,10 @@ def build_moe_model(cfg: LlamaConfig, seed: int = 0, device="cuda",
     tensor is drawn, given
     its matmul planes and stripped of its wire before the next is drawn, so
     the peak above the model is one tensor's transient (a full-width expert
-    stack's int32 values are 1.9 GB)."""
+    stack's int32 values are 1.9 GB).  depth and device "meta" as in
+    build_model."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = _generator(device, seed)
     E, d, nff = cfg.n_expert, cfg.n_embd, cfg.n_ff_exp or cfg.n_ff
     policy = _policy(cfg, ftype, has_imatrix)
 
@@ -283,7 +335,7 @@ def build_moe_model(cfg: LlamaConfig, seed: int = 0, device="cuda",
 
     nq, nkv = cfg.n_head * cfg.hd, cfg.n_head_kv * cfg.hd
     layers = []
-    for il in range(cfg.n_layer):
+    for il in range(depth or cfg.n_layer):
         p = f"blk.{il}."
         layers.append({
             "attn_norm": ones(),
@@ -305,35 +357,38 @@ def build_moe_model(cfg: LlamaConfig, seed: int = 0, device="cuda",
         "output": qt("output.weight", cfg.n_vocab, d),
         "layers": layers,
     }
+    cfg = replace(cfg, n_layer=len(layers))
     weights, cfg = permute_rope_neox(weights, cfg)
     return cfg, drop_wire_planes(fuse_weights(weights, cfg))
 
 
-def build_mixtral(seed: int = 0, device="cuda"):
+def build_mixtral(seed: int = 0, device="cuda", depth: int | None = None):
     """Mixtral-8x7B Q5_K_M, all 32 layers at full width."""
     return build_moe_model(LlamaConfig(**MIXTRAL_8X7B), seed=seed,
-                           device=device)
+                           device=device, depth=depth)
 
 
-def build_mixtral_iq4xs(seed: int = 0, device="cuda"):
+def build_mixtral_iq4xs(seed: int = 0, device="cuda", depth: int | None = None):
     """Mixtral-8x7B IQ4_XS, all 32 layers at full width."""
     return build_moe_model(LlamaConfig(**MIXTRAL_8X7B), seed=seed,
-                           device=device, ftype="IQ4_XS")
+                           device=device, ftype="IQ4_XS", depth=depth)
 
 
-def build_mixtral_iq3xxs(layout: str = "t", seed: int = 0, device="cuda"):
+def build_mixtral_iq3xxs(layout: str = "t", seed: int = 0, device="cuda",
+                         depth: int | None = None):
     """Mixtral-8x7B IQ3_XXS (made with an imatrix), all 32 layers at full
     width, on the default layouts ("t") or interleaved everywhere ("il")."""
     return build_moe_model(LlamaConfig(**MIXTRAL_8X7B), seed=seed,
                            device=device, ftype="IQ3_XXS", layout=layout,
-                           has_imatrix=True)
+                           has_imatrix=True, depth=depth)
 
 
-def build_mixtral_q4km_il(seed: int = 0, device="cuda"):
+def build_mixtral_q4km_il(seed: int = 0, device="cuda", depth: int | None = None):
     """Mixtral-8x7B Q4_K_M, all 32 layers at full width, on the interleaved
     layout everywhere."""
     return build_moe_model(LlamaConfig(**MIXTRAL_8X7B), seed=seed,
-                           device=device, ftype="Q4_K_M", layout="il")
+                           device=device, ftype="Q4_K_M", layout="il",
+                           depth=depth)
 
 
 # ---------------------------------------------------------------------------

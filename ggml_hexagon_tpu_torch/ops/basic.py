@@ -5,6 +5,8 @@ Counterpart of ggml_hexagon_tpu/ops/basic.py:22-193, same semantics:
 - rope: ggml ROPE modes NORM (adjacent pairs) and NEOX (split halves),
   with linear frequency scaling and YaRN
 - softmax_ext: fused scale + mask + softmax (ggml SOFT_MAX_EXT)
+- gelu, relu and act_f32: the gated FFN's activations (ggml LLM_FFN_GELU,
+  LLM_FFN_RELU), the model's and the kernels' forms
 """
 from __future__ import annotations
 
@@ -24,6 +26,47 @@ def rms_norm(x, weight, eps: float = 1e-5):
 def silu(x):
     """x * sigmoid(x), the sigmoid in f32 and cast to x's dtype first."""
     return x * torch.sigmoid(x.to(torch.float32)).to(x.dtype)
+
+
+#: sqrt(2 / pi), the tanh form's constant (as the f32 value both packages
+#: round it to)
+GELU_C = 0.7978845608028654
+
+
+def gelu(x):
+    """The tanh form of GELU in f32, cast back to x's dtype (jax.nn.gelu
+    with approximate=True: x * (0.5 * (1 + tanh(c * (x + 0.044715 x^3)))))."""
+    xf = x.to(torch.float32)
+    inner = GELU_C * (xf + 0.044715 * (xf * xf * xf))
+    return (xf * (0.5 * (1.0 + torch.tanh(inner)))).to(x.dtype)
+
+
+def relu(x):
+    """max(x, 0) in x's dtype."""
+    return torch.clamp_min(x, 0)
+
+
+def act(name: str, x):
+    """The model's gated-FFN activation `name` (silu, gelu or relu) on x."""
+    fns = {"silu": silu, "gelu": gelu, "relu": relu}
+    if name not in fns:
+        raise NotImplementedError(f"act {name!r}")
+    return fns[name](x)
+
+
+def act_f32(name: str, x):
+    """The fused kernels' activation on f32 x, in their order of operations
+    (ggml_hexagon_tpu/ops/qmm_qp8.py `_apply_act_f32`, qmm_fast.py
+    `_apply_act`, ffn_fused.py `_act`): x * sigmoid(x);
+    0.5 * x * (1 + tanh(c * (x + 0.044715 * x * x * x))); max(x, 0)."""
+    if name == "silu":
+        return x * torch.sigmoid(x)
+    if name == "gelu":
+        t = torch.tanh(GELU_C * (x + 0.044715 * x * x * x))
+        return 0.5 * x * (1.0 + t)
+    if name == "relu":
+        return torch.clamp_min(x, 0.0)
+    raise NotImplementedError(f"act {name!r}")
 
 
 @dataclass(frozen=True)

@@ -1,5 +1,5 @@
 """The whole-FFN megakernel (K9): wo + residual -> RMSNorm -> gate_up ->
-silu(gate)*up -> down + residual in one launch, for the rows of a decode
+act(gate)*up (silu, gelu or relu) -> down + residual in one launch, for the rows of a decode
 step (B <= 8).
 
 Counterpart of ggml_hexagon_tpu/ops/ffn_fused.py: `supports_ffn_fused`
@@ -24,7 +24,7 @@ ulp of rsqrt and exp):
   phase B  inv = rsqrt(mean(h2^2) + eps); xb = h2 * inv * wn_il in f32,
            stored as bf16; xg_b the lane-aligned group sums of the f32 xb
            (column r*G + g in group g); gu = xb @ gate_up'^T + xg_b @ fb^T
-  phase C  xd = bf16(silu(gate) * up), in f32; out = xd @ down'^T + bias +
+  phase C  xd = bf16(act(gate) * up), in f32 (ops.basic.act_f32); out = xd @ down'^T + bias +
            h2, the bias xs @ bf16(tile(fb)) (stored fb) or off * (xs @
            bf16(tile(fs))) (Q6_K -32, Q4_0 -8), xs = bf16(xd[:, :K/2] +
            xd[:, K/2:]) on nibble and coded planes, xd on byte planes; coded
@@ -43,6 +43,7 @@ import torch
 
 from .. import kernels
 from ..quant.pack import QTensor
+from .basic import act_f32
 from .qmm_fast import (_body_plain, _interleave_x, _is_nibble,
                        _is_packed, _offset_bias, _sums_il, _sums_natural,
                        supports_fused_epilogue, uninterleave_cols)
@@ -80,8 +81,11 @@ def supports_ffn_fused(wo, gu_il, dn, d: int, n_ff: int) -> bool:
 
 
 def _check_act(act: str):
-    if act != "silu":
-        raise NotImplementedError(f"act {act!r}: K9 takes silu only")
+    """Phase B's activations: silu, gelu and relu (JAX `_ffn_kernel`'s
+    `_act`)."""
+    if act not in kernels.ACT_IDS:
+        raise NotImplementedError(f"act {act!r}: K9 takes "
+                                  f"{tuple(kernels.ACT_IDS)}")
 
 
 def ffn_fused_plain(x_a, xg_a, h_il, wn_il, wo: QTensor, gu_il: QTensor,
@@ -103,9 +107,9 @@ def ffn_fused_plain(x_a, xg_a, h_il, wn_il, wo: QTensor, gu_il: QTensor,
     xg_b = _sums_il(xb, G)
     gu = _body_plain(xb.to(torch.bfloat16), gu_il.fq, gu_il.fs, gu_il.cfg)
     gu = gu + xg_b @ gu_il.fb.to(torch.float32).t()
-    # phase C: silu(gate)*up, down + its bias + h2
+    # phase C: act(gate)*up, down + its bias + h2
     g, u = gu[:, :n_ff], gu[:, n_ff:]
-    xd = (g * torch.sigmoid(g) * u).to(torch.bfloat16)
+    xd = (act_f32(act, g) * u).to(torch.bfloat16)
     y = _body_plain(xd, dn.fq, dn.fs, dn.cfg)
     off = _offset_bias(dn.cfg, dn.fb)
     if dn.fb is not None or off:

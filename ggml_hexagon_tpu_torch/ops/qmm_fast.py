@@ -37,7 +37,7 @@ versions and the kernels alike:
 
   activation  x rounded to bf16 and interleaved; normed: inv =
               rsqrt(mean(x^2) + eps) over the f32 of that bf16 x, then
-              bf16((x*inv)*wn_il); act: silu(g)*u in f32 of the bf16 gate
+              bf16((x*inv)*wn_il); act: act(g)*u in f32 of the bf16 gate
               ++ up halves (interleaved already), rounded to bf16.
   product     byte planes at B <= 8: f32 x times the f32 weight q*scale;
               byte planes above 8 rows, nibble and coded planes at every
@@ -65,7 +65,7 @@ import torch
 
 from .. import kernels
 from ..quant.pack import QConfig, QTensor
-from .basic import rms_norm
+from .basic import act_f32, rms_norm
 from .qmm_qp8 import (_group_scale_bias, _int_values, decode_codes,
                       dequantize_qp8, encode_codes, qp8_matmul, qp8_matmul_act, qp8_matmul_dual,
                       qp8_matmul_indirect, qp8_matmul_normed, qp8_matmul_res,
@@ -309,18 +309,15 @@ def _kernel_x_plain(x, G: int, wn=None, eps=None, act: str = "",
     """The kernel's bf16 interleaved activation [B, K] (`_kernel_x`) and
     the normed mode's rsqrt factor [B, 1] (else None): x interleaved (or
     taken as it is with pre_il), RMS-normed with the interleaved weight wn
-    when eps is given, or silu(gate)*up of the interleaved halves of x
-    [B, 2K] with act."""
+    when eps is given, or act(gate)*up (act silu, gelu or relu,
+    ops.basic.act_f32) of the interleaved halves of x [B, 2K] with act."""
     if bool(act) + (eps is not None) + pre_il > 1:
         raise ValueError("K6 takes one mode: pre_il, normed or act")
     xb = x.to(torch.bfloat16)
     if act:
-        if act != "silu":
-            raise NotImplementedError(f"act {act!r}: K6 takes silu only")
         xw = xb.to(torch.float32)
         K = xw.shape[1] // 2
-        g = xw[:, :K]
-        return (g * torch.sigmoid(g) * xw[:, K:]).to(torch.bfloat16), None
+        return (act_f32(act, xw[:, :K]) * xw[:, K:]).to(torch.bfloat16), None
     x_il = _interleave_x(xb, G, xb.shape[1] // G, pre_il)
     if eps is None:
         return x_il, None
@@ -518,13 +515,14 @@ def _xg_mode(qt: QTensor, nkj: int = 1) -> int:
     return 2 if nkj == 1 and qt.fs.shape[1] % 128 == 0 else 1
 
 
-def group_sums(qt: QTensor, xr, mode: str, wn=None, nkj: int = 1):
+def group_sums(qt: QTensor, xr, mode: str, wn=None, nkj: int = 1,
+               act: str = "silu"):
     """The mode-1 group sums f32 [B, G] that an entry hands K6 or K7 for the
     rows xr [B, K] (act: [B, 2K]) as the caller gave them, un-rounded, or
     None where the planes have no bias or the kernel takes its own (mode
     2).  mode: "plain" and "res" (natural column order), "pre_il"
     (interleaved order), "normed" (the pre-norm x*wn_il, interleaved; the
-    kernel scales them by its rsqrt factor), "act" (silu(g)*u of the
+    kernel scales them by its rsqrt factor), "act" (act(g)*u of the
     interleaved halves).  nkj: the blocking's K-split."""
     if _xg_mode(qt, nkj) != 1:
         return None
@@ -538,8 +536,7 @@ def group_sums(qt: QTensor, xr, mode: str, wn=None, nkj: int = 1):
                         * wn.to(torch.float32), G)
     if mode == "act":
         g = xr[:, :qt.k].to(torch.float32)
-        return _sums_il(g * torch.sigmoid(g) * xr[:, qt.k:].to(torch.float32),
-                        G)
+        return _sums_il(act_f32(act, g) * xr[:, qt.k:].to(torch.float32), G)
     raise ValueError(f"mode {mode!r}")
 
 
@@ -617,14 +614,12 @@ def qmatmul_fast_act(x, qt: QTensor, act: str, res=None,
     if qt.fl == "t":
         return qp8_matmul_act(x, qt, act, res=res, out_dtype=out_dtype,
                               plain=plain)
-    if act != "silu":
-        raise NotImplementedError(f"act {act!r}: K6 takes silu only")
     lead, B, xr, x2 = _rows(x, qt, 2 * qt.k)
     _full_k(qt, B, "the act mode")
     r2 = (None if res is None
           else res.to(torch.float32).reshape(B, qt.n).contiguous())
     y = _k6(qt, plain)(x2, qt, act=act, res=r2,
-                       xg=group_sums(qt, xr, "act"))
+                       xg=group_sums(qt, xr, "act", act=act))
     return y[:, :qt.n].reshape(*lead, qt.n).to(out_dtype)
 
 

@@ -41,6 +41,7 @@ import math
 import torch
 
 from .. import kernels
+from .basic import act_f32
 from ..quant.pack import QConfig, QTensor
 
 #: activation-quant segment width (the reference's q8_K block)
@@ -201,9 +202,11 @@ def _decode_cm(cm: str, pb: tuple, w):
 
 def encode_codes(cm: str, v):
     """int values -> stored sign+magnitude codes (bit 3 = sign, bits 0-2 =
-    magnitude code; ternary: value+1).  Raises on out-of-alphabet values."""
+    magnitude code; ternary: value+1).  Raises on out-of-alphabet values
+    (a meta tensor, which has no values, is not checked)."""
+    check = v.device.type != "meta"
     if cm == "tern":
-        if int(v.min()) < -1 or int(v.max()) > 2:
+        if check and (int(v.min()) < -1 or int(v.max()) > 2):
             raise ValueError(f"ternary values outside [-1, 2]")
         return (v + 1).to(torch.uint8)
     mags = _CODE_ALPHABETS[cm]
@@ -215,7 +218,7 @@ def encode_codes(cm: str, v):
     if 0 not in mags:
         # zero rows only come from n -> n_pad padding
         c = torch.where((a == 0) & (c < 0), torch.zeros_like(c), c)
-    if bool((c < 0).any()):
+    if check and bool((c < 0).any()):
         raise ValueError(f"{cm}: values outside alphabet {mags}")
     out = ((v < 0).to(torch.int32) << 3) | c
     if 0 in mags:
@@ -308,14 +311,11 @@ def dequantize_qp8(qt: QTensor, dtype=torch.float32):
 
 def qp8_prologue_plain(x, wn=None, eps=None, act: str = ""):
     """Effective f32 activation [B, K]: raw, RMSNorm(x)*wn, or
-    silu(gate)*up of x [B, 2K]."""
-    if act not in ("", "silu"):
-        raise NotImplementedError(f"act {act!r}: K1 takes silu only")
+    act(gate)*up of x [B, 2K] (act silu, gelu or relu, ops.basic.act_f32)."""
     xf = x.to(torch.float32)
     if act:
         K = xf.shape[1] // 2
-        g = xf[:, :K]
-        return g * torch.sigmoid(g) * xf[:, K:]
+        return act_f32(act, xf[:, :K]) * xf[:, K:]
     if eps is not None:
         inv = torch.rsqrt(torch.mean(xf * xf, dim=1, keepdim=True) + eps)
         return xf * inv * wn.to(torch.float32)

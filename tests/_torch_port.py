@@ -39,16 +39,20 @@ def jax_qt_leaf(qt: JQTensor) -> dict:
     return leaf
 
 
-def jax_tree_to_numpy(tree):
-    """The JAX weights tree with QTensor leaves as dicts, arrays as numpy."""
+def jax_tree_to_numpy(tree, _seen=None):
+    """The JAX weights tree with QTensor leaves as dicts, arrays as numpy; a
+    QTensor the tree holds twice (a tied head) becomes one leaf dict."""
+    seen = {} if _seen is None else _seen
     if tree is None:
         return None
     if isinstance(tree, JQTensor):
-        return jax_qt_leaf(tree)
+        if id(tree) not in seen:
+            seen[id(tree)] = (tree, jax_qt_leaf(tree))
+        return seen[id(tree)][1]
     if isinstance(tree, dict):
-        return {k: jax_tree_to_numpy(v) for k, v in tree.items()}
+        return {k: jax_tree_to_numpy(v, seen) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [jax_tree_to_numpy(v) for v in tree]
+        return [jax_tree_to_numpy(v, seen) for v in tree]
     return _np(tree)
 
 

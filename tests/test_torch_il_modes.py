@@ -147,9 +147,12 @@ def test_act_plain_matches_pallas(qtype, B, with_res):
 
 
 def test_act_other_than_silu_raises():
+    """K6's act mode takes silu, gelu and relu (gelu and relu against the
+    JAX kernel: tests/test_torch_gemma_ops.py); other acts raise."""
     _, pq = _qt(GGMLType.Q8_0, 512, 768)
+    assert PF.qmatmul_fast_act(torch.zeros(1, 1536), pq, "gelu").shape == (1, 512)
     with pytest.raises(NotImplementedError):
-        PF.qmatmul_fast_act(torch.zeros(1, 1536), pq, "gelu")
+        PF.qmatmul_fast_act(torch.zeros(1, 1536), pq, "relu2")
 
 
 @pytest.mark.parametrize("qtype", TYPES, ids=lambda t: t.name)

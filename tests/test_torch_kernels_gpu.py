@@ -1968,3 +1968,151 @@ def test_bulk_kv_write_at_row_positions_matches_plain(dev, kv):
                 fa = fa * got[n + "_d"][:, :, :S - 1][written][:, None]
                 fb = fb * want[n + "_d"][:, :, :S - 1][written][:, None]
             assert _nmse(fa, fb) <= 5e-4, n
+
+
+# ---------------------------------------------------------------------------
+# the branches Gemma-class models reach: gelu and relu acts (K1, K6, K9),
+# K4 at a head width of 256 with a window and a logit cap
+# ---------------------------------------------------------------------------
+
+#: Gemma-2-9B's down projections (d = 3584, n_ff = 14336), and a coded
+#: down at that shape for K6's coded family
+_GEMMA_DOWN = {"down_q4k": (3584, 14336, GGMLType.Q4_K),
+               "down_q6k": (3584, 14336, GGMLType.Q6_K)}
+_GEMMA_DOWN_IL = {**_GEMMA_DOWN,
+                  "down_iq3xxs": (3584, 14336, GGMLType.IQ3_XXS)}
+
+
+@pytest.mark.parametrize("name", list(_GEMMA_DOWN))
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("with_res", [False, True], ids=["", "res"])
+def test_qp8_gemv_act_branches_match_plain(dev, name, act, B, with_res):
+    """K1's gelu and relu act prologues (a template instance each) on
+    Gemma-2's downs, with and without the residual (Gemma-2 takes none):
+    one launch under qp8_gemv and under the branch's BRANCH_LAUNCHES key;
+    NMSE <= 1e-6 (tanhf and torch's tanh differ in the last ulp)."""
+    n, k, qtype = _GEMMA_DOWN[name]
+    qt = _qt(dev, n, k, qtype)
+    x = _x(dev, B, 2 * k, seed=B + 20)
+    kw = dict(act=act)
+    if with_res:
+        kw["res"] = _x(dev, B, n, seed=9)
+    kernels.reset_launches()
+    got = P.qp8_gemv(x, qt, **kw)
+    want = P.qp8_gemv_plain(x, qt, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["qp8_gemv"] == 1
+    assert kernels.BRANCH_LAUNCHES[f"qp8_gemv_{act}"] == 1
+    assert _nmse(got, want) <= NMSE_MAX
+
+
+@pytest.mark.parametrize("name", list(_GEMMA_DOWN_IL))
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+@pytest.mark.parametrize("B", [1, 3, 8, 16])
+@pytest.mark.parametrize("with_res", [False, True], ids=["", "res"])
+def test_fast_il_act_branches_match_plain(dev, name, act, B, with_res):
+    """K6's gelu and relu act modes on Gemma-2's downs on interleaved
+    planes (Q4_K nibble with a stored bias, Q6_K byte with the derived
+    one, IQ3_XXS coded), at B <= 8 (build_act's template instance) and
+    above (the GEMM's pre-pass)."""
+    n, k, qtype = _GEMMA_DOWN_IL[name]
+    qt = _qt(dev, n, k, qtype, "il")
+    nib = PF._is_packed(qt.cfg)
+    x = (_x(dev, B, 2 * k, seed=B + 30) * 2).to(torch.bfloat16)
+    kw = dict(act=act)
+    if with_res:
+        kw["res"] = _x(dev, B, n, seed=9)
+    _, nkj = PF._pick_blocks(PF._padded_rows(B), k, nib, qt.cfg.gs)
+    xg = PF.group_sums(qt, x, "act", None, nkj, act=act)
+    kernels.reset_launches()
+    got = PF._k6(qt, False)(x, qt, xg=xg, **kw)
+    want = PF._k6(qt, True)(x, qt, xg=xg, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[f"fast_{PF._family(qt.cfg)}_act"] == 1
+    assert kernels.BRANCH_LAUNCHES[f"fast_{act}"] == 1
+    assert _nmse(got, want) <= NMSE_MAX
+
+
+@pytest.mark.parametrize("down", ["q4k", "q6k"])
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+@pytest.mark.parametrize("B", [1, 8])
+def test_ffn_fused_act_branches_match_plain(dev, down, act, B):
+    """K9's phase B in its gelu and relu instances at the Llama-3-8B widths
+    (d = 4096, n_ff = 14336; no Gemma width takes K9: G = 3584 / 32 = 112
+    is not a multiple of 128)."""
+    wo, gu, dn = _k9_layer(dev, 4096, 14336, _K9_DOWN[down])
+    wn = torch.rand(4096, device=dev) + 0.5
+    attn, h = _x(dev, B, 4096, seed=B), _x(dev, B, 4096, seed=B + 1)
+    kernels.reset_launches()
+    got = PFF.ffn_fused(attn, h, wo, gu, dn, wn, 1e-6, act=act,
+                        out_dtype=torch.float32)
+    want = PFF.ffn_fused(attn, h, wo, gu, dn, wn, 1e-6, act=act,
+                         out_dtype=torch.float32, plain=True)
+    torch.cuda.synchronize()
+    assert kernels.BRANCH_LAUNCHES[f"ffn_fused_{act}"] == 1
+    assert torch.isfinite(got).all()
+    assert _nmse(got, want) <= NMSE_MAX
+
+
+def _k4_256(dev, kv, B, S, pos, swa, cap, Hq=16, Hkv=8, seed=0,
+            clobber=False):
+    """K4 at D = 256 (Gemma-2-9B's 16 query and 8 KV heads) against its
+    plain twin over a bf16, int8 or packed int4 cache; clobber: then
+    again with every slot below row 0's window overwritten, which must
+    give the same bits."""
+    D = 256
+    qkv = _x(dev, B, (Hq + 2 * Hkv) * D, seed=seed)
+    kw = {}
+    if kv == "bf16":
+        kc = _x(dev, B, S, Hkv * D, seed=1).to(torch.bfloat16)
+        vc = _x(dev, B, S, Hkv * D, seed=2).to(torch.bfloat16)
+    else:
+        qmax = 127 if kv == "int8" else 7
+        kc = torch.randint(-qmax, qmax + 1, (B, S, Hkv * D), device=dev,
+                           dtype=torch.int8)
+        vc = torch.randint(-qmax, qmax + 1, (B, S, Hkv * D), device=dev,
+                           dtype=torch.int8)
+        kw = dict(k_scale=torch.rand(B, S, device=dev) * 2.0 / qmax,
+                  v_scale=torch.rand(B, S, device=dev) * 2.0 / qmax)
+        if kv == "int4":
+            kc, vc = PD.pack_int4(kc), PD.pack_int4(vc)
+            kw["kv_bits"] = 4
+    rows = [pos, max(0, pos - 3), pos // 2, min(S - 1, pos + 5)][:B]
+    posb = torch.tensor(rows, dtype=torch.int32, device=dev)
+    inv = 10000.0 ** (-torch.arange(0, D, 2, device=dev).float() / D)
+    ang = posb[:, None].float() * inv[None]
+    cs = torch.cat([torch.cos(ang), torch.sin(ang)], dim=1).contiguous()
+    kw.update(Hq=Hq, Hkv=Hkv, D=D, scale=D ** -0.5, swa=swa, logit_cap=cap)
+    kernels.reset_launches()
+    got = PD.decode_attn(qkv, kc, vc, posb, cs, **kw)
+    want = PD.decode_attn_plain(qkv, kc, vc, posb, cs, **kw)
+    torch.cuda.synchronize()
+    key = "decode_attn_q4" if kv == "int4" else "decode_attn"
+    assert kernels.LAUNCHES[key] == 1
+    assert kernels.BRANCH_LAUNCHES["decode_attn_d256"] == 1
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-4
+    if clobber:
+        lo = pos - swa + 1
+        kc[:, :lo] = kc[:, lo:2 * lo].flip(1)
+        vc[:, :lo] = vc[:, lo:2 * lo].flip(1)
+        again = PD.decode_attn(qkv, kc, vc, posb, cs, **kw)
+        assert torch.equal(again[0], got[0])
+    return got
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("pos", [0, 1, 33, 700, 1023])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("swa,cap", [(0, 0.0), (100, 50.0)],
+                         ids=["plain", "swa_cap"])
+def test_decode_attn_d256_matches_plain(dev, kv, pos, B, swa, cap):
+    _k4_256(dev, kv, B, 1024, pos, swa, cap, seed=pos)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8", "int4"])
+def test_decode_attn_d256_window_masks(dev, kv):
+    """Gemma-2's window on an 8192-slot cache at pos 4700: slots below pos
+    - 4095 change nothing, and the capped scores match the plain twin."""
+    _k4_256(dev, kv, 1, 8192, 4700, 4096, 50.0, seed=3, clobber=True)

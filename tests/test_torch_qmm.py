@@ -112,8 +112,13 @@ def test_gemv_kernel_wrapper_takes_plain_only_on_cpu():
 
 @pytest.mark.parametrize("act", ["gelu", "relu"])
 def test_act_other_than_silu_raises(act):
-    """K1's prologue and its plain version take silu only."""
-    _, pq = _qt(GGMLType.Q4_K)
-    x = torch.from_numpy(_x(1, 2 * pq.k, seed=16))
+    """K1's prologue takes silu, gelu and relu (the gelu and relu modes
+    against the JAX kernel: tests/test_torch_gemma_ops.py); an act other
+    than those three raises."""
+    jq, pq = _qt(GGMLType.Q4_K)
+    x = _x(1, 2 * pq.k, seed=16)
+    want = J.qp8_matmul_act(jnp.asarray(x), jq, act, interpret=True)
+    got = P.qp8_matmul_act(torch.from_numpy(x), pq, act)
+    assert np.isfinite(got.numpy()).all() and got.shape == want.shape
     with pytest.raises(NotImplementedError):
-        P.qp8_matmul_act(x, pq, act)
+        P.qp8_matmul_act(torch.from_numpy(x), pq, act + "2")
