@@ -4,11 +4,13 @@
 
 Phases 2-12 run their configuration's first PHASE_DEPTH (8) layers, at
 full width, the types those layers have in the full-depth file (--depth
-0: every layer); each phase's launches are held to the table
-models/launches.launch_table derives from its built layers (cell_table;
-at full depth the tables these phases were held to by hand, which
-tests/test_torch_launch_tables.py keeps).  Phases 13-17 run at full
-depth.
+0: every layer; a depth from 1 to 7, or past the configurations' 32
+layers, is refused: the short cuts lack down types that the phases'
+checks look for); each phase's launches are
+held to the table models/launches.launch_table derives from its built
+layers (at full depth the tables these phases were held to by hand,
+which tests/test_torch_launch_tables.py keeps).  Phases 13-17 run at
+full depth.
 
 1. builds the port's CUDA kernels from ggml_hexagon_tpu_torch/csrc;
 2. Llama-3-8B Q4_K_M (the first slice's path): holds K1 (qp8 decode GEMV),
@@ -171,8 +173,8 @@ depth.
    counters zeroed, then held and timed: K6's gelu act mode at the down
    shape on interleaved planes, K1's and K6's relu (and, in phase 12,
    K9's gelu and relu at the 8B widths: no Gemma width takes K9).  The
-   requests' launches, the gelu and D = 256 branch counts among them,
-   exact; the end-to-end comparison at 42 layers.
+   requests' launches exact, the gelu and D = 256 branches under their
+   suffixed keys; the end-to-end comparison at 42 layers.
 
 K6 above 8 rows is its own kernel, the wgmma GEMM of csrc/fast_il_gemm.cu
 (the ninth slice): every configuration whose prefill chunk runs it holds
@@ -411,6 +413,7 @@ class KernelReport:
 
 def check_kernels(dev, weights, cfg):
     """Each kernel against its plain version at the main path's shapes."""
+    from ggml_hexagon_tpu_torch.models.launches import launch_table
     from ggml_hexagon_tpu_torch.ops import decode_attn as PD
     from ggml_hexagon_tpu_torch.ops.basic import rope_freqs
 
@@ -431,7 +434,7 @@ def check_kernels(dev, weights, cfg):
                  if lw["ffn_down"].cfg.qtype.name == "Q6_K")
     n_dn_q6 = sum(lw["ffn_down"].cfg.qtype.name == "Q6_K" for lw in layers)
     head = weights["output"]
-    t = cell_table(cfg, weights)
+    t = launch_table(cfg, weights)
     K1 = KernelReport("qp8_gemv", "cuda", SRC_GEMV,
                       "ggml_hexagon_tpu/ops/qmm_qp8.py:426",
                       f"one decode step (B=1): {t['step']['qp8_gemv']} launches")
@@ -536,21 +539,9 @@ REQUESTS = [("bf16", 512, 32), ("bf16", 128, 32), ("bf16", 7, 16),
             ("q8_0", 512, 32)]
 
 
-def cell_table(cfg, weights, kv_bits=16):
-    """The exact launches of a configuration's units, derived from its
-    built layers (models/launches.launch_table: "step", "bucket8" and
-    "chunk" under LAUNCHES keys, the chunk's K6 GEMM launches under
-    GEMM_LAUNCHES keys, "branch" the units' BRANCH_LAUNCHES); at full
-    depth the tables these cells were held to by hand before (the CPU
-    test tests/test_torch_launch_tables.py holds them equal)."""
-    from ggml_hexagon_tpu_torch.models.launches import launch_table
-
-    return launch_table(cfg, weights, kv_bits)
-
-
 def want_launches(table, rows, step):
     """The exact launches of one forward over `rows` tokens (a decode step
-    when `step`), all kernels, from a cell_table."""
+    when `step`), all kernels, from a launch_table."""
     from ggml_hexagon_tpu_torch import kernels
 
     unit = "step" if step else ("bucket8" if rows <= 8 else "chunk")
@@ -559,29 +550,18 @@ def want_launches(table, rows, step):
     return c
 
 
-def want_branches(table, rows, step, n=1):
-    """BRANCH_LAUNCHES of n forwards over `rows` tokens, from a
-    cell_table."""
-    from ggml_hexagon_tpu_torch import kernels
-
-    unit = "step" if step else ("bucket8" if rows <= 8 else "chunk")
-    c = dict.fromkeys(kernels.BRANCH_LAUNCHES, 0)
-    c.update({k: v * n for k, v in table["branch"][unit].items()})
-    return c
-
-
 def serve(dev, cfg, weights, name):
     """The main path: greedy requests through Engine, each prefill chunk
     and decode step held to its exact launch counts (the configuration's
-    cell_table: the units' LAUNCHES, the chunk's K6 GEMM launches and the
-    units' gelu/relu and D = 256 branch launches); returns the launch
-    counts of the whole run (K6's GEMM under its GEMM_LAUNCHES keys, the
-    branches under BRANCH_LAUNCHES keys), zeroed just before it, after
-    checking that every kernel of the table ran."""
-    table = cell_table(cfg, weights)
+    launch_table: the units' LAUNCHES, the chunk's K6 GEMM launches);
+    returns the launch counts of the whole run (K6's GEMM under its
+    GEMM_LAUNCHES keys), zeroed just before it, after checking that every
+    kernel of the table ran."""
     from ggml_hexagon_tpu_torch import kernels
+    from ggml_hexagon_tpu_torch.models.launches import launch_table
     from ggml_hexagon_tpu_torch.runtime.engine import PREFILL_BUCKETS, Engine
 
+    table = launch_table(cfg, weights)
     rng = np.random.default_rng(0)
     gemm_table = table["gemm"]
     kernels.reset_launches()
@@ -590,7 +570,6 @@ def serve(dev, cfg, weights, name):
         prompt = rng.integers(0, cfg.n_vocab, n_prompt)
         before = dict(kernels.LAUNCHES)
         gemm_before = dict(kernels.GEMM_LAUNCHES)
-        branch_before = dict(kernels.BRANCH_LAUNCHES)
         sync(dev)
         t0 = time.perf_counter()
         logits = eng.prefill(prompt[None])
@@ -608,13 +587,8 @@ def serve(dev, cfg, weights, name):
             want_gemm.update(gemm_table)
         if gemm != want_gemm:
             raise AssertionError(f"prefill K6 GEMM launches {gemm} != {want_gemm}")
-        branch = {k: v - branch_before[k]
-                  for k, v in kernels.BRANCH_LAUNCHES.items()}
-        if branch != want_branches(table, bucket, step=False):
-            raise AssertionError(f"prefill branch launches {branch}")
         toks = [int(np.argmax(logits[0]))]
         mid = dict(kernels.LAUNCHES)
-        branch_mid = dict(kernels.BRANCH_LAUNCHES)
         sync(dev)
         t0 = time.perf_counter()
         for _ in range(n_gen - 1):
@@ -632,10 +606,6 @@ def serve(dev, cfg, weights, name):
                     want_launches(table, 1, step=True).items()}
         if dec != want_dec:
             raise AssertionError(f"decode launches {dec} != {want_dec}")
-        branch = {k: v - branch_mid[k]
-                  for k, v in kernels.BRANCH_LAUNCHES.items()}
-        if branch != want_branches(table, 1, step=True, n=steps):
-            raise AssertionError(f"decode branch launches {branch}")
         per = {k: v // steps for k, v in dec.items() if v}
         SUMMARY.setdefault(name, {})[f"{kv} p{n_prompt}"] = (
             f"TTFT {ttft * 1e3:.1f} ms, {steps / dt:.2f} tok/s")
@@ -645,10 +615,9 @@ def serve(dev, cfg, weights, name):
             f"{ {k: v for k, v in pre.items() if v} }, launches per decode "
             f"step {per}, tokens {toks[:8]}...")
         del eng
-    counts = {**kernels.LAUNCHES, **kernels.GEMM_LAUNCHES,
-              **kernels.BRANCH_LAUNCHES}
+    counts = {**kernels.LAUNCHES, **kernels.GEMM_LAUNCHES}
     missing = [k for unit in (table["step"], table["bucket8"], table["chunk"],
-                              gemm_table, *table["branch"].values())
+                              gemm_table)
                for k in unit if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
@@ -736,7 +705,7 @@ def profile_path(dev, cfg, weights, table, name, kvs=("bf16", "q8_0")):
     """Where the time goes: host time vs device kernel time of a 512-token
     prefill and of decode steps at pos ~512 (torch.profiler, CUPTI), and
     the decode steps' K6/K8 kernels held to one launch a call (table: the
-    configuration's cell_table), for each KV type of kvs; both
+    configuration's launch_table), for each KV type of kvs; both
     into SUMMARY[name]."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1644,14 +1613,14 @@ def k9_inputs(dev, gen, cfg, lw, dn, B):
 def drive_branches(what, calls, want):
     """Kernel branches that no served configuration launches, driven alone
     (the conformance phase's way): the counters zeroed, each call once,
-    then BRANCH_LAUNCHES read and held to `want` ({key: launches})."""
+    then LAUNCHES read and held to `want` ({key: launches})."""
     from ggml_hexagon_tpu_torch import kernels
 
     kernels.reset_launches()
     for fn in calls:
         fn()
     torch.cuda.synchronize()
-    got = {k: v for k, v in kernels.BRANCH_LAUNCHES.items() if v}
+    got = {k: v for k, v in kernels.LAUNCHES.items() if v}
     if got != want:
         raise AssertionError(f"{what}: branch launches {got} != {want}")
     log(f"{what}: driven alone with the counters zeroed: {got}")
@@ -1779,8 +1748,10 @@ def check_kernels_ffn(dev, weights, cfg):
         "K9 gelu and relu", [partial(kernels.ffn_fused, *k9_inputs(
             dev, gen, cfg, lw, lw["ffn_down"], 1)[2], act)
             for act, _, lw, _ in cases],
-        {"ffn_fused_gelu": 2, "ffn_fused_relu": 1})
-    KG.launches, KR.launches = got["ffn_fused_gelu"], got["ffn_fused_relu"]
+        {"ffn_fused_nibble_gelu": 1, "ffn_fused_byte_gelu": 1,
+         "ffn_fused_nibble_relu": 1})
+    KG.launches = got["ffn_fused_nibble_gelu"] + got["ffn_fused_byte_gelu"]
+    KR.launches = got["ffn_fused_nibble_relu"]
     log(f"K9 gelu and relu (kernel vs plain, NMSE <= {NMSE_KERNEL})")
     for act, name, lw, rep in cases:
         for B in (1, 8):
@@ -2279,6 +2250,7 @@ def check_kernels_gemma2(dev, weights, cfg):
     the branches its t-planes do not take, driven alone: K6's gelu act mode
     at its down shape on interleaved planes (a Q4_K nibble and a Q6_K byte
     down, drawn on the card), and relu on K1 and K6."""
+    from ggml_hexagon_tpu_torch.models.launches import launch_table
     from ggml_hexagon_tpu_torch.models.synth import random_qtensor
     from ggml_hexagon_tpu_torch.ops import qmm_fast as PF
     from ggml_hexagon_tpu_torch.ops import qmm_qp8 as P
@@ -2300,11 +2272,11 @@ def check_kernels_gemma2(dev, weights, cfg):
     dn_q4, dn_q6 = down("Q4_K"), down("Q6_K")
     n6 = sum(lw["ffn_down"].cfg.qtype.name == "Q6_K" for lw in layers)
     head = weights["output"]
-    t = cell_table(cfg, weights)
+    t = launch_table(cfg, weights)
     unit = "one Gemma-2-9B decode step (B=1)"
     KG = KernelReport("qp8_gemv_gelu", "cuda", SRC_GEMV,
                       "ggml_hexagon_tpu/ops/qmm_qp8.py:426",
-                      f"{unit}: {t['branch']['step']['qp8_gemv_gelu']} "
+                      f"{unit}: {t['step']['qp8_gemv_gelu']} "
                       "launches (the downs, act gelu, no residual)")
     K4 = KernelReport("decode_attn_d256", "cuda", SRC_K4,
                       "ggml_hexagon_tpu/ops/decode_attn.py:177",
@@ -2356,9 +2328,11 @@ def check_kernels_gemma2(dev, weights, cfg):
          partial(PF.qmatmul_fast_act, x2, il["down_q6k"], "gelu"),
          partial(P.qp8_matmul_act, x2, dn_q4, "relu"),
          partial(PF.qmatmul_fast_act, x2, il["down_q4k"], "relu")],
-        {"fast_gelu": 2, "qp8_gemv_relu": 1, "fast_relu": 1})
-    KF.launches, K1R.launches = got["fast_gelu"], got["qp8_gemv_relu"]
-    K6R.launches = got["fast_relu"]
+        {"fast_nibble_act_gelu": 1, "fast_byte_act_gelu": 1,
+         "qp8_gemv_relu": 1, "fast_nibble_act_relu": 1})
+    KF.launches = got["fast_nibble_act_gelu"] + got["fast_byte_act_gelu"]
+    K1R.launches = got["qp8_gemv_relu"]
+    K6R.launches = got["fast_nibble_act_relu"]
     log(f"K6 gelu and relu at the down shape, interleaved planes (NMSE <= "
         f"{NMSE_KERNEL})")
     for name, qt in il.items():
@@ -2422,6 +2396,7 @@ def run_load(dev, src, words):
     reports, the requests' launch counts)."""
     from ggml_hexagon_tpu_torch import kernels
     from ggml_hexagon_tpu_torch.gguf.reader import GGUFReader
+    from ggml_hexagon_tpu_torch.models.launches import launch_table
     from ggml_hexagon_tpu_torch.models.llama import LlamaConfig
     from ggml_hexagon_tpu_torch.models.synth import LLAMA3_8B, draw_gguf_tensors
     from ggml_hexagon_tpu_torch.runtime.device_sampling import DeviceSamplerParams
@@ -2459,17 +2434,16 @@ def run_load(dev, src, words):
     prompts = load_prompts(tok, words)
     log(f"prompts of {sorted(prompts)} tokens round-trip through the "
         "tokenizer")
-    table = cell_table(eng.cfg, eng.weights)
+    tables = {kv: launch_table(eng.cfg, eng.weights,
+                               4 if kv == "q4_0" else 16)
+              for kv in ("bf16", "q8_0", "q4_0")}
     engines = {kv: Engine(eng.cfg, eng.weights, eng.vocab, max_seq=1024,
                           kv_dtype=kv, device=dev)
                for kv in ("bf16", "q8_0", "q4_0")}
     del eng
 
     def want(kv, rows, step):
-        c = want_launches(table, rows, step)
-        if kv == "q4_0":
-            c["decode_attn_q4"], c["decode_attn"] = c["decode_attn"], 0
-        return c
+        return want_launches(tables[kv], rows, step)
 
     kernels.reset_launches()
     greedy = {}
@@ -2553,7 +2527,7 @@ def run_load(dev, src, words):
         f"{c8} with 7 (the tokens read once at the end; none in the loop)")
     log("where the time goes under q4_0 KV (profiler; after the counts were "
         "read)")
-    profile_path(dev, e.cfg, e.weights, table, name, kvs=("q4_0",))
+    profile_path(dev, e.cfg, e.weights, tables["q4_0"], name, kvs=("q4_0",))
     del engines, e
     gc.collect()
     torch.cuda.empty_cache()
@@ -2685,9 +2659,10 @@ def forced_held(what, cfg, weights, dev, prompt, got):
     return len(toks), worst, ties
 
 
-def serve_want(table, kv, step, n_fwd=1):
+def serve_want(table, step, n_fwd=1):
     """Exact launches of n_fwd server forwards of the 8B Q4_K_M (table: its
-    cell_table): a decode tick is the table's step at B = n_slots rows; a
+    launch_table under the cache's kv_bits): a decode tick is the table's
+    step at B = n_slots rows; a
     prompt tick its chunk at SERVE_SLOTS x 128 = 512 rows, except the
     head, which logits_idx runs on the slots' picked rows only (K1 at 4
     rows where the Engine's chunk runs K3 on every row)."""
@@ -2695,8 +2670,6 @@ def serve_want(table, kv, step, n_fwd=1):
     if not step:
         c["qp8_gemm"] -= 1
         c["qp8_gemv"] += 1
-    if kv == "q4_0":
-        c["decode_attn_q4"], c["decode_attn"] = c["decode_attn"], 0
     return {k: v * n_fwd for k, v in c.items()}
 
 
@@ -2706,9 +2679,11 @@ def held_ticks(be, kv, log_ticks):
     (kind, forwards, seconds)."""
     from ggml_hexagon_tpu_torch import kernels
 
+    from ggml_hexagon_tpu_torch.models.launches import launch_table
+
     fwd = be._fwd
     n = [0]
-    table = cell_table(be.cfg, be.weights)
+    table = launch_table(be.cfg, be.weights, 4 if kv == "q4_0" else 16)
 
     def counting(*a, **k):
         n[0] += 1
@@ -2724,7 +2699,7 @@ def held_ticks(be, kv, log_ticks):
             tick(slots)
             dt = time.perf_counter() - t0
             got = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-            want = serve_want(table, kv, step, n[0])
+            want = serve_want(table, step, n[0])
             if got != want:
                 raise AssertionError(
                     f"{'decode' if step else 'prompt'} tick launches "
@@ -3582,9 +3557,11 @@ def run_phase(name, builder, check, dev):
     """One configuration: build, kernel checks (`check`), serving held to
     its launch table, profile, end-to-end comparison; the model is freed
     after.  Returns (kernel reports, the main path's launch counts)."""
+    from ggml_hexagon_tpu_torch.models.launches import launch_table
+
     t_ph = phase(name, dev)
     cfg, weights = build_phase(name, builder, dev)
-    table = cell_table(cfg, weights)
+    table = launch_table(cfg, weights)
     log(f"launch table ({cfg.n_layer} layers, derived from the built "
         f"layers): {table}")
     reports = check(dev, weights, cfg)
@@ -3626,16 +3603,27 @@ def plane_gb(weights):
 
 #: the depth of the synthetic configurations' phases (phases 2-12): their
 #: first layers, the types those layers have in the full-depth file; their
-#: launch tables are derived from the built layers (cell_table).  The
+#: launch tables are derived from the built layers (launch_table).  The
 #: loading, serving and CLI phases and Gemma-2-9B run at full depth.
+#: --depth takes PHASE_DEPTH to FULL_DEPTH (the configurations' 32 layers),
+#: or 0 for every layer: a shorter cut is refused, as the first layers of
+#: the 8B's file hold Q6_K downs only (layers 0-3), where the checks look
+#: for a Q4_K down as well (tests/test_torch_launch_tables.py holds that
+#: the first PHASE_DEPTH layers hold every tensor type of each full file)
 PHASE_DEPTH = 8
+FULL_DEPTH = 32
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--depth", type=int, default=PHASE_DEPTH,
-                        help="layers of phases 2-12 (0: every layer)")
+                        help=f"layers of phases 2-12, {PHASE_DEPTH} to "
+                        f"{FULL_DEPTH} (0: every layer)")
     args = parser.parse_args()
+    if not (args.depth == 0 or PHASE_DEPTH <= args.depth <= FULL_DEPTH):
+        parser.error(f"--depth {args.depth}: give {PHASE_DEPTH} to "
+                     f"{FULL_DEPTH}, or 0 for every layer (a shorter cut "
+                     "lacks down types that the phases' checks look for)")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)

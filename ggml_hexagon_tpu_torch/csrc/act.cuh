@@ -4,8 +4,8 @@
 //   silu  g * sigmoid(g)
 //   gelu  0.5 * g * (1 + tanh(0.7978845608028654 * (g + 0.044715 * g * g * g)))
 //   relu  max(g, 0)
-// Each is a template instance: a kernel picks one once (a launch's or a
-// prologue task's uniform choice), never in its weight loop.  gelu's
+// Each is a template instance: a kernel picks one by a uniform choice (a
+// launch's, or a prologue task's of eight values), never in its weight loop.  gelu's
 // products and sums are rounded one at a time (no fused multiply-add, as
 // XLA and PyTorch compute them), and tanhf / expf are the accurate library
 // functions (the build has no --use_fast_math).  Included by qp8_gemv.cu
@@ -32,4 +32,12 @@ __device__ __forceinline__ float act_f(float g) {
 template <int ACT>
 __device__ __forceinline__ float act_mul(float g, float u) {
   return act_f<ACT>(g) * u;
+}
+
+// v[i] = act(v[i]) * u[i], eight values of a task (K1's prologue, K6's
+// activation build)
+template <int ACT>
+__device__ __forceinline__ void act_mul8(float v[8], const float u[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = act_mul<ACT>(v[i], u[i]);
 }

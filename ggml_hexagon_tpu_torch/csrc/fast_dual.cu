@@ -113,7 +113,7 @@ __device__ __forceinline__ void dual_tiles(const IlArgs& a, const IlMaps& maps, 
   // ---- the activation of the split's residue blocks, while the ring fills ----
   const int slab = NB * GW;  // elements of a slab
   if (a.mode == MODE_NORMED) row_norms(a, 0, red, inv, tid);
-  build_act<GW>(a, 0, rb_lo, nrbt, act, xgp, inv, tid);
+  build_act<GW, false>(a, 0, rb_lo, nrbt, act, xgp, inv, tid);
   consumers_sync();
   if (tid == 0) mbar_arrive(ready);
 

@@ -104,12 +104,7 @@ __global__ void __launch_bounds__(NTH, 2)
   const int slab = NB * GW;                   // elements of a slab
   if (valid) {
     if (a.mode == MODE_NORMED) row_norms(a, xrow, red, inv, tid);
-    if (a.mode == MODE_ACT && a.act == ACT_GELU)
-      build_act<GW, ACT_GELU>(a, xrow, rb_lo, nrbt, act, xgp, inv, tid);
-    else if (a.mode == MODE_ACT && a.act == ACT_RELU)
-      build_act<GW, ACT_RELU>(a, xrow, rb_lo, nrbt, act, xgp, inv, tid);
-    else
-      build_act<GW>(a, xrow, rb_lo, nrbt, act, xgp, inv, tid);
+    build_act<GW>(a, xrow, rb_lo, nrbt, act, xgp, inv, tid);
   }
   consumers_sync();
   if (tid == 0) mbar_arrive(ready);

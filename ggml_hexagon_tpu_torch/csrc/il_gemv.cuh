@@ -457,9 +457,12 @@ __device__ __forceinline__ void row_norms(const IlArgs& a, int xrow, float* red,
 }
 
 // The effective bf16 activation of residue blocks [rb_lo, rb_lo + nrbt) into
-// its slabs, and with a bias their group sums' three exact bf16 parts.  ACT:
-// the act mode's activation (a caller picks the instance once a block).
-template <int GW, int ACT = ACT_SILU>
+// its slabs, and with a bias their group sums' three exact bf16 parts.  The
+// act mode's activation (a.act) is act.cuh's instance, picked by a uniform
+// branch a task of eight values, as K1's prologue picks it.  ACT_MODE false
+// (K7, which takes no act mode) leaves that code out: compiled in and never
+// run, it raised K7's GW 16 kernel from 117 to 141 registers.
+template <int GW, bool ACT_MODE = true>
 __device__ __forceinline__ void build_act(const IlArgs& a, int xrow, int rb_lo, int nrbt,
                                           uint16_t* act, uint16_t* xgp, const float* inv,
                                           int tid) {
@@ -528,7 +531,7 @@ __device__ __forceinline__ void build_act(const IlArgs& a, int xrow, int rb_lo, 
         v[u] = make_uint4(0u, 0u, 0u, 0u);  // past G: a ragged block's zeros
         if (g0 < G) {
           v[u] = *reinterpret_cast<const uint4*>(src);
-          if (a.mode == MODE_ACT) up[u] = *reinterpret_cast<const uint4*>(src + K);
+          if (ACT_MODE && a.mode == MODE_ACT) up[u] = *reinterpret_cast<const uint4*>(src + K);
         }
       }
 #pragma unroll
@@ -540,15 +543,23 @@ __device__ __forceinline__ void build_act(const IlArgs& a, int xrow, int rb_lo, 
         const int r0 = (q2 - p * (GW / 8)) * 8;
         uint16_t* dst = act + (rbl * gs + p) * slab;
         const uint32_t w[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
-        const uint32_t wu[4] = {up[u].x, up[u].y, up[u].z, up[u].w};
+        if (ACT_MODE && a.mode == MODE_ACT) {
+          const uint32_t wu[4] = {up[u].x, up[u].y, up[u].z, up[u].w};
+          float g[8], uv[8];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          uint16_t e = (uint16_t)(w[i >> 1] >> (16 * (i & 1)));
-          if (a.mode == MODE_ACT) {
-            const float gv = bf2f(e), uv = bf2f((wu[i >> 1] >> (16 * (i & 1))) & 0xffffu);
-            e = f2bf(act_mul<ACT>(gv, uv));
+          for (int i = 0; i < 8; ++i) {
+            g[i] = bf2f((w[i >> 1] >> (16 * (i & 1))) & 0xffffu);
+            uv[i] = bf2f((wu[i >> 1] >> (16 * (i & 1))) & 0xffffu);
           }
-          dst[frag_off<GW>(NB, b, r0 + i)] = e;
+          if (a.act == ACT_GELU) act_mul8<ACT_GELU>(g, uv);
+          else if (a.act == ACT_RELU) act_mul8<ACT_RELU>(g, uv);
+          else act_mul8<ACT_SILU>(g, uv);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) dst[frag_off<GW>(NB, b, r0 + i)] = f2bf(g[i]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            dst[frag_off<GW>(NB, b, r0 + i)] = (uint16_t)(w[i >> 1] >> (16 * (i & 1)));
         }
       }
     }

@@ -509,13 +509,6 @@ __device__ __forceinline__ void gemv_loop40(const Args& a, const Plane& P, const
   }
 }
 
-// v[i] = act(v[i]) * u[i], the act prologue's eight values of a lane.
-template <int ACT>
-__device__ __forceinline__ void act_mul8(float v[8], const float u[8]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) v[i] = act_mul<ACT>(v[i], u[i]);
-}
-
 // grid.x: column tiles of plane A then plane B; grid.y: K splits; grid.z:
 // row groups of NB rows (K5: one row each, ids non-null).
 template <int NB>

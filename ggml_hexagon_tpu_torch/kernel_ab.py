@@ -1,7 +1,8 @@
 """In-call A/B of the port's kernels against an earlier tree's sources, on
 one card, in the order parent, change, change, parent.
 
-    git show e176e56:ggml_hexagon_tpu_torch/csrc/fast_il.cu > DIR/fast_il.cu
+    for f in fast_il.cu il_gemv.cuh act.cuh; do
+      git show 9c55e72:ggml_hexagon_tpu_torch/csrc/$f > DIR/$f; done
     git show 3b0f551:ggml_hexagon_tpu_torch/csrc/qp8_gemm.cu > DIR/qp8_gemm.cu
     git show 3b0f551:ggml_hexagon_tpu_torch/csrc/decode_attn.cu > DIR/decode_attn.cu
     git show c8a736e:ggml_hexagon_tpu_torch/csrc/qp8_gemv.cu > DIR/qp8_gemv.cu
@@ -13,11 +14,13 @@ one card, in the order parent, change, change, parent.
 Each part runs when DIR holds its parent source; the parents are built
 with this tree's nvcc flags and headers.
 
-  fast_il.cu (e176e56, the last tree whose K7 ran a pre-pass a part (the
-      interleave or the norm, and the group sums) and then one warp a
-      weight row, up to five launches a call): K7 on the Llama-3-8B Q4_K_M
-      il step's pair (Q4_K wqk + Q6_K wv) and the IQ3_XXS il step's (IQ2_S
-      wqk, coded, + Q4_K wv); and, level, K6 on the launch mixes of the
+  fast_il.cu (9c55e72, the last tree whose K6 built a block's activation
+      through one of three whole template instances, one an act; its
+      il_gemv.cuh and act.cuh beside it, since a parent builds against the
+      headers of its own directory first; a parent's fast_il_run must take
+      the act id): K6 in the act mode's gelu on Gemma-2-9B's down shapes
+      (Q4_K nibble and Q6_K byte planes, 3584 x 14336, no residual, B = 1
+      and 8); and K6 on the launch mixes of the
       decode steps of Llama-3-8B IQ4_XS (byte planes: normed, res, act), Q4_K_M
       il (nibble planes normed, res, act; Q6_K byte planes with the derived
       bias, act and the head) and IQ3_XXS il (coded planes: normed, res,
@@ -26,10 +29,12 @@ with this tree's nvcc flags and headers.
       bucket's mixes (B = 8) of Llama-3-8B Q4_K_M il and IQ4_XS; K8 at P = 2
       on the Mixtral-8x7B IQ4_XS (byte), Q4_K_M il (nibble, and Q6_K byte
       with the derived bias) and IQ3_XXS il (coded) steps (one random expert
-      stack a type, launches counted per layer type).  K6 and K8 keep their
-      C entries and their kernel's text.  Then the floor for identical code:
+      stack a type, launches counted per layer type).  Then the floor for
+      identical code:
       K6 nibble res and plain at 4096 x 4096, B = 1, through a second build
-      of each source (P, C, P2, C2 in rotation).
+      of each source (P, C, P2, C2 in rotation), the two builds run one
+      after the other and timed: nvcc's wall seconds and the sum of
+      ptxas's compile times over the kernels.
   qp8_gemv.cu (c8a736e, the last tree whose K1, K2 and K5 ran a
       one-block activation pre-pass, a GEMV reading the planes with 4-byte
       loads and a finalize pass for K splits, three launches a call):
@@ -92,7 +97,7 @@ import torch
 from . import kernels
 from .models.llama import qtensor_rows
 from .models.llama import LlamaConfig
-from .models.synth import (MIXTRAL_8X7B, _policy, build_8b, build_8b_il,
+from .models.synth import (GEMMA2_9B, MIXTRAL_8X7B, _policy, build_8b, build_8b_il,
                            build_8b_iq3xxs, build_8b_iq4xs, random_qtensor)
 from .ops import decode_attn as PD
 from .ops import attention as PA
@@ -110,16 +115,13 @@ TF32_OPS = 495e12    # K11 and K10's f32 GEMM: TF32 mma, times its products
 NMSE_F32 = 1e-10     # K10 in f32 against its plain twin (chip_smoke.py's
                      # NMSE_K10_F32)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: the parents' C entries: K3 and K4 of 3b0f551; K6-K8 of e176e56 (K8's
-#: the same as this tree's; K7 with its pre-pass scratch xil and xg a
-#: part; K6's binds as this tree's, which takes the act id after `mode`,
-#: so a K6 parent must be a tree that has it)
+#: the parents' C entries: K3 and K4 of 3b0f551; K6 and K8 bind as this
+#: tree's (K6's with the act id after `mode`, so a K6 parent must be a tree
+#: that has it)
 _PARENT_ARGS = {
     "qp8_gemm_run": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _I] + [_P] * 3,
     "decode_attn_run": [_P] * 7 + [_I] * 5 + [_F, _I, _F, _I] + [_P] * 4,
     "fast_il_run": kernels._ARGTYPES["fast_il_run"],
-    "fast_dual_run": [_P, _I, _I, _F] + [_P, _P, _P, _P, _I, _I, _I, _I, _F,
-                                         _P, _I, _P, _P] * 2 + [_P, _P],
     "fast_indirect_run": kernels._ARGTYPES["fast_indirect_run"],
     # c8a736e's K1/K2 and K5: the pre-pass scratch x8, xs and the partials
     # of its K splits
@@ -144,7 +146,7 @@ _PARENT_ARGS = {
     + [_I, _I, _F, _P, _P, _P, _P, _P, _P],
 }
 _PARENT_FNS = {"qp8_gemm": ["qp8_gemm_run"], "decode_attn": ["decode_attn_run"],
-               "fast_il": ["fast_il_run", "fast_dual_run", "fast_indirect_run"],
+               "fast_il": ["fast_il_run", "fast_indirect_run"],
                "qp8_gemv": ["qp8_gemv_run", "qp8_indirect_run"],
                "qmm_wire": ["qmm_wire_run", "qmm_wire_gemv_run"],
                "attention": ["flash_attn_run", "decode_attn_gqa_run"],
@@ -276,34 +278,6 @@ class AB:
         finally:
             kernels._LIBS[name] = mine
 
-    def parent_k7(self, x, qa, qb, wn_a=None, wn_b=None, eps=None,
-                  xg_a=None, xg_b=None):
-        """e176e56's K7 (a pre-pass a part, then one warp a weight row) on
-        the arguments kernels.fast_dual would pass, with its scratch."""
-        B, K = x.shape
-        dev = self.dev
-        parts, scratch = [], []
-        for qt, wn, xg in ((qa, wn_a, xg_a), (qb, wn_b, xg_b)):
-            n2, G, nib, off, cm = kernels._il_plane_args(qt)
-            bias = qt.fb is not None or off != 0.0
-            xil = torch.empty((B, K), dtype=torch.bfloat16, device=dev)
-            xgs = (torch.empty((B, G), dtype=torch.float32, device=dev)
-                   if bias else None)
-            parts += [kernels._ptr(wn), qt.fq.data_ptr(), qt.fs.data_ptr(),
-                      kernels._ptr(qt.fb), n2, G, int(nib), cm, off,
-                      kernels._ptr(xg), kernels._xg_args(xg, B, G, bias),
-                      xil.data_ptr(), kernels._ptr(xgs)]
-            scratch += [xil, xgs]
-        out = torch.empty((B, qa.fq.shape[0] + qb.fq.shape[0]),
-                          dtype=torch.float32, device=dev)
-        rc = self.par["fast_dual_run"](
-            x.data_ptr(), B, K, 0.0 if eps is None else float(eps), *parts,
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        del scratch
-        if rc:
-            raise RuntimeError(f"parent fast_dual_run: CUDA error {rc}")
-        return out
-
     def parent_k12(self, qg, kc, vc, pos, scale):
         """e176e56's K12 (a kernel over the splits, their partials in
         device memory, and a merge kernel), its splits _pick_nsplit's at
@@ -413,25 +387,28 @@ class AB:
         u[4] += count
 
     def k6(self, unit, name, qt, mode, B, count):
-        """One K6 row at B <= 8 (mode plain, pre_il, normed, res, act with a
-        residual) on the group sums the entry would hand it; its P C C P
-        times join the unit's sums count times."""
+        """One K6 row at B <= 8 (mode plain, pre_il, normed, res, act: silu
+        with a residual, act_gelu / act_relu: that act without one) on the
+        group sums the entry would hand it; its P C C P times join the
+        unit's sums count times."""
         K, dev, gen = qt.k, self.dev, self.gen
+        act = mode[4:] if mode.startswith("act_") else "silu"
+        mode = "act" if mode.startswith("act") else mode
         x = torch.randn(B, 2 * K if mode == "act" else K, generator=gen,
                         device=dev).to(torch.bfloat16)
         kw = {}
         if mode == "normed":
             kw = dict(wn=torch.rand(K, device=dev, generator=gen) + 0.5,
                       eps=1e-5)
-        elif mode in ("res", "act"):
+        elif mode == "res" or (mode == "act" and act == "silu"):
             kw = dict(res=torch.randn(B, qt.n, generator=gen, device=dev))
-            if mode == "act":
-                kw["act"] = "silu"
         elif mode == "pre_il":
             kw = dict(pre_il=True)
+        if mode == "act":
+            kw["act"] = act
         _, nkj = PF._pick_blocks(PF._padded_rows(B), K, PF._is_packed(qt.cfg),
                                  qt.cfg.gs)
-        kw["xg"] = PF.group_sums(qt, x, mode, kw.get("wn"), nkj)
+        kw["xg"] = PF.group_sums(qt, x, mode, kw.get("wn"), nkj, act)
         kern = PF._k6(qt, False)
         new = lambda: kern(x, qt, **kw)  # noqa: E731
         old = lambda: self._as_parent(new)  # noqa: E731
@@ -452,56 +429,13 @@ class AB:
         plan = kernels._il_plan(qt, B, n2 // kernels.IL_ROWS, 1,
                                 2 if mode == "act" else 1 if mode == "normed"
                                 else 0, dev)
-        print(f"K6 {unit} {mode} {name} {qt.cfg.qtype.name} {qt.n}x{K} B={B} "
+        print(f"K6 {unit} {mode} {act if mode == 'act' else ''} {name} "
+              f"{qt.cfg.qtype.name} {qt.n}x{K} B={B} "
               f"{PF._family(qt.cfg)} {plan} nmse={e_new:.2e} (parent "
               f"{e_old:.2e}) P={t[0]:.4f} C={t[1]:.4f} C={t[2]:.4f} "
               f"P={t[3]:.4f} ms matmul={lib:.4f} bound={bound:.4f} x{count} "
               f"host us/call P={_host_us(old):.1f} C={_host_us(new):.1f}",
               flush=True)
-        self._unit(unit, count, t, lib, bound)
-        return e_new
-
-    def k7(self, unit, qa, qb, B, count):
-        """One K7 row (normed, each part its own weight), P C C P, against
-        the bf16 matmul on both weights dequantized beforehand, and its
-        bound (both plane sets, x, the norm weights and group sums read
-        once, the output written once; the products and the bias dots at
-        the bf16 peak)."""
-        K, dev, gen = qa.k, self.dev, self.gen
-        x = torch.randn(B, K, generator=gen, device=dev).to(torch.bfloat16)
-        kw = dict(wn_a=torch.rand(K, device=dev, generator=gen) + 0.5,
-                  wn_b=torch.rand(K, device=dev, generator=gen) + 0.5,
-                  eps=1e-5)
-        kw["xg_a"] = PF.group_sums(qa, x, "normed", kw["wn_a"])
-        kw["xg_b"] = PF.group_sums(qb, x, "normed", kw["wn_b"])
-        new = lambda: PF.fast_dual(x, qa, qb, **kw)  # noqa: E731
-        old = lambda: self.parent_k7(x, qa, qb, **kw)  # noqa: E731
-        want = PF.fast_dual_plain(x, qa, qb, **kw)
-        got = new()
-        e_new, e_old = _nmse(got, want), _nmse(old(), want)
-        t = [_time_ms(old), _time_ms(new), _time_ms(new), _time_ms(old)]
-        deq = torch.cat([PF.dequantize_fast(q, torch.bfloat16).t()
-                         for q in (qa, qb)], 1).contiguous()
-        lib = _time_ms(lambda: torch.matmul(x, deq))
-        del deq
-        # K6 on each part alone, two launches: what the one launch saves
-        alone = _time_ms(lambda: [
-            PF._k6(q, False)(x, q, wn=kw[f"wn_{p}"], eps=kw["eps"],
-                             xg=kw[f"xg_{p}"]) for q, p in ((qa, "a"), (qb, "b"))])
-        byts = sum(t_.numel() * t_.element_size() for t_ in
-                   (qa.fq, qa.fs, qa.fb, qb.fq, qb.fs, qb.fb, x, got)
-                   if t_ is not None)
-        byts += sum(v.numel() * v.element_size() for v in kw.values()
-                    if isinstance(v, torch.Tensor))
-        ops = sum(2 * B * K * q.fq.shape[0]
-                  + (2 * B * q.fs.shape[1] * q.fq.shape[0]
-                     if PF._needs_xg(q.cfg, q.fb) else 0) for q in (qa, qb))
-        bound = max(byts / HBM_BPS, ops / BF16_OPS) * 1e3
-        print(f"K7 {unit} B={B} {qa.cfg.qtype.name}+{qb.cfg.qtype.name} "
-              f"nmse={e_new:.2e} (parent {e_old:.2e}) P={t[0]:.4f} "
-              f"C={t[1]:.4f} C={t[2]:.4f} P={t[3]:.4f} ms matmul={lib:.4f} "
-              f"K6 a+b={alone:.4f} bound={bound:.4f} x{count} host us/call "
-              f"P={_host_us(old):.1f} C={_host_us(new):.1f}", flush=True)
         self._unit(unit, count, t, lib, bound)
         return e_new
 
@@ -915,16 +849,26 @@ def builds_control(ab, dev):
     time a few % apart, the floor of a K6 A/B's verdict."""
     srcs = {"P2": f"{ab.parent_dir}/fast_il.cu",
             "C2": str(kernels.CSRC / "fast_il.cu")}
-    procs = {k: subprocess.Popen(
-        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-o",
-         str(kernels.BUILD_DIR / f"again_{k}_fast_il.so"), src],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for k, src in srcs.items()}
     libs = {"P": ab.par["lib:fast_il"], "C": kernels._LIBS["fast_il"]}
-    for k, proc in procs.items():
-        log, _ = proc.communicate()
+    for k, src in srcs.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC),
+             "-o", str(kernels.BUILD_DIR / f"again_{k}_fast_il.so"), src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log = proc.stdout
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {srcs[k]}:\n{log}")
+        ptxas = sum(float(line.split("=")[1].split()[0])
+                    for line in log.splitlines() if "Compile time =" in line)
+        regs = [line.split("Used ")[1].split()[0]
+                for line in log.splitlines() if "Used " in line]
+        spill = sum(", 0 bytes spill stores" not in line
+                    for line in log.splitlines() if "spill stores" in line)
+        print(f"fast_il.cu build {k} ({src}), alone: "
+              f"{time.perf_counter() - t0:.1f} s, ptxas {ptxas / 1e3:.1f} s "
+              f"summed over its kernels; registers {'/'.join(regs)}; "
+              f"{spill} kernels spill", flush=True)
         lib = ctypes.CDLL(str(kernels.BUILD_DIR / f"again_{k}_fast_il.so"))
         lib.fast_il_run.argtypes = kernels._ARGTYPES["fast_il_run"]
         lib.fast_il_run.restype = ctypes.c_int
@@ -962,9 +906,9 @@ def builds_control(ab, dev):
 
 
 def run_il(ab, dev) -> bool:
-    """K7 on the interleaved Llama-3-8B steps' pairs; level, K6 (B <= 8)
-    on the decode steps of the interleaved Llama-3-8B cells and on two
-    8-token buckets, K6 and K8 on the interleaved Mixtral-8x7B steps
+    """K6 (B = 1 and 8) in the gelu act mode on Gemma-2-9B's downs; K6 (B
+    <= 8) on the decode steps of the interleaved Llama-3-8B cells and on
+    two 8-token buckets, K6 and K8 on the interleaved Mixtral-8x7B steps
     (random stacks of each policy type)."""
     ok = True
 
@@ -972,6 +916,24 @@ def run_il(ab, dev) -> bool:
         nonlocal ok
         for name, qt, mode, count, B in rows:
             ok &= ab.k6(unit, name, qt, mode, B, count) <= 1e-6
+
+    # Gemma-2-9B's downs in the gelu act mode (no residual: post-norms), a
+    # random plane set of each down type, counted by its layers
+    gcfg = LlamaConfig(**GEMMA2_9B)
+    policy = _policy(gcfg, "Q4_K_M", False)
+    shape = (gcfg.n_embd, gcfg.n_ff)
+    downs = [policy.tensor_type(f"blk.{il}.ffn_down.weight", shape)
+             for il in range(gcfg.n_layer)]
+    g = torch.Generator(device=dev)
+    g.manual_seed(19)
+    for q in sorted(set(downs), key=lambda q: q.name):
+        qt = random_qtensor(g, *shape, q, dev).with_fast_planes(
+            "il").without_wire()
+        for B in (1, 8):
+            k6(f"Gemma-2-9B-{'step' if B == 1 else 'bucket8'}-K6-gelu",
+               [(f"down_{q.name.lower()}", qt, "act_gelu", downs.count(q), B)])
+        del qt
+    torch.cuda.empty_cache()
 
     cfg, w = build_8b_iq4xs(seed=0, device=dev)
     layers = w["layers"]
@@ -1007,7 +969,6 @@ def run_il(ab, dev) -> bool:
     k6(f"{step}-K6-nibble-act", [("down_q4k", dn["Q4_K"], "act", n_l - n6, 1)])
     k6(f"{step}-K6-byte-derived-act", [("down_q6k", dn["Q6_K"], "act", n6, 1)])
     k6(f"{step}-K6-byte-derived-head", [("head_q6k", w["output"], "plain", 1, 1)])
-    ok &= ab.k7(f"{step}-K7", mixed["wqk"], mixed["wv"], 1, n_mixed) <= 1e-6
     k6("8B-Q4_K_M-il-bucket8-K6",
        [("wqkv", full["wqkv"], "normed", n_full, 8),
         ("wqk", mixed["wqk"], "normed", n_mixed, 8),
@@ -1026,7 +987,6 @@ def run_il(ab, dev) -> bool:
     k6(f"{step}-K6-coded-normed", [("gate_up", lw["w_gateup_il"], "normed", n_l, 1)])
     k6(f"{step}-K6-coded-res", [("wo", lw["wo"], "res", n_l, 1)])
     k6(f"{step}-K6-coded-act", [("down", lw["ffn_down"], "act", n_l, 1)])
-    ok &= ab.k7(f"{step}-K7coded", lw["wqk"], lw["wv"], 1, n_l) <= 1e-6
     del w, lw
     torch.cuda.empty_cache()
 

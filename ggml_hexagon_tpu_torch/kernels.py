@@ -74,19 +74,22 @@ LAUNCHES = {"qp8_gemv": 0, "qp8_dual": 0, "qp8_gemm": 0, "decode_attn": 0,
             "ffn_fused_byte": 0, "ffn_fused_nibble": 0, "ffn_fused_coded": 0,
             "qmm_wire": 0, "flash_attn": 0, "decode_attn_gqa": 0}
 
+#: the branches, each under its kernel's key with a suffix: K1's, K6's
+#: act and K9's act(gate) * up in gelu or relu (qp8_gemv_gelu,
+#: qp8_gemv_coded_relu, fast_nibble_act_gelu, ffn_fused_byte_relu, ...; silu
+#: keeps the plain key) and K4 at a head width of 256 (decode_attn_d256,
+#: decode_attn_q4_d256)
+LAUNCHES.update({f"{k}_{a}": 0 for k in (
+    "qp8_gemv", "qp8_gemv_coded", "fast_byte_act", "fast_nibble_act",
+    "fast_coded_act", "ffn_fused_byte", "ffn_fused_nibble", "ffn_fused_coded")
+    for a in ("gelu", "relu")}, decode_attn_d256=0, decode_attn_q4_d256=0)
+
 #: K6's GEMM launches (B > 8), apart from LAUNCHES, which counts each of
 #: them under its family-and-mode key as well: by family and group bias
 #: (none, derived as off * fs, or a stored fb)
 GEMM_LAUNCHES = {"fast_byte_gemm": 0, "fast_byte_gemm_derived": 0,
                  "fast_byte_gemm_stored": 0, "fast_nibble_gemm_derived": 0,
                  "fast_nibble_gemm_stored": 0, "fast_coded_gemm": 0}
-
-#: the launches of the kernel branches of a gated FFN's gelu and relu (K1,
-#: K6 and K9's act(gate) * up) and of K4 at a head width of 256, apart from
-#: LAUNCHES, which counts each of them under its kernel's key as well
-BRANCH_LAUNCHES = {"qp8_gemv_gelu": 0, "qp8_gemv_relu": 0, "fast_gelu": 0,
-                   "fast_relu": 0, "ffn_fused_gelu": 0, "ffn_fused_relu": 0,
-                   "decode_attn_d256": 0}
 
 #: K3's launches by the weight they ran on, "NxK" (rows x columns), beside
 #: LAUNCHES's count of them: which projection of a forward each launch was
@@ -142,7 +145,7 @@ _ARGTYPES = {
 
 
 def reset_launches():
-    for counts in (LAUNCHES, GEMM_LAUNCHES, BRANCH_LAUNCHES):
+    for counts in (LAUNCHES, GEMM_LAUNCHES):
         for k in counts:
             counts[k] = 0
     GEMM_SHAPES.clear()
@@ -842,16 +845,16 @@ def _gemv_launch(kind: str, x, qts, wn, eps, act, res):
         _ptr(counters), _ptr(out), _ptr(res), n_res, _stream(dev))
     if any(qt.cfg.code_map for qt in qts):
         kind += "_coded"
-    _check(lib, rc, kind)
-    LAUNCHES[kind] += 1
-    _count_branch(kind, act)
+    key = act_key(kind, act)
+    _check(lib, rc, key)
+    LAUNCHES[key] += 1
     return out
 
 
-def _count_branch(kind: str, act: str):
-    """One more launch of `kind`'s gelu or relu branch (BRANCH_LAUNCHES)."""
-    if act in ("gelu", "relu"):
-        BRANCH_LAUNCHES[f"{kind.replace('_coded', '')}_{act}"] += 1
+def act_key(key: str, act: str) -> str:
+    """The LAUNCHES key of a launch of `key`'s kernel in act `act`: the
+    gelu and relu branches carry the act as a suffix, silu none."""
+    return f"{key}_{act}" if act in ("gelu", "relu") else key
 
 
 def qp8_gemv(x, qt, wn=None, eps=None, act: str = "", res=None):
@@ -1013,7 +1016,7 @@ def _fast_launch(family: str, x, qt, wn, eps, act, res, pre_il, xg):
     bias = qt.fb is not None or off != 0.0
     xg_mode = _xg_args(xg, B, G, bias)
     if act:
-        mode, key = 2, family + "_act"
+        mode, key = 2, act_key(family + "_act", act)
     elif eps is not None:
         mode, key = 1, family + "_normed"
     else:
@@ -1028,10 +1031,8 @@ def _fast_launch(family: str, x, qt, wn, eps, act, res, pre_il, xg):
         qt, x, wn, xg = _pad_call(qt, x, wn, xg, mode)
         K, G = qt.k, qt.fs.shape[1]
     if B > 8:
-        out = _fast_gemm(mode, act_id, key, x, qt, G, cm, off, xg, xg_mode,
-                         wn, eps, kn, res, n_res, out)
-        _count_branch("fast", act)
-        return out
+        return _fast_gemm(mode, act_id, key, x, qt, G, cm, off, xg, xg_mode,
+                          wn, eps, kn, res, n_res, out)
     plan = _il_plan(qt, B, n2 // IL_ROWS, 1, mode, dev)
     ws = (torch.empty((plan.ks, B, n2), dtype=torch.float32, device=dev)
           if plan.ks > 1 else None)
@@ -1044,7 +1045,6 @@ def _fast_launch(family: str, x, qt, wn, eps, act, res, pre_il, xg):
                          _stream(dev))
     _check(lib, rc, key)
     LAUNCHES[key] += 1
-    _count_branch("fast", act)
     return out
 
 
@@ -1280,7 +1280,7 @@ def ffn_fused(x_a, xg_a, h_il, wn, wo, gu, dn, eps: float, act: str = "silu"):
                          f"{tuple(wo.fq.shape)}, gate_up {tuple(gu.fq.shape)}, "
                          f"down {tuple(dn.fq.shape)}")
     family = _family(dn.cfg)
-    key = "ffn_fused_" + family
+    key = act_key("ffn_fused_" + family, act)
     bias = dn.fb is not None or off != 0.0
     dnp = padded_il_planes(dn) if il_pad(n_ff, Gc)[1] != Gc else dn
     Gp = dnp.fs.shape[1]
@@ -1309,7 +1309,6 @@ def ffn_fused(x_a, xg_a, h_il, wn, wo, gu, dn, eps: float, act: str = "silu"):
     del ws
     _check(lib, rc, key)
     LAUNCHES[key] += 1
-    _count_branch("ffn_fused", act)
     return out
 
 
@@ -1317,8 +1316,8 @@ def decode_attn(qkv, k_cache, v_cache, pos, cos_sin, *, Hq, Hkv, D, scale,
                 swa=0, logit_cap=0.0, n_dims=0, k_scale=None, v_scale=None,
                 kv_bits=0):
     """K4 on the card -> (attn [B, Hq*D], k_row [B, Hkv*D], v_row) f32, at
-    a head width D of 128 or 256 (counted also as BRANCH_LAUNCHES
-    "decode_attn_d256").  Caches bf16 [B, S, Hkv*D]; int8 with f32 row
+    a head width D of 128 or 256 (D = 256 counted under the key's "_d256"
+    suffix).  Caches bf16 [B, S, Hkv*D]; int8 with f32 row
     scales (k_scale given); or, with kv_bits=4, uint8 [B, S, Hkv*D/2] of
     packed 4-bit values (ops/decode_attn.pack_int4) with the same scales,
     counted apart under "decode_attn_q4".  swa > 0 attends the slots
@@ -1360,11 +1359,10 @@ def decode_attn(qkv, k_cache, v_cache, pos, cos_sin, *, Hq, Hkv, D, scale,
         n_dims or D, float(scale), int(swa), float(logit_cap),
         (4 if kv_bits == 4 else 8) if quant else 16,
         nsplit, _ptr(part), _ptr(out), _ptr(k_r), _ptr(v_r), _stream(dev))
-    key = "decode_attn_q4" if kv_bits == 4 else "decode_attn"
+    key = (("decode_attn_q4" if kv_bits == 4 else "decode_attn")
+           + ("_d256" if D == 256 else ""))
     _check(lib, rc, key)
     LAUNCHES[key] += 1
-    if D == 256:
-        BRANCH_LAUNCHES["decode_attn_d256"] += 1
     return out, k_r, v_r
 
 

@@ -5,40 +5,30 @@ its layers.
 them (the same predicates: supports_dual, supports_fused_epilogue,
 _supports_moe_indirect, the K6 blocking's K split) and counts, under the
 keys of kernels.LAUNCHES, the kernels a decode step, an 8-token prefill
-bucket and a prefill chunk of more than 8 tokens launch (the Engine's
-prefill takes the head's logits on every row of a chunk); beside them the
-chunk's K6 GEMM launches under the keys of kernels.GEMM_LAUNCHES, and each
-unit's launches of the gelu and relu branches and of K4 at a head width of
-256 under the keys of kernels.BRANCH_LAUNCHES.  What it reads of a layer
+bucket and a 512-token prefill chunk launch (the Engine's prefill takes
+the head's logits on every row of a chunk), the gelu and relu branches and
+K4 at a head width of 256 under their suffixed keys; beside them the
+chunk's K6 GEMM launches under the keys of kernels.GEMM_LAUNCHES.  What it
+reads of a layer
 is the config, each tensor's type (its QConfig) and its plane layout, so a
 model built on the meta device (no data) gives the tables of the full-size
 one.  chip_smoke.py holds each configuration's serving run to them.
 """
 from __future__ import annotations
 
+from ..kernels import act_key, gemm_key
 from ..ops.qmm_fast import (_family, _is_packed, _padded_rows, _pick_blocks,
                             supports_dual, supports_fused_epilogue)
 from ..ops.qmm_qp8 import QP8_MAX_DECODE
 from .llama import _supports_moe_indirect, qtensor_rows
 
-#: the rows of each unit (a step is one token of one sequence; a chunk's
-#: count matters only above 8 rows, where every projection takes the GEMMs)
-UNITS = {"step": 1, "bucket8": 8, "chunk": 512}
-
-
-def _gemm_key(qt) -> str:
-    from ..kernels import gemm_key
-
-    return gemm_key(qt)
-
 
 class _Count:
-    """One unit's launches: LAUNCHES keys, K6 GEMM keys, branch keys."""
+    """One unit's launches: LAUNCHES keys and K6 GEMM keys."""
 
     def __init__(self, act: str):
         self.launches: dict = {}
         self.gemm: dict = {}
-        self.branch: dict = {}
         self.act = act
 
     def add(self, table: dict, key: str, n: int = 1):
@@ -47,12 +37,11 @@ class _Count:
     def proj(self, qt, rows: int, mode: str):
         """One projection of `rows` rows on qt; mode raw, normed, res, act
         (act(gate) * up) or pre_il (the act product, interleaved)."""
+        act = self.act if mode == "act" else ""
         coded = "_coded" if qt.cfg.code_map else ""
         if qt.fl == "t":
             kind = "qp8_gemv" if rows <= QP8_MAX_DECODE else "qp8_gemm"
-            self.add(self.launches, kind + coded)
-            if mode == "act" and self.act in ("gelu", "relu"):
-                self.add(self.branch, f"qp8_gemv_{self.act}")
+            self.add(self.launches, act_key(kind + coded, act))
             return
         fam = "fast_" + _family(qt.cfg)
         if mode == "normed":
@@ -62,11 +51,9 @@ class _Count:
             if nkj > 1:
                 mode = "raw"
         suffix = {"normed": "_normed", "res": "_res", "act": "_act"}
-        self.add(self.launches, fam + suffix.get(mode, ""))
-        if mode == "act" and self.act in ("gelu", "relu"):
-            self.add(self.branch, f"fast_{self.act}")
+        self.add(self.launches, act_key(fam + suffix.get(mode, ""), act))
         if rows > QP8_MAX_DECODE:
-            self.add(self.gemm, _gemm_key(qt))
+            self.add(self.gemm, gemm_key(qt))
 
     def indirect(self, qt):
         """One gathered-expert GEMV over stacked planes (K5 or K8)."""
@@ -100,15 +87,13 @@ def _unit(cfg, weights, rows: int, step: bool, kv_bits: int) -> _Count:
             c.proj(lw["wqk"], rows, "normed")
             c.proj(lw["wv"], rows, "normed")
         if use_fused:
-            c.add(c.launches, "decode_attn_q4" if kv_bits == 4
-                  else "decode_attn")
-            if cfg.hd == 256:
-                c.add(c.branch, "decode_attn_d256")
+            c.add(c.launches, ("decode_attn_q4" if kv_bits == 4
+                               else "decode_attn")
+                  + ("_d256" if cfg.hd == 256 else ""))
         ffp = "ffp" in lw
         if ffp and step:
-            c.add(c.launches, "ffn_fused_" + _family(lw["ffn_down"].cfg))
-            if cfg.act in ("gelu", "relu"):
-                c.add(c.branch, f"ffn_fused_{cfg.act}")
+            c.add(c.launches, act_key("ffn_fused_" + _family(
+                lw["ffn_down"].cfg), cfg.act))
             continue
         if (step and not ffp and not cfg.post_norms
                 and supports_fused_epilogue(lw["wo"])):
@@ -143,18 +128,16 @@ def _moe(c: _Count, cfg, lw, rows: int):
             c.proj(lw[key], rows, "raw")
 
 
-def launch_table(cfg, weights, kv_bits: int = 16,
-                 chunk_rows: int = UNITS["chunk"]) -> dict:
+def launch_table(cfg, weights, kv_bits: int = 16) -> dict:
     """{"step", "bucket8", "chunk": LAUNCHES counts of one forward of that
     unit (the decode step at one row, kv_bits the cache's: 4 counts K4
     under decode_attn_q4), "gemm": the chunk's K6 GEMM launches
-    (GEMM_LAUNCHES keys), "branch": {unit: BRANCH_LAUNCHES counts}} of a
-    fused model (cfg, weights), every count non-zero."""
-    out = {"branch": {}}
-    for unit, rows in (("step", 1), ("bucket8", 8), ("chunk", chunk_rows)):
+    (GEMM_LAUNCHES keys)} of a fused model (cfg, weights), every count
+    non-zero."""
+    out = {}
+    for unit, rows in (("step", 1), ("bucket8", 8), ("chunk", 512)):
         c = _unit(cfg, weights, rows, unit == "step", kv_bits)
         out[unit] = c.launches
-        out["branch"][unit] = c.branch
         if unit == "chunk":
             out["gemm"] = c.gemm
     return out

@@ -132,7 +132,7 @@ def test_k1_act_plain_matches_pallas(qtype, act, B, with_res):
                             res=None if res is None else torch.from_numpy(res))
     err = nmse(got.numpy(), np.asarray(want))
     assert err <= NMSE_OP, (qtype.name, act, B, with_res, err)
-    assert set(kernels.BRANCH_LAUNCHES.values()) == {0}  # CPU: plain
+    assert set(kernels.LAUNCHES.values()) == {0}  # CPU: plain
 
 
 @pytest.mark.parametrize("qtype", [GGMLType.Q8_0, GGMLType.Q4_K,

@@ -5,8 +5,13 @@ its eleven synthetic configurations to by hand before: at full depth, on
 models built on the meta device (shapes, types and layouts; no values),
 every entry equal, exactly.  Then Gemma-2-9B Q4_K_M's table, counted by
 hand from its Q4_K_M types, and a depth cut's table (the first layers of
-the full-depth file, as chip_smoke.py's phases run them)."""
+the full-depth file, as chip_smoke.py's phases run them); the cut
+chip_smoke.py runs holds every tensor type of each full file, and the
+script refuses a shorter one."""
+import subprocess
+import sys
 from functools import partial
+from pathlib import Path
 
 import pytest
 
@@ -203,7 +208,9 @@ def test_derived_table_equals_the_hand_written_one(name):
     for unit in ("step", "bucket8", "chunk"):
         assert got[unit] == LAUNCH_TABLES[name][unit], unit
     assert got["gemm"] == GEMM_TABLES.get(name, {})
-    assert all(not v for v in got["branch"].values())  # silu, D = 128
+    # silu, D = 128: no branch key
+    assert not any(k.endswith(("_gelu", "_relu", "_d256"))
+                   for unit in ("step", "bucket8", "chunk") for k in got[unit])
 
 
 def test_gemma2_9b_table():
@@ -213,16 +220,15 @@ def test_gemma2_9b_table():
     tied Q6_K head; K4 at D = 256 every layer."""
     cfg, weights = S.build_gemma2_9b(device="meta")
     got = launch_table(cfg, weights)
-    assert got["step"] == dict(qp8_gemv=21 + 42 * 3 + 1, qp8_dual=21,
-                               decode_attn=42)
-    assert got["bucket8"] == dict(qp8_gemv=21 + 2 * 21 + 42 * 3 + 1)
+    assert got["step"] == dict(qp8_gemv=21 + 42 * 2 + 1, qp8_gemv_gelu=42,
+                               qp8_dual=21, decode_attn_d256=42)
+    assert got["bucket8"] == dict(qp8_gemv=21 + 2 * 21 + 42 * 2 + 1,
+                                  qp8_gemv_gelu=42)
     assert got["chunk"] == dict(qp8_gemm=21 + 2 * 21 + 42 * 3 + 1)
     assert got["gemm"] == {}
-    assert got["branch"] == {"step": {"qp8_gemv_gelu": 42,
-                                      "decode_attn_d256": 42},
-                             "bucket8": {"qp8_gemv_gelu": 42}, "chunk": {}}
     q4 = launch_table(cfg, weights, kv_bits=4)
-    assert q4["step"]["decode_attn_q4"] == 42 and "decode_attn" not in q4["step"]
+    assert (q4["step"]["decode_attn_q4_d256"] == 42
+            and "decode_attn_d256" not in q4["step"])
 
 
 def test_depth_cut_keeps_the_full_files_types():
@@ -235,3 +241,34 @@ def test_depth_cut_keeps_the_full_files_types():
     assert got["step"] == dict(qp8_gemv=3 + 8 * 3 + 1, qp8_dual=5,
                                decode_attn=8)
     assert got["chunk"] == dict(qp8_gemm=3 + 2 * 5 + 8 * 3 + 1)
+
+
+def _types(weights):
+    return {(key, v.cfg.qtype.name) for lw in weights["layers"]
+            for key, v in lw.items() if hasattr(v, "cfg")}
+
+
+@pytest.mark.parametrize("name", list(BUILDERS))
+def test_phase_depth_holds_every_type_of_the_full_file(name):
+    """chip_smoke.py's phases 2-12 run the first PHASE_DEPTH layers: every
+    (tensor, type) pair of the full-depth file is among them, so each
+    phase's checks find a layer of every type they look for."""
+    import chip_smoke
+
+    _, cut = BUILDERS[name](device="meta", depth=chip_smoke.PHASE_DEPTH)
+    _, full = BUILDERS[name](device="meta")
+    assert _types(cut) == _types(full)
+
+
+@pytest.mark.parametrize("depth", [-1, 1, 2, 7, 33])
+def test_chip_smoke_refuses_a_cut_its_checks_cannot_run(depth):
+    """--depth below PHASE_DEPTH (the 8B's layers 0-3 hold Q6_K downs
+    only) or past the configurations' 32 layers exits 2 with a message,
+    before it looks for a card, and prints no result."""
+    root = Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, "chip_smoke.py", "--depth",
+                        str(depth)], cwd=root, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 2, r.stderr
+    assert f"--depth {depth}: give 8 to 32" in r.stderr
+    assert r.stdout == ""

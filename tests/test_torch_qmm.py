@@ -16,7 +16,7 @@ from ggml_hexagon_tpu.ops import qmm_qp8 as J
 from ggml_hexagon_tpu.quant.formats import GGMLType
 from ggml_hexagon_tpu.quant.pack import quantize_tensor
 
-from _torch_port import port_qt
+from _torch_port import nmse, port_qt
 from ggml_hexagon_tpu_torch.ops import qmm_qp8 as P
 
 TOL = dict(rtol=5e-4, atol=5e-4)
@@ -112,13 +112,16 @@ def test_gemv_kernel_wrapper_takes_plain_only_on_cpu():
 
 @pytest.mark.parametrize("act", ["gelu", "relu"])
 def test_act_other_than_silu_raises(act):
-    """K1's prologue takes silu, gelu and relu (the gelu and relu modes
-    against the JAX kernel: tests/test_torch_gemma_ops.py); an act other
-    than those three raises."""
+    """K1's prologue takes silu, gelu and relu: the plain twin's gelu and
+    relu within NMSE 1e-6 of the JAX kernel in interpret mode (the tanh of
+    XLA and of torch differ by an ulp, which can flip an int8 activation
+    rounding; tests/test_torch_gemma_ops.py covers more shapes); an act
+    other than those three raises."""
     jq, pq = _qt(GGMLType.Q4_K)
     x = _x(1, 2 * pq.k, seed=16)
     want = J.qp8_matmul_act(jnp.asarray(x), jq, act, interpret=True)
     got = P.qp8_matmul_act(torch.from_numpy(x), pq, act)
-    assert np.isfinite(got.numpy()).all() and got.shape == want.shape
+    assert got.shape == want.shape
+    assert nmse(got.numpy(), np.asarray(want)) <= 1e-6
     with pytest.raises(NotImplementedError):
         P.qp8_matmul_act(torch.from_numpy(x), pq, act + "2")
