@@ -10,7 +10,8 @@ checks look for); each phase's launches are
 held to the table models/launches.launch_table derives from its built
 layers (at full depth the tables these phases were held to by hand,
 which tests/test_torch_launch_tables.py keeps).  Phases 13-17 run at
-full depth.
+full depth; phase 18 writes the 8B's first QUANT_DEPTH (2) layers and
+phase 19 the 70B's first LLAMA70_DEPTH (8) of 80.
 
 1. builds the port's CUDA kernels from ggml_hexagon_tpu_torch/csrc;
 2. Llama-3-8B Q4_K_M (the first slice's path): holds K1 (qp8 decode GEMV),
@@ -175,6 +176,32 @@ full depth.
    K9's gelu and relu at the 8B widths: no Gemma width takes K9).  The
    requests' launches exact, the gelu and D = 256 branches under their
    suffixed keys; the end-to-end comparison at 42 layers.
+18. the quantizer (after phase 12, run_quantize): write_gguf writes the
+   8B at full width, its first QUANT_DEPTH layers, as an f16 file; cli.main(["quantize", ..., "Q4_0"])
+   quantizes it through the port's own native library (quantize.cpp built
+   with g++ at first use; Q4_0 everywhere, a Q6_K head), its rate logged
+   beside the host's core count; every tensor held byte-equal to the
+   port's numpy encoder on sampled rows (a K-quant row apart at a
+   tie-break held to the quality bound of tests/test_native.py), and the
+   native Q4_0 / Q4_K / Q6_K encoders on one full-width tensor (4096 x
+   14336) against numpy; the file loads through Engine.from_gguf(fuse=True)
+   (pack_tensor on the card byte-equal to the CPU), K1 and K3 on its Q4_0
+   t-planes (the first configuration that serves Q4_0) are held against
+   their plain versions, greedy requests run with their launch table
+   exact, and the kernels against the plain forward end to end;
+19. Llama-3-70B IQ3_XXS (imatrix) from a GGUF file at full width
+   (run_70b_iq3xxs): write_gguf writes the first LLAMA70_DEPTH layers of
+   the 80-layer file with the full-depth policy's types (IQ2_S attn_q and
+   attn_k, Q4_K attn_v, IQ3_S attn_output and token_embd, IQ3_XXS FFN, a
+   Q5_K head; random wire bytes with finite, centred scales, 3.8 GB);
+   Engine.from_gguf(fuse=True) expands the i-quants on the card
+   (quant.pack.expand_wire, timed), held byte-equal to the numpy copy
+   (quant.iquants.expand_to_planes) on four tensors; K2 (coded IQ2_S wqk +
+   Q4_K wv, 9216 + 1024 x 8192), K1 (coded wo, gate_up at K = 8192, down
+   at K = 28672; the Q5_K head, 128256 x 8192), K3 at M = 512 and K4 with
+   64 query heads over 8 KV heads held against their plain versions; a
+   512-token prompt and decode steps with the launch table exact, one
+   decode step profiled, the kernels against the plain forward end to end.
 
 K6 above 8 rows is its own kernel, the wgmma GEMM of csrc/fast_il_gemm.cu
 (the ninth slice): every configuration whose prefill chunk runs it holds
@@ -550,7 +577,7 @@ def want_launches(table, rows, step):
     return c
 
 
-def serve(dev, cfg, weights, name):
+def serve(dev, cfg, weights, name, requests=None):
     """The main path: greedy requests through Engine, each prefill chunk
     and decode step held to its exact launch counts (the configuration's
     launch_table: the units' LAUNCHES, the chunk's K6 GEMM launches);
@@ -565,7 +592,7 @@ def serve(dev, cfg, weights, name):
     rng = np.random.default_rng(0)
     gemm_table = table["gemm"]
     kernels.reset_launches()
-    for kv, n_prompt, n_gen in REQUESTS:
+    for kv, n_prompt, n_gen in requests or REQUESTS:
         eng = Engine(cfg, weights, max_seq=1024, kv_dtype=kv, device=dev)
         prompt = rng.integers(0, cfg.n_vocab, n_prompt)
         before = dict(kernels.LAUNCHES)
@@ -2152,16 +2179,16 @@ def k4_q4_rows(dev, cfg, rep):
             rep.add(cfg.n_layer, err, ms, pms, byts, ops, BF16_OPS, lib)
 
 
-def k4_d256_rows(dev, cfg, rep):
-    """K4 at Gemma-2's head width (D = 256, 16 query and 8 KV heads) with
-    its logit cap 50 and the even layers' window 4096, against its plain
-    twin: bf16, q8_0 and q4_0 caches at pos 700 of 1024 (B = 1 and 4),
-    timed beside SDPA at hd 256 (no cap: SDPA has none) on the live cache,
-    dequantized to bf16 beforehand where quantized; then the window
-    masking, at pos 4700 of an 8192-slot bf16 cache: 4095 live slots (the
-    bytes counted), and the slots below them overwritten without a bit
-    moving.  B = 1 at pos 700, bf16, goes into `rep` (a launch a layer a
-    step)."""
+def k4_rows(dev, cfg, rep):
+    """K4 at cfg's heads against its plain twin (Gemma-2: D = 256, 16 query
+    and 8 KV heads, its logit cap 50 and the even layers' window 4096;
+    Llama-3-70B: D = 128, 64 query heads over 8 KV heads): bf16, q8_0 and
+    q4_0 caches at pos 700 of 1024 (B = 1 and 4), timed beside SDPA (no
+    cap: SDPA has none) on the live cache, dequantized to bf16 beforehand
+    where quantized; with a window, then the window masking, at pos 4700
+    of an 8192-slot bf16 cache: 4095 live slots (the bytes counted), and
+    the slots below them overwritten without a bit moving.  B = 1 at pos
+    700, bf16, goes into `rep` (a launch a layer a step)."""
     from ggml_hexagon_tpu_torch.ops import decode_attn as PD
     from ggml_hexagon_tpu_torch.ops.basic import rope_freqs
 
@@ -2170,7 +2197,7 @@ def k4_d256_rows(dev, cfg, rep):
     Hq, Hkv, D = cfg.n_head, cfg.n_head_kv, cfg.hd
     swa, cap = cfg.swa_window, cfg.attn_logit_softcap
     cases = [(kv, B, 1024, 700) for kv in ("bf16", "q8_0", "q4_0")
-             for B in (1, 4)] + [("bf16", 1, 8192, 4700)]
+             for B in (1, 4)] + ([("bf16", 1, 8192, 4700)] if swa else [])
     for kv, B, S, pos in cases:
         qkv = torch.randn(B, (Hq + 2 * Hkv) * D, generator=gen, device=dev)
         kw = dict(Hq=Hq, Hkv=Hkv, D=D, scale=cfg.attn_scale or D ** -0.5,
@@ -2200,15 +2227,15 @@ def k4_d256_rows(dev, cfg, rep):
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         e2 = nmse(torch.cat(got, 1), torch.cat(want, 1))
         if not (err <= ATTN_MAX_ABS and all(torch.isfinite(g).all() for g in got)):
-            raise AssertionError(f"K4 D=256 {kv} B={B} pos={pos}: {err}")
-        lo = max(0, pos - swa + 1)
+            raise AssertionError(f"K4 D={D} {kv} B={B} pos={pos}: {err}")
+        lo = max(0, pos - swa + 1) if swa else 0
         if lo:  # the window masks: what lies below it moves no bit
             kc2, vc2 = kc.clone(), vc.clone()
             kc2[:, :lo] = kc[:, lo:2 * lo].flip(1)
             vc2[:, :lo] = vc[:, lo:2 * lo].flip(1)
             again = PD.decode_attn(qkv, kc2, vc2, posb, cs, **kw)
             if not torch.equal(again[0], got[0]):
-                raise AssertionError(f"K4 D=256 pos={pos}: slots below the "
+                raise AssertionError(f"K4 D={D} pos={pos}: slots below the "
                                      "window moved the output")
             del kc2, vc2
         ms = time_ms(lambda: PD.decode_attn(qkv, kc, vc, posb, cs, **kw))
@@ -2232,8 +2259,8 @@ def k4_d256_rows(dev, cfg, rep):
                 + (2 * B * live * 4 if kv != "bf16" else 0))
         ops = 4 * B * (live + 1) * Hq * D
         bms, by = bound_ms(byts, ops, BF16_OPS)
-        log(f"  D=256 {kv} B={B} pos={pos} of {S} (live {live}, window "
-            f"{swa}, cap {cap}): max|d|={err:.3e} nmse={e2:.2e} "
+        log(f"  D={D} G={Hq // Hkv} {kv} B={B} pos={pos} of {S} (live "
+            f"{live}, window {swa}, cap {cap}): max|d|={err:.3e} nmse={e2:.2e} "
             f"kernel={ms:.4f}ms plain={pms:.3f}ms sdpa={lib:.4f}ms "
             f"bound={bms:.5f}ms ({by})")
         if kv == "bf16" and B == 1 and pos == 700:
@@ -2246,7 +2273,7 @@ def check_kernels_gemma2(dev, weights, cfg):
     versions at its shapes: K1 (wqkv and gate_up normed, wo raw, the
     post-norms keeping the residual out; the downs in the gelu act mode
     without a residual; the tied Q6_K head, 256000 x 3584), K2 (Q4_K wqk +
-    Q6_K wv at hd 256), K3 at M = 512, K4 at D = 256 (k4_d256_rows); then
+    Q6_K wv at hd 256), K3 at M = 512, K4 at D = 256 (k4_rows); then
     the branches its t-planes do not take, driven alone: K6's gelu act mode
     at its down shape on interleaved planes (a Q4_K nibble and a Q6_K byte
     down, drawn on the card), and relu on K1 and K6."""
@@ -2305,7 +2332,7 @@ def check_kernels_gemma2(dev, weights, cfg):
                      ("down_q6k", dn_q6), ("head_q6k", head)):
         k3_row(dev, gen, None, name, qt, 0)
     log(f"K4 decode_attn at D = 256 (max|d| <= {ATTN_MAX_ABS})")
-    k4_d256_rows(dev, cfg, K4)
+    k4_rows(dev, cfg, K4)
     # the branches the t-planes do not take
     il = {name: random_qtensor(gen, cfg.n_embd, cfg.n_ff, qtype, dev)
           .with_fast_planes("il").without_wire()
@@ -2346,42 +2373,54 @@ def check_kernels_gemma2(dev, weights, cfg):
     return [KG, K4, KF, K1R, K6R]
 
 
-def write_8b_gguf(dev):
-    """The full-size Llama-3-8B Q4_K_M file that the load and serving phases
-    read (random centred blocks of the Q4_K_M mixture, the 8B's llama.*
-    metadata, a synthetic llama-bpe vocabulary of 128256 tokens), written
-    once into a temporary directory, or into a bytearray when its
-    filesystem lacks room.  Returns (the path or the buffer, the directory
-    to remove after, the vocabulary's words)."""
-    import shutil
+def write_synth_gguf(dev, cfg, ftype, fname, fields, has_imatrix=False,
+                     depth=None, need_path=False):
+    """A random model of cfg's shapes and ftype's mixture (synth.write_gguf,
+    seed 0, the vocabulary's fields) written into a new temporary
+    directory, or into a bytearray when its filesystem lacks room (unless
+    need_path: then that raises).  Returns (the path or the buffer, the
+    directory to remove after)."""
     import tempfile
 
-    from ggml_hexagon_tpu_torch.models.llama import LlamaConfig
-    from ggml_hexagon_tpu_torch.models.synth import (LLAMA3_8B,
-                                                     gguf_data_bytes,
-                                                     llama_bpe_vocab,
-                                                     write_gguf)
+    from ggml_hexagon_tpu_torch.models.synth import gguf_data_bytes, write_gguf
 
-    cfg = LlamaConfig(**LLAMA3_8B)
-    fields, words = llama_bpe_vocab()
-    need = gguf_data_bytes(cfg, "Q4_K_M")
+    need = gguf_data_bytes(cfg, ftype, has_imatrix, depth)
     tmp = tempfile.mkdtemp(prefix="ght_gguf_")
     free = shutil.disk_usage(tmp).free
     if free > need + 2 ** 30:
-        src = os.path.join(tmp, "llama-3-8b-q4_k_m-synthetic.gguf")
+        src = os.path.join(tmp, fname)
         where = f"a file in {tmp}"
+    elif need_path:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise AssertionError(f"{fname}: {need} bytes, the temporary "
+                             f"filesystem has {free} free")
     else:
         src = bytearray()
         where = "a bytearray (GGUFReader.from_buffer)"
     try:
-        info = write_gguf(src, cfg, "Q4_K_M", seed=0, vocab_fields=fields,
-                          device=dev)
+        info = write_gguf(src, cfg, ftype, seed=0, vocab_fields=fields,
+                          device=dev, has_imatrix=has_imatrix, depth=depth)
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     log(f"wrote {info['bytes']} bytes ({info['bytes'] / 1e9:.3f} GB) into "
         f"{where} in {info['seconds']:.1f} s; the temporary filesystem "
         f"had {free} bytes free")
+    return src, tmp
+
+
+def write_8b_gguf(dev):
+    """The full-size Llama-3-8B Q4_K_M file that the load and serving phases
+    read (random centred blocks of the Q4_K_M mixture, the 8B's llama.*
+    metadata, a synthetic llama-bpe vocabulary of 128256 tokens), written
+    once (write_synth_gguf).  Returns (the path or the buffer, the
+    directory to remove after, the vocabulary's words)."""
+    from ggml_hexagon_tpu_torch.models.llama import LlamaConfig
+    from ggml_hexagon_tpu_torch.models.synth import LLAMA3_8B, llama_bpe_vocab
+
+    fields, words = llama_bpe_vocab()
+    src, tmp = write_synth_gguf(dev, LlamaConfig(**LLAMA3_8B), "Q4_K_M",
+                                "llama-3-8b-q4_k_m-synthetic.gguf", fields)
     return src, tmp, words
 
 
@@ -3531,25 +3570,432 @@ def run_cli(dev, src, smi, words, tmp):
     return [rep], ppl_launches
 
 
-def build_phase(name, builder, dev):
-    """Build a configuration on the card and print its layout."""
-    t0 = time.perf_counter()
-    cfg, weights = builder(seed=0, device=dev)
-    torch.cuda.synchronize()
+#: the quantize phase (run_quantize): the 8B's first QUANT_DEPTH layers at
+#: full width as an f16 file, quantized to QUANT_FTYPE through the CLI
+QUANT_DEPTH = 2
+QUANT_FTYPE = "Q4_0"
+QUANT_SAMPLE_ROWS = 8   # rows of each tensor held to the numpy encoder
+QUANT_REQUESTS = [("bf16", 512, 16), ("bf16", 128, 16), ("bf16", 7, 8)]
+#: the 70B phase (run_70b_iq3xxs): the first layers of the 80-layer file
+LLAMA70_DEPTH = 8
+LLAMA70_REQUESTS = [("bf16", 512, 16), ("bf16", 7, 8)]
+SRC_NATIVE = "ggml_hexagon_tpu_torch/native/quantize.cpp"
+
+
+def encoder_quality(what, x, got, want, qtype):
+    """The native encoder's blocks against numpy's on the same f32 values,
+    held to tests/test_native.py's bound: the two round trips' RMSE within
+    0.5% of each other, their cross difference under 5% of the values'
+    spread (tie-breaks of the scale searches only).  -> (RMSE native,
+    RMSE numpy, cross)."""
+    from ggml_hexagon_tpu_torch.quant import ref_numpy as R
+
+    x = x.reshape(-1)
+    da = R.dequantize(got.reshape(-1), qtype, x.size)
+    db = R.dequantize(want.reshape(-1), qtype, x.size)
+    ea = float(np.sqrt(np.mean((da - x) ** 2, dtype=np.float64)))
+    eb = float(np.sqrt(np.mean((db - x) ** 2, dtype=np.float64)))
+    cross = float(np.sqrt(np.mean((da - db) ** 2, dtype=np.float64))
+                  / np.std(x, dtype=np.float64))
+    if not (abs(ea - eb) / eb < 0.005 and cross < 0.05):
+        raise AssertionError(f"{what} {qtype.name}: native RMSE {ea}, numpy "
+                             f"{eb}, cross {cross}")
+    return ea, eb, cross
+
+
+def numpy_encode(x, qtype, threads=None):
+    """The numpy encoder (quant.ref_numpy) on the rows of x [N, K], split
+    over the host's cores by rows (whole blocks: the bytes of the whole)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ggml_hexagon_tpu_torch.quant import ref_numpy as R
+
+    parts = np.array_split(x, threads or os.cpu_count() or 4)
+    with ThreadPoolExecutor(len(parts)) as ex:
+        return np.concatenate(list(ex.map(
+            lambda c: R.quantize(np.ascontiguousarray(c).reshape(-1), qtype),
+            parts)))
+
+
+def held_quantized_rows(src, out):
+    """Every tensor of the quantized file against the port's numpy encoder
+    on the f16 file's values: QUANT_SAMPLE_ROWS rows of each matrix (the
+    first, the last and random ones), byte-equal; a K-quant row that
+    differs (a tie-break of the native scale search) must meet
+    encoder_quality.  The norms' F32 bytes equal the source's."""
+    from ggml_hexagon_tpu_torch.gguf.reader import GGUFReader
+    from ggml_hexagon_tpu_torch.quant import ref_numpy as R
+    from ggml_hexagon_tpu_torch.quant.formats import GGMLType, row_size
+
+    rng = np.random.default_rng(5)
+    seen, ties = {}, 0
+    with GGUFReader.open(src) as fr, GGUFReader.open(out) as qr:
+        for name, t in qr.tensors.items():
+            f = fr.tensors[name]
+            if len(t.shape) == 1:
+                if not (t.ggml_type == f.ggml_type == GGMLType.F32 and
+                        np.array_equal(qr.tensor_bytes(name), fr.tensor_bytes(name))):
+                    raise AssertionError(f"{name}: {t.ggml_type.name} != source")
+                seen["F32"] = seen.get("F32", 0) + 1
+                continue
+            N, K = t.shape
+            rows = np.unique(np.r_[0, N - 1, rng.integers(0, N, QUANT_SAMPLE_ROWS - 2)])
+            x = fr.tensor_bytes(name).view(np.float16).reshape(N, K)[rows].astype(np.float32)
+            got = qr.tensor_bytes(name).reshape(N, row_size(t.ggml_type, K))[rows]
+            want = R.quantize(x.reshape(-1), t.ggml_type).reshape(len(rows), -1)
+            diff = (got != want).any(axis=1)
+            if diff.any():
+                if t.ggml_type not in (GGMLType.Q4_K, GGMLType.Q6_K):
+                    raise AssertionError(f"{name} {t.ggml_type.name}: rows "
+                                         f"{rows[diff]} differ from numpy")
+                encoder_quality(name, x[diff], got[diff], want[diff], t.ggml_type)
+                ties += int(diff.sum())
+            seen[t.ggml_type.name] = seen.get(t.ggml_type.name, 0) + 1
+    log(f"the quantized file against the numpy encoder, {QUANT_SAMPLE_ROWS} "
+        f"rows a matrix: byte-equal for every tensor ({seen}); K-quant rows "
+        f"apart at a tie-break (held to the quality bound): {ties}")
+
+
+def held_native_kquants(src):
+    """The native Q4_0, Q4_K and Q6_K encoders on one full-width tensor of
+    the f16 file (blk.0.ffn_down, 4096 x 14336) against the numpy
+    encoder: Q4_0 byte-equal, the K-quants within encoder_quality; both
+    rates logged (numpy over the host's cores)."""
+    from ggml_hexagon_tpu_torch import native
+    from ggml_hexagon_tpu_torch.gguf.reader import GGUFReader
+    from ggml_hexagon_tpu_torch.quant.formats import GGMLType
+
+    with GGUFReader.open(src) as r:
+        x = r.tensor_f32("blk.0.ffn_down.weight")
+    for qtype in (GGMLType.Q4_0, GGMLType.Q4_K, GGMLType.Q6_K):
+        t0 = time.perf_counter()
+        got = native.quantize_native(x.reshape(-1), int(qtype))
+        tn = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = numpy_encode(x, qtype)
+        tp = time.perf_counter() - t0
+        if qtype == GGMLType.Q4_0:
+            if not np.array_equal(got, want):
+                raise AssertionError("native Q4_0 != numpy on blk.0.ffn_down")
+            q = "byte-equal"
+        else:
+            ea, eb, cross = encoder_quality("blk.0.ffn_down", x, got, want, qtype)
+            q = (f"RMSE native {ea:.4e} numpy {eb:.4e}, cross {cross:.2e}, "
+                 f"{int((got != want).sum())} bytes apart")
+        log(f"  {qtype.name} on {x.shape[0]}x{x.shape[1]}: native "
+            f"{x.size / tn / 1e6:.1f} M weights/s, numpy "
+            f"{x.size / tp / 1e6:.2f} M weights/s ({os.cpu_count()} cores); {q}")
+
+
+def check_kernels_q4_0(dev, weights, cfg):
+    """K1 and K3 on the Q4_0 t-planes of the quantized 8B (the first
+    configuration that serves Q4_0 planes) and on its Q6_K head, against
+    their plain versions at the main path's shapes."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4040)
+    layers = weights["layers"]
+    lw, n_l, head = layers[0], len(layers), weights["output"]
+    K1 = KernelReport("qp8_gemv_q4_0", "cuda", SRC_GEMV,
+                      "ggml_hexagon_tpu/ops/qmm_qp8.py:426",
+                      f"one decode step of the quantized 8B Q4_0 file (B=1, "
+                      f"{n_l} layers): {4 * n_l} Q4_0 launches + the Q6_K head")
+    K3 = KernelReport("qp8_gemm_q4_0", "cuda", SRC_GEMM,
+                      "ggml_hexagon_tpu/ops/qmm_qp8.py:529",
+                      f"one 512-token chunk of the quantized 8B Q4_0 file: "
+                      f"{4 * n_l} Q4_0 launches + the Q6_K head")
+    log(f"K1 / K3 on the quantized file's Q4_0 t-planes (NMSE <= {NMSE_KERNEL})")
+    for B in (1, 8):
+        for name, qt, mode, count in (
+                ("wqkv", lw["wqkv"], "normed", n_l), ("wo", lw["wo"], "res", n_l),
+                ("gate_up", lw["w_gateup_il"], "normed", n_l),
+                ("down", lw["ffn_down"], "act", n_l), ("head_q6k", head, "raw", 1)):
+            k1_row(dev, gen, cfg, K1 if B == 1 else None, name, qt, mode, B, count)
+    for name, qt, count in (("wqkv", lw["wqkv"], n_l), ("wo", lw["wo"], n_l),
+                            ("gate_up", lw["w_gateup_il"], n_l),
+                            ("down", lw["ffn_down"], n_l), ("head_q6k", head, 1)):
+        k3_row(dev, gen, K3, name, qt, count)
+    return {"qp8_gemv": K1, "qp8_gemm": K3}
+
+
+def layout_log(name, cfg, weights):
+    """The per-tensor types and layouts of a built or loaded model."""
     types = {}
     for lw in weights["layers"]:
         for key, v in lw.items():
             if hasattr(v, "fq"):
                 types.setdefault(key, set()).add(f"{v.cfg.qtype.name}/{v.fl}")
-    log(f"{name} (random planes, seed 0): built on the card in "
-        f"{time.perf_counter() - t0:.1f} s; matmul planes "
-        f"{plane_gb(weights):.3f} GB; {cfg.n_layer} layers"
+    log(f"{name}: {cfg.n_layer} layers, {cfg.n_head} / {cfg.n_head_kv} heads "
+        f"of {cfg.hd}"
         + (f", {cfg.n_expert} experts, top-{cfg.n_expert_used}"
            if cfg.n_expert else "")
-        + f"; per-tensor types { {k: sorted(v) for k, v in types.items()} }, "
-        f"head {weights['output'].cfg.qtype.name}/{weights['output'].fl}, "
-        f"embedding {weights['tok_embd'].cfg.qtype.name} (wire); resident "
+        + f"; matmul planes {plane_gb(weights):.3f} GB; per-tensor "
+        f"types { {k: sorted(v) for k, v in types.items()} }, head "
+        f"{weights['output'].cfg.qtype.name}/{weights['output'].fl}, "
+        f"embedding {weights['tok_embd'].cfg.qtype.name} (wire)")
+
+
+def run_quantize(dev):
+    """The quantizer's path at the 8B's full width: write_gguf writes the
+    first QUANT_DEPTH layers as an f16 file (random weights of RMS
+    1/sqrt(k)), `cli.main(["quantize", f16, out, "Q4_0"])` quantizes it
+    through the port's own native library (Q4_0 everywhere, a Q6_K head),
+    every tensor is held to the numpy encoder on sampled rows and the
+    native K-quant encoders on one full-width tensor; the file loads with
+    Engine.from_gguf(fuse=True) (pack_tensor on the card byte-equal to the
+    CPU), K1 and K3 on its Q4_0 planes are held against their plain
+    versions, greedy requests run with the launch table exact, and the
+    kernels against the plain forward (compare_plain: each plain layer fed
+    the kernel run's input, the layers' outputs and the logits).  Returns
+    (kernel reports, the requests' launch counts)."""
+    from ggml_hexagon_tpu_torch import cli, native
+    from ggml_hexagon_tpu_torch.gguf.reader import GGUFReader
+    from ggml_hexagon_tpu_torch.models.launches import launch_table
+    from ggml_hexagon_tpu_torch.models.llama import LlamaConfig
+    from ggml_hexagon_tpu_torch.models.synth import LLAMA3_8B, llama_bpe_vocab
+    from ggml_hexagon_tpu_torch.runtime.engine import Engine
+
+    name = f"Llama-3-8B {QUANT_FTYPE} quantized by the port"
+    t_ph = phase(name, dev)
+    fields, _ = llama_bpe_vocab()
+    src, tmp = write_synth_gguf(dev, LlamaConfig(**LLAMA3_8B), "F16",
+                                "llama-3-8b-f16-synthetic.gguf", fields,
+                                depth=QUANT_DEPTH, need_path=True)
+    try:
+        out = os.path.join(tmp, f"llama-3-8b-{QUANT_FTYPE.lower()}.gguf")
+        t0 = time.perf_counter()
+        native.load()
+        log(f"native encoder library {native.lib_path().name} (g++ -O3): "
+            f"built and loaded in {time.perf_counter() - t0:.1f} s")
+        with GGUFReader.open(src) as r:
+            n_w = sum(t.n_elements for t in r.tensors.values())
+        t0 = time.perf_counter()
+        rc = cli.main(["quantize", src, out, QUANT_FTYPE])
+        dt = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"cli quantize exited {rc}")
+        log(f"cli quantize {QUANT_FTYPE}: {n_w} weights in {dt:.1f} s, "
+            f"{n_w / dt / 1e6:.1f} M weights/s on {os.cpu_count()} host cores "
+            f"(the file's read and write included); {os.path.getsize(out)} "
+            f"bytes")
+        held_quantized_rows(src, out)
+        held_native_kquants(src)
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats(dev)
+        eng = Engine.from_gguf(out, fuse=True, max_seq=1024, device=dev)
+        log(f"Engine.from_gguf(fuse=True): t_load {eng.perf.t_load:.2f} s, "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        with GGUFReader.open(out) as r:
+            packed = [held_pack(dev, r, n) for n in
+                      ("blk.0.attn_q.weight", "blk.1.ffn_down.weight")]
+        log(f"pack_tensor on the card byte-equal to the CPU on {packed}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cfg, weights = eng.cfg, eng.weights
+    del eng
+    layout_log(name, cfg, weights)
+    log(f"launch table: {launch_table(cfg, weights)}")
+    reps = check_kernels_q4_0(dev, weights, cfg)
+    log("serving (launch counters zeroed before, read after)")
+    counts = serve(dev, cfg, weights, name, QUANT_REQUESTS)
+    log(f"main-path launches ({name}): {counts}")
+    for key, rep in reps.items():
+        rep.launches = counts[key]
+    log(f"kernel vs plain versions, end to end (each plain layer fed the "
+        f"kernel run's input; the layers' outputs and the logits NMSE <= "
+        f"{NMSE_LOGITS})")
+    compare_plain(dev, cfg, weights)
+    phase_end(name, dev, t_ph)
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    return list(reps.values()), counts
+
+
+def held_expansion(dev, reader, weights):
+    """The card's i-quant expansion (quant.pack.expand_wire) byte-equal to
+    the numpy copy (quant.iquants.expand_to_planes) on the file's bytes:
+    blk.0's IQ2_S attn_q and IQ3_S attn_output whole, the first 2048 rows
+    of its IQ3_XXS ffn_down; and the loaded IQ3_S token embedding's first
+    4096 rows (its wire planes as the loader expanded them)."""
+    from ggml_hexagon_tpu_torch.quant import iquants
+    from ggml_hexagon_tpu_torch.quant.formats import row_size
+    from ggml_hexagon_tpu_torch.quant.pack import expand_wire
+
+    te = weights["tok_embd"]
+    for tname, rows in (("blk.0.attn_q.weight", None),
+                        ("blk.0.attn_output.weight", None),
+                        ("blk.0.ffn_down.weight", 2048),
+                        ("token_embd.weight", 4096)):
+        t = reader.tensors[tname]
+        N, K = t.shape
+        rows = min(rows or N, N)
+        raw = reader.tensor_bytes(tname)[:rows * row_size(t.ggml_type, K)].copy()
+        t0 = time.perf_counter()
+        wq, wd = iquants.expand_to_planes(raw, t.ggml_type, rows, K)
+        tn = time.perf_counter() - t0
+        if tname == "token_embd.weight":
+            gq, gd, tc = te.q[:rows], te.d[:rows], float("nan")
+        else:
+            wire = torch.from_numpy(raw).to(dev)
+            sync(dev)
+            t0 = time.perf_counter()
+            gq, gd = expand_wire(wire, t.ggml_type, rows, K)
+            sync(dev)
+            tc = time.perf_counter() - t0
+        if not (gq.dtype == torch.int8 and gd.dtype == torch.float32
+                and np.array_equal(gq.cpu().numpy(), wq)
+                and gd.cpu().numpy().tobytes() == wd.tobytes()):
+            raise AssertionError(f"{tname}: the card's expansion != numpy's")
+        log(f"  {tname} {t.ggml_type.name} {rows}x{K}: q, d byte-equal to "
+            f"numpy expand_to_planes ({tn:.2f} s on the host; on the card "
+            + ("at load" if tc != tc else f"{tc * 1e3:.1f} ms") + ")")
+
+
+def check_kernels_70b(dev, weights, cfg):
+    """The 70B's kernels against their plain versions at its widths: K2 on
+    the coded IQ2_S wqk (9216 x 8192) + Q4_K wv (1024 x 8192), K1 coded
+    (the IQ3_S wo res, the IQ3_XXS gate_up normed at K = 8192, the IQ3_XXS
+    down act at K = 28672), K1 on the Q5_K head (128256 x 8192), K3 at M =
+    512 on every tensor, K4 with 64 query heads over 8 KV heads."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7070)
+    layers = weights["layers"]
+    lw, n_l, head = layers[0], len(layers), weights["output"]
+    unit = f"one Llama-3-70B IQ3_XXS decode step (B=1, {n_l} layers)"
+    chunk = f"one Llama-3-70B IQ3_XXS 512-token chunk ({n_l} layers)"
+    reps = {
+        "qp8_gemv_coded": KernelReport(
+            "qp8_gemv_coded_70b", "cuda", SRC_GEMV,
+            "ggml_hexagon_tpu/ops/qmm_qp8.py:426",
+            f"{unit}: {3 * n_l} launches (res, normed, act)"),
+        "qp8_gemv": KernelReport(
+            "qp8_gemv_70b_head", "cuda", SRC_GEMV,
+            "ggml_hexagon_tpu/ops/qmm_qp8.py:426",
+            f"{unit}: the Q5_K head, 1 launch"),
+        "qp8_dual_coded": KernelReport(
+            "qp8_dual_coded_70b", "cuda", SRC_GEMV,
+            "ggml_hexagon_tpu/ops/qmm_qp8.py:475",
+            f"{unit}: {n_l} launches (IQ2_S wqk + Q4_K wv)"),
+        "qp8_gemm_coded": KernelReport(
+            "qp8_gemm_coded_70b", "cuda", SRC_GEMM,
+            "ggml_hexagon_tpu/ops/qmm_qp8.py:529", f"{chunk}: {4 * n_l} launches"),
+        "qp8_gemm": KernelReport(
+            "qp8_gemm_70b", "cuda", SRC_GEMM, "ggml_hexagon_tpu/ops/qmm_qp8.py:529",
+            f"{chunk}: {n_l + 1} launches (Q4_K wv, the Q5_K head)"),
+        "decode_attn": KernelReport(
+            "decode_attn_g8", "cuda", SRC_K4, "ggml_hexagon_tpu/ops/decode_attn.py:177",
+            f"{unit} at pos 700 of 1024, bf16 KV, 64 query heads over 8 KV "
+            f"heads: {n_l} launches")}
+    log(f"K2 / K1 / K3 / K4 at the 70B's widths (NMSE <= {NMSE_KERNEL})")
+    for B in (1, 4):
+        dual_row(dev, gen, cfg, reps["qp8_dual_coded"] if B == 1 else None,
+                 lw["wqk"], lw["wv"], B, n_l)
+    for B in (1, 8):
+        for name, qt, mode in (("wo", lw["wo"], "res"),
+                               ("gate_up", lw["w_gateup_il"], "normed"),
+                               ("down", lw["ffn_down"], "act")):
+            k1_row(dev, gen, cfg, reps["qp8_gemv_coded"] if B == 1 else None,
+                   name, qt, mode, B, n_l)
+        k1_row(dev, gen, cfg, reps["qp8_gemv"] if B == 1 else None, "head_q5k",
+               head, "raw", B, 1)
+    for name in ("wqk", "wo", "w_gateup_il", "ffn_down"):
+        k3_row(dev, gen, reps["qp8_gemm_coded"], name, lw[name], n_l)
+    k3_row(dev, gen, reps["qp8_gemm"], "wv", lw["wv"], n_l)
+    k3_row(dev, gen, reps["qp8_gemm"], "head_q5k", head, 1)
+    log(f"K4 decode_attn, G = {cfg.n_head // cfg.n_head_kv} (max|d| <= {ATTN_MAX_ABS})")
+    k4_rows(dev, cfg, reps["decode_attn"])
+    return reps
+
+
+def run_70b_iq3xxs(dev):
+    """Llama-3-70B IQ3_XXS (made with an imatrix) from a GGUF file at full
+    width: write_gguf writes the first LLAMA70_DEPTH layers of the
+    80-layer file (the full-depth policy's types: IQ2_S attn_q/attn_k, Q4_K
+    attn_v, IQ3_S attn_output and token_embd, IQ3_XXS FFN, a Q5_K head;
+    random wire bytes with finite centred scales, the Q4_K and Q5_K ones
+    drawn as planes), Engine.from_gguf(fuse=True) loads it with the
+    i-quants expanded on the card (held byte-equal to the numpy copy on
+    four tensors), the kernels at the 70B's widths are held against their
+    plain versions, a 512-token prompt and decode steps run with the
+    launch table exact, one decode step is profiled, and the kernels
+    against the plain forward (compare_plain).  Returns (kernel reports,
+    the requests' launch counts)."""
+    from ggml_hexagon_tpu_torch.gguf.reader import GGUFReader
+    from ggml_hexagon_tpu_torch.models.launches import launch_table
+    from ggml_hexagon_tpu_torch.models.llama import LlamaConfig
+    from ggml_hexagon_tpu_torch.models.synth import LLAMA3_70B, llama_bpe_vocab
+    from ggml_hexagon_tpu_torch.quant import pack
+    from ggml_hexagon_tpu_torch.runtime.engine import Engine
+
+    name = "Llama-3-70B IQ3_XXS from a GGUF file"
+    t_ph = phase(name, dev)
+    fields, _ = llama_bpe_vocab()
+    src, tmp = write_synth_gguf(dev, LlamaConfig(**LLAMA3_70B), "IQ3_XXS",
+                                "llama-3-70b-iq3_xxs-synthetic.gguf", fields,
+                                has_imatrix=True, depth=LLAMA70_DEPTH)
+    expand, spent = pack.expand_wire, []
+
+    def timed_expand(*a, **k):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = expand(*a, **k)
+        sync(dev)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    try:
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats(dev)
+        pack.expand_wire = timed_expand
+        try:
+            eng = Engine.from_gguf(src, fuse=True, max_seq=1024, device=dev)
+        finally:
+            pack.expand_wire = expand
+        log(f"Engine.from_gguf(fuse=True): t_load {eng.perf.t_load:.2f} s "
+            f"(the expansion on the card {sum(spent):.2f} s over "
+            f"{len(spent)} tensors, each timed between two syncs), peak "
+            f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        reader = (GGUFReader.open(src) if isinstance(src, str)
+                  else GGUFReader.from_buffer(src))
+        with reader:
+            held_expansion(dev, reader, eng.weights)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del src
+    cfg, weights = eng.cfg, eng.weights
+    del eng
+    layout_log(name, cfg, weights)
+    table = launch_table(cfg, weights)
+    log(f"launch table: {table}")
+    reps = check_kernels_70b(dev, weights, cfg)
+    log("serving (launch counters zeroed before, read after)")
+    counts = serve(dev, cfg, weights, name, LLAMA70_REQUESTS)
+    log(f"main-path launches ({name}): {counts}")
+    for key, rep in reps.items():
+        rep.launches = counts[key]
+    log("where the time goes (profiler; after the counts were read)")
+    profile_path(dev, cfg, weights, table, name, kvs=("bf16",))
+    log(f"kernel vs plain versions, end to end (each plain layer fed the "
+        f"kernel run's input; the layers' outputs and the logits NMSE <= "
+        f"{NMSE_LOGITS})")
+    compare_plain(dev, cfg, weights)
+    phase_end(name, dev, t_ph)
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    return list(reps.values()), counts
+
+
+def build_phase(name, builder, dev):
+    """Build a configuration on the card and print its layout."""
+    t0 = time.perf_counter()
+    cfg, weights = builder(seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"{name} (random planes, seed 0): built on the card in "
+        f"{time.perf_counter() - t0:.1f} s; resident "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    layout_log(name, cfg, weights)
     return cfg, weights
 
 
@@ -3695,6 +4141,12 @@ def main():
              check_kernels_ffn)):
         reps, counts = run_phase(name, partial(build, depth=depth), check,
                                  dev)
+        reports += reps
+        runs.append(counts)
+
+    # the quantizer's path, then the 70B IQ3_XXS from a file
+    for run in (run_quantize, run_70b_iq3xxs):
+        reps, counts = run(dev)
         reports += reps
         runs.append(counts)
 

@@ -19,6 +19,7 @@ flags):
   gguf-info / gguf-hash / gguf-split / convert-legacy / convert-llama2c
                   <- gguf tools + converters
   gbnf-validator  <- gbnf-validator; tokenize <- llama-tokenize
+  quantize        <- llama-quantize (+imatrix); quantize-stats
   gen-docs        <- gen-docs
 
 The subcommands that run a model take --device (default cuda): with no
@@ -27,8 +28,10 @@ versions on the CPU.  Every model loads through the fused load pipeline
 (the port's forward runs fused layers only).  The f32 parity modes of the
 JAX CLI (GHT_COMPUTE_F32, GHT_PPL_F32) and an f32 KV cache run no kernel
 contract the port has (K1 and K3 are int8 and bf16): those runs exit 2.
-Left out until their modules are ported: quantize, quantize-stats,
-finetune, export-lora, cvector-generator, llava and tts.
+quantize and quantize-stats run on the host (the numpy encoders, and the
+native library of quant/native for Q4_0, Q8_0, Q4_K and Q6_K).  Left out
+until their modules are ported: finetune, export-lora, cvector-generator,
+llava and tts.
 """
 from __future__ import annotations
 
@@ -523,6 +526,39 @@ def cmd_imatrix(args):
     return 0
 
 
+def cmd_quantize_stats(args):
+    from .gguf import GGUFReader
+    from .quant.stats import quantize_stats
+
+    with GGUFReader.open(args.model) as r:
+        rows = quantize_stats(r, args.type, include=args.include_layers,
+                              exclude=args.exclude_layers,
+                              per_layer=args.per_layer)
+    for s in rows:
+        print(f"{s.qtype:8s} {s.name:40s} rmse {s.rmse:.6f} "
+              f"max {s.max_err:.6f} mean|e| {s.mean_abs:.6f}")
+    return 0
+
+
+def cmd_quantize(args):
+    from .gguf import GGUFReader
+    from .quant.policy import FTYPES, quantize_model
+    from .runtime.evaluate import IMatrixCollector
+
+    if args.ftype not in FTYPES:
+        print(f"unknown ftype {args.ftype}; choices: {sorted(FTYPES)}", file=sys.stderr)
+        return 1
+    imatrix = IMatrixCollector.load(args.imatrix) if args.imatrix else None
+
+    def progress(name, ttype):
+        print(f"  {name} -> {ttype.name}", file=sys.stderr)
+
+    with GGUFReader.open(args.input) as r:
+        quantize_model(r, args.output, args.ftype, imatrix=imatrix, progress=progress)
+    print(f"wrote {args.output}")
+    return 0
+
+
 def cmd_tokenize(args):
     from .gguf.reader import GGUFReader
     from .tokenizer import Vocab, build_tokenizer
@@ -813,6 +849,22 @@ def build_parser():
     gh.add_argument("--sha1", action="store_true")
     gh.add_argument("--uuid", action="store_true")
     gh.set_defaults(fn=cmd_gguf_hash)
+
+    qs = sub.add_parser("quantize-stats", help="round-trip error per qtype")
+    qs.add_argument("-m", "--model", required=True)
+    qs.add_argument("--type", action="append", required=True,
+                    help="quant type name (repeatable), e.g. Q4_K")
+    qs.add_argument("-l", "--include-layers")
+    qs.add_argument("-L", "--exclude-layers")
+    qs.add_argument("--per-layer", action="store_true")
+    qs.set_defaults(fn=cmd_quantize_stats)
+
+    q = sub.add_parser("quantize", help="quantize a GGUF model")
+    q.add_argument("input")
+    q.add_argument("output")
+    q.add_argument("ftype")
+    q.add_argument("--imatrix")
+    q.set_defaults(fn=cmd_quantize)
 
     gv = sub.add_parser("gbnf-validator", help="validate input vs a grammar")
     gv.add_argument("grammar")

@@ -225,24 +225,15 @@ class GGUFReader:
         return np.frombuffer(self._buf, dtype=np.uint8, count=t.n_bytes, offset=start)
 
     def tensor_f32(self, name: str) -> np.ndarray:
-        """Dequantize a tensor to f32 in its numpy (C-order) shape: F32, F16
-        and BF16 directly, the quantized types through quant.pack's
-        pack_tensor and the wire dequant of ops.qmatmul, on the CPU."""
-        t = self.tensors[name]
-        raw = self.tensor_bytes(name)
-        if t.ggml_type == GGMLType.F32:
-            flat = raw.view(np.float32).copy()
-        elif t.ggml_type == GGMLType.F16:
-            flat = raw.view(np.float16).astype(np.float32)
-        elif t.ggml_type == GGMLType.BF16:
-            flat = (raw.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
-        else:
-            from ..ops.qmatmul import dequantize
-            from ..quant.pack import _repack
+        """Dequantize a tensor to f32 in its numpy (C-order) shape, on the
+        CPU through quant.ref_numpy's decoders (every type of the JAX
+        package's ref_numpy.dequantize, the i-quants and ternary among
+        them)."""
+        from ..quant import ref_numpy
 
-            k = t.ne[0]
-            qt = _repack(raw, t.ggml_type, (t.n_elements // k, k), n_align=1)
-            flat = dequantize(qt).numpy().reshape(-1)
+        t = self.tensors[name]
+        flat = ref_numpy.dequantize(self.tensor_bytes(name), t.ggml_type,
+                                    t.n_elements)
         return flat.reshape(t.shape)
 
     def close(self):

@@ -1,8 +1,8 @@
-"""GGUF v3 writer (synthetic model files and test fixtures).
+"""GGUF v3 writer (quantized model files, synthetic models, test fixtures).
 
 The port's own copy of ggml_hexagon_tpu/gguf/writer.py (the port imports
-nothing of the JAX package).  Tensors arrive packed: the port has no
-quantizer yet, so only F32 and F16 data is packed here.
+nothing of the JAX package).  Tensors arrive packed, or as f32/f16 data
+that add_tensor encodes with quant.ref_numpy's encoders.
 """
 from __future__ import annotations
 
@@ -67,22 +67,21 @@ class GGUFWriter:
         ggml_type: GGMLType | None = None,
         raw_ne: tuple[int, ...] | None = None,
     ):
-        """Add a tensor.  `data` is either an f32/f16 ndarray, written as F32
-        or F16 (the JAX package's writer also quantizes here; the port has no
-        quantizer yet), or pre-packed uint8 bytes with explicit raw_ne."""
+        """Add a tensor.  `data` is either an f32/f16 ndarray (quantized here
+        to ggml_type, F32 or F16 by its dtype when none is given) or
+        pre-packed uint8 bytes with explicit raw_ne."""
         if data.dtype == np.uint8 and raw_ne is not None:
             if ggml_type is None:
                 raise ValueError(f"{name}: packed bytes need their ggml_type")
             self.tensors.append((name, tuple(raw_ne), ggml_type, data.reshape(-1)))
             return
         ggml_type = ggml_type or (GGMLType.F16 if data.dtype == np.float16 else GGMLType.F32)
-        if ggml_type not in (GGMLType.F32, GGMLType.F16):
-            raise NotImplementedError(
-                f"{name}: quantizing to {ggml_type.name} (the port has no "
-                "quantizer; pass packed bytes with raw_ne)")
+        from ..quant import ref_numpy
+
+        if ggml_type not in ref_numpy.QUANTIZE:
+            raise NotImplementedError(f"{name}: no encoder for {ggml_type.name}")
         ne = tuple(reversed(data.shape))  # numpy C-order -> ggml ne order
-        dt = np.float32 if ggml_type == GGMLType.F32 else np.float16
-        packed = np.ascontiguousarray(data, dt).reshape(-1).view(np.uint8)
+        packed = ref_numpy.quantize(np.ascontiguousarray(data, np.float32).reshape(-1), ggml_type)
         self.tensors.append((name, ne, ggml_type, packed))
 
     def write(self, f: BinaryIO):

@@ -15,11 +15,13 @@ build of the reference takes minutes.  No real checkpoint is involved: the
 bytes and the compute profile are those of a real file of that mixture.
 The per-tensor types come from `QuantPolicy`, as the JAX loader takes them.
 
-`write_gguf` writes such a model as a GGUF file (wire blocks, the
-`llama.*` metadata and a tokenizer's fields), and `llama_bpe_vocab` makes
-the deterministic llama-bpe vocabulary of Llama-3's size that it carries,
-so the loader, the tokenizer and the serving path run from a file without
-a real checkpoint.
+`write_gguf` writes such a model as a GGUF file of any ftype of
+quant.policy.FTYPES (wire blocks, the `llama.*` metadata and a
+tokenizer's fields; F16 writes random f16 weights, the input of the
+quantizer), and `llama_bpe_vocab` makes the deterministic llama-bpe
+vocabulary of Llama-3's size that it carries, so the loader, the
+quantizer, the tokenizer and the serving path run from a file without a
+real checkpoint.
 """
 from __future__ import annotations
 
@@ -41,6 +43,12 @@ from .llama import LlamaConfig
 LLAMA3_8B = dict(n_vocab=128256, n_embd=4096, n_layer=32, n_head=32,
                  n_head_kv=8, n_ff=14336, rope_theta=500000.0,
                  n_ctx_train=8192)
+
+#: meta-llama/Meta-Llama-3-70B config.json: 64 query and 8 KV heads of
+#: 128, 80 layers (the JAX package's bench.py:76-79 writes the 8B's so)
+LLAMA3_70B = dict(n_vocab=128256, n_embd=8192, n_layer=80, n_head=64,
+                  n_head_kv=8, n_ff=28672, rope_theta=500000.0,
+                  n_ctx_train=8192)
 
 #: google/gemma-2-9b config.json: 16 query and 8 KV heads of 256, a gelu
 #: (tanh) FFN, sandwich norms, a 4096-token window on the even layers,
@@ -395,8 +403,15 @@ def build_mixtral_q4km_il(seed: int = 0, device="cuda", depth: int | None = None
 # a GGUF file of a random model (the loader's and the tokenizer's input)
 # ---------------------------------------------------------------------------
 
-#: llama.cpp's general.file_type of the mixtures write_gguf writes
-FILE_TYPES = {"Q4_K_M": 15}
+#: llama.cpp's general.file_type of each ftype (llama.h, LLAMA_FTYPE_*)
+FILE_TYPES = {"F16": 1, "Q4_0": 2, "Q4_1": 3, "Q8_0": 7, "Q5_0": 8,
+              "Q5_1": 9, "Q2_K": 10, "Q3_K_S": 11, "Q3_K_M": 12,
+              "Q3_K_L": 13, "Q4_K_S": 14, "Q4_K_M": 15, "Q5_K_S": 16,
+              "Q5_K_M": 17, "Q6_K": 18, "IQ2_XXS": 19, "IQ2_XS": 20,
+              "Q2_K_S": 21, "IQ3_XXS": 23, "IQ1_S": 24, "IQ4_NL": 25,
+              "IQ3_S": 26, "IQ3_M": 27, "IQ2_S": 28, "IQ2_M": 29,
+              "IQ4_XS": 30, "IQ1_M": 31, "BF16": 32, "TQ1_0": 36,
+              "TQ2_0": 37}
 
 
 def _f16_bytes(d):
@@ -419,12 +434,17 @@ def pack_k4_scales(ls, lm):
     return sc.to(torch.uint8)
 
 
+#: the types wire_blocks encodes (write_gguf draws their planes)
+WIRE_BLOCK_TYPES = (GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K)
+
+
 def wire_blocks(qt: QTensor):
-    """The GGUF wire bytes (uint8, flat) of a Q4_K or Q6_K wire-plane
+    """The GGUF wire bytes (uint8, flat) of a Q4_K, Q5_K or Q6_K wire-plane
     QTensor's n true rows: the inverse of quant.pack._wire_to_planes for
-    the two types a Q4_K_M file holds (block_q4_K: d, dmin, 12 scale bytes,
-    128 nibble bytes; block_q6_K: 128 low-nibble bytes, 64 high-bit bytes,
-    16 int8 scales, d)."""
+    those types (block_q4_K: d, dmin, 12 scale bytes, 128 nibble bytes;
+    block_q5_K: the same with 32 high-bit bytes before the nibbles;
+    block_q6_K: 128 low-nibble bytes, 64 high-bit bytes, 16 int8 scales,
+    d)."""
     cfg, N, K = qt.cfg, qt.n, qt.k
     nb = N * K // 256
     q = unpack_bits(qt.q[:N], cfg.bits_lo, K).to(torch.int32)
@@ -436,6 +456,16 @@ def wire_blocks(qt: QTensor):
         parts = [_f16_bytes(qt.d[:N]), _f16_bytes(qt.dmin[:N]),
                  pack_k4_scales(qt.sc[:N].reshape(nb, 8),
                                 qt.m[:N].reshape(nb, 8)), qs.to(torch.uint8)]
+    elif cfg.qtype == GGMLType.Q5_K:
+        l2 = q.reshape(nb, 4, 2, 32)
+        lo = l2 & 0xF
+        ql = (lo[:, :, 0] | (lo[:, :, 1] << 4)).reshape(nb, 128)
+        hb = (q.reshape(nb, 8, 32) >> 4) & 1
+        qh = sum(hb[:, j] << j for j in range(8))
+        parts = [_f16_bytes(qt.d[:N]), _f16_bytes(qt.dmin[:N]),
+                 pack_k4_scales(qt.sc[:N].reshape(nb, 8),
+                                qt.m[:N].reshape(nb, 8)),
+                 qh.to(torch.uint8), ql.to(torch.uint8)]
     elif cfg.qtype == GGMLType.Q6_K:
         q6 = q.reshape(nb, 2, 4, 32)
         lo, hi = q6 & 0xF, q6 >> 4
@@ -551,34 +581,121 @@ def gguf_tensor_names(cfg: LlamaConfig) -> list[tuple[str, tuple[int, ...]]]:
     return out
 
 
-def gguf_data_bytes(cfg: LlamaConfig, ftype: str = "Q4_K_M") -> int:
+def _file_policy(cfg: LlamaConfig, ftype: str, has_imatrix: bool):
+    """The ftype's per-tensor type of a written file: the full-depth
+    QuantPolicy's, and F32 for every vector (an F16 file's norms too)."""
+    policy = _policy(cfg, ftype, has_imatrix)
+
+    def ttype(name, shape):
+        return (GGMLType.F32 if len(shape) == 1
+                else policy.tensor_type(name, shape))
+
+    return ttype
+
+
+def gguf_data_bytes(cfg: LlamaConfig, ftype: str = "Q4_K_M",
+                    has_imatrix: bool = False,
+                    depth: int | None = None) -> int:
     """The tensor bytes of write_gguf's file (its header and alignment
     padding come on top)."""
     from ..quant.formats import row_size
 
-    policy = _policy(cfg, ftype)
-    return sum(row_size(policy.tensor_type(n, sh), sh[-1])
-               * (int(np.prod(sh)) // sh[-1])
-               for n, sh in gguf_tensor_names(cfg))
+    ttype = _file_policy(cfg, ftype, has_imatrix)
+    names = gguf_tensor_names(replace(cfg, n_layer=depth or cfg.n_layer))
+    return sum(row_size(ttype(n, sh), sh[-1]) * (int(np.prod(sh)) // sh[-1])
+               for n, sh in names)
+
+
+#: the f16 fields of a block that random_wire sets: (byte offset, value a
+#: unit of the block's scale d); where the wire holds a min, the min that
+#: centres the values (Q4_1, Q5_1: m = -d * qmax / 2; Q2_K: dmin = d * 3/2
+#: beside sub-block mins equal to the sub-scales).  Every other type keeps
+#: d alone at byte 0, but IQ1_M, whose d is the top nibbles of its four
+#: scale words.
+_SCALE_FIELDS = {
+    GGMLType.Q4_1: ((0, 1.0), (2, -7.5)), GGMLType.Q5_1: ((0, 1.0), (2, -15.5)),
+    GGMLType.Q2_K: ((80, 1.0), (82, 1.5)), GGMLType.Q3_K: ((108, 1.0),),
+    GGMLType.TQ1_0: ((52, 1.0),), GGMLType.TQ2_0: ((64, 1.0),),
+}
+
+#: types whose scale takes a random sign (as random_qtensor draws them)
+_SIGNED_D = (GGMLType.IQ4_NL, GGMLType.TQ1_0, GGMLType.TQ2_0)
+
+
+def random_wire(gen: torch.Generator, n: int, k: int, qtype: GGMLType,
+                device):
+    """Random GGUF wire bytes (uint8, flat) of an [n, k] weight of any
+    quantized type: uniform bytes, then every block's f16 scale fields set
+    to finite values, drawn as random_qtensor draws d (uniform over [0.05,
+    1.05] times a size that gives the weights an RMS of about 1/sqrt(k);
+    the size from the dequantized RMS of the first rows at a unit scale)
+    and, where the wire holds a min, the min that centres the values.
+    Uniform bytes alone give NaN and inf scales."""
+    from ..ops.qmatmul import dequantize
+    from ..quant.formats import TYPE_TRAITS
+    from ..quant.pack import pack_tensor
+
+    tr = TYPE_TRAITS[qtype]
+    nb = n * k // tr.block_size
+    b = torch.randint(0, 256, (nb, tr.type_size), dtype=torch.uint8,
+                      device=device, generator=gen)
+    if qtype == GGMLType.Q2_K:
+        b[:, 0:16] = (b[:, 0:16] & 0xF) * 17        # each min = its scale
+
+    def put(u):
+        if qtype == GGMLType.IQ1_M:
+            d16 = u.half().view(torch.int16).to(torch.int32) & 0xFFFF
+            for j in range(4):
+                b[:, 49 + 2 * j] = ((b[:, 49 + 2 * j] & 0xF)
+                                    | (((d16 >> (4 * j)) & 0xF) << 4)).to(torch.uint8)
+            return
+        for off, f in _SCALE_FIELDS.get(qtype, ((0, 1.0),)):
+            b[:, off:off + 2] = (u * f).half().view(torch.uint8).reshape(nb, 2)
+
+    put(torch.ones(nb, device=device))
+    rows = min(n, 64)
+    w = dequantize(pack_tensor(b[:rows * nb // n].reshape(-1), qtype,
+                               (rows, k), n_align=1))
+    rms = float(w.double().pow(2).mean().sqrt())
+    u_rms = (1 / 3 + 0.05 + 0.05 ** 2) ** 0.5      # of U(0.05, 1.05)
+    u = (torch.rand(nb, device=device, generator=gen) + 0.05) / (
+        k ** 0.5 * rms * u_rms)
+    if qtype in _SIGNED_D:
+        u = u * (torch.randint(0, 2, (nb,), device=device, generator=gen)
+                 * 2 - 1)
+    put(u)
+    return b.reshape(-1)
 
 
 def draw_gguf_tensors(cfg: LlamaConfig, ftype: str = "Q4_K_M", seed: int = 0,
-                      device="cuda"):
-    """Yield (GGUF name, wire QTensor or f32 vector) for each tensor of a
-    random dense model, in gguf_tensor_names' order, drawn on `device` from
-    one generator seeded with `seed` (random_qtensor under the ftype's
-    QuantPolicy; norms all ones): the first item is the token embedding,
-    so a caller re-draws it alone by taking one item."""
+                      device="cuda", has_imatrix: bool = False,
+                      depth: int | None = None):
+    """Yield (GGUF name, tensor) for each tensor of a random dense model, in
+    gguf_tensor_names' order, drawn on `device` from one generator seeded
+    with `seed`, each of the ftype's per-tensor type (QuantPolicy at cfg's
+    full depth, has_imatrix the mixture llama-quantize writes with an
+    importance matrix; `depth`: the first layers only): a wire QTensor
+    (random_qtensor) for the types wire_blocks encodes, the flat wire bytes
+    (random_wire) for every other quantized type, an f16 matrix of RMS
+    1/sqrt(k) for F16, a vector of ones for the norms.  The first item is
+    the token embedding, so a caller re-draws it alone by taking one item."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    policy = _policy(cfg, ftype)
-    for name, shape in gguf_tensor_names(cfg):
+    ttype = _file_policy(cfg, ftype, has_imatrix)
+    for name, shape in gguf_tensor_names(replace(cfg, n_layer=depth
+                                                 or cfg.n_layer)):
+        t = ttype(name, shape)
         if len(shape) == 1:
             yield name, torch.ones(shape, dtype=torch.float32, device=device)
+        elif t in WIRE_BLOCK_TYPES:
+            yield name, random_qtensor(gen, shape[0], shape[1], t, device)
+        elif t in (GGMLType.F16, GGMLType.BF16, GGMLType.F32):
+            w = torch.randn(shape, generator=gen, device=device) * shape[1] ** -0.5
+            yield name, w.to({GGMLType.F16: torch.float16,
+                              GGMLType.BF16: torch.bfloat16}.get(t, torch.float32))
         else:
-            yield name, random_qtensor(gen, shape[0], shape[1],
-                                       policy.tensor_type(name, shape), device)
+            yield name, random_wire(gen, shape[0], shape[1], t, device)
 
 
 class _Appender:
@@ -590,16 +707,19 @@ class _Appender:
 
 def write_gguf(target, cfg: LlamaConfig, ftype: str = "Q4_K_M",
                seed: int = 0, vocab_fields: dict | None = None,
-               device="cuda") -> dict:
+               device="cuda", has_imatrix: bool = False,
+               depth: int | None = None) -> dict:
     """Write a random dense llama model as a GGUF file: `target` is a path
     or a bytearray the file's bytes are appended to.  The tensors are
-    draw_gguf_tensors' (the planes build_model draws, under the GGUF names
-    and the ftype's per-tensor types), encoded on `device` into wire blocks
-    (wire_blocks: Q4_K and Q6_K, the types of Q4_K_M) and written in the
-    file's "norm" rope order as drawn (the loader's fuse=True pipeline
-    permutes them to NEOX); the metadata is general.* and llama.* of cfg,
-    and vocab_fields the tokenizer's (llama_bpe_vocab's fields, or none).
-    Returns {"bytes", "seconds"} of the write."""
+    draw_gguf_tensors' (under the GGUF names and the ftype's per-tensor
+    types; the types wire_blocks encodes drawn as build_model draws their
+    planes, the others as random wire bytes with finite centred scales),
+    encoded on `device` and written in the file's "norm" rope order as
+    drawn (the loader's fuse=True pipeline permutes them to NEOX); the
+    metadata is general.* and llama.* of cfg (block_count: `depth` when
+    given, the first layers of the full-depth file), and vocab_fields the
+    tokenizer's (llama_bpe_vocab's fields, or none).  Returns {"bytes",
+    "seconds"} of the write."""
     from ..gguf.writer import GGUFWriter
 
     if cfg.n_expert:
@@ -607,12 +727,13 @@ def write_gguf(target, cfg: LlamaConfig, ftype: str = "Q4_K_M",
     t0 = time.perf_counter()
     w = GGUFWriter()
     w.add("general.architecture", "llama")
-    w.add("general.name", f"synthetic {cfg.n_layer}-layer llama, seed {seed}")
+    w.add("general.name", f"synthetic {depth or cfg.n_layer}-layer llama, "
+                          f"seed {seed}")
     w.add("general.file_type", FILE_TYPES[ftype])
     for key, val in (("vocab_size", cfg.n_vocab),
                      ("context_length", cfg.n_ctx_train),
                      ("embedding_length", cfg.n_embd),
-                     ("block_count", cfg.n_layer),
+                     ("block_count", depth or cfg.n_layer),
                      ("feed_forward_length", cfg.n_ff),
                      ("rope.dimension_count", cfg.hd),
                      ("attention.head_count", cfg.n_head),
@@ -622,13 +743,22 @@ def write_gguf(target, cfg: LlamaConfig, ftype: str = "Q4_K_M",
     w.add("llama.attention.layer_norm_rms_epsilon", float(cfg.rms_eps))
     for key, val in (vocab_fields or {}).items():
         w.add(key, val)
-    for name, t in draw_gguf_tensors(cfg, ftype, seed, device):
+    ttype = _file_policy(cfg, ftype, has_imatrix)
+    shapes = dict(gguf_tensor_names(replace(cfg, n_layer=depth or cfg.n_layer)))
+    for name, t in draw_gguf_tensors(cfg, ftype, seed, device, has_imatrix,
+                                     depth):
         if isinstance(t, QTensor):
-            raw = wire_blocks(t).cpu().numpy()
-            w.add_tensor(name, raw, t.cfg.qtype, raw_ne=(t.k, t.n))
-        else:
+            raw = wire_blocks(t)
+        elif t.dim() == 2:                      # an F16 matrix
+            raw = t.contiguous().view(torch.uint8).reshape(-1)
+        elif t.dtype == torch.uint8:            # random_wire's bytes
+            raw = t
+        else:                                   # a norm
             w.add_tensor(name, t.cpu().numpy())
-        del t
+            continue
+        w.add_tensor(name, raw.cpu().numpy(), ttype(name, shapes[name]),
+                     raw_ne=tuple(reversed(shapes[name])))
+        del t, raw
     if isinstance(target, bytearray):
         start = len(target)
         w.write(_Appender(target))

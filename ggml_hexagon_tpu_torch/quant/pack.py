@@ -2,11 +2,12 @@
 wire bytes into them.
 
 The port's counterpart of ggml_hexagon_tpu/quant/pack.py:46-238 and
-:293-534 (`_pack_bits`, `unpack_bits`, `_wire_to_planes`, `pack_tensor`,
-written in torch, so the wire bytes unpack on whatever device they lie
-on: the loader moves a file's raw bytes to the card once and unpacks them
-there).  A weight
-[N, K] is a QTensor of separately stored planes:
+:293-593 (`_pack_bits`, `unpack_bits`, `_wire_to_planes`, `pack_tensor`
+with the i-quant expansion of quant/iquants.expand_to_planes,
+`quantize_tensor`), written in torch, so the wire bytes unpack on
+whatever device they lie on: the loader moves a file's raw bytes to the
+card once and unpacks them there.  A weight [N, K] is a QTensor of
+separately stored planes:
 
   wire planes (row-planar, output features on axis 0):
     q    uint8 [n_pad, K*bits_lo/8]  base bits (int8 [n_pad, K] when signed)
@@ -393,6 +394,181 @@ def _pad_rows(a, N: int, n_align: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the codebook and ternary types: wire bytes -> int8 values and f32 group
+# scales (ggml_hexagon_tpu/quant/iquants.py:1501-1618, expand_to_planes,
+# in torch on the wire's device; quant/iquants.expand_to_planes is the
+# numpy oracle the tests hold it to, byte for byte)
+# ---------------------------------------------------------------------------
+
+_IQ_TABLES: dict = {}
+
+#: weights a slice of the expansion takes at once (its transients are a few
+#: bytes a weight: an IQ3_S embedding of 128256 x 8192 would take GBs)
+_EXPAND_CHUNK = 1 << 25
+
+
+def _iq_tables(device) -> dict:
+    """The sign and grid tables of quant/iquants on `device` (grids int16)."""
+    key = str(device)
+    if key not in _IQ_TABLES:
+        from . import iquants as I
+
+        def t(a, dtype=torch.int16):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(
+                device=device, dtype=dtype)
+
+        _IQ_TABLES[key] = {
+            "ksigns": t(I.KSIGNS, torch.uint8),
+            "iq2xxs": t(I.IQ2XXS_GRID), "iq2xs": t(I.IQ2XS_GRID),
+            "iq2s": t(I.IQ2S_GRID), "iq3xxs": t(I.IQ3XXS_GRID),
+            "iq3s": t(I.IQ3S_GRID), "iq1s": t(I.IQ1S_GRID),
+            "bit": torch.arange(8, dtype=torch.uint8, device=device)}
+    return _IQ_TABLES[key]
+
+
+def _u16(b):
+    """Little-endian u16 of byte pairs along the last axis -> int32."""
+    return b[..., 0::2].to(torch.int32) | (b[..., 1::2].to(torch.int32) << 8)
+
+
+def _u32(b):
+    """Little-endian u32 of byte quads along the last axis -> int64."""
+    b = b.to(torch.int64)
+    return (b[..., 0::4] | (b[..., 1::4] << 8) | (b[..., 2::4] << 16)
+            | (b[..., 3::4] << 24))
+
+
+def _f16f(b):
+    """Little-endian f16 byte pairs [nb, 2] -> f32 [nb]."""
+    return b.contiguous().view(torch.float16).reshape(-1).to(torch.float32)
+
+
+def _signed(grid, sbits):
+    """Grid magnitudes with the sign bits applied (1 = negative)."""
+    return torch.where(sbits != 0, -grid, grid)
+
+
+def _expand_blocks(b, qtype: GGMLType, T: dict):
+    """Blocks [nb, type_size] uint8 -> (q int [nb, 256], scale f32 [nb,
+    256/gs]), every product in the f32 order of expand_to_planes."""
+    nb = b.shape[0]
+    dev = b.device
+    bit, ks = T["bit"], T["ksigns"]
+
+    def bits8(x):                       # bytes [...] -> their bits [..., 8]
+        return (x[..., None] >> bit) & 1
+
+    def ksign_bits(aux32):              # 4 sign indices a u32 of 32 values
+        sh = 7 * torch.arange(4, device=dev)
+        return bits8(ks[(aux32[:, :, None] >> sh) & 127])
+
+    if qtype in (GGMLType.IQ2_XXS, GGMLType.IQ3_XXS):
+        d = _f16f(b[:, :2])
+        if qtype == GGMLType.IQ2_XXS:
+            g = b[:, 2:].reshape(nb, 8, 8)
+            aux32 = _u32(g[:, :, 4:]).reshape(nb, 8)
+            grid = T["iq2xxs"][g[:, :, :4].long()]            # [nb, 8, 4, 8]
+            db = d[:, None] * (0.5 + (aux32 >> 28).to(torch.float32)) * 0.25
+        else:
+            aux32 = _u32(b[:, 66:98])
+            grid = T["iq3xxs"][b[:, 2:66].long()].reshape(nb, 8, 4, 8)
+            db = d[:, None] * (0.5 + (aux32 >> 28).to(torch.float32)) * 0.5
+        return _signed(grid, ksign_bits(aux32)), db
+    if qtype == GGMLType.IQ2_XS:
+        d = _f16f(b[:, :2])
+        q16 = _u16(b[:, 2:66])
+        sc = b[:, 66:74]
+        ls = torch.stack([sc & 0xF, sc >> 4], dim=2).reshape(nb, 16)
+        db = d[:, None] * (0.5 + ls.to(torch.float32)) * 0.25
+        return _signed(T["iq2xs"][(q16 & 511).long()],
+                       bits8(ks[(q16 >> 9).long()])), db
+    if qtype == GGMLType.IQ2_S:
+        d = _f16f(b[:, :2])
+        sc = b[:, 74:82]
+        ls = torch.stack([sc & 0xF, sc >> 4], dim=2).reshape(nb, 16)
+        db = d[:, None] * (0.5 + ls.to(torch.float32)) * 0.25
+        i = torch.arange(32, device=dev)
+        hi = (b[:, 66:74][:, i // 4].to(torch.int32) << (8 - 2 * (i % 4))) & 0x300
+        grid = T["iq2s"][(b[:, 2:34].to(torch.int32) | hi).long()]
+        return _signed(grid, bits8(b[:, 34:66])), db
+    if qtype == GGMLType.IQ3_S:
+        d = _f16f(b[:, :2])
+        sc = b[:, 106:110]
+        ls = torch.stack([sc & 0xF, sc >> 4], dim=2).reshape(nb, 8)
+        db = d[:, None] * (1 + 2 * ls.to(torch.float32))
+        i = torch.arange(64, device=dev)
+        hi = (b[:, 66:74][:, i // 8].to(torch.int32) << (8 - i % 8)) & 0x100
+        grid = T["iq3s"][(b[:, 2:66].to(torch.int32) | hi).long()]
+        return _signed(grid.reshape(nb, 8, 4, 8),
+                       bits8(b[:, 74:106]).reshape(nb, 8, 4, 8)), db
+    if qtype == GGMLType.IQ1_S:
+        d = _f16f(b[:, :2])
+        qh = _u16(b[:, 34:50])                                  # [nb, 8]
+        dl8 = d[:, None] * (2 * ((qh >> 12) & 7).to(torch.float32) + 1) / 8.0
+        delta8 = torch.where((qh & 0x8000) != 0, -1, 1).to(torch.int16)
+        i = torch.arange(32, device=dev)
+        idx = b[:, 2:34].to(torch.int32) | (((qh[:, i // 4] >> (3 * (i % 4))) & 7) << 8)
+        grid = T["iq1s"][idx.long()].reshape(nb, 8, 4, 8)
+        return 8 * grid + delta8[:, :, None, None], dl8
+    if qtype == GGMLType.IQ1_M:
+        sc = _u16(b[:, 48:56])                                  # [nb, 4]
+        d16 = ((sc[:, 0] >> 12) | (((sc[:, 1] >> 12) & 0xF) << 4)
+               | (((sc[:, 2] >> 12) & 0xF) << 8) | (((sc[:, 3] >> 12) & 0xF) << 12))
+        d = (d16 - ((d16 & 0x8000) << 1)).to(torch.int16).view(
+            torch.float16).to(torch.float32)
+        i16 = torch.arange(16, device=dev)
+        ls = (sc[:, i16 // 4] >> (3 * (i16 % 4))) & 7
+        dl8 = d[:, None] * (2 * ls.to(torch.float32) + 1) / 8.0
+        i = torch.arange(32, device=dev)
+        nib = b[:, 32:48][:, i // 2].to(torch.int32) >> (4 * (i % 2))
+        grid = T["iq1s"][(b[:, 0:32].to(torch.int32) | ((nib & 7) << 8)).long()]
+        delta8 = torch.where((nib & 8) != 0, -1, 1).to(torch.int16)
+        return 8 * grid + delta8[:, :, None], dl8
+    if qtype in (GGMLType.TQ1_0, GGMLType.TQ2_0):
+        if qtype == GGMLType.TQ1_0:
+            d = _f16f(b[:, 52:54])
+
+            def trits(q, n):             # 3 * (q * 3^j mod 256) // 256, j < n
+                q = q.to(torch.int32)
+                return [((q * 3 ** j) & 0xFF) * 3 // 256 for j in range(n)]
+
+            t = torch.cat(trits(b[:, 0:32], 5) + trits(b[:, 32:48], 5)
+                          + trits(b[:, 48:52], 4), dim=1)
+        else:
+            d = _f16f(b[:, 64:66])
+            qs = b[:, 0:64].reshape(nb, 2, 1, 32)
+            sh = torch.arange(0, 8, 2, device=dev, dtype=torch.uint8).reshape(1, 1, 4, 1)
+            t = ((qs >> sh) & 3).reshape(nb, QK_K)
+        y = (t.to(torch.float32) - 1) * d[:, None]
+        dd = d[:, None]
+        q = torch.where(dd != 0, y / torch.where(dd == 0, torch.ones_like(dd), dd),
+                        torch.zeros_like(y))
+        return torch.round(torch.nan_to_num(q)), d[:, None]
+    raise NotImplementedError(f"expand: {qtype.name}")
+
+
+def expand_wire(wire, qtype: GGMLType, N: int, K: int):
+    """The expanded planes of a codebook or ternary [N, K] weight: (q int8
+    [N, K], d f32 [N, K/gs]) on the wire's device, with dequant(q, d) equal
+    to the wire's dequantization bit for bit (the IQ1 types fold their
+    +-0.125 delta into q as 8*q and d/8)."""
+    cfg = QCONFIGS[qtype]
+    ts = TYPE_TRAITS[qtype].type_size
+    T = _iq_tables(wire.device)
+    rb = K // QK_K                       # blocks a row
+    b = wire.reshape(N, rb, ts)
+    q = torch.empty((N, K), dtype=torch.int8, device=wire.device)
+    d = torch.empty((N, K // cfg.gs), dtype=torch.float32, device=wire.device)
+    step = max(1, _EXPAND_CHUNK // K)
+    for r0 in range(0, N, step):
+        r1 = min(N, r0 + step)
+        qb, db = _expand_blocks(b[r0:r1].reshape(-1, ts), qtype, T)
+        q[r0:r1] = qb.reshape(r1 - r0, K).to(torch.int8)
+        d[r0:r1] = db.reshape(r1 - r0, K // cfg.gs)
+    return q, d
+
+
 def pack_tensor(wire, qtype: GGMLType, shape: tuple[int, int],
                 n_align: int = 128) -> QTensor:
     """Repack the wire bytes of a [N, K] weight (a uint8 tensor on any
@@ -400,27 +576,22 @@ def pack_tensor(wire, qtype: GGMLType, shape: tuple[int, int],
     device, rows zero-padded to a multiple of n_align; the planes are
     byte-equal to the JAX package's (q, qh uint8 or int8; d, dmin f32; sc
     and m in the dtypes its decode gives them).  The i-quants below 4 bits
-    and the ternary types (QConfig.expand) need the expansion of the JAX
-    package's quant/iquants, which the port does not have yet."""
-    if shape[1] % 256:
-        raise ValueError(f"K={shape[1]} must be a multiple of 256 (chunk size)")
-    return _repack(wire, qtype, shape, n_align)
-
-
-def _repack(wire, qtype: GGMLType, shape: tuple[int, int], n_align: int):
-    """pack_tensor without its K % 256 check: any K of whole blocks (the
-    dense dequant of GGUFReader.tensor_f32 takes such rows too)."""
+    and the ternary types (QConfig.expand) expand to int8 values and f32
+    group scales (expand_wire)."""
+    N, K = shape
+    if K % 256:
+        raise ValueError(f"K={K} must be a multiple of 256 (chunk size)")
     if not isinstance(wire, torch.Tensor):
         wire = torch.from_numpy(np.array(wire, np.uint8).reshape(-1))
     cfg = QCONFIGS[qtype]
-    N, K = shape
     if wire.numel() != row_size(qtype, K) * N:
         raise ValueError(f"{qtype.name} {shape}: {wire.numel()} wire bytes")
+    wire = wire.reshape(-1).to(torch.uint8)
+    pad = lambda a: _pad_rows(a, N, n_align)  # noqa: E731
     if cfg.expand:
-        raise NotImplementedError(
-            f"pack_tensor: {qtype.name} expands through quant/iquants "
-            "(expand_to_planes), not ported yet (ROADMAP.md queue 1, item 7)")
-    planes = _wire_to_planes(wire.reshape(-1).to(torch.uint8), qtype, N, K)
+        q, d = expand_wire(wire, qtype, N, K)
+        return QTensor(cfg, N, K, q=pad(q), d=pad(d))
+    planes = _wire_to_planes(wire, qtype, N, K)
     q_int = planes["q"]
     qh = None
     if cfg.signed:
@@ -437,7 +608,18 @@ def _repack(wire, qtype: GGMLType, shape: tuple[int, int], n_align: int):
     def f32(a):
         return None if a is None else a.to(torch.float32)
 
-    pad = lambda a: _pad_rows(a, N, n_align)
     return QTensor(cfg, N, K, q=pad(q_lo), d=pad(f32(planes["d"])), qh=pad(qh),
                    sc=pad(planes.get("sc")), dmin=pad(f32(planes.get("dmin"))),
                    m=pad(m))
+
+
+def quantize_tensor(w, qtype: GGMLType, quant_weights=None) -> QTensor:
+    """Quantize an f32 [N, K] weight (numpy) with the numpy encoders and
+    repack it, on the CPU (ggml_hexagon_tpu/quant/pack.py:587-593; the
+    dequantization of such planes is ops.qmatmul.dequantize)."""
+    from . import ref_numpy
+
+    N, K = w.shape
+    wire = ref_numpy.quantize(np.ascontiguousarray(w, np.float32).reshape(-1),
+                              qtype, quant_weights)
+    return pack_tensor(wire, qtype, (N, K))

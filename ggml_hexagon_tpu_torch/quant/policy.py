@@ -1,6 +1,5 @@
-"""Model quantization policy — per-tensor type selection (the port's own
-copy of ggml_hexagon_tpu/quant/policy.py, without the GGUF re-quantize
-driver, which waits for the port's GGUF support).
+"""Model quantization policy — per-tensor type selection and the GGUF
+re-quantize driver (the port's own copy of ggml_hexagon_tpu/quant/policy.py).
 
 The analog of the reference's llama_model_quantize driver
 (src/llama-quant.cpp): an ftype names the mixture, and per-tensor
@@ -254,3 +253,78 @@ class QuantPolicy:
             except ValueError:
                 return None
         return None
+
+
+def quantize_model(
+    reader,
+    out_path: str,
+    ftype: str,
+    imatrix: dict | None = None,
+    progress=None,
+):
+    """Re-quantize every tensor of a GGUF per policy; write a new file.
+
+    imatrix: name -> per-column weights (Σx², the imatrix subcommand's
+    file through IMatrixCollector.load), fed to
+    the imatrix-aware encoders exactly as llama-quant.cpp:544 feeds
+    quant_weights.
+    """
+    import numpy as np
+
+    from .. import native
+    from ..gguf.writer import GGUFWriter
+    from . import ref_numpy
+
+    md = reader.metadata
+    arch = md.get("general.architecture", "llama")
+    n_layer = int(md.get(f"{arch}.block_count", 0))
+    n_head = int(md.get(f"{arch}.attention.head_count", 1) or 1)
+    hkv = md.get(f"{arch}.attention.head_count_kv", n_head)
+    if isinstance(hkv, (list, tuple)):
+        hkv = max(hkv) if hkv else n_head
+    n_gqa = max(1, n_head // max(1, int(hkv or n_head)))
+    policy = QuantPolicy(
+        ftype, n_layer, n_gqa=n_gqa,
+        n_expert=max(1, int(md.get(f"{arch}.expert_count", 0) or 0)),
+        has_imatrix=imatrix is not None,
+        has_output="output.weight" in reader.tensors)
+    w = GGUFWriter()
+    for k, v in md.items():
+        if k == "general.file_type":
+            continue
+        w.add(k, v)
+    for name, info in reader.tensors.items():
+        data = reader.tensor_f32(name)
+        ttype = policy.tensor_type(name, data.shape)
+        qw = None
+        if imatrix is not None and name in imatrix and ttype in ref_numpy.QUANTIZE_IMATRIX:
+            im = np.asarray(imatrix[name], np.float32)
+            C = data.shape[-1]
+            if im.size == C:
+                qw = np.tile(im, data.size // C)
+            elif im.size % C == 0 and data.size % im.size == 0:
+                # per-expert slices, expert-major [E*C] (imatrix.cpp MUL_MAT_ID
+                # entries; quantize applies slice e to expert e's rows —
+                # llama-quant.cpp "quantize each expert separately")
+                E = im.size // C
+                rows_pe = data.size // im.size
+                qw = np.concatenate(
+                    [np.tile(im[e * C:(e + 1) * C], rows_pe)
+                     for e in range(E)])
+            else:
+                raise ValueError(
+                    f"imatrix size {im.size} incompatible with tensor "
+                    f"{name} ({data.size} elements, row {C})")
+        # imatrix runs take the numpy encoders: they mirror the
+        # reference's quantize_row_*_impl byte-for-byte (qkx3/qp paths);
+        # the native library serves the plain encoders of its four types
+        # (and raises if it cannot be built), numpy the rest
+        packed = (native.quantize_native(data.reshape(-1), int(ttype))
+                  if qw is None else None)
+        if packed is None:
+            packed = ref_numpy.quantize(data.reshape(-1), ttype, quant_weights=qw)
+        w.add_tensor(name, packed, ttype, raw_ne=info.ne)
+        if progress:
+            progress(name, ttype)
+    w.write_file(out_path)
+    return out_path

@@ -39,9 +39,9 @@ PORTED = sorted([
     "generate", "chat", "infill", "parallel", "passkey", "save-load-state",
     "perplexity", "imatrix", "eval-callback", "embedding", "retrieval",
     "tokenize", "gguf-info", "gguf-hash", "gguf-split", "gbnf-validator",
-    "convert-llama2c", "convert-legacy", "bench", "gen-docs"])
-LEFT_OUT = ("quantize", "quantize-stats", "finetune", "export-lora",
-            "cvector-generator", "llava", "tts")
+    "convert-llama2c", "convert-legacy", "bench", "gen-docs", "quantize",
+    "quantize-stats"])
+LEFT_OUT = ("finetune", "export-lora", "cvector-generator", "llava", "tts")
 
 
 def text(seed, n):

@@ -7,7 +7,10 @@ models/synth.py against the JAX package's block layout.
   other's reader: metadata and tensor bytes exactly.
 - pack_tensor: the port's planes are byte-equal (values, dtypes, shapes)
   to the JAX package's for each of the 12 wire types that are not expanded
-  at load, at 128 rows and at 72 (padded to 128); the expanded types raise.
+  at load, at 128 rows and at 72 (padded to 128), and for the expanded
+  types (the i-quants below 4 bits and ternary: int8 values and f32 group
+  scales) on zero blocks (tests/test_torch_quant_encoders.py holds them
+  on random ones); the writer refuses a type it has no encoder for.
 - config_from_gguf over every architecture of the registry, on a plain and
   a richer metadata set: dataclasses.asdict equal to JAX's, or the same
   exception.
@@ -136,9 +139,14 @@ def test_reader_writer_round_trip(direction, alignment):
 
 
 def test_writer_refuses_quantizing():
+    """The writer quantizes f32 data to any type of quant.ref_numpy's
+    QUANTIZE table; TQ1_0 has no encoder (in either package), so it is
+    refused."""
     w = PWriter()
     with pytest.raises(NotImplementedError):
-        w.add_tensor("x", np.zeros((4, 256), np.float32), GGMLType.Q4_K)
+        w.add_tensor("x", np.zeros((4, 256), np.float32), GGMLType.TQ1_0)
+    w.add_tensor("y", np.zeros((4, 256), np.float32), GGMLType.Q4_K)
+    assert w.tensors[-1][2] == GGMLType.Q4_K
 
 
 @pytest.mark.parametrize("N", [128, 72], ids=["n128", "n72_padded"])
@@ -165,11 +173,18 @@ def test_pack_tensor_matches_jax(qtype, N):
 @pytest.mark.parametrize("qtype", [t for t, c in QCONFIGS.items() if c.expand],
                          ids=lambda t: t.name)
 def test_pack_tensor_refuses_expanded_types(qtype):
+    """The expanded types no longer raise: zero blocks expand to the JAX
+    package's planes (int8 values, f32 group scales), rows padded."""
     from ggml_hexagon_tpu_torch.quant.formats import row_size
 
     wire = np.zeros(row_size(qtype, 256) * 2, np.uint8)
-    with pytest.raises(NotImplementedError):
-        pack_tensor(wire, qtype, (2, 256))
+    got = pack_tensor(wire, qtype, (2, 256))
+    want = j_pack(wire, JT[qtype.name], (2, 256))
+    for f in ("q", "d"):
+        a, b = getattr(got, f).numpy(), np.asarray(getattr(want, f))
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        assert a.tobytes() == b.tobytes(), f
+    assert got.qh is got.sc is got.dmin is got.m is None
 
 
 def _arch_md(arch, rich):

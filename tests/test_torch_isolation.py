@@ -129,7 +129,8 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "runtime.evaluate", "runtime.embedding",
                 "runtime.speculative", "runtime.lookup",
                 "runtime.lookahead", "gguf.ghash", "gguf.split",
-                "gguf.llama2c", "gguf.legacy"):
+                "gguf.llama2c", "gguf.legacy", "quant.ref_numpy",
+                "quant.iquants", "quant.stats", "native"):
         assert f"ggml_hexagon_tpu_torch.{mod}" in got["modules"]
 
 
